@@ -1,0 +1,342 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (ggllm_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (non-zero exit, no result line):
+  1. build the hand-written kernels from ggllm_tpu_torch/csrc with nvcc;
+  2. hold every kernel against its plain PyTorch version at the main-path
+     shapes of Falcon-7B, and time kernel, plain version and one PyTorch
+     library call (CUDA events, after warm-up, median of 20 runs, L2
+     flushed before each run) beside the card's bound;
+  3. drive the main path at full Falcon-7B width (32 layers, Q4_0 random
+     weights from a seed): prefill a 300-token prompt, greedy-decode 128
+     tokens, then 32 sampled tokens, counting kernel launches; then prefill
+     again through the plain versions and compare the logits;
+  4. write a small Q4_0 GGCC file with the port's writer and run the CLI on
+     it.
+The last two lines of standard output are the kernel table as JSON and
+{"ok": true, "device": {...}}. Per-shape rows also go to
+chiprun_out/chip_smoke_kernels.json.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+TOL = 2e-2  # of max |plain|, bf16 inputs (tests/test_kernels.py:45)
+LOGIT_TOL = 5e-2
+N_RUNS, N_WARM = 20, 3
+
+# card peaks (NVIDIA data sheets; dense bf16 tensor rate)
+PEAKS = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12), "nvl": (3.9e12, 835e12)}
+
+REPLACES = {
+    "quant_matmul": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:57"),
+    "group_sums": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:189"),
+    "flash_mqa": ("ggllm_tpu_torch/csrc/flash_attention.cu", "ggllm_tpu/kernels/flash_attention.py:33"),
+    "flash_decode": ("ggllm_tpu_torch/csrc/flash_decode.cu", "ggllm_tpu/kernels/flash_decode.py:56"),
+}
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Median device time of a callable: CUDA events around each run, the
+    L2 cache flushed (a 256 MB write) before each run, outside the events."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        for _ in range(N_WARM):
+            fn()
+        times = []
+        for _ in range(N_RUNS):
+            self.flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            times.append((a, b))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in times)
+
+
+def check(name: str, got, ref) -> tuple[float, float]:
+    """(max abs err, max abs err / max |ref|); raises above TOL."""
+    got, ref = got.float(), ref.float()
+    if not bool(got.isfinite().all()):
+        raise RuntimeError(f"{name}: kernel output is not finite")
+    err = float((got - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    if rel > TOL:
+        raise RuntimeError(f"{name}: max err {err:.3e} = {rel:.3e} of max|ref| > {TOL}")
+    return err, rel
+
+
+def phase_kernels(torch, timer, bw, peak) -> list[dict]:
+    """Every kernel against its plain version at the main-path shapes."""
+    import torch.nn.functional as F
+
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import flash_decode as fd
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
+    from ggllm_tpu_torch.models.falcon import FalconStatic, _attention
+    from ggllm_tpu_torch.ops.linear import QuantTensor
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    bf16 = torch.bfloat16
+    rows = []
+
+    def row(kernel, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops):
+        tb, to = nbytes / bw * 1e3, ops / peak * 1e3
+        r = {"kernel": kernel, "shape": shape, "max_abs_err": err, "rel_err": rel, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(tb, to),
+             "bound_by": "bytes" if tb >= to else "operations"}
+        rows.append(r)
+        log(f"  {kernel:13s} {shape:34s} err {err:.2e} ({rel:.1e} rel)  kernel {ms:.4f} ms"
+            f"  plain {plain_ms:.4f} ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
+            f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # ---- quant_matmul (+ group_sums inside at S >= 256)
+    for wname, O, K in (("wqkvu", 22848, 4544), ("w_od", 4544, 22720), ("lm_head", 65024, 4544)):
+        qs = torch.randint(0, 256, (O, K // 32, 16), generator=gen, dtype=torch.uint8, device="cuda")
+        d = (torch.rand(O, K // 32, generator=gen, device="cuda") * 0.02 - 0.01).to(torch.float16)
+        w = QuantTensor(GGMLType.Q4_0, (O, K), qs, d)
+        wdeq = w.dequantize(bf16)
+        out_dtype = torch.float32 if wname == "lm_head" else bf16
+        for S in (1, 512):
+            x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+            got = qm.quant_matmul(w, x, out_dtype)
+            ref = qm.quant_matmul_plain(w, x, out_dtype)
+            err, rel = check(f"quant_matmul {wname} S={S}", got, ref)
+            ms = timer(lambda: qm.quant_matmul(w, x, out_dtype))
+            plain_ms = timer(lambda: qm.quant_matmul_plain(w, x, out_dtype))
+            lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
+            nbytes = O * K // 32 * 18 + S * K * 2 + S * O * (4 if out_dtype == torch.float32 else 2)
+            row("quant_matmul", f"{wname} O={O} K={K} S={S}", err, rel, ms, plain_ms, lib_ms,
+                nbytes, 2 * S * O * K)
+        del w, wdeq, qs, d
+
+    # ---- group_sums
+    for K in (4544, 22720):
+        S = 512
+        x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+        emap = (torch.arange(K, device="cuda")[:, None] // 32
+                == torch.arange(K // 32, device="cuda")[None, :]).to(bf16)
+        err, rel = check(f"group_sums K={K}", qm.group_sums(x), qm.group_sums_plain(x))
+        ms = timer(lambda: qm.group_sums(x))
+        plain_ms = timer(lambda: qm.group_sums_plain(x))
+        lib_ms = timer(lambda: torch.matmul(x, emap))
+        row("group_sums", f"S={S} K={K}", err, rel, ms, plain_ms, lib_ms,
+            S * K * 2 + S * K // 32 * 4, S * K)
+
+    # ---- flash_mqa: S=512 against a (1, T=2560, 1, 64) cache layer
+    H, D, T, S = 71, 64, 2560, 512
+    kvc = torch.randn(1, 2, 1, T, 1, D, generator=gen, device="cuda").to(bf16)
+    k, v = kvc[0, 0], kvc[0, 1]
+    q = torch.randn(1, S, H, D, generator=gen, device="cuda").to(bf16)
+    for n_past in (0, 300):
+        err, rel = check(f"flash_mqa n_past={n_past}", flash_mqa(q, k, v, n_past),
+                         flash_mqa_plain(q, k, v, n_past))
+        ms = timer(lambda: flash_mqa(q, k, v, n_past))
+        plain_ms = timer(lambda: flash_mqa_plain(q, k, v, n_past))
+        Tv = n_past + S
+        # the one K/V head broadcast to all query heads (a view, no copy)
+        qt = q.transpose(1, 2)
+        kt = k[:, :Tv].transpose(1, 2).expand(1, H, Tv, D)
+        vt = v[:, :Tv].transpose(1, 2).expand(1, H, Tv, D)
+        mask = (torch.arange(Tv, device="cuda")[None, :]
+                <= n_past + torch.arange(S, device="cuda")[:, None])
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        pairs = S * n_past + S * (S + 1) // 2  # visible (query, key) pairs
+        row("flash_mqa", f"S={S} n_past={n_past} H={H} D={D}", err, rel, ms, plain_ms, lib_ms,
+            2 * S * H * D * 2 + 2 * Tv * D * 2, 4 * pairs * H * D)
+
+    # ---- flash_decode: one layer of the full 32-layer cache
+    L, l = 32, 31
+    kv = torch.randn(L, 2, 1, T, 1, D, generator=gen, device="cuda").to(bf16)
+    q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
+    qg = q1.reshape(1, 1, H, D)
+    app = torch.randn(2, 1, 16, 1, D, generator=gen, device="cuda").to(bf16)
+    st = FalconStatic(n_layer=L, n_head=H, n_head_kv=1, head_dim=D, n_embd=H * D,
+                      n_ff=4 * H * D, n_vocab=0, parallel_norms=False)
+    for valid in (1, 300, 2047):
+        # cache valid below `valid`: no append -> n_past = valid - 1;
+        # append with 5 valid entries -> n_past = valid + 4
+        err, rel = check(f"flash_decode valid={valid}",
+                         fd.flash_decode(kv, 1, l, q1, valid - 1),
+                         _attention(q1, kv[l, 0], kv[l, 1], valid - 1, st))
+        err_a, rel_a = check(f"flash_decode valid={valid} +append",
+                             fd.flash_decode(kv, 1, l, q1, valid + 4, kv_append=app, append_valid=5),
+                             _attention(q1, kv[l, 0], kv[l, 1], valid + 4, st,
+                                        kv_append=app, append_valid=5))
+        acc, m, lsum = fd.cache_partials(kv, 1, l, qg, valid)
+        acc_p, m_p, l_p = fd.cache_partials_plain(kv, 1, l, qg, valid)
+        check(f"cache_partials valid={valid}", acc / lsum, acc_p / l_p)
+        check(f"cache_partials m valid={valid}", m, m_p)
+        ms = timer(lambda: fd.cache_partials(kv, 1, l, qg, valid))
+        plain_ms = timer(lambda: fd.cache_partials_plain(kv, 1, l, qg, valid))
+        kt = kv[l, 0, :, :valid].transpose(1, 2).expand(1, H, valid, D)
+        vt = kv[l, 1, :, :valid].transpose(1, 2).expand(1, H, valid, D)
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(q1.transpose(1, 2), kt, vt))
+        row("flash_decode", f"valid={valid} G={H} D={D} (+append err {err_a:.1e})",
+            max(err, err_a), max(rel, rel_a), ms, plain_ms, lib_ms,
+            2 * valid * D * 2 + H * D * 2 + H * (D + 2) * 4, 4 * valid * H * D)
+    return rows
+
+
+def phase_model(torch) -> dict:
+    """Full-width Falcon-7B Q4_0 through the engine's entry points."""
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    hp = FalconHParams.falcon7b()
+    t0 = time.perf_counter()
+    params = make_bench_params(hp, device="cuda", seed=7)
+    torch.cuda.synchronize()
+    log(f"  params: 32-layer Falcon-7B Q4_0 on the card in {time.perf_counter() - t0:.1f} s")
+    eng = FalconEngine(hp, params, EngineConfig())
+    rng = np.random.default_rng(0)
+    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
+
+    eng.generate(prompt[:8], 4, SamplerParams(temp=0.0), stop_ids=set())  # warm-up
+    eng.reset()
+    eng.timings = type(eng.timings)()
+    torch.cuda.synchronize()
+
+    build.launch_counts.clear()
+    greedy = eng.generate(prompt, 129, SamplerParams(temp=0.0), stop_ids=set())
+    tm = eng.timings
+    n_prefill, n_decode = tm.n_prefill, tm.n_decode
+    prefill_tps = n_prefill / (tm.t_prefill_us / 1e6)
+    decode_tps = n_decode / (tm.t_decode_us / 1e6)
+    sampler = SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1, seed=1234)
+    t0 = time.perf_counter()
+    sampled, _ = eng.decode_chunk(greedy[-1], 32, sampler, last_tokens=prompt + greedy)
+    sampled_tps = 32 / (time.perf_counter() - t0)
+    counts = dict(build.launch_counts)
+    log(f"  prefill {n_prefill} tokens: {prefill_tps:.1f} tok/s;"
+        f" greedy decode {n_decode} tokens: {decode_tps:.2f} tok/s;"
+        f" sampled decode 32 tokens: {sampled_tps:.2f} tok/s")
+    log(f"  launches on the main path: {counts}")
+    for name in REPLACES:
+        if counts.get(name, 0) <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the main path")
+    toks = np.asarray(greedy + [int(t) for t in sampled])
+    if len(greedy) != 129 or len(sampled) != 32 or toks.min() < 0 or toks.max() >= hp.n_vocab:
+        raise RuntimeError(f"bad generated ids: {len(greedy)} greedy, {len(sampled)} sampled")
+
+    eng.reset()
+    got = eng.eval(prompt)
+    plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False))
+    ref = plain.eval(prompt)
+    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+        raise RuntimeError("prefill logits are not finite")
+    err = float(np.abs(got - ref).max())
+    rel = err / float(np.abs(ref).max())
+    log(f"  prefill logits, kernels vs plain versions: max |d| {err:.4e} ({rel:.3e} of max|ref|),"
+        f" argmax {int(got.argmax())} vs {int(ref.argmax())}")
+    if rel > LOGIT_TOL or int(got.argmax()) != int(ref.argmax()):
+        raise RuntimeError("kernel and plain prefill logits disagree")
+    return counts
+
+
+def phase_cli() -> None:
+    from ggllm_tpu_torch.core.config import FalconHParams
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "small-q4_0.ggcc")
+        write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                             n_layer=2, n_falcon_type=7, n_bpe_merges=0), seed=3)
+        p = subprocess.run([sys.executable, "-m", "ggllm_tpu_torch.tools.main", "-m", path,
+                            "-p", "the thing", "-n", "16", "--temp", "0", "--ignore-eos"],
+                           cwd=ROOT, capture_output=True, timeout=600)
+    out, err = p.stdout.decode(errors="replace"), p.stderr.decode(errors="replace")
+    log(f"  cli rc={p.returncode} stdout={out.strip()[:120]!r}")
+    if p.returncode != 0 or not out.startswith("the thing") or "eval time" not in err:
+        raise RuntimeError(f"CLI run failed:\n{out}\n{err}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from ggllm_tpu_torch.kernels import build
+
+    card = smi("name,power.limit")
+    log(card)
+    kind = torch.cuda.get_device_name(0)
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True).stdout
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} driver {smi('driver_version')}"
+        f" nvcc {nvcc.strip().splitlines()[-1]}")
+    bw, peak = PEAKS["pcie" if "PCIe" in kind else "nvl" if "NVL" in kind else "sxm"]
+
+    log("phase 1: build")
+    t0 = time.perf_counter()
+    build.lib()
+    log(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "ptxas.txt").write_text(build.build_log)
+
+    log("phase 2: kernels vs plain versions")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = phase_kernels(torch, Timer(torch), bw, peak)
+    (out_dir / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+
+    log("phase 3: full-width Falcon-7B Q4_0 main path")
+    counts = phase_model(torch)
+
+    log("phase 4: CLI on a GGCC file")
+    phase_cli()
+
+    headline = {  # the JSON line's shape per kernel
+        "quant_matmul": "wqkvu O=22848 K=4544 S=1",
+        "group_sums": "S=512 K=22720",
+        "flash_mqa": "S=512 n_past=0 H=71 D=64",
+        "flash_decode": "valid=2047",
+    }
+    kernels = []
+    for name, (source, replaces) in REPLACES.items():
+        r = next(r for r in rows if r["kernel"] == name and r["shape"].startswith(headline[name]))
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": r["shape"]})
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,228 @@
+"""Model loading: GGCC file -> the port's parameter tree (port of the
+Falcon path of ggllm_tpu/io/loader.py load_params:412 / load_model:573).
+
+The tree mirrors the JAX kernel-path tree: {"tok_embeddings",
+"output_norm", "output_norm_b", "lm_head", "layers": [per-layer dict]}.
+Quantized 2-D weights stay packed as QuantTensors in ggml's planar layout
+(which is also the Hopper kernel layout, so a file load is a copy) and
+merge as the JAX loader merges them (_merge_kernel_weights:117):
+
+* shared-norm models (7B): [QKV; FFN-up] rows -> "wqkvu";
+* wo / FFN-down along the contraction dim -> "w_od", fed [attn; gelu(ff)]
+  (4544 = 142 * 32 and 18176 = 568 * 32: plain block concatenation);
+* separate-norm models keep "wqkv" and "ffn_up"; mixed dense/quantized or
+  mixed-format pairs stay separate ("wo", "ffn_down").
+
+LoRA, the .kcache sidecar and meshes are not ported.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+from ggllm_tpu_torch.core.device import resolve_device
+from ggllm_tpu_torch.core.dtypes import GGMLType
+from ggllm_tpu_torch.io.ggcc import ModelFile, read_model
+from ggllm_tpu_torch.ops.linear import QuantTensor
+from ggllm_tpu_torch.quant import planar
+
+
+def _layer_names(hp: FalconHParams, i: int) -> dict[str, str]:
+    """Tensor names per layer (libfalcon.cpp:1845-1861)."""
+    p = f"transformer.h.{i}"
+    names = {
+        "qkv": f"{p}.self_attention.query_key_value.weight",
+        "wo": f"{p}.self_attention.dense.weight",
+        "ffn_up": f"{p}.mlp.dense_h_to_4h.weight",
+        "ffn_down": f"{p}.mlp.dense_4h_to_h.weight",
+    }
+    if hp.n_falcon_type >= 40:
+        names.update(input_ln_w=f"{p}.ln_mlp.weight", input_ln_b=f"{p}.ln_mlp.bias",
+                     attn_ln_w=f"{p}.ln_attn.weight", attn_ln_b=f"{p}.ln_attn.bias")
+    else:
+        names.update(input_ln_w=f"{p}.input_layernorm.weight",
+                     input_ln_b=f"{p}.input_layernorm.bias")
+    return names
+
+
+def _quant(gtype, shape, qs: np.ndarray, d: np.ndarray, device) -> QuantTensor:
+    def tensor(a, dtype=None):  # torch needs contiguous, writable memory
+        return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(device)
+
+    return QuantTensor(gtype, shape, tensor(qs), tensor(d, np.float16))
+
+
+def _load_matrix(mf: ModelFile, name: str, dtype, device):
+    """2-D weight -> dense tensor (out, in) or QuantTensor."""
+    t = mf.tensors[name]
+    if not GGMLType(t.gtype).name.startswith("Q"):
+        return torch.from_numpy(mf.tensor_f32(name)).to(device=device, dtype=dtype)
+    rows, cols = t.shape  # numpy convention: (out, in)
+    p = planar.to_planes(t.gtype, mf.tensor_blob(name), rows, cols)
+    return _quant(t.gtype, (rows, cols), p["qs"], p["d"], device)
+
+
+def _mergeable(a, b) -> bool:
+    qa, qb = isinstance(a, QuantTensor), isinstance(b, QuantTensor)
+    return (qa and qb and a.gtype == b.gtype) or (not qa and not qb)
+
+
+def merge_weights(lw: dict, qkv, up, wo, down, parallel_norms: bool) -> dict:
+    """The JAX kernel path's weight merge (see module docstring)."""
+    if not parallel_norms and _mergeable(qkv, up):
+        if isinstance(qkv, QuantTensor):
+            lw["wqkvu"] = QuantTensor(qkv.gtype, (qkv.shape[0] + up.shape[0], qkv.shape[1]),
+                                      torch.cat([qkv.qs, up.qs], 0), torch.cat([qkv.d, up.d], 0))
+        else:
+            lw["wqkvu"] = torch.cat([qkv, up], 0)
+    else:
+        lw["wqkv"], lw["ffn_up"] = qkv, up
+    if _mergeable(wo, down):
+        if isinstance(wo, QuantTensor):
+            lw["w_od"] = QuantTensor(wo.gtype, (wo.shape[0], wo.shape[1] + down.shape[1]),
+                                     torch.cat([wo.qs, down.qs], 1), torch.cat([wo.d, down.d], 1))
+        else:
+            lw["w_od"] = torch.cat([wo, down], 1)
+    else:
+        lw["wo"], lw["ffn_down"] = wo, down
+    return lw
+
+
+def load_params(mf: ModelFile, cfg: EngineConfig | None = None, device=None) -> dict:
+    """Build the parameter tree from a parsed model file, on `device`
+    (default "cuda"; raises if CUDA is missing unless device="cpu")."""
+    cfg = cfg or EngineConfig()
+    device = resolve_device(device)
+    hp = mf.hparams
+    if mf.arch != "falcon":
+        raise NotImplementedError(f"arch {mf.arch!r} is not ported")
+    dtype = getattr(torch, cfg.compute_dtype)
+
+    def vec(name):
+        return torch.from_numpy(mf.tensor_f32(name).astype(np.float32)).to(device)
+
+    params: dict = {
+        # embeddings stay dense: get_rows needs random row access
+        "tok_embeddings": torch.from_numpy(
+            mf.tensor_f32("transformer.word_embeddings.weight")).to(device=device, dtype=dtype),
+        "output_norm": vec("transformer.ln_f.weight"),
+        "output_norm_b": vec("transformer.ln_f.bias"),
+        "lm_head": _load_matrix(mf, "lm_head.weight", dtype, device),
+        "layers": [],
+    }
+    for i in range(hp.n_layer):
+        names = _layer_names(hp, i)
+        lw = {key: vec(names[key]) for key in ("input_ln_w", "input_ln_b")}
+        if hp.n_falcon_type >= 40:
+            lw.update({key: vec(names[key]) for key in ("attn_ln_w", "attn_ln_b")})
+        mats = {k: _load_matrix(mf, names[k], dtype, device)
+                for k in ("qkv", "ffn_up", "wo", "ffn_down")}
+        merge_weights(lw, mats["qkv"], mats["ffn_up"], mats["wo"], mats["ffn_down"],
+                      hp.n_falcon_type >= 40)
+        params["layers"].append(lw)
+    return params
+
+
+def load_model(path: str, cfg: EngineConfig | None = None, device=None):
+    """Parse file + build params. Returns (ModelFile, params)."""
+    mf = read_model(path)
+    return mf, load_params(mf, cfg, device)
+
+
+# ------------------------------------------------------ from the JAX package
+
+def _planes_from_kernel(kq) -> tuple[np.ndarray, np.ndarray]:
+    """A JAX KernelQuant (kernels/layout.py to_kernel) -> planar (qs, d).
+
+    Undoes the TPU layout: chunk c of ck columns holds, for a 4-bit plane,
+    byte row j with bit-field i covering column c*ck + i*(ck//2) + j; the
+    8-bit (Q8_0) plane is the plain (n_k, ck, O) transpose. Scales are
+    (n_k, ck//32, O), fp16 bit patterns in int16 or f32. The contraction
+    dim is zero-padded to n_k*ck; the padding is cut."""
+    O, K = kq.shape
+    gtype = GGMLType(int(kq.gtype))
+    q = np.asarray(kq.planes["q"])
+    n_k, ck = q.shape[0], kq.ck
+    if gtype == GGMLType.Q4_0:
+        q = q.astype(np.uint8)
+        codes = np.concatenate([q & 0xF, q >> 4], axis=1)  # (n_k, ck, O)
+    elif gtype == GGMLType.Q8_0:
+        codes = q.view(np.int8)
+    else:
+        raise NotImplementedError(f"from_jax_params: {gtype.name}")
+    codes = codes.reshape(n_k * ck, O).T[:, :K].reshape(O, K // 32, 32)
+    ds = np.asarray(kq.planes["ds"])
+    ds = ds.view(np.float16) if ds.dtype == np.int16 else ds.astype(np.float16)
+    d = ds.reshape(n_k * (ck // 32), O).T[:, :K // 32]
+    if gtype == GGMLType.Q4_0:
+        qs = (codes[..., :16] | (codes[..., 16:] << 4)).astype(np.uint8)
+    else:
+        qs = codes
+    return qs, d
+
+
+def _weight_from_jax(w, device, dtype):
+    if hasattr(w, "ck"):  # KernelQuant
+        qs, d = _planes_from_kernel(w)
+        return _quant(int(w.gtype), tuple(w.shape), qs, d, device)
+    if hasattr(w, "planes"):  # planar QuantTensor
+        return _quant(int(w.gtype), tuple(w.shape), np.asarray(w.planes["qs"]),
+                      np.asarray(w.planes["d"]), device)
+    return torch.from_numpy(np.array(w, dtype=np.float32)).to(device=device, dtype=dtype)
+
+
+def _split_rows_jax(w, i: int):
+    """Layer i of a stacked planar QuantTensor / dense (L, ...) weight."""
+    if hasattr(w, "planes"):
+        return SimpleNamespace(gtype=w.gtype, shape=tuple(w.shape),
+                               planes={k: np.asarray(v)[i] for k, v in w.planes.items()})
+    return np.asarray(w)[i]
+
+
+def from_jax_params(tree: dict, dtype=torch.float32, device=None) -> dict:
+    """The JAX loader's Falcon parameter tree, leaves converted to numpy,
+    -> the port's tree. Takes the merged kernel-layout form (KernelQuant
+    weights, a list of per-layer dicts) and the planar form (QuantTensor
+    weights stacked on a leading layer axis, split wq/wk/wv; separate
+    attention norms mark a 40B-style model). The JAX classes are read by
+    their attributes; nothing of the JAX package is imported."""
+    device = resolve_device(device)
+
+    def vec(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    params = {
+        "tok_embeddings": torch.from_numpy(np.array(tree["tok_embeddings"], np.float32)).to(
+            device=device, dtype=dtype),
+        "output_norm": vec(tree["output_norm"]),
+        "output_norm_b": vec(tree["output_norm_b"]),
+        "lm_head": _weight_from_jax(tree["lm_head"], device, dtype),
+        "layers": [],
+    }
+    norm_keys = ("input_ln_w", "input_ln_b", "attn_ln_w", "attn_ln_b")
+    layers = tree["layers"]
+    if isinstance(layers, (list, tuple)):  # kernel layout: merged, unstacked
+        for lw in layers:
+            out = {k: vec(v) for k, v in lw.items() if k in norm_keys}
+            out.update({k: _weight_from_jax(v, device, dtype)
+                        for k, v in lw.items() if k not in norm_keys})
+            params["layers"].append(out)
+        return params
+    for i in range(np.asarray(layers["input_ln_w"]).shape[0]):  # planar: stacked, split q/k/v
+        out = {k: vec(np.asarray(layers[k])[i]) for k in norm_keys if k in layers}
+        w = {k: _weight_from_jax(_split_rows_jax(layers[k], i), device, dtype)
+             for k in ("wq", "wk", "wv", "wo", "ffn_up", "ffn_down")}
+        if isinstance(w["wq"], QuantTensor):
+            qkv = QuantTensor(w["wq"].gtype,
+                              (sum(w[k].shape[0] for k in ("wq", "wk", "wv")), w["wq"].shape[1]),
+                              torch.cat([w[k].qs for k in ("wq", "wk", "wv")], 0),
+                              torch.cat([w[k].d for k in ("wq", "wk", "wv")], 0))
+        else:
+            qkv = torch.cat([w["wq"], w["wk"], w["wv"]], 0)
+        params["layers"].append(merge_weights(out, qkv, w["ffn_up"], w["wo"], w["ffn_down"],
+                                              "attn_ln_w" in layers))
+    return params

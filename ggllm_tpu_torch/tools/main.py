@@ -1,0 +1,70 @@
+"""Generation CLI (the core of ggllm_tpu/tools/main.py): load a Falcon GGCC
+file, tokenize the prompt, generate with the device sampling cascade and
+print the text.
+
+    python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
+
+Runs on the CUDA card unless --device cpu is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from ggllm_tpu_torch import tokenizer as tok_mod
+from ggllm_tpu_torch.core.config import EngineConfig
+from ggllm_tpu_torch.engine.engine import FalconEngine
+from ggllm_tpu_torch.io.loader import load_model
+from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("-m", "--model", required=True)
+    ap.add_argument("-p", "--prompt", default="")
+    ap.add_argument("-n", "--n-predict", type=int, default=128)
+    ap.add_argument("-c", "--ctx-size", type=int, default=2048)
+    ap.add_argument("-s", "--seed", type=int, default=-1)
+    ap.add_argument("--temp", type=float, default=0.8)
+    ap.add_argument("--top-k", type=int, default=40)
+    ap.add_argument("--top-p", type=float, default=0.95)
+    ap.add_argument("--repeat-penalty", type=float, default=1.1)
+    ap.add_argument("--ignore-eos", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = EngineConfig(n_ctx=args.ctx_size)
+    t0 = time.perf_counter()
+    mf, params = load_model(args.model, cfg, device=args.device)
+    eng = FalconEngine(mf.hparams, params, cfg, device=args.device)
+    eng.timings.t_load_us = (time.perf_counter() - t0) * 1e6
+    tk = tok_mod.for_model(mf)
+    prompt = args.prompt
+    prompt_ids = tk.tokenize(prompt, bos=not prompt.startswith("<|endoftext|>")) or [tk.bos_id]
+    sampler = SamplerParams(temp=args.temp, top_k=args.top_k, top_p=args.top_p,
+                            repeat_penalty=args.repeat_penalty, seed=args.seed)
+    stop = set() if args.ignore_eos else {tk.eos_id}
+    n_predict = min(args.n_predict, cfg.n_ctx - len(prompt_ids))
+    out = sys.stdout.buffer
+    out.write(prompt.encode("utf-8"))
+    out.flush()
+
+    def stream(t: int):
+        if t not in stop:
+            out.write(tk.piece(t))
+            out.flush()
+
+    eng.generate(prompt_ids, n_predict, sampler, stop_ids=stop, stream=stream)
+    out.write(b"\n")
+    out.flush()
+    print(eng.timings.report(), file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

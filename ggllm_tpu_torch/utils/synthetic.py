@@ -1,0 +1,78 @@
+"""Small synthetic GGCC models (the counterpart of
+ggllm_tpu/utils/synthetic.py): a structurally faithful GGCC v10 file (real
+header, vocab, merges and tensor records) with random weights, written with
+the port's own writer and quantizer."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ggllm_tpu_torch.core.config import FalconHParams
+from ggllm_tpu_torch.core.dtypes import GGMLType
+from ggllm_tpu_torch.io.ggcc import GGCCWriter
+from ggllm_tpu_torch.tokenizer.bpe import Vocab
+
+
+def make_tiny_vocab(n_vocab: int = 512) -> Vocab:
+    """Vocab: 12 specials, 256 byte tokens, simple merge-derived tokens."""
+    assert n_vocab >= 12 + 256
+    toks: list[bytes] = [f">>SPECIAL_{i}<<".encode() for i in range(11)]
+    toks.append(b"<|endoftext|>")  # id 11, BOS/EOS
+    toks += [bytes([b]) for b in range(256)]
+    merges: list[tuple[str, str]] = []
+    pairs = [("t", "h"), ("h", "e"), ("i", "n"), ("e", "r"), ("a", "n"),
+             ("Ġ", "t"), ("Ġ", "a"), ("th", "e"), ("Ġt", "he"), ("a", "n"),
+             ("in", "g"), ("o", "u")]
+    for l, r in pairs:
+        if len(toks) >= n_vocab:
+            break
+        merged = (l + r).replace("Ġ", " ").replace("Ċ", "\n")
+        if merged.encode() in toks:
+            continue
+        merges.append((l, r))
+        toks.append(merged.encode())
+    while len(toks) < n_vocab:
+        toks.append(f"<filler_{len(toks)}>".encode())
+    return Vocab(id_to_token=toks, scores=[0.0] * len(toks), merges=merges)
+
+
+def random_falcon_weights(hp: FalconHParams, seed: int = 0) -> dict[str, np.ndarray]:
+    """Numpy-convention (out, in) float32 weights with sane magnitudes."""
+    rng = np.random.default_rng(seed)
+    E, H, KV, D = hp.n_embd, hp.n_head, hp.n_head_kv, hp.head_dim
+    V, F, L = hp.n_vocab, hp.n_ff, hp.n_layer
+
+    def w(*shape, scale=None):
+        scale = scale or (1.0 / np.sqrt(shape[-1]))
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    ws = {
+        "transformer.word_embeddings.weight": w(V, E, scale=0.02),
+        "transformer.ln_f.weight": np.ones(E, np.float32) + w(E, scale=0.02),
+        "transformer.ln_f.bias": w(E, scale=0.02),
+        "lm_head.weight": w(V, E),
+    }
+    for i in range(L):
+        p = f"transformer.h.{i}"
+        norms = ("ln_mlp", "ln_attn") if hp.n_falcon_type >= 40 else ("input_layernorm",)
+        for n in norms:
+            ws[f"{p}.{n}.weight"] = np.ones(E, np.float32) + w(E, scale=0.02)
+            ws[f"{p}.{n}.bias"] = w(E, scale=0.02)
+        ws[f"{p}.self_attention.query_key_value.weight"] = w((H + 2 * KV) * D, E)
+        ws[f"{p}.self_attention.dense.weight"] = w(E, H * D)
+        ws[f"{p}.mlp.dense_h_to_4h.weight"] = w(F, E)
+        ws[f"{p}.mlp.dense_4h_to_h.weight"] = w(E, F)
+    return ws
+
+
+def write_tiny_model(path: str, hp: FalconHParams | None = None,
+                     ftype_2d: GGMLType = GGMLType.Q4_0, seed: int = 0) -> FalconHParams:
+    """Write a complete GGCC v10 file with random weights."""
+    hp = hp or FalconHParams.tiny()
+    vocab = make_tiny_vocab(hp.n_vocab)
+    hp.n_bpe_merges = len(vocab.merges)
+    writer = GGCCWriter(path, hp, vocab)
+    for name, arr in random_falcon_weights(hp, seed).items():
+        writer.write_array(name, arr, ftype_2d if arr.ndim == 2 else GGMLType.F32)
+    writer.close()
+    return hp

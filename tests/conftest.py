@@ -18,3 +18,8 @@ import jax  # noqa: E402
 
 # the env var alone does not always win over an already-registered TPU plugin
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels); skipped without one")

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `cuda` and skipped without one. These cover what chip_smoke.py's
+full-width checks do not: f32 inputs, ragged tiles (odd S, O and query
+tiles), per-row n_past / valid vectors, head_dim 32, and the tiny model end
+to end on the card against the CPU. They import no JAX, so they run on a
+machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+from ggllm_tpu_torch.core.dtypes import GGMLType
+from ggllm_tpu_torch.kernels import build
+from ggllm_tpu_torch.kernels import flash_decode as fd
+from ggllm_tpu_torch.kernels import quant_matmul as qm
+from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
+from ggllm_tpu_torch.ops.linear import QuantTensor
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # of max |ref| (tests/test_kernels.py:45)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _close(got, ref, dtype):
+    got, ref = got.float().cpu(), ref.float().cpu()
+    scale = ref.abs().max().item() + 1e-6
+    assert got.isfinite().all()
+    assert (got - ref).abs().max().item() / scale <= TOL[dtype]
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("S", [1, 3, 300])
+def test_quant_matmul(dev, dtype, S):
+    O, K = 100, 320
+    g = _gen(S)
+    w = QuantTensor(GGMLType.Q4_0, (O, K),
+                    torch.randint(0, 256, (O, K // 32, 16), generator=g, dtype=torch.uint8, device=dev),
+                    (torch.rand(O, K // 32, generator=g, device=dev) - 0.5).half())
+    x = torch.randn(S, K, generator=g, device=dev).to(dtype)
+    before = build.launch_counts["quant_matmul"]
+    got = qm.quant_matmul(w, x, dtype)
+    assert build.launch_counts["quant_matmul"] == before + 1
+    _close(got, qm.quant_matmul_plain(w, x, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_group_sums(dev, dtype):
+    x = torch.randn(300, 320, generator=_gen(0), device=dev).to(dtype)
+    _close(qm.group_sums(x), qm.group_sums_plain(x), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,KV,D", [(8, 1, 64), (6, 2, 64), (5, 1, 32)])
+@pytest.mark.parametrize("n_past", [0, 37, "rows"])
+def test_flash_mqa(dev, dtype, H, KV, D, n_past):
+    B, S, T = 2, 45, 160
+    g = _gen(H * D)
+    q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+    kv = torch.randn(1, 2, B, T, KV, D, generator=g, device=dev).to(dtype)
+    if n_past == "rows":
+        n_past = torch.tensor([3, 90], dtype=torch.int32, device=dev)
+    got = flash_mqa(q, kv[0, 0], kv[0, 1], n_past)
+    _close(got, flash_mqa_plain(q, kv[0, 0], kv[0, 1], n_past), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (2, 6, 64), (1, 5, 32)])
+@pytest.mark.parametrize("valid", [0, 1, 63, 64, 65, [200, 7]])
+def test_cache_partials(dev, dtype, KV, H, D, valid):
+    B, T, L, l = 2, 256, 3, 2
+    g = _gen(H)
+    kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev).to(dtype)
+    qg = torch.randn(B, KV, H // KV, D, generator=g, device=dev).to(dtype)
+    acc, m, lsum = fd.cache_partials(kv, KV, l, qg, valid)
+    acc_p, m_p, l_p = fd.cache_partials_plain(kv, KV, l, qg, valid)
+    _close(m, m_p, torch.float32)
+    _close(lsum, l_p, torch.float32)
+    _close(acc, acc_p, torch.float32)
+
+
+def test_tiny_model_on_card_matches_cpu(dev, tmp_path):
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams.tiny(), seed=5)
+    cfg = EngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="float32")
+    prompt = [int(t) for t in np.random.default_rng(4).integers(12, 500, 40)]  # 3 chunks
+    logits, ids = [], []
+    for device in ("cpu", "cuda"):
+        mf, params = load_model(path, cfg, device=device)
+        eng = FalconEngine(mf.hparams, params, cfg, device=device)
+        logits.append(eng.eval(prompt))
+        eng.reset()
+        ids.append(eng.generate(prompt, 12, SamplerParams(temp=0.0)))
+    scale = np.abs(logits[0]).max()
+    np.testing.assert_allclose(logits[1] / scale, logits[0] / scale, atol=1e-4)
+    assert ids[0] == ids[1]

@@ -1,0 +1,169 @@
+"""The PyTorch port's whole slice against the JAX package, on the CPU: a tiny
+Q4_0 GGCC file goes through both loaders and engines (JAX with its Pallas
+kernels in interpret mode, f32 compute and cache; the port with its plain
+kernel versions), plus the tokenizer, the loader bridge and the port's
+hygiene rules."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ggllm_tpu.core.config import EngineConfig, FalconHParams
+from ggllm_tpu.core.dtypes import GGMLType
+from ggllm_tpu.engine.engine import FalconEngine
+from ggllm_tpu.io.ggcc import read_model
+from ggllm_tpu.io.loader import load_params
+from ggllm_tpu.ops.sampling import SamplerParams
+from ggllm_tpu.tokenizer import bpe as jbpe
+from ggllm_tpu.utils.synthetic import write_tiny_model
+
+from ggllm_tpu_torch.core.config import EngineConfig as TEngineConfig
+from ggllm_tpu_torch.core.config import FalconHParams as TFalconHParams
+from ggllm_tpu_torch.engine.engine import FalconEngine as TFalconEngine
+from ggllm_tpu_torch.io.ggcc import read_model as tread_model
+from ggllm_tpu_torch.io.loader import from_jax_params, load_model as tload_model
+from ggllm_tpu_torch.ops.sampling import SamplerParams as TSamplerParams
+from ggllm_tpu_torch.tokenizer import bpe as tbpe
+
+PROMPT = [5, 17, 130, 42, 99, 260, 31, 7]
+N_GEN = 16
+
+
+def _jax_cfg(kernel_layout=True):
+    return EngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="float32",
+                        kernel_layout=kernel_layout, flash_attention=True)
+
+
+def _torch_cfg():
+    return TEngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def tiny_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tiny")
+    paths = {}
+    for name in ("tiny", "tiny_gqa"):
+        paths[name] = str(d / f"{name}.ggcc")
+        write_tiny_model(paths[name], getattr(FalconHParams, name)(), ftype_2d=GGMLType.Q4_0,
+                         seed=17)
+    return paths
+
+
+@pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa"])
+def test_slice_matches_jax_engine(tiny_files, hp_name):
+    path = tiny_files[hp_name]
+    mf = read_model(path)
+    cfg = _jax_cfg()
+    jeng = FalconEngine(mf.hparams, load_params(mf, cfg), cfg)
+    ref = jeng.eval(PROMPT)
+    jeng.reset()
+    ref_ids = jeng.generate(PROMPT, N_GEN, SamplerParams(temp=0.0))
+
+    tmf, params = tload_model(path, _torch_cfg(), device="cpu")
+    teng = TFalconEngine(tmf.hparams, params, _torch_cfg(), device="cpu")
+    got = teng.eval(PROMPT)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got / scale, ref / scale, atol=1e-4)
+    teng.reset()
+    assert teng.generate(PROMPT, N_GEN, TSamplerParams(temp=0.0)) == ref_ids
+
+
+def test_multi_chunk_prefill_matches_jax(tiny_files):
+    """A prompt longer than n_batch prefills in chunks (16 + 16 + 8)."""
+    prompt = [int(t) for t in np.random.default_rng(4).integers(12, 500, 40)]
+    mf = read_model(tiny_files["tiny"])
+    cfg = _jax_cfg()
+    ref = FalconEngine(mf.hparams, load_params(mf, cfg), cfg).eval(prompt)
+    tmf, params = tload_model(tiny_files["tiny"], _torch_cfg(), device="cpu")
+    got = TFalconEngine(tmf.hparams, params, _torch_cfg(), device="cpu").eval(prompt)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got / scale, ref / scale, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel_layout", [True, False], ids=["kernel", "planar"])
+@pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa"])
+def test_from_jax_params_bit_identical(tiny_files, kernel_layout, hp_name):
+    """The JAX loader's tree (merged KernelQuant or stacked planar form)
+    converts to exactly the port loader's weights and logits."""
+    path = tiny_files[hp_name]
+    mf = read_model(path)
+    jtree = jax.tree.map(np.asarray, load_params(mf, _jax_cfg(kernel_layout=kernel_layout)))
+    tmf, own = tload_model(path, _torch_cfg(), device="cpu")
+    bridged = from_jax_params(jtree, dtype=torch.float32, device="cpu")
+    for a, b in zip(own["layers"], bridged["layers"]):
+        assert a.keys() == b.keys()
+        for key in a:
+            if isinstance(a[key], torch.Tensor):
+                assert torch.equal(a[key], b[key]), key
+            else:
+                assert torch.equal(a[key].qs, b[key].qs) and torch.equal(a[key].d, b[key].d), key
+    outs = []
+    for params in (own, bridged):
+        eng = TFalconEngine(tmf.hparams, params, _torch_cfg(), device="cpu")
+        outs.append(eng.eval(PROMPT))
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("n_ctx", [2048, 8192])
+def test_rope_matches_jax(n_ctx):
+    """NeoX RoPE with dynamic NTK (alpha > 1 from n_ctx 4096 on)."""
+    from ggllm_tpu.core.config import RopeConfig
+    from ggllm_tpu.ops import rope as jrope
+    from ggllm_tpu_torch.core.config import RopeConfig as TRopeConfig
+    from ggllm_tpu_torch.ops import rope as trope
+
+    inv = jrope.rope_angles(RopeConfig(), n_ctx, 64)
+    np.testing.assert_array_equal(trope.rope_angles(TRopeConfig(), n_ctx, 64), inv)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 7, 3, 64)).astype(np.float32)
+    pos = np.arange(1000, 1014).reshape(2, 7)
+    ref = np.asarray(jrope.apply_rope(x, pos, inv))
+    got = trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(inv))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-5)
+
+
+def test_tokenizer_matches_jax(tiny_files):
+    text = "Hello wörld — the thing's 123 ünïcödé\n\tπ≈3.14 日本語 <|endoftext|>!"
+    jv = read_model(tiny_files["tiny"]).vocab
+    tv = tread_model(tiny_files["tiny"]).vocab
+    ids = tbpe.tokenize(tv, text, bos=True)
+    assert ids == jbpe.tokenize(jv, text, bos=True)
+    assert tbpe.detokenize(tv, ids) == jbpe.detokenize(jv, ids)
+
+
+def test_cli_generates_on_cpu(tiny_files, capsysbinary):
+    from ggllm_tpu_torch.tools import main as tmain
+
+    rc = tmain.main(["-m", tiny_files["tiny"], "-p", "the thing", "-n", "6", "--temp", "0",
+                     "--device", "cpu", "--ignore-eos"])
+    assert rc == 0
+    out = capsysbinary.readouterr()
+    assert out.out.startswith(b"the thing") and b"eval time" in out.err
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ggllm_tpu_torch\n"
+        "for m in pkgutil.walk_packages(ggllm_tpu_torch.__path__, 'ggllm_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'ggllm_tpu' or m.startswith('ggllm_tpu.')]\n"
+        "print(len([m for m in sys.modules if m.startswith('ggllm_tpu_torch.')]), bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, check=True,
+                         cwd=Path(__file__).resolve().parents[1]).stdout.split(maxsplit=1)
+    assert int(out[0]) > 20 and out[1].strip() == "[]"
+
+
+def test_engine_defaults_to_cuda(monkeypatch):
+    """No device given: the engine asks for the card and raises without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TFalconEngine(TFalconHParams.tiny(), {}, _torch_cfg())

@@ -1,0 +1,148 @@
+"""The PyTorch port's kernel modules against the JAX package, on the CPU.
+
+The same numpy inputs (fixed seeds) go through the JAX function (Pallas in
+interpret mode) and through the port's wrapper, which on a CPU tensor runs
+the kernel's plain version. Tolerances are those of tests/test_kernels.py:45
+(2e-5 of max |ref| in f32, 2e-2 in bf16) and test_flash_*.py (atol 1e-5).
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from ggllm_tpu.core.dtypes import GGMLType
+from ggllm_tpu.kernels import flash_decode as jfd
+from ggllm_tpu.kernels import layout as jlayout
+from ggllm_tpu.kernels import quant_matmul as jqm
+from ggllm_tpu.kernels.flash_attention import flash_mqa as jflash_mqa
+from ggllm_tpu.quant import planar as jplanar
+from ggllm_tpu.quant import registry as jregistry
+
+from ggllm_tpu_torch.core.dtypes import GGMLType as TGGMLType
+from ggllm_tpu_torch.kernels import build
+from ggllm_tpu_torch.kernels import flash_decode as tfd
+from ggllm_tpu_torch.kernels import quant_matmul as tqm
+from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
+from ggllm_tpu_torch.ops.linear import QuantTensor
+
+
+def _weights(gtype, O, K, seed=0):
+    """JAX planar planes of a random quantized (O, K) weight, and the port's
+    QuantTensor over the same planes."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((O, K)) * 0.1).astype(np.float32)
+    blob = np.stack([jregistry.quantize(gtype, w[i]) for i in range(O)])
+    planes = jplanar.to_planes(gtype, blob.reshape(O, -1), O, K)
+    tq = QuantTensor(TGGMLType(int(gtype)), (O, K), torch.from_numpy(planes["qs"]),
+                     torch.from_numpy(planes["d"].astype(np.float16)))
+    return planes, tq
+
+
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q8_0], ids=["q4_0", "q8_0"])
+@pytest.mark.parametrize("S", [1, 4, 300])
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_quant_matmul_matches_jax(gtype, S, xdtype):
+    O, K = 64, 256
+    planes, tq = _weights(gtype, O, K)
+    kq = jlayout.to_kernel(gtype, planes, (O, K))
+    x = np.random.default_rng(1).standard_normal((S, K)).astype(np.float32)
+    ref = np.asarray(jqm.fused_matmul(kq, jnp.asarray(x, jnp.dtype(xdtype)), jnp.float32,
+                                      interpret=True))
+    got = tqm.quant_matmul(tq, torch.from_numpy(x).to(getattr(torch, xdtype)),
+                           torch.float32).numpy()
+    tol = 2e-5 if xdtype == "float32" else 2e-2
+    scale = np.abs(ref).max() + 1e-6
+    np.testing.assert_allclose(got / scale, ref / scale, atol=tol)
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_group_sums_match_jax(xdtype):
+    """S = 300 runs the JAX _xg_kern; compare its real (unpadded) groups."""
+    S, K, g = 300, 256, 32
+    x = np.random.default_rng(3).standard_normal((S, K)).astype(np.float32)
+    out = np.asarray(jqm._group_sums(jnp.asarray(x, jnp.dtype(xdtype)), 1, K, g, 256,
+                                     interpret=True))
+    ref = out.reshape(S, 1, -1)[:, :, : K // g].reshape(S, K // g)
+    got = tqm.group_sums(torch.from_numpy(x).to(getattr(torch, xdtype))).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("H,KV", [(8, 1), (8, 2)], ids=["mqa", "gqa"])
+@pytest.mark.parametrize("n_past", [0, 7])
+def test_flash_mqa_matches_jax(H, KV, n_past):
+    B, S, T, D = 1, 32, 128, 64
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = np.zeros((B, T, KV, D), np.float32)
+    v = np.zeros((B, T, KV, D), np.float32)
+    fill = n_past + S + 4
+    k[:, :fill] = rng.standard_normal((B, fill, KV, D))
+    v[:, :fill] = rng.standard_normal((B, fill, KV, D))
+    ref = np.asarray(jflash_mqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.int32(n_past), block_s=16, block_t=64, interpret=True))
+    got = flash_mqa(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), n_past)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+CASES = [  # tests/test_flash_decode.py CASES
+    ("mqa", 1, 5),
+    ("gqa", 2, 6),
+    ("mha", 4, 4),
+]
+
+
+def _decode_inputs(B, T, KV, H, D, A, seed):
+    rng = np.random.default_rng(seed)
+    kv = rng.standard_normal((3, 2, B, T, KV, D)).astype(np.float32)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    app = rng.standard_normal((2, B, A, KV, D)).astype(np.float32)
+    return kv, q, app
+
+
+@pytest.mark.parametrize("name,KV,H", CASES)
+@pytest.mark.parametrize("variant", ["no_append", "append", "append_valid"])
+def test_flash_decode_matches_jax(name, KV, H, variant):
+    B, T, D, l = 2, 64, 8, 1
+    A = 1 if variant == "append" else 9
+    kv, q, app = _decode_inputs(B, T, KV, H, D, A, seed=len(name) + A)
+    n_past = np.asarray([33, 4], np.int32)
+    kw_j, kw_t = {}, {}
+    if variant != "no_append":
+        kw_j["kv_append"], kw_t["kv_append"] = jnp.asarray(app), torch.from_numpy(app)
+    if variant == "append_valid":
+        kw_j["append_valid"], kw_t["append_valid"] = jnp.int32(5), 5
+    L = kv.shape[0]
+    ref = np.asarray(jfd.flash_decode(jnp.asarray(kv.reshape(L, 2, B, T, KV * D)), KV, l,
+                                      jnp.asarray(q), jnp.asarray(n_past), interpret=True,
+                                      **kw_j))
+    got = tfd.flash_decode(torch.from_numpy(kv), KV, l, torch.from_numpy(q),
+                           torch.from_numpy(n_past), **kw_t)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+def test_cache_partials_empty_row():
+    """cache_valid = 0 gives m = -1e30, l = 0, acc = 0 (as the JAX kernel)."""
+    kv, q, _ = _decode_inputs(1, 16, 1, 3, 8, 1, seed=4)
+    acc, m, l = tfd.cache_partials(torch.from_numpy(kv), 1, 0,
+                                   torch.from_numpy(q).reshape(1, 1, 3, 8), 0)
+    assert torch.all(m == -1e30) and torch.all(l == 0) and torch.all(acc == 0)
+
+
+def test_cpu_wrappers_run_plain_and_count_nothing():
+    """A wrapper given CPU tensors runs the plain version and leaves its
+    launch counter unchanged."""
+    before = dict(build.launch_counts)
+    _, tq = _weights(GGMLType.Q4_0, 32, 64)
+    x = torch.randn(3, 64, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(tqm.quant_matmul(tq, x, torch.float32),
+                       tqm.quant_matmul_plain(tq, x, torch.float32))
+    assert torch.equal(tqm.group_sums(x), tqm.group_sums_plain(x))
+    q = torch.randn(1, 4, 2, 32)
+    k = torch.randn(1, 8, 1, 32)
+    assert torch.equal(flash_mqa(q, k, k, 2), flash_mqa_plain(q, k, k, 2))
+    kv = torch.randn(2, 2, 1, 8, 1, 32)
+    qg = torch.randn(1, 1, 2, 32)
+    for a, b in zip(tfd.cache_partials(kv, 1, 1, qg, 5), tfd.cache_partials_plain(kv, 1, 1, qg, 5)):
+        assert torch.equal(a, b)
+    assert dict(build.launch_counts) == before
