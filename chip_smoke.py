@@ -6,15 +6,22 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. build the hand-written kernels from ggllm_tpu_torch/csrc with nvcc;
   2. hold every kernel against its plain PyTorch version at the main-path
-     shapes of Falcon-7B, and time kernel, plain version and one PyTorch
-     library call (CUDA events, after warm-up, median of 20 runs, L2
-     flushed before each run) beside the card's bound;
-  3. drive the main path at full Falcon-7B width (32 layers, Q4_0 random
-     weights from a seed): prefill a 300-token prompt, greedy-decode 128
-     tokens, then 32 sampled tokens, counting kernel launches; then prefill
-     again through the plain versions and compare the logits;
-  4. write a small Q4_0 GGCC file with the port's writer and run the CLI on
-     it.
+     shapes (quant_matmul in every ported format: Q4_0 … Q8_0 at the
+     Falcon-7B shapes, Q4_K, Q5_K, Q6_K at the Falcon-40B shapes; the
+     attention kernels at both models' head layouts), and time kernel,
+     plain version and one PyTorch library call (CUDA events, after
+     warm-up, median of 20 runs, L2 flushed before each run) beside the
+     card's bound;
+  3. drive the main path at full width through the engine's entry points,
+     with random weights from a seed, three times: Falcon-7B Q4_0 (32
+     layers), Falcon-7B Q4_1 (32 layers) and Falcon-40B Q4_K (60 layers):
+     prefill a 300-token prompt, greedy-decode 128 tokens, then 32 sampled
+     tokens, counting kernel launches (set to 0 just before each path and
+     read just after); then prefill again through the plain versions and
+     compare the logits. Each model's parameters are freed before the next
+     one is built;
+  4. write small GGCC files with the port's writer (Q4_0 7B-style, Q4_K
+     40B-style) and run the CLI on each.
 The last two lines of standard output are the kernel table as JSON and
 {"ok": true, "device": {...}}. Per-shape rows also go to
 chiprun_out/chip_smoke_kernels.json.
@@ -38,6 +45,7 @@ N_RUNS, N_WARM = 20, 3
 # card peaks (NVIDIA data sheets; dense bf16 tensor rate)
 PEAKS = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12), "nvl": (3.9e12, 835e12)}
 
+QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k", "q6_k"]
 REPLACES = {
     "quant_matmul": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:57"),
     "group_sums": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:189"),
@@ -100,7 +108,7 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
     from ggllm_tpu_torch.kernels import quant_matmul as qm
     from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
     from ggllm_tpu_torch.models.falcon import FalconStatic, _attention
-    from ggllm_tpu_torch.ops.linear import QuantTensor
+    from ggllm_tpu_torch.utils.benchgen import random_quant
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
@@ -117,109 +125,137 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
             f"  plain {plain_ms:.4f} ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
             f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
-    # ---- quant_matmul (+ group_sums inside at S >= 256)
-    for wname, O, K in (("wqkvu", 22848, 4544), ("w_od", 4544, 22720), ("lm_head", 65024, 4544)):
-        qs = torch.randint(0, 256, (O, K // 32, 16), generator=gen, dtype=torch.uint8, device="cuda")
-        d = (torch.rand(O, K // 32, generator=gen, device="cuda") * 0.02 - 0.01).to(torch.float16)
-        w = QuantTensor(GGMLType.Q4_0, (O, K), qs, d)
-        wdeq = w.dequantize(bf16)
-        out_dtype = torch.float32 if wname == "lm_head" else bf16
-        for S in (1, 512):
-            x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
-            got = qm.quant_matmul(w, x, out_dtype)
-            ref = qm.quant_matmul_plain(w, x, out_dtype)
-            err, rel = check(f"quant_matmul {wname} S={S}", got, ref)
-            ms = timer(lambda: qm.quant_matmul(w, x, out_dtype))
-            plain_ms = timer(lambda: qm.quant_matmul_plain(w, x, out_dtype))
-            lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
-            nbytes = O * K // 32 * 18 + S * K * 2 + S * O * (4 if out_dtype == torch.float32 else 2)
-            row("quant_matmul", f"{wname} O={O} K={K} S={S}", err, rel, ms, plain_ms, lib_ms,
-                nbytes, 2 * S * O * K)
-        del w, wdeq, qs, d
+    # ---- quant_matmul (+ group_sums inside at S >= 256), every format at
+    # its model's main-path shapes
+    shapes_7b = (("wqkvu", 22848, 4544), ("w_od", 4544, 22720), ("lm_head", 65024, 4544))
+    shapes_40b = (("wqkv", 9216, 8192), ("ffn_up", 32768, 8192), ("w_od", 8192, 40960),
+                  ("lm_head", 65024, 8192))
+    for fmt in QUANT_FORMATS:
+        gtype = GGMLType[fmt.upper()]
+        for wname, O, K in shapes_40b if gtype in qm.K_QUANTS else shapes_7b:
+            w = random_quant(gtype, O, K, gen, "cuda")
+            wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+            wdeq = w.dequantize(bf16)
+            out_dtype = torch.float32 if wname == "lm_head" else bf16
+            for S in (1, 512):
+                x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+                got = qm.quant_matmul(w, x, out_dtype)
+                ref = qm.quant_matmul_plain(w, x, out_dtype)
+                err, rel = check(f"quant_matmul {fmt} {wname} S={S}", got, ref)
+                ms = timer(lambda: qm.quant_matmul(w, x, out_dtype))
+                plain_ms = timer(lambda: qm.quant_matmul_plain(w, x, out_dtype))
+                lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
+                nbytes = wbytes + S * K * 2 + S * O * (4 if out_dtype == torch.float32 else 2)
+                row("quant_matmul", f"{fmt} {wname} O={O} K={K} S={S}", err, rel, ms, plain_ms,
+                    lib_ms, nbytes, 2 * S * O * K)
+            del w, wdeq
 
-    # ---- group_sums
-    for K in (4544, 22720):
+    # ---- group_sums: 32-wide at the 7B widths, 16-wide (Q6_K) at the 40B ones
+    for K, g in ((4544, 32), (22720, 32), (8192, 16), (40960, 16)):
         S = 512
         x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
-        emap = (torch.arange(K, device="cuda")[:, None] // 32
-                == torch.arange(K // 32, device="cuda")[None, :]).to(bf16)
-        err, rel = check(f"group_sums K={K}", qm.group_sums(x), qm.group_sums_plain(x))
-        ms = timer(lambda: qm.group_sums(x))
-        plain_ms = timer(lambda: qm.group_sums_plain(x))
+        emap = (torch.arange(K, device="cuda")[:, None] // g
+                == torch.arange(K // g, device="cuda")[None, :]).to(bf16)
+        err, rel = check(f"group_sums K={K} g={g}", qm.group_sums(x, g),
+                         qm.group_sums_plain(x, g))
+        ms = timer(lambda: qm.group_sums(x, g))
+        plain_ms = timer(lambda: qm.group_sums_plain(x, g))
         lib_ms = timer(lambda: torch.matmul(x, emap))
-        row("group_sums", f"S={S} K={K}", err, rel, ms, plain_ms, lib_ms,
-            S * K * 2 + S * K // 32 * 4, S * K)
+        row("group_sums", f"S={S} K={K} g={g}", err, rel, ms, plain_ms, lib_ms,
+            S * K * 2 + S * K // g * 4, S * K)
+        del emap
 
-    # ---- flash_mqa: S=512 against a (1, T=2560, 1, 64) cache layer
-    H, D, T, S = 71, 64, 2560, 512
-    kvc = torch.randn(1, 2, 1, T, 1, D, generator=gen, device="cuda").to(bf16)
-    k, v = kvc[0, 0], kvc[0, 1]
-    q = torch.randn(1, S, H, D, generator=gen, device="cuda").to(bf16)
-    for n_past in (0, 300):
-        err, rel = check(f"flash_mqa n_past={n_past}", flash_mqa(q, k, v, n_past),
-                         flash_mqa_plain(q, k, v, n_past))
-        ms = timer(lambda: flash_mqa(q, k, v, n_past))
-        plain_ms = timer(lambda: flash_mqa_plain(q, k, v, n_past))
-        Tv = n_past + S
-        # the one K/V head broadcast to all query heads (a view, no copy)
-        qt = q.transpose(1, 2)
-        kt = k[:, :Tv].transpose(1, 2).expand(1, H, Tv, D)
-        vt = v[:, :Tv].transpose(1, 2).expand(1, H, Tv, D)
-        mask = (torch.arange(Tv, device="cuda")[None, :]
-                <= n_past + torch.arange(S, device="cuda")[:, None])
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-        pairs = S * n_past + S * (S + 1) // 2  # visible (query, key) pairs
-        row("flash_mqa", f"S={S} n_past={n_past} H={H} D={D}", err, rel, ms, plain_ms, lib_ms,
-            2 * S * H * D * 2 + 2 * Tv * D * 2, 4 * pairs * H * D)
+    # ---- flash_mqa: S=512 against one (1, T=2560, KV, 64) cache layer, at
+    # Falcon-7B's 71 heads over one K/V head and Falcon-40B's 128 over 8
+    D, T, S = 64, 2560, 512
+    for H, KV, past in ((71, 1, (0, 300)), (128, 8, (0,))):
+        kvc = torch.randn(1, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
+        k, v = kvc[0, 0], kvc[0, 1]
+        q = torch.randn(1, S, H, D, generator=gen, device="cuda").to(bf16)
+        for n_past in past:
+            err, rel = check(f"flash_mqa H={H} KV={KV} n_past={n_past}",
+                             flash_mqa(q, k, v, n_past), flash_mqa_plain(q, k, v, n_past))
+            ms = timer(lambda: flash_mqa(q, k, v, n_past))
+            plain_ms = timer(lambda: flash_mqa_plain(q, k, v, n_past))
+            Tv = n_past + S
+            qt = q.transpose(1, 2)
+            kt, vt = k[:, :Tv].transpose(1, 2), v[:, :Tv].transpose(1, 2)
+            mask = (torch.arange(Tv, device="cuda")[None, :]
+                    <= n_past + torch.arange(S, device="cuda")[:, None])
+            if KV == 1:  # the one K/V head broadcast to all query heads (a view, no copy)
+                kt, vt = kt.expand(1, H, Tv, D), vt.expand(1, H, Tv, D)
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            else:
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            pairs = S * n_past + S * (S + 1) // 2  # visible (query, key) pairs
+            row("flash_mqa", f"S={S} n_past={n_past} H={H} KV={KV} D={D}", err, rel, ms,
+                plain_ms, lib_ms, 2 * S * H * D * 2 + 2 * Tv * KV * D * 2, 4 * pairs * H * D)
 
-    # ---- flash_decode: one layer of the full 32-layer cache
-    L, l = 32, 31
-    kv = torch.randn(L, 2, 1, T, 1, D, generator=gen, device="cuda").to(bf16)
-    q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
-    qg = q1.reshape(1, 1, H, D)
-    app = torch.randn(2, 1, 16, 1, D, generator=gen, device="cuda").to(bf16)
-    st = FalconStatic(n_layer=L, n_head=H, n_head_kv=1, head_dim=D, n_embd=H * D,
-                      n_ff=4 * H * D, n_vocab=0, parallel_norms=False)
-    for valid in (1, 300, 2047):
-        # cache valid below `valid`: no append -> n_past = valid - 1;
-        # append with 5 valid entries -> n_past = valid + 4
-        err, rel = check(f"flash_decode valid={valid}",
-                         fd.flash_decode(kv, 1, l, q1, valid - 1),
-                         _attention(q1, kv[l, 0], kv[l, 1], valid - 1, st))
-        err_a, rel_a = check(f"flash_decode valid={valid} +append",
-                             fd.flash_decode(kv, 1, l, q1, valid + 4, kv_append=app, append_valid=5),
-                             _attention(q1, kv[l, 0], kv[l, 1], valid + 4, st,
-                                        kv_append=app, append_valid=5))
-        acc, m, lsum = fd.cache_partials(kv, 1, l, qg, valid)
-        acc_p, m_p, l_p = fd.cache_partials_plain(kv, 1, l, qg, valid)
-        check(f"cache_partials valid={valid}", acc / lsum, acc_p / l_p)
-        check(f"cache_partials m valid={valid}", m, m_p)
-        ms = timer(lambda: fd.cache_partials(kv, 1, l, qg, valid))
-        plain_ms = timer(lambda: fd.cache_partials_plain(kv, 1, l, qg, valid))
-        kt = kv[l, 0, :, :valid].transpose(1, 2).expand(1, H, valid, D)
-        vt = kv[l, 1, :, :valid].transpose(1, 2).expand(1, H, valid, D)
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(q1.transpose(1, 2), kt, vt))
-        row("flash_decode", f"valid={valid} G={H} D={D} (+append err {err_a:.1e})",
-            max(err, err_a), max(rel, rel_a), ms, plain_ms, lib_ms,
-            2 * valid * D * 2 + H * D * 2 + H * (D + 2) * 4, 4 * valid * H * D)
+    # ---- flash_decode: the last layer of the full cache (32 layers at 7B,
+    # 60 at 40B)
+    for L, H, KV, valids in ((32, 71, 1, (1, 300, 2047)), (60, 128, 8, (300, 2047))):
+        l, G = L - 1, H // KV
+        kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
+        q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
+        qg = q1.reshape(1, KV, G, D)
+        app = torch.randn(2, 1, 16, KV, D, generator=gen, device="cuda").to(bf16)
+        st = FalconStatic(n_layer=L, n_head=H, n_head_kv=KV, head_dim=D, n_embd=H * D,
+                          n_ff=4 * H * D, n_vocab=0, parallel_norms=KV > 1)
+        for valid in valids:
+            # cache valid below `valid`: no append -> n_past = valid - 1;
+            # append with 5 valid entries -> n_past = valid + 4
+            err, rel = check(f"flash_decode G={G} valid={valid}",
+                             fd.flash_decode(kv, KV, l, q1, valid - 1),
+                             _attention(q1, kv[l, 0], kv[l, 1], valid - 1, st))
+            err_a, rel_a = check(f"flash_decode G={G} valid={valid} +append",
+                                 fd.flash_decode(kv, KV, l, q1, valid + 4, kv_append=app,
+                                                 append_valid=5),
+                                 _attention(q1, kv[l, 0], kv[l, 1], valid + 4, st,
+                                            kv_append=app, append_valid=5))
+            acc, m, lsum = fd.cache_partials(kv, KV, l, qg, valid)
+            acc_p, m_p, l_p = fd.cache_partials_plain(kv, KV, l, qg, valid)
+            check(f"cache_partials G={G} valid={valid}", acc / lsum, acc_p / l_p)
+            check(f"cache_partials m G={G} valid={valid}", m, m_p)
+            ms = timer(lambda: fd.cache_partials(kv, KV, l, qg, valid))
+            plain_ms = timer(lambda: fd.cache_partials_plain(kv, KV, l, qg, valid))
+            kt = kv[l, 0, :, :valid].transpose(1, 2)
+            vt = kv[l, 1, :, :valid].transpose(1, 2)
+            if KV == 1:
+                kt, vt = kt.expand(1, H, valid, D), vt.expand(1, H, valid, D)
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                q1.transpose(1, 2), kt, vt, enable_gqa=KV > 1))
+            row("flash_decode", f"valid={valid} G={G} KV={KV} D={D} (+append err {err_a:.1e})",
+                max(err, err_a), max(rel, rel_a), ms, plain_ms, lib_ms,
+                2 * valid * KV * D * 2 + H * D * 2 + H * (D + 2) * 4, 4 * valid * H * D)
+        del kv
     return rows
 
 
-def phase_model(torch) -> dict:
-    """Full-width Falcon-7B Q4_0 through the engine's entry points."""
+def phase_model(torch, model: str, fmt: str) -> dict:
+    """One full-width Falcon model (`model` is "falcon7b" or "falcon40b") with
+    random `fmt` weights through the engine's entry points; returns its
+    launch counts and end-to-end figures."""
+    import gc
+
     import numpy as np
 
     from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.ops.sampling import SamplerParams
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
 
-    hp = FalconHParams.falcon7b()
-    t0 = time.perf_counter()
-    params = make_bench_params(hp, device="cuda", seed=7)
+    hp = getattr(FalconHParams, model)()
+    label = f"{hp.n_layer}-layer {model} {fmt}"
     torch.cuda.synchronize()
-    log(f"  params: 32-layer Falcon-7B Q4_0 on the card in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = make_bench_params(hp, device="cuda", seed=7, gtype=GGMLType[fmt.upper()])
+    torch.cuda.synchronize()
+    log(f"  params: {label} on the card in {time.perf_counter() - t0:.1f} s,"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     eng = FalconEngine(hp, params, EngineConfig())
     rng = np.random.default_rng(0)
     prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
@@ -240,13 +276,15 @@ def phase_model(torch) -> dict:
     sampled, _ = eng.decode_chunk(greedy[-1], 32, sampler, last_tokens=prompt + greedy)
     sampled_tps = 32 / (time.perf_counter() - t0)
     counts = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
     log(f"  prefill {n_prefill} tokens: {prefill_tps:.1f} tok/s;"
         f" greedy decode {n_decode} tokens: {decode_tps:.2f} tok/s;"
-        f" sampled decode 32 tokens: {sampled_tps:.2f} tok/s")
-    log(f"  launches on the main path: {counts}")
+        f" sampled decode 32 tokens: {sampled_tps:.2f} tok/s;"
+        f" peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  launches on the {label} path: {counts}")
     for name in REPLACES:
         if counts.get(name, 0) <= 0:
-            raise RuntimeError(f"kernel {name} was not launched on the main path")
+            raise RuntimeError(f"kernel {name} was not launched on the {label} path")
     toks = np.asarray(greedy + [int(t) for t in sampled])
     if len(greedy) != 129 or len(sampled) != 32 or toks.min() < 0 or toks.max() >= hp.n_vocab:
         raise RuntimeError(f"bad generated ids: {len(greedy)} greedy, {len(sampled)} sampled")
@@ -262,25 +300,37 @@ def phase_model(torch) -> dict:
     log(f"  prefill logits, kernels vs plain versions: max |d| {err:.4e} ({rel:.3e} of max|ref|),"
         f" argmax {int(got.argmax())} vs {int(ref.argmax())}")
     if rel > LOGIT_TOL or int(got.argmax()) != int(ref.argmax()):
-        raise RuntimeError("kernel and plain prefill logits disagree")
-    return counts
+        raise RuntimeError(f"kernel and plain prefill logits disagree on the {label} path")
+    del eng, plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"path": label, "launches": counts, "prefill_tok_s": prefill_tps,
+            "decode_tok_s": decode_tps, "sampled_tok_s": sampled_tps, "peak_bytes": peak,
+            "logit_rel_err": rel}
 
 
 def phase_cli() -> None:
     from ggllm_tpu_torch.core.config import FalconHParams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.utils.synthetic import write_tiny_model
 
-    with tempfile.TemporaryDirectory() as d:
-        path = str(Path(d) / "small-q4_0.ggcc")
-        write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
-                                             n_layer=2, n_falcon_type=7, n_bpe_merges=0), seed=3)
-        p = subprocess.run([sys.executable, "-m", "ggllm_tpu_torch.tools.main", "-m", path,
-                            "-p", "the thing", "-n", "16", "--temp", "0", "--ignore-eos"],
-                           cwd=ROOT, capture_output=True, timeout=600)
-    out, err = p.stdout.decode(errors="replace"), p.stderr.decode(errors="replace")
-    log(f"  cli rc={p.returncode} stdout={out.strip()[:120]!r}")
-    if p.returncode != 0 or not out.startswith("the thing") or "eval time" not in err:
-        raise RuntimeError(f"CLI run failed:\n{out}\n{err}")
+    small = {  # n_embd 256: K-quants need widths divisible by 256
+        "q4_0": FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1, n_layer=2,
+                              n_falcon_type=7, n_bpe_merges=0),
+        "q4_k": FalconHParams(n_vocab=512, n_embd=256, n_head=8, n_head_kv=2, n_layer=2,
+                              n_falcon_type=40, n_bpe_merges=0),
+    }
+    for fmt, hp in small.items():
+        with tempfile.TemporaryDirectory() as d:
+            path = str(Path(d) / f"small-{fmt}.ggcc")
+            write_tiny_model(path, hp, GGMLType[fmt.upper()], seed=3)
+            p = subprocess.run([sys.executable, "-m", "ggllm_tpu_torch.tools.main", "-m", path,
+                                "-p", "the thing", "-n", "16", "--temp", "0", "--ignore-eos"],
+                               cwd=ROOT, capture_output=True, timeout=600)
+        out, err = p.stdout.decode(errors="replace"), p.stderr.decode(errors="replace")
+        log(f"  cli {fmt} rc={p.returncode} stdout={out.strip()[:100]!r}")
+        if p.returncode != 0 or not out.startswith("the thing") or "eval time" not in err:
+            raise RuntimeError(f"CLI run on a {fmt} file failed:\n{out}\n{err}")
 
 
 def main() -> int:
@@ -312,26 +362,34 @@ def main() -> int:
     rows = phase_kernels(torch, Timer(torch), bw, peak)
     (out_dir / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 
-    log("phase 3: full-width Falcon-7B Q4_0 main path")
-    counts = phase_model(torch)
+    log("phase 3: full-width main paths")
+    paths = []
+    for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
+        log(f"  -- {model} {fmt}")
+        paths.append(phase_model(torch, model, fmt))
+    (out_dir / "chip_smoke_paths.json").write_text(json.dumps({"card": card, "paths": paths},
+                                                              indent=1))
 
-    log("phase 4: CLI on a GGCC file")
+    log("phase 4: CLI on GGCC files")
     phase_cli()
 
     headline = {  # the JSON line's shape per kernel
-        "quant_matmul": "wqkvu O=22848 K=4544 S=1",
-        "group_sums": "S=512 K=22720",
-        "flash_mqa": "S=512 n_past=0 H=71 D=64",
-        "flash_decode": "valid=2047",
+        "quant_matmul": "q4_0 wqkvu O=22848 K=4544 S=1",
+        "group_sums": "S=512 K=22720 g=32",
+        "flash_mqa": "S=512 n_past=0 H=71 KV=1",
+        "flash_decode": "valid=2047 G=71",
     }
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         r = next(r for r in rows if r["kernel"] == name and r["shape"].startswith(headline[name]))
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": r["shape"]})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": sum(p["launches"].get(name, 0) for p in paths),
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"], "shape": r["shape"]}
+        if name == "quant_matmul":
+            entry["formats"] = QUANT_FORMATS
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -34,6 +34,10 @@ class FalconHParams:
         return cls(n_embd=4544, n_head=71, n_head_kv=1, n_layer=32, n_falcon_type=7, **kw)
 
     @classmethod
+    def falcon40b(cls, **kw) -> "FalconHParams":
+        return cls(n_embd=8192, n_head=128, n_head_kv=8, n_layer=60, n_falcon_type=40, **kw)
+
+    @classmethod
     def tiny(cls, **kw) -> "FalconHParams":
         """Small config for tests: same structure, toy sizes."""
         kw.setdefault("n_vocab", 512)

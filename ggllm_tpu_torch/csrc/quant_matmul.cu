@@ -1,32 +1,49 @@
-// Fused Q4_0 dequant x matmul (y = x @ W^T) and per-group sums of x.
+// Fused dequant x matmul (y = x @ W^T) for the ggml formats Q4_0, Q4_1,
+// Q5_0, Q5_1, Q8_0, Q4_K, Q5_K and Q6_K, and per-group sums of x.
 //
 // Replaces the Pallas kernels ggllm_tpu/kernels/quant_matmul.py `_kern`
 // (launched by fused_matmul_2d) and `_xg_kern` (launched by _group_sums).
 //
-// Weights are ggml's own row-major planar Q4_0 blocks: qs (O, K/32, 16)
-// uint8 in ggml's half-split nibble order (element j < 16 is the low nibble
-// of byte j, element j >= 16 the high nibble of byte j - 16) and d (O, K/32)
-// fp16. Both kernels keep the TPU kernel's correction form: the -8 offset
-// never touches the per-element path,
-//     y[s,o] = sum_g d[o,g] * (sum_j q[o,g,j] x[s,g,j] - 8 * xg[s,g]),
-// with f32 accumulation throughout.
+// Weights are ggml's own row-major planar blocks (quant/planar.py): code
+// planes qs / qh / ql as ggml packs them, fp16 d (and m or dmin), int8
+// sub-scales sc / scm for K-quants. Both kernels keep the TPU kernel's
+// correction form: with w = s_g * q - c_g in each scale group g,
+//     y[s,o] = sum_g s_g * (sum_{j in g} q_j x[s,j]) - c_g * xg[s,g],
+// f32 accumulation throughout; q is the unsigned code (signed for Q8_0).
+//
+// One trait per format (Fmt<F>) loads the bytes a 32-element group needs
+// (load), yields the code of element i of the group (code), and the scale
+// and correction of each of its scale groups (scale, corr: one 32-group, or
+// two 16-groups for Q6_K). The GEMV and the tile share every format's
+// decoding through it:
+//   legacy  s = d;          c = 8d (Q4_0), 16d (Q5_0), -m (Q4_1/Q5_1), 0 (Q8_0)
+//   Q4_K/Q5_K s = d * sc;   c = dmin * scm   (products in f32, as k_quants.c)
+//   Q6_K    s = d * sc;     c = 32 s         (16-element groups, signed sc)
+// Element order within a 32-group: legacy blocks split each byte's nibbles
+// between elements j and j + 16; a K-quant 64-element chunk keeps elements
+// 0-31 in the low nibbles and 32-63 in the high ones (so 32-group 2j+h of a
+// super-block reads nibble h of chunk j's 32 bytes, and Q5_K its qh bit
+// 2j+h); Q6_K's 128-halves hold four 32-strips, strip l in nibble l/2 of
+// ql bytes [64 half + 32 (l%2), +32) with qh bits 2l.
 //
 // What bounds it on an H100:
-//  * S = 1 (decode) is a GEMV bound by the weight bytes (4.5 bits/weight):
-//    the x vector is tiny. The GEMV gives each lane one 16-byte block of a
-//    row per step, so a warp reads 512 contiguous bytes per row (coalesced,
-//    16 bytes a lane); each warp walks GEMV_ROWS rows at once, so every x
-//    value read from shared memory feeds GEMV_ROWS rows, and it loads the
-//    next step's blocks before using this step's, so two steps of weight
-//    bytes are in flight. x is staged once per block in shared memory as
-//    f32 with 16-byte loads issued in batches, padded to 33 floats per
-//    32-group so lanes on different groups hit different banks; the block
-//    forms the group sums from that tile itself.
+//  * S = 1 (decode) is a GEMV bound by the weight bytes (4.5-8.5 bits per
+//    weight): the x vector is tiny. Each lane takes one 32-group of a row
+//    per step and loads its bytes with 16-byte loads (two K-quant lanes
+//    share a 32-byte chunk: one transaction); each warp walks GEMV_ROWS
+//    rows at once, so every x value read from shared memory feeds
+//    GEMV_ROWS rows, and it loads the next step's groups before using this
+//    step's, so two steps of weight bytes are in flight. x is staged once
+//    per block in shared memory as f32 with 16-byte loads issued in
+//    batches, padded to 33 floats per 32-group so lanes on different groups
+//    hit different banks; the block forms the group sums (16 or 32 wide)
+//    from that tile itself. At K = 40960 (Falcon-40B w_od) x and its sums
+//    take 179 KB of the 227 KB.
 //  * S > 1 (prefill) is bound by operations. This first kernel is a plain
 //    SIMT tile (64 x 64 outputs, 4 x 4 per thread, one 32-group per K step)
-//    that dequantizes the W tile into shared memory; tensor cores (wgmma)
-//    and TMA come in a later change. The group sums come from
-//    gq_group_sums (S >= 256) or the caller.
+//    that decodes the W tile's codes into shared memory; tensor cores
+//    (wgmma) and TMA come in a later change. The group sums come from
+//    group_sums_kernel (S >= 256) or the caller.
 //  * group sums: one thread per (row, group), 16-byte vector loads; bound by
 //    the bytes of x.
 
@@ -39,16 +56,165 @@ namespace {
 using gq::store;
 using gq::to_f32;
 
-constexpr int QK = 32;          // elements per Q4_0 block
+constexpr int GROUP = 32;       // elements per GEMV lane step / tile K step
 constexpr int GEMV_WARPS = 8;   // warps per GEMV block
-constexpr int GEMV_ROWS = 4;    // output rows per warp
-constexpr int XPAD = QK + 1;    // smem floats per staged x group
+constexpr int XPAD = GROUP + 1; // smem floats per staged x group
 constexpr int BM = 64, BN = 64; // prefill tile: x rows x W rows
 constexpr int MAX_SMEM = 227 * 1024;
+
+// ggml type ids (ggml.h)
+enum : int { Q4_0 = 2, Q4_1 = 3, Q5_0 = 6, Q5_1 = 7, Q8_0 = 8, Q4_K = 12, Q5_K = 13, Q6_K = 14 };
+
+struct Planes {
+  const uint8_t* qs;  // Q6_K: ql
+  const void* qh;     // Q5_0/Q5_1: one uint32 per block; Q5_K/Q6_K: bytes
+  const __half* d;
+  const __half* m;    // Q4_1/Q5_1: m; Q4_K/Q5_K: dmin
+  const int8_t* sc;
+  const int8_t* scm;
+  int nb;             // blocks (legacy) or super-blocks (K-quants) per row
+};
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int w) {
   return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
 }
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+// byte i of 16 (or 32, as two vectors); with a constant i the selects fold
+__device__ __forceinline__ uint32_t byte16(const uint4& v, int i) {
+  return (word(v, (i >> 2) & 3) >> (8 * (i & 3))) & 0xFFu;
+}
+__device__ __forceinline__ uint32_t byte32(const uint4 (&v)[2], int i) {
+  // select the word by value: a select of v[0] / v[1] themselves would put
+  // v in local memory when i is not a constant (the tile's decode)
+  const uint32_t a = word(v[0], (i >> 2) & 3), b = word(v[1], (i >> 2) & 3);
+  return (((i & 16) ? b : a) >> (8 * (i & 3))) & 0xFFu;
+}
+
+// -------------------------------------------------------- format traits
+// load(p, row, g, r): the bytes and scales of 32-group g of `row`;
+// code(r, g, i): element i's code; scale/corr(r, k): scale group k's s, c.
+
+template <int F>
+struct Legacy {  // Q4_0, Q4_1, Q5_0, Q5_1: one 32-block per group
+  static constexpr int SUB = 32, ROWS = 4;
+  static constexpr bool CORR = true;
+  static constexpr bool HAS_MIN = F == Q4_1 || F == Q5_1;
+  static constexpr bool HIGH = F == Q5_0 || F == Q5_1;
+  struct Raw {
+    uint4 q;
+    uint32_t h;
+    float d, m;
+  };
+  __device__ static void load(const Planes& p, int row, int g, Raw& r) {
+    const size_t blk = (size_t)row * p.nb + g;
+    r.q = ld16(p.qs + blk * 16);
+    r.d = __half2float(p.d[blk]);
+    r.m = HAS_MIN ? __half2float(p.m[blk]) : 0.f;
+    r.h = HIGH ? __ldg(static_cast<const uint32_t*>(p.qh) + blk) : 0u;
+  }
+  __device__ static float code(const Raw& r, int, int i) {
+    const uint32_t b = byte16(r.q, i & 15);
+    uint32_t q = (i & 16) ? (b >> 4) : (b & 0xFu);
+    if (HIGH) q |= ((r.h >> i) & 1u) << 4;
+    return (float)q;
+  }
+  __device__ static float scale(const Raw& r, int) { return r.d; }
+  __device__ static float corr(const Raw& r, int) {
+    return HAS_MIN ? -r.m : (HIGH ? 16.f : 8.f) * r.d;
+  }
+};
+
+struct Q8 {  // Q8_0: 32 signed bytes per block, no correction
+  static constexpr int SUB = 32, ROWS = 4;
+  static constexpr bool CORR = false;
+  struct Raw {
+    uint4 q[2];
+    float d;
+  };
+  __device__ static void load(const Planes& p, int row, int g, Raw& r) {
+    const size_t blk = (size_t)row * p.nb + g;
+    r.q[0] = ld16(p.qs + blk * 32);
+    r.q[1] = ld16(p.qs + blk * 32 + 16);
+    r.d = __half2float(p.d[blk]);
+  }
+  __device__ static float code(const Raw& r, int, int i) {
+    return (float)static_cast<int8_t>(byte32(r.q, i));
+  }
+  __device__ static float scale(const Raw& r, int) { return r.d; }
+  __device__ static float corr(const Raw&, int) { return 0.f; }
+};
+
+template <int F>
+struct KQ45 {  // Q4_K, Q5_K: 32-group g = 8 sb + 2j + h of super-block sb
+  static constexpr int SUB = 32, ROWS = 4;
+  static constexpr bool CORR = true;
+  static constexpr bool HIGH = F == Q5_K;
+  struct Raw {
+    uint4 q[2], h[2];
+    float s, c;
+  };
+  __device__ static void load(const Planes& p, int row, int g, Raw& r) {
+    const int sub = g & 7;
+    const size_t blk = (size_t)row * p.nb + (g >> 3);
+    const uint8_t* qp = p.qs + blk * 128 + (sub >> 1) * 32;  // chunk j's 32 bytes
+    r.q[0] = ld16(qp);
+    r.q[1] = ld16(qp + 16);
+    if (HIGH) {
+      const uint8_t* hp = static_cast<const uint8_t*>(p.qh) + blk * 32;
+      r.h[0] = ld16(hp);
+      r.h[1] = ld16(hp + 16);
+    } else {
+      r.h[0] = r.h[1] = make_uint4(0, 0, 0, 0);
+    }
+    r.s = __half2float(p.d[blk]) * (float)p.sc[blk * 8 + sub];
+    r.c = __half2float(p.m[blk]) * (float)p.scm[blk * 8 + sub];
+  }
+  __device__ static float code(const Raw& r, int g, int i) {
+    uint32_t q = (byte32(r.q, i) >> (4 * (g & 1))) & 0xFu;
+    if (HIGH) q |= ((byte32(r.h, i) >> (g & 7)) & 1u) << 4;  // qh bit 2j + h
+    return (float)q;
+  }
+  __device__ static float scale(const Raw& r, int) { return r.s; }
+  __device__ static float corr(const Raw& r, int) { return r.c; }
+};
+
+struct Q6K {  // Q6_K: 32-group g = 8 sb + 4 half + strip; two 16-groups each
+  static constexpr int SUB = 16, ROWS = 4;
+  static constexpr bool CORR = true;
+  struct Raw {
+    uint4 q[2], h[2];
+    float s0, s1;
+  };
+  __device__ static void load(const Planes& p, int row, int g, Raw& r) {
+    const int half = (g >> 2) & 1, strip = g & 3;
+    const size_t blk = (size_t)row * p.nb + (g >> 3);
+    const uint8_t* qp = p.qs + blk * 128 + half * 64 + (strip & 1) * 32;
+    const uint8_t* hp = static_cast<const uint8_t*>(p.qh) + blk * 64 + half * 32;
+    r.q[0] = ld16(qp);
+    r.q[1] = ld16(qp + 16);
+    r.h[0] = ld16(hp);
+    r.h[1] = ld16(hp + 16);
+    const float d = __half2float(p.d[blk]);
+    const int8_t* scp = p.sc + blk * 16 + half * 8 + 2 * strip;
+    r.s0 = d * (float)scp[0];
+    r.s1 = d * (float)scp[1];
+  }
+  __device__ static float code(const Raw& r, int g, int i) {
+    const int strip = g & 3;
+    const uint32_t lo = (byte32(r.q, i) >> (4 * (strip >> 1))) & 0xFu;
+    return (float)(lo | (((byte32(r.h, i) >> (2 * strip)) & 3u) << 4));
+  }
+  __device__ static float scale(const Raw& r, int k) { return k ? r.s1 : r.s0; }
+  __device__ static float corr(const Raw& r, int k) { return 32.f * (k ? r.s1 : r.s0); }
+};
+
+template <int F> struct Fmt : Legacy<F> {};
+template <> struct Fmt<Q8_0> : Q8 {};
+template <> struct Fmt<Q4_K> : KQ45<Q4_K> {};
+template <> struct Fmt<Q5_K> : KQ45<Q5_K> {};
+template <> struct Fmt<Q6_K> : Q6K {};
 
 __device__ __forceinline__ float sum_vec(const uint4& v, float) {
   return (__uint_as_float(v.x) + __uint_as_float(v.y)) +
@@ -65,108 +231,105 @@ __device__ __forceinline__ float sum_vec(const uint4& v, __nv_bfloat16) {
   return s;
 }
 
-// ---------------------------------------------------------------- GEMV (S=1)
-template <typename TX, typename TY>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-q4_0_gemv(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
-          const __half* __restrict__ d, TY* __restrict__ y, int K, int O) {
-  extern __shared__ float smem[];
-  const int nb = K / QK;
-  float* xs = smem;              // nb * XPAD staged x values
-  float* xg = smem + nb * XPAD;  // nb group sums
-  {
-    // 16-byte loads, STAGE_BATCH per thread in flight before any is used
-    constexpr int VEC = 16 / sizeof(TX);
-    constexpr int STAGE_BATCH = 4;
-    const int nvec = K / VEC;  // K % 32 == 0, so vectors never straddle groups
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-    for (int base = 0; base < nvec; base += STAGE_BATCH * blockDim.x) {
-      uint4 buf[STAGE_BATCH];
+// x (K) -> xs as f32, XPAD floats per 32-group; 16-byte loads, STAGE_BATCH
+// per thread in flight before any is used
+template <typename TX>
+__device__ __forceinline__ void stage_x(const TX* __restrict__ x, float* xs, int K) {
+  constexpr int VEC = 16 / sizeof(TX);
+  constexpr int STAGE_BATCH = 4;
+  const int nvec = K / VEC;  // K % 32 == 0, so vectors never straddle groups
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  for (int base = 0; base < nvec; base += STAGE_BATCH * blockDim.x) {
+    uint4 buf[STAGE_BATCH];
 #pragma unroll
-      for (int b = 0; b < STAGE_BATCH; ++b) {
-        const int i = base + b * blockDim.x + threadIdx.x;
-        buf[b] = i < nvec ? __ldg(xv + i) : make_uint4(0, 0, 0, 0);
-      }
+    for (int b = 0; b < STAGE_BATCH; ++b) {
+      const int i = base + b * blockDim.x + threadIdx.x;
+      buf[b] = i < nvec ? __ldg(xv + i) : make_uint4(0, 0, 0, 0);
+    }
 #pragma unroll
-      for (int b = 0; b < STAGE_BATCH; ++b) {
-        const int i = base + b * blockDim.x + threadIdx.x;
-        if (i < nvec) {
-          __align__(16) float f[8];
-          gq::unpack16(buf[b], f, TX());
-          const int k = i * VEC;
-          float* dst = xs + (k / QK) * XPAD + (k % QK);
+    for (int b = 0; b < STAGE_BATCH; ++b) {
+      const int i = base + b * blockDim.x + threadIdx.x;
+      if (i < nvec) {
+        __align__(16) float f[8];
+        gq::unpack16(buf[b], f, TX());
+        const int k = i * VEC;
+        float* dst = xs + (k / GROUP) * XPAD + (k % GROUP);
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) dst[e] = f[e];
-        }
+        for (int e = 0; e < VEC; ++e) dst[e] = f[e];
       }
     }
   }
+}
+
+// ---------------------------------------------------------------- GEMV (S=1)
+template <int F, typename TX, typename TY>
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+quant_gemv(const TX* __restrict__ x, const Planes p, TY* __restrict__ y, int K, int O) {
+  using Q = Fmt<F>;
+  constexpr int NSEG = GROUP / Q::SUB, ROWS = Q::ROWS;
+  using Raw = typename Q::Raw;
+  extern __shared__ float smem[];
+  const int ng = K / GROUP;
+  float* xs = smem;              // ng * XPAD staged x values
+  float* xg = smem + ng * XPAD;  // ng * NSEG group sums
+  stage_x(x, xs, K);
   __syncthreads();
-  for (int g = threadIdx.x; g < nb; g += blockDim.x) {
-    const float* xp = xs + g * XPAD;
-    float s = 0.f;
+  if (Q::CORR) {
+    for (int s = threadIdx.x; s < ng * NSEG; s += blockDim.x) {
+      const float* xp = xs + (s / NSEG) * XPAD + (s % NSEG) * Q::SUB;
+      float t = 0.f;
 #pragma unroll
-    for (int j = 0; j < QK; ++j) s += xp[j];
-    xg[g] = s;
+      for (int j = 0; j < Q::SUB; ++j) t += xp[j];
+      xg[s] = t;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * GEMV_WARPS + warp) * GEMV_ROWS;
-  float acc[GEMV_ROWS];
+  const int row0 = (blockIdx.x * GEMV_WARPS + warp) * ROWS;
+  float acc[ROWS];
 #pragma unroll
-  for (int r = 0; r < GEMV_ROWS; ++r) acc[r] = 0.f;
+  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 
-  // software pipeline: the next step's blocks load while this step computes
-  uint4 qn[GEMV_ROWS];
-  float dn[GEMV_ROWS];
+  // software pipeline: the next step's groups load while this step computes
+  Raw rn[ROWS];
   auto load = [&](int g) {
 #pragma unroll
-    for (int r = 0; r < GEMV_ROWS; ++r) {
-      const int row = row0 + r;
-      if (row < O && g < nb) {
-        const size_t blk = (size_t)row * nb + g;
-        qn[r] = __ldg(reinterpret_cast<const uint4*>(qs + blk * 16));
-        dn[r] = __half2float(d[blk]);
-      } else {
-        qn[r] = make_uint4(0, 0, 0, 0);
-        dn[r] = 0.f;
-      }
+    for (int r = 0; r < ROWS; ++r) {
+      if (row0 + r < O && g < ng)
+        Q::load(p, row0 + r, g, rn[r]);
+      else
+        rn[r] = Raw{};
     }
   };
   load(lane);
-  for (int g = lane; g < nb; g += 32) {
-    uint4 q[GEMV_ROWS];
-    float dg[GEMV_ROWS];
+  for (int g = lane; g < ng; g += 32) {
+    Raw rc[ROWS];
 #pragma unroll
-    for (int r = 0; r < GEMV_ROWS; ++r) {
-      q[r] = qn[r];
-      dg[r] = dn[r];
-    }
+    for (int r = 0; r < ROWS; ++r) rc[r] = rn[r];
     load(g + 32);
     const float* xp = xs + g * XPAD;
-    float dot[GEMV_ROWS];
+    float dot[ROWS][NSEG];
 #pragma unroll
-    for (int r = 0; r < GEMV_ROWS; ++r) dot[r] = 0.f;
+    for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
+      for (int k = 0; k < NSEG; ++k) dot[r][k] = 0.f;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float xlo = xp[w * 4 + b];
-        const float xhi = xp[16 + w * 4 + b];
+    for (int i = 0; i < GROUP; ++i) {
+      const float xv = xp[i];
 #pragma unroll
-        for (int r = 0; r < GEMV_ROWS; ++r) {
-          const uint32_t byte = (word(q[r], w) >> (8 * b)) & 0xFFu;
-          dot[r] += float(byte & 0xFu) * xlo + float(byte >> 4) * xhi;
-        }
-      }
+      for (int r = 0; r < ROWS; ++r) dot[r][i / Q::SUB] += Q::code(rc[r], g, i) * xv;
     }
-    const float corr = 8.f * xg[g];
 #pragma unroll
-    for (int r = 0; r < GEMV_ROWS; ++r) acc[r] += dg[r] * (dot[r] - corr);
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int k = 0; k < NSEG; ++k) {
+        acc[r] += Q::scale(rc[r], k) * dot[r][k];
+        if (Q::CORR) acc[r] -= Q::corr(rc[r], k) * xg[g * NSEG + k];
+      }
   }
 #pragma unroll
-  for (int r = 0; r < GEMV_ROWS; ++r) {
+  for (int r = 0; r < ROWS; ++r) {
     float v = acc[r];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -175,16 +338,17 @@ q4_0_gemv(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
 }
 
 // ------------------------------------------------------------ tiled (S > 1)
-template <typename TX, typename TY>
+template <int F, typename TX, typename TY>
 __global__ void __launch_bounds__(256)
-q4_0_gemm(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
-          const __half* __restrict__ d, const float* __restrict__ xg,
-          TY* __restrict__ y, int S, int K, int O) {
-  __shared__ __align__(16) float xs[QK][BM + 4];  // x tile, transposed
-  __shared__ __align__(16) float ws[QK][BN + 4];  // nibble codes, transposed
-  __shared__ float dsm[BN];
-  __shared__ float xgs[BM];
-  const int nb = K / QK;
+quant_gemm(const TX* __restrict__ x, const Planes p, const float* __restrict__ xg,
+           TY* __restrict__ y, int S, int K, int O) {
+  using Q = Fmt<F>;
+  constexpr int SUB = Q::SUB, NSEG = GROUP / SUB;
+  __shared__ __align__(16) float xs[GROUP][BM + 4];  // x tile, transposed
+  __shared__ __align__(16) float ws[GROUP][BN + 4];  // codes, transposed
+  __shared__ float ssm[NSEG][BN], csm[NSEG][BN];     // per-row scale, correction
+  __shared__ float xgs[NSEG][BM];
+  const int ng = K / GROUP;
   const int s0 = blockIdx.y * BM, o0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -194,49 +358,62 @@ q4_0_gemm(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
 
-  for (int g = 0; g < nb; ++g) {
-    for (int i = tid; i < BM * QK; i += 256) {
-      const int s = i / QK, j = i % QK;
-      xs[j][s] = (s0 + s < S) ? to_f32(x[(size_t)(s0 + s) * K + g * QK + j]) : 0.f;
+  for (int g = 0; g < ng; ++g) {
+    for (int i = tid; i < BM * GROUP; i += 256) {
+      const int s = i / GROUP, j = i % GROUP;
+      xs[j][s] = (s0 + s < S) ? to_f32(x[(size_t)(s0 + s) * K + g * GROUP + j]) : 0.f;
     }
-    {
-      const int r = tid / 4, wd = tid % 4;
-      uint32_t bits = 0;
-      if (o0 + r < O)
-        bits = __ldg(reinterpret_cast<const uint32_t*>(qs + ((size_t)(o0 + r) * nb + g) * 16) + wd);
+    {  // four threads per W row, eight codes each
+      const int r = tid / 4, part = tid % 4;
+      const bool ok = o0 + r < O;
+      typename Q::Raw raw{};
+      if (ok) Q::load(p, o0 + r, g, raw);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const uint32_t byte = (bits >> (8 * b)) & 0xFFu;
-        ws[wd * 4 + b][r] = float(byte & 0xFu);
-        ws[16 + wd * 4 + b][r] = float(byte >> 4);
+      for (int ii = 0; ii < 8; ++ii) ws[part * 8 + ii][r] = Q::code(raw, g, part * 8 + ii);
+      if (part < NSEG) {
+        ssm[part][r] = ok ? Q::scale(raw, part) : 0.f;
+        csm[part][r] = ok ? Q::corr(raw, part) : 0.f;
       }
     }
-    if (tid < BN) dsm[tid] = (o0 + tid < O) ? __half2float(d[(size_t)(o0 + tid) * nb + g]) : 0.f;
-    if (tid < BM) xgs[tid] = (s0 + tid < S) ? xg[(size_t)(s0 + tid) * nb + g] : 0.f;
+    if (Q::CORR && tid < NSEG * BM) {
+      const int s = tid % BM, k = tid / BM;
+      xgs[k][s] = (s0 + s < S) ? xg[(size_t)(s0 + s) * ng * NSEG + g * NSEG + k] : 0.f;
+    }
     __syncthreads();
 
-    float dot[4][4];
+    float dot[NSEG][4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) dot[i][k] = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < QK; ++j) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[j][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[j][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int k = 0; k < NSEG; ++k)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) dot[i][k] += av[i] * bv[k];
+        for (int c = 0; c < 4; ++c) dot[k][i][c] = 0.f;
+#pragma unroll
+    for (int k = 0; k < NSEG; ++k) {
+#pragma unroll 8
+      for (int jj = 0; jj < SUB; ++jj) {
+        const int j = k * SUB + jj;
+        const float4 a = *reinterpret_cast<const float4*>(&xs[j][ty * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&ws[j][tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dot[k][i][c] += av[i] * bv[c];
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = 8.f * xgs[ty * 4 + i];
+    for (int k = 0; k < NSEG; ++k)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][k] += dsm[tx * 4 + k] * (dot[i][k] - corr);
-    }
+      for (int i = 0; i < 4; ++i) {
+        const float xgv = Q::CORR ? xgs[k][ty * 4 + i] : 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[i][c] += ssm[k][tx * 4 + c] * dot[k][i][c];
+          if (Q::CORR) acc[i][c] -= csm[k][tx * 4 + c] * xgv;
+        }
+      }
     __syncthreads();
   }
 #pragma unroll
@@ -244,85 +421,117 @@ q4_0_gemm(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
     const int s = s0 + ty * 4 + i;
     if (s >= S) continue;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int o = o0 + tx * 4 + k;
-      if (o < O) store(y + (size_t)s * O + o, acc[i][k]);
+    for (int c = 0; c < 4; ++c) {
+      const int o = o0 + tx * 4 + c;
+      if (o < O) store(y + (size_t)s * O + o, acc[i][c]);
     }
   }
 }
 
 // --------------------------------------------------------------- group sums
-template <typename TX>
+template <typename TX, int G>
 __global__ void __launch_bounds__(256)
 group_sums_kernel(const TX* __restrict__ x, float* __restrict__ xg, int S, int K) {
-  const int nb = K / QK;
+  const int ng = K / G;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)S * nb) return;
-  const size_t s = idx / nb, g = idx % nb;
-  const uint4* p = reinterpret_cast<const uint4*>(x + s * K + g * QK);
-  constexpr int NV = QK * sizeof(TX) / 16;  // 16-byte vectors per group
+  if (idx >= (size_t)S * ng) return;
+  const size_t s = idx / ng, g = idx % ng;
+  const uint4* p = reinterpret_cast<const uint4*>(x + s * K + g * G);
+  constexpr int NV = G * sizeof(TX) / 16;  // 16-byte vectors per group
   float acc = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) acc += sum_vec(__ldg(p + i), TX());
   xg[idx] = acc;
 }
 
-template <typename TX, typename TY>
-cudaError_t launch_matmul(const void* x, const void* qs, const void* d, const void* xg,
-                          void* y, int S, int K, int O, cudaStream_t st) {
+template <int F, typename TX, typename TY>
+cudaError_t launch_matmul(const void* x, const Planes& p, const void* xg, void* y, int S,
+                          int K, int O, cudaStream_t st) {
+  using Q = Fmt<F>;
   if (S == 1) {
-    const size_t smem = (size_t)(K / QK) * (XPAD + 1) * sizeof(float);
+    const size_t smem = ((size_t)(K / GROUP) * XPAD + K / Q::SUB) * sizeof(float);
     if (smem > MAX_SMEM) return cudaErrorInvalidValue;
     static bool attr_set = false;
     if (!attr_set) {
-      cudaError_t e = cudaFuncSetAttribute(q4_0_gemv<TX, TY>,
+      cudaError_t e = cudaFuncSetAttribute(quant_gemv<F, TX, TY>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
       if (e != cudaSuccess) return e;
       attr_set = true;
     }
-    const int rows_per_block = GEMV_WARPS * GEMV_ROWS;
-    q4_0_gemv<TX, TY><<<(O + rows_per_block - 1) / rows_per_block, GEMV_WARPS * 32, smem, st>>>(
-        static_cast<const TX*>(x), static_cast<const uint8_t*>(qs),
-        static_cast<const __half*>(d), static_cast<TY*>(y), K, O);
+    const int rows_per_block = GEMV_WARPS * Q::ROWS;
+    quant_gemv<F, TX, TY><<<(O + rows_per_block - 1) / rows_per_block, GEMV_WARPS * 32, smem, st>>>(
+        static_cast<const TX*>(x), p, static_cast<TY*>(y), K, O);
   } else {
-    if (xg == nullptr) return cudaErrorInvalidValue;
+    if (Q::CORR && xg == nullptr) return cudaErrorInvalidValue;
     dim3 grid((O + BN - 1) / BN, (S + BM - 1) / BM);
-    q4_0_gemm<TX, TY><<<grid, 256, 0, st>>>(
-        static_cast<const TX*>(x), static_cast<const uint8_t*>(qs),
-        static_cast<const __half*>(d), static_cast<const float*>(xg),
-        static_cast<TY*>(y), S, K, O);
+    quant_gemm<F, TX, TY><<<grid, 256, 0, st>>>(static_cast<const TX*>(x), p,
+                                                static_cast<const float*>(xg),
+                                                static_cast<TY*>(y), S, K, O);
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// y (S, O) = x (S, K) @ W^T from Q4_0 planes; xg (S, K/32) f32 group sums
-// of x, required for S > 1 and ignored for S == 1.
-extern "C" int gq_q4_0_matmul(const void* x, int x_bf16, const void* qs, const void* d,
-                              const void* xg, void* y, int y_bf16, int S, int K, int O,
-                              void* stream) {
-  if (S < 1 || K % QK != 0 || O < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return y_bf16 ? launch_matmul<__nv_bfloat16, __nv_bfloat16>(x, qs, d, xg, y, S, K, O, st)
-                  : launch_matmul<__nv_bfloat16, float>(x, qs, d, xg, y, S, K, O, st);
+template <typename TX, typename TY>
+cudaError_t dispatch(int gtype, const void* x, const Planes& p, const void* xg, void* y, int S,
+                     int K, int O, cudaStream_t st) {
+  switch (gtype) {
+    case Q4_0: return launch_matmul<Q4_0, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q4_1: return launch_matmul<Q4_1, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q5_0: return launch_matmul<Q5_0, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q5_1: return launch_matmul<Q5_1, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q8_0: return launch_matmul<Q8_0, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q4_K: return launch_matmul<Q4_K, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q5_K: return launch_matmul<Q5_K, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q6_K: return launch_matmul<Q6_K, TX, TY>(x, p, xg, y, S, K, O, st);
+    default: return cudaErrorInvalidValue;
   }
-  return y_bf16 ? launch_matmul<float, __nv_bfloat16>(x, qs, d, xg, y, S, K, O, st)
-                : launch_matmul<float, float>(x, qs, d, xg, y, S, K, O, st);
 }
 
-// xg (S, K/32) f32 = per-group sums of x (S, K); x rows 16-byte aligned.
-extern "C" int gq_group_sums(const void* x, int x_bf16, void* xg, int S, int K, void* stream) {
-  if (S < 1 || K % QK != 0) return cudaErrorInvalidValue;
+}  // namespace
+
+// y (S, O) = x (S, K) @ W^T from the planes of a ggml-type `gtype` weight
+// (null for planes the format lacks; qs holds Q6_K's ql, m holds dmin);
+// xg (S, K/16 for Q6_K, else K/32) f32 group sums of x, required for S > 1
+// (except Q8_0) and ignored for S == 1.
+extern "C" int gq_quant_matmul(int gtype, const void* x, int x_bf16, const void* qs,
+                               const void* qh, const void* d, const void* m, const void* sc,
+                               const void* scm, const void* xg, void* y, int y_bf16, int S,
+                               int K, int O, void* stream) {
+  const bool kq = gtype == Q4_K || gtype == Q5_K || gtype == Q6_K;
+  if (S < 1 || O < 1 || K % (kq ? 256 : GROUP) != 0) return cudaErrorInvalidValue;
+  const Planes p{static_cast<const uint8_t*>(qs), qh, static_cast<const __half*>(d),
+                 static_cast<const __half*>(m), static_cast<const int8_t*>(sc),
+                 static_cast<const int8_t*>(scm), K / (kq ? 256 : GROUP)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n = (size_t)S * (K / QK);
+  if (x_bf16) {
+    return y_bf16 ? dispatch<__nv_bfloat16, __nv_bfloat16>(gtype, x, p, xg, y, S, K, O, st)
+                  : dispatch<__nv_bfloat16, float>(gtype, x, p, xg, y, S, K, O, st);
+  }
+  return y_bf16 ? dispatch<float, __nv_bfloat16>(gtype, x, p, xg, y, S, K, O, st)
+                : dispatch<float, float>(gtype, x, p, xg, y, S, K, O, st);
+}
+
+// xg (S, K/group) f32 = per-group sums of x (S, K), group 16 or 32; x rows
+// 16-byte aligned.
+extern "C" int gq_group_sums(const void* x, int x_bf16, void* xg, int S, int K, int group,
+                             void* stream) {
+  if (S < 1 || K % GROUP != 0 || (group != 16 && group != 32)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t n = (size_t)S * (K / group);
   const unsigned blocks = (unsigned)((n + 255) / 256);
-  if (x_bf16)
-    group_sums_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(xg), S, K);
-  else
-    group_sums_kernel<float><<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(xg), S, K);
+  float* out = static_cast<float*>(xg);
+  if (x_bf16) {
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    if (group == 16)
+      group_sums_kernel<__nv_bfloat16, 16><<<blocks, 256, 0, st>>>(xb, out, S, K);
+    else
+      group_sums_kernel<__nv_bfloat16, 32><<<blocks, 256, 0, st>>>(xb, out, S, K);
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    if (group == 16)
+      group_sums_kernel<float, 16><<<blocks, 256, 0, st>>>(xf, out, S, K);
+    else
+      group_sums_kernel<float, 32><<<blocks, 256, 0, st>>>(xf, out, S, K);
+  }
   return cudaGetLastError();
 }

@@ -27,6 +27,7 @@ from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
 from ggllm_tpu_torch.core.device import resolve_device
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.io.ggcc import ModelFile, read_model
+from ggllm_tpu_torch.kernels.quant_matmul import K_QUANTS
 from ggllm_tpu_torch.ops.linear import QuantTensor
 from ggllm_tpu_torch.quant import planar
 
@@ -49,11 +50,12 @@ def _layer_names(hp: FalconHParams, i: int) -> dict[str, str]:
     return names
 
 
-def _quant(gtype, shape, qs: np.ndarray, d: np.ndarray, device) -> QuantTensor:
-    def tensor(a, dtype=None):  # torch needs contiguous, writable memory
-        return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(device)
+def _quant(gtype, shape, planes: dict, device) -> QuantTensor:
+    """numpy planes (quant/planar.py dtypes) -> QuantTensor on device."""
+    def tensor(a):  # torch needs contiguous, writable memory
+        return torch.from_numpy(np.require(a, None, ["C", "W"])).to(device)
 
-    return QuantTensor(gtype, shape, tensor(qs), tensor(d, np.float16))
+    return QuantTensor(gtype, shape, {k: tensor(v) for k, v in planes.items()})
 
 
 def _load_matrix(mf: ModelFile, name: str, dtype, device):
@@ -62,8 +64,20 @@ def _load_matrix(mf: ModelFile, name: str, dtype, device):
     if not GGMLType(t.gtype).name.startswith("Q"):
         return torch.from_numpy(mf.tensor_f32(name)).to(device=device, dtype=dtype)
     rows, cols = t.shape  # numpy convention: (out, in)
-    p = planar.to_planes(t.gtype, mf.tensor_blob(name), rows, cols)
-    return _quant(t.gtype, (rows, cols), p["qs"], p["d"], device)
+    return _quant(t.gtype, (rows, cols), planar.to_planes(t.gtype, mf.tensor_blob(name), rows, cols),
+                  device)
+
+
+def cat_quant(ws: list[QuantTensor], dim: int) -> QuantTensor:
+    """Concatenate same-format QuantTensors along the output rows (dim 0) or
+    the contraction dim (dim 1). Every plane is (rows, blocks, ...), so each
+    concatenates along the same axis; along K this needs every width to be
+    a whole number of blocks (super-blocks for K-quants), which a
+    QuantTensor's shape always is."""
+    shape = list(ws[0].shape)
+    shape[dim] = sum(w.shape[dim] for w in ws)
+    return QuantTensor(ws[0].gtype, tuple(shape),
+                       {k: torch.cat([w.planes[k] for w in ws], dim) for k in ws[0].planes})
 
 
 def _mergeable(a, b) -> bool:
@@ -75,16 +89,14 @@ def merge_weights(lw: dict, qkv, up, wo, down, parallel_norms: bool) -> dict:
     """The JAX kernel path's weight merge (see module docstring)."""
     if not parallel_norms and _mergeable(qkv, up):
         if isinstance(qkv, QuantTensor):
-            lw["wqkvu"] = QuantTensor(qkv.gtype, (qkv.shape[0] + up.shape[0], qkv.shape[1]),
-                                      torch.cat([qkv.qs, up.qs], 0), torch.cat([qkv.d, up.d], 0))
+            lw["wqkvu"] = cat_quant([qkv, up], 0)
         else:
             lw["wqkvu"] = torch.cat([qkv, up], 0)
     else:
         lw["wqkv"], lw["ffn_up"] = qkv, up
     if _mergeable(wo, down):
         if isinstance(wo, QuantTensor):
-            lw["w_od"] = QuantTensor(wo.gtype, (wo.shape[0], wo.shape[1] + down.shape[1]),
-                                     torch.cat([wo.qs, down.qs], 1), torch.cat([wo.d, down.d], 1))
+            lw["w_od"] = cat_quant([wo, down], 1)
         else:
             lw["w_od"] = torch.cat([wo, down], 1)
     else:
@@ -135,43 +147,89 @@ def load_model(path: str, cfg: EngineConfig | None = None, device=None):
 
 # ------------------------------------------------------ from the JAX package
 
-def _planes_from_kernel(kq) -> tuple[np.ndarray, np.ndarray]:
-    """A JAX KernelQuant (kernels/layout.py to_kernel) -> planar (qs, d).
+# the JAX package's kernels/layout.py FORMATS code-plane recipes: the code is
+# sum(plane << shift); a b-bit plane (n_k, ck*b/8, O) holds in byte row j of
+# chunk c, bit-field i, column c*ck + i*(ck*b/8) + j; the 8-bit plane is the
+# plain (n_k, ck, O) transpose
+_KERNEL_CODE_PLANES = {
+    GGMLType.Q4_0: (("q", 4, 0),),
+    GGMLType.Q4_1: (("q", 4, 0),),
+    GGMLType.Q5_0: (("q", 4, 0), ("h", 1, 4)),
+    GGMLType.Q5_1: (("q", 4, 0), ("h", 1, 4)),
+    GGMLType.Q8_0: (("q", 8, 0),),
+    GGMLType.Q4_K: (("q", 4, 0),),
+    GGMLType.Q5_K: (("q", 4, 0), ("h", 1, 4)),
+    GGMLType.Q6_K: (("q", 4, 0), ("h", 2, 4)),
+}
 
-    Undoes the TPU layout: chunk c of ck columns holds, for a 4-bit plane,
-    byte row j with bit-field i covering column c*ck + i*(ck//2) + j; the
-    8-bit (Q8_0) plane is the plain (n_k, ck, O) transpose. Scales are
-    (n_k, ck//32, O), fp16 bit patterns in int16 or f32. The contraction
-    dim is zero-padded to n_k*ck; the padding is cut."""
+
+def _f16(a) -> np.ndarray:
+    """fp16 scales from the JAX package: int16 bit patterns (viewed, never
+    cast) or exactly fp16-representable f32 values."""
+    a = np.asarray(a)
+    return a.view(np.float16) if a.dtype == np.int16 else a.astype(np.float16)
+
+
+def _planes_from_kernel(kq) -> dict[str, np.ndarray]:
+    """A JAX KernelQuant (kernels/layout.py to_kernel) -> planar planes.
+
+    Undoes the TPU layout: the code planes recombine into per-element codes,
+    which quant/planar.py packs the ggml way; scales (n_k, ck//g, O) are
+    transposed back. The contraction dim is zero-padded to n_k*ck there;
+    the padding is cut. Q4_1/Q5_1 keep -m in their "ms" plane."""
     O, K = kq.shape
     gtype = GGMLType(int(kq.gtype))
-    q = np.asarray(kq.planes["q"])
-    n_k, ck = q.shape[0], kq.ck
-    if gtype == GGMLType.Q4_0:
-        q = q.astype(np.uint8)
-        codes = np.concatenate([q & 0xF, q >> 4], axis=1)  # (n_k, ck, O)
-    elif gtype == GGMLType.Q8_0:
-        codes = q.view(np.int8)
-    else:
+    if gtype not in _KERNEL_CODE_PLANES:
         raise NotImplementedError(f"from_jax_params: {gtype.name}")
-    codes = codes.reshape(n_k * ck, O).T[:, :K].reshape(O, K // 32, 32)
-    ds = np.asarray(kq.planes["ds"])
-    ds = ds.view(np.float16) if ds.dtype == np.int16 else ds.astype(np.float16)
-    d = ds.reshape(n_k * (ck // 32), O).T[:, :K // 32]
-    if gtype == GGMLType.Q4_0:
-        qs = (codes[..., :16] | (codes[..., 16:] << 4)).astype(np.uint8)
+
+    def unchunk(a, n):  # (n_k, rows, O) -> (O, n), padding cut
+        return np.asarray(a).reshape(-1, O).T[:, :n]
+
+    codes = 0
+    for name, bits, shift in _KERNEL_CODE_PLANES[gtype]:
+        q = np.asarray(kq.planes[name])
+        if bits == 8:
+            part = q.view(np.int8).astype(np.int32)
+        else:
+            q = q.astype(np.uint8)
+            part = np.concatenate([(q >> (i * bits)) & ((1 << bits) - 1)
+                                   for i in range(8 // bits)], axis=1).astype(np.int32)
+        codes = codes + (unchunk(part, K) << shift)
+    planes = planar.planes_from_codes(gtype, codes)
+    if gtype in K_QUANTS:
+        nb = K // 256
+        g = 16 if gtype == GGMLType.Q6_K else 32
+        planes["d"] = unchunk(_f16(kq.planes["db"]), nb)
+        planes["sc"] = unchunk(kq.planes["sc"], K // g).astype(np.int8).reshape(O, nb, 256 // g)
+        if gtype != GGMLType.Q6_K:
+            planes["dmin"] = unchunk(_f16(kq.planes["dminb"]), nb)
+            planes["scm"] = unchunk(kq.planes["scm"], K // g).astype(np.int8).reshape(O, nb, 8)
     else:
-        qs = codes
-    return qs, d
+        planes["d"] = unchunk(_f16(kq.planes["ds"]), K // 32)
+        if gtype in (GGMLType.Q4_1, GGMLType.Q5_1):
+            planes["m"] = -unchunk(_f16(kq.planes["ms"]), K // 32)
+    return planes
+
+
+def _planes_from_planar(planes: dict) -> dict[str, np.ndarray]:
+    """A JAX planar QuantTensor's planes -> the port's plane dtypes: fp16
+    scales as float16, the legacy 5th-bit words as int32."""
+    out = {}
+    for name, a in planes.items():
+        a = np.asarray(a)
+        if name in ("d", "m", "dmin"):
+            a = _f16(a)
+        elif a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[name] = a
+    return out
 
 
 def _weight_from_jax(w, device, dtype):
     if hasattr(w, "ck"):  # KernelQuant
-        qs, d = _planes_from_kernel(w)
-        return _quant(int(w.gtype), tuple(w.shape), qs, d, device)
+        return _quant(int(w.gtype), tuple(w.shape), _planes_from_kernel(w), device)
     if hasattr(w, "planes"):  # planar QuantTensor
-        return _quant(int(w.gtype), tuple(w.shape), np.asarray(w.planes["qs"]),
-                      np.asarray(w.planes["d"]), device)
+        return _quant(int(w.gtype), tuple(w.shape), _planes_from_planar(w.planes), device)
     return torch.from_numpy(np.array(w, dtype=np.float32)).to(device=device, dtype=dtype)
 
 
@@ -217,10 +275,7 @@ def from_jax_params(tree: dict, dtype=torch.float32, device=None) -> dict:
         w = {k: _weight_from_jax(_split_rows_jax(layers[k], i), device, dtype)
              for k in ("wq", "wk", "wv", "wo", "ffn_up", "ffn_down")}
         if isinstance(w["wq"], QuantTensor):
-            qkv = QuantTensor(w["wq"].gtype,
-                              (sum(w[k].shape[0] for k in ("wq", "wk", "wv")), w["wq"].shape[1]),
-                              torch.cat([w[k].qs for k in ("wq", "wk", "wv")], 0),
-                              torch.cat([w[k].d for k in ("wq", "wk", "wv")], 0))
+            qkv = cat_quant([w["wq"], w["wk"], w["wv"]], 0)
         else:
             qkv = torch.cat([w["wq"], w["wk"], w["wv"]], 0)
         params["layers"].append(merge_weights(out, qkv, w["ffn_up"], w["wo"], w["ffn_down"],

@@ -32,10 +32,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
-    # x, x_is_bf16, qs, d, xg, y, y_is_bf16, S, K, O, stream
-    "gq_q4_0_matmul": [P, I, P, P, P, P, I, I, I, I, P],
-    # x, x_is_bf16, xg, S, K, stream
-    "gq_group_sums": [P, I, P, I, I, P],
+    # gtype, x, x_is_bf16, qs, qh, d, m, sc, scm, xg, y, y_is_bf16, S, K, O, stream
+    "gq_quant_matmul": [I, P, I, P, P, P, P, P, P, P, P, I, I, I, I, P],
+    # x, x_is_bf16, xg, S, K, group, stream
+    "gq_group_sums": [P, I, P, I, I, I, P],
     # q, k, v, out, is_bf16, n_past_vec, n_past, B, S, H, T, KV, D,
     # k_batch_stride, k_time_stride, stream
     "gq_flash_mqa": [P, P, P, P, I, P, I, I, I, I, I, I, I, I, I, P],

@@ -1,5 +1,6 @@
-"""Legacy 32-element block quantization codecs: Q4_0 and Q8_0 (a copy of
-that subset of ggllm_tpu/quant/legacy.py; the other formats are not ported).
+"""Legacy 32-element block quantization codecs (a copy of that subset of
+ggllm_tpu/quant/legacy.py): Q4_0 and Q8_0 both ways, and the dequantizers of
+Q4_1, Q5_0 and Q5_1 (their quantizers are not ported).
 
 Bit-faithful, vectorized numpy re-implementations of the reference scalar
 codecs (ggml.c:927-1131 quantize, ggml.c:1447-1586 dequantize). The packed
@@ -64,6 +65,51 @@ def dequantize_q4_0(buf: np.ndarray, n: int) -> np.ndarray:
     lo = (qs & 0x0F).astype(np.int8) - 8
     hi = (qs >> 4).astype(np.int8) - 8
     y = np.concatenate([lo, hi], axis=1).astype(np.float32) * d
+    return y.reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------- Q4_1
+
+def dequantize_q4_1(buf: np.ndarray, n: int) -> np.ndarray:
+    b = np.asarray(buf, dtype=np.uint8).reshape(-1, 20)
+    d = b[:, 0:2].copy().view(np.float16).astype(np.float32)
+    m = b[:, 2:4].copy().view(np.float16).astype(np.float32)
+    qs = b[:, 4:20]
+    lo = (qs & 0x0F).astype(np.float32)
+    hi = (qs >> 4).astype(np.float32)
+    y = np.concatenate([lo, hi], axis=1) * d + m
+    return y.reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------- Q5_0 / Q5_1
+
+def _unpack_qh(qh_bytes: np.ndarray) -> np.ndarray:
+    """(nb,4) uint8 -> (nb,32) uint8 of 5th bits."""
+    qh = qh_bytes.copy().view(np.uint32).reshape(-1)  # (nb,)
+    shifts = np.arange(32, dtype=np.uint32)
+    return ((qh[:, None] >> shifts[None, :]) & 1).astype(np.uint8)
+
+
+def dequantize_q5_0(buf: np.ndarray, n: int) -> np.ndarray:
+    b = np.asarray(buf, dtype=np.uint8).reshape(-1, 22)
+    d = b[:, 0:2].copy().view(np.float16).astype(np.float32)
+    hb = _unpack_qh(b[:, 2:6])  # (nb, 32)
+    qs = b[:, 6:22]
+    lo = ((qs & 0x0F) | (hb[:, :16] << 4)).astype(np.int16) - 16
+    hi = ((qs >> 4) | (hb[:, 16:] << 4)).astype(np.int16) - 16
+    y = np.concatenate([lo, hi], axis=1).astype(np.float32) * d
+    return y.reshape(-1)[:n]
+
+
+def dequantize_q5_1(buf: np.ndarray, n: int) -> np.ndarray:
+    b = np.asarray(buf, dtype=np.uint8).reshape(-1, 24)
+    d = b[:, 0:2].copy().view(np.float16).astype(np.float32)
+    m = b[:, 2:4].copy().view(np.float16).astype(np.float32)
+    hb = _unpack_qh(b[:, 4:8])
+    qs = b[:, 8:24]
+    lo = ((qs & 0x0F) | (hb[:, :16] << 4)).astype(np.float32)
+    hi = ((qs >> 4) | (hb[:, 16:] << 4)).astype(np.float32)
+    y = np.concatenate([lo, hi], axis=1) * d + m
     return y.reshape(-1)[:n]
 
 

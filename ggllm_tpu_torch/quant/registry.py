@@ -1,13 +1,14 @@
 """Dispatch over the ported quantization codecs (a subset of
-ggllm_tpu/quant/registry.py): F32, F16, Q4_0 and Q8_0. Any other type
-raises NotImplementedError."""
+ggllm_tpu/quant/registry.py): F32 and F16; Q4_0 and Q8_0 both ways; the
+dequantizers of Q4_1, Q5_0, Q5_1, Q4_K, Q5_K and Q6_K. Any other type or
+direction raises NotImplementedError."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ggllm_tpu_torch.core.dtypes import GGMLType
-from ggllm_tpu_torch.quant import legacy
+from ggllm_tpu_torch.quant import kquants, legacy
 
 _QUANTIZE = {
     GGMLType.Q4_0: legacy.quantize_q4_0,
@@ -16,8 +17,18 @@ _QUANTIZE = {
 
 _DEQUANTIZE = {
     GGMLType.Q4_0: legacy.dequantize_q4_0,
+    GGMLType.Q4_1: legacy.dequantize_q4_1,
+    GGMLType.Q5_0: legacy.dequantize_q5_0,
+    GGMLType.Q5_1: legacy.dequantize_q5_1,
     GGMLType.Q8_0: legacy.dequantize_q8_0,
+    GGMLType.Q4_K: kquants.dequantize_q4_K,
+    GGMLType.Q5_K: kquants.dequantize_q5_K,
+    GGMLType.Q6_K: kquants.dequantize_q6_K,
 }
+
+
+def can_quantize(gtype: GGMLType) -> bool:
+    return gtype in (GGMLType.F32, GGMLType.F16) or gtype in _QUANTIZE
 
 
 def quantize(gtype: GGMLType, x: np.ndarray) -> np.ndarray:

@@ -1,8 +1,9 @@
 """Where the time goes on the main path: a torch.profiler trace of one
-prefill chunk and of a run of decode tokens at full Falcon-7B width
-(random Q4_0 weights from a seed), on the CUDA card.
+prefill chunk and of a run of decode tokens at full model width (random
+weights of one format from a seed), on the CUDA card.
 
-    python -m ggllm_tpu_torch.tools.profile_decode [--prompt 300] [--tokens 16]
+    python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b]
+        [--format q4_0|q4_1|q5_0|q5_1|q8_0|q4_k|q5_k|q6_k] [--prompt 300] [--tokens 16]
 
 Prints one JSON object per phase: wall time, device busy time (the union
 of kernel intervals), the device's idle share, launches, and the kernels
@@ -20,6 +21,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.engine.engine import FalconEngine
 from ggllm_tpu_torch.ops.sampling import SamplerParams
 from ggllm_tpu_torch.utils.benchgen import make_bench_params
@@ -55,11 +57,14 @@ def _device_summary(prof, wall_s: float, n_tokens: int, top: int = 12) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("falcon7b", "falcon40b"), default="falcon7b")
+    ap.add_argument("--format", default="q4_0", help="2-D weight format (default q4_0)")
     ap.add_argument("--prompt", type=int, default=300)
     ap.add_argument("--tokens", type=int, default=16)
     args = ap.parse_args(argv)
-    hp = FalconHParams.falcon7b()
-    eng = FalconEngine(hp, make_bench_params(hp, seed=7), EngineConfig())
+    hp = getattr(FalconHParams, args.config)()
+    params = make_bench_params(hp, seed=7, gtype=GGMLType[args.format.upper()])
+    eng = FalconEngine(hp, params, EngineConfig())
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, args.prompt)]
     greedy = SamplerParams(temp=0.0)
     eng.generate(prompt[:8], 4, greedy, stop_ids=set())  # warm-up
@@ -71,7 +76,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         logits = eng.eval(prompt)
         wall = time.perf_counter() - t0
-    print(json.dumps({"phase": f"prefill {args.prompt}",
+    print(json.dumps({"model": f"{args.config} {args.format}", "phase": f"prefill {args.prompt}",
                       **_device_summary(prof, wall, args.prompt)}), flush=True)
 
     first = int(np.argmax(logits))

@@ -1,20 +1,27 @@
 """Synthetic parameters at real model scale, made on the device (the
 counterpart of ggllm_tpu/utils/benchgen.py make_bench_params:151).
 
-Benchmarks need Falcon-7B-sized Q4_0 weights but no pretrained values, and
-the repository holds no weights. This builds the merged parameter tree
-(io/loader.py layout) directly on the device from a seeded generator:
-random nibble codes and fp16-exact scales of one magnitude with random
-signs (the kernels' speed does not depend on the values), random
-embeddings. Every layer gets its own buffers, as a real checkpoint would.
+Benchmarks need Falcon-7B/40B-sized quantized weights but no pretrained
+values, and the repository holds no weights. This builds the merged
+parameter tree (io/loader.py layout) directly on the device from a seeded
+generator: random codes, and fp16-exact scales of one magnitude per
+format with random signs (the kernels' speed does not depend on the
+values), random embeddings. Every layer gets its own buffers, as a real
+checkpoint would.
 
-The scale signs matter for the numbers: uniform codes have mean 7.5, so
-w = (q - 8) * d has mean -d / 2. With one positive d for every block
-(as the JAX package's benchgen does; it suits timing only) each layer adds the
-same large offset to every residual feature, the bf16 residual loses its
-signal to rounding within a few layers, and two summation orders of the
-same model diverge. ggml's quantizer sets d = max / -8 with the sign of
-the block's largest element, so real Q4_0 scales have random signs too.
+The scales are chosen so that every block's expected weight is about zero.
+Uniform codes are not centred (Q4_0's w = (q - 8) * d has mean -d / 2), and
+with one positive d for every block (as the JAX package's benchgen does; it
+suits timing only) each layer adds the same large offset to every residual
+feature, the bf16 residual loses its signal to rounding within a few
+layers, and two summation orders of the same model diverge. ggml's
+quantizers give real files signed scales (Q4_0, Q5_0, Q8_0, Q6_K's sc) or
+mins near the block's low end, so here:
+  Q4_0, Q5_0, Q8_0  d = +-scale/8, +-scale/16, +-scale/128
+  Q4_1, Q5_1        m = -d * 7.5, -d * 15.5 (the code's mean)
+  Q4_K, Q5_K        dmin * scm = d * sc * 7.5 / 15.5 to within rounding
+                    (dmin = 8d / 16d, scm = round(sc * 15/16 / 31/32))
+  Q6_K              sc = +-(1..63)
 """
 
 from __future__ import annotations
@@ -24,28 +31,74 @@ import torch
 
 from ggllm_tpu_torch.core.config import FalconHParams
 from ggllm_tpu_torch.core.device import resolve_device
-from ggllm_tpu_torch.core.dtypes import GGMLType
+from ggllm_tpu_torch.core.dtypes import GGMLType, TYPE_TRAITS
 from ggllm_tpu_torch.ops.linear import QuantTensor
 
 
-def random_q4_0(out: int, cols: int, gen: torch.Generator, device, scale: float = 0.02) -> QuantTensor:
-    """Q4_0 QuantTensor with random codes and fp16 scales of +-scale/8."""
-    assert cols % 32 == 0, f"width {cols} not divisible by the Q4_0 block of 32"
-    nb = cols // 32
-    qs = torch.randint(0, 256, (out, nb, 16), generator=gen, dtype=torch.uint8, device=device)
-    sign = torch.randint(0, 2, (out, nb), generator=gen, device=device) * 2 - 1
-    d = (sign * float(np.float16(scale / 8))).to(torch.float16)
-    return QuantTensor(GGMLType.Q4_0, (out, cols), qs, d)
+def random_quant(gtype: GGMLType, out: int, cols: int, gen: torch.Generator, device,
+                 scale: float = 0.02) -> QuantTensor:
+    """QuantTensor of format gtype with random codes; every format's
+    weights have a spread of about 0.58 * scale and a mean near zero."""
+    gtype = GGMLType(gtype)
+    bs = TYPE_TRAITS[gtype].block_size
+    if cols % bs:
+        raise ValueError(f"{gtype.name}: width {cols} not divisible by its block of {bs}")
+    nb = cols // bs
+
+    def rbytes(*shape):
+        return torch.randint(0, 256, (out, nb, *shape), generator=gen, dtype=torch.uint8,
+                             device=device)
+
+    def rint(lo, hi, *shape):
+        return torch.randint(lo, hi, (out, nb, *shape), generator=gen, device=device)
+
+    def signed(v):  # (out, nb) fp16 of magnitude v with random signs
+        return ((rint(0, 2) * 2 - 1) * float(np.float16(v))).to(torch.float16)
+
+    f16 = torch.float16
+    if gtype in (GGMLType.Q4_0, GGMLType.Q4_1):
+        qs = rbytes(16)  # drawn before d, so a seed gives the same Q4_0 weights as before
+        d = signed(scale / 8)
+        planes = {"d": d, "qs": qs}
+        if gtype == GGMLType.Q4_1:
+            planes["m"] = (-7.5 * d.float()).to(f16)
+    elif gtype in (GGMLType.Q5_0, GGMLType.Q5_1):
+        d = signed(scale / 16)
+        planes = {"d": d, "qs": rbytes(16), "qh": rbytes(4).view(torch.int32).reshape(out, nb)}
+        if gtype == GGMLType.Q5_1:
+            planes["m"] = (-15.5 * d.float()).to(f16)
+    elif gtype == GGMLType.Q8_0:
+        planes = {"d": signed(scale / 128), "qs": rint(-127, 128, 32).to(torch.int8)}
+    elif gtype in (GGMLType.Q4_K, GGMLType.Q5_K):
+        q5 = gtype == GGMLType.Q5_K
+        d = signed(scale / (16 if q5 else 8) / 32)
+        sc = rint(1, 64, 8)
+        planes = {"d": d, "dmin": ((16 if q5 else 8) * d.float()).to(f16), "qs": rbytes(128),
+                  "sc": sc.to(torch.int8),
+                  "scm": torch.round(sc * (31 / 32 if q5 else 15 / 16)).to(torch.int8)}
+        if q5:
+            planes["qh"] = rbytes(32)
+    elif gtype == GGMLType.Q6_K:
+        sc = rint(1, 64, 16) * (rint(0, 2, 16) * 2 - 1)
+        planes = {"d": torch.full((out, nb), float(np.float16(scale / 32 / 32)), dtype=f16,
+                                  device=device),
+                  "sc": sc.to(torch.int8), "ql": rbytes(128), "qh": rbytes(64)}
+    else:
+        raise NotImplementedError(f"random_quant: {gtype.name} is not ported")
+    return QuantTensor(gtype, (out, cols), planes)
 
 
 def make_bench_params(hp: FalconHParams, compute_dtype=torch.bfloat16, device=None,
-                      seed: int = 42) -> dict:
-    """Full Falcon parameter tree at hp's scale with Q4_0 2-D weights."""
+                      seed: int = 42, gtype: GGMLType = GGMLType.Q4_0) -> dict:
+    """Full Falcon parameter tree at hp's scale with gtype 2-D weights."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     E, H, KV, D, F, V = hp.n_embd, hp.n_head, hp.n_head_kv, hp.head_dim, hp.n_ff, hp.n_vocab
     n_qkv = (H + 2 * KV) * D
+
+    def quant(out, cols):
+        return random_quant(gtype, out, cols, gen, device)
 
     def ones():
         return torch.ones(E, dtype=torch.float32, device=device)
@@ -55,20 +108,18 @@ def make_bench_params(hp: FalconHParams, compute_dtype=torch.bfloat16, device=No
 
     layers = []
     for _ in range(hp.n_layer):
-        lw = {"input_ln_w": ones(), "input_ln_b": zeros(),
-              "w_od": random_q4_0(E, H * D + F, gen, device)}
+        lw = {"input_ln_w": ones(), "input_ln_b": zeros(), "w_od": quant(E, H * D + F)}
         if hp.n_falcon_type >= 40:
-            lw.update(attn_ln_w=ones(), attn_ln_b=zeros(),
-                      wqkv=random_q4_0(n_qkv, E, gen, device),
-                      ffn_up=random_q4_0(F, E, gen, device))
+            lw.update(attn_ln_w=ones(), attn_ln_b=zeros(), wqkv=quant(n_qkv, E),
+                      ffn_up=quant(F, E))
         else:
-            lw["wqkvu"] = random_q4_0(n_qkv + F, E, gen, device)
+            lw["wqkvu"] = quant(n_qkv + F, E)
         layers.append(lw)
     emb = torch.randn(V, E, generator=gen, dtype=torch.float32, device=device) * 0.02
     return {
         "tok_embeddings": emb.to(compute_dtype),
         "output_norm": ones(),
         "output_norm_b": zeros(),
-        "lm_head": random_q4_0(V, E, gen, device),
+        "lm_head": quant(V, E),
         "layers": layers,
     }

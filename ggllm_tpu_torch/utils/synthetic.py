@@ -1,15 +1,20 @@
 """Small synthetic GGCC models (the counterpart of
 ggllm_tpu/utils/synthetic.py): a structurally faithful GGCC v10 file (real
 header, vocab, merges and tensor records) with random weights, written with
-the port's own writer and quantizer."""
+the port's own writer. Q4_0 and Q8_0 weights go through the port's
+quantizer; the other formats (whose quantizers are not ported) get seeded
+random codes and scales (utils/benchgen.py random_quant), packed into
+ggml's blocks."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ggllm_tpu_torch.core.config import FalconHParams
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.io.ggcc import GGCCWriter
+from ggllm_tpu_torch.quant import planar, registry
 from ggllm_tpu_torch.tokenizer.bpe import Vocab
 
 
@@ -67,12 +72,22 @@ def random_falcon_weights(hp: FalconHParams, seed: int = 0) -> dict[str, np.ndar
 
 def write_tiny_model(path: str, hp: FalconHParams | None = None,
                      ftype_2d: GGMLType = GGMLType.Q4_0, seed: int = 0) -> FalconHParams:
-    """Write a complete GGCC v10 file with random weights."""
+    """Write a complete GGCC v10 file with random weights, 2-D tensors in
+    ftype_2d (Q4_0 … Q6_K, F16 or F32)."""
+    from ggllm_tpu_torch.utils.benchgen import random_quant
+
     hp = hp or FalconHParams.tiny()
     vocab = make_tiny_vocab(hp.n_vocab)
     hp.n_bpe_merges = len(vocab.merges)
+    gen = torch.Generator().manual_seed(seed)
     writer = GGCCWriter(path, hp, vocab)
     for name, arr in random_falcon_weights(hp, seed).items():
-        writer.write_array(name, arr, ftype_2d if arr.ndim == 2 else GGMLType.F32)
+        if arr.ndim == 1 or registry.can_quantize(ftype_2d):
+            writer.write_array(name, arr, ftype_2d if arr.ndim == 2 else GGMLType.F32)
+            continue
+        rows, cols = arr.shape  # random blocks of the same spread, 1/sqrt(cols)
+        w = random_quant(ftype_2d, rows, cols, gen, "cpu", scale=float(np.sqrt(3.0 / cols)))
+        blob = planar.from_planes(ftype_2d, {k: v.numpy() for k, v in w.planes.items()})
+        writer.write_tensor(name, ftype_2d, (cols, rows), blob)
     writer.close()
     return hp

@@ -1,13 +1,17 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked `cuda` and skipped without one. These cover what chip_smoke.py's
-full-width checks do not: f32 inputs, ragged tiles (odd S, O and query
-tiles), per-row n_past / valid vectors, head_dim 32, and the tiny model end
-to end on the card against the CPU. They import no JAX, so they run on a
+full-width checks do not: every quant format with f32 and bf16 inputs,
+ragged tiles (odd S, O and query tiles), 16- and 32-wide group sums, per-row
+n_past / valid vectors, head_dim 32, Falcon-40B's 16 query heads per K/V
+head, refusals of what is not ported, and tiny models end to end on the
+card against the CPU. They import no JAX, so they run on a
 machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from ggllm_tpu_torch.kernels import flash_decode as fd
 from ggllm_tpu_torch.kernels import quant_matmul as qm
 from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
 from ggllm_tpu_torch.ops.linear import QuantTensor
+from ggllm_tpu_torch.utils.benchgen import random_quant
 
 pytestmark = pytest.mark.cuda
 
@@ -44,29 +49,45 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
+FORMATS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
+           GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
+
+
+@pytest.mark.parametrize("gtype", FORMATS, ids=[f.name.lower() for f in FORMATS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("S", [1, 3, 300])
-def test_quant_matmul(dev, dtype, S):
-    O, K = 100, 320
-    g = _gen(S)
-    w = QuantTensor(GGMLType.Q4_0, (O, K),
-                    torch.randint(0, 256, (O, K // 32, 16), generator=g, dtype=torch.uint8, device=dev),
-                    (torch.rand(O, K // 32, generator=g, device=dev) - 0.5).half())
-    x = torch.randn(S, K, generator=g, device=dev).to(dtype)
+def test_quant_matmul(dev, gtype, dtype, S):
+    O, K = 100, (512 if gtype in qm.K_QUANTS else 320)  # odd O: ragged GEMV and tile
+    w = random_quant(gtype, O, K, _gen(S), dev, scale=0.2)
+    x = torch.randn(S, K, generator=_gen(S + 1), device=dev).to(dtype)
     before = build.launch_counts["quant_matmul"]
     got = qm.quant_matmul(w, x, dtype)
     assert build.launch_counts["quant_matmul"] == before + 1
     _close(got, qm.quant_matmul_plain(w, x, dtype), dtype)
 
 
+def test_quant_matmul_refuses_what_is_not_ported(dev):
+    """On a CUDA tensor an unported format or width raises; nothing falls
+    back to the plain version."""
+    x = torch.randn(1, 256, device=dev)
+    q2k = SimpleNamespace(gtype=GGMLType.Q2_K, shape=(64, 256), planes={})
+    with pytest.raises(NotImplementedError):
+        qm.quant_matmul(q2k, x, torch.float32)
+    w = random_quant(GGMLType.Q4_K, 64, 512, _gen(0), dev)
+    bad = QuantTensor(GGMLType.Q4_K, (64, 320), w.planes)  # 320 % 256 != 0
+    with pytest.raises(ValueError):
+        qm.quant_matmul(bad, torch.randn(1, 320, device=dev), torch.float32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_group_sums(dev, dtype):
+@pytest.mark.parametrize("g", [32, 16])
+def test_group_sums(dev, dtype, g):
     x = torch.randn(300, 320, generator=_gen(0), device=dev).to(dtype)
-    _close(qm.group_sums(x), qm.group_sums_plain(x), torch.float32)
+    _close(qm.group_sums(x, g), qm.group_sums_plain(x, g), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("H,KV,D", [(8, 1, 64), (6, 2, 64), (5, 1, 32)])
+@pytest.mark.parametrize("H,KV,D", [(8, 1, 64), (6, 2, 64), (5, 1, 32), (128, 8, 64)])
 @pytest.mark.parametrize("n_past", [0, 37, "rows"])
 def test_flash_mqa(dev, dtype, H, KV, D, n_past):
     B, S, T = 2, 45, 160
@@ -80,7 +101,7 @@ def test_flash_mqa(dev, dtype, H, KV, D, n_past):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (2, 6, 64), (1, 5, 32)])
+@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (2, 6, 64), (1, 5, 32), (8, 128, 64)])
 @pytest.mark.parametrize("valid", [0, 1, 63, 64, 65, [200, 7]])
 def test_cache_partials(dev, dtype, KV, H, D, valid):
     B, T, L, l = 2, 256, 3, 2
@@ -94,14 +115,19 @@ def test_cache_partials(dev, dtype, KV, H, D, valid):
     _close(acc, acc_p, torch.float32)
 
 
-def test_tiny_model_on_card_matches_cpu(dev, tmp_path):
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=["q4_0", "q4_1", "q4_k", "q6_k"])
+def test_tiny_model_on_card_matches_cpu(dev, tmp_path, gtype):
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.io.loader import load_model
     from ggllm_tpu_torch.ops.sampling import SamplerParams
     from ggllm_tpu_torch.utils.synthetic import write_tiny_model
 
     path = str(tmp_path / "tiny.ggcc")
-    write_tiny_model(path, FalconHParams.tiny(), seed=5)
+    hp = FalconHParams.tiny() if gtype not in qm.K_QUANTS else FalconHParams(
+        n_vocab=512, n_embd=256, n_head=8, n_head_kv=2, n_layer=2, n_falcon_type=40,
+        n_bpe_merges=0)
+    write_tiny_model(path, hp, gtype, seed=5)
     cfg = EngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="float32")
     prompt = [int(t) for t in np.random.default_rng(4).integers(12, 500, 40)]  # 3 chunks
     logits, ids = [], []

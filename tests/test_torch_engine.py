@@ -1,8 +1,9 @@
-"""The PyTorch port's whole slice against the JAX package, on the CPU: a tiny
-Q4_0 GGCC file goes through both loaders and engines (JAX with its Pallas
-kernels in interpret mode, f32 compute and cache; the port with its plain
-kernel versions), plus the tokenizer, the loader bridge and the port's
-hygiene rules."""
+"""The PyTorch port's whole slice against the JAX package, on the CPU: tiny
+GGCC files (Q4_0 at n_embd 128; Q4_1, Q5_0, Q5_1, Q8_0 7B-style and Q4_K,
+Q5_K, Q6_K 40B-style at n_embd 256) go through both loaders and engines
+(JAX with its Pallas kernels in interpret mode, f32 compute and cache; the
+port with its plain kernel versions), plus the tokenizer, the loader bridge
+and the port's hygiene rules."""
 
 import subprocess
 import sys
@@ -43,18 +44,50 @@ def _torch_cfg():
     return TEngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="float32")
 
 
+# name -> (hparams, 2-D weight format); the n_embd-256 geometries are those of
+# tests/test_reference_e2e.py:157-162 (K-quants need widths divisible by 256)
+def _hp_7b_256():
+    return FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1, n_layer=2,
+                         n_falcon_type=7, n_bpe_merges=0)
+
+
+def _hp_40b_256():
+    return FalconHParams(n_vocab=512, n_embd=256, n_head=8, n_head_kv=2, n_layer=2,
+                         n_falcon_type=40, n_bpe_merges=0)
+
+
+MODELS = {
+    "tiny": (FalconHParams.tiny, GGMLType.Q4_0),
+    "tiny_gqa": (FalconHParams.tiny_gqa, GGMLType.Q4_0),
+    "7b_q4_1": (_hp_7b_256, GGMLType.Q4_1),
+    "7b_q5_0": (_hp_7b_256, GGMLType.Q5_0),
+    "7b_q5_1": (_hp_7b_256, GGMLType.Q5_1),
+    "7b_q8_0": (_hp_7b_256, GGMLType.Q8_0),
+    "40b_q4_k": (_hp_40b_256, GGMLType.Q4_K),
+    "40b_q5_k": (_hp_40b_256, GGMLType.Q5_K),
+    "40b_q6_k": (_hp_40b_256, GGMLType.Q6_K),
+}
+
+
 @pytest.fixture(scope="module")
 def tiny_files(tmp_path_factory):
+    """name -> path of a GGCC file written by the JAX package (on first use)."""
     d = tmp_path_factory.mktemp("tiny")
     paths = {}
-    for name in ("tiny", "tiny_gqa"):
-        paths[name] = str(d / f"{name}.ggcc")
-        write_tiny_model(paths[name], getattr(FalconHParams, name)(), ftype_2d=GGMLType.Q4_0,
-                         seed=17)
-    return paths
+
+    class Files:
+        def __getitem__(self, name):
+            if name not in paths:
+                mk_hp, ftype = MODELS[name]
+                paths[name] = str(d / f"{name}.ggcc")
+                write_tiny_model(paths[name], mk_hp(), ftype_2d=ftype, seed=17)
+            return paths[name]
+
+    return Files()
 
 
-@pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa"])
+@pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa", "7b_q4_1", "7b_q5_1", "40b_q4_k",
+                                     "40b_q6_k"])
 def test_slice_matches_jax_engine(tiny_files, hp_name):
     path = tiny_files[hp_name]
     mf = read_model(path)
@@ -86,7 +119,7 @@ def test_multi_chunk_prefill_matches_jax(tiny_files):
 
 
 @pytest.mark.parametrize("kernel_layout", [True, False], ids=["kernel", "planar"])
-@pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa"])
+@pytest.mark.parametrize("hp_name", list(MODELS))
 def test_from_jax_params_bit_identical(tiny_files, kernel_layout, hp_name):
     """The JAX loader's tree (merged KernelQuant or stacked planar form)
     converts to exactly the port loader's weights and logits."""
@@ -101,7 +134,11 @@ def test_from_jax_params_bit_identical(tiny_files, kernel_layout, hp_name):
             if isinstance(a[key], torch.Tensor):
                 assert torch.equal(a[key], b[key]), key
             else:
-                assert torch.equal(a[key].qs, b[key].qs) and torch.equal(a[key].d, b[key].d), key
+                assert a[key].gtype == b[key].gtype and a[key].shape == b[key].shape, key
+                assert a[key].planes.keys() == b[key].planes.keys(), key
+                for name, plane in a[key].planes.items():
+                    assert plane.dtype == b[key].planes[name].dtype, (key, name)
+                    assert torch.equal(plane, b[key].planes[name]), (key, name)
     outs = []
     for params in (own, bridged):
         eng = TFalconEngine(tmf.hparams, params, _torch_cfg(), device="cpu")

@@ -1,4 +1,5 @@
-"""The PyTorch port's kernel modules against the JAX package, on the CPU.
+"""The PyTorch port's kernel modules against the JAX package, on the CPU
+(quant_matmul in every ported format).
 
 The same numpy inputs (fixed seeds) go through the JAX function (Pallas in
 interpret mode) and through the port's wrapper, which on a CPU tensor runs
@@ -25,26 +26,32 @@ from ggllm_tpu_torch.kernels import flash_decode as tfd
 from ggllm_tpu_torch.kernels import quant_matmul as tqm
 from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
 from ggllm_tpu_torch.ops.linear import QuantTensor
+from ggllm_tpu_torch.quant import planar as tplanar
 
 
 def _weights(gtype, O, K, seed=0):
     """JAX planar planes of a random quantized (O, K) weight, and the port's
-    QuantTensor over the same planes."""
+    QuantTensor over the planes of the same blocks."""
     rng = np.random.default_rng(seed)
     w = (rng.standard_normal((O, K)) * 0.1).astype(np.float32)
-    blob = np.stack([jregistry.quantize(gtype, w[i]) for i in range(O)])
-    planes = jplanar.to_planes(gtype, blob.reshape(O, -1), O, K)
-    tq = QuantTensor(TGGMLType(int(gtype)), (O, K), torch.from_numpy(planes["qs"]),
-                     torch.from_numpy(planes["d"].astype(np.float16)))
+    blob = np.stack([jregistry.quantize(gtype, w[i]) for i in range(O)]).reshape(O, -1)
+    planes = jplanar.to_planes(gtype, blob, O, K)
+    tplanes = tplanar.to_planes(TGGMLType(int(gtype)), blob, O, K)
+    tq = QuantTensor(TGGMLType(int(gtype)), (O, K),
+                     {k: torch.from_numpy(v) for k, v in tplanes.items()})
     return planes, tq
 
 
-@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q8_0], ids=["q4_0", "q8_0"])
+FORMATS = [GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
+           GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
+
+
+@pytest.mark.parametrize("gtype", FORMATS, ids=[f.name.lower() for f in FORMATS])
 @pytest.mark.parametrize("S", [1, 4, 300])
 @pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
 def test_quant_matmul_matches_jax(gtype, S, xdtype):
-    O, K = 64, 256
-    planes, tq = _weights(gtype, O, K)
+    O, K = 64, 512
+    planes, tq = _weights(gtype, O, K, seed=S)
     kq = jlayout.to_kernel(gtype, planes, (O, K))
     x = np.random.default_rng(1).standard_normal((S, K)).astype(np.float32)
     ref = np.asarray(jqm.fused_matmul(kq, jnp.asarray(x, jnp.dtype(xdtype)), jnp.float32,
