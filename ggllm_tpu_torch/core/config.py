@@ -74,7 +74,7 @@ class EngineConfig:
     n_ctx: int = 2048
     n_batch: int = 512  # prefill chunk
     decode_chunk: int = 16  # tokens per decode_chunk call in generate()
-    kv_dtype: str = "bfloat16"  # "float32" for exactness
+    kv_dtype: str = "bfloat16"  # "float32" for exactness; "int8": codes + f32 scales
     compute_dtype: str = "bfloat16"
     rope: RopeConfig = field(default_factory=RopeConfig)
     # quantized matmuls through the hand-written kernel (True) or the plain

@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels: dtype conversion and staging of
-// K/V rows from device memory into shared memory as f32.
+// K/V rows (f32, bf16 or int8 codes) from device memory into shared memory
+// as f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +26,15 @@ __device__ __forceinline__ void unpack16(const uint4& v, float* dst, __nv_bfloat
   const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
   *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
   *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// 16 int8 codes -> 16 floats
+__device__ __forceinline__ void unpack16(const uint4& v, float* dst, int8_t) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; i += 4)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4((float)c[i], (float)c[i + 1], (float)c[i + 2], (float)c[i + 3]);
 }
 
 // Stage ROWS rows of D elements of K and of V (row r at ksrc/vsrc + r *

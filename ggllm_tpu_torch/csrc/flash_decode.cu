@@ -1,18 +1,25 @@
-// One-token decode attention partials over the valid prefix of one layer of
-// the stacked KV cache (flash-decoding).
+// One-token decode attention over the valid prefix of one layer of the
+// stacked KV cache (flash-decoding).
 //
 // Replaces the Pallas kernel ggllm_tpu/kernels/flash_decode.py `_kern`
 // (launched by cache_partials, wrapped by flash_decode), for bf16 and f32
-// caches. It returns the un-normalized online-softmax partials (acc, m, l)
-// of each query head against cache rows t < valid[b] of layer `layer`, read
-// straight from the 6-D cache (L, 2, B, T, KV, D) at the layer's offset; the
-// layer is a run-time argument, so one kernel serves every layer. A row with
+// caches and, as that kernel's quant=True variant, for an int8 cache: int8
+// codes (L, 2, B, T, KV, D) with one f32 scale per cached (position, head),
+// (L, 2, B, T, KV). There K's scale multiplies the score (q . k_codes) and
+// V's the probability before it weighs the V codes, so the scales factor
+// out of both dots over D; q stays in the compute dtype.
+//
+// The partials kernel returns the un-normalized online-softmax partials
+// (acc, m, l) of each query head against cache rows t < valid[b] of layer
+// `layer`, read straight from the 6-D cache at the layer's offset; the layer
+// is a run-time argument, so one kernel serves every layer. A row with
 // valid = 0 comes out as m = -1e30, l = 0, acc = 0.
 //
 // What bounds it on an H100: the bytes of the valid K/V prefix (at
-// Falcon-7B, KV = 1 and D = 64: 256 bytes per cached position in bf16) plus
-// launch latency; at decode there is one query row and one K/V head, so the
-// TPU grid's (row, head) parallelism is gone. The design:
+// Falcon-7B, KV = 1 and D = 64: 256 bytes per cached position in bf16, 136
+// as int8 codes and two scales) plus launch latency; at decode there is one
+// query row and one K/V head, so the TPU grid's (row, head) parallelism is
+// gone. The design:
 //  * the time axis is split across blocks of CT = 64 positions
 //    (flash-decoding), so a 2047-long prefix runs 32 blocks at once;
 //  * each block stages its K/V rows in shared memory once, with 16-byte
@@ -20,7 +27,12 @@
 //    group (G = 71 at Falcon-7B) reads them as broadcasts, keeping q and
 //    its f32 accumulator in registers;
 //  * a second small kernel merges the per-block (acc, m, l) with the usual
-//    partial-softmax algebra. Only positions below `valid` are read.
+//    partial-softmax algebra. Only positions below `valid` are read. For
+//    flash_decode that kernel (finish_kernel) also folds in the small
+//    unwritten [current token; pending] append block, which the JAX package
+//    merges in XLA (flash_decode.py:405-427), and writes the normalized
+//    output in q's dtype: as eager torch ops that merge is some twenty small
+//    launches per layer.
 
 #include "common.cuh"
 
@@ -33,14 +45,17 @@ constexpr int THREADS = 128;  // threads per block (>= the group size G)
 constexpr int SUB = 8;   // positions per online-softmax rescale
 constexpr float NEG_INF = -1e30f;
 
-template <typename T, int D>
+// T: the cache's element (float, bf16, or int8 codes with `scales`); TQ: q's
+template <typename T, typename TQ, int D>
 __global__ void __launch_bounds__(THREADS)
-partials_kernel(const T* __restrict__ cache, int layer, const T* __restrict__ q,
-                const int* __restrict__ valid_vec, int valid_scalar,
+partials_kernel(const T* __restrict__ cache, const float* __restrict__ scales, int layer,
+                const TQ* __restrict__ q, const int* __restrict__ valid_vec, int valid_scalar,
                 float* __restrict__ part_acc, float* __restrict__ part_ml,
                 int B, int Tn, int KV, int G, int n_chunks) {
   __shared__ __align__(16) float ks[CT][D];
   __shared__ __align__(16) float vs[CT][D];
+  constexpr bool QUANT = sizeof(T) == 1;
+  __shared__ float ksc[QUANT ? CT : 1], vsc[QUANT ? CT : 1];  // per-position scales
   const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int g = threadIdx.x;
   const int valid = valid_vec ? valid_vec[b] : valid_scalar;
@@ -60,6 +75,11 @@ partials_kernel(const T* __restrict__ cache, int layer, const T* __restrict__ q,
   const size_t vbase = kbase + (size_t)B * Tn * row;
   gq::stage_kv<T, CT, D, THREADS>(ks, vs, cache + kbase + (size_t)t0 * row,
                                   cache + vbase + (size_t)t0 * row, row, n);
+  if (QUANT && g < CT) {  // THREADS >= CT
+    const size_t sk = ((((size_t)layer * 2) * B + b) * Tn + t0 + g) * KV + kvh;
+    ksc[g] = g < n ? scales[sk] : 0.f;
+    vsc[g] = g < n ? scales[sk + (size_t)B * Tn * KV] : 0.f;
+  }
   __syncthreads();
   if (g >= G) return;
 
@@ -83,6 +103,7 @@ partials_kernel(const T* __restrict__ cache, int layer, const T* __restrict__ q,
         const float4 kk = *reinterpret_cast<const float4*>(&ks[tt + u][dd]);
         dot += qr[dd] * kk.x + qr[dd + 1] * kk.y + qr[dd + 2] * kk.z + qr[dd + 3] * kk.w;
       }
+      if (QUANT) dot *= ksc[tt + u];
       s[u] = (tt + u < n) ? dot * scale : NEG_INF;
       mx = fmaxf(mx, s[u]);
     }
@@ -94,13 +115,14 @@ partials_kernel(const T* __restrict__ cache, int layer, const T* __restrict__ q,
     for (int u = 0; u < SUB; ++u) {
       const float p = expf(s[u] - mx);
       l += p;
+      const float pv = QUANT ? p * vsc[tt + u] : p;
 #pragma unroll
       for (int dd = 0; dd < D; dd += 4) {
         const float4 vv = *reinterpret_cast<const float4*>(&vs[tt + u][dd]);
-        acc[dd] += p * vv.x;
-        acc[dd + 1] += p * vv.y;
-        acc[dd + 2] += p * vv.z;
-        acc[dd + 3] += p * vv.w;
+        acc[dd] += pv * vv.x;
+        acc[dd + 1] += pv * vv.y;
+        acc[dd + 2] += pv * vv.z;
+        acc[dd + 3] += pv * vv.w;
       }
     }
     m = mx;
@@ -111,23 +133,32 @@ partials_kernel(const T* __restrict__ cache, int layer, const T* __restrict__ q,
   part_ml[2 * pidx + 1] = l;
 }
 
-// one block per (b, kv, g) row, one thread per head dimension
-__global__ void merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                             float* __restrict__ acc, float* __restrict__ m_out,
-                             float* __restrict__ l_out, int G, int n_chunks, int D) {
-  const int r = blockIdx.x;  // (b * KV + kv) * G + g
-  const int bk = r / G, g = r % G;
-  const int dd = threadIdx.x;
-  float M = NEG_INF;
+// (M, L, A) of row (bk, g) at head dimension dd, merged over the time chunks
+__device__ __forceinline__ void merge_chunks(const float* __restrict__ part_acc,
+                                             const float* __restrict__ part_ml, int bk, int g,
+                                             int dd, int G, int n_chunks, int D, float& M,
+                                             float& L, float& A) {
+  M = NEG_INF;
   for (int c = 0; c < n_chunks; ++c)
     M = fmaxf(M, part_ml[2 * (((size_t)bk * n_chunks + c) * G + g)]);
-  float L = 0.f, A = 0.f;
+  L = 0.f;
+  A = 0.f;
   for (int c = 0; c < n_chunks; ++c) {
     const size_t p = ((size_t)bk * n_chunks + c) * G + g;
     const float w = expf(part_ml[2 * p] - M);
     L += w * part_ml[2 * p + 1];
     A += w * part_acc[p * D + dd];
   }
+}
+
+// one block per (b, kv, g) row, one thread per head dimension
+__global__ void merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                             float* __restrict__ acc, float* __restrict__ m_out,
+                             float* __restrict__ l_out, int G, int n_chunks, int D) {
+  const int r = blockIdx.x;  // (b * KV + kv) * G + g
+  const int dd = threadIdx.x;
+  float M, L, A;
+  merge_chunks(part_acc, part_ml, r / G, r % G, dd, G, n_chunks, D, M, L, A);
   acc[(size_t)r * D + dd] = A;
   if (dd == 0) {
     m_out[r] = M;
@@ -135,55 +166,147 @@ __global__ void merge_kernel(const float* __restrict__ part_acc, const float* __
   }
 }
 
-template <typename T, int D>
-void launch_partials(const void* cache, int layer, const void* q, const int* vv, int valid,
-                     float* pacc, float* pml, int B, int Tn, int KV, int G, int n_chunks,
-                     cudaStream_t st) {
+// As merge_kernel, then the append block app (2, B, A, KV, D) of which the
+// first app_valid entries are real, then out = acc / l for head kv * G + g,
+// which lies at row r of out (B, 1, H, D). blockDim.x == D; A floats of
+// dynamic shared memory hold the block's scores.
+template <typename TQ>
+__global__ void finish_kernel(const float* __restrict__ part_acc,
+                              const float* __restrict__ part_ml, const TQ* __restrict__ q,
+                              const TQ* __restrict__ app, int n_app, int app_valid,
+                              TQ* __restrict__ out, int B, int KV, int G, int n_chunks, int D) {
+  extern __shared__ float s2[];
+  const int r = blockIdx.x;  // (b * KV + kv) * G + g
+  const int bk = r / G, b = bk / KV, kvh = bk % KV;
+  const int dd = threadIdx.x;
+  float M, L, A;
+  merge_chunks(part_acc, part_ml, bk, r % G, dd, G, n_chunks, D, M, L, A);
+  if (n_app > 0) {
+    const float scale = 1.0f / sqrtf((float)D);
+    const TQ* qr = q + (size_t)r * D;
+    const size_t step = (size_t)KV * D;  // elements per append entry
+    const TQ* ka = app + ((size_t)b * n_app * KV + kvh) * D;
+    const TQ* va = ka + (size_t)B * n_app * step;
+    for (int a = dd; a < n_app; a += D) {
+      float dot = 0.f;
+      for (int e = 0; e < D; ++e) dot += to_f32(qr[e]) * to_f32(ka[a * step + e]);
+      s2[a] = a < app_valid ? dot * scale : NEG_INF;
+    }
+    __syncthreads();
+    float M2 = M;
+    for (int a = 0; a < n_app; ++a) M2 = fmaxf(M2, s2[a]);
+    const float w = expf(M - M2);
+    L *= w;
+    A *= w;
+    for (int a = 0; a < app_valid; ++a) {
+      const float p = expf(s2[a] - M2);
+      L += p;
+      A += p * to_f32(va[a * step + dd]);
+    }
+  }
+  gq::store(out + (size_t)r * D + dd, A / fmaxf(L, 1e-30f));
+}
+
+template <typename T, typename TQ, int D>
+void launch_partials(const void* cache, const void* scales, int layer, const void* q,
+                     const int* vv, int valid, float* pacc, float* pml, int B, int Tn, int KV,
+                     int G, int n_chunks, cudaStream_t st) {
   dim3 grid(n_chunks, KV, B);
-  partials_kernel<T, D><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(cache), layer, static_cast<const T*>(q), vv, valid, pacc, pml,
-      B, Tn, KV, G, n_chunks);
+  partials_kernel<T, TQ, D><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(cache), static_cast<const float*>(scales), layer,
+      static_cast<const TQ*>(q), vv, valid, pacc, pml, B, Tn, KV, G, n_chunks);
+}
+
+template <int D>
+bool dispatch_partials(int cache_kind, int q_bf16, const void* cache, const void* scales,
+                       int layer, const void* q, const int* vv, int valid, float* pacc,
+                       float* pml, int B, int Tn, int KV, int G, int n_chunks, cudaStream_t st) {
+#define GQ_ARGS cache, scales, layer, q, vv, valid, pacc, pml, B, Tn, KV, G, n_chunks, st
+  if (cache_kind == 0 && !q_bf16)
+    launch_partials<float, float, D>(GQ_ARGS);
+  else if (cache_kind == 1 && q_bf16)
+    launch_partials<__nv_bfloat16, __nv_bfloat16, D>(GQ_ARGS);
+  else if (cache_kind == 2 && q_bf16)
+    launch_partials<int8_t, __nv_bfloat16, D>(GQ_ARGS);
+  else if (cache_kind == 2)
+    launch_partials<int8_t, float, D>(GQ_ARGS);
+  else
+    return false;
+#undef GQ_ARGS
+  return true;
+}
+
+// Checks the arguments and launches the partials over n_chunks time chunks.
+cudaError_t run_partials(const void* cache, int cache_kind, const void* scales, int layer,
+                         const void* q, int q_bf16, const void* valid_vec, int valid,
+                         void* part_acc, void* part_ml, int L, int B, int Tn, int KV, int G,
+                         int D, int n_chunks, cudaStream_t st) {
+  if (layer < 0 || layer >= L || B < 1 || KV < 1 || G < 1 || G > THREADS || n_chunks < 0 ||
+      n_chunks * CT > Tn + CT - 1 || (D != 32 && D != 64) ||
+      (cache_kind == 2) != (scales != nullptr))
+    return cudaErrorInvalidValue;
+  if (n_chunks == 0) return cudaSuccess;
+  const int* vv = static_cast<const int*>(valid_vec);
+  float* pacc = static_cast<float*>(part_acc);
+  float* pml = static_cast<float*>(part_ml);
+  const bool ok =
+      D == 32 ? dispatch_partials<32>(cache_kind, q_bf16, cache, scales, layer, q, vv, valid,
+                                      pacc, pml, B, Tn, KV, G, n_chunks, st)
+              : dispatch_partials<64>(cache_kind, q_bf16, cache, scales, layer, q, vv, valid,
+                                      pacc, pml, B, Tn, KV, G, n_chunks, st);
+  return ok ? cudaGetLastError() : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// cache (L, 2, B, T, KV, D) contiguous; q (B, KV, G, D) contiguous in the
-// cache's dtype. Writes acc (B, KV, G, D), m and l (B, KV, G) in f32, using
-// part_acc (B, KV, n_chunks, G, D) and part_ml (B, KV, n_chunks, G, 2) as
-// scratch. n_chunks * 64 must cover every row's valid length; valid_vec
-// (B,) int32 on the device, or null to use `valid` for every row.
-extern "C" int gq_cache_partials(const void* cache, int is_bf16, int layer, const void* q,
-                                 const void* valid_vec, int valid, void* acc, void* m, void* l,
-                                 void* part_acc, void* part_ml, int L, int B, int Tn, int KV,
-                                 int G, int D, int n_chunks, void* stream) {
-  if (layer < 0 || layer >= L || B < 1 || KV < 1 || G < 1 || G > THREADS || n_chunks < 0 ||
-      n_chunks * CT > Tn + CT - 1)
+// cache (L, 2, B, T, KV, D) contiguous, cache_kind 0 = f32, 1 = bf16, 2 = int8
+// codes with scales (L, 2, B, T, KV) f32 contiguous (null otherwise); q
+// (B, KV, G, D) contiguous, in the cache's dtype for kinds 0 and 1 and f32 or
+// bf16 (q_bf16) for kind 2. Writes acc (B, KV, G, D), m and l (B, KV, G) in
+// f32, using part_acc (B, KV, n_chunks, G, D) and part_ml (B, KV, n_chunks,
+// G, 2) as scratch. n_chunks * 64 must cover every row's valid length;
+// valid_vec (B,) int32 on the device, or null to use `valid` for every row.
+extern "C" int gq_cache_partials(const void* cache, int cache_kind, const void* scales,
+                                 int layer, const void* q, int q_bf16, const void* valid_vec,
+                                 int valid, void* acc, void* m, void* l, void* part_acc,
+                                 void* part_ml, int L, int B, int Tn, int KV, int G, int D,
+                                 int n_chunks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = run_partials(cache, cache_kind, scales, layer, q, q_bf16, valid_vec, valid,
+                               part_acc, part_ml, L, B, Tn, KV, G, D, n_chunks, st);
+  if (e != cudaSuccess) return e;
+  merge_kernel<<<B * KV * G, D, 0, st>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), G, n_chunks, D);
+  return cudaGetLastError();
+}
+
+// The whole decode attention: the partials as above, then their merge with
+// the append block app (2, B, n_app, KV, D) in q's dtype (null with n_app =
+// 0), of which the first app_valid entries are real, into out (B, 1, H, D)
+// in q's dtype.
+extern "C" int gq_flash_decode(const void* cache, int cache_kind, const void* scales, int layer,
+                               const void* q, int q_bf16, const void* valid_vec, int valid,
+                               const void* app, int n_app, int app_valid, void* out,
+                               void* part_acc, void* part_ml, int L, int B, int Tn, int KV,
+                               int G, int D, int n_chunks, void* stream) {
+  if (n_app < 0 || app_valid < 0 || app_valid > n_app || (n_app > 0) != (app != nullptr) ||
+      (n_app > 0 && app_valid < 1))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* vv = static_cast<const int*>(valid_vec);
-  float* pacc = static_cast<float*>(part_acc);
-  float* pml = static_cast<float*>(part_ml);
-  bool launched = false;
-  if (n_chunks > 0) {
-#define GQ_DECODE_CASE(DV)                                                                     \
-  if (D == DV) {                                                                               \
-    if (is_bf16)                                                                               \
-      launch_partials<__nv_bfloat16, DV>(cache, layer, q, vv, valid, pacc, pml, B, Tn, KV, G,  \
-                                         n_chunks, st);                                        \
-    else                                                                                       \
-      launch_partials<float, DV>(cache, layer, q, vv, valid, pacc, pml, B, Tn, KV, G,          \
-                                 n_chunks, st);                                                \
-    launched = true;                                                                           \
-  }
-    GQ_DECODE_CASE(32)
-    GQ_DECODE_CASE(64)
-#undef GQ_DECODE_CASE
-    if (!launched) return cudaErrorInvalidValue;
-  } else if (D != 32 && D != 64) {
-    return cudaErrorInvalidValue;
-  }
-  merge_kernel<<<B * KV * G, D, 0, st>>>(pacc, pml, static_cast<float*>(acc),
-                                         static_cast<float*>(m), static_cast<float*>(l), G,
-                                         n_chunks, D);
+  cudaError_t e = run_partials(cache, cache_kind, scales, layer, q, q_bf16, valid_vec, valid,
+                               part_acc, part_ml, L, B, Tn, KV, G, D, n_chunks, st);
+  if (e != cudaSuccess) return e;
+  const float* pacc = static_cast<const float*>(part_acc);
+  const float* pml = static_cast<const float*>(part_ml);
+  const size_t smem = (size_t)(n_app > 0 ? n_app : 1) * sizeof(float);
+  if (q_bf16)
+    finish_kernel<__nv_bfloat16><<<B * KV * G, D, smem, st>>>(
+        pacc, pml, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(app),
+        n_app, app_valid, static_cast<__nv_bfloat16*>(out), B, KV, G, n_chunks, D);
+  else
+    finish_kernel<float><<<B * KV * G, D, smem, st>>>(
+        pacc, pml, static_cast<const float*>(q), static_cast<const float*>(app), n_app,
+        app_valid, static_cast<float*>(out), B, KV, G, n_chunks, D);
   return cudaGetLastError();
 }

@@ -1,33 +1,41 @@
 // Fused dequant x matmul (y = x @ W^T) for the ggml formats Q4_0, Q4_1,
-// Q5_0, Q5_1, Q8_0, Q4_K, Q5_K and Q6_K, and per-group sums of x.
+// Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K, and per-group sums of x.
 //
 // Replaces the Pallas kernels ggllm_tpu/kernels/quant_matmul.py `_kern`
 // (launched by fused_matmul_2d) and `_xg_kern` (launched by _group_sums).
 //
 // Weights are ggml's own row-major planar blocks (quant/planar.py): code
-// planes qs / qh / ql as ggml packs them, fp16 d (and m or dmin), int8
-// sub-scales sc / scm for K-quants. Both kernels keep the TPU kernel's
-// correction form: with w = s_g * q - c_g in each scale group g,
+// planes qs / qh / ql / hmask as ggml packs them, fp16 d (and m or dmin),
+// int8 sub-scales sc / scm for K-quants (Q2_K: scb, a scale and a min nibble
+// per byte). Both kernels keep the TPU kernel's correction form: with
+// w = s_g * q - c_g in each scale group g,
 //     y[s,o] = sum_g s_g * (sum_{j in g} q_j x[s,j]) - c_g * xg[s,g],
 // f32 accumulation throughout; q is the unsigned code (signed for Q8_0).
 //
 // One trait per format (Fmt<F>) loads the bytes a 32-element group needs
 // (load), yields the code of element i of the group (code), and the scale
 // and correction of each of its scale groups (scale, corr: one 32-group, or
-// two 16-groups for Q6_K). The GEMV and the tile share every format's
-// decoding through it:
+// two 16-groups for Q2_K, Q3_K and Q6_K). The GEMV and the tile share every
+// format's decoding through it:
 //   legacy  s = d;          c = 8d (Q4_0), 16d (Q5_0), -m (Q4_1/Q5_1), 0 (Q8_0)
 //   Q4_K/Q5_K s = d * sc;   c = dmin * scm   (products in f32, as k_quants.c)
 //   Q6_K    s = d * sc;     c = 32 s         (16-element groups, signed sc)
+//   Q3_K    s = d * sc;     c = 4 s          (16-element groups, signed sc;
+//                                             code = two | hmask bit << 2)
+//   Q2_K    s = d * (scb & 15); c = dmin * (scb >> 4)   (16-element groups)
 // Element order within a 32-group: legacy blocks split each byte's nibbles
 // between elements j and j + 16; a K-quant 64-element chunk keeps elements
 // 0-31 in the low nibbles and 32-63 in the high ones (so 32-group 2j+h of a
 // super-block reads nibble h of chunk j's 32 bytes, and Q5_K its qh bit
 // 2j+h); Q6_K's 128-halves hold four 32-strips, strip l in nibble l/2 of
-// ql bytes [64 half + 32 (l%2), +32) with qh bits 2l.
+// ql bytes [64 half + 32 (l%2), +32) with qh bits 2l; Q2_K's and Q3_K's
+// 128-halves hold four 32-strips too, strip l in bits 2l of qs bytes
+// [32 half, +32), and Q3_K's third bit of 32-group m of a super-block is bit
+// m of all 32 hmask bytes. So four lanes of a warp load the same 32 qs bytes
+// and eight the same hmask bytes in one instruction (one transaction each).
 //
 // What bounds it on an H100:
-//  * S = 1 (decode) is a GEMV bound by the weight bytes (4.5-8.5 bits per
+//  * S = 1 (decode) is a GEMV bound by the weight bytes (2.6-8.5 bits per
 //    weight): the x vector is tiny. Each lane takes one 32-group of a row
 //    per step and loads its bytes with 16-byte loads (two K-quant lanes
 //    share a 32-byte chunk: one transaction); each warp walks GEMV_ROWS
@@ -63,14 +71,17 @@ constexpr int BM = 64, BN = 64; // prefill tile: x rows x W rows
 constexpr int MAX_SMEM = 227 * 1024;
 
 // ggml type ids (ggml.h)
-enum : int { Q4_0 = 2, Q4_1 = 3, Q5_0 = 6, Q5_1 = 7, Q8_0 = 8, Q4_K = 12, Q5_K = 13, Q6_K = 14 };
+enum : int {
+  Q4_0 = 2, Q4_1 = 3, Q5_0 = 6, Q5_1 = 7, Q8_0 = 8,
+  Q2_K = 10, Q3_K = 11, Q4_K = 12, Q5_K = 13, Q6_K = 14
+};
 
 struct Planes {
   const uint8_t* qs;  // Q6_K: ql
-  const void* qh;     // Q5_0/Q5_1: one uint32 per block; Q5_K/Q6_K: bytes
+  const void* qh;     // Q5_0/Q5_1: one uint32 per block; Q5_K/Q6_K: bytes; Q3_K: hmask
   const __half* d;
   const __half* m;    // Q4_1/Q5_1: m; Q4_K/Q5_K: dmin
-  const int8_t* sc;
+  const int8_t* sc;   // Q2_K: scb, unsigned bytes (scale | min << 4)
   const int8_t* scm;
   int nb;             // blocks (legacy) or super-blocks (K-quants) per row
 };
@@ -210,7 +221,55 @@ struct Q6K {  // Q6_K: 32-group g = 8 sb + 4 half + strip; two 16-groups each
   __device__ static float corr(const Raw& r, int k) { return 32.f * (k ? r.s1 : r.s0); }
 };
 
+template <int F>
+struct KQ23 {  // Q2_K, Q3_K: 32-group g = 8 sb + 4 half + strip; two 16-groups each
+  static constexpr int SUB = 16, ROWS = 4;
+  static constexpr bool CORR = true;
+  static constexpr bool HIGH = F == Q3_K;
+  struct Raw {
+    uint4 q[2], h[2];
+    float s0, s1, c0, c1;  // c0, c1: Q2_K only (Q3_K's correction is 4 s)
+  };
+  __device__ static void load(const Planes& p, int row, int g, Raw& r) {
+    const int half = (g >> 2) & 1, strip = g & 3;
+    const size_t blk = (size_t)row * p.nb + (g >> 3);
+    const uint8_t* qp = p.qs + blk * 64 + half * 32;  // the half's 32 bytes
+    r.q[0] = ld16(qp);
+    r.q[1] = ld16(qp + 16);
+    const float d = __half2float(p.d[blk]);
+    const size_t k = blk * 16 + half * 8 + 2 * strip;  // first of the two 16-groups
+    if (HIGH) {
+      const uint8_t* hp = static_cast<const uint8_t*>(p.qh) + blk * 32;
+      r.h[0] = ld16(hp);
+      r.h[1] = ld16(hp + 16);
+      r.s0 = d * (float)p.sc[k];  // signed, -32..31
+      r.s1 = d * (float)p.sc[k + 1];
+      r.c0 = r.c1 = 0.f;
+    } else {
+      r.h[0] = r.h[1] = make_uint4(0, 0, 0, 0);
+      const uint8_t* scb = reinterpret_cast<const uint8_t*>(p.sc);
+      const float dmin = __half2float(p.m[blk]);
+      const uint32_t b0 = scb[k], b1 = scb[k + 1];
+      r.s0 = d * (float)(b0 & 0xFu);
+      r.s1 = d * (float)(b1 & 0xFu);
+      r.c0 = dmin * (float)(b0 >> 4);
+      r.c1 = dmin * (float)(b1 >> 4);
+    }
+  }
+  __device__ static float code(const Raw& r, int g, int i) {
+    uint32_t q = (byte32(r.q, i) >> (2 * (g & 3))) & 3u;
+    if (HIGH) q |= ((byte32(r.h, i) >> (g & 7)) & 1u) << 2;  // hmask bit 4 half + strip
+    return (float)q;
+  }
+  __device__ static float scale(const Raw& r, int k) { return k ? r.s1 : r.s0; }
+  __device__ static float corr(const Raw& r, int k) {
+    return HIGH ? 4.f * (k ? r.s1 : r.s0) : (k ? r.c1 : r.c0);
+  }
+};
+
 template <int F> struct Fmt : Legacy<F> {};
+template <> struct Fmt<Q2_K> : KQ23<Q2_K> {};
+template <> struct Fmt<Q3_K> : KQ23<Q3_K> {};
 template <> struct Fmt<Q8_0> : Q8 {};
 template <> struct Fmt<Q4_K> : KQ45<Q4_K> {};
 template <> struct Fmt<Q5_K> : KQ45<Q5_K> {};
@@ -480,6 +539,8 @@ cudaError_t dispatch(int gtype, const void* x, const Planes& p, const void* xg, 
     case Q5_0: return launch_matmul<Q5_0, TX, TY>(x, p, xg, y, S, K, O, st);
     case Q5_1: return launch_matmul<Q5_1, TX, TY>(x, p, xg, y, S, K, O, st);
     case Q8_0: return launch_matmul<Q8_0, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q2_K: return launch_matmul<Q2_K, TX, TY>(x, p, xg, y, S, K, O, st);
+    case Q3_K: return launch_matmul<Q3_K, TX, TY>(x, p, xg, y, S, K, O, st);
     case Q4_K: return launch_matmul<Q4_K, TX, TY>(x, p, xg, y, S, K, O, st);
     case Q5_K: return launch_matmul<Q5_K, TX, TY>(x, p, xg, y, S, K, O, st);
     case Q6_K: return launch_matmul<Q6_K, TX, TY>(x, p, xg, y, S, K, O, st);
@@ -490,14 +551,15 @@ cudaError_t dispatch(int gtype, const void* x, const Planes& p, const void* xg, 
 }  // namespace
 
 // y (S, O) = x (S, K) @ W^T from the planes of a ggml-type `gtype` weight
-// (null for planes the format lacks; qs holds Q6_K's ql, m holds dmin);
-// xg (S, K/16 for Q6_K, else K/32) f32 group sums of x, required for S > 1
-// (except Q8_0) and ignored for S == 1.
+// (null for planes the format lacks; qs holds Q6_K's ql, qh Q3_K's hmask, m
+// holds dmin, sc Q2_K's scb); xg (S, K/16 for Q2_K, Q3_K and Q6_K, else K/32)
+// f32 group sums of x, required for S > 1 (except Q8_0) and ignored for
+// S == 1.
 extern "C" int gq_quant_matmul(int gtype, const void* x, int x_bf16, const void* qs,
                                const void* qh, const void* d, const void* m, const void* sc,
                                const void* scm, const void* xg, void* y, int y_bf16, int S,
                                int K, int O, void* stream) {
-  const bool kq = gtype == Q4_K || gtype == Q5_K || gtype == Q6_K;
+  const bool kq = gtype >= Q2_K && gtype <= Q6_K;
   if (S < 1 || O < 1 || K % (kq ? 256 : GROUP) != 0) return cudaErrorInvalidValue;
   const Planes p{static_cast<const uint8_t*>(qs), qh, static_cast<const __half*>(d),
                  static_cast<const __half*>(m), static_cast<const int8_t*>(sc),

@@ -4,8 +4,13 @@ ggllm_tpu/engine/engine.py FalconEngine:143).
 PyTorch runs eagerly, so the JAX engine's compile-shaped machinery has no
 counterpart here: prefill chunks run at their own length (no power-of-two
 buckets), and decoding is a Python step loop whose tokens stay on the
-device until the end of a chunk (no fused lax.scan). Each layer writes its
-K/V into the cache in place before attending (no chunk-deferred append).
+device until the end of a chunk (no fused lax.scan). With a dense cache
+each layer writes its K/V into the cache in place before attending, which
+gives the JAX engine's numbers because its pending buffer has the cache's
+dtype. With an int8 cache decode_chunk runs the JAX engine's chunk-deferred
+scheme (engine.py:542-585): the chunk's K/V stay unquantized in a pending
+buffer in the compute dtype, attention reads the quantized cache below the
+chunk's start plus that buffer, and one quantizing write ends the chunk.
 """
 
 from __future__ import annotations
@@ -90,7 +95,8 @@ class FalconEngine:
         cache has the same shape in both packages."""
         return self.cfg.n_ctx + max(self.cfg.n_batch, DECODE_CHUNK, self.cfg.decode_chunk)
 
-    def new_kv(self) -> torch.Tensor:
+    def new_kv(self):
+        """A zeroed cache: one tensor, or (codes, scales) for kv_dtype "int8"."""
         hp = self.hp
         shape = (hp.n_layer, 2, self.batch, self.kv_T, hp.n_head_kv, hp.head_dim)
         return kvcache.new(shape, self.cfg.kv_dtype, self.device)
@@ -169,15 +175,29 @@ class FalconEngine:
         L = ring.numel()
         out = torch.empty(n_steps, dtype=torch.long, device=self.device)
         tok = torch.tensor([int(first_token)], dtype=torch.long, device=self.device)
+        pending = None
+        if kvcache.is_quantized(self.kv):  # chunk-deferred: the cache is read-only
+            L_, _, B, _, KV, D = self.kv[0].shape
+            pending = torch.zeros(L_, 2, B, n_steps, KV, D, device=self.device,
+                                  dtype=getattr(torch, self.cfg.compute_dtype))
         t0 = time.perf_counter()
         for j in range(n_steps):
-            logits = self._forward(tok)[0, 0]
+            if pending is None:
+                logits = self._forward(tok)[0, 0]
+            else:
+                logits, kv_new = self.model(tok.reshape(1, 1), self.kv, self.n_past + j,
+                                            self.inv_freq, pending=pending, n_pend=j)
+                pending[:, :, :, j:j + 1] = kv_new
+                logits = logits[0, 0]
             penalized = sampling_device.apply_penalties(logits, ring, spec)
             nxt = sampling_device.sample_logits(penalized, generator, float(sampler.temp),
                                                 int(sampler.top_k), float(sampler.top_p))
             ring[(pos + j) % L] = nxt
             out[j] = nxt
             tok = nxt.reshape(1)
+        if pending is not None:  # the chunk's one (quantizing) write
+            kvcache.write_all_layers(self.kv, pending, self.n_past)
+            self.n_past += n_steps
         toks = out.cpu().numpy()
         self.timings.t_decode_us += (time.perf_counter() - t0) * 1e6
         self.timings.n_decode += n_steps

@@ -27,7 +27,7 @@ from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
 from ggllm_tpu_torch.core.device import resolve_device
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.io.ggcc import ModelFile, read_model
-from ggllm_tpu_torch.kernels.quant_matmul import K_QUANTS
+from ggllm_tpu_torch.kernels.quant_matmul import K_QUANTS, KERNEL_FORMATS
 from ggllm_tpu_torch.ops.linear import QuantTensor
 from ggllm_tpu_torch.quant import planar
 
@@ -157,6 +157,8 @@ _KERNEL_CODE_PLANES = {
     GGMLType.Q5_0: (("q", 4, 0), ("h", 1, 4)),
     GGMLType.Q5_1: (("q", 4, 0), ("h", 1, 4)),
     GGMLType.Q8_0: (("q", 8, 0),),
+    GGMLType.Q2_K: (("q", 2, 0),),
+    GGMLType.Q3_K: (("q", 2, 0), ("h", 1, 2)),
     GGMLType.Q4_K: (("q", 4, 0),),
     GGMLType.Q5_K: (("q", 4, 0), ("h", 1, 4)),
     GGMLType.Q6_K: (("q", 4, 0), ("h", 2, 4)),
@@ -198,12 +200,20 @@ def _planes_from_kernel(kq) -> dict[str, np.ndarray]:
     planes = planar.planes_from_codes(gtype, codes)
     if gtype in K_QUANTS:
         nb = K // 256
-        g = 16 if gtype == GGMLType.Q6_K else 32
+        g = KERNEL_FORMATS[gtype][0]
+
+        def sub(name, dtype):  # integer sub-scales, one per g elements
+            return unchunk(kq.planes[name], K // g).astype(dtype).reshape(O, nb, 256 // g)
+
         planes["d"] = unchunk(_f16(kq.planes["db"]), nb)
-        planes["sc"] = unchunk(kq.planes["sc"], K // g).astype(np.int8).reshape(O, nb, 256 // g)
-        if gtype != GGMLType.Q6_K:
+        if "dminb" in kq.planes:
             planes["dmin"] = unchunk(_f16(kq.planes["dminb"]), nb)
-            planes["scm"] = unchunk(kq.planes["scm"], K // g).astype(np.int8).reshape(O, nb, 8)
+        if gtype == GGMLType.Q2_K:
+            planes["scb"] = sub("scb", np.uint8)
+        else:
+            planes["sc"] = sub("sc", np.int8)
+        if "scm" in kq.planes:
+            planes["scm"] = sub("scm", np.int8)
     else:
         planes["d"] = unchunk(_f16(kq.planes["ds"]), K // 32)
         if gtype in (GGMLType.Q4_1, GGMLType.Q5_1):

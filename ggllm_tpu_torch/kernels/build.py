@@ -8,8 +8,9 @@ library until a source changes. The library has a plain C interface and is
 loaded with ctypes: every pointer and the stream pass as `c_void_p`, every
 size as `c_int`, and each entry point returns `cudaGetLastError()`.
 
-`launch_counts` counts successful kernel launches per wrapper name; a
-wrapper adds one right after its launch returned 0 and nowhere else.
+`launch_counts` counts successful kernel launches per wrapper name (and per
+variant, as "quant_matmul.q3_k" or "flash_decode.int8"); a wrapper adds one
+right after its launch returned 0 and nowhere else.
 """
 
 from __future__ import annotations
@@ -39,10 +40,15 @@ SIGNATURES = {
     # q, k, v, out, is_bf16, n_past_vec, n_past, B, S, H, T, KV, D,
     # k_batch_stride, k_time_stride, stream
     "gq_flash_mqa": [P, P, P, P, I, P, I, I, I, I, I, I, I, I, I, P],
-    # cache, is_bf16, layer, q, valid_vec, valid, acc, m, l, part_acc,
-    # part_ml, L, B, T, KV, G, D, n_chunks, stream
-    "gq_cache_partials": [P, I, I, P, P, I, P, P, P, P, P,
+    # cache, cache_kind, scales, layer, q, q_is_bf16, valid_vec, valid, acc, m,
+    # l, part_acc, part_ml, L, B, T, KV, G, D, n_chunks, stream
+    "gq_cache_partials": [P, I, P, I, P, I, P, I, P, P, P, P, P,
                           I, I, I, I, I, I, I, P],
+    # cache, cache_kind, scales, layer, q, q_is_bf16, valid_vec, valid, append,
+    # n_append, append_valid, out, part_acc, part_ml, L, B, T, KV, G, D,
+    # n_chunks, stream
+    "gq_flash_decode": [P, I, P, I, P, I, P, I, P, I, I, P, P, P,
+                        I, I, I, I, I, I, I, P],
 }
 
 launch_counts: collections.Counter = collections.Counter()
@@ -121,13 +127,15 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, counter: str, *args) -> None:
-    """Call C entry point `name` and raise on a nonzero cudaError_t; count
-    one launch of wrapper `counter` on success."""
+def launch(name: str, counters, *args) -> None:
+    """Call C entry point `name` and raise on a nonzero cudaError_t; on
+    success count one launch under `counters` (a name, or a tuple of the
+    wrapper's name and its variant's)."""
     err = getattr(lib(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")
-    launch_counts[counter] += 1
+    for counter in (counters,) if isinstance(counters, str) else counters:
+        launch_counts[counter] += 1
 
 
 def stream_ptr(device) -> int:

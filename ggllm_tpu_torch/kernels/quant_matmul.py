@@ -4,9 +4,9 @@ with its plain PyTorch version beside it.
 
 Replaces the Pallas kernels ggllm_tpu/kernels/quant_matmul.py `_kern`
 (launched by fused_matmul_2d) and `_xg_kern` (launched by _group_sums), for
-Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K, Q5_K and Q6_K (Q2_K and Q3_K are not
-ported). Both keep the TPU kernel's correction form: with w = s_g * q - c_g
-in each scale group g,
+all ten block formats (Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K,
+Q6_K). Both keep the TPU kernel's correction form: with w = s_g * q - c_g in
+each scale group g,
   y = sum_g s_g * (sum_{j in g} q_j x_j)  -  sum_g c_g * xg_g,
   xg_g = sum_{j in g} x_j,
 so the inner loop is an unsigned-code dot and each group pays one scale
@@ -14,6 +14,8 @@ multiply and one correction. Per family:
   legacy (32-groups)   s = d;      c = 8d (Q4_0), 16d (Q5_0), -m (Q4_1, Q5_1), none (Q8_0)
   K-quants (32-groups) s = d * sc; c = dmin * scm (Q4_K, Q5_K)
   Q6_K (16-groups)     s = d * sc; c = 32 * s
+  Q3_K (16-groups)     s = d * sc; c = 4 * s  (code = two | hmask bit << 2, sc signed)
+  Q2_K (16-groups)     s = d * (scb & 15); c = dmin * (scb >> 4)
 (the K-quant products formed in f32 exactly as the reference does).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
@@ -39,15 +41,18 @@ KERNEL_FORMATS = {
     GGMLType.Q5_0: (32, True),
     GGMLType.Q5_1: (32, True),
     GGMLType.Q8_0: (32, False),
+    GGMLType.Q2_K: (16, True),
+    GGMLType.Q3_K: (16, True),
     GGMLType.Q4_K: (32, True),
     GGMLType.Q5_K: (32, True),
     GGMLType.Q6_K: (16, True),
 }
-K_QUANTS = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
+K_QUANTS = (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
 # the kernel's plane arguments, in order; per format the plane passed there
 _ARGS = ("qs", "qh", "d", "m", "sc", "scm")
 _ARG_PLANE = {GGMLType.Q6_K: {"qs": "ql"}, GGMLType.Q4_K: {"m": "dmin"},
-              GGMLType.Q5_K: {"m": "dmin"}}
+              GGMLType.Q5_K: {"m": "dmin"}, GGMLType.Q2_K: {"m": "dmin", "sc": "scb"},
+              GGMLType.Q3_K: {"qh": "hmask"}}
 
 
 def quant_matmul_plain(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -122,7 +127,7 @@ def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     if x.device.type == "cpu":
         return quant_matmul_plain(w, x, out_dtype)
     if w.gtype not in KERNEL_FORMATS:
-        raise NotImplementedError(f"quant_matmul kernel: {w.gtype.name} is not ported")
+        raise NotImplementedError(f"quant_matmul kernel: no {GGMLType(w.gtype).name} variant")
     if out_dtype not in _DTYPES:
         raise TypeError(f"out dtype {out_dtype} not supported")
     O, K = w.shape
@@ -142,7 +147,8 @@ def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     else:
         xg = group_sums(x2, group)
     y = torch.empty(S, O, dtype=out_dtype, device=x2.device)
-    build.launch("gq_quant_matmul", "quant_matmul", int(w.gtype), x2.data_ptr(),
+    build.launch("gq_quant_matmul", ("quant_matmul", f"quant_matmul.{w.gtype.name.lower()}"),
+                 int(w.gtype), x2.data_ptr(),
                  int(x2.dtype == torch.bfloat16), *ptrs,
                  None if xg is None else xg.data_ptr(), y.data_ptr(),
                  int(out_dtype == torch.bfloat16), S, K, O,

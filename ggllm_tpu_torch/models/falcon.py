@@ -14,11 +14,16 @@ file's fused QKV stays one matrix; with a shared input norm FFN-up joins it
 as extra output rows ("wqkvu"), and wo / FFN-down merge along the
 contraction dim ("w_od", fed concat([attn, gelu(ff)])).
 
-Each layer writes its new K/V into the cache in place before attending.
-Prefill attention runs kernels/flash_attention, decode (S == 1) runs
-kernels/flash_decode over the valid cache prefix; with st.flash False both
-use the plain einsum `_attention`, and with st.kernels False the quantized
-matmuls use the plain dequantize-then-matmul version.
+Each layer writes its new K/V into the cache in place before attending
+(quantized, for an int8 cache: ops/kvcache.py), unless the caller passes a
+decode chunk's `pending` buffer: then the cache stays untouched, attention
+reads the cache below the chunk's start plus the unquantized [current token;
+pending] block, and the new K/V go back to the caller (chunk-deferred decode,
+ggllm_tpu/models/falcon.py falcon_forward:305-377). Prefill attention runs
+kernels/flash_attention (on the dequantized K/V of an int8 cache), decode
+(S == 1) runs kernels/flash_decode over the valid cache prefix; with
+st.flash False both use the plain einsum `_attention`, and with st.kernels
+False the quantized matmuls use the plain dequantize-then-matmul version.
 """
 
 from __future__ import annotations
@@ -180,31 +185,52 @@ class Falcon(nn.Module):
             _attach(self, name, params[name])
         self.layers = nn.ModuleList(FalconLayer(lw) for lw in params["layers"])
 
-    def forward(self, tokens: torch.Tensor, kv: torch.Tensor, n_past: int,
-                inv_freq: torch.Tensor, logits_all: bool = False,
-                last_pos: int | None = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, kv, n_past: int, inv_freq: torch.Tensor,
+                logits_all: bool = False, last_pos: int | None = None,
+                pending: torch.Tensor | None = None, n_pend: int = 0):
         """tokens (B, S) int64 on the model's device; kv the stacked cache
-        (L, 2, B, T, KV, D), updated in place at [n_past, n_past + S).
-        Returns f32 logits (B, S, V) if logits_all, else (B, 1, V) at
-        position last_pos (default S - 1)."""
+        (L, 2, B, T, KV, D) or the int8 pair (codes, scales), updated in place
+        at [n_past, n_past + S). Returns f32 logits (B, S, V) if logits_all,
+        else (B, 1, V) at position last_pos (default S - 1).
+
+        pending / n_pend (chunk-deferred decode, S == 1): `pending` is the
+        decode chunk's K/V buffer (L, 2, B, P, KV, D) whose first n_pend
+        entries hold the chunk's earlier positions, not yet in the cache.
+        Attention reads the cache strictly below n_past - n_pend plus
+        [current token; pending[:n_pend]]; the cache is left untouched and
+        the return value is (logits, kv_new (L, 2, B, 1, KV, D)) for the
+        caller to put into `pending`."""
         st = self.st
         B, S = tokens.shape
         x = self.tok_embeddings[tokens]
         rope = rope_cos_sin(_positions(n_past, B, S, tokens.device), inv_freq)
+        deferred = []
         for l, layer in enumerate(self.layers):
             q, kv_new, gf = layer.pre(x, rope, st)
-            kvcache.write_layer(kv, kv_new, l, n_past)
-            if st.flash and S == 1:
-                attn = flash_decode(kv, st.n_head_kv, l, q, n_past)
-            else:
-                k, v = kvcache.read_layer(kv, l)
+            if pending is not None:
+                app = torch.cat([kv_new, pending[l, :, :, :n_pend].to(kv_new.dtype)], dim=2)
                 if st.flash:
-                    attn = flash_mqa(q, k, v, n_past)
+                    attn = flash_decode(kv, st.n_head_kv, l, q, n_past, kv_append=app,
+                                        append_valid=1 + n_pend)
                 else:
-                    attn = _attention(q, k, v, n_past, st)
+                    k, v = kvcache.read_layer(kv, l, q.dtype)
+                    attn = _attention(q, k, v, n_past, st, kv_append=app,
+                                      append_valid=1 + n_pend)
+                deferred.append(kv_new)
+            else:
+                kvcache.write_layer(kv, kv_new, l, n_past)
+                if st.flash and S == 1:
+                    attn = flash_decode(kv, st.n_head_kv, l, q, n_past)
+                else:
+                    k, v = kvcache.read_layer(kv, l, q.dtype)
+                    if st.flash:
+                        attn = flash_mqa(q, k, v, n_past)
+                    else:
+                        attn = _attention(q, k, v, n_past, st)
             x = layer.post(x, attn, gf, st)
         x = layer_norm(x, self.output_norm, self.output_norm_b)
         if not logits_all:
             lp = S - 1 if last_pos is None else last_pos
             x = x[:, lp:lp + 1]
-        return linear(self.lm_head, x, torch.float32, kernels=st.kernels)
+        logits = linear(self.lm_head, x, torch.float32, kernels=st.kernels)
+        return (logits, torch.stack(deferred)) if pending is not None else logits

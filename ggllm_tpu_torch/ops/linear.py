@@ -77,6 +77,21 @@ def dequant(gtype: GGMLType, p: dict, shape: tuple, dtype=torch.float32) -> torc
         w = (q - 16.0) * f("d") if gtype == GGMLType.Q5_0 else q * f("d") + f("m")
     elif gtype == GGMLType.Q8_0:
         w = p["qs"].to(f32) * f("d")
+    elif gtype in (GGMLType.Q2_K, GGMLType.Q3_K):
+        # per 128-half, strip j (32 elements) is bits 2j of the half's 32 bytes
+        shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=p["qs"].device)[:, None]
+        two = (p["qs"].reshape(out, -1, 2, 1, 32) >> shifts & 3).reshape(out, -1, 16, 16).to(f32)
+        if gtype == GGMLType.Q2_K:
+            dl = f("d") * (p["scb"] & 0xF).to(f32)  # (out, nb, 16)
+            ml = f("dmin") * (p["scb"] >> 4).to(f32)
+            w = two * dl[..., None] - ml[..., None]
+        else:
+            # the high bit of element 32m + i is bit m of hmask byte i
+            hbits = torch.arange(8, dtype=torch.uint8, device=two.device)[:, None]
+            hm = (p["hmask"][..., None, :] >> hbits & 1).reshape(out, -1, 16, 16).to(f32)
+            q = two + 4.0 * hm - 4.0
+            dl = f("d") * p["sc"].to(f32)
+            w = q * dl[..., None]
     elif gtype in (GGMLType.Q4_K, GGMLType.Q5_K):
         qs = p["qs"].reshape(out, -1, 4, 32)  # 4 chunks of 64 elements
         lo, hi = qs & 0xF, qs >> 4

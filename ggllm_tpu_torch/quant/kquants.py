@@ -1,6 +1,5 @@
-"""K-quant super-block dequantizers: Q4_K, Q5_K and Q6_K (a copy of that
-subset of ggllm_tpu/quant/kquants.py; the quantizers, Q2_K and Q3_K are not
-ported).
+"""K-quant super-block dequantizers: Q2_K, Q3_K, Q4_K, Q5_K and Q6_K (a copy
+of that subset of ggllm_tpu/quant/kquants.py; the quantizers are not ported).
 
 256-element super-blocks with two-level scales; byte layouts match
 k_quants.h:20-83 exactly. All arithmetic is float32, in the reference's
@@ -14,6 +13,93 @@ import numpy as np
 QK_K = 256
 
 F32 = np.float32
+
+
+# --------------------------------------------------------------------------
+# Q2_K
+# --------------------------------------------------------------------------
+
+def dequantize_q2_K(buf: np.ndarray, n: int) -> np.ndarray:
+    b = np.asarray(buf, dtype=np.uint8).reshape(-1, 84)
+    nb = b.shape[0]
+    sc = b[:, 0:16]
+    qs = b[:, 16:80]
+    d = b[:, 80:82].copy().view(np.float16).astype(F32)  # (nb,1)
+    dmin = b[:, 82:84].copy().view(np.float16).astype(F32)
+
+    dl = d * (sc & 0xF).astype(F32)  # (nb,16)
+    ml = dmin * (sc >> 4).astype(F32)
+
+    y = np.empty((nb, QK_K), dtype=F32)
+    for half in range(2):
+        q = qs[:, half * 32:(half + 1) * 32]
+        for j in range(4):
+            two = (q >> (2 * j)) & 3  # (nb, 32)
+            g = half * 8 + 2 * j
+            y[:, half * 128 + j * 32: half * 128 + j * 32 + 16] = (
+                dl[:, g, None] * two[:, :16].astype(F32) - ml[:, g, None]
+            )
+            y[:, half * 128 + j * 32 + 16: half * 128 + (j + 1) * 32] = (
+                dl[:, g + 1, None] * two[:, 16:].astype(F32) - ml[:, g + 1, None]
+            )
+    return y.reshape(-1)[:n]
+
+
+# --------------------------------------------------------------------------
+# Q3_K
+# --------------------------------------------------------------------------
+
+def _q3k_decode_scales(sc_bytes: np.ndarray) -> np.ndarray:
+    """(nb,12) packed 6-bit scales -> (nb,16) int32 (bias-32 applied)."""
+    nb = sc_bytes.shape[0]
+    out = np.empty((nb, 16), dtype=np.int32)
+    for j in range(16):
+        if j < 8:
+            s4 = sc_bytes[:, j] & 0xF
+        else:
+            s4 = sc_bytes[:, j - 8] >> 4
+        s2 = (sc_bytes[:, 8 + j % 4] >> (2 * (j // 4))) & 3
+        out[:, j] = (s4 | (s2 << 4)).astype(np.int8) - 32
+    return out
+
+
+def _q3k_pack_scales(sc: np.ndarray) -> np.ndarray:
+    """The inverse of _q3k_decode_scales: (nb,16) signed scales in -32..31
+    -> (nb,12) packed bytes (low nibbles of 0-7 and 8-15 share bytes 0-7;
+    the high two bits of scale j sit at bits 2*(j//4) of byte 8 + j%4)."""
+    lq = (np.asarray(sc).astype(np.int32) + 32).astype(np.uint8)  # 0..63
+    low, hi = lq & 0xF, lq >> 4
+    out = np.zeros((lq.shape[0], 12), dtype=np.uint8)
+    out[:, 0:8] = low[:, 0:8] | (low[:, 8:16] << 4)
+    for j in range(16):
+        out[:, 8 + j % 4] |= hi[:, j] << (2 * (j // 4))
+    return out
+
+
+def dequantize_q3_K(buf: np.ndarray, n: int) -> np.ndarray:
+    b = np.asarray(buf, dtype=np.uint8).reshape(-1, 110)
+    nb = b.shape[0]
+    hmask = b[:, 0:32]
+    qs = b[:, 32:96]
+    sc = _q3k_decode_scales(b[:, 96:108])
+    d = b[:, 108:110].copy().view(np.float16).astype(F32)  # (nb,1)
+
+    y = np.empty((nb, QK_K), dtype=F32)
+    # hmask bit m covers elements 32m..32m+31; one scale per 16 elements
+    for half in range(2):
+        q = qs[:, half * 32:(half + 1) * 32]
+        for j in range(4):
+            two = ((q >> (2 * j)) & 3).astype(np.int32)
+            mbit = half * 4 + j
+            hb = ((hmask >> mbit) & 1).astype(np.int32)
+            vals = two - np.where(hb == 0, 4, 0)
+            g = half * 8 + 2 * j
+            dl1 = d[:, 0] * sc[:, g].astype(F32)
+            dl2 = d[:, 0] * sc[:, g + 1].astype(F32)
+            base = half * 128 + j * 32
+            y[:, base:base + 16] = dl1[:, None] * vals[:, :16]
+            y[:, base + 16:base + 32] = dl2[:, None] * vals[:, 16:]
+    return y.reshape(-1)[:n]
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Planar (struct-of-arrays) device layout for quantized weights (the
-Q4_0…Q6_K subset of ggllm_tpu/quant/planar.py, without Q2_K/Q3_K).
+"""Planar (struct-of-arrays) device layout for quantized weights (the port
+of ggllm_tpu/quant/planar.py, all ten block formats).
 
 Each quantized 2-D weight splits into contiguous planes in ggml's own
 row-major block order, `rows` = output features by `nb` blocks along the
@@ -12,6 +12,8 @@ input (contraction) axis:
 | Q5_0 | d f16; qh (rows, nb) int32 (bit j = 5th bit of element j); qs as Q4_0 |
 | Q5_1 | d, m f16; qh; qs |
 | Q8_0 | d f16; qs (rows, nb, 32) int8 |
+| Q2_K | scb (rows, nb, 16) u8 (low nibble = scale, high nibble = min, per 16); qs (rows, nb, 64) u8 2-bit codes; d, dmin f16 |
+| Q3_K | hmask (rows, nb, 32) u8 (bit j of byte i = high bit of element 32j + i); qs (rows, nb, 64) u8; sc (rows, nb, 16) int8, -32…31 (the 12 packed bytes decoded); d f16 |
 | Q4_K | d, dmin (rows, nb) f16 per 256; sc, scm (rows, nb, 8) int8 6-bit sub-scales; qs (rows, nb, 128) u8 |
 | Q5_K | Q4_K's planes and qh (rows, nb, 32) u8 |
 | Q6_K | d f16; sc (rows, nb, 16) int8; ql (rows, nb, 128) u8; qh (rows, nb, 64) u8 |
@@ -29,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 
 from ggllm_tpu_torch.core.dtypes import GGMLType, TYPE_TRAITS
-from ggllm_tpu_torch.quant.kquants import _pack_scales_k4, _unpack_scales_k4
+from ggllm_tpu_torch.quant.kquants import (_pack_scales_k4, _q3k_decode_scales, _q3k_pack_scales,
+                                            _unpack_scales_k4)
 
 PLANES = {  # plane names per format, in block byte order
     GGMLType.Q4_0: ("d", "qs"),
@@ -37,19 +40,24 @@ PLANES = {  # plane names per format, in block byte order
     GGMLType.Q5_0: ("d", "qh", "qs"),
     GGMLType.Q5_1: ("d", "m", "qh", "qs"),
     GGMLType.Q8_0: ("d", "qs"),
+    GGMLType.Q2_K: ("scb", "qs", "d", "dmin"),
+    GGMLType.Q3_K: ("hmask", "qs", "sc", "d"),
     GGMLType.Q4_K: ("d", "dmin", "sc", "scm", "qs"),
     GGMLType.Q5_K: ("d", "dmin", "sc", "scm", "qh", "qs"),
     GGMLType.Q6_K: ("ql", "qh", "sc", "d"),
 }
 
 # (plane, first byte, last byte + 1) of each plane in the on-disk block;
-# the K-quants' 12 packed scale bytes (4:16) hold both sc and scm
+# Q4_K/Q5_K's 12 packed scale bytes (4:16) hold both sc and scm, Q3_K's
+# (96:108) its 16 signed 6-bit scales
 _BYTES = {
     GGMLType.Q4_0: {"d": (0, 2), "qs": (2, 18)},
     GGMLType.Q4_1: {"d": (0, 2), "m": (2, 4), "qs": (4, 20)},
     GGMLType.Q5_0: {"d": (0, 2), "qh": (2, 6), "qs": (6, 22)},
     GGMLType.Q5_1: {"d": (0, 2), "m": (2, 4), "qh": (4, 8), "qs": (8, 24)},
     GGMLType.Q8_0: {"d": (0, 2), "qs": (2, 34)},
+    GGMLType.Q2_K: {"scb": (0, 16), "qs": (16, 80), "d": (80, 82), "dmin": (82, 84)},
+    GGMLType.Q3_K: {"hmask": (0, 32), "qs": (32, 96), "d": (108, 110)},
     GGMLType.Q4_K: {"d": (0, 2), "dmin": (2, 4), "qs": (16, 144)},
     GGMLType.Q5_K: {"d": (0, 2), "dmin": (2, 4), "qh": (16, 48), "qs": (48, 176)},
     GGMLType.Q6_K: {"ql": (0, 128), "qh": (128, 192), "sc": (192, 208), "d": (208, 210)},
@@ -85,6 +93,9 @@ def to_planes(gtype: GGMLType, blob: np.ndarray, rows: int, cols: int) -> dict[s
         sd, sm = _unpack_scales_k4(b[:, :, 4:16].reshape(-1, 12))
         out["sc"] = sd.reshape(rows, nb, 8).astype(np.int8)
         out["scm"] = sm.reshape(rows, nb, 8).astype(np.int8)
+    elif gtype == GGMLType.Q3_K:
+        sc = _q3k_decode_scales(b[:, :, 96:108].reshape(-1, 12))
+        out["sc"] = sc.reshape(rows, nb, 16).astype(np.int8)
     return out
 
 
@@ -104,6 +115,9 @@ def from_planes(gtype: GGMLType, planes: dict[str, np.ndarray]) -> np.ndarray:
         sc = np.asarray(planes["sc"]).astype(np.uint8).reshape(-1, 8)
         scm = np.asarray(planes["scm"]).astype(np.uint8).reshape(-1, 8)
         b[:, :, 4:16] = _pack_scales_k4(sc, scm).reshape(rows, nb, 12)
+    elif gtype == GGMLType.Q3_K:
+        sc = np.asarray(planes["sc"]).reshape(-1, 16)
+        b[:, :, 96:108] = _q3k_pack_scales(sc).reshape(rows, nb, 12)
     return b.reshape(rows, -1)
 
 
@@ -132,6 +146,17 @@ def planes_from_codes(gtype: GGMLType, codes: np.ndarray) -> dict[str, np.ndarra
             j2 = 2 * np.arange(4, dtype=np.uint32)[:, None]
             qh = (((lo >> 4) & 1) << j2) | (((hi >> 4) & 1) << (j2 + 1))
             out["qh"] = qh.sum(axis=-2, dtype=np.uint32).astype(np.uint8)
+        return out
+    if gtype in (GGMLType.Q2_K, GGMLType.Q3_K):
+        # per 128-half, strip j of 32 elements in bits 2j of the half's 32 qs
+        # bytes; Q3_K's third bit of element 32m + i is bit m of hmask byte i
+        c = c.reshape(rows, -1, 2, 4, 32)
+        sh = 2 * np.arange(4, dtype=np.uint32)[:, None]
+        out = {"qs": ((c & 3) << sh).sum(axis=-2, dtype=np.uint32).astype(np.uint8)
+               .reshape(rows, -1, 64)}
+        if gtype == GGMLType.Q3_K:
+            hb = ((c >> 2) & 1).reshape(rows, -1, 8, 32) << np.arange(8, dtype=np.uint32)[:, None]
+            out["hmask"] = hb.sum(axis=-2, dtype=np.uint32).astype(np.uint8)
         return out
     # Q6_K: per 128-half, strips q1..q4 of 32; ql = [q1|q3<<4, q2|q4<<4]
     c = c.reshape(rows, -1, 2, 4, 32)

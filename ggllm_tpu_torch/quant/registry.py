@@ -1,7 +1,7 @@
 """Dispatch over the ported quantization codecs (a subset of
 ggllm_tpu/quant/registry.py): F32 and F16; Q4_0 and Q8_0 both ways; the
-dequantizers of Q4_1, Q5_0, Q5_1, Q4_K, Q5_K and Q6_K. Any other type or
-direction raises NotImplementedError."""
+dequantizers of Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K. Any other
+type or direction raises NotImplementedError."""
 
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ _DEQUANTIZE = {
     GGMLType.Q5_0: legacy.dequantize_q5_0,
     GGMLType.Q5_1: legacy.dequantize_q5_1,
     GGMLType.Q8_0: legacy.dequantize_q8_0,
+    GGMLType.Q2_K: kquants.dequantize_q2_K,
+    GGMLType.Q3_K: kquants.dequantize_q3_K,
     GGMLType.Q4_K: kquants.dequantize_q4_K,
     GGMLType.Q5_K: kquants.dequantize_q5_K,
     GGMLType.Q6_K: kquants.dequantize_q6_K,

@@ -4,7 +4,9 @@ print the text.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
-Runs on the CUDA card unless --device cpu is given.
+Runs on the CUDA card unless --device cpu is given. --kv-dtype picks the KV
+cache's storage: bfloat16 (default), float32 (also --memory-f32) or int8
+(codes with one f32 scale per cached position and head).
 """
 
 from __future__ import annotations
@@ -32,13 +34,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--top-p", type=float, default=0.95)
     ap.add_argument("--repeat-penalty", type=float, default=1.1)
     ap.add_argument("--ignore-eos", action="store_true")
+    ap.add_argument("--memory-f32", action="store_true",
+                    help="store the KV cache in f32 (sets --kv-dtype float32)")
+    ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    cfg = EngineConfig(n_ctx=args.ctx_size)
+    cfg = EngineConfig(n_ctx=args.ctx_size,
+                       kv_dtype="float32" if args.memory_f32 else args.kv_dtype)
     t0 = time.perf_counter()
     mf, params = load_model(args.model, cfg, device=args.device)
     eng = FalconEngine(mf.hparams, params, cfg, device=args.device)

@@ -3,7 +3,8 @@ prefill chunk and of a run of decode tokens at full model width (random
 weights of one format from a seed), on the CUDA card.
 
     python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b]
-        [--format q4_0|q4_1|q5_0|q5_1|q8_0|q4_k|q5_k|q6_k] [--prompt 300] [--tokens 16]
+        [--format q4_0|q4_1|q5_0|q5_1|q8_0|q2_k|q3_k|q4_k|q5_k|q6_k]
+        [--kv-dtype bfloat16|float32|int8] [--prompt 300] [--tokens 16]
 
 Prints one JSON object per phase: wall time, device busy time (the union
 of kernel intervals), the device's idle share, launches, and the kernels
@@ -59,12 +60,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=("falcon7b", "falcon40b"), default="falcon7b")
     ap.add_argument("--format", default="q4_0", help="2-D weight format (default q4_0)")
+    ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--prompt", type=int, default=300)
     ap.add_argument("--tokens", type=int, default=16)
     args = ap.parse_args(argv)
     hp = getattr(FalconHParams, args.config)()
     params = make_bench_params(hp, seed=7, gtype=GGMLType[args.format.upper()])
-    eng = FalconEngine(hp, params, EngineConfig())
+    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=args.kv_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, args.prompt)]
     greedy = SamplerParams(temp=0.0)
     eng.generate(prompt[:8], 4, greedy, stop_ids=set())  # warm-up
@@ -76,7 +78,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         logits = eng.eval(prompt)
         wall = time.perf_counter() - t0
-    print(json.dumps({"model": f"{args.config} {args.format}", "phase": f"prefill {args.prompt}",
+    print(json.dumps({"model": f"{args.config} {args.format} kv {args.kv_dtype}",
+                      "phase": f"prefill {args.prompt}",
                       **_device_summary(prof, wall, args.prompt)}), flush=True)
 
     first = int(np.argmax(logits))

@@ -22,6 +22,9 @@ mins near the block's low end, so here:
   Q4_K, Q5_K        dmin * scm = d * sc * 7.5 / 15.5 to within rounding
                     (dmin = 8d / 16d, scm = round(sc * 15/16 / 31/32))
   Q6_K              sc = +-(1..63)
+  Q3_K              sc = +-(1..31): the sign cancels the mean -0.5 of (q - 4)
+  Q2_K              d signed, dmin = d, scale nibble 1..10 and min nibble
+                    round(1.5 * scale nibble) (the 2-bit code's mean is 1.5)
 """
 
 from __future__ import annotations
@@ -83,8 +86,19 @@ def random_quant(gtype: GGMLType, out: int, cols: int, gen: torch.Generator, dev
         planes = {"d": torch.full((out, nb), float(np.float16(scale / 32 / 32)), dtype=f16,
                                   device=device),
                   "sc": sc.to(torch.int8), "ql": rbytes(128), "qh": rbytes(64)}
+    elif gtype == GGMLType.Q3_K:
+        sc = rint(1, 32, 16) * (rint(0, 2, 16) * 2 - 1)
+        planes = {"hmask": rbytes(32), "qs": rbytes(64), "sc": sc.to(torch.int8),
+                  "d": torch.full((out, nb), float(np.float16(scale / 4 / 18)), dtype=f16,
+                                  device=device)}
+    elif gtype == GGMLType.Q2_K:
+        d = signed(scale / 12)
+        lo = rint(1, 11, 16)
+        hi = torch.round(lo * 1.5).to(lo.dtype)  # 2..15
+        planes = {"scb": (lo | (hi << 4)).to(torch.uint8), "qs": rbytes(64), "d": d,
+                  "dmin": d.clone()}
     else:
-        raise NotImplementedError(f"random_quant: {gtype.name} is not ported")
+        raise NotImplementedError(f"random_quant: no planes for {gtype.name}")
     return QuantTensor(gtype, (out, cols), planes)
 
 

@@ -73,7 +73,7 @@ def random_falcon_weights(hp: FalconHParams, seed: int = 0) -> dict[str, np.ndar
 def write_tiny_model(path: str, hp: FalconHParams | None = None,
                      ftype_2d: GGMLType = GGMLType.Q4_0, seed: int = 0) -> FalconHParams:
     """Write a complete GGCC v10 file with random weights, 2-D tensors in
-    ftype_2d (Q4_0 … Q6_K, F16 or F32)."""
+    ftype_2d (any of the ten block formats, F16 or F32)."""
     from ggllm_tpu_torch.utils.benchgen import random_quant
 
     hp = hp or FalconHParams.tiny()

@@ -1,9 +1,9 @@
 """The PyTorch port's whole slice against the JAX package, on the CPU: tiny
-GGCC files (Q4_0 at n_embd 128; Q4_1, Q5_0, Q5_1, Q8_0 7B-style and Q4_K,
-Q5_K, Q6_K 40B-style at n_embd 256) go through both loaders and engines
-(JAX with its Pallas kernels in interpret mode, f32 compute and cache; the
-port with its plain kernel versions), plus the tokenizer, the loader bridge
-and the port's hygiene rules."""
+GGCC files (Q4_0 at n_embd 128; Q4_1, Q5_0, Q5_1, Q8_0 7B-style and Q2_K,
+Q3_K, Q4_K, Q5_K, Q6_K 40B-style at n_embd 256) go through both loaders and
+engines (JAX with its Pallas kernels in interpret mode, f32 compute, an f32
+or an int8 cache; the port with its plain kernel versions), plus the
+tokenizer, the loader bridge and the port's hygiene rules."""
 
 import subprocess
 import sys
@@ -35,13 +35,13 @@ PROMPT = [5, 17, 130, 42, 99, 260, 31, 7]
 N_GEN = 16
 
 
-def _jax_cfg(kernel_layout=True):
-    return EngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="float32",
+def _jax_cfg(kernel_layout=True, kv_dtype="float32"):
+    return EngineConfig(n_ctx=64, n_batch=16, kv_dtype=kv_dtype, compute_dtype="float32",
                         kernel_layout=kernel_layout, flash_attention=True)
 
 
-def _torch_cfg():
-    return TEngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="float32")
+def _torch_cfg(kv_dtype="float32"):
+    return TEngineConfig(n_ctx=64, n_batch=16, kv_dtype=kv_dtype, compute_dtype="float32")
 
 
 # name -> (hparams, 2-D weight format); the n_embd-256 geometries are those of
@@ -63,6 +63,8 @@ MODELS = {
     "7b_q5_0": (_hp_7b_256, GGMLType.Q5_0),
     "7b_q5_1": (_hp_7b_256, GGMLType.Q5_1),
     "7b_q8_0": (_hp_7b_256, GGMLType.Q8_0),
+    "40b_q2_k": (_hp_40b_256, GGMLType.Q2_K),
+    "40b_q3_k": (_hp_40b_256, GGMLType.Q3_K),
     "40b_q4_k": (_hp_40b_256, GGMLType.Q4_K),
     "40b_q5_k": (_hp_40b_256, GGMLType.Q5_K),
     "40b_q6_k": (_hp_40b_256, GGMLType.Q6_K),
@@ -87,7 +89,7 @@ def tiny_files(tmp_path_factory):
 
 
 @pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa", "7b_q4_1", "7b_q5_1", "40b_q4_k",
-                                     "40b_q6_k"])
+                                     "40b_q6_k", "40b_q3_k", "40b_q2_k"])
 def test_slice_matches_jax_engine(tiny_files, hp_name):
     path = tiny_files[hp_name]
     mf = read_model(path)
@@ -104,6 +106,46 @@ def test_slice_matches_jax_engine(tiny_files, hp_name):
     np.testing.assert_allclose(got / scale, ref / scale, atol=1e-4)
     teng.reset()
     assert teng.generate(PROMPT, N_GEN, TSamplerParams(temp=0.0)) == ref_ids
+
+
+@pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa"])
+def test_int8_cache_matches_jax_engine(tiny_files, hp_name):
+    """kv_dtype="int8", f32 compute, 7B-style and GQA 40B-style: prefill and
+    single-token eval logits within 1e-4 of max |logit| of the JAX engine's
+    (both read the quantized cache back dequantized); greedy ids equal over
+    three decode chunks (40 tokens at decode_chunk 16), which holds only if a
+    chunk's own tokens are attended unquantized and the chunk is quantized
+    once at its end; then the caches agree: scales to 1e-6, and codes exactly
+    but for rounding ties (the two packages' f32 K/V differ in their last
+    bits, so a value within those of a half may round to the neighbouring
+    code: at most one step, in under 0.1 % of the codes; on equal inputs the
+    quantizer is exact, tests/test_torch_kernels.py)."""
+    path = tiny_files[hp_name]
+    mf = read_model(path)
+    cfg = _jax_cfg(kv_dtype="int8")
+    jeng = FalconEngine(mf.hparams, load_params(mf, cfg), cfg)
+    tmf, params = tload_model(path, _torch_cfg("int8"), device="cpu")
+    teng = TFalconEngine(tmf.hparams, params, _torch_cfg("int8"), device="cpu")
+    assert isinstance(teng.kv, tuple) and teng.kv[0].dtype == torch.int8
+
+    ref, got = jeng.eval(PROMPT), teng.eval(PROMPT)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got / scale, ref / scale, atol=1e-4)
+    ref1, got1 = jeng.eval([int(ref.argmax())]), teng.eval([int(ref.argmax())])
+    np.testing.assert_allclose(got1 / scale, ref1 / scale, atol=1e-4)
+
+    jeng.reset()
+    teng.reset()
+    ref_ids = jeng.generate(PROMPT, 40, SamplerParams(temp=0.0))
+    assert teng.generate(PROMPT, 40, TSamplerParams(temp=0.0)) == ref_ids
+    assert teng.n_past == jeng.n_past == len(PROMPT) + 39
+    jcodes, jscales = (np.asarray(a) for a in jeng.kv)
+    n = teng.n_past
+    step = np.abs(teng.kv[0].numpy()[:, :, :, :n].astype(np.int32) - jcodes[:, :, :, :n])
+    assert step.max() <= 1 and (step != 0).mean() < 1e-3
+    np.testing.assert_allclose(teng.kv[1].numpy()[:, :, :, :n], jscales[:, :, :, :n],
+                               rtol=0, atol=1e-6)
+    assert teng.kv[1].shape == jscales.shape
 
 
 def test_multi_chunk_prefill_matches_jax(tiny_files):

@@ -5,6 +5,8 @@ The same numpy inputs (fixed seeds) go through the JAX function (Pallas in
 interpret mode) and through the port's wrapper, which on a CPU tensor runs
 the kernel's plain version. Tolerances are those of tests/test_kernels.py:45
 (2e-5 of max |ref| in f32, 2e-2 in bf16) and test_flash_*.py (atol 1e-5).
+The int8 KV cache: quantize_new must equal the JAX function exactly, and the
+flash-decode functions take the same (codes, scales) in both packages.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ from ggllm_tpu.kernels import flash_decode as jfd
 from ggllm_tpu.kernels import layout as jlayout
 from ggllm_tpu.kernels import quant_matmul as jqm
 from ggllm_tpu.kernels.flash_attention import flash_mqa as jflash_mqa
+from ggllm_tpu.ops import kvcache as jkvcache
 from ggllm_tpu.quant import planar as jplanar
 from ggllm_tpu.quant import registry as jregistry
 
@@ -25,6 +28,7 @@ from ggllm_tpu_torch.kernels import build
 from ggllm_tpu_torch.kernels import flash_decode as tfd
 from ggllm_tpu_torch.kernels import quant_matmul as tqm
 from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
+from ggllm_tpu_torch.ops import kvcache as tkvcache
 from ggllm_tpu_torch.ops.linear import QuantTensor
 from ggllm_tpu_torch.quant import planar as tplanar
 
@@ -43,7 +47,7 @@ def _weights(gtype, O, K, seed=0):
 
 
 FORMATS = [GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
-           GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
+           GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q2_K, GGMLType.Q3_K]
 
 
 @pytest.mark.parametrize("gtype", FORMATS, ids=[f.name.lower() for f in FORMATS])
@@ -128,6 +132,78 @@ def test_flash_decode_matches_jax(name, KV, H, variant):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
 
 
+def _int8_cache(L, B, T, KV, D, seed):
+    """A random cache quantized by the JAX package: its (codes, scales
+    (L, 2, B, T, KV, 1)) as numpy."""
+    dense = np.random.default_rng(seed).standard_normal((L, 2, B, T, KV, D)).astype(np.float32)
+    codes, scales = jkvcache.quantize_new(jnp.asarray(dense))
+    return np.asarray(codes), np.asarray(scales)
+
+
+def _jax_int8_view(codes, scales):
+    """The JAX kernel's operand: merged codes and (L, 2, B, KV, T) scales."""
+    L, _, B, T, KV, D = codes.shape
+    return (jnp.asarray(codes.reshape(L, 2, B, T, KV * D)),
+            jnp.asarray(np.moveaxis(scales[..., 0], 3, 4)))
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 5, 1, 64), (3, 2, 2, 7, 4, 8)], ids=["kv_new", "stacked"])
+def test_quantize_new_matches_jax(shape):
+    """Codes and f32 scales equal the JAX function's exactly, including an
+    all-zero vector (scale 1e-8 / 127, codes 0), ties (round half to even)
+    and the clip at +-127."""
+    x = (np.random.default_rng(2).standard_normal(shape) * 3).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[-1, -1, -1, ..., :4] = [127.0, 63.5, -0.5, 2.5]  # absmax 127: scale 1, exact ties
+    ref_q, ref_s = jkvcache.quantize_new(jnp.asarray(x))
+    got_q, got_s = tkvcache.quantize_new(torch.from_numpy(x))
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(ref_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s))
+    assert float(got_s.reshape(-1, got_s.shape[-2], 1)[0, 0, 0]) == np.float32(1e-8) / np.float32(127.0)
+
+
+INT8_CASES = [(1, 5, 8), (2, 6, 8)]  # tests/test_flash_decode.py:132, the cases with G > 1
+
+
+@pytest.mark.parametrize("KV,H,D", INT8_CASES, ids=["mqa", "gqa"])
+def test_int8_cache_partials_match_jax(KV, H, D):
+    """The plain partials on the int8 pair against the JAX Pallas kernel with
+    quant=True (interpret mode); rtol/atol 1e-5 in f32."""
+    B, T, L, l = 2, 96, 2, 1
+    codes, scales = _int8_cache(L, B, T, KV, D, seed=21)
+    q = np.random.default_rng(22).standard_normal((B, KV, H // KV, D)).astype(np.float32)
+    valid = np.asarray([60, 9], np.int32)
+    ref = jfd.cache_partials(_jax_int8_view(codes, scales), KV, l, jnp.asarray(q),
+                             jnp.asarray(valid), interpret=True)
+    got = tfd.cache_partials(tkvcache.from_jax_cache((codes, scales)), KV, l,
+                             torch.from_numpy(q), torch.from_numpy(valid))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("KV,H,D", INT8_CASES, ids=["mqa", "gqa"])
+@pytest.mark.parametrize("variant", ["no_append", "append_valid"])
+def test_int8_flash_decode_matches_jax(KV, H, D, variant):
+    """flash_decode over an int8 cache, with and without the unquantized
+    [current; pending] append block, against the JAX function (atol 1e-5)."""
+    B, T, L, l = 2, 96, 2, 1
+    codes, scales = _int8_cache(L, B, T, KV, D, seed=23)
+    rng = np.random.default_rng(24)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    app = rng.standard_normal((2, B, 5, KV, D)).astype(np.float32)
+    n_past = np.asarray([60, 9], np.int32)
+    kw_j, kw_t = {}, {}
+    if variant == "append_valid":
+        kw_j = {"kv_append": jnp.asarray(app), "append_valid": jnp.int32(3)}
+        kw_t = {"kv_append": torch.from_numpy(app), "append_valid": 3}
+    ref = np.asarray(jfd.flash_decode(_jax_int8_view(codes, scales), KV, l, jnp.asarray(q),
+                                      jnp.asarray(n_past), interpret=True, **kw_j))
+    got = tfd.flash_decode(tkvcache.from_jax_cache((codes, scales)), KV, l, torch.from_numpy(q),
+                           torch.from_numpy(n_past), **kw_t)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
 def test_cache_partials_empty_row():
     """cache_valid = 0 gives m = -1e30, l = 0, acc = 0 (as the JAX kernel)."""
     kv, q, _ = _decode_inputs(1, 16, 1, 3, 8, 1, seed=4)
@@ -151,5 +227,8 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     kv = torch.randn(2, 2, 1, 8, 1, 32)
     qg = torch.randn(1, 1, 2, 32)
     for a, b in zip(tfd.cache_partials(kv, 1, 1, qg, 5), tfd.cache_partials_plain(kv, 1, 1, qg, 5)):
+        assert torch.equal(a, b)
+    kv8 = tkvcache.quantize_new(kv)
+    for a, b in zip(tfd.cache_partials(kv8, 1, 1, qg, 5), tfd.cache_partials_plain(kv8, 1, 1, qg, 5)):
         assert torch.equal(a, b)
     assert dict(build.launch_counts) == before

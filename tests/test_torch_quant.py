@@ -1,11 +1,12 @@
 """The port's quantization formats against the JAX package, on the CPU.
 
-For each of Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K, Q5_K and Q6_K, the same
+For each of the ten block formats (Q4_0 … Q8_0, Q2_K … Q6_K), the same
 weights, quantized once by the JAX package's codecs, go through both
 packages: codec output, planes and the f32 dequant must be bit-identical.
-(The plain quant_matmul of every format is held against the JAX Pallas
-kernel in tests/test_torch_kernels.py.) Also: Q6_K's 16-wide group sums,
-and the formats the port refuses.
+Q2_K and Q3_K also get rows of random blocks (every scale and min nibble,
+negative 6-bit scales, every code). (The plain quant_matmul of every format
+is held against the JAX Pallas kernel in tests/test_torch_kernels.py.) Also:
+the 16-wide group sums, and what the port still refuses.
 """
 
 import numpy as np
@@ -27,7 +28,9 @@ from ggllm_tpu_torch.quant import planar as tplanar
 from ggllm_tpu_torch.quant import registry as tregistry
 
 ALL = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
-       GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
+       GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
+# bytes of the fp16 fields in a block, for the formats that get random blocks
+_F16_BYTES = {GGMLType.Q2_K: (80, 84), GGMLType.Q3_K: (108, 110)}
 
 
 def _ids(ts):
@@ -36,12 +39,23 @@ def _ids(ts):
 
 def _blob(gtype, O, K, seed=0):
     """(O, K) random weights quantized row by row by the JAX codecs; a few
-    constant and zero rows exercise the degenerate paths."""
+    constant and zero rows exercise the degenerate paths. The last two rows
+    of a Q2_K / Q3_K blob are random bytes (fp16 fields set to small finite
+    values), which no quantizer would write: all 16 values of both Q2_K
+    nibbles and the whole signed range of Q3_K's packed 6-bit scales."""
     rng = np.random.default_rng(seed)
     w = (rng.standard_normal((O, K)) * 0.1).astype(np.float32)
     w[1:2] = 0.0
     w[2:3] = 0.25
-    return np.stack([jregistry.quantize(gtype, w[i]) for i in range(O)])
+    blob = np.stack([jregistry.quantize(gtype, w[i]) for i in range(O)])
+    if gtype in _F16_BYTES:
+        lo, hi = _F16_BYTES[gtype]
+        rows = blob[-2:].reshape(2, K // 256, -1)
+        rows[:] = rng.integers(0, 256, rows.shape, dtype=np.uint8)
+        f16 = (rng.uniform(-1, 1, (2, K // 256, (hi - lo) // 2)) * 0.01).astype(np.float16)
+        rows[:, :, lo:hi] = f16.view(np.uint8)
+        blob[-2:] = rows.reshape(2, -1)
+    return blob
 
 
 def _port_weight(gtype, blob, O, K) -> QuantTensor:
@@ -127,13 +141,31 @@ def test_group_sums_16_match_jax(xdtype):
 
 @pytest.mark.parametrize("gtype", [GGMLType.Q2_K, GGMLType.Q3_K], ids=["q2_k", "q3_k"])
 def test_unported_formats_raise(gtype):
-    """Q2_K and Q3_K have no planar layout or QuantTensor in the port."""
-    O, K = 2, 256
-    blob = _blob(gtype, O, K)
+    """What the port still refuses: the Q2_K and Q3_K quantizers (the port
+    reads and multiplies both formats but cannot write them from floats),
+    and planes or a QuantTensor of a type that is no weight format."""
+    x = np.zeros(256, np.float32)
+    assert not tregistry.can_quantize(TGGMLType(int(gtype)))
     with pytest.raises(NotImplementedError):
-        tplanar.to_planes(TGGMLType(int(gtype)), blob, O, K)
+        tregistry.quantize(TGGMLType(int(gtype)), x)
     with pytest.raises(NotImplementedError):
-        QuantTensor(TGGMLType(int(gtype)), (O, K), {})
+        tplanar.to_planes(TGGMLType.Q8_K, np.zeros(292, np.uint8), 1, 256)
+    with pytest.raises(NotImplementedError):
+        QuantTensor(TGGMLType.Q8_1, (1, 32), {})
+
+
+def test_q3k_scale_packing_round_trips():
+    """Every signed 6-bit scale value in every one of the 16 slots packs into
+    the 12 bytes the JAX package's decoder reads back."""
+    from ggllm_tpu.quant.kquants import _q3k_decode_scales as jdecode
+    from ggllm_tpu_torch.quant.kquants import _q3k_decode_scales, _q3k_pack_scales
+
+    sc = np.random.default_rng(5).integers(-32, 32, (400, 16))
+    sc[:64] = (np.arange(64) - 32)[:, None]
+    packed = _q3k_pack_scales(sc)
+    assert packed.shape == (400, 12) and packed.dtype == np.uint8
+    np.testing.assert_array_equal(jdecode(packed), sc)
+    np.testing.assert_array_equal(_q3k_decode_scales(packed), sc)
 
 
 def test_k_quant_width_must_be_whole_super_blocks():
