@@ -33,6 +33,40 @@
 //    merges in XLA (flash_decode.py:405-427), and writes the normalized
 //    output in q's dtype: as eager torch ops that merge is some twenty small
 //    launches per layer.
+//
+// mha_partials_kernel replaces the Pallas kernel `_kern_mha` of the same file
+// (launched by _cache_partials_mha), the G == 1 variant: every query head has
+// its own K/V head (LLaMA-7B: KV = 32, D = 128), dense and int8 caches. The
+// TPU kernel scores all heads of a time tile with one block-diagonal MXU dot
+// and expands the probabilities with a 0/1 matrix; neither has a use here.
+// What is kept is its reading pattern: a cached position's KV * D elements
+// are contiguous (8 KB in bf16 at LLaMA-7B), so the heads of a position come
+// in coalesced rows, and only positions below `valid` are read.
+//
+// What bounds it on an H100: the bytes of the valid K/V prefix (per position
+// and layer 16 KB in bf16 at LLaMA-7B, 8.25 KB as int8 codes and two f32
+// scales per head) plus launch latency. partials_kernel would give one thread
+// of 128 work at G = 1, with q and the accumulator (2 x 128 floats) in its
+// registers. The design:
+//  * one block per head and chunk of CT = 64 positions (flash-decoding as
+//    above; LLaMA-7B at 2047 positions: 32 x 32 blocks of 128 threads), the
+//    chunk split over the block's four warps, 16 positions each: what a
+//    launch costs at decode is the longest chain of dependent loads, and a
+//    warp walking all 64 positions of a chunk (eight steps) took twice the
+//    time of this layout whatever the prefix length;
+//  * each lane owns D / 32 consecutive dimensions of q and of the f32
+//    accumulator in registers, so a warp's load of one position's K (or V)
+//    is one contiguous row of D elements (256 B in bf16 at D = 128), and
+//    K/V are not staged in shared memory: each element is used once;
+//  * SUB = 8 positions per step: their 16 K/V loads (and the int8 scales) are
+//    started before any is used, the 8 scores are reduced with warp shuffles,
+//    and the online-softmax rescale runs once per step; the four warps'
+//    partials merge through shared memory into the chunk's;
+//  * int8: K's scale multiplies the score, V's the probability; the scales
+//    are read where they lie, (L, 2, B, T, KV): the KV scales of a position
+//    are contiguous;
+//  * it writes the partials in the layout partials_kernel writes, so
+//    merge_kernel and finish_kernel serve both.
 
 #include "common.cuh"
 
@@ -133,6 +167,168 @@ partials_kernel(const T* __restrict__ cache, const float* __restrict__ scales, i
   part_ml[2 * pidx + 1] = l;
 }
 
+constexpr int MHA_WARPS = 4;          // warps per block of mha_partials_kernel
+constexpr int MHA_T = CT / MHA_WARPS;  // positions per warp
+
+// E consecutive elements at p (aligned to E elements) -> f32
+template <int E>
+__device__ __forceinline__ void load_elems(const float* p, float (&o)[E]) {
+  if constexpr (E == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+  } else if constexpr (E == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = v.x, o[1] = v.y;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+template <int E>
+__device__ __forceinline__ void load_elems(const __nv_bfloat16* p, float (&o)[E]) {
+  if constexpr (E == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    o[0] = a.x, o[1] = a.y, o[2] = c.x, o[3] = c.y;
+  } else if constexpr (E == 2) {
+    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+    o[0] = a.x, o[1] = a.y;
+  } else {
+    o[0] = __bfloat162float(p[0]);
+  }
+}
+template <int E>
+__device__ __forceinline__ void load_elems(const int8_t* p, float (&o)[E]) {
+  if constexpr (E == 4) {
+    const int v = __ldg(reinterpret_cast<const int*>(p));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = (float)((int)((unsigned)v << (24 - 8 * i)) >> 24);  // sign-extends
+  } else if constexpr (E == 2) {
+    const int v = __ldg(reinterpret_cast<const short*>(p));
+    o[0] = (float)((int)((unsigned)v << 24) >> 24);
+    o[1] = (float)((int)((unsigned)v << 16) >> 24);
+  } else {
+    o[0] = (float)p[0];
+  }
+}
+
+// G == 1: one block per (time chunk, head, batch row); warp w takes positions
+// [w * MHA_T, (w + 1) * MHA_T) of the chunk and lane i owns dimensions
+// [i * D/32, (i + 1) * D/32); the warps' partials merge in shared memory.
+// Same arguments, cache layout and output layout as partials_kernel with
+// G = 1; grid (n_chunks, KV, B).
+template <typename T, typename TQ, int D>
+__global__ void __launch_bounds__(MHA_WARPS * 32)
+mha_partials_kernel(const T* __restrict__ cache, const float* __restrict__ scales, int layer,
+                    const TQ* __restrict__ q, const int* __restrict__ valid_vec,
+                    int valid_scalar, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int B, int Tn, int KV, int n_chunks) {
+  constexpr int E = D / 32;
+  constexpr bool QUANT = sizeof(T) == 1;
+  __shared__ float w_acc[MHA_WARPS][D];
+  __shared__ float w_m[MHA_WARPS], w_l[MHA_WARPS];
+  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int valid = valid_vec ? valid_vec[b] : valid_scalar;
+  const int t0 = chunk * CT + warp * MHA_T;      // this warp's first position
+  const int n = min(MHA_T, valid - t0);          // and how many of them are valid
+  const size_t pidx = ((size_t)b * KV + h) * n_chunks + chunk;
+
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  float m = NEG_INF, l = 0.f;
+  if (n > 0) {
+    const size_t row = (size_t)KV * D;  // elements per cached position
+    const size_t pos0 = (((size_t)layer * 2) * B + b) * Tn + t0;  // K's first position
+    const T* kp = cache + pos0 * row + (size_t)h * D + lane * E;
+    const T* vp = kp + (size_t)B * Tn * row;
+    const float* ksc = QUANT ? scales + pos0 * KV + h : nullptr;
+    const float* vsc = QUANT ? ksc + (size_t)B * Tn * KV : nullptr;
+    const float scale = 1.0f / sqrtf((float)D);
+    const TQ* qp = q + ((size_t)b * KV + h) * D + lane * E;
+    float qr[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) qr[e] = to_f32(qp[e]);
+    for (int tt = 0; tt < n; tt += SUB) {
+      float kk[SUB][E], vv[SUB][E], ksv[SUB], vsv[SUB];
+#pragma unroll
+      for (int u = 0; u < SUB; ++u) {  // all loads of the step before any use
+        const int t = tt + u;
+        if (t < n) {
+          load_elems<E>(kp + (size_t)t * row, kk[u]);
+          load_elems<E>(vp + (size_t)t * row, vv[u]);
+          ksv[u] = QUANT ? __ldg(ksc + (size_t)t * KV) : 1.f;
+          vsv[u] = QUANT ? __ldg(vsc + (size_t)t * KV) : 1.f;
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kk[u][e] = vv[u][e] = 0.f;
+          ksv[u] = vsv[u] = 0.f;
+        }
+      }
+      float s[SUB];
+#pragma unroll
+      for (int u = 0; u < SUB; ++u) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot += qr[e] * kk[u][e];
+        s[u] = dot;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int u = 0; u < SUB; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+      float mx = m;
+#pragma unroll
+      for (int u = 0; u < SUB; ++u) {
+        s[u] = (tt + u < n) ? s[u] * ksv[u] * scale : NEG_INF;
+        mx = fmaxf(mx, s[u]);
+      }
+      const float alpha = expf(m - mx);
+      l *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < SUB; ++u) {
+        const float p = expf(s[u] - mx);
+        l += p;
+        const float pv = p * vsv[u];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += pv * vv[u][e];
+      }
+      m = mx;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) w_acc[warp][lane * E + e] = acc[e];
+  if (lane == 0) {
+    w_m[warp] = m;
+    w_l[warp] = l;
+  }
+  __syncthreads();
+  // merge the warps' partials: thread dd takes head dimension dd. A chunk (or
+  // a warp's part of it) past the valid prefix merges as the empty partial
+  // (m -1e30, l 0, acc 0)
+  const int dd = threadIdx.x;
+  if (dd >= D) return;
+  float M = w_m[0];
+#pragma unroll
+  for (int w = 1; w < MHA_WARPS; ++w) M = fmaxf(M, w_m[w]);
+  float Lsum = 0.f, A = 0.f;
+#pragma unroll
+  for (int w = 0; w < MHA_WARPS; ++w) {
+    const float wgt = expf(w_m[w] - M);
+    Lsum += wgt * w_l[w];
+    A += wgt * w_acc[w][dd];
+  }
+  part_acc[pidx * D + dd] = A;
+  if (dd == 0) {
+    part_ml[2 * pidx] = M;
+    part_ml[2 * pidx + 1] = Lsum;
+  }
+}
+
 // (M, L, A) of row (bk, g) at head dimension dd, merged over the time chunks
 __device__ __forceinline__ void merge_chunks(const float* __restrict__ part_acc,
                                              const float* __restrict__ part_ml, int bk, int g,
@@ -207,14 +403,29 @@ __global__ void finish_kernel(const float* __restrict__ part_acc,
   gq::store(out + (size_t)r * D + dd, A / fmaxf(L, 1e-30f));
 }
 
+// G == 1 over several K/V heads takes mha_partials_kernel (the only one
+// for D = 128: partials_kernel's staged tiles stop at D = 64)
+__host__ __device__ constexpr bool is_mha(int KV, int G) { return G == 1 && KV > 1; }
+
 template <typename T, typename TQ, int D>
-void launch_partials(const void* cache, const void* scales, int layer, const void* q,
+bool launch_partials(const void* cache, const void* scales, int layer, const void* q,
                      const int* vv, int valid, float* pacc, float* pml, int B, int Tn, int KV,
                      int G, int n_chunks, cudaStream_t st) {
-  dim3 grid(n_chunks, KV, B);
-  partials_kernel<T, TQ, D><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(cache), static_cast<const float*>(scales), layer,
-      static_cast<const TQ*>(q), vv, valid, pacc, pml, B, Tn, KV, G, n_chunks);
+  if (is_mha(KV, G)) {
+    dim3 grid(n_chunks, KV, B);
+    mha_partials_kernel<T, TQ, D><<<grid, MHA_WARPS * 32, 0, st>>>(
+        static_cast<const T*>(cache), static_cast<const float*>(scales), layer,
+        static_cast<const TQ*>(q), vv, valid, pacc, pml, B, Tn, KV, n_chunks);
+    return true;
+  }
+  if constexpr (D <= 64) {
+    dim3 grid(n_chunks, KV, B);
+    partials_kernel<T, TQ, D><<<grid, THREADS, 0, st>>>(
+        static_cast<const T*>(cache), static_cast<const float*>(scales), layer,
+        static_cast<const TQ*>(q), vv, valid, pacc, pml, B, Tn, KV, G, n_chunks);
+    return true;
+  }
+  return false;
 }
 
 template <int D>
@@ -222,18 +433,13 @@ bool dispatch_partials(int cache_kind, int q_bf16, const void* cache, const void
                        int layer, const void* q, const int* vv, int valid, float* pacc,
                        float* pml, int B, int Tn, int KV, int G, int n_chunks, cudaStream_t st) {
 #define GQ_ARGS cache, scales, layer, q, vv, valid, pacc, pml, B, Tn, KV, G, n_chunks, st
-  if (cache_kind == 0 && !q_bf16)
-    launch_partials<float, float, D>(GQ_ARGS);
-  else if (cache_kind == 1 && q_bf16)
-    launch_partials<__nv_bfloat16, __nv_bfloat16, D>(GQ_ARGS);
-  else if (cache_kind == 2 && q_bf16)
-    launch_partials<int8_t, __nv_bfloat16, D>(GQ_ARGS);
-  else if (cache_kind == 2)
-    launch_partials<int8_t, float, D>(GQ_ARGS);
-  else
-    return false;
+  if (cache_kind == 0 && !q_bf16) return launch_partials<float, float, D>(GQ_ARGS);
+  if (cache_kind == 1 && q_bf16)
+    return launch_partials<__nv_bfloat16, __nv_bfloat16, D>(GQ_ARGS);
+  if (cache_kind == 2 && q_bf16) return launch_partials<int8_t, __nv_bfloat16, D>(GQ_ARGS);
+  if (cache_kind == 2) return launch_partials<int8_t, float, D>(GQ_ARGS);
+  return false;
 #undef GQ_ARGS
-  return true;
 }
 
 // Checks the arguments and launches the partials over n_chunks time chunks.
@@ -242,18 +448,19 @@ cudaError_t run_partials(const void* cache, int cache_kind, const void* scales, 
                          void* part_acc, void* part_ml, int L, int B, int Tn, int KV, int G,
                          int D, int n_chunks, cudaStream_t st) {
   if (layer < 0 || layer >= L || B < 1 || KV < 1 || G < 1 || G > THREADS || n_chunks < 0 ||
-      n_chunks * CT > Tn + CT - 1 || (D != 32 && D != 64) ||
+      n_chunks * CT > Tn + CT - 1 || (D != 32 && D != 64 && !(D == 128 && is_mha(KV, G))) ||
       (cache_kind == 2) != (scales != nullptr))
     return cudaErrorInvalidValue;
   if (n_chunks == 0) return cudaSuccess;
   const int* vv = static_cast<const int*>(valid_vec);
   float* pacc = static_cast<float*>(part_acc);
   float* pml = static_cast<float*>(part_ml);
-  const bool ok =
-      D == 32 ? dispatch_partials<32>(cache_kind, q_bf16, cache, scales, layer, q, vv, valid,
-                                      pacc, pml, B, Tn, KV, G, n_chunks, st)
-              : dispatch_partials<64>(cache_kind, q_bf16, cache, scales, layer, q, vv, valid,
-                                      pacc, pml, B, Tn, KV, G, n_chunks, st);
+#define GQ_ARGS cache_kind, q_bf16, cache, scales, layer, q, vv, valid, pacc, pml, B, Tn, KV, G, \
+                n_chunks, st
+  const bool ok = D == 32   ? dispatch_partials<32>(GQ_ARGS)
+                  : D == 64 ? dispatch_partials<64>(GQ_ARGS)
+                            : dispatch_partials<128>(GQ_ARGS);
+#undef GQ_ARGS
   return ok ? cudaGetLastError() : cudaErrorInvalidValue;
 }
 
@@ -262,7 +469,8 @@ cudaError_t run_partials(const void* cache, int cache_kind, const void* scales, 
 // cache (L, 2, B, T, KV, D) contiguous, cache_kind 0 = f32, 1 = bf16, 2 = int8
 // codes with scales (L, 2, B, T, KV) f32 contiguous (null otherwise); q
 // (B, KV, G, D) contiguous, in the cache's dtype for kinds 0 and 1 and f32 or
-// bf16 (q_bf16) for kind 2. Writes acc (B, KV, G, D), m and l (B, KV, G) in
+// bf16 (q_bf16) for kind 2. D is 32 or 64, or 128 where G == 1 and KV > 1
+// (that case runs mha_partials_kernel). Writes acc (B, KV, G, D), m and l (B, KV, G) in
 // f32, using part_acc (B, KV, n_chunks, G, D) and part_ml (B, KV, n_chunks,
 // G, 2) as scratch. n_chunks * 64 must cover every row's valid length;
 // valid_vec (B,) int32 on the device, or null to use `valid` for every row.

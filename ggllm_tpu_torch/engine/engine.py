@@ -21,9 +21,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams, LlamaHParams
 from ggllm_tpu_torch.core.device import resolve_device
-from ggllm_tpu_torch.models.falcon import Falcon, FalconStatic
+from ggllm_tpu_torch.models import resolve_model
 from ggllm_tpu_torch.ops import kvcache, sampling, sampling_device
 from ggllm_tpu_torch.ops.rope import rope_angles
 
@@ -63,7 +63,9 @@ class Timings:
 
 
 class FalconEngine:
-    """Single-model, single-stream inference engine.
+    """Single-model, single-stream inference engine for both model families
+    (the model is resolved by hparams.arch; the class keeps the JAX
+    engine's name).
 
     device: None (the default) runs on the CUDA card and raises when CUDA
     is missing; device="cpu" runs the kernels' plain versions on the CPU.
@@ -71,18 +73,18 @@ class FalconEngine:
     quantized matmuls / attention through the plain versions on any
     device (the reference path the kernels are held against)."""
 
-    def __init__(self, hparams: FalconHParams, params: dict,
+    def __init__(self, hparams: FalconHParams | LlamaHParams, params: dict,
                  cfg: EngineConfig | None = None, device=None):
         self.device = resolve_device(device)
         self.hp = hparams
         self.cfg = cfg or EngineConfig()
         self.batch = 1
-        self.st = FalconStatic.from_hparams(
+        self.st, model_cls = resolve_model(
             hparams, flash=self.cfg.flash_attention is not False,
             kernels=self.cfg.kernel_layout is not False)
-        self.model = Falcon(self.st, params).to(self.device)
-        self.inv_freq = torch.from_numpy(
-            rope_angles(self.cfg.rope, self.cfg.n_ctx, hparams.head_dim)).to(self.device)
+        self.model = model_cls(self.st, params).to(self.device)
+        self.inv_freq = torch.from_numpy(rope_angles(
+            self.cfg.rope, self.cfg.n_ctx, hparams.head_dim, arch=hparams.arch)).to(self.device)
         self.n_past = 0
         self.kv = self.new_kv()
         self.timings = Timings()

@@ -1,11 +1,12 @@
-"""GGCC / GGJT / GGMF / GGML model file reader and GGCC v10 writer (a copy
-of ggllm_tpu/io/ggcc.py without the LLaMA family, which is not ported).
+"""GGCC / GGJT / GGMF / GGML model file reader, GGCC v10 writer (Falcon)
+and GGJT v3 writer (LLaMA): a copy of ggllm_tpu/io/ggcc.py.
 
 File format parity with the reference loader/saver (libfalcon.cpp:770-1052):
 
 header        magic u32 ('ggcc'=0x67676363), version u32 (10)
 hparams       n_vocab, n_embd, n_head, n_head_kv, n_layer, n_falcon_type,
-              ftype, [n_bpe_merges if GGCC]   (all u32)
+              ftype, [n_bpe_merges if GGCC]   (all u32); a LLaMA GGJT file:
+              n_vocab, n_embd, n_mult, n_head, n_layer, n_rot, ftype
 vocab         n_vocab x { len u32, bytes, score f32 }
 merges        [GGCC only] count u32, count x { len1 u32, str1, len2 u32, str2 }
 tensors       repeated { n_dims u32, name_len u32, type u32, ne u32[n_dims],
@@ -25,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ggllm_tpu_torch.core.config import FalconHParams
+from ggllm_tpu_torch.core.config import FalconHParams, LlamaHParams
 from ggllm_tpu_torch.core.dtypes import FType, GGMLType, row_nbytes
 from ggllm_tpu_torch.quant import registry
 from ggllm_tpu_torch.tokenizer.bpe import Vocab
@@ -85,7 +86,7 @@ _MM_LOCK = threading.Lock()
 class ModelFile:
     path: str
     version: int
-    hparams: FalconHParams
+    hparams: FalconHParams | LlamaHParams
     vocab: Vocab
     tensors: dict[str, TensorRecord] = field(default_factory=dict)
     paths: list = field(default_factory=list)  # all part files (index 0 = path)
@@ -289,12 +290,16 @@ def _read_one_file(path: str, load_merges: bool, arch: str,
             arch = _detect_arch(version, raw)
 
         if arch == "llama":
-            raise NotImplementedError(f"{path}: LLaMA files are not ported yet")
-        hp = FalconHParams(
-            n_vocab=raw[0], n_embd=raw[1], n_head=raw[2], n_head_kv=raw[3],
-            n_layer=raw[4], n_falcon_type=raw[5], ftype=raw[6],
-            n_bpe_merges=0,
-        )
+            hp = LlamaHParams(
+                n_vocab=raw[0], n_embd=raw[1], n_mult=raw[2], n_head=raw[3],
+                n_layer=raw[4], n_rot=raw[5], ftype=raw[6],
+            )
+        else:
+            hp = FalconHParams(
+                n_vocab=raw[0], n_embd=raw[1], n_head=raw[2], n_head_kv=raw[3],
+                n_layer=raw[4], n_falcon_type=raw[5], ftype=raw[6],
+                n_bpe_merges=0,
+            )
         if version >= V_GGCC_1:
             hp.n_bpe_merges = _read_u32(f)
 
@@ -357,6 +362,27 @@ def _read_one_file(path: str, load_merges: bool, arch: str,
     return model
 
 
+class GGJTWriter:
+    """Streaming GGJT v3 writer for LLaMA-family files (the legacy llama.cpp
+    on-disk format; hparams order per llama.cpp:124-133)."""
+
+    def __init__(self, path: str | Path, hparams: LlamaHParams, vocab: Vocab):
+        self.f = open(path, "wb")
+        self.f.write(struct.pack("<II", MAGIC_GGJT, 3))
+        for v in (hparams.n_vocab, hparams.n_embd, hparams.n_mult,
+                  hparams.n_head, hparams.n_layer, hparams.n_rot, hparams.ftype):
+            self.f.write(struct.pack("<I", v))
+        for tok, score in zip(vocab.id_to_token, vocab.scores):
+            self.f.write(struct.pack("<I", len(tok)))
+            self.f.write(tok)
+            self.f.write(struct.pack("<f", score))
+
+    write_tensor = None  # assigned below (shared with GGCCWriter)
+
+    def close(self):
+        self.f.close()
+
+
 class GGCCWriter:
     """Streaming GGCC v10 writer (llama_file_saver, libfalcon.cpp:975-1052)."""
 
@@ -411,3 +437,9 @@ class GGCCWriter:
 
     def close(self):
         self.f.close()
+
+
+# GGJT tensor records share the GGCC layout (32-byte aligned data)
+GGJTWriter.write_tensor = GGCCWriter.write_tensor
+GGJTWriter._u32 = GGCCWriter._u32
+GGJTWriter.write_array = GGCCWriter.write_array

@@ -1,17 +1,22 @@
-"""Model loading: GGCC file -> the port's parameter tree (port of the
-Falcon path of ggllm_tpu/io/loader.py load_params:412 / load_model:573).
+"""Model loading: GGCC / GGJT file -> the port's parameter tree (port of
+ggllm_tpu/io/loader.py load_params:412 / load_model:573, single device).
 
 The tree mirrors the JAX kernel-path tree: {"tok_embeddings",
-"output_norm", "output_norm_b", "lm_head", "layers": [per-layer dict]}.
+"output_norm", ["output_norm_b",] "lm_head", "layers": [per-layer dict]}.
 Quantized 2-D weights stay packed as QuantTensors in ggml's planar layout
 (which is also the Hopper kernel layout, so a file load is a copy) and
-merge as the JAX loader merges them (_merge_kernel_weights:117):
+merge as the JAX loader merges them. Falcon (_merge_kernel_weights:117):
 
 * shared-norm models (7B): [QKV; FFN-up] rows -> "wqkvu";
 * wo / FFN-down along the contraction dim -> "w_od", fed [attn; gelu(ff)]
   (4544 = 142 * 32 and 18176 = 568 * 32: plain block concatenation);
 * separate-norm models keep "wqkv" and "ffn_up"; mixed dense/quantized or
   mixed-format pairs stay separate ("wo", "ffn_down").
+
+LLaMA (_load_llama_params:231): [wq; wk; wv] rows -> "wqkv" and [w1; w3]
+rows -> "w13" (each pair shares an input), else the split keys; "wo" and
+"w2" stay separate. A key whose ggml type differs between layers (the
+reference's mixed K-type policy) is dequantized in every layer.
 
 LoRA, the .kcache sidecar and meshes are not ported.
 """
@@ -58,10 +63,11 @@ def _quant(gtype, shape, planes: dict, device) -> QuantTensor:
     return QuantTensor(gtype, shape, {k: tensor(v) for k, v in planes.items()})
 
 
-def _load_matrix(mf: ModelFile, name: str, dtype, device):
-    """2-D weight -> dense tensor (out, in) or QuantTensor."""
+def _load_matrix(mf: ModelFile, name: str, dtype, device, dense: bool = False):
+    """2-D weight -> dense tensor (out, in) or QuantTensor (dense: always
+    dequantized)."""
     t = mf.tensors[name]
-    if not GGMLType(t.gtype).name.startswith("Q"):
+    if dense or not GGMLType(t.gtype).name.startswith("Q"):
         return torch.from_numpy(mf.tensor_f32(name)).to(device=device, dtype=dtype)
     rows, cols = t.shape  # numpy convention: (out, in)
     return _quant(t.gtype, (rows, cols), planar.to_planes(t.gtype, mf.tensor_blob(name), rows, cols),
@@ -80,28 +86,85 @@ def cat_quant(ws: list[QuantTensor], dim: int) -> QuantTensor:
                        {k: torch.cat([w.planes[k] for w in ws], dim) for k in ws[0].planes})
 
 
-def _mergeable(a, b) -> bool:
-    qa, qb = isinstance(a, QuantTensor), isinstance(b, QuantTensor)
-    return (qa and qb and a.gtype == b.gtype) or (not qa and not qb)
+def _cat(ws: list, dim: int):
+    """All-dense or same-format quantized weights concatenated along dim;
+    None for a mixed set, which cannot merge."""
+    if all(isinstance(w, QuantTensor) for w in ws):
+        return cat_quant(ws, dim) if len({w.gtype for w in ws}) == 1 else None
+    if any(isinstance(w, QuantTensor) for w in ws):
+        return None
+    return torch.cat(ws, dim)
 
 
 def merge_weights(lw: dict, qkv, up, wo, down, parallel_norms: bool) -> dict:
-    """The JAX kernel path's weight merge (see module docstring)."""
-    if not parallel_norms and _mergeable(qkv, up):
-        if isinstance(qkv, QuantTensor):
-            lw["wqkvu"] = cat_quant([qkv, up], 0)
-        else:
-            lw["wqkvu"] = torch.cat([qkv, up], 0)
+    """The JAX kernel path's Falcon weight merge (see module docstring)."""
+    wqkvu = None if parallel_norms else _cat([qkv, up], 0)
+    if wqkvu is not None:
+        lw["wqkvu"] = wqkvu
     else:
         lw["wqkv"], lw["ffn_up"] = qkv, up
-    if _mergeable(wo, down):
-        if isinstance(wo, QuantTensor):
-            lw["w_od"] = cat_quant([wo, down], 1)
-        else:
-            lw["w_od"] = torch.cat([wo, down], 1)
+    w_od = _cat([wo, down], 1)
+    if w_od is not None:
+        lw["w_od"] = w_od
     else:
         lw["wo"], lw["ffn_down"] = wo, down
     return lw
+
+
+def _llama_names(i: int) -> dict[str, str]:
+    """Tensor names per LLaMA layer (llama.cpp:1124-1151)."""
+    p = f"layers.{i}"
+    return {
+        "attn_norm": f"{p}.attention_norm.weight",
+        "wq": f"{p}.attention.wq.weight",
+        "wk": f"{p}.attention.wk.weight",
+        "wv": f"{p}.attention.wv.weight",
+        "wo": f"{p}.attention.wo.weight",
+        "ffn_norm": f"{p}.ffn_norm.weight",
+        "w1": f"{p}.feed_forward.w1.weight",
+        "w2": f"{p}.feed_forward.w2.weight",
+        "w3": f"{p}.feed_forward.w3.weight",
+    }
+
+
+LLAMA_MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+
+
+def merge_llama_weights(lw: dict, mats: dict) -> dict:
+    """The JAX kernel path's LLaMA weight merge (see module docstring)."""
+    for merged, keys in (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3"))):
+        w = _cat([mats[k] for k in keys], 0)
+        if w is not None:
+            lw[merged] = w
+        else:
+            lw.update({k: mats[k] for k in keys})
+    lw["wo"], lw["w2"] = mats["wo"], mats["w2"]
+    return lw
+
+
+def _load_llama_params(mf: ModelFile, dtype, device) -> dict:
+    hp = mf.hparams
+
+    def vec(name):
+        return torch.from_numpy(mf.tensor_f32(name).astype(np.float32)).to(device)
+
+    # a key with different ggml types across layers densifies in every layer
+    dense_keys = {k for k in LLAMA_MATRICES
+                  if len({mf.tensors[_llama_names(i)[k]].gtype for i in range(hp.n_layer)}) > 1}
+    params: dict = {
+        "tok_embeddings": torch.from_numpy(
+            mf.tensor_f32("tok_embeddings.weight")).to(device=device, dtype=dtype),
+        "output_norm": vec("norm.weight"),
+        "lm_head": _load_matrix(mf, "output.weight", dtype, device),
+        "layers": [],
+    }
+    for i in range(hp.n_layer):
+        names = _llama_names(i)
+        lw = {key: vec(names[key]) for key in ("attn_norm", "ffn_norm")}
+        mats = {k: _load_matrix(mf, names[k], dtype, device, dense=k in dense_keys)
+                for k in LLAMA_MATRICES}
+        params["layers"].append(merge_llama_weights(lw, mats))
+    return params
 
 
 def load_params(mf: ModelFile, cfg: EngineConfig | None = None, device=None) -> dict:
@@ -110,9 +173,9 @@ def load_params(mf: ModelFile, cfg: EngineConfig | None = None, device=None) -> 
     cfg = cfg or EngineConfig()
     device = resolve_device(device)
     hp = mf.hparams
-    if mf.arch != "falcon":
-        raise NotImplementedError(f"arch {mf.arch!r} is not ported")
     dtype = getattr(torch, cfg.compute_dtype)
+    if mf.arch == "llama":
+        return _load_llama_params(mf, dtype, device)
 
     def vec(name):
         return torch.from_numpy(mf.tensor_f32(name).astype(np.float32)).to(device)
@@ -251,13 +314,17 @@ def _split_rows_jax(w, i: int):
     return np.asarray(w)[i]
 
 
+_NORM_KEYS = ("input_ln_w", "input_ln_b", "attn_ln_w", "attn_ln_b", "attn_norm", "ffn_norm")
+
+
 def from_jax_params(tree: dict, dtype=torch.float32, device=None) -> dict:
-    """The JAX loader's Falcon parameter tree, leaves converted to numpy,
-    -> the port's tree. Takes the merged kernel-layout form (KernelQuant
-    weights, a list of per-layer dicts) and the planar form (QuantTensor
-    weights stacked on a leading layer axis, split wq/wk/wv; separate
-    attention norms mark a 40B-style model). The JAX classes are read by
-    their attributes; nothing of the JAX package is imported."""
+    """The JAX loader's Falcon or LLaMA parameter tree, leaves converted to
+    numpy, -> the port's tree. Takes the merged kernel-layout form
+    (KernelQuant weights, a list of per-layer dicts) and the planar form
+    (QuantTensor weights stacked on a leading layer axis, split wq/wk/wv;
+    "attn_norm" marks a LLaMA tree, separate attention norms a 40B-style
+    Falcon). The JAX classes are read by their attributes; nothing of the
+    JAX package is imported."""
     device = resolve_device(device)
 
     def vec(a):
@@ -267,27 +334,28 @@ def from_jax_params(tree: dict, dtype=torch.float32, device=None) -> dict:
         "tok_embeddings": torch.from_numpy(np.array(tree["tok_embeddings"], np.float32)).to(
             device=device, dtype=dtype),
         "output_norm": vec(tree["output_norm"]),
-        "output_norm_b": vec(tree["output_norm_b"]),
         "lm_head": _weight_from_jax(tree["lm_head"], device, dtype),
         "layers": [],
     }
-    norm_keys = ("input_ln_w", "input_ln_b", "attn_ln_w", "attn_ln_b")
+    if "output_norm_b" in tree:
+        params["output_norm_b"] = vec(tree["output_norm_b"])
     layers = tree["layers"]
     if isinstance(layers, (list, tuple)):  # kernel layout: merged, unstacked
         for lw in layers:
-            out = {k: vec(v) for k, v in lw.items() if k in norm_keys}
-            out.update({k: _weight_from_jax(v, device, dtype)
-                        for k, v in lw.items() if k not in norm_keys})
-            params["layers"].append(out)
+            params["layers"].append({
+                k: vec(v) if k in _NORM_KEYS else _weight_from_jax(v, device, dtype)
+                for k, v in lw.items()})
         return params
-    for i in range(np.asarray(layers["input_ln_w"]).shape[0]):  # planar: stacked, split q/k/v
-        out = {k: vec(np.asarray(layers[k])[i]) for k in norm_keys if k in layers}
-        w = {k: _weight_from_jax(_split_rows_jax(layers[k], i), device, dtype)
-             for k in ("wq", "wk", "wv", "wo", "ffn_up", "ffn_down")}
-        if isinstance(w["wq"], QuantTensor):
-            qkv = cat_quant([w["wq"], w["wk"], w["wv"]], 0)
+    llama = "attn_norm" in layers
+    matrices = LLAMA_MATRICES if llama else ("wq", "wk", "wv", "wo", "ffn_up", "ffn_down")
+    n_layer = np.asarray(layers["attn_norm" if llama else "input_ln_w"]).shape[0]
+    for i in range(n_layer):  # planar: stacked, split q/k/v
+        out = {k: vec(np.asarray(layers[k])[i]) for k in _NORM_KEYS if k in layers}
+        w = {k: _weight_from_jax(_split_rows_jax(layers[k], i), device, dtype) for k in matrices}
+        if llama:
+            params["layers"].append(merge_llama_weights(out, w))
         else:
-            qkv = torch.cat([w["wq"], w["wk"], w["wv"]], 0)
-        params["layers"].append(merge_weights(out, qkv, w["ffn_up"], w["wo"], w["ffn_down"],
-                                              "attn_ln_w" in layers))
+            params["layers"].append(merge_weights(
+                out, _cat([w["wq"], w["wk"], w["wv"]], 0), w["ffn_up"], w["wo"],
+                w["ffn_down"], "attn_ln_w" in layers))
     return params

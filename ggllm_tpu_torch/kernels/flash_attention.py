@@ -3,7 +3,10 @@
 
 Replaces the Pallas kernel ggllm_tpu/kernels/flash_attention.py `_kern`
 (launched by flash_mqa). Key t is visible to query i of row b iff
-t <= n_past[b] + i; f32 softmax; output in q's dtype.
+t <= n_past[b] + i; f32 softmax; output in q's dtype. Head dims 32, 64 and
+128; query heads that share a K/V head (Falcon) run the block layout of 8
+heads x 16 positions, G == 1 (LLaMA) or D == 128 the one-head-per-block
+layout (csrc/flash_attention.cu flash_mha_kernel).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 from ggllm_tpu_torch.kernels import build
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (32, 64)
+KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
 def _n_past_vec(n_past, B: int, device) -> torch.Tensor:

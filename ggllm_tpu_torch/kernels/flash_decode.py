@@ -2,9 +2,14 @@
 one layer of the stacked KV cache, with an optional deferred-append block.
 
 The hand-written CUDA kernels (csrc/flash_decode.cu) replace the Pallas
-kernel ggllm_tpu/kernels/flash_decode.py `_kern` (launched by
-cache_partials) for bf16/f32 caches and, as its quant=True variant, for the
-int8 cache (codes, scales) of ops/kvcache.py. `cache_partials` returns the
+kernels of ggllm_tpu/kernels/flash_decode.py: `_kern` (launched by
+cache_partials; query heads grouped over K/V heads, Falcon) and `_kern_mha`
+(launched by _cache_partials_mha; G == 1 over several K/V heads, LLaMA), each
+for bf16/f32 caches and, as its quant=True variant, for the int8 cache
+(codes, scales) of ops/kvcache.py. G == 1 and KV > 1 takes the one-head-per-block
+kernel (head dims 32, 64, 128; launch counters "flash_decode.mha" and
+"flash_decode.mha.int8"), every other shape the grouped one (head dims 32,
+64; "flash_decode", "flash_decode.int8"). `cache_partials` returns the
 un-normalized partials (acc, m, l) as the JAX function does; `flash_decode`
 has the JAX function's arguments and runs the same partials kernel followed
 by a finishing kernel that merges the small [current; pending] append block
@@ -23,7 +28,8 @@ from ggllm_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 CHUNK = 64  # cache positions per kernel block (csrc/flash_decode.cu CT)
-KERNEL_HEAD_DIMS = (32, 64)
+KERNEL_HEAD_DIMS = (32, 64)  # the grouped kernel's
+MHA_HEAD_DIMS = (32, 64, 128)  # the G == 1 kernel's
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -84,8 +90,9 @@ def _kernel_call(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid) -> Simp
             raise ValueError("flash_decode kernel: the scales must be contiguous")
     elif kv.dtype not in _DTYPES:
         raise TypeError(f"flash_decode kernel: cache dtype {kv.dtype}")
-    if D not in KERNEL_HEAD_DIMS or G > 128:
-        raise NotImplementedError(f"flash_decode kernel: head_dim {D}, group {G}")
+    mha = G == 1 and KV > 1
+    if D not in (MHA_HEAD_DIMS if mha else KERNEL_HEAD_DIMS) or G > 128:
+        raise NotImplementedError(f"flash_decode kernel: head_dim {D}, group {G}, KV {KV}")
     if not kv.is_contiguous():
         raise ValueError("flash_decode kernel: the cache must be contiguous")
     qg = (qg if quant else qg.to(kv.dtype)).contiguous()
@@ -109,7 +116,7 @@ def _kernel_call(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid) -> Simp
               int(qg.dtype == torch.bfloat16), None if vv is None else vv.data_ptr(), valid),
         tail=(part_acc.data_ptr(), part_ml.data_ptr(), L, B, T, KV, G, D, n_chunks,
               build.stream_ptr(kv.device)),
-        qg=qg, counter="flash_decode.int8" if quant else "flash_decode",
+        qg=qg, counter="flash_decode" + (".mha" if mha else "") + (".int8" if quant else ""),
         scratch=(vv, part_acc, part_ml))
 
 

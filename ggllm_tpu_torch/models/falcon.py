@@ -83,7 +83,7 @@ def _positions(n_past, B: int, S: int, device) -> torch.Tensor:
     return np_vec[:, None] + torch.arange(S, device=device)[None, :]
 
 
-def _attention(q, k, v, n_past, st: FalconStatic, kv_append=None, append_valid=None):
+def _attention(q, k, v, n_past, st, kv_append=None, append_valid=None):
     """Plain causal MQA/GQA attention over a prefix-valid KV cache, f32
     softmax (the einsum reference, ggllm_tpu models/falcon.py _attention:92).
 
@@ -123,6 +123,35 @@ def _attention(q, k, v, n_past, st: FalconStatic, kv_append=None, append_valid=N
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(torch.float32))
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def attend(kv, l: int, q, kv_new, n_past, st, pending=None, n_pend: int = 0):
+    """Layer l's attention of q (B, S, H, D) for either model family (st is
+    its Static). Without `pending` the new K/V (2, B, S, KV, D) go into the
+    cache in place first, then S == 1 runs flash_decode over the valid prefix
+    and prefill runs flash_mqa (the plain `_attention` with st.flash False).
+    With `pending` (chunk-deferred decode) the cache stays untouched and
+    attention reads it below n_past - n_pend plus [kv_new; pending[l, :n_pend]]."""
+    if pending is not None:
+        app = torch.cat([kv_new, pending[l, :, :, :n_pend].to(kv_new.dtype)], dim=2)
+        if st.flash:
+            return flash_decode(kv, st.n_head_kv, l, q, n_past, kv_append=app,
+                                append_valid=1 + n_pend)
+        k, v = kvcache.read_layer(kv, l, q.dtype)
+        return _attention(q, k, v, n_past, st, kv_append=app, append_valid=1 + n_pend)
+    kvcache.write_layer(kv, kv_new, l, n_past)
+    if st.flash and q.shape[1] == 1:
+        return flash_decode(kv, st.n_head_kv, l, q, n_past)
+    k, v = kvcache.read_layer(kv, l, q.dtype)
+    if st.flash:
+        return flash_mqa(q, k, v, n_past)
+    return _attention(q, k, v, n_past, st)
+
+
+def select_last(x: torch.Tensor, last_pos: int | None) -> torch.Tensor:
+    """(B, S, E) -> (B, 1, E) at position last_pos (None: the last one)."""
+    lp = x.shape[1] - 1 if last_pos is None else last_pos
+    return x[:, lp:lp + 1]
 
 
 class FalconLayer(nn.Module):
@@ -207,30 +236,12 @@ class Falcon(nn.Module):
         deferred = []
         for l, layer in enumerate(self.layers):
             q, kv_new, gf = layer.pre(x, rope, st)
+            attn = attend(kv, l, q, kv_new, n_past, st, pending, n_pend)
             if pending is not None:
-                app = torch.cat([kv_new, pending[l, :, :, :n_pend].to(kv_new.dtype)], dim=2)
-                if st.flash:
-                    attn = flash_decode(kv, st.n_head_kv, l, q, n_past, kv_append=app,
-                                        append_valid=1 + n_pend)
-                else:
-                    k, v = kvcache.read_layer(kv, l, q.dtype)
-                    attn = _attention(q, k, v, n_past, st, kv_append=app,
-                                      append_valid=1 + n_pend)
                 deferred.append(kv_new)
-            else:
-                kvcache.write_layer(kv, kv_new, l, n_past)
-                if st.flash and S == 1:
-                    attn = flash_decode(kv, st.n_head_kv, l, q, n_past)
-                else:
-                    k, v = kvcache.read_layer(kv, l, q.dtype)
-                    if st.flash:
-                        attn = flash_mqa(q, k, v, n_past)
-                    else:
-                        attn = _attention(q, k, v, n_past, st)
             x = layer.post(x, attn, gf, st)
         x = layer_norm(x, self.output_norm, self.output_norm_b)
         if not logits_all:
-            lp = S - 1 if last_pos is None else last_pos
-            x = x[:, lp:lp + 1]
+            x = select_last(x, last_pos)
         logits = linear(self.lm_head, x, torch.float32, kernels=st.kernels)
         return (logits, torch.stack(deferred)) if pending is not None else logits

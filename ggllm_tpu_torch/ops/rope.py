@@ -1,5 +1,6 @@
-"""NeoX-style rotary position embedding with NTK-aware dynamic scaling
-(port of ggllm_tpu/ops/rope.py).
+"""Rotary position embedding: NeoX-style with NTK-aware dynamic scaling
+(port of ggllm_tpu/ops/rope.py) for Falcon, and ggml's classic adjacent-pair
+form for LLaMA (ggllm_tpu/models/llama.py apply_rope_classic:64).
 
 Matches the reference rope op in NeoX mode with Falcon's settings
 (ggml.c:12875-12990, invoked from libfalcon.cpp:2229-2234 with mode=2,
@@ -73,3 +74,24 @@ def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tenso
     r0 = x0 * cos - x1 * sin
     r1 = x0 * sin + x1 * cos
     return torch.cat([r0, r1], dim=-1).to(x.dtype)
+
+
+def rotate_classic(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                   n_rot: int) -> torch.Tensor:
+    """ggml rope mode 0 with precomputed rope_cos_sin angles: rotate the
+    adjacent pairs (2j, 2j+1) of the first n_rot dims of x (B, S, H, D) by
+    the first n_rot/2 angles; f32 inside, one cast back to x's dtype."""
+    xr = x[..., :n_rot].to(torch.float32)
+    cos, sin = cos[..., :n_rot // 2], sin[..., :n_rot // 2]
+    x0, x1 = xr[..., 0::2], xr[..., 1::2]
+    rot = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    rot = rot.reshape(xr.shape).to(x.dtype)
+    if n_rot == x.shape[-1]:
+        return rot
+    return torch.cat([rot, x[..., n_rot:]], dim=-1)
+
+
+def apply_rope_classic(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+                       n_rot: int) -> torch.Tensor:
+    """rotate_classic at the given positions (B, S)."""
+    return rotate_classic(x, *rope_cos_sin(positions, inv_freq), n_rot)

@@ -1,6 +1,6 @@
 """Generation CLI (the core of ggllm_tpu/tools/main.py): load a Falcon GGCC
-file, tokenize the prompt, generate with the device sampling cascade and
-print the text.
+file or a LLaMA GGJT file, tokenize the prompt with the file's tokenizer
+(BOS first), generate with the device sampling cascade and print the text.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 

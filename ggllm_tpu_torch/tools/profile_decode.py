@@ -2,7 +2,7 @@
 prefill chunk and of a run of decode tokens at full model width (random
 weights of one format from a seed), on the CUDA card.
 
-    python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b]
+    python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b|llama7b]
         [--format q4_0|q4_1|q5_0|q5_1|q8_0|q2_k|q3_k|q4_k|q5_k|q6_k]
         [--kv-dtype bfloat16|float32|int8] [--prompt 300] [--tokens 16]
 
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.engine.engine import FalconEngine
 from ggllm_tpu_torch.ops.sampling import SamplerParams
@@ -58,13 +58,14 @@ def _device_summary(prof, wall_s: float, n_tokens: int, top: int = 12) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("falcon7b", "falcon40b"), default="falcon7b")
+    ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"),
+                    default="falcon7b")
     ap.add_argument("--format", default="q4_0", help="2-D weight format (default q4_0)")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--prompt", type=int, default=300)
     ap.add_argument("--tokens", type=int, default=16)
     args = ap.parse_args(argv)
-    hp = getattr(FalconHParams, args.config)()
+    hp = named_hparams(args.config)
     params = make_bench_params(hp, seed=7, gtype=GGMLType[args.format.upper()])
     eng = FalconEngine(hp, params, EngineConfig(kv_dtype=args.kv_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, args.prompt)]

@@ -1,8 +1,8 @@
 """Synthetic parameters at real model scale, made on the device (the
 counterpart of ggllm_tpu/utils/benchgen.py make_bench_params:151).
 
-Benchmarks need Falcon-7B/40B-sized quantized weights but no pretrained
-values, and the repository holds no weights. This builds the merged
+Benchmarks need Falcon-7B/40B- or LLaMA-7B-sized quantized weights but no
+pretrained values, and the repository holds no weights. This builds the merged
 parameter tree (io/loader.py layout) directly on the device from a seeded
 generator: random codes, and fp16-exact scales of one magnitude per
 format with random signs (the kernels' speed does not depend on the
@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ggllm_tpu_torch.core.config import FalconHParams
+from ggllm_tpu_torch.core.config import FalconHParams, LlamaHParams
 from ggllm_tpu_torch.core.device import resolve_device
 from ggllm_tpu_torch.core.dtypes import GGMLType, TYPE_TRAITS
 from ggllm_tpu_torch.ops.linear import QuantTensor
@@ -102,14 +102,14 @@ def random_quant(gtype: GGMLType, out: int, cols: int, gen: torch.Generator, dev
     return QuantTensor(gtype, (out, cols), planes)
 
 
-def make_bench_params(hp: FalconHParams, compute_dtype=torch.bfloat16, device=None,
-                      seed: int = 42, gtype: GGMLType = GGMLType.Q4_0) -> dict:
-    """Full Falcon parameter tree at hp's scale with gtype 2-D weights."""
+def make_bench_params(hp: FalconHParams | LlamaHParams, compute_dtype=torch.bfloat16,
+                      device=None, seed: int = 42, gtype: GGMLType = GGMLType.Q4_0) -> dict:
+    """Full Falcon or LLaMA parameter tree (io/loader.py's merged layout) at
+    hp's scale with gtype 2-D weights, norms of ones."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    E, H, KV, D, F, V = hp.n_embd, hp.n_head, hp.n_head_kv, hp.head_dim, hp.n_ff, hp.n_vocab
-    n_qkv = (H + 2 * KV) * D
+    E, H, D, F, V = hp.n_embd, hp.n_head, hp.head_dim, hp.n_ff, hp.n_vocab
 
     def quant(out, cols):
         return random_quant(gtype, out, cols, gen, device)
@@ -122,6 +122,11 @@ def make_bench_params(hp: FalconHParams, compute_dtype=torch.bfloat16, device=No
 
     layers = []
     for _ in range(hp.n_layer):
+        if hp.arch == "llama":
+            layers.append({"attn_norm": ones(), "ffn_norm": ones(), "wqkv": quant(3 * E, E),
+                           "wo": quant(E, E), "w13": quant(2 * F, E), "w2": quant(E, F)})
+            continue
+        n_qkv = (H + 2 * hp.n_head_kv) * D
         lw = {"input_ln_w": ones(), "input_ln_b": zeros(), "w_od": quant(E, H * D + F)}
         if hp.n_falcon_type >= 40:
             lw.update(attn_ln_w=ones(), attn_ln_b=zeros(), wqkv=quant(n_qkv, E),
@@ -130,10 +135,8 @@ def make_bench_params(hp: FalconHParams, compute_dtype=torch.bfloat16, device=No
             lw["wqkvu"] = quant(n_qkv + F, E)
         layers.append(lw)
     emb = torch.randn(V, E, generator=gen, dtype=torch.float32, device=device) * 0.02
-    return {
-        "tok_embeddings": emb.to(compute_dtype),
-        "output_norm": ones(),
-        "output_norm_b": zeros(),
-        "lm_head": quant(V, E),
-        "layers": layers,
-    }
+    params = {"tok_embeddings": emb.to(compute_dtype), "output_norm": ones(),
+              "lm_head": quant(V, E), "layers": layers}
+    if hp.arch != "llama":
+        params["output_norm_b"] = zeros()
+    return params

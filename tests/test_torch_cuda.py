@@ -4,9 +4,11 @@ Marked `cuda` and skipped without one. These cover what chip_smoke.py's
 full-width checks do not: every quant format with f32 and bf16 inputs,
 ragged tiles (odd S, O and query tiles), 16- and 32-wide group sums, per-row
 n_past / valid vectors, head_dim 32, Falcon-40B's 16 query heads per K/V
-head, the int8 cache's partials, refusals of what the kernels do not take,
-and tiny models (one on an int8 cache) end to end on the card against the
-CPU. They import no JAX, so they run on a
+head, LLaMA's G == 1 head layouts (head_dim 32, 64, 128; head counts that do
+not fill a block) in both attention kernels, the int8 cache's partials with
+bf16 and f32 queries, refusals of what the kernels do not take, and tiny
+Falcon and LLaMA models (some on an int8 cache) end to end on the card
+against the CPU. They import no JAX, so they run on a
 machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams, LlamaHParams
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.kernels import build
 from ggllm_tpu_torch.kernels import flash_decode as fd
@@ -95,9 +97,13 @@ def test_group_sums(dev, dtype, g):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("H,KV,D", [(8, 1, 64), (6, 2, 64), (5, 1, 32), (128, 8, 64)])
+@pytest.mark.parametrize("H,KV,D", [(8, 1, 64), (6, 2, 64), (5, 1, 32), (128, 8, 64),
+                                    (4, 4, 128), (32, 32, 128), (6, 6, 64), (5, 5, 32),
+                                    (8, 2, 128)])
 @pytest.mark.parametrize("n_past", [0, 37, "rows"])
 def test_flash_mqa(dev, dtype, H, KV, D, n_past):
+    """G == 1 and D == 128 run the one-head-per-block kernel (45 query rows:
+    a ragged last block in both layouts)."""
     B, S, T = 2, 45, 160
     g = _gen(H * D)
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
@@ -108,23 +114,28 @@ def test_flash_mqa(dev, dtype, H, KV, D, n_past):
     _close(got, flash_mqa_plain(q, kv[0, 0], kv[0, 1], n_past), dtype)
 
 
+def _decode_counter(KV, H, int8):
+    return "flash_decode" + (".mha" if H == KV and KV > 1 else "") + (".int8" if int8 else "")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"],
                          ids=["f32", "bf16", "int8"])
-@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (2, 6, 64), (1, 5, 32), (8, 128, 64)])
+@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (2, 6, 64), (1, 5, 32), (8, 128, 64),
+                                    (32, 32, 128), (6, 6, 64), (3, 3, 32)])
 @pytest.mark.parametrize("valid", [0, 1, 63, 64, 65, [200, 7]])
 def test_cache_partials(dev, dtype, KV, H, D, valid):
     """int8: the cache is the (codes, scales) pair of a quantized random
-    cache, q is bf16, and the launch counts under the int8 variant's name."""
+    cache, q is bf16, and the launch counts under the int8 variant's name;
+    H == KV > 1 counts under the G == 1 kernel's."""
     B, T, L, l = 2, 256, 3, 2
     g = _gen(H)
     kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
     qg = torch.randn(B, KV, H // KV, D, generator=g, device=dev)
     if dtype == "int8":
         kv, qg = kvcache.quantize_new(kv), qg.to(torch.bfloat16)
-        counter = "flash_decode.int8"
     else:
         kv, qg = kv.to(dtype), qg.to(dtype)
-        counter = "flash_decode"
+    counter = _decode_counter(KV, H, dtype == "int8")
     before = build.launch_counts[counter]
     acc, m, lsum = fd.cache_partials(kv, KV, l, qg, valid)
     assert build.launch_counts[counter] == before + 1
@@ -136,7 +147,8 @@ def test_cache_partials(dev, dtype, KV, H, D, valid):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"],
                          ids=["f32", "bf16", "int8"])
-@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (1, 5, 32), (8, 128, 64)])
+@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (1, 5, 32), (8, 128, 64),
+                                    (32, 32, 128), (6, 6, 64), (3, 3, 32)])
 @pytest.mark.parametrize("variant", ["no_append", "append", "append_valid", "append_only"])
 def test_flash_decode(dev, dtype, KV, H, D, variant):
     """The whole decode attention (partials, then the finishing kernel with
@@ -157,12 +169,52 @@ def test_flash_decode(dev, dtype, KV, H, D, variant):
         kw = {"kv_append": app, "append_valid": 6}
     elif variant == "append_only":
         n_past, kw = 4, {"kv_append": app, "append_valid": 5}
-    counter = "flash_decode.int8" if dtype == "int8" else "flash_decode"
+    counter = _decode_counter(KV, H, dtype == "int8")
     before = build.launch_counts[counter]
     got = fd.flash_decode(kv, KV, l, q, n_past, **kw)
     assert build.launch_counts[counter] == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
     _close(got, fd.flash_decode_plain(kv, KV, l, q, n_past, **kw), cdtype)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16], ids=["qf32", "qbf16"])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("valid", [1, 300, 2047, [2047, 300]])
+def test_mha_decode_at_llama7b_heads(dev, qdtype, cache, valid):
+    """KV = 32, D = 128, T = 2560 (3 of LLaMA-7B's 32 layers): partials and the
+    whole decode with a 16-entry append block of which 5 are valid. A dense
+    cache takes q in its own dtype; an int8 cache leaves q as it is."""
+    B = 2 if isinstance(valid, list) else 1
+    L, l, T, KV, D = 3, 2, 2560, 32, 128
+    g = _gen(B + len(cache))
+    kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
+    q = torch.randn(B, 1, KV, D, generator=g, device=dev).to(qdtype)
+    app = torch.randn(2, B, 16, KV, D, generator=g, device=dev).to(qdtype)
+    kv = kvcache.quantize_new(kv) if cache == "int8" else kv.to(torch.bfloat16)
+    tol = torch.bfloat16 if cache == "bf16" or qdtype == torch.bfloat16 else torch.float32
+    counter = _decode_counter(KV, KV, cache == "int8")
+    before = build.launch_counts[counter]
+    got = fd.cache_partials(kv, KV, l, q.reshape(B, KV, 1, D), valid)
+    ref = fd.cache_partials_plain(kv, KV, l, q.reshape(B, KV, 1, D).to(
+        torch.bfloat16 if cache == "bf16" else qdtype), valid)
+    for a, b in zip(got, ref):
+        _close(a, b, tol)
+    n_past = torch.tensor(valid, dtype=torch.int32, device=dev) + 4 if B == 2 else valid + 4
+    out = fd.flash_decode(kv, KV, l, q, n_past, kv_append=app, append_valid=5)
+    assert build.launch_counts[counter] == before + 2
+    assert out.dtype == qdtype and out.shape == q.shape
+    _close(out, fd.flash_decode_plain(kv, KV, l, q, n_past, kv_append=app, append_valid=5), tol)
+
+
+def test_flash_decode_refuses_head_shapes_it_does_not_take(dev):
+    """D = 128 with grouped query heads, and D = 256, raise on the card."""
+    for KV, H, D in ((2, 8, 128), (4, 4, 256), (1, 1, 128)):
+        kv = torch.zeros(1, 2, 1, 64, KV, D, device=dev)
+        with pytest.raises(NotImplementedError):
+            fd.flash_decode(kv, KV, 0, torch.zeros(1, 1, H, D, device=dev), 5)
+    with pytest.raises(NotImplementedError):
+        flash_mqa(torch.zeros(1, 4, 2, 256, device=dev), torch.zeros(1, 8, 2, 256, device=dev),
+                  torch.zeros(1, 8, 2, 256, device=dev), 0)
 
 
 def test_cache_partials_refuses_a_bad_int8_pair(dev):
@@ -210,3 +262,44 @@ def test_tiny_model_on_card_matches_cpu(dev, tmp_path, gtype, kv_dtype):
     scale = np.abs(logits[0]).max()
     np.testing.assert_allclose(logits[1] / scale, logits[0] / scale, atol=1e-4)
     assert ids[0] == ids[1]
+
+
+@pytest.mark.parametrize("gtype,kv_dtype,compute", [
+    (GGMLType.Q4_0, "float32", "float32"), (GGMLType.Q8_0, "int8", "float32"),
+    (GGMLType.Q4_K, "float32", "float32"), (GGMLType.Q4_K, "int8", "float32"),
+    (GGMLType.Q4_0, "bfloat16", "bfloat16")],
+    ids=["q4_0", "q8_0_int8", "q4_k", "q4_k_int8", "q4_0_bf16"])
+def test_tiny_llama_on_card_matches_cpu(dev, tmp_path, gtype, kv_dtype, compute):
+    """A tiny GGJT LLaMA file (head_dim 32; 64 for Q4_K) through the kernels
+    on the card against the plain versions on the CPU: logits of a 3-chunk
+    prefill, then greedy ids over two decode chunks, with the G == 1 decode
+    kernel counted. f32 on a dense cache: logits within 1e-4 of max |logit|,
+    ids equal. f32 on an int8 cache: 2e-3 (the two devices' f32 K/V differ in
+    their last bits, a code at a rounding tie lands one step apart, and later
+    chunks and layers attend it), ids not compared. bf16: 2e-2."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_llama
+
+    path = str(tmp_path / "tiny.ggjt")
+    hp = LlamaHParams.tiny() if gtype not in qm.K_QUANTS else LlamaHParams(
+        n_vocab=512, n_embd=256, n_mult=256, n_head=4, n_layer=2, n_rot=64)
+    write_tiny_llama(path, hp, gtype, seed=5)
+    cfg = EngineConfig(n_ctx=64, n_batch=16, kv_dtype=kv_dtype, compute_dtype=compute)
+    prompt = [int(t) for t in np.random.default_rng(4).integers(3, 500, 40)]  # 3 chunks
+    counter = _decode_counter(hp.n_head, hp.n_head, kv_dtype == "int8")
+    before = build.launch_counts[counter]
+    logits, ids = [], []
+    for device in ("cpu", "cuda"):
+        mf, params = load_model(path, cfg, device=device)
+        eng = FalconEngine(mf.hparams, params, cfg, device=device)
+        logits.append(eng.eval(prompt))
+        eng.reset()
+        ids.append(eng.generate(prompt, 20, SamplerParams(temp=0.0)))
+    assert build.launch_counts[counter] == before + 19 * hp.n_layer
+    scale = np.abs(logits[0]).max()
+    exact = compute == "float32" and kv_dtype != "int8"
+    atol = 1e-4 if exact else 2e-3 if compute == "float32" else 2e-2
+    np.testing.assert_allclose(logits[1] / scale, logits[0] / scale, atol=atol)
+    assert len(ids[0]) == len(ids[1]) == 20 and (ids[0] == ids[1] or not exact)

@@ -233,6 +233,9 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ggllm_tpu' or m.startswith('ggllm_tpu.')]\n"
+        "for m in ('models.llama', 'models.falcon', 'tokenizer.spm', 'utils.synthetic',\n"
+        "          'utils.benchgen', 'tools.main', 'tools.profile_decode'):\n"
+        "    assert 'ggllm_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('ggllm_tpu_torch.')]), bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

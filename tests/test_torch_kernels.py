@@ -204,6 +204,85 @@ def test_int8_flash_decode_matches_jax(KV, H, D, variant):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
 
 
+MHA_CASES = [(2, 64), (16, 8), (4, 32)]  # (KV, D) with G == 1 and KV * D % 128 == 0
+
+
+def _mha_operands(KV, D, cache, seed):
+    """A 3-layer random cache (B = 2, T = 96), dense f32 or quantized by the
+    JAX package, as both packages take it; the JAX side gets the merged
+    (L, 2, B, T, KV*D) view (and, int8, scales transposed to (L, 2, B, KV, T))."""
+    B, T, L = 2, 96, 3
+    if cache == "int8":
+        codes, scales = _int8_cache(L, B, T, KV, D, seed)
+        return _jax_int8_view(codes, scales), tkvcache.from_jax_cache((codes, scales))
+    kv = np.random.default_rng(seed).standard_normal((L, 2, B, T, KV, D)).astype(np.float32)
+    return jnp.asarray(kv.reshape(L, 2, B, T, KV * D)), torch.from_numpy(kv)
+
+
+@pytest.mark.parametrize("KV,D", MHA_CASES)
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+def test_mha_cache_partials_match_jax(KV, D, cache, monkeypatch):
+    """G == 1: the plain partials against the JAX `_cache_partials_mha`
+    Pallas kernel (interpret mode), per-row cache_valid with one row below a
+    time tile and one empty; rtol/atol 1e-5 in f32."""
+    taken = []
+    real = jfd._cache_partials_mha
+    monkeypatch.setattr(jfd, "_cache_partials_mha",
+                        lambda *a, **k: taken.append(1) or real(*a, **k))
+    jkv, tkv = _mha_operands(KV, D, cache, seed=31)
+    q = np.random.default_rng(32).standard_normal((2, KV, 1, D)).astype(np.float32)
+    for valid in ([70, 9], [96, 0]):
+        valid = np.asarray(valid, np.int32)
+        ref = jfd.cache_partials(jkv, KV, 1, jnp.asarray(q), jnp.asarray(valid), interpret=True)
+        got = tfd.cache_partials(tkv, KV, 1, torch.from_numpy(q), torch.from_numpy(valid))
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+    assert len(taken) == 2  # the JAX side did run the G == 1 kernel
+
+
+@pytest.mark.parametrize("KV,D", MHA_CASES)
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("variant", ["no_append", "append", "append_valid", "empty_cache"])
+def test_mha_flash_decode_matches_jax(KV, D, cache, variant):
+    """G == 1 flash_decode against the JAX function (atol 1e-5): the current
+    token already written; a one-entry append; a chunked append of which 4 of
+    9 entries are valid; and nothing valid in the cache yet (row 0: n_past 2
+    with 3 valid append entries), per-row n_past throughout."""
+    A = 1 if variant == "append" else 9
+    jkv, tkv = _mha_operands(KV, D, cache, seed=33 + A)
+    rng = np.random.default_rng(34)
+    q = rng.standard_normal((2, 1, KV, D)).astype(np.float32)
+    app = rng.standard_normal((2, 2, A, KV, D)).astype(np.float32)
+    n_past = np.asarray([70, 9], np.int32)
+    kw_j, kw_t = {}, {}
+    if variant != "no_append":
+        kw_j["kv_append"], kw_t["kv_append"] = jnp.asarray(app), torch.from_numpy(app)
+    if variant == "append_valid":
+        kw_j["append_valid"], kw_t["append_valid"] = jnp.int32(4), 4
+    if variant == "empty_cache":
+        n_past = np.asarray([2, 40], np.int32)
+        kw_j["append_valid"], kw_t["append_valid"] = jnp.int32(3), 3
+    ref = np.asarray(jfd.flash_decode(jkv, KV, 1, jnp.asarray(q), jnp.asarray(n_past),
+                                      interpret=True, **kw_j))
+    got = tfd.flash_decode(tkv, KV, 1, torch.from_numpy(q), torch.from_numpy(n_past), **kw_t)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_past", [0, 7])
+def test_flash_mqa_matches_jax_at_llama_heads(n_past):
+    """G == 1 at D = 128 (LLaMA's head shape), atol 1e-5."""
+    B, S, T, H, D = 1, 32, 128, 4, 128
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    ref = np.asarray(jflash_mqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.int32(n_past), block_s=16, block_t=64, interpret=True))
+    got = flash_mqa_plain(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), n_past)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
 def test_cache_partials_empty_row():
     """cache_valid = 0 gives m = -1e30, l = 0, acc = 0 (as the JAX kernel)."""
     kv, q, _ = _decode_inputs(1, 16, 1, 3, 8, 1, seed=4)
