@@ -8,11 +8,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
   2. hold every kernel against its plain PyTorch version at the main-path
      shapes (quant_matmul in all ten formats: Q4_0 … Q8_0 at the Falcon-7B
      shapes, Q2_K … Q6_K at the Falcon-40B shapes, Q4_0 and Q4_K at the
-     LLaMA-7B shapes; the attention kernels at the three models' head
-     layouts, flash-decode on bf16 and on int8 caches, grouped heads and
-     LLaMA's G == 1), and time kernel, plain version and one PyTorch library
-     call (CUDA events, after warm-up, median of 20 runs, L2 flushed before
-     each run) beside the card's bound;
+     LLaMA-7B shapes, S = 1 through the GEMV and S = 512 through the
+     tensor-core tile; the tile also at S = 2, 17 and 300 and at a ragged O;
+     the f32 SIMT tile at two shapes; the attention kernels at the three
+     models' head layouts, bf16 through the tensor-core kernel, with a
+     per-row n_past, and f32 through the SIMT kernels; flash-decode on bf16
+     and on int8 caches, grouped heads and LLaMA's G == 1), and time kernel,
+     plain version and one PyTorch library call (CUDA events, after warm-up,
+     median of 20 runs, L2 flushed before each run) beside the card's bound;
   3. drive the main path at full width and full depth through the engine's
      entry points, with random weights from a seed, six times: Falcon-7B
      Q4_0 and Q4_1 (32 layers), Falcon-40B Q4_K (60 layers) and LLaMA-7B
@@ -25,7 +28,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      more than twice the measured difference). The int8 paths also time
      16-token decode chunks at n_past 400 (LLaMA: and at n_past 1900) on an
      int8 and on a bf16 cache, in turns. Each model's parameters are freed
-     before the next one is built;
+     before the next one is built. On these bf16 paths prefill must run the
+     tensor-core tile and attention kernel and neither SIMT kernel. A seventh,
+     shallow path (Falcon-7B Q4_0, full width, 2 layers, float32 compute and
+     cache) prefills the prompt through the f32 SIMT tile, group_sums and the
+     f32 attention kernel and must agree with the plain versions to 1e-4;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -54,10 +61,21 @@ N_RUNS, N_WARM = 20, 3
 PEAKS = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12), "nvl": (3.9e12, 835e12)}
 
 QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k", "q6_k", "q2_k", "q3_k"]
+F32_LOGIT_TOL = 1e-4  # f32 path against the plain versions (tests/test_torch_cuda.py)
+# kernel -> (source, the TPU kernel it replaces). "quant_matmul" is the S == 1
+# GEMV, ".tc" the bf16 tensor-core tile, ".simt" the f32 tile; "flash_mqa" the
+# f32 attention kernels, ".tc" the bf16 tensor-core one. COUNTER names the
+# launch counter of a kernel where it is not the kernel's own name.
 REPLACES = {
     "quant_matmul": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:57"),
+    "quant_matmul.tc": ("ggllm_tpu_torch/csrc/quant_gemm_tc.cuh",
+                        "ggllm_tpu/kernels/quant_matmul.py:57"),
+    "quant_matmul.simt": ("ggllm_tpu_torch/csrc/quant_matmul.cu",
+                          "ggllm_tpu/kernels/quant_matmul.py:57"),
     "group_sums": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:189"),
     "flash_mqa": ("ggllm_tpu_torch/csrc/flash_attention.cu", "ggllm_tpu/kernels/flash_attention.py:33"),
+    "flash_mqa.tc": ("ggllm_tpu_torch/csrc/flash_attention_tc.cu",
+                     "ggllm_tpu/kernels/flash_attention.py:33"),
     "flash_decode": ("ggllm_tpu_torch/csrc/flash_decode.cu", "ggllm_tpu/kernels/flash_decode.py:56"),
     # the same Pallas kernel with quant=True (its int8 branches at :79 and :93)
     "flash_decode.int8": ("ggllm_tpu_torch/csrc/flash_decode.cu",
@@ -68,6 +86,7 @@ REPLACES = {
     "flash_decode.mha.int8": ("ggllm_tpu_torch/csrc/flash_decode.cu",
                               "ggllm_tpu/kernels/flash_decode.py:123"),
 }
+COUNTER = {"quant_matmul": "quant_matmul.gemv", "flash_mqa": "flash_mqa.simt"}
 DECODE_KERNELS = [name for name in REPLACES if name.startswith("flash_decode")]
 
 
@@ -121,6 +140,7 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
     import torch.nn.functional as F
 
     from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.kernels import flash_decode as fd
     from ggllm_tpu_torch.kernels import quant_matmul as qm
     from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
@@ -151,6 +171,26 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
     shapes_llama = (("llama.wqkv", 12288, 4096), ("llama.w13", 22016, 4096),
                     ("llama.wo", 4096, 4096), ("llama.w2", 4096, 11008),
                     ("llama.lm_head", 32000, 4096))
+    def matmul_row(fmt, wname, w, wbytes, wdeq, S, xdtype, out_dtype):
+        """One (weight, S, x dtype) case: the route's kernel against the plain
+        version, counted under its own counter, timed beside `x @ wdeq^T`."""
+        (O, K), path = w.shape, qm.route(S, xdtype, w.gtype)
+        x = torch.randn(S, K, generator=gen, device="cuda").to(xdtype)
+        before = build.launch_counts[f"quant_matmul.{path}"]
+        got = qm.quant_matmul(w, x, out_dtype)
+        if build.launch_counts[f"quant_matmul.{path}"] != before + 1:
+            raise RuntimeError(f"quant_matmul {fmt} S={S} {xdtype} did not run the {path} kernel")
+        ref = qm.quant_matmul_plain(w, x, out_dtype)
+        err, rel = check(f"quant_matmul {fmt} {wname} S={S} {path}", got, ref)
+        ms = timer(lambda: qm.quant_matmul(w, x, out_dtype))
+        plain_ms = timer(lambda: qm.quant_matmul_plain(w, x, out_dtype))
+        lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
+        nbytes = (wbytes + S * K * x.element_size()
+                  + S * O * (4 if out_dtype == torch.float32 else 2))
+        row("quant_matmul" if path == "gemv" else f"quant_matmul.{path}",
+            f"{fmt} {wname} O={O} K={K} S={S}", err, rel, ms, plain_ms, lib_ms, nbytes,
+            2 * S * O * K)
+
     cases = [(fmt, shapes_40b if GGMLType[fmt.upper()] in qm.K_QUANTS else shapes_7b)
              for fmt in QUANT_FORMATS]
     cases += [("q4_0", shapes_llama), ("q4_k", shapes_llama)]
@@ -162,17 +202,24 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
             wdeq = w.dequantize(bf16)
             out_dtype = torch.float32 if wname.endswith("lm_head") else bf16
             for S in (1, 512):
-                x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
-                got = qm.quant_matmul(w, x, out_dtype)
-                ref = qm.quant_matmul_plain(w, x, out_dtype)
-                err, rel = check(f"quant_matmul {fmt} {wname} S={S}", got, ref)
-                ms = timer(lambda: qm.quant_matmul(w, x, out_dtype))
-                plain_ms = timer(lambda: qm.quant_matmul_plain(w, x, out_dtype))
-                lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
-                nbytes = wbytes + S * K * 2 + S * O * (4 if out_dtype == torch.float32 else 2)
-                row("quant_matmul", f"{fmt} {wname} O={O} K={K} S={S}", err, rel, ms, plain_ms,
-                    lib_ms, nbytes, 2 * S * O * K)
+                matmul_row(fmt, wname, w, wbytes, wdeq, S, bf16, out_dtype)
             del w, wdeq
+
+    # ---- the tensor-core tile off the main-path shapes: short and ragged S
+    # (2 and 17 rows: the 16- and 64-row tiles; 300: two 256-row chunks, or
+    # three of 128 rows where those fill the card better) at
+    # one legacy and one K-quant weight, and an O that is no multiple of 64;
+    # then the f32 SIMT tile, which serves f32 x only, at the same two weights
+    for fmt, wname, O, K in (("q4_0", "wqkvu", 22848, 4544), ("q4_k", "wqkv", 9216, 8192),
+                             ("q4_0", "ragged", 4500, 4544), ("q4_k", "ragged", 9001, 8192)):
+        w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
+        wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+        wdeq = w.dequantize(bf16)
+        for S in ((300,) if wname == "ragged" else (2, 17, 300)):
+            matmul_row(fmt, wname, w, wbytes, wdeq, S, bf16, bf16)
+        if wname != "ragged":
+            matmul_row(fmt, wname, w, wbytes, wdeq.float(), 512, torch.float32, torch.float32)
+        del w, wdeq
 
     # ---- group_sums: 32-wide at the Falcon-7B and LLaMA-7B widths, 16-wide
     # (Q2_K, Q3_K, Q6_K) at the 40B ones
@@ -194,29 +241,53 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
     # Falcon-7B's 71 heads over one K/V head, Falcon-40B's 128 over 8 (D = 64)
     # and LLaMA-7B's 32 heads with a K/V head each (D = 128)
     T, S = 2560, 512
+
+    def mqa_row(q, k, v, n_past, H, KV, D):
+        """One case through the wrapper: bf16 runs the tensor-core kernel, f32
+        the SIMT kernels; timed beside scaled_dot_product_attention."""
+        name = "flash_mqa.tc" if q.dtype == bf16 else "flash_mqa"
+        counter = COUNTER.get(name, name)
+        before = build.launch_counts[counter]
+        got = flash_mqa(q, k, v, n_past)
+        if build.launch_counts[counter] != before + 1:
+            raise RuntimeError(f"flash_mqa {q.dtype} D={D} did not count under {counter}")
+        err, rel = check(f"{name} H={H} KV={KV} n_past={n_past}", got,
+                         flash_mqa_plain(q, k, v, n_past))
+        ms = timer(lambda: flash_mqa(q, k, v, n_past))
+        plain_ms = timer(lambda: flash_mqa_plain(q, k, v, n_past))
+        Tv = n_past + S
+        qt = q.transpose(1, 2)
+        kt, vt = k[:, :Tv].transpose(1, 2), v[:, :Tv].transpose(1, 2)
+        mask = (torch.arange(Tv, device="cuda")[None, :]
+                <= n_past + torch.arange(S, device="cuda")[:, None])
+        if KV == 1:  # the one K/V head broadcast to all query heads (a view, no copy)
+            kt, vt = kt.expand(1, H, Tv, D), vt.expand(1, H, Tv, D)
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        else:
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        pairs = S * n_past + S * (S + 1) // 2  # visible (query, key) pairs
+        eb = q.element_size()
+        row(name, f"S={S} n_past={n_past} H={H} KV={KV} D={D}", err, rel, ms, plain_ms, lib_ms,
+            2 * S * H * D * eb + 2 * Tv * KV * D * eb, 4 * pairs * H * D)
+
     for H, KV, D, past in ((71, 1, 64, (0, 300)), (128, 8, 64, (0,)), (32, 32, 128, (0, 300))):
         kvc = torch.randn(1, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
         k, v = kvc[0, 0], kvc[0, 1]
         q = torch.randn(1, S, H, D, generator=gen, device="cuda").to(bf16)
         for n_past in past:
-            err, rel = check(f"flash_mqa H={H} KV={KV} n_past={n_past}",
-                             flash_mqa(q, k, v, n_past), flash_mqa_plain(q, k, v, n_past))
-            ms = timer(lambda: flash_mqa(q, k, v, n_past))
-            plain_ms = timer(lambda: flash_mqa_plain(q, k, v, n_past))
-            Tv = n_past + S
-            qt = q.transpose(1, 2)
-            kt, vt = k[:, :Tv].transpose(1, 2), v[:, :Tv].transpose(1, 2)
-            mask = (torch.arange(Tv, device="cuda")[None, :]
-                    <= n_past + torch.arange(S, device="cuda")[:, None])
-            if KV == 1:  # the one K/V head broadcast to all query heads (a view, no copy)
-                kt, vt = kt.expand(1, H, Tv, D), vt.expand(1, H, Tv, D)
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-            else:
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
-            pairs = S * n_past + S * (S + 1) // 2  # visible (query, key) pairs
-            row("flash_mqa", f"S={S} n_past={n_past} H={H} KV={KV} D={D}", err, rel, ms,
-                plain_ms, lib_ms, 2 * S * H * D * 2 + 2 * Tv * KV * D * 2, 4 * pairs * H * D)
+            mqa_row(q, k, v, n_past, H, KV, D)
+        if KV != 8:  # the f32 kernels, once per layout they still serve
+            mqa_row(q.float(), k.float(), v.float(), past[-1], H, KV, D)
+        # a batch of two with its own n_past per row (300 query rows each)
+        kv2 = torch.randn(1, 2, 2, T, KV, D, generator=gen, device="cuda").to(bf16)
+        q2 = torch.randn(2, 300, H, D, generator=gen, device="cuda").to(bf16)
+        rows_past = torch.tensor([300, 7], dtype=torch.int32, device="cuda")
+        err, rel = check(f"flash_mqa.tc H={H} KV={KV} per-row n_past",
+                         flash_mqa(q2, kv2[0, 0], kv2[0, 1], rows_past),
+                         flash_mqa_plain(q2, kv2[0, 0], kv2[0, 1], rows_past))
+        log(f"  flash_mqa.tc  B=2 S=300 n_past=[300, 7] H={H} KV={KV} D={D} err {err:.2e}"
+            f" ({rel:.1e} rel)")
 
     # ---- flash_decode: the last layer of the full cache (32 layers at
     # Falcon-7B and LLaMA-7B, 60 at 40B); H == KV runs the G == 1 kernel
@@ -377,11 +448,17 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     log(f"  launches on the {label} path: {counts}")
     decode_kernel = ("flash_decode" + (".mha" if hp.n_head_kv == hp.n_head else "")
                      + (".int8" if int8 else ""))
-    for name in ("quant_matmul", f"quant_matmul.{fmt}", "group_sums", "flash_mqa", decode_kernel):
+    # prefill: the tensor-core tile and attention kernel; decode: the GEMV and
+    # this head layout's and cache's decode kernel
+    for name in ("quant_matmul", f"quant_matmul.{fmt}", "quant_matmul.tc", "quant_matmul.gemv",
+                 "flash_mqa", "flash_mqa.tc", decode_kernel):
         if counts.get(name, 0) <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the {label} path")
     if (any(counts.get(k, 0) for k in DECODE_KERNELS if k != decode_kernel)
-            or counts["quant_matmul"] != counts[f"quant_matmul.{fmt}"]):
+            or any(counts.get(k, 0) for k in ("quant_matmul.simt", "flash_mqa.simt", "group_sums"))
+            or counts["quant_matmul"] != counts[f"quant_matmul.{fmt}"]
+            or counts["quant_matmul"] != counts["quant_matmul.tc"] + counts["quant_matmul.gemv"]
+            or counts["flash_mqa"] != counts["flash_mqa.tc"]):
         raise RuntimeError(f"a kernel variant of another path ran on the {label} path: {counts}")
     if peak_below is not None and peak >= peak_below:
         raise RuntimeError(f"peak memory {peak} on the {label} path is not below {peak_below}")
@@ -432,6 +509,61 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: int = 2) -> dict:
+    """The f32 route at full width and `n_layer` layers: float32 compute and
+    cache, a 300-token prefill through the f32 SIMT tile, group_sums and the
+    f32 attention kernel. Fails unless all three ran, no tensor-core kernel
+    did, and the logits of all positions agree with the plain versions to
+    F32_LOGIT_TOL of max |logit|."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    hp = dataclasses.replace(named_hparams(model), n_layer=n_layer)
+    label = f"{n_layer}-layer {model} {fmt} float32"
+    params = make_bench_params(hp, compute_dtype=torch.float32, device="cuda", seed=7,
+                               gtype=GGMLType[fmt.upper()])
+    cfg = dict(kv_dtype="float32", compute_dtype="float32")
+    eng = FalconEngine(hp, params, EngineConfig(**cfg))
+    prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, 300)]
+    eng.eval(prompt[:8])  # warm-up
+    eng.reset()
+    torch.cuda.synchronize()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    got = eng.eval(prompt, logits_all=True)
+    prefill_tps = len(prompt) / (time.perf_counter() - t0)
+    counts = dict(build.launch_counts)
+    log(f"  launches on the {label} path: {counts}")
+    for name in ("quant_matmul.simt", f"quant_matmul.{fmt}", "group_sums", "flash_mqa.simt"):
+        if counts.get(name, 0) <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the {label} path")
+    if any(counts.get(k, 0) for k in ("quant_matmul.tc", "flash_mqa.tc")):
+        raise RuntimeError(f"a tensor-core kernel ran on the {label} path: {counts}")
+    plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False, **cfg))
+    ref = plain.eval(prompt, logits_all=True)
+    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+        raise RuntimeError("f32 prefill logits are not finite")
+    rel = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+    same = int((got.argmax(axis=1) == ref.argmax(axis=1)).sum())
+    log(f"  prefill {len(prompt)} tokens: {prefill_tps:.1f} tok/s; logits at all positions, kernels"
+        f" vs plain versions: {rel:.3e} of max|ref|; same argmax at {same} positions")
+    if rel > F32_LOGIT_TOL:
+        raise RuntimeError(f"f32 kernel and plain prefill logits disagree on the {label} path")
+    del eng, plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"path": label, "launches": counts, "prefill_tok_s": prefill_tps, "logit_rel_err": rel,
+            "argmax_same": same}
 
 
 def phase_cli() -> None:
@@ -516,6 +648,8 @@ def main() -> int:
     paths.append(phase_model(torch, "llama7b", "q4_0"))
     log("  -- llama7b q4_k, int8 cache")
     paths.append(phase_model(torch, "llama7b", "q4_k", kv_dtype="int8", long_past=1900))
+    log("  -- falcon7b q4_0, 2 layers, float32")
+    paths.append(phase_f32_path(torch))
     (out_dir / "chip_smoke_paths.json").write_text(json.dumps({"card": card, "paths": paths},
                                                               indent=1))
 
@@ -524,8 +658,11 @@ def main() -> int:
 
     headline = {  # the JSON line's shape per kernel
         "quant_matmul": "q4_0 wqkvu O=22848 K=4544 S=1",
+        "quant_matmul.tc": "q4_0 wqkvu O=22848 K=4544 S=512",
+        "quant_matmul.simt": "q4_0 wqkvu O=22848 K=4544 S=512",
         "group_sums": "S=512 K=22720 g=32",
-        "flash_mqa": "S=512 n_past=0 H=71 KV=1",
+        "flash_mqa": "S=512 n_past=300 H=71 KV=1",
+        "flash_mqa.tc": "S=512 n_past=300 H=71 KV=1",
         "flash_decode": "valid=2047 G=71",
         "flash_decode.int8": "int8 valid=2047 G=71",
         "flash_decode.mha": "valid=2047 G=1 KV=32",
@@ -534,18 +671,25 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         r = next(r for r in rows if r["kernel"] == name and r["shape"].startswith(headline[name]))
+        counter = COUNTER.get(name, name)
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": sum(p["launches"].get(name, 0) for p in paths),
+                 "launches": sum(p["launches"].get(counter, 0) for p in paths),
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
+        if entry["launches"] <= 0:
+            raise RuntimeError(f"kernel {name} was launched on none of the main paths")
+        if name.startswith("quant_matmul"):
+            entry["x_dtype"] = "float32" if name.endswith("simt") else "bfloat16"
         if name == "quant_matmul":
             entry["formats"] = QUANT_FORMATS
             entry["launches_by_format"] = {
                 fmt: sum(p["launches"].get(f"quant_matmul.{fmt}", 0) for p in paths)
                 for fmt in QUANT_FORMATS}
         if name == "flash_mqa":
-            entry["head_dims"] = [32, 64, 128]
+            entry["head_dims"], entry["dtypes"] = [32, 64, 128], ["float32", "bfloat16 at D=32"]
+        if name == "flash_mqa.tc":
+            entry["head_dims"], entry["dtypes"] = [64, 128], ["bfloat16"]
         if name in DECODE_KERNELS:
             entry["cache_dtypes"] = ["int8"] if name.endswith("int8") else ["bfloat16", "float32"]
             entry["head_dims"] = [32, 64, 128] if ".mha" in name else [32, 64]

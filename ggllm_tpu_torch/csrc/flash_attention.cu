@@ -8,8 +8,10 @@
 // What bounds it on an H100: at Falcon-7B prefill (S = 512, 71 query heads
 // over ONE K/V head, D = 64) the work is the score and P.V dot products,
 // about 4 * S * (n_past + S/2) * H * D operations; the K/V bytes are small.
-// This first kernel runs them on the CUDA cores in f32 (tensor cores come in
-// a later change), so its design is about reuse and skipped work:
+// bf16 inputs at D = 64 and 128 run on the tensor cores
+// (flash_attention_tc.cu). These kernels serve f32 inputs, which have to stay
+// within f32 accuracy, and D = 32; they run on the CUDA cores in f32, so
+// their design is about reuse and skipped work:
 //  * one block serves HB = 8 query heads x BQ = 16 positions that share one
 //    K/V head (with MQA all 71 heads do), so every K/V tile it stages in
 //    shared memory feeds 128 query rows;

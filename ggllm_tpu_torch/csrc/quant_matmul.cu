@@ -47,15 +47,18 @@
 //    hit different banks; the block forms the group sums (16 or 32 wide)
 //    from that tile itself. At K = 40960 (Falcon-40B w_od) x and its sums
 //    take 179 KB of the 227 KB.
-//  * S > 1 (prefill) is bound by operations. This first kernel is a plain
-//    SIMT tile (64 x 64 outputs, 4 x 4 per thread, one 32-group per K step)
-//    that decodes the W tile's codes into shared memory; tensor cores
-//    (wgmma) and TMA come in a later change. The group sums come from
+//  * S > 1 (prefill) is bound by operations. bf16 x runs on the tensor
+//    cores (quant_gemm_tc.cuh). f32 x, which has to stay within f32 accuracy,
+//    runs this plain SIMT tile (64 x 64 outputs, 4 x 4 per thread, one
+//    32-group per K step) that decodes the W tile's codes into shared
+//    memory; it is built for f32 x only. The group sums come from
 //    group_sums_kernel (S >= 256) or the caller.
 //  * group sums: one thread per (row, group), 16-byte vector loads; bound by
 //    the bytes of x.
 
 #include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -520,12 +523,14 @@ cudaError_t launch_matmul(const void* x, const Planes& p, const void* xg, void* 
     const int rows_per_block = GEMV_WARPS * Q::ROWS;
     quant_gemv<F, TX, TY><<<(O + rows_per_block - 1) / rows_per_block, GEMV_WARPS * 32, smem, st>>>(
         static_cast<const TX*>(x), p, static_cast<TY*>(y), K, O);
-  } else {
+  } else if constexpr (std::is_same<TX, float>::value) {
     if (Q::CORR && xg == nullptr) return cudaErrorInvalidValue;
     dim3 grid((O + BN - 1) / BN, (S + BM - 1) / BM);
     quant_gemm<F, TX, TY><<<grid, 256, 0, st>>>(static_cast<const TX*>(x), p,
                                                 static_cast<const float*>(xg),
                                                 static_cast<TY*>(y), S, K, O);
+  } else {
+    return cudaErrorInvalidValue;  // bf16 rows go to gq_quant_matmul_tc
   }
   return cudaGetLastError();
 }
@@ -554,7 +559,7 @@ cudaError_t dispatch(int gtype, const void* x, const Planes& p, const void* xg, 
 // (null for planes the format lacks; qs holds Q6_K's ql, qh Q3_K's hmask, m
 // holds dmin, sc Q2_K's scb); xg (S, K/16 for Q2_K, Q3_K and Q6_K, else K/32)
 // f32 group sums of x, required for S > 1 (except Q8_0) and ignored for
-// S == 1.
+// S == 1. S > 1 takes f32 x only.
 extern "C" int gq_quant_matmul(int gtype, const void* x, int x_bf16, const void* qs,
                                const void* qh, const void* d, const void* m, const void* sc,
                                const void* scm, const void* xg, void* y, int y_bf16, int S,

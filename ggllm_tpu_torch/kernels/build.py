@@ -30,16 +30,21 @@ LIB_NAME = "libggllm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
     # gtype, x, x_is_bf16, qs, qh, d, m, sc, scm, xg, y, y_is_bf16, S, K, O, stream
     "gq_quant_matmul": [I, P, I, P, P, P, P, P, P, P, P, I, I, I, I, P],
+    # gtype, x (bf16), qs, qh, d, m, sc, scm, y, y_is_f32, S, K, O, x rows per block, stream
+    "gq_quant_matmul_tc": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, x_is_bf16, xg, S, K, group, stream
     "gq_group_sums": [P, I, P, I, I, I, P],
     # q, k, v, out, is_bf16, n_past_vec, n_past, B, S, H, T, KV, D,
     # k_batch_stride, k_time_stride, stream
     "gq_flash_mqa": [P, P, P, P, I, P, I, I, I, I, I, I, I, I, I, P],
+    # q, k, v, out (bf16), n_past_vec, n_past, B, S, H, T, KV, D, k_batch_stride,
+    # k_time_stride (long long), stream
+    "gq_flash_mqa_tc": [P, P, P, P, P, I, I, I, I, I, I, I, L, L, P],
     # cache, cache_kind, scales, layer, q, q_is_bf16, valid_vec, valid, acc, m,
     # l, part_acc, part_ml, L, B, T, KV, G, D, n_chunks, stream
     "gq_cache_partials": [P, I, P, I, P, I, P, I, P, P, P, P, P,

@@ -1,6 +1,6 @@
 """Fused dequant x matmul (y = x @ W^T from the planes of a QuantTensor) and
-per-group sums of x, each a hand-written CUDA kernel (csrc/quant_matmul.cu)
-with its plain PyTorch version beside it.
+per-group sums of x, each a hand-written CUDA kernel (csrc/quant_matmul.cu,
+csrc/quant_gemm_tc.cuh) with its plain PyTorch version beside it.
 
 Replaces the Pallas kernels ggllm_tpu/kernels/quant_matmul.py `_kern`
 (launched by fused_matmul_2d) and `_xg_kern` (launched by _group_sums), for
@@ -18,12 +18,20 @@ multiply and one correction. Per family:
   Q2_K (16-groups)     s = d * (scb & 15); c = dmin * (scb >> 4)
 (the K-quant products formed in f32 exactly as the reference does).
 
+Three kernels serve a CUDA tensor (`route`): one row of x runs the GEMV;
+more rows of bf16 x run the tensor-core tile (csrc/quant_gemm_tc.cuh: `wgmma`
+on weights decoded into registers, w = q s - c by one f32 FMA, rounded once
+to bf16, no group sums); more rows of f32 x run the f32 SIMT tile fed by group_sums,
+which keeps the correction form above and f32 accuracy. `tc_fragment_table`
+states the tile's per-thread decode as a table the CPU tests can check.
+
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ggllm_tpu_torch.core.dtypes import GGMLType
@@ -53,6 +61,150 @@ _ARGS = ("qs", "qh", "d", "m", "sc", "scm")
 _ARG_PLANE = {GGMLType.Q6_K: {"qs": "ql"}, GGMLType.Q4_K: {"m": "dmin"},
               GGMLType.Q5_K: {"m": "dmin"}, GGMLType.Q2_K: {"m": "dmin", "sc": "scb"},
               GGMLType.Q3_K: {"qh": "hmask"}}
+
+
+TC_ROWS = (16, 64, 128, 256)  # x rows per block the tensor-core tile is built for
+TC_BLOCK_O = 128               # W rows per block (two warpgroups of 64)
+N_SM = 132
+
+
+def route(S: int, x_dtype, gtype) -> str:
+    """The kernel that serves S rows of x in `x_dtype` on the card: "gemv"
+    (S == 1), "tc" (bf16, S > 1: tensor cores), "simt" (f32, S > 1: the f32
+    tile with group sums). Raises for what no kernel takes."""
+    if gtype not in KERNEL_FORMATS:
+        raise NotImplementedError(f"quant_matmul kernel: no {GGMLType(gtype).name} variant")
+    if x_dtype not in _DTYPES:
+        raise TypeError(f"x dtype {x_dtype} not supported (bfloat16, float32)")
+    if S < 1:
+        raise ValueError(f"quant_matmul: {S} rows")
+    if S == 1:
+        return "gemv"
+    return "tc" if x_dtype == torch.bfloat16 else "simt"
+
+
+def tc_rows(S: int, O: int) -> int:
+    """x rows per block of the tensor-core tile: the narrowest width that
+    holds a short S; from 129 rows the 256-wide tile (each weight decoded once
+    per 256 rows, one block an SM) unless its blocks need more rounds over
+    the card's SMs than 1.4 times those of the 128-wide tile, which pads S
+    less, fits two blocks an SM, and takes 0.7 of the time per block (as
+    measured on an H100: a Falcon-40B wqkv at S = 300 is 144 blocks of 256
+    rows, two rounds, or 216 of 128, one)."""
+    for nt in TC_ROWS[:3]:
+        if S <= nt:
+            return nt
+    row_blocks = -(-O // TC_BLOCK_O)
+    rounds256 = -(-row_blocks * -(-S // 256) // N_SM)
+    rounds128 = -(-row_blocks * -(-S // 128) // (2 * N_SM))
+    return 256 if rounds256 <= 1.4 * rounds128 else 128
+
+
+def tc_fragment_table(gtype, K: int) -> dict:
+    """The tensor-core tile's decode as a table over the elements k of a row
+    (the index arithmetic of csrc/quant_gemm_tc.cuh, by 32-group gi, lane
+    t = lane % 4 and slot e; slot e of lane t is element 2t + (e & 1) +
+    8 (e >> 1) of the group): for each k, the byte of the code plane it reads
+    (an offset into the row's plane bytes), the shift and mask that cut its
+    code out, the same for the high-bit plane (with the left shift that puts
+    the bits in place) and its scale group. Returns {"k", "plane", "byte",
+    "shift", "mask", "hplane", "hbyte", "hshift", "hmask", "hlshift",
+    "group", "group_width", "signed"}; arrays are ordered by (gi, t, e)."""
+    if gtype not in KERNEL_FORMATS:
+        raise NotImplementedError(f"no tensor-core decode for {GGMLType(gtype).name}")
+    gi, t, e = np.meshgrid(np.arange(K // 32), np.arange(4), np.arange(8), indexing="ij")
+    gi, t, e = gi.ravel(), t.ravel(), e.ravel()
+    i = 2 * t + (e & 1) + 8 * (e >> 1)  # element of the group
+    run = 2 * t + (e & 1) + 8 * ((e >> 1) & 1) + 16 * (e >> 2)  # ld_run32: the byte of a 32-byte run it holds
+    sb, sub, half, strip = gi >> 3, gi & 7, (gi >> 2) & 1, gi & 3
+    zero = np.zeros_like(gi)
+    tab = {"k": 32 * gi + i, "plane": "qs", "hplane": None, "hbyte": zero, "hshift": zero,
+           "hmask": 0, "hlshift": 0, "group_width": KERNEL_FORMATS[gtype][0],
+           "signed": gtype == GGMLType.Q8_0}
+    if gtype in (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
+        tab.update(byte=gi * 16 + 2 * t + (e & 1) + 8 * ((e >> 1) & 1), shift=4 * (e >> 2), mask=15,
+                   group=gi)
+        if gtype in (GGMLType.Q5_0, GGMLType.Q5_1):  # bit i of the block's little-endian u32
+            tab.update(hplane="qh", hbyte=gi * 4 + (i >> 3), hshift=i & 7, hmask=1, hlshift=4)
+    elif gtype == GGMLType.Q8_0:
+        tab.update(byte=gi * 32 + run, shift=zero, mask=255, group=gi)
+    elif gtype in (GGMLType.Q4_K, GGMLType.Q5_K):
+        tab.update(byte=sb * 128 + (sub >> 1) * 32 + run, shift=4 * (gi & 1), mask=15, group=gi)
+        if gtype == GGMLType.Q5_K:
+            tab.update(hplane="qh", hbyte=sb * 32 + run, hshift=sub, hmask=1, hlshift=4)
+    elif gtype == GGMLType.Q6_K:
+        tab.update(plane="ql", byte=sb * 128 + half * 64 + (strip & 1) * 32 + run,
+                   shift=4 * (strip >> 1), mask=15, hplane="qh", hbyte=sb * 64 + half * 32 + run,
+                   hshift=2 * strip, hmask=3, hlshift=4, group=2 * gi + (e >> 2))
+    else:  # Q2_K, Q3_K
+        tab.update(byte=sb * 64 + half * 32 + run, shift=2 * strip, mask=3,
+                   group=2 * gi + (e >> 2))
+        if gtype == GGMLType.Q3_K:
+            tab.update(hplane="hmask", hbyte=sb * 32 + run, hshift=sub, hmask=1, hlshift=2)
+    return tab
+
+
+def tc_group_scales(w) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, c), each (O, K / group width) f32: every scale group's scale and
+    correction as the tensor-core tile forms them (w = q * s - c)."""
+    p, f32 = w.planes, torch.float32
+    d = p["d"].to(f32)
+    g = w.gtype
+    if g in (GGMLType.Q4_0, GGMLType.Q5_0):
+        return d, d * (8.0 if g == GGMLType.Q4_0 else 16.0)
+    if g in (GGMLType.Q4_1, GGMLType.Q5_1):
+        return d, -p["m"].to(f32)
+    if g == GGMLType.Q8_0:
+        return d, torch.zeros_like(d)
+    O = d.shape[0]
+    if g in (GGMLType.Q4_K, GGMLType.Q5_K):
+        s = d[..., None] * p["sc"].to(f32)
+        c = p["dmin"].to(f32)[..., None] * p["scm"].to(f32)
+    elif g == GGMLType.Q2_K:
+        s = d[..., None] * (p["scb"] & 0xF).to(f32)
+        c = p["dmin"].to(f32)[..., None] * (p["scb"] >> 4).to(f32)
+    else:  # Q3_K, Q6_K
+        s = d[..., None] * p["sc"].to(f32)
+        c = s * (4.0 if g == GGMLType.Q3_K else 32.0)
+    return s.reshape(O, -1), c.reshape(O, -1)
+
+
+def tc_dequant_emulated(w, kernel_arithmetic: bool = False) -> torch.Tensor:
+    """(O, K) bf16: W as the tensor-core tile's threads decode it, gathered
+    through tc_fragment_table: code from the plane bytes, w = q * s - c in
+    f32, rounded once to bf16. With `kernel_arithmetic` the value is formed as
+    the kernel forms it, fma(1 + q / 128, 128 s, -(c + 128 s)) with c + 128 s
+    rounded to f32 (Q8_0: (q + 128 - 128) * d, which is exact): at most
+    2^-17 |s| from q * s - c before the rounding to bf16."""
+    O, K = w.shape
+    tab = tc_fragment_table(w.gtype, K)
+
+    def bytes_of(name):
+        return w.planes[name].contiguous().view(torch.uint8).reshape(O, -1).to(torch.int64)
+
+    def idx(a):
+        return torch.as_tensor(np.broadcast_to(a, tab["k"].shape).copy(), dtype=torch.int64)
+
+    q = (bytes_of(tab["plane"])[:, idx(tab["byte"])] >> idx(tab["shift"])) & tab["mask"]
+    if tab["hplane"] is not None:
+        hb = (bytes_of(tab["hplane"])[:, idx(tab["hbyte"])] >> idx(tab["hshift"])) & tab["hmask"]
+        q = q | (hb << tab["hlshift"])
+    if tab["signed"]:
+        q = torch.where(q >= 128, q - 256, q)
+    s, c = tc_group_scales(w)
+    group = idx(tab["group"])
+    if kernel_arithmetic and not tab["signed"]:
+        s128 = 128.0 * s
+        c128 = (c + s128).to(torch.float64)[:, group]  # c + 128 s, rounded to f32
+        # the FMA is exact before its one rounding: float64 holds the 8-bit by
+        # 24-bit product and the difference
+        vals = ((1.0 + q.to(torch.float64) / 128.0) * s128.to(torch.float64)[:, group]
+                - c128).to(torch.float32)
+    else:
+        vals = q.to(torch.float32) * s[:, group] - c[:, group]
+    out = torch.empty(O, K, dtype=torch.float32)
+    out[:, idx(tab["k"])] = vals
+    return out.to(torch.bfloat16)
 
 
 def quant_matmul_plain(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -121,9 +273,9 @@ def _plane_ptrs(w, device) -> list:
 def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     """y = x @ W^T for a QuantTensor W; x (..., K) -> (..., O) in out_dtype.
 
-    S = 1 (decode) runs the GEMV variant, which forms its own group sums;
-    S > 1 runs the tiled variant fed by group_sums (S >= 256) or the plain
-    reduce (S < 256)."""
+    S = 1 (decode) runs the GEMV, which forms its own group sums; S > 1 rows
+    of bf16 x run the tensor-core tile; S > 1 rows of f32 x the f32 tile fed
+    by group_sums (S >= 256) or the plain reduce (S < 256). See `route`."""
     if x.device.type == "cpu":
         return quant_matmul_plain(w, x, out_dtype)
     if w.gtype not in KERNEL_FORMATS:
@@ -140,14 +292,22 @@ def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     ptrs = _plane_ptrs(w, x2.device)
     x2 = _aligned(x2)
     S = x2.shape[0]
-    if S == 1 or not corr:  # the GEMV forms its own group sums
+    fmt_counter = f"quant_matmul.{w.gtype.name.lower()}"
+    y = torch.empty(S, O, dtype=out_dtype, device=x2.device)
+    path = route(S, x2.dtype, w.gtype)
+    if path == "tc":
+        build.launch("gq_quant_matmul_tc", ("quant_matmul", fmt_counter, "quant_matmul.tc"),
+                     int(w.gtype), x2.data_ptr(), *ptrs, y.data_ptr(),
+                     int(out_dtype == torch.float32), S, K, O, tc_rows(S, O),
+                     build.stream_ptr(x2.device))
+        return y.reshape(*lead, O)
+    if path == "gemv" or not corr:  # the GEMV forms its own group sums
         xg = None
     elif S < GROUP_SUMS_MIN_S:
         xg = group_sums_plain(x2, group)
     else:
         xg = group_sums(x2, group)
-    y = torch.empty(S, O, dtype=out_dtype, device=x2.device)
-    build.launch("gq_quant_matmul", ("quant_matmul", f"quant_matmul.{w.gtype.name.lower()}"),
+    build.launch("gq_quant_matmul", ("quant_matmul", fmt_counter, f"quant_matmul.{path}"),
                  int(w.gtype), x2.data_ptr(),
                  int(x2.dtype == torch.bfloat16), *ptrs,
                  None if xg is None else xg.data_ptr(), y.data_ptr(),

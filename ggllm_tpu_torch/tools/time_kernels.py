@@ -1,0 +1,126 @@
+"""Timing loops on the CUDA card that chip_smoke.py does not run: the
+tensor-core prefill tile at every tile width, and decode chunks of one
+stream for a tree given by its root, so that two trees can be timed in turns
+within one call.
+
+    python -m ggllm_tpu_torch.tools.time_kernels tile
+    python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
+        [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--chunks 4] [--tokens 64]
+
+`tile` prints, per weight shape of the full-width models and S in 512 / 300,
+the `wgmma` tile's time with 128 and 256 x rows a block, with the width
+`tc_rows` picks, and `torch.matmul` on the dequantized bf16 weight (means of
+10 launches between two CUDA events, no L2 flush: lower than chip_smoke.py's
+medians with a flush). `decode` prints one JSON line: the prefill rate of a
+300-token prompt and the milliseconds per token of each greedy chunk at
+n_past 300. --root names the directory that holds the `ggllm_tpu_torch`
+package to time (default: the one this file lies in).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+TILE_SHAPES = (("q4_0", 22848, 4544), ("q4_0", 4544, 22720), ("q4_k", 9216, 8192),
+               ("q4_k", 32768, 8192), ("q6_k", 9216, 8192), ("q4_0", 4096, 4096),
+               ("q4_0", 4096, 11008))
+
+
+def _event_ms(fn, n: int = 10) -> float:
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def time_tile() -> None:
+    import torch
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.utils.benchgen import random_quant
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    bf16 = torch.bfloat16
+    picked = qm.tc_rows
+    for fmt, O, K in TILE_SHAPES:
+        w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
+        wd = w.dequantize(bf16)
+        for S in (512, 300):
+            x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+            row = {"fmt": fmt, "O": O, "K": K, "S": S, "tc_rows": picked(S, O)}
+            for nt in (128, 256):
+                qm.tc_rows = lambda S_, O_, nt=nt: nt
+                try:
+                    row[f"ms_{nt}"] = _event_ms(lambda: qm.quant_matmul(w, x, bf16))
+                finally:
+                    qm.tc_rows = picked
+            row["ms"] = _event_ms(lambda: qm.quant_matmul(w, x, bf16))
+            row["library_ms"] = _event_ms(lambda: torch.matmul(x, wd.t()))
+            print(json.dumps(row), flush=True)
+        del w, wd
+
+
+def time_decode(config: str, fmt: str, chunks: int, tokens: int) -> None:
+    import numpy as np
+    import torch
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+    hp = named_hparams(config)
+    eng = FalconEngine(hp, make_bench_params(hp, seed=7, gtype=GGMLType[fmt.upper()]),
+                       EngineConfig(kv_dtype="bfloat16"))
+    prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, 300)]
+    greedy = SamplerParams(temp=0.0)
+    eng.generate(prompt[:8], 4, greedy, stop_ids=set())  # warm-up
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = eng.eval(prompt)  # returns the logits on the host: the device is done
+    prefill = time.perf_counter() - t0
+    first, start = int(np.argmax(logits)), eng.n_past
+    ms = []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        eng.decode_chunk(first, tokens, greedy, last_tokens=prompt + [first])
+        ms.append((time.perf_counter() - t0) * 1e3 / tokens)
+        eng.rollback(start)
+        torch.cuda.synchronize()
+    print(json.dumps({"package": str(Path(build.__file__).resolve().parents[2]),
+                      "model": f"{config} {fmt}", "prefill_tok_s": len(prompt) / prefill,
+                      "decode_ms_per_token": ms}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("what", choices=("tile", "decode"))
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
+    ap.add_argument("--format", default="q4_0")
+    ap.add_argument("--chunks", type=int, default=4)
+    ap.add_argument("--tokens", type=int, default=64)
+    args = ap.parse_args(argv)
+    if "ggllm_tpu_torch" not in sys.modules:  # run as a file: take the package from --root
+        sys.path.insert(0, args.root)
+    if args.what == "tile":
+        time_tile()
+    else:
+        time_decode(args.config, args.format, args.chunks, args.tokens)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

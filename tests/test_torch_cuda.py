@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked `cuda` and skipped without one. These cover what chip_smoke.py's
-full-width checks do not: every quant format with f32 and bf16 inputs,
-ragged tiles (odd S, O and query tiles), 16- and 32-wide group sums, per-row
+full-width checks do not: every quant format with f32 and bf16 inputs
+(bf16 rows through the tensor-core tile at each of its four widths, f32 rows
+through the SIMT tile, counted as such), ragged tiles (odd S, O and query
+tiles), 16- and 32-wide group sums, per-row
 n_past / valid vectors, head_dim 32, Falcon-40B's 16 query heads per K/V
 head, LLaMA's G == 1 head layouts (head_dim 32, 64, 128; head counts that do
 not fill a block) in both attention kernels, the int8 cache's partials with
@@ -59,17 +61,55 @@ FORMATS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.
 
 @pytest.mark.parametrize("gtype", FORMATS, ids=[f.name.lower() for f in FORMATS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("S", [1, 3, 300])
+@pytest.mark.parametrize("S", [1, 3, 300, 2, 17, 513])
 def test_quant_matmul(dev, gtype, dtype, S):
-    O, K = 100, (512 if gtype in qm.K_QUANTS else 320)  # odd O: ragged GEMV and tile
+    """O = 100 (ragged GEMV, 64- and 128-row tiles) at K = 320 (legacy: one
+    and a quarter of the tile's 256-column units) or 512; S = 513 adds O = 301
+    and K = 768. One launch counts
+    under the wrapper, the format and the route: bf16 rows > 1 run the
+    tensor-core tile, f32 rows the SIMT tile, neither the other's."""
+    O, K = (301, 768) if S == 513 else (100, 512 if gtype in qm.K_QUANTS else 320)
     w = random_quant(gtype, O, K, _gen(S), dev, scale=0.2)
     x = torch.randn(S, K, generator=_gen(S + 1), device=dev).to(dtype)
-    before = build.launch_counts["quant_matmul"]
-    before_fmt = build.launch_counts[f"quant_matmul.{gtype.name.lower()}"]
+    path = "gemv" if S == 1 else "tc" if dtype == torch.bfloat16 else "simt"
+    names = ["quant_matmul", f"quant_matmul.{gtype.name.lower()}", "quant_matmul.gemv",
+             "quant_matmul.tc", "quant_matmul.simt"]
+    before = {n: build.launch_counts[n] for n in names}
     got = qm.quant_matmul(w, x, dtype)
-    assert build.launch_counts["quant_matmul"] == before + 1
-    assert build.launch_counts[f"quant_matmul.{gtype.name.lower()}"] == before_fmt + 1
+    for n in names:
+        ran = n in ("quant_matmul", f"quant_matmul.{gtype.name.lower()}", f"quant_matmul.{path}")
+        assert build.launch_counts[n] == before[n] + int(ran), n
     _close(got, qm.quant_matmul_plain(w, x, dtype), dtype)
+
+
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q5_1, GGMLType.Q8_0, GGMLType.Q6_K],
+                         ids=["q4_0", "q5_1", "q8_0", "q6_k"])
+@pytest.mark.parametrize("nt", qm.TC_ROWS)
+def test_quant_matmul_tc_every_tile_width(dev, gtype, nt, monkeypatch):
+    """Each of the tile's four widths on the same ragged problem (S = 300,
+    O = 200; f32 output as lm_head asks), whatever width the rule would pick."""
+    monkeypatch.setattr(qm, "tc_rows", lambda S, O: nt)
+    O, K, S = 200, 1024, 300
+    w = random_quant(gtype, O, K, _gen(nt), dev, scale=0.2)
+    x = torch.randn(S, K, generator=_gen(nt + 1), device=dev).to(torch.bfloat16)
+    before = build.launch_counts["quant_matmul.tc"]
+    got = qm.quant_matmul(w, x, torch.float32)
+    assert build.launch_counts["quant_matmul.tc"] == before + 1 and got.dtype == torch.float32
+    _close(got, qm.quant_matmul_plain(w, x, torch.float32), torch.bfloat16)
+
+
+@pytest.mark.parametrize("gtype", FORMATS[:5], ids=[f.name.lower() for f in FORMATS[:5]])
+@pytest.mark.parametrize("K", [96, 352])
+def test_quant_matmul_tc_odd_group_count(dev, gtype, K):
+    """A legacy K that is an odd number of 32-groups: the tile's last
+    64-column slab is half empty and decodes zero-filled records."""
+    O, S = 70, 33
+    w = random_quant(gtype, O, K, _gen(K), dev, scale=0.2)
+    x = torch.randn(S, K, generator=_gen(K + 1), device=dev).to(torch.bfloat16)
+    before = build.launch_counts["quant_matmul.tc"]
+    got = qm.quant_matmul(w, x, torch.bfloat16)
+    assert build.launch_counts["quant_matmul.tc"] == before + 1
+    _close(got, qm.quant_matmul_plain(w, x, torch.bfloat16), torch.bfloat16)
 
 
 def test_quant_matmul_refuses_what_is_not_ported(dev):
@@ -87,6 +127,24 @@ def test_quant_matmul_refuses_what_is_not_ported(dev):
             qm.quant_matmul(bad, torch.randn(1, 320, device=dev), torch.float32)
         with pytest.raises(TypeError):
             qm.quant_matmul(w, torch.randn(1, 512, device=dev).half(), torch.float32)
+        with pytest.raises(TypeError):  # the tensor-core route takes bf16 rows only
+            qm.quant_matmul(w, torch.randn(4, 512, device=dev).half(), torch.float32)
+        with pytest.raises(ValueError):  # and whole super-blocks
+            qm.quant_matmul(bad, torch.randn(4, 320, device=dev).to(torch.bfloat16), torch.bfloat16)
+        with pytest.raises(TypeError):
+            qm.quant_matmul(w, torch.randn(4, 512, device=dev).to(torch.bfloat16), torch.float16)
+    # the C entry points refuse what their kernels are not built for
+    w = random_quant(GGMLType.Q4_0, 64, 256, _gen(0), dev)
+    x = torch.randn(4, 256, device=dev).to(torch.bfloat16)
+    y = torch.empty(4, 64, device=dev, dtype=torch.bfloat16)
+    ptrs = qm._plane_ptrs(w, x.device)
+    with pytest.raises(RuntimeError):  # a tile width that is not built
+        build.launch("gq_quant_matmul_tc", "quant_matmul.refused", int(w.gtype), x.data_ptr(), *ptrs,
+                     y.data_ptr(), 0, 4, 256, 64, 32, build.stream_ptr(x.device))
+    with pytest.raises(RuntimeError):  # bf16 rows > 1 on the SIMT tile
+        build.launch("gq_quant_matmul", "quant_matmul.refused", int(w.gtype), x.data_ptr(), 1,
+                     *ptrs, None, y.data_ptr(), 1, 4, 256, 64, build.stream_ptr(x.device))
+    assert build.launch_counts["quant_matmul.refused"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -102,16 +160,36 @@ def test_group_sums(dev, dtype, g):
                                     (8, 2, 128)])
 @pytest.mark.parametrize("n_past", [0, 37, "rows"])
 def test_flash_mqa(dev, dtype, H, KV, D, n_past):
-    """G == 1 and D == 128 run the one-head-per-block kernel (45 query rows:
-    a ragged last block in both layouts)."""
-    B, S, T = 2, 45, 160
+    """bf16 at D 64 / 128 runs the tensor-core kernel, f32 and D = 32 the f32
+    kernels (G == 1 and D == 128: one head per block), counted as such; 45
+    query rows are a ragged last block in every layout."""
+    _flash_mqa_case(dev, dtype, H, KV, D, n_past, S=45)
+
+
+def _flash_mqa_case(dev, dtype, H, KV, D, n_past, S):
+    B, T = 2, 160 + 64 * (S // 64)
     g = _gen(H * D)
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
     kv = torch.randn(1, 2, B, T, KV, D, generator=g, device=dev).to(dtype)
     if n_past == "rows":
         n_past = torch.tensor([3, 90], dtype=torch.int32, device=dev)
+    tc = dtype == torch.bfloat16 and D in (64, 128)
+    before = {n: build.launch_counts[n] for n in ("flash_mqa", "flash_mqa.tc", "flash_mqa.simt")}
     got = flash_mqa(q, kv[0, 0], kv[0, 1], n_past)
+    assert build.launch_counts["flash_mqa"] == before["flash_mqa"] + 1
+    assert build.launch_counts["flash_mqa.tc"] == before["flash_mqa.tc"] + int(tc)
+    assert build.launch_counts["flash_mqa.simt"] == before["flash_mqa.simt"] + int(not tc)
     _close(got, flash_mqa_plain(q, kv[0, 0], kv[0, 1], n_past), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,KV,D", [(71, 1, 64), (16, 2, 64), (6, 6, 128)])
+@pytest.mark.parametrize("n_past", [0, "rows"])
+@pytest.mark.parametrize("S", [2, 17, 300, 513])
+def test_flash_mqa_row_counts(dev, dtype, H, KV, D, n_past, S):
+    """Short, ragged and multi-block query counts (513 rows of 71 heads are
+    570 blocks of one K/V head) at the three head layouts."""
+    _flash_mqa_case(dev, dtype, H, KV, D, n_past, S)
 
 
 def _decode_counter(KV, H, int8):
@@ -215,6 +293,21 @@ def test_flash_decode_refuses_head_shapes_it_does_not_take(dev):
     with pytest.raises(NotImplementedError):
         flash_mqa(torch.zeros(1, 4, 2, 256, device=dev), torch.zeros(1, 8, 2, 256, device=dev),
                   torch.zeros(1, 8, 2, 256, device=dev), 0)
+    bf = torch.bfloat16
+    with pytest.raises(NotImplementedError):  # the tensor-core route too
+        flash_mqa(torch.zeros(1, 4, 2, 256, device=dev, dtype=bf),
+                  torch.zeros(1, 8, 2, 256, device=dev, dtype=bf),
+                  torch.zeros(1, 8, 2, 256, device=dev, dtype=bf), 0)
+    with pytest.raises(TypeError):  # a bf16 q on an f32 cache
+        flash_mqa(torch.zeros(1, 4, 2, 64, device=dev, dtype=bf),
+                  torch.zeros(1, 8, 2, 64, device=dev), torch.zeros(1, 8, 2, 64, device=dev), 0)
+    with pytest.raises(TypeError):
+        flash_mqa(torch.zeros(1, 4, 2, 64, device=dev).half(),
+                  torch.zeros(1, 8, 2, 64, device=dev).half(),
+                  torch.zeros(1, 8, 2, 64, device=dev).half(), 0)
+    with pytest.raises(ValueError):  # heads that are not contiguous
+        k = torch.zeros(1, 8, 2, 128, device=dev, dtype=bf)[..., :64]
+        flash_mqa(torch.zeros(1, 4, 2, 64, device=dev, dtype=bf), k, k, 0)
 
 
 def test_cache_partials_refuses_a_bad_int8_pair(dev):
