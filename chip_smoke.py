@@ -13,26 +13,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the f32 SIMT tile at two shapes; the attention kernels at the three
      models' head layouts, bf16 through the tensor-core kernel, with a
      per-row n_past, and f32 through the SIMT kernels; flash-decode on bf16
-     and on int8 caches, grouped heads and LLaMA's G == 1), and time kernel,
-     plain version and one PyTorch library call (CUDA events, after warm-up,
-     median of 20 runs, L2 flushed before each run) beside the card's bound;
+     and on int8 caches, grouped heads through the tensor-core kernel and
+     LLaMA's G == 1 through its own, with and without the append block and
+     with a length per row, and f32 through the SIMT kernel), and time
+     kernel, plain version and one PyTorch library call (CUDA events, after
+     warm-up, median of 20 runs, L2 flushed before each run) beside the
+     card's bound; flash-decode and its library call also as device time (a
+     CUDA graph of one call per layer, divided by the layers); and a dense
+     bf16 weight at Falcon-7B's lm_head shape through ops/linear.py against
+     the f32 product;
   3. drive the main path at full width and full depth through the engine's
      entry points, with random weights from a seed, six times: Falcon-7B
      Q4_0 and Q4_1 (32 layers), Falcon-40B Q4_K (60 layers) and LLaMA-7B
      Q4_0 (32 layers) on a bf16 cache; Falcon-40B Q3_K (60 layers) and
      LLaMA-7B Q4_K (32 layers) on an int8 cache: prefill a 300-token prompt,
      greedy-decode 128 tokens, then 32 sampled tokens, counting kernel
-     launches (set to 0 just before each path and read just after); then
+     launches (set to 0 just before each path and read just after); Falcon-7B
+     Q4_0 also samples 32 tokens at top_k 0 (the host cascade); then
      prefill again through the plain versions and compare the logits of all
      300 positions (and the argmax wherever the plain version decides it by
      more than twice the measured difference). The int8 paths also time
      16-token decode chunks at n_past 400 (LLaMA: and at n_past 1900) on an
      int8 and on a bf16 cache, in turns. Each model's parameters are freed
      before the next one is built. On these bf16 paths prefill must run the
-     tensor-core tile and attention kernel and neither SIMT kernel. A seventh,
-     shallow path (Falcon-7B Q4_0, full width, 2 layers, float32 compute and
-     cache) prefills the prompt through the f32 SIMT tile, group_sums and the
-     f32 attention kernel and must agree with the plain versions to 1e-4;
+     tensor-core tile and attention kernel and neither SIMT kernel, and
+     decode the head layout's and cache's decode kernel and no other. A
+     seventh, shallow path (Falcon-7B Q4_0, full width, 2 layers, float32
+     compute and cache) prefills the prompt through the f32 SIMT tile,
+     group_sums and the f32 attention kernel and must agree with the plain
+     versions to 1e-4, then decodes 8 tokens through the SIMT decode kernel;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -45,7 +54,6 @@ chiprun_out/chip_smoke_kernels.json.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -76,10 +84,15 @@ REPLACES = {
     "flash_mqa": ("ggllm_tpu_torch/csrc/flash_attention.cu", "ggllm_tpu/kernels/flash_attention.py:33"),
     "flash_mqa.tc": ("ggllm_tpu_torch/csrc/flash_attention_tc.cu",
                      "ggllm_tpu/kernels/flash_attention.py:33"),
-    "flash_decode": ("ggllm_tpu_torch/csrc/flash_decode.cu", "ggllm_tpu/kernels/flash_decode.py:56"),
-    # the same Pallas kernel with quant=True (its int8 branches at :79 and :93)
-    "flash_decode.int8": ("ggllm_tpu_torch/csrc/flash_decode.cu",
-                          "ggllm_tpu/kernels/flash_decode.py:79"),
+    # grouped query heads: bf16 q on the tensor cores, on a bf16 and (the same
+    # Pallas kernel with quant=True, its int8 branches at :79 and :93) an int8
+    # cache; f32 q (and head_dim 32) on the SIMT kernel
+    "flash_decode_tc": ("ggllm_tpu_torch/csrc/flash_decode_tc.cu",
+                        "ggllm_tpu/kernels/flash_decode.py:56"),
+    "flash_decode_tc.int8": ("ggllm_tpu_torch/csrc/flash_decode_tc.cu",
+                             "ggllm_tpu/kernels/flash_decode.py:79"),
+    "flash_decode.simt": ("ggllm_tpu_torch/csrc/flash_decode.cu",
+                          "ggllm_tpu/kernels/flash_decode.py:56"),
     # the G == 1 kernel, dense and with quant=True
     "flash_decode.mha": ("ggllm_tpu_torch/csrc/flash_decode.cu",
                          "ggllm_tpu/kernels/flash_decode.py:123"),
@@ -87,7 +100,10 @@ REPLACES = {
                               "ggllm_tpu/kernels/flash_decode.py:123"),
 }
 COUNTER = {"quant_matmul": "quant_matmul.gemv", "flash_mqa": "flash_mqa.simt"}
-DECODE_KERNELS = [name for name in REPLACES if name.startswith("flash_decode")]
+# every flash-decode launch counter: the wrapper's (by head layout and cache)
+# and the route's
+DECODE_COUNTERS = ("flash_decode", "flash_decode.int8", "flash_decode.mha", "flash_decode.mha.int8",
+                   "flash_decode_tc", "flash_decode_tc.int8", "flash_decode.simt")
 
 
 def log(msg: str):
@@ -101,26 +117,16 @@ def smi(query: str) -> str:
 
 class Timer:
     """Median device time of a callable: CUDA events around each run, the
-    L2 cache flushed (a 256 MB write) before each run, outside the events."""
+    L2 cache flushed (a 256 MB write) before each run, outside the events
+    (tools/time_kernels.py median_ms)."""
 
     def __init__(self, torch):
-        self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fn) -> float:
-        torch = self.torch
-        for _ in range(N_WARM):
-            fn()
-        times = []
-        for _ in range(N_RUNS):
-            self.flush.zero_()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            times.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in times)
+        from ggllm_tpu_torch.tools.time_kernels import median_ms
+
+        return median_ms(fn, self.flush, N_RUNS, N_WARM)
 
 
 def check(name: str, got, ref) -> tuple[float, float]:
@@ -153,15 +159,16 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
     bf16 = torch.bfloat16
     rows = []
 
-    def row(kernel, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops):
+    def row(kernel, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops, **device_ms):
         tb, to = nbytes / bw * 1e3, ops / peak * 1e3
         r = {"kernel": kernel, "shape": shape, "max_abs_err": err, "rel_err": rel, "ms": ms,
              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(tb, to),
-             "bound_by": "bytes" if tb >= to else "operations"}
+             "bound_by": "bytes" if tb >= to else "operations", **device_ms}
         rows.append(r)
+        dev = "".join(f"  {k} {v:.4f}" for k, v in device_ms.items())
         log(f"  {kernel:13s} {shape:34s} err {err:.2e} ({rel:.1e} rel)  kernel {ms:.4f} ms"
             f"  plain {plain_ms:.4f} ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
-            f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']}){dev}")
 
     # ---- quant_matmul (+ group_sums inside at S >= 256), every format at
     # its model's main-path shapes, then Q4_0 and Q4_K at LLaMA-7B's
@@ -290,11 +297,17 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
             f" ({rel:.1e} rel)")
 
     # ---- flash_decode: the last layer of the full cache (32 layers at
-    # Falcon-7B and LLaMA-7B, 60 at 40B); H == KV runs the G == 1 kernel
+    # Falcon-7B and LLaMA-7B, 60 at 40B); grouped heads take the tensor-core
+    # kernel, H == KV the G == 1 kernel, each on a bf16 and an int8 cache.
+    # Timed two ways: one call between events (ms: what an eager decode step
+    # pays, host work included) and device time (graph_ms: a CUDA graph of one
+    # call per layer, as a decode step makes them, divided by the layers); the
+    # library call both ways too
+    from ggllm_tpu_torch.tools.time_kernels import graph_ms
+
     for L, H, KV, D, valids in ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (300, 2047)),
                                 (32, 32, 32, 128, (1, 300, 2047))):
         l, G = L - 1, H // KV
-        mha = ".mha" if G == 1 else ""
         kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
         q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
         qg = q1.reshape(1, KV, G, D)
@@ -306,17 +319,20 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
         # cache in bf16 (it has no int8 form)
         kv8 = kvcache.quantize_new(kv)
         deq32 = kv8[0][l].float() * kv8[1][l]  # (2, 1, T, KV, D)
-        deq = deq32.to(bf16)
-        for name, cache, kr, vr, lib_kv, per_pos, vals in (
-                ("flash_decode" + mha, kv, kv[l, 0], kv[l, 1], kv[l], 2 * D, valids),
-                ("flash_decode" + mha + ".int8", kv8, deq32[0], deq32[1], deq, D + 4,
-                 valids if mha else valids[-2:])):
+        deq = torch.stack([(kv8[0][i].float() * kv8[1][i]).to(bf16) for i in range(L)])
+        base = "flash_decode_tc" if G > 1 else "flash_decode.mha"
+        for name, cache, kr, vr, lib_kv, per_pos in (
+                (base, kv, kv[l, 0], kv[l, 1], kv, 2 * D),
+                (base + ".int8", kv8, deq32[0], deq32[1], deq, D + 4)):
             tag = "int8 " if name.endswith("int8") else ""
-            for valid in vals:
+            for valid in valids:
                 # cache valid below `valid`: no append -> n_past = valid - 1;
                 # append with 5 valid entries -> n_past = valid + 4
-                err, rel = check(f"{name} G={G} valid={valid}",
-                                 fd.flash_decode(cache, KV, l, q1, valid - 1),
+                before = build.launch_counts[name]
+                got = fd.flash_decode(cache, KV, l, q1, valid - 1)
+                if build.launch_counts[name] != before + 1:
+                    raise RuntimeError(f"flash_decode {tag}G={G} did not run the {name} kernel")
+                err, rel = check(f"{name} G={G} valid={valid}", got,
                                  _attention(q1, kr, vr, valid - 1, st))
                 err_a, rel_a = check(f"{name} G={G} valid={valid} +append",
                                      fd.flash_decode(cache, KV, l, q1, valid + 4, kv_append=app,
@@ -328,42 +344,87 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
                 check(f"cache_partials {tag}G={G} valid={valid}", acc / lsum, acc_p / l_p)
                 check(f"cache_partials {tag}m G={G} valid={valid}", m, m_p)
                 ms = timer(lambda: fd.flash_decode(cache, KV, l, q1, valid - 1))
+                dev_ms = graph_ms(lambda i: fd.flash_decode(cache, KV, i, q1, valid - 1), L,
+                                  timer.flush)
                 plain_ms = timer(lambda: fd.flash_decode_plain(cache, KV, l, q1, valid - 1))
-                kt = lib_kv[0, :, :valid].transpose(1, 2)
-                vt = lib_kv[1, :, :valid].transpose(1, 2)
+                kt = [lib_kv[i, 0, :, :valid].transpose(1, 2) for i in range(L)]
+                vt = [lib_kv[i, 1, :, :valid].transpose(1, 2) for i in range(L)]
                 if KV == 1:
-                    kt, vt = kt.expand(1, H, valid, D), vt.expand(1, H, valid, D)
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                    q1.transpose(1, 2), kt, vt, enable_gqa=G > 1 and KV > 1))
+                    kt = [k.expand(1, H, valid, D) for k in kt]
+                    vt = [v.expand(1, H, valid, D) for v in vt]
+
+                def sdpa(i):
+                    return F.scaled_dot_product_attention(q1.transpose(1, 2), kt[i], vt[i],
+                                                          enable_gqa=G > 1 and KV > 1)
+
+                lib_ms = timer(lambda: sdpa(l))
+                lib_dev_ms = graph_ms(sdpa, L, timer.flush)
                 # bytes: K and V of the valid prefix (per position and K/V head
                 # 2 D in bf16, D + 4 as codes and a scale), q and the output
                 row(name, f"{tag}valid={valid} G={G} KV={KV} D={D} (+append err {err_a:.1e})",
                     max(err, err_a), max(rel, rel_a), ms, plain_ms, lib_ms,
-                    2 * valid * KV * per_pos + 2 * H * D * 2, 4 * valid * H * D)
-        del kv, kv8, deq, deq32
+                    2 * valid * KV * per_pos + 2 * H * D * 2, 4 * valid * H * D,
+                    graph_ms=dev_ms, library_graph_ms=lib_dev_ms)
+        # one length per batch row (B = 2, two layers of this cache), with and
+        # without the append block
+        kv2 = torch.randn(2, 2, 2, T, KV, D, generator=gen, device="cuda").to(bf16)
+        q2 = torch.randn(2, 1, H, D, generator=gen, device="cuda").to(bf16)
+        app2 = torch.randn(2, 2, 16, KV, D, generator=gen, device="cuda").to(bf16)
+        kv8_2 = kvcache.quantize_new(kv2)
+        deq2 = kv8_2[0][1].float() * kv8_2[1][1]
+        lens = torch.tensor([2047, 300], dtype=torch.int32, device="cuda")
+        for name, cache, kr, vr in ((base, kv2, kv2[1, 0], kv2[1, 1]),
+                                    (base + ".int8", kv8_2, deq2[0], deq2[1])):
+            err, rel = check(f"{name} per-row valid", fd.flash_decode(cache, KV, 1, q2, lens - 1),
+                             _attention(q2, kr, vr, lens - 1, st))
+            err_a, rel_a = check(f"{name} per-row valid +append",
+                                 fd.flash_decode(cache, KV, 1, q2, lens + 4, kv_append=app2,
+                                                 append_valid=5),
+                                 _attention(q2, kr, vr, lens + 4, st, kv_append=app2,
+                                            append_valid=5))
+            log(f"  {name:13s} B=2 valid=[2047, 300] G={G} err {err:.2e} ({rel:.1e} rel),"
+                f" +append {err_a:.2e} ({rel_a:.1e} rel)")
+        del kv, kv8, deq, deq32, kv2, kv8_2, deq2
 
-    # ---- the G == 1 kernel with a length per batch row (B = 2, two layers of
-    # LLaMA-7B's cache), bf16 and int8, with and without the append block
-    KV, D = 32, 128
-    st = FalconStatic(n_layer=2, n_head=KV, n_head_kv=KV, head_dim=D, n_embd=KV * D,
-                      n_ff=0, n_vocab=0, parallel_norms=False)
-    kv = torch.randn(2, 2, 2, T, KV, D, generator=gen, device="cuda").to(bf16)
-    q2 = torch.randn(2, 1, KV, D, generator=gen, device="cuda").to(bf16)
-    app = torch.randn(2, 2, 16, KV, D, generator=gen, device="cuda").to(bf16)
-    kv8 = kvcache.quantize_new(kv)
-    deq32 = kv8[0][1].float() * kv8[1][1]
-    lens = torch.tensor([2047, 300], dtype=torch.int32, device="cuda")
-    for name, cache, kr, vr in (("flash_decode.mha", kv, kv[1, 0], kv[1, 1]),
-                                ("flash_decode.mha.int8", kv8, deq32[0], deq32[1])):
-        err, rel = check(f"{name} per-row valid", fd.flash_decode(cache, KV, 1, q2, lens - 1),
-                         _attention(q2, kr, vr, lens - 1, st))
-        err_a, rel_a = check(f"{name} per-row valid +append",
-                             fd.flash_decode(cache, KV, 1, q2, lens + 4, kv_append=app,
-                                             append_valid=5),
-                             _attention(q2, kr, vr, lens + 4, st, kv_append=app, append_valid=5))
-        log(f"  {name:13s} B=2 valid=[2047, 300] err {err:.2e} ({rel:.1e} rel),"
-            f" +append {err_a:.2e} ({rel_a:.1e} rel)")
-    del kv, kv8, deq32
+    # ---- the SIMT kernel of grouped heads, which serves f32 queries: the
+    # 2-layer float32 path's decode shape (Falcon-7B heads, f32 cache)
+    L, H, KV, D, valid = 2, 71, 1, 64, 300
+    kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda")
+    q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda")
+    st = FalconStatic(n_layer=L, n_head=H, n_head_kv=KV, head_dim=D, n_embd=H * D,
+                      n_ff=4 * H * D, n_vocab=0, parallel_norms=False)
+    before = build.launch_counts["flash_decode.simt"]
+    err, rel = check("flash_decode.simt f32", fd.flash_decode(kv, KV, 1, q1, valid - 1),
+                     _attention(q1, kv[1, 0], kv[1, 1], valid - 1, st))
+    if build.launch_counts["flash_decode.simt"] != before + 1:
+        raise RuntimeError("f32 flash_decode did not run the SIMT kernel")
+    kt, vt = (kv[1, i, :, :valid].transpose(1, 2).expand(1, H, valid, D) for i in (0, 1))
+    row("flash_decode.simt", f"f32 valid={valid} G={H} KV={KV} D={D}", err, rel,
+        timer(lambda: fd.flash_decode(kv, KV, 1, q1, valid - 1)),
+        timer(lambda: fd.flash_decode_plain(kv, KV, 1, q1, valid - 1)),
+        timer(lambda: F.scaled_dot_product_attention(q1.transpose(1, 2), kt, vt)),
+        2 * valid * KV * D * 4 + 2 * H * D * 4, 4 * valid * H * D,
+        graph_ms=graph_ms(lambda i: fd.flash_decode(kv, KV, i, q1, valid - 1), L, timer.flush))
+    del kv
+
+    # ---- a dense weight at Falcon-7B's lm_head shape (an F16 tensor as the
+    # loader holds it: in the compute dtype, bf16), bf16 x, S = 1: linear's
+    # bf16 product with f32 output against the earlier f32 copy of the weight
+    from ggllm_tpu_torch.ops.linear import linear
+
+    w = (torch.randn(65024, 4544, generator=gen, device="cuda") * 0.02).half().to(bf16)
+    x = torch.randn(1, 4544, generator=gen, device="cuda").to(bf16)
+    ref = torch.matmul(x.float(), w.float().t())
+    err, rel = check("linear dense lm_head", linear(w, x, torch.float32), ref)
+    new_ms = timer(lambda: linear(w, x, torch.float32))
+    old_ms = timer(lambda: torch.matmul(x.float(), w.float().t()))
+    dense = {"shape": "dense lm_head 65024x4544 bf16 x S=1", "max_abs_err": err, "rel_err": rel,
+             "ms": new_ms, "old_f32_copy_ms": old_ms,
+             "bound_ms": (w.numel() * 2 + 4544 * 2 + 65024 * 4) / bw * 1e3}
+    log(f"  linear (dense) lm_head 65024x4544 S=1: err {err:.2e} ({rel:.1e} rel); new {new_ms:.4f}"
+        f" ms, f32 copy {old_ms:.4f} ms, bound {dense['bound_ms']:.4f} ms")
+    rows.append({"kernel": "linear.dense", **dense})
+    del w
     return rows
 
 
@@ -391,14 +452,17 @@ def decode_rates(torch, engines: dict, tokens: list, n: int = 16) -> dict:
 
 
 def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
-                peak_below: int | None = None, long_past: int | None = None) -> dict:
+                peak_below: int | None = None, long_past: int | None = None,
+                host_route_tokens: int = 0) -> dict:
     """One full-width model (`model` is "falcon7b", "falcon40b" or "llama7b")
     with random `fmt` weights and a `kv_dtype` cache through the engine's
     entry points; returns its launch counts and end-to-end figures. Fails if
     a kernel of the path (the matmul in `fmt`, the decode kernel for this
     head layout and cache) was not launched, if another decode kernel was, or
     if peak memory reaches `peak_below`. An int8 path also compares decode
-    rates with a bf16 cache at n_past 400 and, if given, at `long_past`."""
+    rates with a bf16 cache at n_past 400 and, if given, at `long_past`;
+    host_route_tokens > 0 times that many tokens sampled at top_k 0 (the
+    whole vocabulary: the host cascade, one forward and one draw a token)."""
     import gc
 
     import numpy as np
@@ -441,20 +505,37 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     sampled_tps = 32 / (time.perf_counter() - t0)
     counts = dict(build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
+    host_route = None
+    if host_route_tokens:  # top_k 0: the whole vocabulary, sampled by the host cascade
+        eng.reset()
+        eng.eval(prompt[:-1])
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        ids = eng.generate(prompt[-1:], host_route_tokens,  # a forward and a draw a token
+                           SamplerParams(temp=0.8, top_k=0, top_p=0.95, seed=99), stop_ids=set())
+        host_tps = host_route_tokens / (time.perf_counter() - t0)
+        host_route = {"tok_s": host_tps, "launches": dict(build.launch_counts), "ids": len(ids)}
+        if len(ids) != host_route_tokens or min(ids) < 0 or max(ids) >= hp.n_vocab:
+            raise RuntimeError(f"bad ids from the host sampling route: {ids}")
+        log(f"  host-route sampling (top_k 0, temp 0.8), {host_route_tokens} tokens at n_past"
+            f" 300: {host_tps:.2f} tok/s")
     log(f"  prefill {n_prefill} tokens: {prefill_tps:.1f} tok/s;"
         f" greedy decode {n_decode} tokens: {decode_tps:.2f} tok/s;"
         f" sampled decode 32 tokens: {sampled_tps:.2f} tok/s;"
         f" peak device memory {peak / 2**30:.2f} GiB")
     log(f"  launches on the {label} path: {counts}")
-    decode_kernel = ("flash_decode" + (".mha" if hp.n_head_kv == hp.n_head else "")
-                     + (".int8" if int8 else ""))
+    mha = hp.n_head_kv == hp.n_head
+    # the wrapper's counter for this head layout and cache, and the route's
+    decode_counters = {"flash_decode" + (".mha" if mha else "") + (".int8" if int8 else ""),
+                       ("flash_decode.mha" if mha else "flash_decode_tc") + (".int8" if int8 else "")}
     # prefill: the tensor-core tile and attention kernel; decode: the GEMV and
     # this head layout's and cache's decode kernel
     for name in ("quant_matmul", f"quant_matmul.{fmt}", "quant_matmul.tc", "quant_matmul.gemv",
-                 "flash_mqa", "flash_mqa.tc", decode_kernel):
+                 "flash_mqa", "flash_mqa.tc", *decode_counters):
         if counts.get(name, 0) <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the {label} path")
-    if (any(counts.get(k, 0) for k in DECODE_KERNELS if k != decode_kernel)
+    if (any(counts.get(k, 0) for k in DECODE_COUNTERS if k not in decode_counters)
+            or len({counts[k] for k in decode_counters}) != 1
             or any(counts.get(k, 0) for k in ("quant_matmul.simt", "flash_mqa.simt", "group_sums"))
             or counts["quant_matmul"] != counts[f"quant_matmul.{fmt}"]
             or counts["quant_matmul"] != counts["quant_matmul.tc"] + counts["quant_matmul.gemv"]
@@ -491,7 +572,7 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     out = {"path": label, "launches": counts, "prefill_tok_s": prefill_tps,
            "decode_tok_s": decode_tps, "sampled_tok_s": sampled_tps, "peak_bytes": peak,
            "logit_rel_err": rel, "argmax_same": int(same.sum()),
-           "argmax_decided": int(decided.sum())}
+           "argmax_decided": int(decided.sum()), "host_route": host_route}
     del plain
     if int8:  # what the int8 cache costs or saves against bf16, same weights
         dense = FalconEngine(hp, params, EngineConfig())
@@ -514,8 +595,9 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
 def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: int = 2) -> dict:
     """The f32 route at full width and `n_layer` layers: float32 compute and
     cache, a 300-token prefill through the f32 SIMT tile, group_sums and the
-    f32 attention kernel. Fails unless all three ran, no tensor-core kernel
-    did, and the logits of all positions agree with the plain versions to
+    f32 attention kernel, then 8 greedy tokens through the SIMT decode
+    kernel. Fails unless all of them ran, no tensor-core kernel did, and the
+    prefill logits of all positions agree with the plain versions to
     F32_LOGIT_TOL of max |logit|."""
     import dataclasses
     import gc
@@ -542,12 +624,16 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
     t0 = time.perf_counter()
     got = eng.eval(prompt, logits_all=True)
     prefill_tps = len(prompt) / (time.perf_counter() - t0)
+    decoded, _ = eng.decode_chunk(int(got[-1].argmax()), 8)  # f32 q: the SIMT decode kernel
     counts = dict(build.launch_counts)
     log(f"  launches on the {label} path: {counts}")
-    for name in ("quant_matmul.simt", f"quant_matmul.{fmt}", "group_sums", "flash_mqa.simt"):
+    if len(decoded) != 8 or not 0 <= int(decoded.min()) <= int(decoded.max()) < hp.n_vocab:
+        raise RuntimeError(f"bad decoded ids on the {label} path: {decoded}")
+    for name in ("quant_matmul.simt", f"quant_matmul.{fmt}", "group_sums", "flash_mqa.simt",
+                 "flash_decode", "flash_decode.simt", "quant_matmul.gemv"):
         if counts.get(name, 0) <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the {label} path")
-    if any(counts.get(k, 0) for k in ("quant_matmul.tc", "flash_mqa.tc")):
+    if any(counts.get(k, 0) for k in ("quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc")):
         raise RuntimeError(f"a tensor-core kernel ran on the {label} path: {counts}")
     plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False, **cfg))
     ref = plain.eval(prompt, logits_all=True)
@@ -640,7 +726,8 @@ def main() -> int:
     paths = []
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")
-        paths.append(phase_model(torch, model, fmt))
+        paths.append(phase_model(torch, model, fmt,
+                                 host_route_tokens=32 if (model, fmt) == ("falcon7b", "q4_0") else 0))
     log("  -- falcon40b q3_k, int8 cache")
     paths.append(phase_model(torch, "falcon40b", "q3_k", kv_dtype="int8",
                              peak_below=paths[-1]["peak_bytes"]))
@@ -663,8 +750,9 @@ def main() -> int:
         "group_sums": "S=512 K=22720 g=32",
         "flash_mqa": "S=512 n_past=300 H=71 KV=1",
         "flash_mqa.tc": "S=512 n_past=300 H=71 KV=1",
-        "flash_decode": "valid=2047 G=71",
-        "flash_decode.int8": "int8 valid=2047 G=71",
+        "flash_decode_tc": "valid=2047 G=71",
+        "flash_decode_tc.int8": "int8 valid=2047 G=71",
+        "flash_decode.simt": "f32 valid=300 G=71",
         "flash_decode.mha": "valid=2047 G=1 KV=32",
         "flash_decode.mha.int8": "int8 valid=2047 G=1 KV=32",
     }
@@ -677,6 +765,9 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
+        if "graph_ms" in r:  # device time: a CUDA graph of one call per layer
+            entry["graph_ms"] = r["graph_ms"]
+            entry["library_graph_ms"] = r.get("library_graph_ms")
         if entry["launches"] <= 0:
             raise RuntimeError(f"kernel {name} was launched on none of the main paths")
         if name.startswith("quant_matmul"):
@@ -690,9 +781,12 @@ def main() -> int:
             entry["head_dims"], entry["dtypes"] = [32, 64, 128], ["float32", "bfloat16 at D=32"]
         if name == "flash_mqa.tc":
             entry["head_dims"], entry["dtypes"] = [64, 128], ["bfloat16"]
-        if name in DECODE_KERNELS:
-            entry["cache_dtypes"] = ["int8"] if name.endswith("int8") else ["bfloat16", "float32"]
-            entry["head_dims"] = [32, 64, 128] if ".mha" in name else [32, 64]
+        if name.startswith("flash_decode"):
+            entry["cache_dtypes"] = (["int8"] if name.endswith("int8") else ["bfloat16"]
+                                     if name == "flash_decode_tc" else ["float32", "int8"]
+                                     if name.endswith("simt") else ["bfloat16", "float32"])
+            entry["head_dims"] = ([32, 64, 128] if ".mha" in name else [64, 128]
+                                  if name.startswith("flash_decode_tc") else [32, 64])
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

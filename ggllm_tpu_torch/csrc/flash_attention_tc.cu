@@ -28,9 +28,7 @@
 //    ldmatrix reads 8 rows from 8 different bank groups.
 //  * Blocks with the most keys (the last positions) start first.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
 
@@ -39,40 +37,13 @@ constexpr int BT = 64;  // keys per staged tile
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using gq::cp_async16;
+using gq::cp_async_commit;
+using gq::cp_async_wait;
+using gq::ldsm4;
+using gq::ldsm4_trans;
+using gq::mma16816;
+using gq::pack_bf16;
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)

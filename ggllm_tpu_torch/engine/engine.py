@@ -23,9 +23,11 @@ import torch
 
 from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams, LlamaHParams
 from ggllm_tpu_torch.core.device import resolve_device
+from ggllm_tpu_torch.kernels import flash_decode
 from ggllm_tpu_torch.models import resolve_model
 from ggllm_tpu_torch.ops import kvcache, sampling, sampling_device
 from ggllm_tpu_torch.ops.rope import rope_angles
+from ggllm_tpu_torch.tokenizer import nl_id
 
 DECODE_CHUNK = 16
 
@@ -71,7 +73,11 @@ class FalconEngine:
     is missing; device="cpu" runs the kernels' plain versions on the CPU.
     cfg.kernel_layout / cfg.flash_attention set to False route the
     quantized matmuls / attention through the plain versions on any
-    device (the reference path the kernels are held against)."""
+    device (the reference path the kernels are held against). On the card
+    with flash attention on, a head shape that the decode kernels do not
+    take raises here (kernels/flash_decode.py supports). penalize_nl=False
+    exempts the newline id of the model family's vocabulary from the
+    penalties (tokenizer.nl_id: 193 for Falcon, 13 for LLaMA)."""
 
     def __init__(self, hparams: FalconHParams | LlamaHParams, params: dict,
                  cfg: EngineConfig | None = None, device=None):
@@ -79,6 +85,16 @@ class FalconEngine:
         self.hp = hparams
         self.cfg = cfg or EngineConfig()
         self.batch = 1
+        self.nl_token = nl_id(hparams.arch)
+        if self.device.type == "cuda" and self.cfg.flash_attention is not False:
+            G = hparams.n_head // hparams.n_head_kv
+            ok, why = flash_decode.supports(hparams.n_head_kv, G, hparams.head_dim,
+                                            self.cfg.kv_dtype, self.cfg.compute_dtype)
+            if not ok:
+                raise NotImplementedError(
+                    f"flash-decode kernels: {hparams.n_head} heads over {hparams.n_head_kv} K/V"
+                    f" heads, head_dim {hparams.head_dim}, {self.cfg.kv_dtype} cache: {why}"
+                    " (EngineConfig(flash_attention=False) runs the plain attention)")
         self.st, model_cls = resolve_model(
             hparams, flash=self.cfg.flash_attention is not False,
             kernels=self.cfg.kernel_layout is not False)
@@ -171,7 +187,7 @@ class FalconEngine:
         sampler = sampler or sampling.SamplerParams(temp=0.0)
         if self.n_past + n_steps > self.cfg.n_ctx:
             raise ValueError("context overflow")
-        spec = sampling_device.penalty_spec(sampler, self.hp.n_vocab)
+        spec = sampling_device.penalty_spec(sampler, self.hp.n_vocab, self.nl_token)
         generator = generator or self.new_generator(sampler)
         ring, pos = self._ring(sampler, first_token, last_tokens)
         L = ring.numel()
@@ -210,47 +226,60 @@ class FalconEngine:
         assert 0 <= n_past <= self.n_past
         self.n_past = n_past
 
+    def _sample_host(self, logits: np.ndarray, last_tokens: list, sampler,
+                     state: sampling.SamplerState) -> int:
+        t0 = time.perf_counter()
+        tok = sampling.sample(logits, last_tokens, sampler, state, self.cfg.n_ctx,
+                              nl_token=self.nl_token)
+        self.timings.t_sample_us += (time.perf_counter() - t0) * 1e6
+        self.timings.n_sample += 1
+        return tok
+
     def generate(self, prompt_ids, n_predict: int = 128,
                  sampler: sampling.SamplerParams | None = None,
                  stop_ids: set | None = None, stream=None) -> list[int]:
-        """Greedy/sampled generation. Returns generated ids (without prompt)."""
+        """Greedy/sampled generation. Returns generated ids (without prompt).
+
+        Routed as the JAX engine routes (engine.py:1328-1359): the host
+        cascade (ops/sampling.py sample) draws the first token after
+        prefill; then settings the device cascade covers (device_samplable)
+        decode in chunks of cfg.decode_chunk tokens sampled on the device,
+        and any other (top_k <= 0 or > 1024 at temp > 0, tfs / typical < 1,
+        mirostat) one token at a time through the host cascade, with one
+        SamplerState throughout. The last token is not forwarded."""
         sampler = sampler or sampling.SamplerParams()
         stop_ids = stop_ids or set()
         prompt_ids = list(map(int, np.asarray(prompt_ids).reshape(-1)))
+        state = sampling.SamplerState.init(sampler)
         logits = self.eval(prompt_ids)
-
-        t0 = time.perf_counter()
-        generator = self.new_generator(sampler)
-        ring, _ = self._ring(sampler, prompt_ids[-1], prompt_ids)
-        with torch.inference_mode():
-            penalized = sampling_device.apply_penalties(
-                torch.from_numpy(logits).to(self.device), ring,
-                sampling_device.penalty_spec(sampler, self.hp.n_vocab))
-            tok = int(sampling_device.sample_logits(
-                penalized, generator, float(sampler.temp), int(sampler.top_k),
-                float(sampler.top_p)))
-        self.timings.t_sample_us += (time.perf_counter() - t0) * 1e6
-        self.timings.n_sample += 1
-        out = [tok]
+        out = [self._sample_host(logits, prompt_ids, sampler, state)]
         if stream is not None:
-            stream(tok)
-        if tok in stop_ids:
+            stream(out[0])
+        if out[0] in stop_ids:
             return out
+        on_device = sampling_device.device_samplable(sampler)
+        generator = None
         while len(out) < n_predict:
-            chunk = min(self.cfg.decode_chunk, n_predict - len(out),
-                        self.cfg.n_ctx - self.n_past)
-            if chunk <= 0:
-                break
-            start = self.n_past
-            toks, generator = self.decode_chunk(out[-1], chunk, sampler, generator,
-                                                last_tokens=prompt_ids + out)
-            self.timings.n_sample += chunk
+            if not on_device:
+                if self.n_past >= self.cfg.n_ctx:
+                    break
+                logits = self.eval([out[-1]])
+                toks = [self._sample_host(logits, prompt_ids + out, sampler, state)]
+            else:
+                chunk = min(self.cfg.decode_chunk, n_predict - len(out),
+                            self.cfg.n_ctx - self.n_past)
+                if chunk <= 0:
+                    break
+                start = self.n_past
+                toks, generator = self.decode_chunk(out[-1], chunk, sampler, generator,
+                                                    last_tokens=prompt_ids + out)
+                self.timings.n_sample += chunk
             for j, t in enumerate(map(int, toks)):
                 out.append(t)
                 if stream is not None:
                     stream(t)
                 if t in stop_ids:
-                    # positions beyond the stop are stale; roll back
-                    self.rollback(start + j + 1)
+                    if on_device:  # positions beyond the stop are stale; roll back
+                        self.rollback(start + j + 1)
                     return out
         return out

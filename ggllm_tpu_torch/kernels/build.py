@@ -31,6 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# cache, cache_kind, scales, layer, q, q_is_bf16, valid_vec, valid, append,
+# n_append, append_valid, out, acc, m, l, part_acc, part_ml, counters, L, B, T,
+# KV, G, D, n_split, chunk, workspace splits, stream
+DECODE_ARGS = [P, I, P, I, P, I, P, I, P, I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
     # gtype, x, x_is_bf16, qs, qh, d, m, sc, scm, xg, y, y_is_bf16, S, K, O, stream
@@ -45,15 +49,9 @@ SIGNATURES = {
     # q, k, v, out (bf16), n_past_vec, n_past, B, S, H, T, KV, D, k_batch_stride,
     # k_time_stride (long long), stream
     "gq_flash_mqa_tc": [P, P, P, P, P, I, I, I, I, I, I, I, L, L, P],
-    # cache, cache_kind, scales, layer, q, q_is_bf16, valid_vec, valid, acc, m,
-    # l, part_acc, part_ml, L, B, T, KV, G, D, n_chunks, stream
-    "gq_cache_partials": [P, I, P, I, P, I, P, I, P, P, P, P, P,
-                          I, I, I, I, I, I, I, P],
-    # cache, cache_kind, scales, layer, q, q_is_bf16, valid_vec, valid, append,
-    # n_append, append_valid, out, part_acc, part_ml, L, B, T, KV, G, D,
-    # n_chunks, stream
-    "gq_flash_decode": [P, I, P, I, P, I, P, I, P, I, I, P, P, P,
-                        I, I, I, I, I, I, I, P],
+    # one-launch flash-decode (flash_decode.cu: G == 1 and SIMT; flash_decode_tc.cu)
+    "gq_decode": DECODE_ARGS,
+    "gq_decode_tc": DECODE_ARGS,
 }
 
 launch_counts: collections.Counter = collections.Counter()

@@ -119,10 +119,23 @@ def dequant(gtype: GGMLType, p: dict, shape: tuple, dtype=torch.float32) -> torc
 
 
 def linear(w, x: torch.Tensor, out_dtype=None, kernels: bool = True) -> torch.Tensor:
-    """y = x @ W^T with f32 accumulation. W shape (out, in); x (..., in)."""
+    """y = x @ W^T with f32 accumulation. W shape (out, in); x (..., in).
+
+    A dense W is multiplied in the operands' dtype, promoted as JAX promotes
+    them (ggllm_tpu/ops/linear.py:154-160): the loader holds dense weights
+    in the compute dtype, so bf16 x bf16 runs as one bf16 product (the card
+    accumulates in f32) and the weight is never copied. Where the result is
+    asked for in f32 from 16-bit operands (the logits), the f32 accumulator
+    is kept: on the card by the product's f32 output, on the CPU in f32."""
     out_dtype = out_dtype if out_dtype is not None else x.dtype
     if isinstance(w, QuantTensor):
         fn = qm.quant_matmul if kernels else qm.quant_matmul_plain
         return fn(w, x, out_dtype)
-    y = torch.matmul(x.to(torch.float32), w.to(torch.float32).t())
-    return y.to(out_dtype)
+    ct = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(ct), w.to(ct)  # no-ops for the loader's weights
+    if ct == torch.float32 or out_dtype != torch.float32:
+        return torch.matmul(x, w.t()).to(out_dtype)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return torch.matmul(x.float(), w.float().t())

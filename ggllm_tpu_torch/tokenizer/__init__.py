@@ -41,6 +41,12 @@ class Tokenizer:
         return self._family.detokenize(self.vocab, ids)
 
 
+def nl_id(arch: str) -> int:
+    """Newline token id of a family's vocabulary: Falcon's BPE 193 ("Ċ",
+    falcon_token_nl), LLaMA's byte token <0x0A> = 13 (llama_token_nl)."""
+    return (spm if arch == "llama" else bpe).NL_ID
+
+
 def for_model(mf) -> Tokenizer:
     """ModelFile -> Tokenizer matching its architecture."""
     return Tokenizer(vocab=mf.vocab, arch=mf.arch)

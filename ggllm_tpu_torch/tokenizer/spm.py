@@ -18,6 +18,7 @@ BOS_ID = 1
 EOS_ID = 2
 UNK_ID = 0
 BYTE_OFFSET = 3  # byte b encodes as token id b + 3
+NL_ID = BYTE_OFFSET + 10  # the byte token <0x0A> (llama_token_nl)
 
 
 def _utf8_len(b: int) -> int:

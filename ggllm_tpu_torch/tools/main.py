@@ -1,6 +1,9 @@
 """Generation CLI (the core of ggllm_tpu/tools/main.py): load a Falcon GGCC
 file or a LLaMA GGJT file, tokenize the prompt with the file's tokenizer
-(BOS first), generate with the device sampling cascade and print the text.
+(BOS first), generate and print the text. Sampler settings that the device
+cascade covers sample on the card; the rest (--top-k 0, --tfs, --typical,
+--mirostat) go through the host cascade (ops/sampling.py), as the JAX CLI's
+flags of the same names and defaults do.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
@@ -32,7 +35,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temp", type=float, default=0.8)
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--top-p", type=float, default=0.95)
+    ap.add_argument("--tfs", type=float, default=1.0)
+    ap.add_argument("--typical", type=float, default=1.0)
     ap.add_argument("--repeat-penalty", type=float, default=1.1)
+    ap.add_argument("--repeat-last-n", type=int, default=64)
+    ap.add_argument("--frequency-penalty", type=float, default=0.0)
+    ap.add_argument("--presence-penalty", type=float, default=0.0)
+    ap.add_argument("--mirostat", type=int, default=0, choices=[0, 1, 2])
+    ap.add_argument("--mirostat-tau", "--mirostat-ent", type=float, default=5.0,
+                    dest="mirostat_tau", help="mirostat target entropy tau")
+    ap.add_argument("--mirostat-eta", "--mirostat-lr", type=float, default=0.1,
+                    dest="mirostat_eta", help="mirostat learning rate eta")
+    ap.add_argument("--no-penalize-nl", action="store_true")
     ap.add_argument("--ignore-eos", action="store_true")
     ap.add_argument("--memory-f32", action="store_true",
                     help="store the KV cache in f32 (sets --kv-dtype float32)")
@@ -47,13 +61,18 @@ def main(argv=None) -> int:
                        kv_dtype="float32" if args.memory_f32 else args.kv_dtype)
     t0 = time.perf_counter()
     mf, params = load_model(args.model, cfg, device=args.device)
+    tk = tok_mod.for_model(mf)
     eng = FalconEngine(mf.hparams, params, cfg, device=args.device)
     eng.timings.t_load_us = (time.perf_counter() - t0) * 1e6
-    tk = tok_mod.for_model(mf)
     prompt = args.prompt
     prompt_ids = tk.tokenize(prompt, bos=not prompt.startswith("<|endoftext|>")) or [tk.bos_id]
-    sampler = SamplerParams(temp=args.temp, top_k=args.top_k, top_p=args.top_p,
-                            repeat_penalty=args.repeat_penalty, seed=args.seed)
+    sampler = SamplerParams(
+        temp=args.temp, top_k=args.top_k, top_p=args.top_p, tfs_z=args.tfs,
+        typical_p=args.typical, repeat_penalty=args.repeat_penalty,
+        repeat_last_n=args.repeat_last_n, frequency_penalty=args.frequency_penalty,
+        presence_penalty=args.presence_penalty, mirostat=args.mirostat,
+        mirostat_tau=args.mirostat_tau, mirostat_eta=args.mirostat_eta,
+        penalize_nl=not args.no_penalize_nl, seed=args.seed)
     stop = set() if args.ignore_eos else {tk.eos_id}
     n_predict = min(args.n_predict, cfg.n_ctx - len(prompt_ids))
     out = sys.stdout.buffer

@@ -1,9 +1,10 @@
 """Timing loops on the CUDA card that chip_smoke.py does not run: the
-tensor-core prefill tile at every tile width, and decode chunks of one
-stream for a tree given by its root, so that two trees can be timed in turns
-within one call.
+tensor-core prefill tile at every tile width, decode attention at the main
+paths' shapes, and decode chunks of one stream, the last two for a tree
+given by its root, so that two trees can be timed in turns within one call.
 
     python -m ggllm_tpu_torch.tools.time_kernels tile
+    python ggllm_tpu_torch/tools/time_kernels.py attn [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
         [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--chunks 4] [--tokens 64]
 
@@ -13,8 +14,17 @@ the `wgmma` tile's time with 128 and 256 x rows a block, with the width
 10 launches between two CUDA events, no L2 flush: lower than chip_smoke.py's
 medians with a flush). `decode` prints one JSON line: the prefill rate of a
 300-token prompt and the milliseconds per token of each greedy chunk at
-n_past 300. --root names the directory that holds the `ggllm_tpu_torch`
-package to time (default: the one this file lies in).
+n_past 300. `attn` prints one JSON line per shape of the main paths' decode
+attention (Falcon-7B G=71 KV=1 D=64 at 1 / 300 / 2047 valid positions,
+Falcon-40B G=16 KV=8 at 300 / 2047, LLaMA-7B G=1 KV=32 D=128 at 1 / 300 /
+2047; bf16 and int8 caches of the model's depth and 2560 positions):
+`flash_decode` and `scaled_dot_product_attention` (on the dequantized bf16
+cache for int8) timed two ways, `call_ms` = one call between two events as
+an eager decode step pays it (host work included), and `graph_ms` = device
+time, a CUDA graph of one call per layer replayed between two events,
+divided by the layers (both: medians of 20, L2 flushed before each).
+--root names the directory that holds the `ggllm_tpu_torch` package to time
+(default: the one this file lies in).
 """
 
 from __future__ import annotations
@@ -42,6 +52,94 @@ def _event_ms(fn, n: int = 10) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def median_ms(fn, flush, runs: int = 20, warm: int = 3) -> float:
+    """Median of `runs` event-timed calls of fn, `flush` (an L2-sized
+    buffer) zeroed before each, outside the events."""
+    import statistics
+
+    import torch
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        times.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in times)
+
+
+def graph_ms(step, n: int, flush, runs: int = 20) -> float:
+    """Device time of one of the n calls step(i), i < n (one per layer, as a
+    decode step makes them): a CUDA graph of all n, replayed between two
+    events (median of `runs`, L2 flushed before each), divided by n."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for i in range(n):
+            step(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            step(i)
+    ms = median_ms(graph.replay, flush, runs) / n
+    del graph
+    return ms
+
+
+# (layers, heads, K/V heads, head_dim, valid lengths): Falcon-7B, -40B, LLaMA-7B
+ATTN_SHAPES = ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (300, 2047)),
+               (32, 32, 32, 128, (1, 300, 2047)))
+
+
+def time_attn(T: int = 2560) -> None:
+    import torch
+    import torch.nn.functional as F
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import flash_decode as fd
+    from ggllm_tpu_torch.ops import kvcache
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    bf16 = torch.bfloat16
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    package = str(Path(build.__file__).resolve().parents[2])
+    for L, H, KV, D, valids in ATTN_SHAPES:
+        G = H // KV
+        kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
+        q = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
+        kv8 = kvcache.quantize_new(kv)
+        for cache_name, cache in (("bfloat16", kv), ("int8", kv8)):
+            lib = kv if cache_name == "bfloat16" else (kv8[0].float() * kv8[1]).to(bf16)
+            for valid in valids:
+                kt = [lib[l, 0, :, :valid].transpose(1, 2) for l in range(L)]
+                vt = [lib[l, 1, :, :valid].transpose(1, 2) for l in range(L)]
+                if KV == 1:
+                    kt = [k.expand(1, H, valid, D) for k in kt]
+                    vt = [v.expand(1, H, valid, D) for v in vt]
+                qt = q.transpose(1, 2)
+
+                def sdpa(l):
+                    return F.scaled_dot_product_attention(qt, kt[l], vt[l],
+                                                          enable_gqa=G > 1 and KV > 1)
+
+                def ours(l):
+                    return fd.flash_decode(cache, KV, l, q, valid - 1)
+
+                row = {"package": package, "cache": cache_name, "G": G, "KV": KV, "D": D,
+                       "valid": valid, "call_ms": median_ms(lambda: ours(L - 1), flush),
+                       "graph_ms": graph_ms(ours, L, flush),
+                       "library_call_ms": median_ms(lambda: sdpa(L - 1), flush),
+                       "library_graph_ms": graph_ms(sdpa, L, flush)}
+                print(json.dumps(row), flush=True)
+            del lib
+        del kv, kv8
 
 
 def time_tile() -> None:
@@ -106,7 +204,7 @@ def time_decode(config: str, fmt: str, chunks: int, tokens: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("tile", "decode"))
+    ap.add_argument("what", choices=("tile", "attn", "decode"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
     ap.add_argument("--format", default="q4_0")
@@ -117,6 +215,8 @@ def main(argv=None) -> int:
         sys.path.insert(0, args.root)
     if args.what == "tile":
         time_tile()
+    elif args.what == "attn":
+        time_attn()
     else:
         time_decode(args.config, args.format, args.chunks, args.tokens)
     return 0

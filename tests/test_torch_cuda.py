@@ -35,6 +35,13 @@ from ggllm_tpu_torch.utils.benchgen import random_quant
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # of max |ref| (tests/test_kernels.py:45)
+# the tensor-core decode kernel against partials_emulated, which rounds P to
+# bf16 where the kernel does. The kernel sums S in another order, which moves
+# P by a few f32 steps; where that crosses a bf16 rounding boundary one P
+# rounds the other way. On an H100 the tests' tensor-core cases read at most
+# 2.7e-4 of max |ref| against the emulation, 2.4e-3 against the same splits
+# without the rounding: a split or merge that is off shows far above this.
+TOL_EMULATED = 1e-3
 
 
 @pytest.fixture
@@ -204,7 +211,11 @@ def _decode_counter(KV, H, int8):
 def test_cache_partials(dev, dtype, KV, H, D, valid):
     """int8: the cache is the (codes, scales) pair of a quantized random
     cache, q is bf16, and the launch counts under the int8 variant's name;
-    H == KV > 1 counts under the G == 1 kernel's."""
+    H == KV > 1 counts under the G == 1 kernel's. m and l to f32 accuracy;
+    acc too, but on the tensor-core route (bf16 q, grouped heads, D 64 / 128),
+    which rounds P to bf16 for the P V product, to bf16 accuracy, and there
+    the splits and their merge are held to partials_emulated, which rounds
+    P where the kernel does."""
     B, T, L, l = 2, 256, 3, 2
     g = _gen(H)
     kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
@@ -220,7 +231,25 @@ def test_cache_partials(dev, dtype, KV, H, D, valid):
     acc_p, m_p, l_p = fd.cache_partials_plain(kv, KV, l, qg, valid)
     _close(m, m_p, torch.float32)
     _close(lsum, l_p, torch.float32)
-    _close(acc, acc_p, torch.float32)
+    cache = "int8" if dtype == "int8" else str(dtype).removeprefix("torch.")
+    tc = fd.route(KV, H // KV, D, cache, str(qg.dtype).removeprefix("torch.")) == "tc"
+    _close(acc, acc_p, torch.bfloat16 if tc else torch.float32)
+    if tc:
+        _close_emulated((acc, m, lsum), kv, KV, l, qg, valid)
+
+
+def _close_emulated(got, kv, KV, layer, qg, cache_valid):
+    """cache_partials' (acc, m, l) against partials_emulated at this card's
+    SM count (so with the kernel's splits): acc to TOL_EMULATED of max
+    |ref|, m and l to f32 accuracy."""
+    acc_e, m_e, l_e = fd.partials_emulated(kv, KV, layer, qg, cache_valid,
+                                           n_sm=fd._sm_count(qg.device))
+    acc, m, lsum = got
+    _close(m, m_e, torch.float32)
+    _close(lsum, l_e, torch.float32)
+    got, ref = acc.float().cpu(), acc_e.cpu()
+    err = (got - ref).abs().max().item() / (ref.abs().max().item() + 1e-6)
+    assert err <= TOL_EMULATED, err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"],
@@ -285,7 +314,8 @@ def test_mha_decode_at_llama7b_heads(dev, qdtype, cache, valid):
 
 
 def test_flash_decode_refuses_head_shapes_it_does_not_take(dev):
-    """D = 128 with grouped query heads, and D = 256, raise on the card."""
+    """D = 128 with grouped query heads on an f32 cache (the SIMT route),
+    and D = 256, raise on the card."""
     for KV, H, D in ((2, 8, 128), (4, 4, 256), (1, 1, 128)):
         kv = torch.zeros(1, 2, 1, 64, KV, D, device=dev)
         with pytest.raises(NotImplementedError):
@@ -308,6 +338,161 @@ def test_flash_decode_refuses_head_shapes_it_does_not_take(dev):
     with pytest.raises(ValueError):  # heads that are not contiguous
         k = torch.zeros(1, 8, 2, 128, device=dev, dtype=bf)[..., :64]
         flash_mqa(torch.zeros(1, 4, 2, 64, device=dev, dtype=bf), k, k, 0)
+
+
+def _decode_case(dev, cache, KV, H, D, valid, append, T=2560, L=2, seed=0):
+    """A random L-layer cache (bf16, or int8 codes and scales), a bf16 q and
+    flash_decode's arguments for `valid` cache positions ("rows": B = 2 with
+    lengths [2047, 300] as an int32 device tensor), with or without a
+    16-entry append block of which 5 are valid."""
+    B = 2 if valid == "rows" else 1
+    g = _gen(seed)
+    kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
+    kv = kvcache.quantize_new(kv) if cache == "int8" else kv.to(torch.bfloat16)
+    q = torch.randn(B, 1, H, D, generator=g, device=dev).to(torch.bfloat16)
+    lens = (torch.tensor([2047, 300], dtype=torch.int32, device=dev) if valid == "rows"
+            else valid)
+    if append:  # the cache is valid below n_past - 4
+        app = torch.randn(2, B, 16, KV, D, generator=g, device=dev).to(torch.bfloat16)
+        return kv, q, lens + 4, {"kv_append": app, "append_valid": 5}
+    return kv, q, lens - 1, {}
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (8, 128, 64), (32, 32, 128)],
+                         ids=["falcon7b", "falcon40b", "llama7b"])
+@pytest.mark.parametrize("valid", [1, 300, 2047, "rows"])
+@pytest.mark.parametrize("append", [False, True], ids=["cache", "append"])
+def test_decode_at_main_path_shapes(dev, cache, KV, H, D, valid, append):
+    """The one-launch kernels at the main paths' head layouts against the
+    plain version (2e-2 of max |ref|): grouped heads on the tensor-core
+    kernel, G == 1 on decode_mha_kernel; bf16 and int8 caches, with and
+    without the append block, one length or one per row."""
+    kv, q, n_past, kw = _decode_case(dev, cache, KV, H, D, valid, append)
+    counter = ("flash_decode_tc" + (".int8" if cache == "int8" else "") if H > KV
+               else _decode_counter(KV, H, cache == "int8"))
+    before = build.launch_counts[counter]
+    got = fd.flash_decode(kv, KV, 1, q, n_past, **kw)
+    assert build.launch_counts[counter] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, fd.flash_decode_plain(kv, KV, 1, q, n_past, **kw), torch.bfloat16)
+    qg = q.reshape(q.shape[0], KV, H // KV, D)
+    lens = n_past - 3 if append else n_past + 1  # the cache rows attended
+    acc, m, lsum = fd.cache_partials(kv, KV, 1, qg, lens)
+    acc_p, m_p, l_p = fd.cache_partials_plain(kv, KV, 1, qg, lens)
+    _close(acc / lsum, acc_p / l_p, torch.bfloat16)
+    _close(m, m_p, torch.bfloat16)
+    if H > KV:  # the tensor-core route: its splits and merge as partials_emulated's
+        _close_emulated((acc, m, lsum), kv, KV, 1, qg, lens)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("KV,H", [(2, 8), (1, 71)])
+def test_grouped_decode_at_head_dim_128(dev, cache, KV, H):
+    """Grouped heads at D = 128 take the tensor-core kernel (the SIMT kernel
+    stops at 64), with per-row lengths and the append block."""
+    ok, rt = fd.supports(KV, H // KV, 128, "int8" if cache == "int8" else "bfloat16")
+    assert ok and rt == "tc"
+    for append in (False, True):
+        kv, q, n_past, kw = _decode_case(dev, cache, KV, H, 128, "rows", append, seed=3)
+        _close(fd.flash_decode(kv, KV, 0, q, n_past, **kw),
+               fd.flash_decode_plain(kv, KV, 0, q, n_past, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("cache,KV,H,D", [("bf16", 1, 71, 64), ("int8", 8, 128, 64),
+                                          ("bf16", 32, 32, 128), ("int8", 32, 32, 128)])
+def test_decode_graph_replays_at_new_lengths(dev, cache, KV, H, D):
+    """32 calls (one per layer of a 4-layer cache, in turn) captured in one
+    CUDA graph with the lengths in an int32 device tensor, replayed at two
+    sets of lengths: every output equals the plain version's."""
+    L, T, B = 4, 2304, 2
+    g = _gen(KV + H)
+    kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
+    kv = kvcache.quantize_new(kv) if cache == "int8" else kv.to(torch.bfloat16)
+    qs = [torch.randn(B, 1, H, D, generator=g, device=dev).to(torch.bfloat16) for _ in range(32)]
+    n_past = torch.tensor([300, 7], dtype=torch.int32, device=dev)
+
+    def step():
+        return [fd.flash_decode(kv, KV, i % L, q, n_past) for i, q in enumerate(qs)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: the library, the workspace
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for lens in ([300, 7], [2000, 64]):
+        n_past.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (q, out) in enumerate(zip(qs, outs)):
+            _close(out, fd.flash_decode_plain(kv, KV, i % L, q, n_past), torch.bfloat16)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (32, 32, 128)], ids=["grouped", "mha"])
+def test_decode_is_one_launch_that_allocates_only_its_output(dev, cache, KV, H, D):
+    """The profiler sees one kernel a call (no merge_kernel or
+    finish_kernel), the allocator one allocation (the output), and the
+    workspace is the same memory across calls of one shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kv, q, n_past, kw = _decode_case(dev, cache, KV, H, D, "rows", True, seed=9)
+    fd.flash_decode(kv, KV, 0, q, n_past, **kw)  # warm-up
+    torch.cuda.synchronize()
+    ws = {k: v[0].data_ptr() for k, v in fd._workspaces.items()}
+    later = n_past + 30
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fd.flash_decode(kv, KV, 1, q, later, **kw)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before + 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fd.flash_decode(kv, KV, 0, q, n_past, **kw)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
+    assert not any("merge_kernel" in k or "finish_kernel" in k for k in kernels)
+    assert {k: v[0].data_ptr() for k, v in fd._workspaces.items()} == ws
+
+
+@pytest.mark.parametrize("cache,KV,H,D", [("bf16", 1, 71, 64), ("int8", 8, 128, 64),
+                                          ("int8", 32, 32, 128)])
+def test_decode_on_two_streams_at_once(dev, cache, KV, H, D):
+    """Calls of one shape issued in turn on two streams, with nothing between
+    them, run at once: each stream has its own workspace, and every output
+    equals the plain version's."""
+    kv, q, n_past, _ = _decode_case(dev, cache, KV, H, D, 2047, False, seed=5)
+    g = _gen(11)
+    qs = [torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(32)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i, qi in enumerate(qs):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(fd.flash_decode(kv, KV, i % 2, qi, n_past))
+    torch.cuda.synchronize()
+    assert {st.cuda_stream for st in streams} <= {k[1] for k in fd._workspaces}
+    for i, (qi, out) in enumerate(zip(qs, outs)):
+        _close(out, fd.flash_decode_plain(kv, KV, i % 2, qi, n_past), torch.bfloat16)
+
+
+def test_dense_linear_keeps_the_f32_accumulator(dev):
+    """A dense bf16 weight (how the loader holds an F16 tensor) times bf16 x:
+    one bf16 product with no f32 copy of the weight, f32 logits within 1e-5
+    of the f32 product of the same values, bf16 outputs as bf16."""
+    from ggllm_tpu_torch.ops.linear import linear
+
+    w = (torch.randn(4096, 1024, generator=_gen(1), device=dev) * 0.05).to(torch.bfloat16)
+    x = torch.randn(3, 1024, generator=_gen(2), device=dev).to(torch.bfloat16)
+    ref = x.float() @ w.float().t()
+    y = linear(w, x, torch.float32)
+    assert y.dtype == torch.float32
+    assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    yb = linear(w, x)
+    assert yb.dtype == torch.bfloat16
+    _close(yb, ref, torch.bfloat16)
 
 
 def test_cache_partials_refuses_a_bad_int8_pair(dev):

@@ -250,3 +250,116 @@ def test_engine_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TFalconEngine(TFalconHParams.tiny(), {}, _torch_cfg())
+
+
+@pytest.fixture(scope="module")
+def tiny_engines(tiny_files):
+    """The JAX engine and the port's (CPU) on the same tiny f32 model."""
+    path = tiny_files["tiny"]
+    mf = read_model(path)
+    jeng = FalconEngine(mf.hparams, load_params(mf, _jax_cfg()), _jax_cfg())
+    tmf, params = tload_model(path, _torch_cfg(), device="cpu")
+    return jeng, TFalconEngine(tmf.hparams, params, _torch_cfg(), device="cpu")
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_host_route_generate_matches_jax_engine(tiny_engines, seed):
+    """top_k = 0 at temp 0.8 is the whole vocabulary, which the device
+    cascade does not serve: both engines sample every token through the host
+    cascade with one SamplerState, and the 16 ids are equal."""
+    from ggllm_tpu_torch.ops.sampling_device import device_samplable
+
+    jeng, teng = tiny_engines
+    kw = dict(temp=0.8, top_k=0, top_p=0.95, seed=seed)
+    assert not device_samplable(TSamplerParams(**kw))
+    jeng.reset()
+    teng.reset()
+    ref = jeng.generate(PROMPT, N_GEN, SamplerParams(**kw))
+    assert teng.generate(PROMPT, N_GEN, TSamplerParams(**kw)) == ref
+    assert teng.timings.n_sample >= N_GEN
+
+
+def test_first_sampled_token_matches_jax_engine(tiny_engines):
+    """The first token after prefill is drawn by the host cascade on the
+    device route too (the JAX engine's engine.py:1359): equal for 20 seeds."""
+    jeng, teng = tiny_engines
+    got, ref = [], []
+    for seed in range(20):
+        kw = dict(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1, seed=seed)
+        jeng.reset()
+        teng.reset()
+        ref.append(jeng.generate(PROMPT, 1, SamplerParams(**kw))[0])
+        got.append(teng.generate(PROMPT, 1, TSamplerParams(**kw))[0])
+    assert got == ref and len(set(ref)) > 1
+
+
+def test_unsupported_head_shape_raises_when_the_engine_is_built(monkeypatch):
+    """On the card with flash attention on, a head shape that no decode
+    kernel takes (grouped heads at head_dim 128 with f32 queries) raises in
+    FalconEngine.__init__, with the shape and the reason; flash_attention=
+    False (the plain route) is not refused."""
+    from ggllm_tpu_torch.kernels import flash_decode as tfd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    hp = TFalconHParams(n_vocab=64, n_embd=1024, n_head=8, n_head_kv=2, n_layer=1,
+                        n_falcon_type=40, n_bpe_merges=0)
+    assert hp.head_dim == 128
+    cfg = TEngineConfig(n_ctx=64, kv_dtype="float32", compute_dtype="float32")
+    assert tfd.supports(2, 4, 128, "float32", "float32")[0] is False
+    assert tfd.supports(2, 4, 128, "bfloat16")[0] is True
+    with pytest.raises(NotImplementedError, match="head_dim 128"):
+        TFalconEngine(hp, {}, cfg)
+    calls = []
+    monkeypatch.setattr(tfd, "supports", lambda *a: calls.append(a) or (False, "refused"))
+    with pytest.raises(Exception) as e:  # gets past the check; no card to put the model on
+        TFalconEngine(hp, {}, TEngineConfig(n_ctx=64, flash_attention=False))
+    assert not isinstance(e.value, NotImplementedError) and calls == []
+
+
+def test_engine_takes_the_newline_id_of_its_family(tiny_engines):
+    """The newline id that penalize_nl=False restores is the model family's
+    vocabulary's (Falcon's BPE "\u010a" = 193, LLaMA's byte token <0x0A> =
+    13), one source for the engine and the tokenizer module."""
+    from ggllm_tpu_torch.core.config import LlamaHParams as TLlamaHParams
+    from ggllm_tpu_torch.tokenizer import bpe, nl_id, spm
+
+    assert tiny_engines[1].nl_token == 193
+    assert nl_id(TLlamaHParams.tiny().arch) == 13 and nl_id(TFalconHParams.tiny().arch) == 193
+    assert bpe.bytes_to_unicode()[ord("\n")] == "\u010a" and spm.NL_ID == spm.BYTE_OFFSET + 10
+
+
+SAMPLER_FLAGS = ["--tfs", "--typical", "--repeat-last-n", "--frequency-penalty",
+                 "--presence-penalty", "--mirostat", "--mirostat-tau", "--mirostat-ent",
+                 "--mirostat-eta", "--mirostat-lr", "--no-penalize-nl", "--top-k", "--top-p",
+                 "--temp", "--repeat-penalty", "--seed"]
+
+
+def test_cli_sampler_flags_match_the_jax_cli():
+    """The port's CLI has the JAX CLI's sampler flags, with their names,
+    destinations and defaults (ggllm_tpu/tools/main.py:106-122)."""
+    from ggllm_tpu.tools.main import build_argparser
+
+    from ggllm_tpu_torch.tools.main import build_parser
+
+    def flags(ap):
+        return {o: (a.dest, a.default) for a in ap._actions for o in a.option_strings
+                if o in SAMPLER_FLAGS}
+
+    got = flags(build_parser())
+    assert got == flags(build_argparser()) and set(got) == set(SAMPLER_FLAGS)
+
+
+@pytest.mark.parametrize("extra", [["--top-k", "0"], ["--tfs", "0.9", "--typical", "0.9"],
+                                   ["--mirostat", "2", "--mirostat-ent", "4"]],
+                         ids=["top_k_0", "tfs_typical", "mirostat"])
+def test_cli_host_route_generates_on_cpu(tiny_files, capsysbinary, extra):
+    """Settings the device cascade does not cover sample through the host
+    cascade: one draw per token."""
+    from ggllm_tpu_torch.tools import main as tmain
+
+    rc = tmain.main(["-m", tiny_files["tiny"], "-p", "the thing", "-n", "6", "--temp", "0.8",
+                     "--seed", "5", "--device", "cpu", "--ignore-eos", *extra])
+    assert rc == 0
+    out = capsysbinary.readouterr()
+    assert out.out.startswith(b"the thing") and b"sample time     =" in out.err
+    assert b"/ 6 runs" in out.err.split(b"sample time")[1].split(b"\n")[0]

@@ -311,3 +311,147 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     for a, b in zip(tfd.cache_partials(kv8, 1, 1, qg, 5), tfd.cache_partials_plain(kv8, 1, 1, qg, 5)):
         assert torch.equal(a, b)
     assert dict(build.launch_counts) == before
+
+
+# ---- dense linear: the weight's own dtype, f32 accumulation
+
+@pytest.mark.parametrize("wdtype", ["float16", "bfloat16", "float32"])
+@pytest.mark.parametrize("out", [None, "float32"], ids=["x_dtype", "f32_out"])
+def test_dense_linear_matches_jax(wdtype, out):
+    """ops/linear.py linear on a dense weight against the JAX function: the
+    product in the operands' (promoted) dtype with f32 accumulation, the
+    output in out_dtype (default x's). bf16 x with a bf16 weight rounds
+    only the output (1e-2 of max |ref| for a bf16 output, 1e-5 in f32);
+    bf16 x with an F16 weight promotes to f32 in both packages."""
+    from ggllm_tpu.ops.linear import linear as jlinear
+
+    from ggllm_tpu_torch.ops.linear import linear
+
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal((96, 256)) * 0.1).astype(wdtype)
+    x = rng.standard_normal((5, 256)).astype(np.float32)
+    xdtype = "float32" if wdtype == "float32" else "bfloat16"
+    jx = jnp.asarray(x, dtype=xdtype)
+    ref = np.asarray(jlinear(jnp.asarray(w), jx, None if out is None else jnp.float32))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, xdtype))
+    got = linear(torch.from_numpy(w) if wdtype != "bfloat16"
+                 else torch.from_numpy(w.astype(np.float32)).to(torch.bfloat16), tx,
+                 None if out is None else torch.float32)
+    assert str(got.dtype).removeprefix("torch.") == str(ref.dtype)
+    scale = float(np.abs(ref.astype(np.float32)).max())
+    tol = 1e-2 if got.dtype == torch.bfloat16 else 1e-5
+    np.testing.assert_allclose(got.float().numpy() / scale, ref.astype(np.float32) / scale, atol=tol)
+
+
+# ---- one-launch flash-decode: the split plan and the in-launch merge
+
+PLAN_SHAPES = [(1, 1, 71, 64, "bfloat16"), (1, 8, 16, 64, "bfloat16"), (1, 32, 1, 128, "bfloat16"),
+               (1, 1, 71, 64, "int8"), (1, 32, 1, 128, "int8"), (2, 2, 4, 128, "bfloat16"),
+               (4, 8, 16, 64, "int8")]
+
+
+@pytest.mark.parametrize("B,KV,G,D,cache", PLAN_SHAPES)
+def test_decode_plan(B, KV, G, D, cache):
+    """Every split holds keys, the splits cover the length, at least MIN_KEYS
+    keys a split (16 at the least), no more blocks than WAVES an SM, and
+    the workspace sized for the cache length T holds every shorter plan."""
+    T = 2560
+    ws = tfd._splits(T, B, KV, G, D, cache, 132, tfd.route(KV, G, D, cache))
+    prev = 0
+    for valid in [0, 1, 15, 16, 31, 32, 33, 64, 100, 300, 1000, 2047, 2048, 2560]:
+        n, chunk = tfd.decode_plan(valid, B, KV, G, D, cache)
+        assert chunk % 16 == 0 and chunk >= 16 and 1 <= n <= ws
+        assert n * chunk >= valid and (n - 1) * chunk < max(valid, 1)
+        assert n == 1 or chunk >= tfd.MIN_KEYS
+        assert B * KV * n < tfd.WAVES * 132 + B * KV
+        assert n >= prev
+        prev = n
+    assert tfd.decode_plan(300, B, KV, G, 32, "float32", rt="simt") == (5, 64)
+
+
+def _emulation_case(KV, H, D, cache, seed, A=9):
+    B, T, L = 1, 512, 2  # T: a whole number of the JAX G == 1 kernel's 256-position tiles
+    rng = np.random.default_rng(seed)
+    if cache == "int8":
+        codes, scales = _int8_cache(L, B, T, KV, D, seed)
+        jkv, tkv = _jax_int8_view(codes, scales), tkvcache.from_jax_cache((codes, scales))
+    else:
+        kv = rng.standard_normal((L, 2, B, T, KV, D)).astype(np.float32)
+        jkv, tkv = jnp.asarray(kv.reshape(L, 2, B, T, KV * D)), torch.from_numpy(kv)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    app = rng.standard_normal((2, B, A, KV, D)).astype(np.float32)
+    return jkv, tkv, q, app
+
+
+@pytest.mark.parametrize("KV,H,D,rt", [(1, 40, 64, "tc"), (2, 8, 128, "tc"), (4, 4, 32, "mha"),
+                                       (1, 5, 32, "simt")])
+@pytest.mark.parametrize("cache", ["float32", "int8"])
+@pytest.mark.parametrize("n_past,append", [(299, False), (40, False), (0, False), (250, True),
+                                           (3, True)])
+def test_one_launch_merge_matches_jax(KV, H, D, rt, cache, n_past, append):
+    """decode_emulated (the kernels' splits, each split's partial, the last
+    block's merge of the splits and the append block) in f32 against
+    flash_decode_plain and the JAX flash_decode, atol 1e-5; 4 of the 9
+    append entries are valid, so the cache is valid below n_past - 3."""
+    jkv, tkv, q, app = _emulation_case(KV, H, D, cache, seed=n_past + D)
+    kw_j, kw_t = {}, {}
+    if append:
+        kw_j = {"kv_append": jnp.asarray(app), "append_valid": jnp.int32(4)}
+        kw_t = {"kv_append": torch.from_numpy(app), "append_valid": 4}
+    tq = torch.from_numpy(q)
+    if rt == "simt" or n_past < 5:  # a small group: give the splits a few keys each
+        n_sm = 4
+    else:
+        n_sm = 132
+    got = tfd.decode_emulated(tkv, KV, 1, tq, n_past, **kw_t, n_sm=n_sm, rt=rt, round_p=False)
+    plain = tfd.flash_decode_plain(tkv, KV, 1, tq, n_past, **kw_t)
+    ref = np.asarray(jfd.flash_decode(jkv, KV, 1, jnp.asarray(q), jnp.int32(n_past),
+                                      interpret=True, **kw_j))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+    valid = n_past + (1 if not append else -3)
+    n, _ = tfd.decode_plan(max(valid, 0), 1, KV, H // KV, D, cache, n_sm, rt)
+    assert n > 1 or valid < 64
+
+
+@pytest.mark.parametrize("KV,H,D,rt", [(1, 40, 64, "tc"), (2, 8, 128, "tc"), (4, 4, 32, "mha"),
+                                       (1, 5, 32, "simt")])
+@pytest.mark.parametrize("valid", [[200, 7], [0, 65], "tensor"])
+@pytest.mark.parametrize("cache", ["float32", "int8"])
+def test_partials_emulated_per_row_lengths(KV, H, D, rt, valid, cache):
+    """partials_emulated with a length per row (a list, or an int32 tensor,
+    for which the splits are planned by the cache length as the wrapper
+    plans them) in f32 against cache_partials_plain: acc and l within 1e-5
+    of max |ref|, m to 1e-6; an empty row is (0, -1e30, 0)."""
+    L, B, T = 2, 2, 256
+    g = torch.Generator().manual_seed(H * D + len(str(valid)))
+    kv = torch.randn(L, 2, B, T, KV, D, generator=g)
+    if cache == "int8":
+        kv = tkvcache.quantize_new(kv)
+    qg = torch.randn(B, KV, H // KV, D, generator=g)
+    lens = torch.tensor([300 - 100, 9], dtype=torch.int32) if valid == "tensor" else valid
+    got = tfd.partials_emulated(kv, KV, 1, qg, lens, n_sm=8, rt=rt, round_p=False)
+    ref = tfd.cache_partials_plain(kv, KV, 1, qg, lens)
+    for a, r, tol in zip(got, ref, (1e-5, 1e-6, 1e-5)):
+        assert float((a - r).abs().max()) <= tol * max(1.0, float(r.abs().max()))
+    if valid != [0, 65]:  # the rows' lengths cut across several splits
+        n, _ = tfd.decode_plan(T if valid == "tensor" else 200, B, KV, H // KV, D, cache, 8, rt)
+        assert n > 1
+
+
+@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (8, 128, 64), (2, 8, 128)])
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_bf16_p_emulation_within_tolerance(KV, H, D, cache):
+    """The tensor-core route rounds P (times V's int8 scale) to bf16 before
+    the P V product: with bf16 q and K/V, the emulation stays within 2e-2 of
+    max |ref| of the f32 plain version, at several split counts."""
+    L, B, T = 2, 1, 2100
+    g = torch.Generator().manual_seed(H + D)
+    kv = torch.randn(L, 2, B, T, KV, D, generator=g)
+    kv = tkvcache.quantize_new(kv) if cache == "int8" else kv.to(torch.bfloat16)
+    q = torch.randn(B, 1, H, D, generator=g).to(torch.bfloat16)
+    app = torch.randn(2, B, 16, KV, D, generator=g).to(torch.bfloat16)
+    for n_past, kw in ((2046, {}), (299, {}), (0, {}), (304, {"kv_append": app, "append_valid": 5})):
+        ref = tfd.flash_decode_plain(kv, KV, 0, q.float(), n_past, **kw).float()
+        got = tfd.decode_emulated(kv, KV, 0, q, n_past, **kw).float()
+        assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
