@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure (non-zero exit, no result line):
-  1. build the hand-written kernels from ggllm_tpu_torch/csrc with nvcc;
+  1. build the hand-written kernels from ggllm_tpu_torch/csrc with nvcc, and
+     read the K-quant GEMV's SASS (cuobjdump): no I2F in any instantiation;
   2. hold every kernel against its plain PyTorch version at the main-path
      shapes (quant_matmul in all ten formats: Q4_0 … Q8_0 at the Falcon-7B
      shapes, Q2_K … Q6_K at the Falcon-40B shapes, Q4_0 and Q4_K at the
-     LLaMA-7B shapes, S = 1 through the GEMV and S = 512 through the
-     tensor-core tile; the tile also at S = 2, 17 and 300 and at a ragged O;
+     LLaMA-7B shapes, S = 1 through the K-quant GEMV (K-quants) or the
+     legacy GEMV and S = 512 through the tensor-core tile; the tile also at
+     S = 2, 17 and 300 and at a ragged O;
      the f32 SIMT tile at two shapes; the attention kernels at the three
      models' head layouts, bf16 through the tensor-core kernel, with a
      per-row n_past, and f32 through the SIMT kernels; flash-decode on bf16
@@ -32,7 +34,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Q4_0 also samples 32 tokens at top_k 0 (the host cascade); then
      prefill again through the plain versions and compare the logits of all
      300 positions (and the argmax wherever the plain version decides it by
-     more than twice the measured difference). The int8 paths also time
+     more than twice the measured difference), then one decode step (S = 1)
+     of the same token on both engines, held the same way; the decode step
+     must run the format's GEMV and not the other. The int8 paths also time
      16-token decode chunks at n_past 400 (LLaMA: and at n_past 1900) on an
      int8 and on a bf16 cache, in turns. Each model's parameters are freed
      before the next one is built. On these bf16 paths prefill must run the
@@ -71,11 +75,14 @@ PEAKS = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12), "nvl": (3.9e12, 835
 QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k", "q6_k", "q2_k", "q3_k"]
 F32_LOGIT_TOL = 1e-4  # f32 path against the plain versions (tests/test_torch_cuda.py)
 # kernel -> (source, the TPU kernel it replaces). "quant_matmul" is the S == 1
-# GEMV, ".tc" the bf16 tensor-core tile, ".simt" the f32 tile; "flash_mqa" the
+# GEMV of the legacy formats, ".gemv.kq" the K-quants' S == 1 GEMV, ".tc" the
+# bf16 tensor-core tile, ".simt" the f32 tile; "flash_mqa" the
 # f32 attention kernels, ".tc" the bf16 tensor-core one. COUNTER names the
 # launch counter of a kernel where it is not the kernel's own name.
 REPLACES = {
     "quant_matmul": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:57"),
+    "quant_matmul.gemv.kq": ("ggllm_tpu_torch/csrc/quant_gemv_kq.cu",
+                             "ggllm_tpu/kernels/quant_matmul.py:57"),
     "quant_matmul.tc": ("ggllm_tpu_torch/csrc/quant_gemm_tc.cuh",
                         "ggllm_tpu/kernels/quant_matmul.py:57"),
     "quant_matmul.simt": ("ggllm_tpu_torch/csrc/quant_matmul.cu",
@@ -182,6 +189,8 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
         """One (weight, S, x dtype) case: the route's kernel against the plain
         version, counted under its own counter, timed beside `x @ wdeq^T`."""
         (O, K), path = w.shape, qm.route(S, xdtype, w.gtype)
+        if path == "gemv" and qm.gemv_kernel(w.gtype) == "kq":
+            path = "gemv.kq"
         x = torch.randn(S, K, generator=gen, device="cuda").to(xdtype)
         before = build.launch_counts[f"quant_matmul.{path}"]
         got = qm.quant_matmul(w, x, out_dtype)
@@ -471,6 +480,7 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
     from ggllm_tpu_torch.ops.sampling import SamplerParams
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
 
@@ -528,17 +538,20 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     # the wrapper's counter for this head layout and cache, and the route's
     decode_counters = {"flash_decode" + (".mha" if mha else "") + (".int8" if int8 else ""),
                        ("flash_decode.mha" if mha else "flash_decode_tc") + (".int8" if int8 else "")}
-    # prefill: the tensor-core tile and attention kernel; decode: the GEMV and
-    # this head layout's and cache's decode kernel
-    for name in ("quant_matmul", f"quant_matmul.{fmt}", "quant_matmul.tc", "quant_matmul.gemv",
+    # prefill: the tensor-core tile and attention kernel; decode: the format's
+    # GEMV (and not the other) and this head layout's and cache's decode kernel
+    gemv, other_gemv = (("quant_matmul.gemv.kq", "quant_matmul.gemv") if GGMLType[fmt.upper()]
+                        in qm.K_QUANTS else ("quant_matmul.gemv", "quant_matmul.gemv.kq"))
+    for name in ("quant_matmul", f"quant_matmul.{fmt}", "quant_matmul.tc", gemv,
                  "flash_mqa", "flash_mqa.tc", *decode_counters):
         if counts.get(name, 0) <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the {label} path")
     if (any(counts.get(k, 0) for k in DECODE_COUNTERS if k not in decode_counters)
+            or counts.get(other_gemv, 0)
             or len({counts[k] for k in decode_counters}) != 1
             or any(counts.get(k, 0) for k in ("quant_matmul.simt", "flash_mqa.simt", "group_sums"))
             or counts["quant_matmul"] != counts[f"quant_matmul.{fmt}"]
-            or counts["quant_matmul"] != counts["quant_matmul.tc"] + counts["quant_matmul.gemv"]
+            or counts["quant_matmul"] != counts["quant_matmul.tc"] + counts[gemv]
             or counts["flash_mqa"] != counts["flash_mqa.tc"]):
         raise RuntimeError(f"a kernel variant of another path ran on the {label} path: {counts}")
     if peak_below is not None and peak >= peak_below:
@@ -569,10 +582,35 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
         f" by more than 2 max |d|; last position {int(got[-1].argmax())} vs {int(ref[-1].argmax())}")
     if rel > LOGIT_TOL or not decided.any() or not same[decided].all():
         raise RuntimeError(f"kernel and plain prefill logits disagree on the {label} path")
+    # one decode step (S = 1: the GEMV and the decode attention kernel) on
+    # both engines, the same token at n_past 300 of their own caches
+    tok = int(ref[-1].argmax())
+    build.launch_counts.clear()
+    got_d = eng.eval([tok])
+    step_counts = dict(build.launch_counts)
+    ref_d = plain.eval([tok])
+    if not (np.isfinite(got_d).all() and np.isfinite(ref_d).all()):
+        raise RuntimeError("decode logits are not finite")
+    err_d = float(np.abs(got_d - ref_d).max())
+    rel_d = err_d / float(np.abs(ref_d).max())
+    top2_d = np.partition(ref_d, -2)[-2:]
+    decided_d = bool(top2_d[1] - top2_d[0] > 2 * err_d)
+    same_d = int(got_d.argmax()) == int(ref_d.argmax())
+    log(f"  decode-step logits at n_past {len(prompt)}, kernels vs plain versions: max |d|"
+        f" {err_d:.4e} ({rel_d:.3e} of max|ref|; prefill {rel:.3e}); argmax {int(got_d.argmax())}"
+        f" vs {int(ref_d.argmax())} ({'decided' if decided_d else 'not decided'} by 2 max |d|);"
+        f" launches {step_counts}")
+    if rel_d > LOGIT_TOL or (decided_d and not same_d):
+        raise RuntimeError(f"kernel and plain decode logits disagree on the {label} path")
+    if step_counts.get(gemv, 0) <= 0 or step_counts.get(other_gemv, 0):
+        raise RuntimeError(f"the decode step on the {label} path did not run {gemv} alone:"
+                           f" {step_counts}")
     out = {"path": label, "launches": counts, "prefill_tok_s": prefill_tps,
            "decode_tok_s": decode_tps, "sampled_tok_s": sampled_tps, "peak_bytes": peak,
            "logit_rel_err": rel, "argmax_same": int(same.sum()),
-           "argmax_decided": int(decided.sum()), "host_route": host_route}
+           "argmax_decided": int(decided.sum()), "decode_logit_rel_err": rel_d,
+           "decode_argmax_same": same_d, "decode_argmax_decided": decided_d,
+           "host_route": host_route}
     del plain
     if int8:  # what the int8 cache costs or saves against bf16, same weights
         dense = FalconEngine(hp, params, EngineConfig())
@@ -699,7 +737,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
 
     card = smi("name,power.limit")
     log(card)
@@ -716,6 +756,20 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ptxas.txt").write_text(build.build_log)
+    # the K-quant GEMV decodes its codes without int -> float conversions
+    from ggllm_tpu_torch.tools.sass_report import gemv_kq_report
+
+    sass = gemv_kq_report(build.BUILD / build.LIB_NAME)
+    (out_dir / "sass_gemv_kq.json").write_text(json.dumps(sass, indent=1))
+    if len(sass) != 5 * 2 * 2 * 2 or any(r["I2F"] for r in sass):
+        raise RuntimeError(f"K-quant GEMV SASS: {len(sass)} kernels, I2F in"
+                           f" {[r for r in sass if r['I2F']]}")
+    for r in sass:  # the instantiations the decode paths launch
+        if (r["x"] == r["y"] == "bfloat16"
+                and r["rows"] == qm.GEMV_KQ_ROWS[GGMLType[r["format"].upper()]]):
+            log(f"  quant_gemv_kq {r['format']} {r['rows']} row(s) a warp: {r['instructions']} SASS"
+                f" instructions, no I2F; loop {r['loop_instructions']}"
+                f" ({r['loop_instructions_per_weight']} a weight)")
 
     log("phase 2: kernels vs plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -745,6 +799,7 @@ def main() -> int:
 
     headline = {  # the JSON line's shape per kernel
         "quant_matmul": "q4_0 wqkvu O=22848 K=4544 S=1",
+        "quant_matmul.gemv.kq": "q4_k ffn_up O=32768 K=8192 S=1",
         "quant_matmul.tc": "q4_0 wqkvu O=22848 K=4544 S=512",
         "quant_matmul.simt": "q4_0 wqkvu O=22848 K=4544 S=512",
         "group_sums": "S=512 K=22720 g=32",
@@ -772,11 +827,12 @@ def main() -> int:
             raise RuntimeError(f"kernel {name} was launched on none of the main paths")
         if name.startswith("quant_matmul"):
             entry["x_dtype"] = "float32" if name.endswith("simt") else "bfloat16"
-        if name == "quant_matmul":
-            entry["formats"] = QUANT_FORMATS
+        if name in ("quant_matmul", "quant_matmul.gemv.kq"):
+            entry["formats"] = [f for f in QUANT_FORMATS
+                                if (GGMLType[f.upper()] in qm.K_QUANTS) == name.endswith("kq")]
             entry["launches_by_format"] = {
                 fmt: sum(p["launches"].get(f"quant_matmul.{fmt}", 0) for p in paths)
-                for fmt in QUANT_FORMATS}
+                for fmt in entry["formats"]}
         if name == "flash_mqa":
             entry["head_dims"], entry["dtypes"] = [32, 64, 128], ["float32", "bfloat16 at D=32"]
         if name == "flash_mqa.tc":

@@ -1,6 +1,7 @@
-// Helpers shared by the attention kernels: dtype conversion, staging of
-// K/V rows (f32, bf16 or int8 codes) from device memory into shared memory
-// as f32, and the in-launch merge of the flash-decode kernels' time splits.
+// Helpers shared by the kernels: the per-device grant of dynamic shared
+// memory, dtype conversion, staging of K/V rows (f32, bf16 or int8 codes)
+// from device memory into shared memory as f32, and the in-launch merge of
+// the flash-decode kernels' time splits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +9,35 @@
 #include <stdint.h>
 
 namespace gq {
+
+constexpr int MAX_DEVICES = 64;
+
+// Lets `kernel` launch with `bytes` of dynamic shared memory on the current
+// device. cudaFuncSetAttribute acts on the current device only, so the
+// grant is kept per device: `granted` is the caller's record for this
+// kernel (a static array of the launching function), raised as sizes grow.
+template <typename Kernel>
+inline cudaError_t grant_smem(Kernel* kernel, size_t bytes, size_t (&granted)[MAX_DEVICES]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes > granted[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+    granted[dev] = bytes;
+  }
+  return cudaSuccess;
+}
+
+// a 16-byte read-only load, and word w (0-3) of it
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ uint32_t word(const uint4& v, int w) {
+  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -28,6 +28,7 @@
 //    ldmatrix reads 8 rows from 8 different bank groups.
 //  * Blocks with the most keys (the last positions) start first.
 
+#include "common.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -222,13 +223,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
                    int B, int S, int H, int Tn, int KV, long long bstride, long long tstride,
                    cudaStream_t st) {
   constexpr int SMEM = (BR + 4 * BT) * D * 2 + 128;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_mqa_tc_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static size_t granted[gq::MAX_DEVICES] = {};
+  cudaError_t e = gq::grant_smem(flash_mqa_tc_kernel<D>, SMEM, granted);
+  if (e != cudaSuccess) return e;
   dim3 grid((S * (H / KV) + BR - 1) / BR, KV, B);
   flash_mqa_tc_kernel<D><<<grid, THREADS, SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

@@ -58,7 +58,6 @@ using gq::pack_bf16;
 constexpr int BT = 64;            // keys per staged tile
 constexpr int STAGES = 4;         // tiles in flight: a split of <= 256 keys is read at once
 constexpr int MAX_THREADS = 256;  // 8 row tiles of 16 (G <= 128)
-constexpr int MAX_DEVICES = 64;
 
 // Byte offsets of a block's shared memory from its 128-byte aligned base:
 // Q (GP rows), the bf16 K and V tiles (STAGES each; one each for int8, which
@@ -357,22 +356,10 @@ size_t tc_smem(int D, bool quant, int G, int ws, int n_app) {
 template <int D, int KW, bool QUANT>
 cudaError_t launch(const void* cache, const void* scales, int layer, const void* q,
                    const Finish<bf16>& f, int B, int Tn, int KV, int G, cudaStream_t st) {
-  // dynamic shared memory granted so far, per device: the attribute is set
-  // on the current device only
-  static size_t allowed[MAX_DEVICES] = {};
+  static size_t granted[gq::MAX_DEVICES] = {};
   const size_t smem = tc_smem(D, QUANT, G, f.ws, f.n_app);
-  if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-    if (smem > allowed[dev]) {
-      e = cudaFuncSetAttribute(decode_tc_kernel<D, KW, QUANT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      allowed[dev] = smem;
-    }
-  }
+  cudaError_t e = gq::grant_smem(decode_tc_kernel<D, KW, QUANT>, smem, granted);
+  if (e != cudaSuccess) return e;
   const int MT = (G + 15) / 16;
   dim3 grid(f.n_split, KV, B);
   decode_tc_kernel<D, KW, QUANT><<<grid, 32 * MT * KW, smem, st>>>(

@@ -64,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -545,13 +546,9 @@ template <int F, int NT>
 cudaError_t launch_nt(const void* x, const Planes& p, void* y, int y_f32, int S, int K, int O,
                       cudaStream_t st) {
   constexpr int SMEM = STAGES * NT * BK * 2 + WSTAGES * BM * RecordStride<F>::value + 1024;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(quant_gemm_tc<F, NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static size_t granted[gq::MAX_DEVICES] = {};
+  cudaError_t e = gq::grant_smem(quant_gemm_tc<F, NT>, SMEM, granted);
+  if (e != cudaSuccess) return e;
   dim3 grid((O + BM - 1) / BM, (S + NT - 1) / NT);
   quant_gemm_tc<F, NT><<<grid, THREADS, SMEM, st>>>(static_cast<const __nv_bfloat16*>(x), p, y,
                                                     y_f32, S, K, O);

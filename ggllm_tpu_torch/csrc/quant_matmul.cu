@@ -15,8 +15,8 @@
 // One trait per format (Fmt<F>) loads the bytes a 32-element group needs
 // (load), yields the code of element i of the group (code), and the scale
 // and correction of each of its scale groups (scale, corr: one 32-group, or
-// two 16-groups for Q2_K, Q3_K and Q6_K). The GEMV and the tile share every
-// format's decoding through it:
+// two 16-groups for Q2_K, Q3_K and Q6_K). The legacy GEMV and the tile share
+// every format's decoding through it:
 //   legacy  s = d;          c = 8d (Q4_0), 16d (Q5_0), -m (Q4_1/Q5_1), 0 (Q8_0)
 //   Q4_K/Q5_K s = d * sc;   c = dmin * scm   (products in f32, as k_quants.c)
 //   Q6_K    s = d * sc;     c = 32 s         (16-element groups, signed sc)
@@ -31,22 +31,20 @@
 // ql bytes [64 half + 32 (l%2), +32) with qh bits 2l; Q2_K's and Q3_K's
 // 128-halves hold four 32-strips too, strip l in bits 2l of qs bytes
 // [32 half, +32), and Q3_K's third bit of 32-group m of a super-block is bit
-// m of all 32 hmask bytes. So four lanes of a warp load the same 32 qs bytes
-// and eight the same hmask bytes in one instruction (one transaction each).
+// m of all 32 hmask bytes.
 //
 // What bounds it on an H100:
-//  * S = 1 (decode) is a GEMV bound by the weight bytes (2.6-8.5 bits per
-//    weight): the x vector is tiny. Each lane takes one 32-group of a row
-//    per step and loads its bytes with 16-byte loads (two K-quant lanes
-//    share a 32-byte chunk: one transaction); each warp walks GEMV_ROWS
-//    rows at once, so every x value read from shared memory feeds
-//    GEMV_ROWS rows, and it loads the next step's groups before using this
+//  * S = 1 (decode) of the legacy formats is a GEMV bound by the weight
+//    bytes (4.5-8.5 bits per weight): the x vector is tiny. (The K-quants'
+//    S = 1 runs csrc/quant_gemv_kq.cu.) Each lane takes one 32-group of a
+//    row per step and loads its bytes with 16-byte loads; each warp walks
+//    ROWS rows at once, so every x value read from shared memory feeds
+//    ROWS rows, and it loads the next step's groups before using this
 //    step's, so two steps of weight bytes are in flight. x is staged once
 //    per block in shared memory as f32 with 16-byte loads issued in
 //    batches, padded to 33 floats per 32-group so lanes on different groups
-//    hit different banks; the block forms the group sums (16 or 32 wide)
-//    from that tile itself. At K = 40960 (Falcon-40B w_od) x and its sums
-//    take 179 KB of the 227 KB.
+//    hit different banks; the block forms the group sums from that tile
+//    itself. At K = 22720 (Falcon-7B w_od) x and its sums take 96 KB.
 //  * S > 1 (prefill) is bound by operations. bf16 x runs on the tensor
 //    cores (quant_gemm_tc.cuh). f32 x, which has to stay within f32 accuracy,
 //    runs this plain SIMT tile (64 x 64 outputs, 4 x 4 per thread, one
@@ -64,8 +62,10 @@
 
 namespace {
 
+using gq::ld16;
 using gq::store;
 using gq::to_f32;
+using gq::word;
 
 constexpr int GROUP = 32;       // elements per GEMV lane step / tile K step
 constexpr int GEMV_WARPS = 8;   // warps per GEMV block
@@ -89,12 +89,6 @@ struct Planes {
   int nb;             // blocks (legacy) or super-blocks (K-quants) per row
 };
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int w) {
-  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ uint4 ld16(const void* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
 // byte i of 16 (or 32, as two vectors); with a constant i the selects fold
 __device__ __forceinline__ uint32_t byte16(const uint4& v, int i) {
   return (word(v, (i >> 2) & 3) >> (8 * (i & 3))) & 0xFFu;
@@ -162,7 +156,7 @@ struct Q8 {  // Q8_0: 32 signed bytes per block, no correction
 
 template <int F>
 struct KQ45 {  // Q4_K, Q5_K: 32-group g = 8 sb + 2j + h of super-block sb
-  static constexpr int SUB = 32, ROWS = 4;
+  static constexpr int SUB = 32;
   static constexpr bool CORR = true;
   static constexpr bool HIGH = F == Q5_K;
   struct Raw {
@@ -195,7 +189,7 @@ struct KQ45 {  // Q4_K, Q5_K: 32-group g = 8 sb + 2j + h of super-block sb
 };
 
 struct Q6K {  // Q6_K: 32-group g = 8 sb + 4 half + strip; two 16-groups each
-  static constexpr int SUB = 16, ROWS = 4;
+  static constexpr int SUB = 16;
   static constexpr bool CORR = true;
   struct Raw {
     uint4 q[2], h[2];
@@ -226,7 +220,7 @@ struct Q6K {  // Q6_K: 32-group g = 8 sb + 4 half + strip; two 16-groups each
 
 template <int F>
 struct KQ23 {  // Q2_K, Q3_K: 32-group g = 8 sb + 4 half + strip; two 16-groups each
-  static constexpr int SUB = 16, ROWS = 4;
+  static constexpr int SUB = 16;
   static constexpr bool CORR = true;
   static constexpr bool HIGH = F == Q3_K;
   struct Raw {
@@ -511,18 +505,18 @@ cudaError_t launch_matmul(const void* x, const Planes& p, const void* xg, void* 
                           int K, int O, cudaStream_t st) {
   using Q = Fmt<F>;
   if (S == 1) {
-    const size_t smem = ((size_t)(K / GROUP) * XPAD + K / Q::SUB) * sizeof(float);
-    if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-    static bool attr_set = false;
-    if (!attr_set) {
-      cudaError_t e = cudaFuncSetAttribute(quant_gemv<F, TX, TY>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if constexpr (F >= Q2_K) {
+      return cudaErrorInvalidValue;  // K-quant rows go to gq_quant_gemv_kq
+    } else {
+      const size_t smem = ((size_t)(K / GROUP) * XPAD + K / Q::SUB) * sizeof(float);
+      if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+      static size_t granted[gq::MAX_DEVICES] = {};
+      cudaError_t e = gq::grant_smem(quant_gemv<F, TX, TY>, smem, granted);
       if (e != cudaSuccess) return e;
-      attr_set = true;
+      const int rows_per_block = GEMV_WARPS * Q::ROWS;
+      quant_gemv<F, TX, TY><<<(O + rows_per_block - 1) / rows_per_block, GEMV_WARPS * 32, smem,
+                              st>>>(static_cast<const TX*>(x), p, static_cast<TY*>(y), K, O);
     }
-    const int rows_per_block = GEMV_WARPS * Q::ROWS;
-    quant_gemv<F, TX, TY><<<(O + rows_per_block - 1) / rows_per_block, GEMV_WARPS * 32, smem, st>>>(
-        static_cast<const TX*>(x), p, static_cast<TY*>(y), K, O);
   } else if constexpr (std::is_same<TX, float>::value) {
     if (Q::CORR && xg == nullptr) return cudaErrorInvalidValue;
     dim3 grid((O + BN - 1) / BN, (S + BM - 1) / BM);

@@ -1,6 +1,7 @@
 """Fused dequant x matmul (y = x @ W^T from the planes of a QuantTensor) and
 per-group sums of x, each a hand-written CUDA kernel (csrc/quant_matmul.cu,
-csrc/quant_gemm_tc.cuh) with its plain PyTorch version beside it.
+csrc/quant_gemv_kq.cu, csrc/quant_gemm_tc.cuh) with its plain PyTorch version
+beside it.
 
 Replaces the Pallas kernels ggllm_tpu/kernels/quant_matmul.py `_kern`
 (launched by fused_matmul_2d) and `_xg_kern` (launched by _group_sums), for
@@ -18,10 +19,13 @@ multiply and one correction. Per family:
   Q2_K (16-groups)     s = d * (scb & 15); c = dmin * (scb >> 4)
 (the K-quant products formed in f32 exactly as the reference does).
 
-Three kernels serve a CUDA tensor (`route`): one row of x runs the GEMV;
-more rows of bf16 x run the tensor-core tile (csrc/quant_gemm_tc.cuh: `wgmma`
-on weights decoded into registers, w = q s - c by one f32 FMA, rounded once
-to bf16, no group sums); more rows of f32 x run the f32 SIMT tile fed by group_sums,
+Four kernels serve a CUDA tensor (`route`): one row of x runs a GEMV, the
+K-quant one (csrc/quant_gemv_kq.cu, `gemv_kernel`; `gemv_lane_table` and
+`gemv_emulated` state its lanes and sums for the CPU tests) for Q2_K-Q6_K,
+csrc/quant_matmul.cu quant_gemv for the legacy formats; more rows of bf16
+x run the tensor-core tile (csrc/quant_gemm_tc.cuh: `wgmma` on weights
+decoded into registers, w = q s - c by one f32 FMA, rounded once to bf16, no
+group sums); more rows of f32 x run the f32 SIMT tile fed by group_sums,
 which keeps the correction form above and f32 accuracy. `tc_fragment_table`
 states the tile's per-thread decode as a table the CPU tests can check.
 
@@ -81,6 +85,13 @@ def route(S: int, x_dtype, gtype) -> str:
     if S == 1:
         return "gemv"
     return "tc" if x_dtype == torch.bfloat16 else "simt"
+
+
+def gemv_kernel(gtype) -> str:
+    """The GEMV that serves one row of x in `gtype`: "kq" (the K-quants:
+    csrc/quant_gemv_kq.cu) or "legacy" (csrc/quant_matmul.cu quant_gemv);
+    fixed by the format."""
+    return "kq" if gtype in GEMV_KQ else "legacy"
 
 
 def tc_rows(S: int, O: int) -> int:
@@ -207,6 +218,146 @@ def tc_dequant_emulated(w, kernel_arithmetic: bool = False) -> torch.Tensor:
     return out.to(torch.bfloat16)
 
 
+# the K-quant GEMV (csrc/quant_gemv_kq.cu): per format, lanes that share a
+# super-block (each loads 16 distinct code bytes a step, so a warp covers
+# 32 / lanes super-blocks), code bytes a super-block, runs of 16 elements a
+# lane and step (2 for a byte of two nibbles, 4 for one of four 2-bit
+# codes), and the integer taken off a code before its product (Q3_K's and
+# Q6_K's correction 4 s and 32 s folded into the code: exact, no sum of x)
+GEMV_KQ = {GGMLType.Q2_K: (4, 64, 4, 0), GGMLType.Q3_K: (4, 64, 4, 4),
+           GGMLType.Q4_K: (8, 128, 2, 0), GGMLType.Q5_K: (8, 128, 2, 0),
+           GGMLType.Q6_K: (8, 128, 2, 32)}
+# W rows a warp walks at once (the kernel is built for 1 and 2), as measured on
+# an H100 (PERF.md): two rows share x's loads, decode and sums, which pays
+# where the lane's work is mostly instructions; Q6_K, the most bytes a weight
+# and no sum of x, keeps more loads in flight with one
+GEMV_KQ_ROWS = {GGMLType.Q2_K: 2, GGMLType.Q3_K: 2, GGMLType.Q4_K: 2, GGMLType.Q5_K: 2,
+                GGMLType.Q6_K: 1}
+MAGIC = 0x4B000000  # the bits of 2^23: OR a code below 2^23 into it, subtract 2^23
+
+
+def gemv_lane_table(gtype, K: int) -> dict:
+    """The K-quant GEMV's index arithmetic (csrc/quant_gemv_kq.cu) as arrays
+    over (step, lane, byte, slot): lane l of a warp takes super-block
+    sb = step * (32 / lanes) + l // lanes of its row and code bytes
+    [16 p, 16 p + 16) of it, p = l % lanes; byte i holds one code per slot,
+    and slot u of the lane's 16 bytes is one run of 16 elements in one scale
+    group. For each entry: "sb", the element "k" of the row, "group" (its
+    scale group: 32 wide for Q4_K / Q5_K, else 16) and "scale" (the index
+    into the row's sub-scale plane that the kernel reads), "byte" (offset into
+    the row's code plane, qs or Q6_K's ql), "shift" / "mask" of the code in
+    it, the high-bit plane's "hbyte", "hshift", "hmask" and "hlshift" (the
+    left shift that puts the bits in place), and "valid" (False past the last
+    super-block). Also "plane", "hplane", "offset" (taken off every code),
+    "corr" (the group pays c * sum x) and "group_width"."""
+    if gtype not in GEMV_KQ:
+        raise NotImplementedError(f"no K-quant GEMV for {GGMLType(gtype).name}")
+    if K % 256:
+        raise ValueError(f"{GGMLType(gtype).name}: K={K} is not whole super-blocks")
+    lanes, qb, nrun, offset = GEMV_KQ[gtype]
+    nb, sps = K // 256, 32 // lanes
+    steps = -(-nb // sps)
+    t, l, i, u = np.meshgrid(np.arange(steps), np.arange(32), np.arange(16), np.arange(nrun),
+                             indexing="ij")
+    sb, p = t * sps + l // lanes, l % lanes
+    zero = np.zeros_like(t)
+    tab = {"plane": "qs", "hplane": None, "hbyte": zero, "hshift": zero, "hmask": 0,
+           "hlshift": 0, "offset": offset, "corr": offset == 0,
+           "group_width": 32 if gtype in (GGMLType.Q4_K, GGMLType.Q5_K) else 16,
+           "sb": sb, "byte": sb * qb + 16 * p + i, "valid": sb < nb}
+    if gtype in (GGMLType.Q4_K, GGMLType.Q5_K):  # chunk j's byte b0 + i: element 64j + 32u + b0 + i
+        j, b0 = p >> 1, 16 * (p & 1)
+        tab.update(k=sb * 256 + 64 * j + 32 * u + b0 + i, shift=4 * u, mask=15,
+                   scale=sb * 8 + 2 * j + u)
+        if gtype == GGMLType.Q5_K:  # qh byte b0 + i, bit 2j + u
+            tab.update(hplane="qh", hbyte=sb * 32 + b0 + i, hshift=2 * j + u, hmask=1, hlshift=4)
+    elif gtype == GGMLType.Q6_K:  # half's strip part + 2u (low / high nibble)
+        half, part, i0 = p >> 2, (p >> 1) & 1, 16 * (p & 1)
+        strip = part + 2 * u
+        tab.update(plane="ql", k=sb * 256 + 128 * half + 32 * strip + i0 + i, shift=4 * u,
+                   mask=15, scale=sb * 16 + 8 * half + 2 * strip + (i0 >> 4), hplane="qh",
+                   hbyte=sb * 64 + 32 * half + i0 + i, hshift=2 * strip, hmask=3, hlshift=4)
+    else:  # Q2_K, Q3_K: the half's strip u, bits 2u of the byte
+        half, i0 = p >> 1, 16 * (p & 1)
+        tab.update(k=sb * 256 + 128 * half + 32 * u + i0 + i, shift=2 * u, mask=3,
+                   scale=sb * 16 + 8 * half + 2 * u + (i0 >> 4))
+        if gtype == GGMLType.Q3_K:  # hmask byte i0 + i, bit 4 half + u
+            tab.update(hplane="hmask", hbyte=sb * 32 + i0 + i, hshift=4 * half + u, hmask=1,
+                       hlshift=2)
+    tab["group"] = tab["k"] // tab["group_width"]
+    for key in ("k", "byte", "hbyte", "scale", "group", "shift", "hshift"):
+        tab[key] = np.where(tab["valid"], tab[key], 0)  # past the last super-block: unused
+    return tab
+
+
+def _gemv_codes(w, tab) -> torch.Tensor:
+    """(O, steps, 32, 16, runs) int64 codes of W gathered as the table says."""
+    O = w.shape[0]
+
+    def bytes_of(name, index):
+        b = w.planes[name].contiguous().view(torch.uint8).reshape(O, -1).to(torch.int64)
+        return b[:, torch.as_tensor(index, dtype=torch.int64)]
+
+    q = (bytes_of(tab["plane"], tab["byte"]) >> torch.as_tensor(tab["shift"])) & tab["mask"]
+    if tab["hplane"] is not None:
+        hb = bytes_of(tab["hplane"], tab["hbyte"]) >> torch.as_tensor(tab["hshift"])
+        q = q | ((hb & tab["hmask"]) << tab["hlshift"])
+    return q
+
+
+def _magic_f32(q: torch.Tensor, offset: int) -> torch.Tensor:
+    """q (< 2^23, integer) as f32 the kernel's way, without a conversion:
+    the bits of 2^23 + q, less 2^23 + offset (both steps exact)."""
+    return (q.to(torch.int32) | MAGIC).view(torch.float32) - float(2 ** 23 + offset)
+
+
+def gemv_dequant_emulated(w) -> torch.Tensor:
+    """(O, K) f32: W as the K-quant GEMV decodes it through gemv_lane_table,
+    s * (q - offset) - c in f32 (the plain dequantize's arithmetic)."""
+    O, K = w.shape
+    tab = gemv_lane_table(w.gtype, K)
+    s, c = tc_group_scales(w)
+    scale = torch.as_tensor(tab["scale"])
+    vals = _magic_f32(_gemv_codes(w, tab), tab["offset"]) * s[:, scale]
+    if tab["corr"]:
+        vals = vals - c[:, scale]
+    valid = torch.as_tensor(tab["valid"])
+    out = torch.zeros(O, K, dtype=torch.float32)
+    out[:, torch.as_tensor(tab["k"])[valid]] = vals[:, valid]
+    return out
+
+
+def gemv_emulated(w, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """y (1, O) = x (1, K) @ W^T computed as the K-quant GEMV computes it, in
+    f32 through gemv_lane_table: each lane's codes as 2^23-decoded floats,
+    its run of 16 summed as q x (and x, where the format pays a correction),
+    then acc += s * dot - c * sum x per run, over the lane's steps; the 32
+    lanes' sums combined by the kernel's butterfly (xor 16, 8, 4, 2, 1)."""
+    O, K = w.shape
+    tab = gemv_lane_table(w.gtype, K)
+    xf = x.reshape(-1, K).to(torch.float32)
+    if xf.shape[0] != 1:
+        raise ValueError(f"the GEMV takes one row of x, not {xf.shape[0]}")
+    valid = torch.as_tensor(tab["valid"])[:, :, 0, 0]  # (steps, 32)
+    xv = xf[0, torch.as_tensor(tab["k"])]  # (steps, 32, 16, runs)
+    f = _magic_f32(_gemv_codes(w, tab), tab["offset"])  # (O, steps, 32, 16, runs)
+    dot = (f * xv).sum(dim=3)  # (O, steps, 32, runs)
+    s, c = tc_group_scales(w)
+    scale = torch.as_tensor(tab["scale"])[:, :, 0, :]  # (steps, 32, runs)
+    term = s[:, scale] * dot
+    if tab["corr"]:
+        term = term - c[:, scale] * xv.sum(dim=2)
+    term = torch.where(valid[None, :, :, None], term, torch.zeros(()))
+    acc = torch.zeros(O, 32, dtype=torch.float32)
+    for step in range(term.shape[1]):
+        for u in range(term.shape[3]):
+            acc = acc + term[:, step, :, u]
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    return acc[:, 0].reshape(1, O).to(out_dtype)
+
+
 def quant_matmul_plain(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     """Plain version: dequantize W to f32, then one f32 matmul."""
     O, K = w.shape
@@ -273,9 +424,11 @@ def _plane_ptrs(w, device) -> list:
 def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     """y = x @ W^T for a QuantTensor W; x (..., K) -> (..., O) in out_dtype.
 
-    S = 1 (decode) runs the GEMV, which forms its own group sums; S > 1 rows
-    of bf16 x run the tensor-core tile; S > 1 rows of f32 x the f32 tile fed
-    by group_sums (S >= 256) or the plain reduce (S < 256). See `route`."""
+    S = 1 (decode) runs a GEMV, which forms its own group sums: the K-quant
+    GEMV for the K-quants (counted as "quant_matmul.gemv.kq"), the legacy
+    GEMV for the others ("quant_matmul.gemv"); S > 1 rows of bf16 x run the
+    tensor-core tile; S > 1 rows of f32 x the f32 tile fed by group_sums
+    (S >= 256) or the plain reduce (S < 256). See `route`."""
     if x.device.type == "cpu":
         return quant_matmul_plain(w, x, out_dtype)
     if w.gtype not in KERNEL_FORMATS:
@@ -301,7 +454,13 @@ def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
                      int(out_dtype == torch.float32), S, K, O, tc_rows(S, O),
                      build.stream_ptr(x2.device))
         return y.reshape(*lead, O)
-    if path == "gemv" or not corr:  # the GEMV forms its own group sums
+    if path == "gemv" and gemv_kernel(w.gtype) == "kq":
+        build.launch("gq_quant_gemv_kq", ("quant_matmul", fmt_counter, "quant_matmul.gemv.kq"),
+                     int(w.gtype), x2.data_ptr(), int(x2.dtype == torch.bfloat16), *ptrs,
+                     y.data_ptr(), int(out_dtype == torch.bfloat16), K, O,
+                     GEMV_KQ_ROWS[w.gtype], build.stream_ptr(x2.device))
+        return y.reshape(*lead, O)
+    if path == "gemv" or not corr:  # the GEMVs form their own group sums
         xg = None
     elif S < GROUP_SUMS_MIN_S:
         xg = group_sums_plain(x2, group)

@@ -1,12 +1,14 @@
 """Timing loops on the CUDA card that chip_smoke.py does not run: the
-tensor-core prefill tile at every tile width, decode attention at the main
-paths' shapes, and decode chunks of one stream, the last two for a tree
-given by its root, so that two trees can be timed in turns within one call.
+tensor-core prefill tile at every tile width, decode attention and the
+decode GEMV at the main paths' shapes, and decode chunks of one stream, the
+last three for a tree given by its root, so that two trees can be timed in
+turns within one call.
 
     python -m ggllm_tpu_torch.tools.time_kernels tile
     python ggllm_tpu_torch/tools/time_kernels.py attn [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
         [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--chunks 4] [--tokens 64]
+    python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR]
 
 `tile` prints, per weight shape of the full-width models and S in 512 / 300,
 the `wgmma` tile's time with 128 and 256 x rows a block, with the width
@@ -23,6 +25,14 @@ cache for int8) timed two ways, `call_ms` = one call between two events as
 an eager decode step pays it (host work included), and `graph_ms` = device
 time, a CUDA graph of one call per layer replayed between two events,
 divided by the layers (both: medians of 20, L2 flushed before each).
+`gemv` prints one JSON line per decode weight shape (every K-quant at the
+Falcon-40B shapes, Q4_K at LLaMA-7B's; bf16 x, bf16 y, f32 for lm_head):
+`quant_matmul` at S = 1 as `call_ms` (one call between two events) and
+`graph_ms` (device time: a CUDA graph of one call on each of 4 distinct
+weights, divided by 4), each with 1 and 2 W rows a warp where the tree's
+K-quant GEMV has that choice (and the tree's pick under the plain keys), `torch.matmul` on the dequantized bf16 weight
+timed the same two ways, the GEMV launch counters, and the byte bound at
+3.35 TB/s (medians of 20, L2 flushed before each).
 --root names the directory that holds the `ggllm_tpu_torch` package to time
 (default: the one this file lies in).
 """
@@ -142,6 +152,62 @@ def time_attn(T: int = 2560) -> None:
         del kv, kv8
 
 
+# the decode GEMV's weights: every K-quant at Falcon-40B's shapes, Q4_K at LLaMA-7B's
+GEMV_SHAPES = tuple((fmt, name, O, K) for fmt in ("q4_k", "q3_k", "q5_k", "q2_k", "q6_k")
+                    for name, O, K in (("wqkv", 9216, 8192), ("ffn_up", 32768, 8192),
+                                       ("w_od", 8192, 40960), ("lm_head", 65024, 8192))) + tuple(
+    ("q4_k", "llama." + name, O, K)
+    for name, O, K in (("wqkv", 12288, 4096), ("w13", 22016, 4096), ("wo", 4096, 4096),
+                       ("w2", 4096, 11008), ("lm_head", 32000, 4096)))
+GEMV_COPIES = 4  # distinct weights a graph walks, one call each, as a step's layers do
+
+
+def time_gemv(bw: float = 3.35e12) -> None:
+    import torch
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.utils.benchgen import random_quant
+    bf16 = torch.bfloat16
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    package = str(Path(build.__file__).resolve().parents[2])
+    rows_options = (1, 2) if hasattr(qm, "GEMV_KQ_ROWS") else (None,)  # the parent: no choice
+    for fmt, name, O, K in GEMV_SHAPES:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(O + K)
+        ws = [random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda") for _ in range(GEMV_COPIES)]
+        x = torch.randn(1, K, generator=gen, device="cuda").to(bf16)
+        out = torch.float32 if name.endswith("lm_head") else bf16
+        nbytes = (sum(p.numel() * p.element_size() for p in ws[0].planes.values())
+                  + 2 * K + O * (4 if out == torch.float32 else 2))
+        row = {"package": package, "fmt": fmt, "weight": name, "O": O, "K": K,
+               "bound_ms": nbytes / bw * 1e3}
+        gtype = GGMLType[fmt.upper()]
+        picked = qm.GEMV_KQ_ROWS[gtype] if rows_options[0] else None
+        for rows in rows_options:
+            if rows is not None:
+                qm.GEMV_KQ_ROWS[gtype] = rows
+            key = "" if rows is None else f"_rows{rows}"
+            row["call_ms" + key] = median_ms(lambda: qm.quant_matmul(ws[0], x, out), flush)
+            row["graph_ms" + key] = graph_ms(lambda i: qm.quant_matmul(ws[i], x, out),
+                                             GEMV_COPIES, flush)
+        if picked is not None:  # the tree's own choice, under the plain keys
+            qm.GEMV_KQ_ROWS[gtype] = picked
+            row["rows"] = picked
+            row["call_ms"] = row[f"call_ms_rows{picked}"]
+            row["graph_ms"] = row[f"graph_ms_rows{picked}"]
+        row["launches"] = {k: v for k, v in build.launch_counts.items()
+                           if k.startswith("quant_matmul.gemv")}
+        build.launch_counts.clear()
+        deq = [w.dequantize(bf16) for w in ws]
+        del ws
+        row["library_call_ms"] = median_ms(lambda: torch.matmul(x, deq[0].t()), flush)
+        row["library_graph_ms"] = graph_ms(lambda i: torch.matmul(x, deq[i].t()), GEMV_COPIES,
+                                           flush)
+        del deq
+        print(json.dumps(row), flush=True)
+
+
 def time_tile() -> None:
     import torch
     from ggllm_tpu_torch.core.dtypes import GGMLType
@@ -204,7 +270,7 @@ def time_decode(config: str, fmt: str, chunks: int, tokens: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("tile", "attn", "decode"))
+    ap.add_argument("what", choices=("tile", "attn", "decode", "gemv"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
     ap.add_argument("--format", default="q4_0")
@@ -217,6 +283,8 @@ def main(argv=None) -> int:
         time_tile()
     elif args.what == "attn":
         time_attn()
+    elif args.what == "gemv":
+        time_gemv()
     else:
         time_decode(args.config, args.format, args.chunks, args.tokens)
     return 0

@@ -73,14 +73,17 @@ def test_quant_matmul(dev, gtype, dtype, S):
     """O = 100 (ragged GEMV, 64- and 128-row tiles) at K = 320 (legacy: one
     and a quarter of the tile's 256-column units) or 512; S = 513 adds O = 301
     and K = 768. One launch counts
-    under the wrapper, the format and the route: bf16 rows > 1 run the
-    tensor-core tile, f32 rows the SIMT tile, neither the other's."""
+    under the wrapper, the format and the route: one row of a K-quant runs
+    the K-quant GEMV, of a legacy format the legacy one; bf16 rows > 1 run
+    the tensor-core tile, f32 rows the SIMT tile, neither the other's."""
     O, K = (301, 768) if S == 513 else (100, 512 if gtype in qm.K_QUANTS else 320)
     w = random_quant(gtype, O, K, _gen(S), dev, scale=0.2)
     x = torch.randn(S, K, generator=_gen(S + 1), device=dev).to(dtype)
     path = "gemv" if S == 1 else "tc" if dtype == torch.bfloat16 else "simt"
+    if path == "gemv" and gtype in qm.K_QUANTS:
+        path = "gemv.kq"
     names = ["quant_matmul", f"quant_matmul.{gtype.name.lower()}", "quant_matmul.gemv",
-             "quant_matmul.tc", "quant_matmul.simt"]
+             "quant_matmul.gemv.kq", "quant_matmul.tc", "quant_matmul.simt"]
     before = {n: build.launch_counts[n] for n in names}
     got = qm.quant_matmul(w, x, dtype)
     for n in names:
@@ -151,6 +154,63 @@ def test_quant_matmul_refuses_what_is_not_ported(dev):
     with pytest.raises(RuntimeError):  # bf16 rows > 1 on the SIMT tile
         build.launch("gq_quant_matmul", "quant_matmul.refused", int(w.gtype), x.data_ptr(), 1,
                      *ptrs, None, y.data_ptr(), 1, 4, 256, 64, build.stream_ptr(x.device))
+    assert build.launch_counts["quant_matmul.refused"] == 0
+
+
+KQ = [GGMLType.Q4_K, GGMLType.Q3_K, GGMLType.Q5_K, GGMLType.Q2_K, GGMLType.Q6_K]
+
+
+@pytest.mark.parametrize("gtype", KQ, ids=[f.name.lower() for f in KQ])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("ydtype", [torch.float32, torch.bfloat16], ids=["y_f32", "y_bf16"])
+@pytest.mark.parametrize("K", [256, 40960])
+@pytest.mark.parametrize("rows", [1, 2])
+def test_gemv_kq(dev, gtype, xdtype, ydtype, K, rows, monkeypatch):
+    """The K-quant GEMV at O = 37 (no multiple of the 4 or 8 rows a block),
+    K = 256 (one super-block: most lanes of the warp idle) and 40960
+    (Falcon-40B w_od), one and two rows a warp: against gemv_emulated, which
+    sums as the kernel does, 1e-5 of max |ref| for f32 y (a bf16 y adds its
+    rounding, 2^-8 of a value), and against the plain version at the
+    tolerance of x's dtype. One launch, counted as the K-quant GEMV and
+    never as the legacy one."""
+    monkeypatch.setitem(qm.GEMV_KQ_ROWS, gtype, rows)
+    O = 37
+    w = random_quant(gtype, O, K, _gen(K + rows), dev, scale=0.2)
+    x = torch.randn(1, K, generator=_gen(K + 7), device=dev).to(xdtype)
+    names = ("quant_matmul", f"quant_matmul.{gtype.name.lower()}", "quant_matmul.gemv.kq",
+             "quant_matmul.gemv", "quant_matmul.tc", "quant_matmul.simt")
+    before = {n: build.launch_counts[n] for n in names}
+    got = qm.quant_matmul(w, x, ydtype)
+    torch.cuda.synchronize()
+    for n in names:
+        assert build.launch_counts[n] == before[n] + int(n in names[:3]), n
+    assert got.shape == (1, O) and got.dtype == ydtype
+    w_cpu = QuantTensor(w.gtype, w.shape, {k: v.cpu() for k, v in w.planes.items()})
+    emu = qm.gemv_emulated(w_cpu, x.cpu())
+    scale = emu.abs().max().item()
+    err = (got.float().cpu() - emu).abs().max().item() / scale
+    assert got.isfinite().all() and err <= (1e-5 if ydtype == torch.float32 else 2 ** -8)
+    _close(got, qm.quant_matmul_plain(w, x, ydtype), xdtype)
+
+
+def test_gemv_kq_refuses(dev):
+    """The K-quant GEMV's entry point refuses a legacy format, a width that
+    is not whole super-blocks, a rows-a-warp it is not built for and a
+    missing plane; the legacy GEMV no longer takes a K-quant row."""
+    w = random_quant(GGMLType.Q4_K, 64, 512, _gen(0), dev)
+    x = torch.randn(1, 512, device=dev).to(torch.bfloat16)
+    y = torch.empty(1, 64, device=dev)
+    ptrs = qm._plane_ptrs(w, x.device)
+    st = build.stream_ptr(x.device)
+    for gtype, K, rows, planes in ((int(GGMLType.Q4_0), 512, 2, ptrs),
+                                   (int(w.gtype), 320, 2, ptrs), (int(w.gtype), 512, 3, ptrs),
+                                   (int(w.gtype), 512, 2, [None] + ptrs[1:])):
+        with pytest.raises(RuntimeError):
+            build.launch("gq_quant_gemv_kq", "quant_matmul.refused", gtype, x.data_ptr(), 1,
+                         *planes, y.data_ptr(), 0, K, 64, rows, st)
+    with pytest.raises(RuntimeError):
+        build.launch("gq_quant_matmul", "quant_matmul.refused", int(w.gtype), x.data_ptr(), 1,
+                     *ptrs, None, y.data_ptr(), 0, 1, 512, 64, st)
     assert build.launch_counts["quant_matmul.refused"] == 0
 
 
