@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. build the hand-written kernels from ggllm_tpu_torch/csrc with nvcc, and
-     read the K-quant GEMV's SASS (cuobjdump): no I2F in any instantiation;
+     read the decode GEMVs' SASS (cuobjdump): no I2F in any instantiation of
+     the legacy or the K-quant GEMV;
   2. hold every kernel against its plain PyTorch version at the main-path
      shapes (quant_matmul in all ten formats: Q4_0 … Q8_0 at the Falcon-7B
      shapes, Q2_K … Q6_K at the Falcon-40B shapes, Q4_0 and Q4_K at the
@@ -20,8 +21,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      with a length per row, and f32 through the SIMT kernel), and time
      kernel, plain version and one PyTorch library call (CUDA events, after
      warm-up, median of 20 runs, L2 flushed before each run) beside the
-     card's bound; flash-decode and its library call also as device time (a
-     CUDA graph of one call per layer, divided by the layers); and a dense
+     card's bound; the GEMVs (S = 1), flash-decode and their library calls
+     also as device time (a CUDA graph of one call, or of one call per
+     layer divided by the layers); and a dense
      bf16 weight at Falcon-7B's lm_head shape through ops/linear.py against
      the f32 product;
   3. drive the main path at full width and full depth through the engine's
@@ -45,7 +47,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      seventh, shallow path (Falcon-7B Q4_0, full width, 2 layers, float32
      compute and cache) prefills the prompt through the f32 SIMT tile,
      group_sums and the f32 attention kernel and must agree with the plain
-     versions to 1e-4, then decodes 8 tokens through the SIMT decode kernel;
+     versions to 1e-4, then decodes 8 tokens through the legacy GEMV (f32 x
+     and y) and the SIMT decode kernel;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -75,12 +78,14 @@ PEAKS = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12), "nvl": (3.9e12, 835
 QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k", "q6_k", "q2_k", "q3_k"]
 F32_LOGIT_TOL = 1e-4  # f32 path against the plain versions (tests/test_torch_cuda.py)
 # kernel -> (source, the TPU kernel it replaces). "quant_matmul" is the S == 1
-# GEMV of the legacy formats, ".gemv.kq" the K-quants' S == 1 GEMV, ".tc" the
+# GEMV of the legacy formats, ".gemv.kq" the K-quants' S == 1 GEMV (both
+# around the loop of ggllm_tpu_torch/csrc/gemv.cuh), ".tc" the
 # bf16 tensor-core tile, ".simt" the f32 tile; "flash_mqa" the
 # f32 attention kernels, ".tc" the bf16 tensor-core one. COUNTER names the
 # launch counter of a kernel where it is not the kernel's own name.
 REPLACES = {
-    "quant_matmul": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:57"),
+    "quant_matmul": ("ggllm_tpu_torch/csrc/quant_gemv_legacy.cu",
+                     "ggllm_tpu/kernels/quant_matmul.py:57"),
     "quant_matmul.gemv.kq": ("ggllm_tpu_torch/csrc/quant_gemv_kq.cu",
                              "ggllm_tpu/kernels/quant_matmul.py:57"),
     "quant_matmul.tc": ("ggllm_tpu_torch/csrc/quant_gemm_tc.cuh",
@@ -159,6 +164,7 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
     from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
     from ggllm_tpu_torch.models.falcon import FalconStatic, _attention
     from ggllm_tpu_torch.ops import kvcache
+    from ggllm_tpu_torch.tools.time_kernels import graph_ms
     from ggllm_tpu_torch.utils.benchgen import random_quant
 
     gen = torch.Generator(device="cuda")
@@ -187,7 +193,9 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
                     ("llama.lm_head", 32000, 4096))
     def matmul_row(fmt, wname, w, wbytes, wdeq, S, xdtype, out_dtype):
         """One (weight, S, x dtype) case: the route's kernel against the plain
-        version, counted under its own counter, timed beside `x @ wdeq^T`."""
+        version, counted under its own counter, timed beside `x @ wdeq^T`;
+        a GEMV (S = 1) and its library call also as device time (a CUDA
+        graph of one call)."""
         (O, K), path = w.shape, qm.route(S, xdtype, w.gtype)
         if path == "gemv" and qm.gemv_kernel(w.gtype) == "kq":
             path = "gemv.kq"
@@ -203,9 +211,15 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
         lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
         nbytes = (wbytes + S * K * x.element_size()
                   + S * O * (4 if out_dtype == torch.float32 else 2))
+        device_ms = {}
+        if S == 1:
+            device_ms = {"graph_ms": graph_ms(lambda i: qm.quant_matmul(w, x, out_dtype), 1,
+                                              timer.flush),
+                         "library_graph_ms": graph_ms(lambda i: torch.matmul(x, wdeq.t()), 1,
+                                                      timer.flush)}
         row("quant_matmul" if path == "gemv" else f"quant_matmul.{path}",
             f"{fmt} {wname} O={O} K={K} S={S}", err, rel, ms, plain_ms, lib_ms, nbytes,
-            2 * S * O * K)
+            2 * S * O * K, **device_ms)
 
     cases = [(fmt, shapes_40b if GGMLType[fmt.upper()] in qm.K_QUANTS else shapes_7b)
              for fmt in QUANT_FORMATS]
@@ -312,8 +326,6 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
     # pays, host work included) and device time (graph_ms: a CUDA graph of one
     # call per layer, as a decode step makes them, divided by the layers); the
     # library call both ways too
-    from ggllm_tpu_torch.tools.time_kernels import graph_ms
-
     for L, H, KV, D, valids in ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (300, 2047)),
                                 (32, 32, 32, 128, (1, 300, 2047))):
         l, G = L - 1, H // KV
@@ -756,19 +768,20 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ptxas.txt").write_text(build.build_log)
-    # the K-quant GEMV decodes its codes without int -> float conversions
-    from ggllm_tpu_torch.tools.sass_report import gemv_kq_report
+    # the GEMVs decode their codes without int -> float conversions: every
+    # format, rows a warp (1, 2), x and y dtype of both kernels
+    from ggllm_tpu_torch.tools.sass_report import gemv_report
 
-    sass = gemv_kq_report(build.BUILD / build.LIB_NAME)
-    (out_dir / "sass_gemv_kq.json").write_text(json.dumps(sass, indent=1))
-    if len(sass) != 5 * 2 * 2 * 2 or any(r["I2F"] for r in sass):
-        raise RuntimeError(f"K-quant GEMV SASS: {len(sass)} kernels, I2F in"
+    sass = gemv_report(build.BUILD / build.LIB_NAME)
+    (out_dir / "sass_gemv.json").write_text(json.dumps(sass, indent=1))
+    if len(sass) != len(qm.GEMV_LAYOUT) * 2 * 2 * 2 or any(r["I2F"] for r in sass):
+        raise RuntimeError(f"GEMV SASS: {len(sass)} kernels, I2F in"
                            f" {[r for r in sass if r['I2F']]}")
-    for r in sass:  # the instantiations the decode paths launch
+    for r in sass:  # the instantiations the bf16 decode paths launch
         if (r["x"] == r["y"] == "bfloat16"
-                and r["rows"] == qm.GEMV_KQ_ROWS[GGMLType[r["format"].upper()]]):
-            log(f"  quant_gemv_kq {r['format']} {r['rows']} row(s) a warp: {r['instructions']} SASS"
-                f" instructions, no I2F; loop {r['loop_instructions']}"
+                and r["rows"] == qm.GEMV_ROWS[GGMLType[r["format"].upper()]]):
+            log(f"  quant_gemv_{r['kernel']} {r['format']} {r['rows']} row(s) a warp:"
+                f" {r['instructions']} SASS instructions, no I2F; loop {r['loop_instructions']}"
                 f" ({r['loop_instructions_per_weight']} a weight)")
 
     log("phase 2: kernels vs plain versions")
@@ -820,7 +833,7 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
-        if "graph_ms" in r:  # device time: a CUDA graph of one call per layer
+        if "graph_ms" in r:  # device time: a CUDA graph of one call (or one per layer)
             entry["graph_ms"] = r["graph_ms"]
             entry["library_graph_ms"] = r.get("library_graph_ms")
         if entry["launches"] <= 0:

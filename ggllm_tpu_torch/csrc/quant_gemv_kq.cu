@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas kernel ggllm_tpu/kernels/quant_matmul.py `_kern`
 // (launched by fused_matmul_2d) at one row of x for the K-quants; the legacy
-// formats keep csrc/quant_matmul.cu quant_gemv, more rows the tiles.
+// formats run csrc/quant_gemv_legacy.cu, more rows the tiles.
 //
 // Weights are ggml's planar blocks (quant/planar.py): per row and 256-element
 // super-block the code plane qs (Q6_K: ql), the high-bit plane where the
@@ -17,79 +17,33 @@
 // kernels/quant_matmul.py gemv_lane_table states the index arithmetic below
 // and gemv_emulated the sums, and the CPU tests hold both.
 //
-// What bounds it on an H100: the weight bytes (2.6-6.6 bits a weight, 3.35
-// TB/s) and, close behind, instruction issue (a weight needs a decode and
-// an FMA; 128 lanes an SM a clock). The design:
-//  * Lanes own distinct bytes. Each lane takes 16 contiguous code bytes of a
-//    super-block a step with one 16-byte load, so a warp's load moves 512
-//    distinct bytes (4 super-blocks of Q4_K / Q5_K / Q6_K, 8 of Q2_K / Q3_K),
-//    plus the 16 high-bit bytes of its columns and its sub-scales (one 2- or
-//    8-byte load) and fp16 d / dmin. A warp walks R rows (R = 1 or 2) at
-//    once, and issues the next step's loads before it uses this step's.
-//  * Codes without int->float conversions: four codes are masked into the
-//    bytes of a word at once, PRMT puts one into the low mantissa of 2^23
-//    (0x4B0000qq) and one FADD takes 2^23 + off off it: exact, then one FFMA
-//    with x. A code masked in place at bit 2k (Q4_K's high nibble, Q2_K's
-//    strips) goes into 2^(23 - 2k) instead and needs no shift. Sub-scales go
-//    the same way (a signed one with its sign bit flipped); the loop holds no
-//    I2F. Two buffers of row bytes alternate, so nothing is copied a step.
-//  * No staged x and no group-sum table: a lane reads its runs of 16 x values
-//    through L1 (__ldg, 16-byte loads; bf16 becomes f32 by a shift, exactly)
-//    and sums them itself where the format pays a correction. No shared
-//    memory at all, so no shape caps the warps an SM.
-//  * One launch a call: ceil(O / (R * 4)) blocks of 4 warps; the 32 lanes'
-//    sums meet by shuffles and lane 0 writes the row.
+// The loop (csrc/gemv.cuh) is the legacy formats' too: lanes own 16 distinct
+// code bytes of a super-block a step (a warp's load moves 512 distinct bytes:
+// 4 super-blocks of Q4_K / Q5_K / Q6_K, 8 of Q2_K / Q3_K, plus the 16
+// high-bit bytes of its columns and its sub-scales, one 2- or 8-byte load, and
+// fp16 d / dmin); codes and sub-scales are decoded by PRMT into 2^23 + q and
+// one FADD (a signed sub-scale with its sign bit flipped), so the loop holds
+// no I2F; x comes through L1; no shared memory.
 
 #include <cuda_fp16.h>
 
-#include "common.cuh"
+#include "gemv.cuh"
 
 namespace {
 
-using gq::ld16;
-using gq::store;
+using gq::code_f32;
+using gq::half_f32;
+using gq::ldw;
+using gq::ldw16;
+using gq::signed_byte_f32;
 using gq::word;
-
-constexpr int WARPS = 4;       // warps a block
-constexpr int MIN_BLOCKS = 5;  // blocks an SM the registers must allow: <= 102 a thread
+using Planes = gq::GemvPlanes;
 
 enum : int { Q2_K = 10, Q3_K = 11, Q4_K = 12, Q5_K = 13, Q6_K = 14 };  // ggml.h type ids
-
-struct Planes {
-  const uint8_t* qs;  // Q6_K: ql
-  const uint8_t* qh;  // Q5_K / Q6_K: qh; Q3_K: hmask
-  const __half* d;
-  const __half* dmin;  // Q2_K, Q4_K, Q5_K
-  const uint8_t* sc;   // Q2_K: scb
-  const uint8_t* scm;  // Q4_K, Q5_K
-  int nb;              // super-blocks a row
-};
-
-// Byte b of c4 as f32, less OFF, without I2F: PRMT makes the float whose
-// top byte is 0x4B - SH and whose low byte is the byte, 2^(23 - 2 SH) + byte *
-// 2^(-2 SH), and one FADD takes 2^(23 - 2 SH) + OFF off it. With SH = 0 that
-// is the byte itself; a code masked in place at bits 2 SH and up (Q4_K's high
-// nibble, Q2_K's strips) comes out without a shift. Exact for every byte.
-template <int SH, int OFF>
-__device__ __forceinline__ float code_f32(uint32_t c4, int b) {
-  constexpr float base = (float)(1 << (23 - 2 * SH)) + OFF;
-  return __uint_as_float(__byte_perm(c4, 0x4Bu - SH, 0x4550u | b)) - base;
-}
-// a signed byte b of w as f32: its sign bit flipped gives s + 128
-__device__ __forceinline__ float signed_byte_f32(uint32_t w, int b) {
-  return code_f32<0, 128>(w ^ 0x80808080u, b);
-}
-__device__ __forceinline__ float half_f32(uint16_t h) {
-  return __half2float(__ushort_as_half(h));
-}
+constexpr int KQ_DEPTH = 2;  // steps of row bytes in flight or in use a warp
 
 // ------------------------------------------------------------ format traits
-// LPS lanes share a super-block (QB code bytes), so a warp covers 32 / LPS a
-// step; a lane's 16 bytes hold RUNS runs of 16 elements, run u in one scale
-// group. Lane: what the lane's position p = lane % LPS fixes. load: the
-// lane's bytes and scales of super-block blk (row * nb + sb). xoff: run u's
-// first element within the super-block. code4: the 4 codes of word w of
-// run u as bytes. scale / corr: run u's s and c.
+// (csrc/gemv.cuh states what a trait holds); a block is a super-block here
 
 struct KQ45Lane {
   int j, b0;  // chunk (64 elements) and byte offset in it (0 / 16)
@@ -97,7 +51,7 @@ struct KQ45Lane {
 
 template <int F>
 struct KQ45 {  // Q4_K, Q5_K: byte b0 + i of chunk j holds elements 64j + b0 + i, 64j + 32 + b0 + i
-  static constexpr int LPS = 8, QB = 128, RUNS = 2, OFF = 0;
+  static constexpr int QK = 256, LPS = 8, QB = 128, RUNS = 2, OFF = 0;
   static constexpr bool CORR = true, HIGH = F == Q5_K;
   // Q4_K's high nibble stays in place (bits 4-7: SH 2); Q5_K's is shifted
   // down to meet its fifth bit
@@ -109,12 +63,12 @@ struct KQ45 {  // Q4_K, Q5_K: byte b0 + i of chunk j holds elements 64j + b0 + i
   };
   __device__ static Lane lane(int p) { return Lane{p >> 1, 16 * (p & 1)}; }
   __device__ static void load(const Planes& P, size_t blk, const Lane& L, int p, Raw& r) {
-    r.q = ld16(P.qs + blk * QB + 16 * p);
-    if (HIGH) r.h = ld16(P.qh + blk * 32 + L.b0);
-    r.d = __ldg(reinterpret_cast<const uint16_t*>(P.d) + blk);
-    r.dmin = __ldg(reinterpret_cast<const uint16_t*>(P.dmin) + blk);
-    r.sc2 = __ldg(reinterpret_cast<const uint16_t*>(P.sc + blk * 8 + 2 * L.j));
-    r.scm2 = __ldg(reinterpret_cast<const uint16_t*>(P.scm + blk * 8 + 2 * L.j));
+    r.q = ldw16(P.qs + blk * QB + 16 * p);
+    if (HIGH) r.h = ldw16(P.qh + blk * 32 + L.b0);
+    r.d = ldw(reinterpret_cast<const uint16_t*>(P.d) + blk);
+    r.dmin = ldw(reinterpret_cast<const uint16_t*>(P.m) + blk);
+    r.sc2 = ldw(reinterpret_cast<const uint16_t*>(P.sc + blk * 8 + 2 * L.j));
+    r.scm2 = ldw(reinterpret_cast<const uint16_t*>(P.scm + blk * 8 + 2 * L.j));
   }
   __device__ static int xoff(const Lane& L, int u) { return 64 * L.j + 32 * u + L.b0; }
   template <int U>
@@ -136,7 +90,7 @@ struct Q6KLane {
 };
 
 struct Q6K {  // ql byte 64 half + 32 part + i: strip part (low nibble) and part + 2 (high)
-  static constexpr int LPS = 8, QB = 128, RUNS = 2, OFF = 32;
+  static constexpr int QK = 256, LPS = 8, QB = 128, RUNS = 2, OFF = 32;
   static constexpr bool CORR = false;
   template <int U> static constexpr int SH = 0;
   using Lane = Q6KLane;
@@ -147,10 +101,10 @@ struct Q6K {  // ql byte 64 half + 32 part + i: strip part (low nibble) and part
   };
   __device__ static Lane lane(int p) { return Lane{p >> 2, (p >> 1) & 1, 16 * (p & 1)}; }
   __device__ static void load(const Planes& P, size_t blk, const Lane& L, int p, Raw& r) {
-    r.q = ld16(P.qs + blk * QB + 16 * p);
-    r.h = ld16(P.qh + blk * 64 + 32 * L.half + L.i0);
-    r.sc = __ldg(reinterpret_cast<const uint2*>(P.sc + blk * 16 + 8 * L.half));
-    r.d = __ldg(reinterpret_cast<const uint16_t*>(P.d) + blk);
+    r.q = ldw16(P.qs + blk * QB + 16 * p);
+    r.h = ldw16(P.qh + blk * 64 + 32 * L.half + L.i0);
+    r.sc = ldw(reinterpret_cast<const uint2*>(P.sc + blk * 16 + 8 * L.half));
+    r.d = ldw(reinterpret_cast<const uint16_t*>(P.d) + blk);
   }
   __device__ static int xoff(const Lane& L, int u) {
     return 128 * L.half + 32 * (L.part + 2 * u) + L.i0;
@@ -176,7 +130,7 @@ struct KQ23Lane {
 
 template <int F>
 struct KQ23 {  // Q2_K, Q3_K: qs byte 32 half + i holds strips 0-3 (bits 2u) of the half
-  static constexpr int LPS = 4, QB = 64, RUNS = 4, OFF = F == Q3_K ? 4 : 0;
+  static constexpr int QK = 256, LPS = 4, QB = 64, RUNS = 4, OFF = F == Q3_K ? 4 : 0;
   static constexpr bool CORR = F == Q2_K, HIGH = F == Q3_K;
   // Q2_K's strip u stays in place (bits 2u: SH u); Q3_K's is shifted down to
   // meet its third bit
@@ -189,11 +143,11 @@ struct KQ23 {  // Q2_K, Q3_K: qs byte 32 half + i holds strips 0-3 (bits 2u) of 
   };
   __device__ static Lane lane(int p) { return Lane{p >> 1, 16 * (p & 1)}; }
   __device__ static void load(const Planes& P, size_t blk, const Lane& L, int p, Raw& r) {
-    r.q = ld16(P.qs + blk * QB + 16 * p);
-    if (HIGH) r.h = ld16(P.qh + blk * 32 + L.i0);
-    r.sc = __ldg(reinterpret_cast<const uint2*>(P.sc + blk * 16 + 8 * L.half));
-    r.d = __ldg(reinterpret_cast<const uint16_t*>(P.d) + blk);
-    if (!HIGH) r.dmin = __ldg(reinterpret_cast<const uint16_t*>(P.dmin) + blk);
+    r.q = ldw16(P.qs + blk * QB + 16 * p);
+    if (HIGH) r.h = ldw16(P.qh + blk * 32 + L.i0);
+    r.sc = ldw(reinterpret_cast<const uint2*>(P.sc + blk * 16 + 8 * L.half));
+    r.d = ldw(reinterpret_cast<const uint16_t*>(P.d) + blk);
+    if (!HIGH) r.dmin = ldw(reinterpret_cast<const uint16_t*>(P.m) + blk);
   }
   __device__ static int xoff(const Lane& L, int u) { return 128 * L.half + 32 * u + L.i0; }
   template <int U>
@@ -225,131 +179,21 @@ template <> struct Fmt<Q4_K> : KQ45<Q4_K> {};
 template <> struct Fmt<Q5_K> : KQ45<Q5_K> {};
 template <> struct Fmt<Q6_K> : Q6K {};
 
-// 16 x values from x + k (k a multiple of 16: 16-byte aligned) as f32
-__device__ __forceinline__ void load_x16(const float* x, float (&f)[16]) {
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const uint4 a = ld16(x + 4 * v);
-    f[4 * v] = __uint_as_float(a.x);
-    f[4 * v + 1] = __uint_as_float(a.y);
-    f[4 * v + 2] = __uint_as_float(a.z);
-    f[4 * v + 3] = __uint_as_float(a.w);
-  }
-}
-__device__ __forceinline__ void load_x16(const __nv_bfloat16* x, float (&f)[16]) {
-#pragma unroll
-  for (int v = 0; v < 2; ++v) {
-    const uint4 a = ld16(x + 8 * v);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {  // a bf16 is the high half of its f32
-      const uint32_t b = word(a, w);
-      f[8 * v + 2 * w] = __uint_as_float(b << 16);
-      f[8 * v + 2 * w + 1] = __uint_as_float(b & 0xFFFF0000u);
-    }
-  }
-}
-
-// run U of the lane's current step against the R rows' codes
-template <int F, int R, int U, typename TX>
-__device__ __forceinline__ void run(const TX* __restrict__ xsb,
-                                    const typename Fmt<F>::Raw (&cur)[R],
-                                    const typename Fmt<F>::Lane& L, float (&acc)[R]) {
-  using Q = Fmt<F>;
-  float xf[16];
-  load_x16(xsb + Q::xoff(L, U), xf);
-  float sx = 0.f;
-  if (Q::CORR) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) sx += xf[i];
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float dot = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const uint32_t c4 = Q::template code4<U>(cur[r], L, w);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        dot = fmaf(code_f32<Q::template SH<U>, Q::OFF>(c4, b), xf[4 * w + b], dot);
-    }
-    acc[r] = fmaf(Q::scale(cur[r], L, U), dot, acc[r]);
-    if (Q::CORR) acc[r] = fmaf(-Q::corr(cur[r], L, U), sx, acc[r]);
-  }
-}
-
-template <int F, int R, typename TX>
-__device__ __forceinline__ void runs(const TX* __restrict__ xsb,
-                                     const typename Fmt<F>::Raw (&cur)[R],
-                                     const typename Fmt<F>::Lane& L, float (&acc)[R]) {
-  run<F, R, 0>(xsb, cur, L, acc);
-  run<F, R, 1>(xsb, cur, L, acc);
-  if constexpr (Fmt<F>::RUNS == 4) {
-    run<F, R, 2>(xsb, cur, L, acc);
-    run<F, R, 3>(xsb, cur, L, acc);
-  }
-}
-
-template <int F, int R, typename TX, typename TY>
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+template <int F, int R, int D, typename TX, typename TY>
+__global__ void __launch_bounds__(gq::GEMV_WARPS * 32, gq::GEMV_MIN_BLOCKS)
 quant_gemv_kq(const TX* __restrict__ x, const Planes p, TY* __restrict__ y, int O) {
-  using Q = Fmt<F>;
-  using Raw = typename Q::Raw;
-  constexpr int SPS = 32 / Q::LPS;  // super-blocks a warp step
-  const int lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * WARPS + threadIdx.x / 32) * R;
-  if (row0 >= O) return;  // the whole warp
-  const int lp = lane % Q::LPS, sbl = lane / Q::LPS;
-  const typename Q::Lane L = Q::lane(lp);
-  const int nb = p.nb, steps = (nb + SPS - 1) / SPS;
-
-  // two buffers of the R rows' bytes: while one step computes, the next
-  // one's loads are in flight
-  Raw a[R], b[R];
-  auto load = [&](int t, Raw (&dst)[R]) {
-    const int sb = t * SPS + sbl;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (sb < nb && row0 + r < O)
-        Q::load(p, (size_t)(row0 + r) * nb + sb, L, lp, dst[r]);
-      else
-        dst[r] = Raw{};
-    }
-  };
-  auto compute = [&](int t, const Raw (&src)[R], float (&acc)[R]) {
-    const int sb = t * SPS + sbl;
-    if (sb < nb) runs<F, R>(x + (size_t)sb * 256, src, L, acc);
-  };
-  float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  load(0, a);
-  int t = 0;
-  for (; t + 1 < steps; t += 2) {
-    load(t + 1, b);
-    compute(t, a, acc);
-    if (t + 2 < steps) load(t + 2, a);
-    compute(t + 1, b, acc);
-  }
-  if (t < steps) compute(t, a, acc);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float v = acc[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0 && row0 + r < O) store(y + row0 + r, v);
-  }
+  gq::gemv_rows<Fmt<F>, R, D>(x, p, y, O);
 }
 
 template <int F, typename TX, typename TY>
 cudaError_t launch(const void* x, const Planes& p, void* y, int O, int rows, cudaStream_t st) {
-  const int per_block = WARPS * rows;
-  const unsigned blocks = (unsigned)((O + per_block - 1) / per_block);
+  const unsigned blocks = gq::gemv_blocks(O, rows), threads = gq::GEMV_WARPS * 32;
   const TX* xt = static_cast<const TX*>(x);
   TY* yt = static_cast<TY*>(y);
   if (rows == 1)
-    quant_gemv_kq<F, 1, TX, TY><<<blocks, WARPS * 32, 0, st>>>(xt, p, yt, O);
+    quant_gemv_kq<F, 1, KQ_DEPTH, TX, TY><<<blocks, threads, 0, st>>>(xt, p, yt, O);
   else
-    quant_gemv_kq<F, 2, TX, TY><<<blocks, WARPS * 32, 0, st>>>(xt, p, yt, O);
+    quant_gemv_kq<F, 2, KQ_DEPTH, TX, TY><<<blocks, threads, 0, st>>>(xt, p, yt, O);
   return cudaGetLastError();
 }
 

@@ -15,8 +15,7 @@
 // One trait per format (Fmt<F>) loads the bytes a 32-element group needs
 // (load), yields the code of element i of the group (code), and the scale
 // and correction of each of its scale groups (scale, corr: one 32-group, or
-// two 16-groups for Q2_K, Q3_K and Q6_K). The legacy GEMV and the tile share
-// every format's decoding through it:
+// two 16-groups for Q2_K, Q3_K and Q6_K):
 //   legacy  s = d;          c = 8d (Q4_0), 16d (Q5_0), -m (Q4_1/Q5_1), 0 (Q8_0)
 //   Q4_K/Q5_K s = d * sc;   c = dmin * scm   (products in f32, as k_quants.c)
 //   Q6_K    s = d * sc;     c = 32 s         (16-element groups, signed sc)
@@ -33,18 +32,9 @@
 // [32 half, +32), and Q3_K's third bit of 32-group m of a super-block is bit
 // m of all 32 hmask bytes.
 //
-// What bounds it on an H100:
-//  * S = 1 (decode) of the legacy formats is a GEMV bound by the weight
-//    bytes (4.5-8.5 bits per weight): the x vector is tiny. (The K-quants'
-//    S = 1 runs csrc/quant_gemv_kq.cu.) Each lane takes one 32-group of a
-//    row per step and loads its bytes with 16-byte loads; each warp walks
-//    ROWS rows at once, so every x value read from shared memory feeds
-//    ROWS rows, and it loads the next step's groups before using this
-//    step's, so two steps of weight bytes are in flight. x is staged once
-//    per block in shared memory as f32 with 16-byte loads issued in
-//    batches, padded to 33 floats per 32-group so lanes on different groups
-//    hit different banks; the block forms the group sums from that tile
-//    itself. At K = 22720 (Falcon-7B w_od) x and its sums take 96 KB.
+// What bounds it on an H100 (S = 1, decode, runs the GEMVs of
+// csrc/quant_gemv_legacy.cu and csrc/quant_gemv_kq.cu, which this entry point
+// refuses):
 //  * S > 1 (prefill) is bound by operations. bf16 x runs on the tensor
 //    cores (quant_gemm_tc.cuh). f32 x, which has to stay within f32 accuracy,
 //    runs this plain SIMT tile (64 x 64 outputs, 4 x 4 per thread, one
@@ -56,8 +46,6 @@
 
 #include <cuda_fp16.h>
 
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -67,11 +55,8 @@ using gq::store;
 using gq::to_f32;
 using gq::word;
 
-constexpr int GROUP = 32;       // elements per GEMV lane step / tile K step
-constexpr int GEMV_WARPS = 8;   // warps per GEMV block
-constexpr int XPAD = GROUP + 1; // smem floats per staged x group
+constexpr int GROUP = 32;       // elements per tile K step
 constexpr int BM = 64, BN = 64; // prefill tile: x rows x W rows
-constexpr int MAX_SMEM = 227 * 1024;
 
 // ggml type ids (ggml.h)
 enum : int {
@@ -106,7 +91,7 @@ __device__ __forceinline__ uint32_t byte32(const uint4 (&v)[2], int i) {
 
 template <int F>
 struct Legacy {  // Q4_0, Q4_1, Q5_0, Q5_1: one 32-block per group
-  static constexpr int SUB = 32, ROWS = 4;
+  static constexpr int SUB = 32;
   static constexpr bool CORR = true;
   static constexpr bool HAS_MIN = F == Q4_1 || F == Q5_1;
   static constexpr bool HIGH = F == Q5_0 || F == Q5_1;
@@ -135,7 +120,7 @@ struct Legacy {  // Q4_0, Q4_1, Q5_0, Q5_1: one 32-block per group
 };
 
 struct Q8 {  // Q8_0: 32 signed bytes per block, no correction
-  static constexpr int SUB = 32, ROWS = 4;
+  static constexpr int SUB = 32;
   static constexpr bool CORR = false;
   struct Raw {
     uint4 q[2];
@@ -287,112 +272,6 @@ __device__ __forceinline__ float sum_vec(const uint4& v, __nv_bfloat16) {
   return s;
 }
 
-// x (K) -> xs as f32, XPAD floats per 32-group; 16-byte loads, STAGE_BATCH
-// per thread in flight before any is used
-template <typename TX>
-__device__ __forceinline__ void stage_x(const TX* __restrict__ x, float* xs, int K) {
-  constexpr int VEC = 16 / sizeof(TX);
-  constexpr int STAGE_BATCH = 4;
-  const int nvec = K / VEC;  // K % 32 == 0, so vectors never straddle groups
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
-  for (int base = 0; base < nvec; base += STAGE_BATCH * blockDim.x) {
-    uint4 buf[STAGE_BATCH];
-#pragma unroll
-    for (int b = 0; b < STAGE_BATCH; ++b) {
-      const int i = base + b * blockDim.x + threadIdx.x;
-      buf[b] = i < nvec ? __ldg(xv + i) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int b = 0; b < STAGE_BATCH; ++b) {
-      const int i = base + b * blockDim.x + threadIdx.x;
-      if (i < nvec) {
-        __align__(16) float f[8];
-        gq::unpack16(buf[b], f, TX());
-        const int k = i * VEC;
-        float* dst = xs + (k / GROUP) * XPAD + (k % GROUP);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dst[e] = f[e];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- GEMV (S=1)
-template <int F, typename TX, typename TY>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-quant_gemv(const TX* __restrict__ x, const Planes p, TY* __restrict__ y, int K, int O) {
-  using Q = Fmt<F>;
-  constexpr int NSEG = GROUP / Q::SUB, ROWS = Q::ROWS;
-  using Raw = typename Q::Raw;
-  extern __shared__ float smem[];
-  const int ng = K / GROUP;
-  float* xs = smem;              // ng * XPAD staged x values
-  float* xg = smem + ng * XPAD;  // ng * NSEG group sums
-  stage_x(x, xs, K);
-  __syncthreads();
-  if (Q::CORR) {
-    for (int s = threadIdx.x; s < ng * NSEG; s += blockDim.x) {
-      const float* xp = xs + (s / NSEG) * XPAD + (s % NSEG) * Q::SUB;
-      float t = 0.f;
-#pragma unroll
-      for (int j = 0; j < Q::SUB; ++j) t += xp[j];
-      xg[s] = t;
-    }
-    __syncthreads();
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * GEMV_WARPS + warp) * ROWS;
-  float acc[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-
-  // software pipeline: the next step's groups load while this step computes
-  Raw rn[ROWS];
-  auto load = [&](int g) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (row0 + r < O && g < ng)
-        Q::load(p, row0 + r, g, rn[r]);
-      else
-        rn[r] = Raw{};
-    }
-  };
-  load(lane);
-  for (int g = lane; g < ng; g += 32) {
-    Raw rc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) rc[r] = rn[r];
-    load(g + 32);
-    const float* xp = xs + g * XPAD;
-    float dot[ROWS][NSEG];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int k = 0; k < NSEG; ++k) dot[r][k] = 0.f;
-#pragma unroll
-    for (int i = 0; i < GROUP; ++i) {
-      const float xv = xp[i];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) dot[r][i / Q::SUB] += Q::code(rc[r], g, i) * xv;
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int k = 0; k < NSEG; ++k) {
-        acc[r] += Q::scale(rc[r], k) * dot[r][k];
-        if (Q::CORR) acc[r] -= Q::corr(rc[r], k) * xg[g * NSEG + k];
-      }
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    float v = acc[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0 && row0 + r < O) store(y + row0 + r, v);
-  }
-}
-
 // ------------------------------------------------------------ tiled (S > 1)
 template <int F, typename TX, typename TY>
 __global__ void __launch_bounds__(256)
@@ -503,29 +382,11 @@ group_sums_kernel(const TX* __restrict__ x, float* __restrict__ xg, int S, int K
 template <int F, typename TX, typename TY>
 cudaError_t launch_matmul(const void* x, const Planes& p, const void* xg, void* y, int S,
                           int K, int O, cudaStream_t st) {
-  using Q = Fmt<F>;
-  if (S == 1) {
-    if constexpr (F >= Q2_K) {
-      return cudaErrorInvalidValue;  // K-quant rows go to gq_quant_gemv_kq
-    } else {
-      const size_t smem = ((size_t)(K / GROUP) * XPAD + K / Q::SUB) * sizeof(float);
-      if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-      static size_t granted[gq::MAX_DEVICES] = {};
-      cudaError_t e = gq::grant_smem(quant_gemv<F, TX, TY>, smem, granted);
-      if (e != cudaSuccess) return e;
-      const int rows_per_block = GEMV_WARPS * Q::ROWS;
-      quant_gemv<F, TX, TY><<<(O + rows_per_block - 1) / rows_per_block, GEMV_WARPS * 32, smem,
-                              st>>>(static_cast<const TX*>(x), p, static_cast<TY*>(y), K, O);
-    }
-  } else if constexpr (std::is_same<TX, float>::value) {
-    if (Q::CORR && xg == nullptr) return cudaErrorInvalidValue;
-    dim3 grid((O + BN - 1) / BN, (S + BM - 1) / BM);
-    quant_gemm<F, TX, TY><<<grid, 256, 0, st>>>(static_cast<const TX*>(x), p,
-                                                static_cast<const float*>(xg),
-                                                static_cast<TY*>(y), S, K, O);
-  } else {
-    return cudaErrorInvalidValue;  // bf16 rows go to gq_quant_matmul_tc
-  }
+  if (Fmt<F>::CORR && xg == nullptr) return cudaErrorInvalidValue;
+  dim3 grid((O + BN - 1) / BN, (S + BM - 1) / BM);
+  quant_gemm<F, TX, TY><<<grid, 256, 0, st>>>(static_cast<const TX*>(x), p,
+                                              static_cast<const float*>(xg),
+                                              static_cast<TY*>(y), S, K, O);
   return cudaGetLastError();
 }
 
@@ -552,22 +413,19 @@ cudaError_t dispatch(int gtype, const void* x, const Planes& p, const void* xg, 
 // y (S, O) = x (S, K) @ W^T from the planes of a ggml-type `gtype` weight
 // (null for planes the format lacks; qs holds Q6_K's ql, qh Q3_K's hmask, m
 // holds dmin, sc Q2_K's scb); xg (S, K/16 for Q2_K, Q3_K and Q6_K, else K/32)
-// f32 group sums of x, required for S > 1 (except Q8_0) and ignored for
-// S == 1. S > 1 takes f32 x only.
+// f32 group sums of x, required but for Q8_0. f32 x and S > 1 only: one row
+// goes to gq_quant_gemv_legacy / gq_quant_gemv_kq, bf16 rows to
+// gq_quant_matmul_tc.
 extern "C" int gq_quant_matmul(int gtype, const void* x, int x_bf16, const void* qs,
                                const void* qh, const void* d, const void* m, const void* sc,
                                const void* scm, const void* xg, void* y, int y_bf16, int S,
                                int K, int O, void* stream) {
   const bool kq = gtype >= Q2_K && gtype <= Q6_K;
-  if (S < 1 || O < 1 || K % (kq ? 256 : GROUP) != 0) return cudaErrorInvalidValue;
+  if (x_bf16 || S < 2 || O < 1 || K % (kq ? 256 : GROUP) != 0) return cudaErrorInvalidValue;
   const Planes p{static_cast<const uint8_t*>(qs), qh, static_cast<const __half*>(d),
                  static_cast<const __half*>(m), static_cast<const int8_t*>(sc),
                  static_cast<const int8_t*>(scm), K / (kq ? 256 : GROUP)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return y_bf16 ? dispatch<__nv_bfloat16, __nv_bfloat16>(gtype, x, p, xg, y, S, K, O, st)
-                  : dispatch<__nv_bfloat16, float>(gtype, x, p, xg, y, S, K, O, st);
-  }
   return y_bf16 ? dispatch<float, __nv_bfloat16>(gtype, x, p, xg, y, S, K, O, st)
                 : dispatch<float, float>(gtype, x, p, xg, y, S, K, O, st);
 }

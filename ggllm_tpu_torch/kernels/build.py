@@ -41,6 +41,7 @@ SIGNATURES = {
     "gq_quant_matmul": [I, P, I, P, P, P, P, P, P, P, P, I, I, I, I, P],
     # gtype, x, x_is_bf16, qs, qh, d, m, sc, scm, y, y_is_bf16, K, O, W rows a warp, stream
     "gq_quant_gemv_kq": [I, P, I, P, P, P, P, P, P, P, I, I, I, I, P],
+    "gq_quant_gemv_legacy": [I, P, I, P, P, P, P, P, P, P, I, I, I, I, P],
     # gtype, x (bf16), qs, qh, d, m, sc, scm, y, y_is_f32, S, K, O, x rows per block, stream
     "gq_quant_matmul_tc": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, x_is_bf16, xg, S, K, group, stream

@@ -1,7 +1,7 @@
 """Fused dequant x matmul (y = x @ W^T from the planes of a QuantTensor) and
 per-group sums of x, each a hand-written CUDA kernel (csrc/quant_matmul.cu,
-csrc/quant_gemv_kq.cu, csrc/quant_gemm_tc.cuh) with its plain PyTorch version
-beside it.
+csrc/quant_gemv_legacy.cu, csrc/quant_gemv_kq.cu, csrc/quant_gemm_tc.cuh) with
+its plain PyTorch version beside it.
 
 Replaces the Pallas kernels ggllm_tpu/kernels/quant_matmul.py `_kern`
 (launched by fused_matmul_2d) and `_xg_kern` (launched by _group_sums), for
@@ -19,21 +19,24 @@ multiply and one correction. Per family:
   Q2_K (16-groups)     s = d * (scb & 15); c = dmin * (scb >> 4)
 (the K-quant products formed in f32 exactly as the reference does).
 
-Four kernels serve a CUDA tensor (`route`): one row of x runs a GEMV, the
-K-quant one (csrc/quant_gemv_kq.cu, `gemv_kernel`; `gemv_lane_table` and
-`gemv_emulated` state its lanes and sums for the CPU tests) for Q2_K-Q6_K,
-csrc/quant_matmul.cu quant_gemv for the legacy formats; more rows of bf16
-x run the tensor-core tile (csrc/quant_gemm_tc.cuh: `wgmma` on weights
-decoded into registers, w = q s - c by one f32 FMA, rounded once to bf16, no
-group sums); more rows of f32 x run the f32 SIMT tile fed by group_sums,
-which keeps the correction form above and f32 accuracy. `tc_fragment_table`
-states the tile's per-thread decode as a table the CPU tests can check.
+Four kernels serve a CUDA tensor (`route`): one row of x runs a GEMV
+(`gemv_kernel`), csrc/quant_gemv_kq.cu for Q2_K-Q6_K and
+csrc/quant_gemv_legacy.cu for Q4_0-Q8_0, one kernel loop (csrc/gemv.cuh) over
+each family's traits (`gemv_lane_table` and `gemv_emulated` state its lanes
+and sums for the CPU tests); more rows of bf16 x run the tensor-core tile
+(csrc/quant_gemm_tc.cuh: `wgmma` on weights decoded into registers,
+w = q s - c by one f32 FMA, rounded once to bf16, no group sums); more rows
+of f32 x run the f32 SIMT tile fed by group_sums, which keeps the correction
+form above and f32 accuracy. `tc_fragment_table` states the tile's
+per-thread decode as a table the CPU tests can check.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -89,9 +92,9 @@ def route(S: int, x_dtype, gtype) -> str:
 
 def gemv_kernel(gtype) -> str:
     """The GEMV that serves one row of x in `gtype`: "kq" (the K-quants:
-    csrc/quant_gemv_kq.cu) or "legacy" (csrc/quant_matmul.cu quant_gemv);
-    fixed by the format."""
-    return "kq" if gtype in GEMV_KQ else "legacy"
+    csrc/quant_gemv_kq.cu) or "legacy" (Q4_0 ... Q8_0:
+    csrc/quant_gemv_legacy.cu); fixed by the format."""
+    return "kq" if gtype in K_QUANTS else "legacy"
 
 
 def tc_rows(S: int, O: int) -> int:
@@ -218,54 +221,83 @@ def tc_dequant_emulated(w, kernel_arithmetic: bool = False) -> torch.Tensor:
     return out.to(torch.bfloat16)
 
 
-# the K-quant GEMV (csrc/quant_gemv_kq.cu): per format, lanes that share a
-# super-block (each loads 16 distinct code bytes a step, so a warp covers
-# 32 / lanes super-blocks), code bytes a super-block, runs of 16 elements a
-# lane and step (2 for a byte of two nibbles, 4 for one of four 2-bit
-# codes), and the integer taken off a code before its product (Q3_K's and
-# Q6_K's correction 4 s and 32 s folded into the code: exact, no sum of x)
-GEMV_KQ = {GGMLType.Q2_K: (4, 64, 4, 0), GGMLType.Q3_K: (4, 64, 4, 4),
-           GGMLType.Q4_K: (8, 128, 2, 0), GGMLType.Q5_K: (8, 128, 2, 0),
-           GGMLType.Q6_K: (8, 128, 2, 32)}
-# W rows a warp walks at once (the kernel is built for 1 and 2), as measured on
-# an H100 (PERF.md): two rows share x's loads, decode and sums, which pays
-# where the lane's work is mostly instructions; Q6_K, the most bytes a weight
-# and no sum of x, keeps more loads in flight with one
-GEMV_KQ_ROWS = {GGMLType.Q2_K: 2, GGMLType.Q3_K: 2, GGMLType.Q4_K: 2, GGMLType.Q5_K: 2,
-                GGMLType.Q6_K: 1}
+class GemvLayout(NamedTuple):
+    """How the decode GEMVs' lanes cut a row of one format (csrc/gemv.cuh)."""
+
+    lanes: int   # lanes that share a block, each loading 16 distinct code bytes a step
+    qb: int      # code bytes a block
+    runs: int    # runs of 16 elements in a lane's 16 bytes (one a nibble, bit pair or byte)
+    offset: int  # the integer taken off a code before its product
+    qk: int      # elements a block
+
+
+# the decode GEMVs: the legacy formats' (csrc/quant_gemv_legacy.cu; 32-element
+# blocks) and the K-quants' (csrc/quant_gemv_kq.cu; 256-element super-blocks),
+# one kernel loop (csrc/gemv.cuh). A warp covers 32 / lanes blocks a step.
+# Offsets fold a correction into the code exactly and need no sum of x: Q4_0's
+# 8 d, Q5_0's 16 d, Q3_K's 4 s, Q6_K's 32 s, and Q8_0's 128 after its sign bit
+# is flipped (a signed byte s becomes s + 128); offset 0 pays c * sum x
+GEMV_LAYOUT = {
+    GGMLType.Q4_0: GemvLayout(1, 16, 2, 8, 32), GGMLType.Q4_1: GemvLayout(1, 16, 2, 0, 32),
+    GGMLType.Q5_0: GemvLayout(1, 16, 2, 16, 32), GGMLType.Q5_1: GemvLayout(1, 16, 2, 0, 32),
+    GGMLType.Q8_0: GemvLayout(2, 32, 1, 128, 32),
+    GGMLType.Q2_K: GemvLayout(4, 64, 4, 0, 256), GGMLType.Q3_K: GemvLayout(4, 64, 4, 4, 256),
+    GGMLType.Q4_K: GemvLayout(8, 128, 2, 0, 256), GGMLType.Q5_K: GemvLayout(8, 128, 2, 0, 256),
+    GGMLType.Q6_K: GemvLayout(8, 128, 2, 32, 256)}
+LEGACY = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0)
+# W rows a warp walks at once (the kernels are built for 1 and 2), as measured on
+# an H100 (PERF.md): two rows share x's loads, conversion and sums, which pays
+# where the lane's work is mostly instructions; Q8_0 and Q6_K, the most bytes a
+# weight, and Q5_1, whose two rows need more registers than the rest, keep
+# more loads in flight with one
+GEMV_ROWS = {GGMLType.Q4_0: 2, GGMLType.Q4_1: 2, GGMLType.Q5_0: 2, GGMLType.Q5_1: 1,
+             GGMLType.Q8_0: 1, GGMLType.Q2_K: 2, GGMLType.Q3_K: 2, GGMLType.Q4_K: 2,
+             GGMLType.Q5_K: 2, GGMLType.Q6_K: 1}
 MAGIC = 0x4B000000  # the bits of 2^23: OR a code below 2^23 into it, subtract 2^23
 
 
 def gemv_lane_table(gtype, K: int) -> dict:
-    """The K-quant GEMV's index arithmetic (csrc/quant_gemv_kq.cu) as arrays
-    over (step, lane, byte, slot): lane l of a warp takes super-block
-    sb = step * (32 / lanes) + l // lanes of its row and code bytes
+    """The decode GEMVs' index arithmetic (csrc/gemv.cuh with the format
+    traits of csrc/quant_gemv_legacy.cu and csrc/quant_gemv_kq.cu) as arrays
+    over (step, lane, byte, slot): lane l of a warp takes block
+    sb = step * (32 / lanes) + l // lanes of its row (a 32-element block of a
+    legacy format, a 256-element super-block of a K-quant) and code bytes
     [16 p, 16 p + 16) of it, p = l % lanes; byte i holds one code per slot,
     and slot u of the lane's 16 bytes is one run of 16 elements in one scale
     group. For each entry: "sb", the element "k" of the row, "group" (its
-    scale group: 32 wide for Q4_K / Q5_K, else 16) and "scale" (the index
-    into the row's sub-scale plane that the kernel reads), "byte" (offset into
-    the row's code plane, qs or Q6_K's ql), "shift" / "mask" of the code in
-    it, the high-bit plane's "hbyte", "hshift", "hmask" and "hlshift" (the
-    left shift that puts the bits in place), and "valid" (False past the last
-    super-block). Also "plane", "hplane", "offset" (taken off every code),
-    "corr" (the group pays c * sum x) and "group_width"."""
-    if gtype not in GEMV_KQ:
-        raise NotImplementedError(f"no K-quant GEMV for {GGMLType(gtype).name}")
-    if K % 256:
-        raise ValueError(f"{GGMLType(gtype).name}: K={K} is not whole super-blocks")
-    lanes, qb, nrun, offset = GEMV_KQ[gtype]
-    nb, sps = K // 256, 32 // lanes
-    steps = -(-nb // sps)
+    scale group: 32 wide for the legacy formats, Q4_K and Q5_K, else 16) and
+    "scale" (the index into the row's scale plane that the kernel reads: d
+    for the legacy formats, the sub-scales for the K-quants), "byte" (offset
+    into the row's code plane, qs or Q6_K's ql), "shift" / "mask" of the code
+    in it, the high-bit plane's "hbyte", "hshift", "hmask" and "hlshift" (the
+    left shift that puts the bits in place; Q5_0 / Q5_1: bit 16 u + i of the
+    block's little-endian u32 qh), and "valid" (False past the last block).
+    Also "plane", "hplane", "offset" (taken off every code), "signed" (Q8_0:
+    the byte's sign bit is flipped before the offset of 128 comes off),
+    "corr" (the group pays c * sum x), "group_width" and "qk"."""
+    if gtype not in GEMV_LAYOUT:
+        raise NotImplementedError(f"no decode GEMV for {GGMLType(gtype).name}")
+    lanes, qb, nrun, offset, qk = GEMV_LAYOUT[gtype]
+    if K % qk:
+        raise ValueError(f"{GGMLType(gtype).name}: K={K} is not whole {qk}-element blocks")
+    nb, bps = K // qk, 32 // lanes
+    steps = -(-nb // bps)
     t, l, i, u = np.meshgrid(np.arange(steps), np.arange(32), np.arange(16), np.arange(nrun),
                              indexing="ij")
-    sb, p = t * sps + l // lanes, l % lanes
+    sb, p = t * bps + l // lanes, l % lanes
     zero = np.zeros_like(t)
     tab = {"plane": "qs", "hplane": None, "hbyte": zero, "hshift": zero, "hmask": 0,
-           "hlshift": 0, "offset": offset, "corr": offset == 0,
-           "group_width": 32 if gtype in (GGMLType.Q4_K, GGMLType.Q5_K) else 16,
-           "sb": sb, "byte": sb * qb + 16 * p + i, "valid": sb < nb}
-    if gtype in (GGMLType.Q4_K, GGMLType.Q5_K):  # chunk j's byte b0 + i: element 64j + 32u + b0 + i
+           "hlshift": 0, "offset": offset, "corr": offset == 0, "signed": gtype == GGMLType.Q8_0,
+           "group_width": 16 if gtype in (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q6_K) else 32,
+           "qk": qk, "sb": sb, "byte": sb * qb + 16 * p + i, "valid": sb < nb}
+    if gtype == GGMLType.Q8_0:  # two lanes a block, 16 signed bytes each
+        tab.update(k=sb * 32 + 16 * p + i, shift=zero, mask=255, scale=sb)
+    elif gtype in LEGACY:  # byte i: element i (low nibble, run 0) and 16 + i (high, run 1)
+        tab.update(k=sb * 32 + 16 * u + i, shift=4 * u, mask=15, scale=sb)
+        if gtype in (GGMLType.Q5_0, GGMLType.Q5_1):  # qh bit 16 u + i
+            bit = 16 * u + i
+            tab.update(hplane="qh", hbyte=sb * 4 + (bit >> 3), hshift=bit & 7, hmask=1, hlshift=4)
+    elif gtype in (GGMLType.Q4_K, GGMLType.Q5_K):  # chunk j's byte b0 + i: element 64j + 32u + b0 + i
         j, b0 = p >> 1, 16 * (p & 1)
         tab.update(k=sb * 256 + 64 * j + 32 * u + b0 + i, shift=4 * u, mask=15,
                    scale=sb * 8 + 2 * j + u)
@@ -286,12 +318,13 @@ def gemv_lane_table(gtype, K: int) -> dict:
                        hlshift=2)
     tab["group"] = tab["k"] // tab["group_width"]
     for key in ("k", "byte", "hbyte", "scale", "group", "shift", "hshift"):
-        tab[key] = np.where(tab["valid"], tab[key], 0)  # past the last super-block: unused
+        tab[key] = np.where(tab["valid"], tab[key], 0)  # past the last block: unused
     return tab
 
 
 def _gemv_codes(w, tab) -> torch.Tensor:
-    """(O, steps, 32, 16, runs) int64 codes of W gathered as the table says."""
+    """(O, steps, 32, 16, runs) int64 codes of W gathered as the table says
+    (Q8_0: the raw bytes, 0-255)."""
     O = w.shape[0]
 
     def bytes_of(name, index):
@@ -311,14 +344,21 @@ def _magic_f32(q: torch.Tensor, offset: int) -> torch.Tensor:
     return (q.to(torch.int32) | MAGIC).view(torch.float32) - float(2 ** 23 + offset)
 
 
+def _gemv_decode(w, tab) -> torch.Tensor:
+    """The table's codes as the kernel decodes them: code - offset in f32,
+    Q8_0's byte with its sign bit flipped first."""
+    q = _gemv_codes(w, tab)
+    return _magic_f32(q ^ 0x80 if tab["signed"] else q, tab["offset"])
+
+
 def gemv_dequant_emulated(w) -> torch.Tensor:
-    """(O, K) f32: W as the K-quant GEMV decodes it through gemv_lane_table,
+    """(O, K) f32: W as the decode GEMV decodes it through gemv_lane_table,
     s * (q - offset) - c in f32 (the plain dequantize's arithmetic)."""
     O, K = w.shape
     tab = gemv_lane_table(w.gtype, K)
     s, c = tc_group_scales(w)
     scale = torch.as_tensor(tab["scale"])
-    vals = _magic_f32(_gemv_codes(w, tab), tab["offset"]) * s[:, scale]
+    vals = _gemv_decode(w, tab) * s[:, scale]
     if tab["corr"]:
         vals = vals - c[:, scale]
     valid = torch.as_tensor(tab["valid"])
@@ -328,7 +368,7 @@ def gemv_dequant_emulated(w) -> torch.Tensor:
 
 
 def gemv_emulated(w, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
-    """y (1, O) = x (1, K) @ W^T computed as the K-quant GEMV computes it, in
+    """y (1, O) = x (1, K) @ W^T computed as the decode GEMV computes it, in
     f32 through gemv_lane_table: each lane's codes as 2^23-decoded floats,
     its run of 16 summed as q x (and x, where the format pays a correction),
     then acc += s * dot - c * sum x per run, over the lane's steps; the 32
@@ -340,7 +380,7 @@ def gemv_emulated(w, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
         raise ValueError(f"the GEMV takes one row of x, not {xf.shape[0]}")
     valid = torch.as_tensor(tab["valid"])[:, :, 0, 0]  # (steps, 32)
     xv = xf[0, torch.as_tensor(tab["k"])]  # (steps, 32, 16, runs)
-    f = _magic_f32(_gemv_codes(w, tab), tab["offset"])  # (O, steps, 32, 16, runs)
+    f = _gemv_decode(w, tab)  # (O, steps, 32, 16, runs)
     dot = (f * xv).sum(dim=3)  # (O, steps, 32, runs)
     s, c = tc_group_scales(w)
     scale = torch.as_tensor(tab["scale"])[:, :, 0, :]  # (steps, 32, runs)
@@ -424,7 +464,7 @@ def _plane_ptrs(w, device) -> list:
 def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     """y = x @ W^T for a QuantTensor W; x (..., K) -> (..., O) in out_dtype.
 
-    S = 1 (decode) runs a GEMV, which forms its own group sums: the K-quant
+    S = 1 (decode) runs a GEMV, which forms its own sums of x: the K-quant
     GEMV for the K-quants (counted as "quant_matmul.gemv.kq"), the legacy
     GEMV for the others ("quant_matmul.gemv"); S > 1 rows of bf16 x run the
     tensor-core tile; S > 1 rows of f32 x the f32 tile fed by group_sums
@@ -454,13 +494,15 @@ def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
                      int(out_dtype == torch.float32), S, K, O, tc_rows(S, O),
                      build.stream_ptr(x2.device))
         return y.reshape(*lead, O)
-    if path == "gemv" and gemv_kernel(w.gtype) == "kq":
-        build.launch("gq_quant_gemv_kq", ("quant_matmul", fmt_counter, "quant_matmul.gemv.kq"),
+    if path == "gemv":  # the GEMVs form their own sums of x
+        kq = gemv_kernel(w.gtype) == "kq"
+        build.launch("gq_quant_gemv_kq" if kq else "gq_quant_gemv_legacy",
+                     ("quant_matmul", fmt_counter, "quant_matmul.gemv" + (".kq" if kq else "")),
                      int(w.gtype), x2.data_ptr(), int(x2.dtype == torch.bfloat16), *ptrs,
-                     y.data_ptr(), int(out_dtype == torch.bfloat16), K, O,
-                     GEMV_KQ_ROWS[w.gtype], build.stream_ptr(x2.device))
+                     y.data_ptr(), int(out_dtype == torch.bfloat16), K, O, GEMV_ROWS[w.gtype],
+                     build.stream_ptr(x2.device))
         return y.reshape(*lead, O)
-    if path == "gemv" or not corr:  # the GEMVs form their own group sums
+    if not corr:
         xg = None
     elif S < GROUP_SUMS_MIN_S:
         xg = group_sums_plain(x2, group)

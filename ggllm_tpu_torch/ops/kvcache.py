@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ggllm_tpu_torch.core.device import resolve_device
+
 
 def is_quantized(kv) -> bool:
     return isinstance(kv, tuple)
@@ -80,9 +82,11 @@ def read_layer(kv, l: int, compute_dtype=torch.bfloat16):
     return kv[l, 0], kv[l, 1]
 
 
-def from_jax_cache(kv, device="cpu"):
+def from_jax_cache(kv, device=None):
     """A JAX cache as numpy (a dense array, or the int8 pair (codes, scales
-    (L, 2, B, T, KV, 1))) -> the port's cache on `device`."""
+    (L, 2, B, T, KV, 1))) -> the port's cache on `device` (None: the card,
+    as every entry point resolves it)."""
+    device = resolve_device(device)
     if isinstance(kv, (tuple, list)):
         return tuple(torch.from_numpy(a.copy()).to(device) for a in kv)
     return torch.from_numpy(kv.copy()).to(device)

@@ -8,7 +8,8 @@ turns within one call.
     python ggllm_tpu_torch/tools/time_kernels.py attn [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
         [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--chunks 4] [--tokens 64]
-    python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR]
+    python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR] [--family legacy|kq]
+        [--shape q4_0:12288x4096 ...]
 
 `tile` prints, per weight shape of the full-width models and S in 512 / 300,
 the `wgmma` tile's time with 128 and 256 x rows a block, with the width
@@ -25,14 +26,17 @@ cache for int8) timed two ways, `call_ms` = one call between two events as
 an eager decode step pays it (host work included), and `graph_ms` = device
 time, a CUDA graph of one call per layer replayed between two events,
 divided by the layers (both: medians of 20, L2 flushed before each).
-`gemv` prints one JSON line per decode weight shape (every K-quant at the
-Falcon-40B shapes, Q4_K at LLaMA-7B's; bf16 x, bf16 y, f32 for lm_head):
-`quant_matmul` at S = 1 as `call_ms` (one call between two events) and
-`graph_ms` (device time: a CUDA graph of one call on each of 4 distinct
-weights, divided by 4), each with 1 and 2 W rows a warp where the tree's
-K-quant GEMV has that choice (and the tree's pick under the plain keys), `torch.matmul` on the dequantized bf16 weight
+`gemv` prints one JSON line per decode weight shape of a family (legacy,
+the default: Q4_0, Q4_1, Q5_0, Q5_1 and Q8_0 at the Falcon-7B shapes, Q4_0 at
+LLaMA-7B's; kq: every K-quant at the Falcon-40B shapes, Q4_K at LLaMA-7B's;
+bf16 x, bf16 y, f32 for lm_head): `quant_matmul` at S = 1 as `call_ms` (one
+call between two events) and `graph_ms` (device time: a CUDA graph of one
+call on each of 4 distinct weights, divided by 4), each with 1 and 2 W rows a
+warp where the tree's GEMV has that choice for the format (and the tree's
+pick under the plain keys), `torch.matmul` on the dequantized bf16 weight
 timed the same two ways, the GEMV launch counters, and the byte bound at
-3.35 TB/s (medians of 20, L2 flushed before each).
+3.35 TB/s (medians of 20, L2 flushed before each); `--shape FMT:OxK` (one or
+more) times those weights instead of the family's.
 --root names the directory that holds the `ggllm_tpu_torch` package to time
 (default: the one this file lies in).
 """
@@ -84,12 +88,19 @@ def median_ms(fn, flush, runs: int = 20, warm: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in times)
 
 
+_WARM_STREAM = []  # the one side stream graph_ms warms up on
+
+
 def graph_ms(step, n: int, flush, runs: int = 20) -> float:
     """Device time of one of the n calls step(i), i < n (one per layer, as a
     decode step makes them): a CUDA graph of all n, replayed between two
-    events (median of `runs`, L2 flushed before each), divided by n."""
+    events (median of `runs`, L2 flushed before each), divided by n. The
+    warm-up runs on one stream for all calls: a library call keeps a
+    workspace per stream it ran on (cuBLAS), which would otherwise pile up."""
     import torch
-    side = torch.cuda.Stream()
+    if not _WARM_STREAM:
+        _WARM_STREAM.append(torch.cuda.Stream())
+    side = _WARM_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up outside the capture
         for i in range(n):
@@ -152,17 +163,23 @@ def time_attn(T: int = 2560) -> None:
         del kv, kv8
 
 
-# the decode GEMV's weights: every K-quant at Falcon-40B's shapes, Q4_K at LLaMA-7B's
-GEMV_SHAPES = tuple((fmt, name, O, K) for fmt in ("q4_k", "q3_k", "q5_k", "q2_k", "q6_k")
-                    for name, O, K in (("wqkv", 9216, 8192), ("ffn_up", 32768, 8192),
-                                       ("w_od", 8192, 40960), ("lm_head", 65024, 8192))) + tuple(
-    ("q4_k", "llama." + name, O, K)
-    for name, O, K in (("wqkv", 12288, 4096), ("w13", 22016, 4096), ("wo", 4096, 4096),
-                       ("w2", 4096, 11008), ("lm_head", 32000, 4096)))
+# the decode GEMVs' weights: every legacy format at Falcon-7B's shapes and
+# every K-quant at Falcon-40B's, Q4_0 and Q4_K at LLaMA-7B's
+_LLAMA7B = (("wqkv", 12288, 4096), ("w13", 22016, 4096), ("wo", 4096, 4096),
+            ("w2", 4096, 11008), ("lm_head", 32000, 4096))
+GEMV_SHAPES = {
+    "legacy": tuple((fmt, name, O, K) for fmt in ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
+                    for name, O, K in (("wqkvu", 22848, 4544), ("w_od", 4544, 22720),
+                                       ("lm_head", 65024, 4544)))
+    + tuple(("q4_0", "llama." + name, O, K) for name, O, K in _LLAMA7B),
+    "kq": tuple((fmt, name, O, K) for fmt in ("q4_k", "q3_k", "q5_k", "q2_k", "q6_k")
+                for name, O, K in (("wqkv", 9216, 8192), ("ffn_up", 32768, 8192),
+                                   ("w_od", 8192, 40960), ("lm_head", 65024, 8192)))
+    + tuple(("q4_k", "llama." + name, O, K) for name, O, K in _LLAMA7B)}
 GEMV_COPIES = 4  # distinct weights a graph walks, one call each, as a step's layers do
 
 
-def time_gemv(bw: float = 3.35e12) -> None:
+def time_gemv(shapes, bw: float = 3.35e12) -> None:
     import torch
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.kernels import build
@@ -171,8 +188,10 @@ def time_gemv(bw: float = 3.35e12) -> None:
     bf16 = torch.bfloat16
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     package = str(Path(build.__file__).resolve().parents[2])
-    rows_options = (1, 2) if hasattr(qm, "GEMV_KQ_ROWS") else (None,)  # the parent: no choice
-    for fmt, name, O, K in GEMV_SHAPES:
+    # the rows a warp per format where the tree's GEMV has a choice (an older
+    # tree: the K-quants' only, or none)
+    choice = getattr(qm, "GEMV_ROWS", None) or getattr(qm, "GEMV_KQ_ROWS", {})
+    for fmt, name, O, K in shapes:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(O + K)
         ws = [random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda") for _ in range(GEMV_COPIES)]
@@ -183,16 +202,16 @@ def time_gemv(bw: float = 3.35e12) -> None:
         row = {"package": package, "fmt": fmt, "weight": name, "O": O, "K": K,
                "bound_ms": nbytes / bw * 1e3}
         gtype = GGMLType[fmt.upper()]
-        picked = qm.GEMV_KQ_ROWS[gtype] if rows_options[0] else None
-        for rows in rows_options:
+        picked = choice.get(gtype)
+        for rows in (None,) if picked is None else (1, 2):
             if rows is not None:
-                qm.GEMV_KQ_ROWS[gtype] = rows
+                choice[gtype] = rows
             key = "" if rows is None else f"_rows{rows}"
             row["call_ms" + key] = median_ms(lambda: qm.quant_matmul(ws[0], x, out), flush)
             row["graph_ms" + key] = graph_ms(lambda i: qm.quant_matmul(ws[i], x, out),
                                              GEMV_COPIES, flush)
         if picked is not None:  # the tree's own choice, under the plain keys
-            qm.GEMV_KQ_ROWS[gtype] = picked
+            choice[gtype] = picked
             row["rows"] = picked
             row["call_ms"] = row[f"call_ms_rows{picked}"]
             row["graph_ms"] = row[f"graph_ms_rows{picked}"]
@@ -276,6 +295,10 @@ def main(argv=None) -> int:
     ap.add_argument("--format", default="q4_0")
     ap.add_argument("--chunks", type=int, default=4)
     ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--family", choices=("legacy", "kq"), default="legacy",
+                    help="gemv: the legacy formats' shapes or the K-quants'")
+    ap.add_argument("--shape", action="append", default=[],
+                    help="gemv: a weight FMT:OxK to time instead, e.g. q4_0:12288x4096")
     args = ap.parse_args(argv)
     if "ggllm_tpu_torch" not in sys.modules:  # run as a file: take the package from --root
         sys.path.insert(0, args.root)
@@ -284,7 +307,14 @@ def main(argv=None) -> int:
     elif args.what == "attn":
         time_attn()
     elif args.what == "gemv":
-        time_gemv()
+        shapes = GEMV_SHAPES[args.family]
+        if args.shape:
+            shapes = []
+            for spec in args.shape:
+                fmt, dims = spec.split(":")
+                O, K = (int(v) for v in dims.split("x"))
+                shapes.append((fmt, f"{O}x{K}", O, K))
+        time_gemv(shapes)
     else:
         time_decode(args.config, args.format, args.chunks, args.tokens)
     return 0

@@ -173,7 +173,7 @@ def test_gemv_kq(dev, gtype, xdtype, ydtype, K, rows, monkeypatch):
     rounding, 2^-8 of a value), and against the plain version at the
     tolerance of x's dtype. One launch, counted as the K-quant GEMV and
     never as the legacy one."""
-    monkeypatch.setitem(qm.GEMV_KQ_ROWS, gtype, rows)
+    monkeypatch.setitem(qm.GEMV_ROWS, gtype, rows)
     O = 37
     w = random_quant(gtype, O, K, _gen(K + rows), dev, scale=0.2)
     x = torch.randn(1, K, generator=_gen(K + 7), device=dev).to(xdtype)
@@ -211,6 +211,69 @@ def test_gemv_kq_refuses(dev):
     with pytest.raises(RuntimeError):
         build.launch("gq_quant_matmul", "quant_matmul.refused", int(w.gtype), x.data_ptr(), 1,
                      *ptrs, None, y.data_ptr(), 0, 1, 512, 64, st)
+    assert build.launch_counts["quant_matmul.refused"] == 0
+
+
+LEGACY = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0]
+
+
+@pytest.mark.parametrize("gtype", LEGACY, ids=[f.name.lower() for f in LEGACY])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("ydtype", [torch.float32, torch.bfloat16], ids=["y_f32", "y_bf16"])
+@pytest.mark.parametrize("K", [96, 4544, 22720])
+@pytest.mark.parametrize("rows", [1, 2])
+def test_gemv_legacy(dev, gtype, xdtype, ydtype, K, rows, monkeypatch):
+    """The legacy GEMV at O = 37 (no multiple of the 4 or 8 rows a block),
+    K = 96 (three blocks: most lanes of the warp idle), 4544 (Falcon-7B's
+    width, 142 blocks: a last step of 14 blocks, or 14 of 16 for Q8_0) and
+    22720 (Falcon-7B w_od), one and two rows a warp: against gemv_emulated,
+    which sums as the kernel does, 1e-5 of max |ref| for f32 y (a bf16 y adds
+    its rounding, 2^-8 of a value), and against the plain version at the
+    tolerance of x's dtype. One launch, counted as the legacy GEMV and never
+    as the K-quant one."""
+    monkeypatch.setitem(qm.GEMV_ROWS, gtype, rows)
+    O = 37
+    w = random_quant(gtype, O, K, _gen(K + rows), dev, scale=0.2)
+    x = torch.randn(1, K, generator=_gen(K + 7), device=dev).to(xdtype)
+    names = ("quant_matmul", f"quant_matmul.{gtype.name.lower()}", "quant_matmul.gemv",
+             "quant_matmul.gemv.kq", "quant_matmul.tc", "quant_matmul.simt")
+    before = {n: build.launch_counts[n] for n in names}
+    got = qm.quant_matmul(w, x, ydtype)
+    torch.cuda.synchronize()
+    for n in names:
+        assert build.launch_counts[n] == before[n] + int(n in names[:3]), n
+    assert got.shape == (1, O) and got.dtype == ydtype
+    w_cpu = QuantTensor(w.gtype, w.shape, {k: v.cpu() for k, v in w.planes.items()})
+    emu = qm.gemv_emulated(w_cpu, x.cpu())
+    scale = emu.abs().max().item()
+    err = (got.float().cpu() - emu).abs().max().item() / scale
+    assert got.isfinite().all() and err <= (1e-5 if ydtype == torch.float32 else 2 ** -8)
+    _close(got, qm.quant_matmul_plain(w, x, ydtype), xdtype)
+
+
+def test_gemv_legacy_refuses(dev):
+    """The legacy GEMV's entry point refuses a K-quant format, a width that
+    is not whole blocks, a rows-a-warp it is not built for and a missing
+    plane (Q5_1's qh, its m); the SIMT tile's entry point takes no single
+    row, of either dtype."""
+    w = random_quant(GGMLType.Q5_1, 64, 512, _gen(0), dev)
+    y = torch.empty(1, 64, device=dev)
+    st = build.stream_ptr(y.device)
+    ptrs = qm._plane_ptrs(w, y.device)
+    for xdtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(1, 512, device=dev).to(xdtype)
+        xb = int(xdtype == torch.bfloat16)
+        for gtype, K, rows, planes in ((int(GGMLType.Q4_K), 512, 2, ptrs),
+                                       (int(w.gtype), 496, 2, ptrs), (int(w.gtype), 512, 3, ptrs),
+                                       (int(w.gtype), 512, 2, ptrs[:1] + [None] + ptrs[2:]),
+                                       (int(w.gtype), 512, 2, ptrs[:3] + [None] + ptrs[4:])):
+            with pytest.raises(RuntimeError):
+                build.launch("gq_quant_gemv_legacy", "quant_matmul.refused", gtype, x.data_ptr(),
+                             xb, *planes, y.data_ptr(), 0, K, 64, rows, st)
+        xg = torch.zeros(1, 16, device=dev)
+        with pytest.raises(RuntimeError):
+            build.launch("gq_quant_matmul", "quant_matmul.refused", int(w.gtype), x.data_ptr(), xb,
+                         *ptrs, xg.data_ptr(), y.data_ptr(), 0, 1, 512, 64, st)
     assert build.launch_counts["quant_matmul.refused"] == 0
 
 

@@ -176,7 +176,7 @@ def test_int8_cache_partials_match_jax(KV, H, D):
     valid = np.asarray([60, 9], np.int32)
     ref = jfd.cache_partials(_jax_int8_view(codes, scales), KV, l, jnp.asarray(q),
                              jnp.asarray(valid), interpret=True)
-    got = tfd.cache_partials(tkvcache.from_jax_cache((codes, scales)), KV, l,
+    got = tfd.cache_partials(tkvcache.from_jax_cache((codes, scales), device="cpu"), KV, l,
                              torch.from_numpy(q), torch.from_numpy(valid))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
@@ -199,8 +199,8 @@ def test_int8_flash_decode_matches_jax(KV, H, D, variant):
         kw_t = {"kv_append": torch.from_numpy(app), "append_valid": 3}
     ref = np.asarray(jfd.flash_decode(_jax_int8_view(codes, scales), KV, l, jnp.asarray(q),
                                       jnp.asarray(n_past), interpret=True, **kw_j))
-    got = tfd.flash_decode(tkvcache.from_jax_cache((codes, scales)), KV, l, torch.from_numpy(q),
-                           torch.from_numpy(n_past), **kw_t)
+    got = tfd.flash_decode(tkvcache.from_jax_cache((codes, scales), device="cpu"), KV, l,
+                           torch.from_numpy(q), torch.from_numpy(n_past), **kw_t)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
 
 
@@ -214,7 +214,7 @@ def _mha_operands(KV, D, cache, seed):
     B, T, L = 2, 96, 3
     if cache == "int8":
         codes, scales = _int8_cache(L, B, T, KV, D, seed)
-        return _jax_int8_view(codes, scales), tkvcache.from_jax_cache((codes, scales))
+        return _jax_int8_view(codes, scales), tkvcache.from_jax_cache((codes, scales), device="cpu")
     kv = np.random.default_rng(seed).standard_normal((L, 2, B, T, KV, D)).astype(np.float32)
     return jnp.asarray(kv.reshape(L, 2, B, T, KV * D)), torch.from_numpy(kv)
 
@@ -374,7 +374,8 @@ def _emulation_case(KV, H, D, cache, seed, A=9):
     rng = np.random.default_rng(seed)
     if cache == "int8":
         codes, scales = _int8_cache(L, B, T, KV, D, seed)
-        jkv, tkv = _jax_int8_view(codes, scales), tkvcache.from_jax_cache((codes, scales))
+        jkv = _jax_int8_view(codes, scales)
+        tkv = tkvcache.from_jax_cache((codes, scales), device="cpu")
     else:
         kv = rng.standard_normal((L, 2, B, T, KV, D)).astype(np.float32)
         jkv, tkv = jnp.asarray(kv.reshape(L, 2, B, T, KV * D)), torch.from_numpy(kv)
