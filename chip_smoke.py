@@ -32,7 +32,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Q4_0 (32 layers) on a bf16 cache; Falcon-40B Q3_K (60 layers) and
      LLaMA-7B Q4_K (32 layers) on an int8 cache: prefill a 300-token prompt,
      greedy-decode 128 tokens, then 32 sampled tokens, counting kernel
-     launches (set to 0 just before each path and read just after); Falcon-7B
+     launches (set to 0 just before each path and read just after); decode
+     runs as replays of captured CUDA graphs (pipelined chunks in generate),
+     whose launch counts are credited per replay. From the same state the
+     graphs' 64 greedy and 32 sampled ids must equal the eager step body's
+     on the same engine, one greedy replay's credited counts must be its
+     capture record and the eager run's a chunk: 16 of the format's GEMV
+     for each quantized weight and 16 of the head layout's decode kernel
+     for each layer, no other GEMV or decode kernel; and graph and eager
+     tok/s, the graph's device ms a token and idle share, and capture ms
+     are printed; Falcon-7B
      Q4_0 also samples 32 tokens at top_k 0 (the host cascade); then
      prefill again through the plain versions and compare the logits of all
      300 positions (and the argmax wherever the plain version decides it by
@@ -47,12 +56,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      seventh, shallow path (Falcon-7B Q4_0, full width, 2 layers, float32
      compute and cache) prefills the prompt through the f32 SIMT tile,
      group_sums and the f32 attention kernel and must agree with the plain
-     versions to 1e-4, then decodes 8 tokens through the legacy GEMV (f32 x
-     and y) and the SIMT decode kernel;
+     versions to 1e-4, then decodes 16 tokens through the legacy GEMV (f32 x
+     and y) and the SIMT decode kernel, and holds its graphs against the
+     eager step body in the same way;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
-     --kv-dtype int8.
+     --kv-dtype int8; on the Q4_0 file also a context swap, -f and -r. These
+     processes run alongside phase 1's SASS report, and end before phase 2.
 The last two lines of standard output are the kernel table as JSON and
 {"ok": true, "device": {...}}. Per-shape rows also go to
 chiprun_out/chip_smoke_kernels.json.
@@ -61,6 +72,8 @@ chiprun_out/chip_smoke_kernels.json.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -72,8 +85,10 @@ TOL = 2e-2  # of max |plain|, bf16 inputs (tests/test_kernels.py:45)
 LOGIT_TOL = 5e-2
 N_RUNS, N_WARM = 20, 3
 
-# card peaks (NVIDIA data sheets; dense bf16 tensor rate)
-PEAKS = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12), "nvl": (3.9e12, 835e12)}
+# card peaks (NVIDIA data sheets): memory rate, dense bf16 tensor rate, and
+# float32 outside the tensor cores (the rate of the f32 kernels' operations)
+PEAKS = {"sxm": (3.35e12, 989e12, 67e12), "pcie": (2.0e12, 756e12, 51e12),
+         "nvl": (3.9e12, 835e12, 60e12)}
 
 QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k", "q6_k", "q2_k", "q3_k"]
 F32_LOGIT_TOL = 1e-4  # f32 path against the plain versions (tests/test_torch_cuda.py)
@@ -153,7 +168,7 @@ def check(name: str, got, ref) -> tuple[float, float]:
     return err, rel
 
 
-def phase_kernels(torch, timer, bw, peak) -> list[dict]:
+def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
     """Every kernel against its plain version at the main-path shapes."""
     import torch.nn.functional as F
 
@@ -172,8 +187,9 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
     bf16 = torch.bfloat16
     rows = []
 
-    def row(kernel, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops, **device_ms):
-        tb, to = nbytes / bw * 1e3, ops / peak * 1e3
+    def row(kernel, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops, f32=False, **device_ms):
+        """f32: the operations are f32 ones outside the tensor cores."""
+        tb, to = nbytes / bw * 1e3, ops / (peak_f32 if f32 else peak) * 1e3
         r = {"kernel": kernel, "shape": shape, "max_abs_err": err, "rel_err": rel, "ms": ms,
              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(tb, to),
              "bound_by": "bytes" if tb >= to else "operations", **device_ms}
@@ -219,7 +235,7 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
                                                       timer.flush)}
         row("quant_matmul" if path == "gemv" else f"quant_matmul.{path}",
             f"{fmt} {wname} O={O} K={K} S={S}", err, rel, ms, plain_ms, lib_ms, nbytes,
-            2 * S * O * K, **device_ms)
+            2 * S * O * K, f32=xdtype == torch.float32, **device_ms)
 
     cases = [(fmt, shapes_40b if GGMLType[fmt.upper()] in qm.K_QUANTS else shapes_7b)
              for fmt in QUANT_FORMATS]
@@ -264,7 +280,7 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
         plain_ms = timer(lambda: qm.group_sums_plain(x, g))
         lib_ms = timer(lambda: torch.matmul(x, emap))
         row("group_sums", f"S={S} K={K} g={g}", err, rel, ms, plain_ms, lib_ms,
-            S * K * 2 + S * K // g * 4, S * K)
+            S * K * 2 + S * K // g * 4, S * K, f32=True)
         del emap
 
     # ---- flash_mqa: S=512 against one (1, T=2560, KV, D) cache layer, at
@@ -299,7 +315,8 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
         pairs = S * n_past + S * (S + 1) // 2  # visible (query, key) pairs
         eb = q.element_size()
         row(name, f"S={S} n_past={n_past} H={H} KV={KV} D={D}", err, rel, ms, plain_ms, lib_ms,
-            2 * S * H * D * eb + 2 * Tv * KV * D * eb, 4 * pairs * H * D)
+            2 * S * H * D * eb + 2 * Tv * KV * D * eb, 4 * pairs * H * D,
+            f32=q.dtype == torch.float32)
 
     for H, KV, D, past in ((71, 1, 64, (0, 300)), (128, 8, 64, (0,)), (32, 32, 128, (0, 300))):
         kvc = torch.randn(1, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
@@ -424,7 +441,7 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
         timer(lambda: fd.flash_decode(kv, KV, 1, q1, valid - 1)),
         timer(lambda: fd.flash_decode_plain(kv, KV, 1, q1, valid - 1)),
         timer(lambda: F.scaled_dot_product_attention(q1.transpose(1, 2), kt, vt)),
-        2 * valid * KV * D * 4 + 2 * H * D * 4, 4 * valid * H * D,
+        2 * valid * KV * D * 4 + 2 * H * D * 4, 4 * valid * H * D, f32=True,
         graph_ms=graph_ms(lambda i: fd.flash_decode(kv, KV, i, q1, valid - 1), L, timer.flush))
     del kv
 
@@ -450,15 +467,16 @@ def phase_kernels(torch, timer, bw, peak) -> list[dict]:
 
 
 def decode_rates(torch, engines: dict, tokens: list, n: int = 16) -> dict:
-    """tok/s of n-token greedy decode chunks at n_past = len(tokens), each
-    engine twice, in turns (a, b, b, a); every chunk is rolled back."""
+    """tok/s of n-token greedy decode chunks (graph replays) at n_past =
+    len(tokens), each engine twice, in turns (a, b, b, a); every chunk is
+    rolled back."""
     from ggllm_tpu_torch.ops.sampling import SamplerParams
 
     greedy = SamplerParams(temp=0.0)
     for eng in engines.values():
         eng.reset()
         eng.eval(tokens[:-1])
-        eng.decode_chunk(tokens[-1], 2, greedy)  # warm-up
+        eng.decode_chunk(tokens[-1], n, greedy)  # warm-up: captures the chunk's graph
         eng.rollback(len(tokens) - 1)
     rates = {name: [] for name in engines}
     names = list(engines)
@@ -470,6 +488,68 @@ def decode_rates(torch, engines: dict, tokens: list, n: int = 16) -> dict:
         rates[name].append(n / (time.perf_counter() - t0))
         eng.rollback(len(tokens) - 1)
     return rates
+
+
+def graph_vs_eager(torch, eng, start: int, first: int, hist: list, label: str, gemv: str,
+                   other_gemv: str, decode_counters: set, greedy_ref=None, n_greedy: int = 64,
+                   n_sampled: int = 32) -> dict:
+    """The replayed decode graphs against the eager step body from one state
+    (n_past `start`, `first` sampled and not yet forwarded, `hist` the
+    history ending with it), on the same engine, in chained 16-step chunks:
+    n_greedy greedy ids (the graphs' are greedy_ref where it holds that many,
+    the ids the main path's pipelined graphs decoded from this state, else
+    they run here and must begin with greedy_ref) and
+    n_sampled ids at temp 0.8, top-k 40, top-p 0.95, repeat penalty 1.1,
+    seed 1234 must be identical. Then one greedy graph chunk from the state:
+    the counts credited to its replay must be its capture's record, the
+    eager greedy run's counts per chunk, 16 launches of the format's GEMV
+    for each quantized weight, 16 of each of the head layout's decode
+    counters for each layer, and none of another GEMV or decode kernel.
+    Returns the eager tok/s (host clock, ending with the ids on the host),
+    the graphs' where they ran here, and the graph's device ms a token (CUDA
+    events around back-to-back replays)."""
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.linear import QuantTensor
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.tools.time_kernels import chained_decode, replay_device_ms
+
+    greedy = SamplerParams(temp=0.0)
+    sampler = SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1, seed=1234)
+
+    def chained(eager: bool, sp, n: int):
+        return chained_decode(eng, start, first, hist, n, sp, eager)
+
+    g_sampled, _ = chained(False, sampler, n_sampled)
+    e_sampled, _ = chained(True, sampler, n_sampled)
+    if g_sampled != e_sampled:
+        raise RuntimeError(f"sampled ids of the graph and the eager body differ on the {label}"
+                           f" path:\n{g_sampled}\n{e_sampled}")
+    ref = [] if greedy_ref is None else [int(t) for t in greedy_ref[:n_greedy]]
+    g_ids, g_tps = (ref, None) if len(ref) == n_greedy else chained(False, greedy, n_greedy)
+    build.launch_counts.clear()
+    e_ids, e_tps = chained(True, greedy, n_greedy)
+    eager_counts = dict(build.launch_counts)
+    if g_ids != e_ids or g_ids[:len(ref)] != ref:
+        raise RuntimeError(f"greedy ids of the graph and the eager body differ on the {label}"
+                           f" path:\n{g_ids}\n{e_ids}")
+    build.launch_counts.clear()
+    one, _ = chained(False, greedy, 16)
+    credited = dict(build.launch_counts)
+    n_quant = sum(isinstance(m, QuantTensor) for m in eng.model.modules())
+    want = {gemv: 16 * n_quant, **{k: 16 * eng.hp.n_layer for k in decode_counters}}
+    if (credited != eng.chunk_graph(16, greedy).counts
+            or any(credited.get(k) != n for k, n in want.items())
+            or credited.get(other_gemv, 0)
+            or any(credited.get(k, 0) for k in DECODE_COUNTERS if k not in decode_counters)
+            or {k: n * (n_greedy // 16) for k, n in credited.items()} != eager_counts
+            or one != g_ids[:16]):
+        raise RuntimeError(f"launch counts under one replay on the {label} path: {credited},"
+                           f" the capture's record: {eng.chunk_graph(16, greedy).counts}, the"
+                           f" eager {n_greedy} tokens': {eager_counts}, expected {want}")
+    device_ms = replay_device_ms(eng, 16, greedy, 2)
+    eng.rollback(start)
+    return {"graph_tok_s": g_tps, "eager_tok_s": e_tps, "graph_device_ms_per_token": device_ms,
+            "credited": credited, "greedy_ids_equal": n_greedy, "sampled_ids_equal": n_sampled}
 
 
 def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
@@ -512,6 +592,7 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
 
     eng.generate(prompt[:8], 4, SamplerParams(temp=0.0), stop_ids=set())  # warm-up
     eng.reset()
+    warm_capture_us = eng.timings.t_compile_us  # the greedy chunk's graph
     eng.timings = type(eng.timings)()
     torch.cuda.synchronize()
 
@@ -520,12 +601,28 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     tm = eng.timings
     n_prefill, n_decode = tm.n_prefill, tm.n_decode
     prefill_tps = n_prefill / (tm.t_prefill_us / 1e6)
-    decode_tps = n_decode / (tm.t_decode_us / 1e6)
+    decode_tps = n_decode / (tm.t_decode_us / 1e6)  # pipelined graph replays, capture apart
     sampler = SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1, seed=1234)
-    t0 = time.perf_counter()
-    sampled, _ = eng.decode_chunk(greedy[-1], 32, sampler, last_tokens=prompt + greedy)
-    sampled_tps = 32 / (time.perf_counter() - t0)
+    t_dec = tm.t_decode_us
+    sampled, _ = eng.decode_pipelined(greedy[-1], 32, 16, sampler, last_tokens=prompt + greedy)
+    sampled_tps = 32 / ((tm.t_decode_us - t_dec) / 1e6)
     counts = dict(build.launch_counts)
+    capture_ms = (warm_capture_us + tm.t_compile_us) / 1e3
+    mha = hp.n_head_kv == hp.n_head
+    # the wrapper's counter for this head layout and cache, and the route's
+    decode_counters = {"flash_decode" + (".mha" if mha else "") + (".int8" if int8 else ""),
+                       ("flash_decode.mha" if mha else "flash_decode_tc") + (".int8" if int8 else "")}
+    gemv, other_gemv = (("quant_matmul.gemv.kq", "quant_matmul.gemv") if GGMLType[fmt.upper()]
+                        in qm.K_QUANTS else ("quant_matmul.gemv", "quant_matmul.gemv.kq"))
+    graph = graph_vs_eager(torch, eng, len(prompt), greedy[0], prompt + greedy[:1], label,
+                           gemv, other_gemv, decode_counters, greedy_ref=greedy[1:])
+    graph["idle_share"] = 1.0 - graph["graph_device_ms_per_token"] * decode_tps / 1e3
+    graph["capture_ms"] = capture_ms
+    log(f"  decode graph vs eager step body: 64 greedy and 32 sampled ids identical; graph"
+        f" {decode_tps:.2f} tok/s (pipelined), eager {graph['eager_tok_s']:.2f} tok/s (4 chained"
+        f" 16-token chunks); device {graph['graph_device_ms_per_token']:.4f} ms a token, idle"
+        f" share {graph['idle_share']:.3f} of the pipelined run's {1e3 / decode_tps:.4f} ms;"
+        f" capture {capture_ms:.1f} ms (2 graphs); one replay credited: {graph['credited']}")
     peak = torch.cuda.max_memory_allocated()
     host_route = None
     if host_route_tokens:  # top_k 0: the whole vocabulary, sampled by the host cascade
@@ -546,14 +643,8 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
         f" sampled decode 32 tokens: {sampled_tps:.2f} tok/s;"
         f" peak device memory {peak / 2**30:.2f} GiB")
     log(f"  launches on the {label} path: {counts}")
-    mha = hp.n_head_kv == hp.n_head
-    # the wrapper's counter for this head layout and cache, and the route's
-    decode_counters = {"flash_decode" + (".mha" if mha else "") + (".int8" if int8 else ""),
-                       ("flash_decode.mha" if mha else "flash_decode_tc") + (".int8" if int8 else "")}
     # prefill: the tensor-core tile and attention kernel; decode: the format's
     # GEMV (and not the other) and this head layout's and cache's decode kernel
-    gemv, other_gemv = (("quant_matmul.gemv.kq", "quant_matmul.gemv") if GGMLType[fmt.upper()]
-                        in qm.K_QUANTS else ("quant_matmul.gemv", "quant_matmul.gemv.kq"))
     for name in ("quant_matmul", f"quant_matmul.{fmt}", "quant_matmul.tc", gemv,
                  "flash_mqa", "flash_mqa.tc", *decode_counters):
         if counts.get(name, 0) <= 0:
@@ -619,6 +710,7 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
                            f" {step_counts}")
     out = {"path": label, "launches": counts, "prefill_tok_s": prefill_tps,
            "decode_tok_s": decode_tps, "sampled_tok_s": sampled_tps, "peak_bytes": peak,
+           "graph": graph,
            "logit_rel_err": rel, "argmax_same": int(same.sum()),
            "argmax_decided": int(decided.sum()), "decode_logit_rel_err": rel_d,
            "decode_argmax_same": same_d, "decode_argmax_decided": decided_d,
@@ -645,7 +737,7 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
 def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: int = 2) -> dict:
     """The f32 route at full width and `n_layer` layers: float32 compute and
     cache, a 300-token prefill through the f32 SIMT tile, group_sums and the
-    f32 attention kernel, then 8 greedy tokens through the SIMT decode
+    f32 attention kernel, then 16 greedy tokens through the SIMT decode
     kernel. Fails unless all of them ran, no tensor-core kernel did, and the
     prefill logits of all positions agree with the plain versions to
     F32_LOGIT_TOL of max |logit|."""
@@ -674,10 +766,19 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
     t0 = time.perf_counter()
     got = eng.eval(prompt, logits_all=True)
     prefill_tps = len(prompt) / (time.perf_counter() - t0)
-    decoded, _ = eng.decode_chunk(int(got[-1].argmax()), 8)  # f32 q: the SIMT decode kernel
+    first = int(got[-1].argmax())
+    decoded, _ = eng.decode_chunk(first, 16)  # f32 q: the SIMT decode kernel
     counts = dict(build.launch_counts)
     log(f"  launches on the {label} path: {counts}")
-    if len(decoded) != 8 or not 0 <= int(decoded.min()) <= int(decoded.max()) < hp.n_vocab:
+    graph = graph_vs_eager(torch, eng, len(prompt), first, prompt + [first], label,
+                           "quant_matmul.gemv", "quant_matmul.gemv.kq",
+                           {"flash_decode", "flash_decode.simt"}, greedy_ref=decoded)
+    log(f"  decode graph vs eager step body: 64 greedy and 32 sampled ids identical; graph"
+        f" {graph['graph_tok_s']:.2f} tok/s, eager {graph['eager_tok_s']:.2f} tok/s (4 chained"
+        f" 16-token chunks each); device {graph['graph_device_ms_per_token']:.4f} ms a token;"
+        f" capture {eng.timings.t_compile_us / 1e3:.1f} ms; one replay credited:"
+        f" {graph['credited']}")
+    if len(decoded) != 16 or not 0 <= int(decoded.min()) <= int(decoded.max()) < hp.n_vocab:
         raise RuntimeError(f"bad decoded ids on the {label} path: {decoded}")
     for name in ("quant_matmul.simt", f"quant_matmul.{fmt}", "group_sums", "flash_mqa.simt",
                  "flash_decode", "flash_decode.simt", "quant_matmul.gemv"):
@@ -699,11 +800,36 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
     gc.collect()
     torch.cuda.empty_cache()
     return {"path": label, "launches": counts, "prefill_tok_s": prefill_tps, "logit_rel_err": rel,
-            "argmax_same": same}
+            "argmax_same": same, "graph": graph}
 
 
-def phase_cli() -> None:
-    """The CLI on small files of both families, all processes at once."""
+def _cli_in_process(args: list) -> bytes:
+    """The CLI's standard output for `args`, run in this process."""
+    import io
+
+    from ggllm_tpu_torch.tools import main as cli
+
+    out, saved = io.BytesIO(), (sys.stdout, sys.stderr)
+    sys.stdout, sys.stderr = io.TextIOWrapper(out, write_through=True), io.StringIO()
+    try:
+        rc = cli.main(args)
+        sys.stdout.flush()
+        text = out.getvalue()
+    finally:
+        sys.stdout, sys.stderr = saved
+    if rc != 0:
+        raise RuntimeError(f"the CLI in this process returned {rc}")
+    return text
+
+
+def start_cli(d: str) -> dict:
+    """Write the CLI's small files of both families into `d` and start the
+    CLI on them, all processes at once (their output goes to files in `d`);
+    on the Falcon Q4_0 file also a context swap (-c 128 --keep 16 -n 200),
+    the prompt from a file (-f, which must print what -p prints) and a
+    reverse prompt (-r with -n 40: the last bytes of the 16 tokens that -p
+    -n 16 prints, taken from a run in this process, and it must stop
+    there). Returns what check_cli needs."""
     from ggllm_tpu_torch.core.config import FalconHParams, LlamaHParams
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.utils.synthetic import write_tiny_llama, write_tiny_model
@@ -718,29 +844,73 @@ def phase_cli() -> None:
     cases = [("falcon", "q4_0", falcon7, []), ("falcon", "q4_k", falcon40, []),
              ("falcon", "q2_k", falcon40, []), ("falcon", "q3_k", falcon40, int8),
              ("llama", "q4_0", llama, []), ("llama", "q4_k", llama, int8)]
-    with tempfile.TemporaryDirectory() as d:
-        procs = []
-        for family, fmt, hp, extra in cases:
-            path = str(Path(d) / f"small-{family}-{fmt}.{'ggjt' if family == 'llama' else 'ggcc'}")
-            write = write_tiny_llama if family == "llama" else write_tiny_model
-            write(path, hp, GGMLType[fmt.upper()], seed=3)
+    greedy = ["--temp", "0", "--ignore-eos"]
+    cmds = []
+    for family, fmt, hp, extra in cases:
+        path = str(Path(d) / f"small-{family}-{fmt}.{'ggjt' if family == 'llama' else 'ggcc'}")
+        write = write_tiny_llama if family == "llama" else write_tiny_model
+        write(path, hp, GGMLType[fmt.upper()], seed=3)
+        cmds.append(["-m", path, "-p", "the thing", "-n", "16", *greedy, *extra])
+    q4_0 = cmds[0][1]
+    base = _cli_in_process(cmds[0])
+    # the antiprompt ends where the 16th token does (the CLI ends with one newline)
+    anti = base[len(b"the thing"):-1][-12:]
+    prompt_file = Path(d) / "prompt.txt"
+    prompt_file.write_text("the thing")
+    cmds += [["-m", q4_0, "-p", "the thing", "-c", "128", "--keep", "16", "-n", "200", *greedy],
+             ["-m", q4_0, "-f", str(prompt_file), "-n", "16", *greedy],
+             ["-m", q4_0, "-p", "the thing", "-n", "40", "--reverse-prompt=" + os.fsdecode(anti),
+              *greedy]]
+    procs = []
+    for i, cmd in enumerate(cmds):
+        with open(Path(d) / f"{i}.out", "wb") as out, open(Path(d) / f"{i}.err", "wb") as err:
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "ggllm_tpu_torch.tools.main", "-m", path, "-p",
-                 "the thing", "-n", "16", "--temp", "0", "--ignore-eos", *extra],
-                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-        results = []
-        try:
-            for p in procs:
-                results.append((p.communicate(timeout=600), p.returncode))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
+                [sys.executable, "-m", "ggllm_tpu_torch.tools.main", *cmd], cwd=ROOT,
+                stdout=out, stderr=err))
+    return {"dir": d, "cases": cases, "base": base, "anti": anti, "procs": procs}
+
+
+def wait_cli(run: dict) -> list:
+    """Wait for start_cli's processes; returns ((stdout bytes, stderr text), rc) each."""
+    results = []
+    for i, p in enumerate(run["procs"]):
+        rc = p.wait(timeout=600)
+        results.append(((Path(run["dir"], f"{i}.out").read_bytes(),
+                         Path(run["dir"], f"{i}.err").read_text(errors="replace")), rc))
+    return results
+
+
+def check_cli(run: dict, results: list) -> None:
+    """The CLI runs of start_cli: each must succeed and print its prompt
+    and timings, the Q4_0 run the text of the run in this process, the
+    context swap at least one swap, -f and -r the 16 tokens of -p -n 16."""
+    cases, base, anti = run["cases"], run["base"], run["anti"]
+
+    def compile_ms(err: str) -> str:  # the CLI's decode-graph capture time
+        m = re.search(r"compile time\s*=\s*([0-9.]+) ms", err)
+        return m.group(1) if m else "none"
+
     for (family, fmt, _, extra), ((out, err), rc) in zip(cases, results):
-        out, err = out.decode(errors="replace"), err.decode(errors="replace")
-        log(f"  cli {family} {fmt} {' '.join(extra)} rc={rc} stdout={out.strip()[:100]!r}")
-        if rc != 0 or not out.startswith("the thing") or "eval time" not in err:
+        log(f"  cli {family} {fmt} {' '.join(extra)} rc={rc} capture {compile_ms(err)} ms"
+            f" stdout={out.strip()[:100]!r}")
+        if rc != 0 or not out.startswith(b"the thing") or "eval time" not in err:
             raise RuntimeError(f"CLI run on a {family} {fmt} file failed:\n{out}\n{err}")
+    if results[0][0][0] != base:
+        raise RuntimeError(f"the CLI printed other text in this process:\n{base}\n"
+                           f"{results[0][0][0]}")
+    (out, err), rc = results[len(cases)]
+    swaps = err.count("context swap: kept")
+    log(f"  cli context swap (-c 128 --keep 16 -n 200) rc={rc}: {swaps} swap(s), {len(out)} bytes"
+        f" out, capture {compile_ms(err)} ms")
+    if rc != 0 or not swaps or not out.startswith(b"the thing") or "eval time" not in err:
+        raise RuntimeError(f"CLI context swap run failed:\n{out}\n{err}")
+    for what, ((out, err), rc) in zip(("-f", f"-r {anti!r} with -n 40"), results[len(cases) + 1:]):
+        same = out == base
+        log(f"  cli {what} rc={rc}: {'the 16 tokens of -p -n 16' if same else 'another output'},"
+            f" capture {compile_ms(err)} ms")
+        if rc != 0 or not same:
+            raise RuntimeError(f"CLI {what} run failed or printed other text than -p -n 16:\n"
+                               f"{out}\n{base}\n{err}")
 
 
 def main() -> int:
@@ -759,8 +929,9 @@ def main() -> int:
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True).stdout
     log(f"torch {torch.__version__} cuda {torch.version.cuda} driver {smi('driver_version')}"
         f" nvcc {nvcc.strip().splitlines()[-1]}")
-    bw, peak = PEAKS["pcie" if "PCIe" in kind else "nvl" if "NVL" in kind else "sxm"]
+    bw, peak, peak_f32 = PEAKS["pcie" if "PCIe" in kind else "nvl" if "NVL" in kind else "sxm"]
 
+    t_start = time.perf_counter()
     log("phase 1: build")
     t0 = time.perf_counter()
     build.lib()
@@ -768,27 +939,43 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ptxas.txt").write_text(build.build_log)
-    # the GEMVs decode their codes without int -> float conversions: every
-    # format, rows a warp (1, 2), x and y dtype of both kernels
-    from ggllm_tpu_torch.tools.sass_report import gemv_report
+    # phase 4's CLI processes run alongside the SASS report and end before
+    # phase 2 starts, so that nothing else runs on the card while it times
+    with tempfile.TemporaryDirectory() as d:
+        cli = start_cli(d)
+        try:
+            # the GEMVs decode their codes without int -> float conversions:
+            # every format, rows a warp (1, 2), x and y dtype of both kernels
+            from ggllm_tpu_torch.tools.sass_report import gemv_report
 
-    sass = gemv_report(build.BUILD / build.LIB_NAME)
-    (out_dir / "sass_gemv.json").write_text(json.dumps(sass, indent=1))
-    if len(sass) != len(qm.GEMV_LAYOUT) * 2 * 2 * 2 or any(r["I2F"] for r in sass):
-        raise RuntimeError(f"GEMV SASS: {len(sass)} kernels, I2F in"
-                           f" {[r for r in sass if r['I2F']]}")
-    for r in sass:  # the instantiations the bf16 decode paths launch
-        if (r["x"] == r["y"] == "bfloat16"
-                and r["rows"] == qm.GEMV_ROWS[GGMLType[r["format"].upper()]]):
-            log(f"  quant_gemv_{r['kernel']} {r['format']} {r['rows']} row(s) a warp:"
-                f" {r['instructions']} SASS instructions, no I2F; loop {r['loop_instructions']}"
-                f" ({r['loop_instructions_per_weight']} a weight)")
+            sass = gemv_report(build.BUILD / build.LIB_NAME)
+            (out_dir / "sass_gemv.json").write_text(json.dumps(sass, indent=1))
+            if len(sass) != len(qm.GEMV_LAYOUT) * 2 * 2 * 2 or any(r["I2F"] for r in sass):
+                raise RuntimeError(f"GEMV SASS: {len(sass)} kernels, I2F in"
+                                   f" {[r for r in sass if r['I2F']]}")
+            for r in sass:  # the instantiations the bf16 decode paths launch
+                if (r["x"] == r["y"] == "bfloat16"
+                        and r["rows"] == qm.GEMV_ROWS[GGMLType[r["format"].upper()]]):
+                    log(f"  quant_gemv_{r['kernel']} {r['format']} {r['rows']} row(s) a warp:"
+                        f" {r['instructions']} SASS instructions, no I2F; loop"
+                        f" {r['loop_instructions']} ({r['loop_instructions_per_weight']} a weight)")
 
+            cli_results = wait_cli(cli)
+        finally:
+            for p in cli["procs"]:
+                if p.poll() is None:
+                    p.kill()
+        log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+        log("phase 4: CLI on GGCC and GGJT files (run alongside the SASS report)")
+        check_cli(cli, cli_results)
+
+    log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
     log("phase 2: kernels vs plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = phase_kernels(torch, Timer(torch), bw, peak)
+    rows = phase_kernels(torch, Timer(torch), bw, peak, peak_f32)
     (out_dir / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 
+    log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
     log("phase 3: full-width main paths")
     paths = []
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
@@ -807,8 +994,7 @@ def main() -> int:
     (out_dir / "chip_smoke_paths.json").write_text(json.dumps({"card": card, "paths": paths},
                                                               indent=1))
 
-    log("phase 4: CLI on GGCC and GGJT files")
-    phase_cli()
+    log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
 
     headline = {  # the JSON line's shape per kernel
         "quant_matmul": "q4_0 wqkvu O=22848 K=4544 S=1",

@@ -1,16 +1,29 @@
 """Single-stream inference engine (port of the single-stream part of
 ggllm_tpu/engine/engine.py FalconEngine:143).
 
-PyTorch runs eagerly, so the JAX engine's compile-shaped machinery has no
-counterpart here: prefill chunks run at their own length (no power-of-two
-buckets), and decoding is a Python step loop whose tokens stay on the
-device until the end of a chunk (no fused lax.scan). With a dense cache
-each layer writes its K/V into the cache in place before attending, which
-gives the JAX engine's numbers because its pending buffer has the cache's
-dtype. With an int8 cache decode_chunk runs the JAX engine's chunk-deferred
-scheme (engine.py:542-585): the chunk's K/V stay unquantized in a pending
-buffer in the compute dtype, attention reads the quantized cache below the
+Prefill runs eagerly, each n_batch chunk at its own length (no power-of-two
+buckets). Decoding is the counterpart of the JAX engine's fused loop
+(`_decode_loop_fn:495`, one jitted lax.scan of forward, penalties, sampling
+and the penalty ring): on the card a chunk of n_steps tokens is ONE CUDA
+graph, captured once per key (n_steps, temp, top_k, top_p, penalty spec)
+with the step index j unrolled, and replayed. Its static inputs (the first
+token, n_past, the ring, the ring position, the chunk's uniforms) are
+written by device copies before each replay and its token ids are copied
+out after it; the graphs of an engine share one memory pool. Capture time
+goes to Timings.t_compile_us, as the JAX engine books its compiles. On the
+CPU (device="cpu"), or on the card when the caller passes eager=True, the
+same step body runs eagerly on the same buffers. A failed capture raises,
+naming the step; nothing falls back to the eager body.
+
+With a dense cache each layer writes its K/V into the cache in place (at a
+device position, by an indexed copy) before attending, which gives the JAX
+engine's numbers because its pending buffer has the cache's dtype. With an
+int8 cache decoding runs the JAX engine's chunk-deferred scheme
+(engine.py:542-585): the chunk's K/V stay unquantized in a pending buffer
+in the compute dtype, attention reads the quantized cache below the
 chunk's start plus that buffer, and one quantizing write ends the chunk.
+The cache's storage lives as long as the engine (`reset` zeroes it in
+place), since captured graphs point at it; assigning `kv` drops them.
 """
 
 from __future__ import annotations
@@ -23,7 +36,7 @@ import torch
 
 from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams, LlamaHParams
 from ggllm_tpu_torch.core.device import resolve_device
-from ggllm_tpu_torch.kernels import flash_decode
+from ggllm_tpu_torch.kernels import build, flash_decode
 from ggllm_tpu_torch.models import resolve_model
 from ggllm_tpu_torch.ops import kvcache, sampling, sampling_device
 from ggllm_tpu_torch.ops.rope import rope_angles
@@ -37,8 +50,9 @@ class Timings:
     """falcon_print_timings fields (libfalcon.cpp:4700-4715)."""
 
     t_load_us: float = 0.0
-    t_sample_us: float = 0.0
-    t_prefill_us: float = 0.0
+    t_compile_us: float = 0.0  # one-time CUDA graph captures, kept out of
+    t_sample_us: float = 0.0   # the per-token buckets so that short runs
+    t_prefill_us: float = 0.0  # report steady-state numbers
     t_decode_us: float = 0.0
     n_sample: int = 0
     n_prefill: int = 0
@@ -46,6 +60,10 @@ class Timings:
 
     def report(self) -> str:
         lines = [f"load time       = {self.t_load_us / 1000:.2f} ms"]
+        if self.t_compile_us:
+            lines.append(
+                f"compile time    = {self.t_compile_us / 1000:.2f} ms"
+                " (one-time CUDA graph captures of the decode chunks)")
         if self.n_sample:
             lines.append(
                 f"sample time     = {self.t_sample_us / 1000:.2f} ms / {self.n_sample} runs"
@@ -62,6 +80,29 @@ class Timings:
                 f" ({self.t_decode_us / 1000 / max(1, self.n_decode):.2f} ms per token,"
                 f" {self.n_decode / max(1e-9, self.t_decode_us / 1e6):.2f} tokens per second)")
         return "\n".join(lines)
+
+
+class _Chunk:
+    """One decode-chunk program: its key's settings, the static buffers its
+    steps read and write, and its CUDA graph once captured."""
+
+    def __init__(self, n_steps: int, temp: float, top_k: int, top_p: float, spec: tuple,
+                 n_vocab: int, device):
+        self.n_steps, self.temp, self.top_k, self.top_p, self.spec = (
+            n_steps, temp, top_k, top_p, spec)
+        self.L = max(int(spec[1]), 1)  # penalty ring length
+        self.bias = sampling_device.bias_tensors(spec, device)
+        self.tok = torch.zeros(1, dtype=torch.long, device=device)
+        self.n_past = torch.zeros(1, dtype=torch.int32, device=device)
+        self.ring = torch.full((self.L,), n_vocab, dtype=torch.long, device=device)
+        self.pos = torch.zeros(1, dtype=torch.long, device=device)
+        self.u = None if temp <= 0.0 else torch.full(
+            (n_steps, sampling_device.n_candidates(top_k, n_vocab)), 0.5, device=device)
+        self.out = torch.zeros(n_steps, dtype=torch.long, device=device)
+        pin = device.type == "cuda"
+        self.host = [torch.empty(n_steps, dtype=torch.long, pin_memory=pin) for _ in range(2)]
+        self.done = [torch.cuda.Event() if pin else None for _ in range(2)]
+        self.graph: build.Graph | None = None
 
 
 class FalconEngine:
@@ -102,6 +143,9 @@ class FalconEngine:
         self.inv_freq = torch.from_numpy(rope_angles(
             self.cfg.rope, self.cfg.n_ctx, hparams.head_dim, arch=hparams.arch)).to(self.device)
         self.n_past = 0
+        self._chunks: dict[tuple, _Chunk] = {}
+        self._stream = None  # the stream the decode graphs are captured on
+        self._pool = None  # the memory pool they share
         self.kv = self.new_kv()
         self.timings = Timings()
 
@@ -119,9 +163,22 @@ class FalconEngine:
         shape = (hp.n_layer, 2, self.batch, self.kv_T, hp.n_head_kv, hp.head_dim)
         return kvcache.new(shape, self.cfg.kv_dtype, self.device)
 
+    @property
+    def kv(self):
+        """The KV cache. Assigning a new one drops the captured decode
+        graphs, which point at the old one's storage."""
+        return self._kv
+
+    @kv.setter
+    def kv(self, kv):
+        self._kv = kv
+        self._chunks.clear()
+
     def reset(self):
+        """Back to an empty context: the cache is zeroed in place (its
+        storage, which the decode graphs point at, is kept)."""
         self.n_past = 0
-        self.kv = self.new_kv()
+        kvcache.zero_(self.kv)
 
     # ---------------------------------------------------------------- eval
 
@@ -161,65 +218,209 @@ class FalconEngine:
 
     # ------------------------------------------------------------ decoding
 
-    def _ring(self, sampler, first_token: int, last_tokens) -> tuple[torch.Tensor, int]:
-        """Device ring of the last repeat_last_n tokens (n_vocab = empty)."""
-        L = max(int(sampler.repeat_last_n), 1)
-        window = list(last_tokens) if last_tokens else [int(first_token)]
-        window = window[-min(L, self.cfg.n_ctx):]
-        ring = np.full(L, self.hp.n_vocab, dtype=np.int64)
-        ring[:len(window)] = window
-        return torch.from_numpy(ring).to(self.device), len(window) % L
-
     def new_generator(self, sampler) -> torch.Generator:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(sampler.seed if sampler.seed >= 0 else 0)
         return gen
 
+    def _key(self, n_steps: int, sampler) -> tuple:
+        spec = sampling_device.penalty_spec(sampler, self.hp.n_vocab, self.nl_token)
+        return (n_steps, float(sampler.temp), int(sampler.top_k), float(sampler.top_p), spec)
+
+    def _chunk(self, n_steps: int, sampler) -> _Chunk:
+        """The decode-chunk program of (n_steps, temp, top_k, top_p, penalty
+        spec), the JAX loop's program key."""
+        key = self._key(n_steps, sampler)
+        if key not in self._chunks:
+            self._chunks[key] = _Chunk(*key, self.hp.n_vocab, self.device)
+        return self._chunks[key]
+
+    def _steps(self, c: _Chunk, n: int, at: list | None = None) -> None:
+        """The step body: n forward + penalty + sample steps from c.tok at
+        position c.n_past, each sampled id into c.out[j] and the penalty
+        ring (slot (c.pos + j) mod L); with an int8 cache the chunk's K/V
+        gather in a pending buffer and one quantizing write ends the chunk.
+        Reads and writes only device tensors: this is what a graph captures.
+        at[0] follows the step (for the capture's error message)."""
+        kv, tok, pending = self.kv, c.tok, None
+        if kvcache.is_quantized(kv):  # chunk-deferred: the cache is read-only
+            L_, _, B, _, KV, D = kv[0].shape
+            pending = torch.zeros(L_, 2, B, n, KV, D, device=self.device,
+                                  dtype=getattr(torch, self.cfg.compute_dtype))
+        for j in range(n):
+            if at is not None:
+                at[0] = j
+            pos = c.n_past if j == 0 else c.n_past + j
+            if pending is None:
+                logits = self.model(tok.view(1, 1), kv, pos, self.inv_freq)[0, 0]
+            else:
+                logits, kv_new = self.model(tok.view(1, 1), kv, pos, self.inv_freq,
+                                            pending=pending, n_pend=j)
+                pending[:, :, :, j:j + 1] = kv_new
+                logits = logits[0, 0]
+            penalized = sampling_device.apply_penalties(logits, c.ring, c.spec, c.bias)
+            nxt = sampling_device.sample_logits(penalized, c.temp, c.top_k, c.top_p,
+                                                None if c.u is None else c.u[j])
+            c.ring.index_copy_(0, (c.pos + j) % c.L, nxt.view(1))
+            c.out[j] = nxt
+            tok = nxt.view(1)
+        if pending is not None:  # the chunk's one (quantizing) write
+            kvcache.write_all_layers(kv, pending, c.n_past)
+
+    def _capture(self, c: _Chunk) -> None:
+        """Capture c's n_steps steps as one CUDA graph on the engine's
+        capture stream, after one eager step there (which makes the
+        stream's flash-decode workspaces and library workspaces outside the
+        capture). The warm-up writes only cache positions at and above
+        n_past, which the chunk rewrites, and the inputs that every replay
+        sets. Raises if the capture fails, naming the step and the reason."""
+        t0 = time.perf_counter()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        c.n_past.fill_(self.n_past)
+        side = self._stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._steps(c, 1)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph, at = build.Graph(), [0]
+        try:
+            with graph.capture(pool=self._pool, stream=side):
+                self._steps(c, c.n_steps, at)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing the {c.n_steps}-step decode chunk (temp {c.temp}, top_k {c.top_k},"
+                f" top_p {c.top_p}) failed at step {at[0]}: {e}") from e
+        c.graph = graph
+        self.timings.t_compile_us += (time.perf_counter() - t0) * 1e6
+
+    def _start(self, c: _Chunk, first_token: int, last_tokens, eager: bool) -> int:
+        """Capture c if it runs as a graph and is not yet captured, then set
+        its first token and penalty ring; returns the ring position."""
+        if not eager and self.device.type == "cuda" and c.graph is None:
+            self._capture(c)
+        window = list(last_tokens) if last_tokens else [int(first_token)]
+        window = window[-min(c.L, self.cfg.n_ctx):]
+        ring = np.full(c.L, self.hp.n_vocab, dtype=np.int64)
+        ring[:len(window)] = window
+        ring = torch.from_numpy(ring)
+        if self.device.type == "cuda":
+            ring = ring.pin_memory()
+        c.ring.copy_(ring, non_blocking=True)
+        c.tok.fill_(int(first_token))
+        return len(window) % c.L
+
+    def _launch(self, c: _Chunk, pos: int, generator, slot: int, eager: bool) -> None:
+        """One chunk at the engine's n_past: its inputs set by device
+        writes, the graph replayed (or the step body run), its ids copied
+        into pinned host buffer `slot` with an event behind them. Nothing
+        here waits for the device."""
+        c.n_past.fill_(self.n_past)
+        c.pos.fill_(pos)
+        if c.u is not None:  # the chunk's uniforms, one launch
+            c.u.uniform_(generator=generator)
+        if eager or self.device.type != "cuda":
+            self._steps(c, c.n_steps)
+        else:
+            c.graph.replay()
+        c.host[slot].copy_(c.out, non_blocking=True)
+        if c.done[slot] is not None:
+            c.done[slot].record()
+        self.n_past += c.n_steps
+
+    @staticmethod
+    def _fetch(c: _Chunk, slot: int) -> np.ndarray:
+        if c.done[slot] is not None:
+            c.done[slot].synchronize()
+        return c.host[slot].numpy().copy()
+
     @torch.inference_mode()
     def decode_chunk(self, first_token: int, n_steps: int, sampler=None,
-                     generator: torch.Generator | None = None, last_tokens=None):
+                     generator: torch.Generator | None = None, last_tokens=None,
+                     eager: bool = False):
         """Run n_steps forward+sample steps starting from first_token
-        (already sampled, not yet forwarded). Returns (the n_steps sampled
-        successor ids as numpy, the generator); advances n_past by n_steps.
+        (already sampled, not yet forwarded): on the card one replay of the
+        chunk's CUDA graph (captured on first use), on the CPU or with
+        eager=True (the reference the graphs are held to) the step body.
+        Returns (the n_steps sampled successor ids as numpy, the
+        generator); advances n_past by n_steps.
 
         last_tokens: recent token history ENDING WITH first_token; seeds the
         on-device penalty window. Defaults to just [first_token]."""
+        return self._decode(first_token, n_steps, n_steps, sampler, generator, last_tokens,
+                            None, eager)
+
+    @torch.inference_mode()
+    def decode_pipelined(self, first_token: int, n_total: int, n_steps: int, sampler=None,
+                         generator: torch.Generator | None = None, last_tokens=None,
+                         on_tokens=None):
+        """n_total tokens in n_steps-sized chunks, PIPELINED (the JAX
+        engine's decode_pipelined:658): chunk i+1 is enqueued (its first
+        token fed from chunk i's last id by a device copy, its ring left on
+        the device) before the host waits for chunk i's ids, which each
+        chunk copies into a pinned host buffer of its own behind an event.
+        The same ids as chained decode_chunk calls.
+
+        n_total need not be a multiple of n_steps: the last chunk runs in
+        full through the same graph and its ids past n_total are dropped
+        (their cache positions lie in the cache's scratch region beyond
+        n_ctx at most, and past n_past afterwards), so one graph a sampler
+        key serves every length.
+
+        on_tokens(np.ndarray) is called per fetched chunk; returning False
+        stops early (the chunk already enqueued still advances n_past, up
+        to n_total: use rollback() to discard it). Returns (all fetched
+        ids, the generator set back to its state after the last fetched
+        chunk's draw)."""
+        return self._decode(first_token, n_total, n_steps, sampler, generator, last_tokens,
+                            on_tokens, False)
+
+    def _decode(self, first_token: int, n_total: int, n_steps: int, sampler, generator,
+                last_tokens, on_tokens, eager: bool):
         sampler = sampler or sampling.SamplerParams(temp=0.0)
-        if self.n_past + n_steps > self.cfg.n_ctx:
+        if not n_total > 0 < n_steps:
+            raise ValueError(f"n_total {n_total} and n_steps {n_steps} must be positive")
+        n_chunks = -(-n_total // n_steps)
+        if self.n_past + n_total > self.cfg.n_ctx:
             raise ValueError("context overflow")
-        spec = sampling_device.penalty_spec(sampler, self.hp.n_vocab, self.nl_token)
+        if self.n_past + n_chunks * n_steps > self.kv_T:
+            raise ValueError(f"{n_steps}-step chunks for {n_total} tokens from n_past"
+                             f" {self.n_past} run past the cache's {self.kv_T} positions")
         generator = generator or self.new_generator(sampler)
-        ring, pos = self._ring(sampler, first_token, last_tokens)
-        L = ring.numel()
-        out = torch.empty(n_steps, dtype=torch.long, device=self.device)
-        tok = torch.tensor([int(first_token)], dtype=torch.long, device=self.device)
-        pending = None
-        if kvcache.is_quantized(self.kv):  # chunk-deferred: the cache is read-only
-            L_, _, B, _, KV, D = self.kv[0].shape
-            pending = torch.zeros(L_, 2, B, n_steps, KV, D, device=self.device,
-                                  dtype=getattr(torch, self.cfg.compute_dtype))
+        c = self._chunk(n_steps, sampler)
+        start, t_compile = self.n_past, self.timings.t_compile_us
         t0 = time.perf_counter()
-        for j in range(n_steps):
-            if pending is None:
-                logits = self._forward(tok)[0, 0]
-            else:
-                logits, kv_new = self.model(tok.reshape(1, 1), self.kv, self.n_past + j,
-                                            self.inv_freq, pending=pending, n_pend=j)
-                pending[:, :, :, j:j + 1] = kv_new
-                logits = logits[0, 0]
-            penalized = sampling_device.apply_penalties(logits, ring, spec)
-            nxt = sampling_device.sample_logits(penalized, generator, float(sampler.temp),
-                                                int(sampler.top_k), float(sampler.top_p))
-            ring[(pos + j) % L] = nxt
-            out[j] = nxt
-            tok = nxt.reshape(1)
-        if pending is not None:  # the chunk's one (quantizing) write
-            kvcache.write_all_layers(self.kv, pending, self.n_past)
-            self.n_past += n_steps
-        toks = out.cpu().numpy()
-        self.timings.t_decode_us += (time.perf_counter() - t0) * 1e6
-        self.timings.n_decode += n_steps
-        return toks, generator
+        pos = self._start(c, first_token, last_tokens, eager)
+        out: list[np.ndarray] = []
+        states = []  # generator state after each enqueued chunk's draw
+
+        def consume(i: int) -> bool:
+            toks = self._fetch(c, i % 2)[:n_total - i * n_steps]
+            out.append(toks)
+            return on_tokens is None or on_tokens(toks) is not False
+
+        for i in range(n_chunks):
+            if i:
+                c.tok.copy_(c.out[-1:])
+            self._launch(c, pos + i * n_steps, generator, i % 2, eager)
+            states.append(generator.get_state())
+            if i and not consume(i - 1):
+                break
+        else:
+            consume(n_chunks - 1)
+        generator.set_state(states[len(out) - 1])
+        self.n_past = min(self.n_past, start + n_total)
+        n_done = sum(len(t) for t in out)
+        self.timings.t_decode_us += ((time.perf_counter() - t0) * 1e6
+                                     - (self.timings.t_compile_us - t_compile))
+        self.timings.n_decode += n_done
+        return np.concatenate(out), generator
+
+    def chunk_graph(self, n_steps: int, sampler) -> build.Graph | None:
+        """The captured graph of the chunk key (n_steps, sampler), or None."""
+        c = self._chunks.get(self._key(n_steps, sampler))
+        return None if c is None else c.graph
 
     def rollback(self, n_past: int):
         """Roll the logical KV position back (stale cache beyond is masked)."""
@@ -243,10 +444,12 @@ class FalconEngine:
         Routed as the JAX engine routes (engine.py:1328-1359): the host
         cascade (ops/sampling.py sample) draws the first token after
         prefill; then settings the device cascade covers (device_samplable)
-        decode in chunks of cfg.decode_chunk tokens sampled on the device,
-        and any other (top_k <= 0 or > 1024 at temp > 0, tfs / typical < 1,
-        mirostat) one token at a time through the host cascade, with one
-        SamplerState throughout. The last token is not forwarded."""
+        decode through decode_pipelined in chunks of cfg.decode_chunk tokens
+        sampled on the device (positions past a stop id are rolled back, as
+        ggllm_tpu/engine/generator.py does), and any other (top_k <= 0 or >
+        1024 at temp > 0, tfs / typical < 1, mirostat) one token at a time
+        through the host cascade, with one SamplerState throughout. The last
+        token is not forwarded."""
         sampler = sampler or sampling.SamplerParams()
         stop_ids = stop_ids or set()
         prompt_ids = list(map(int, np.asarray(prompt_ids).reshape(-1)))
@@ -264,22 +467,36 @@ class FalconEngine:
                 if self.n_past >= self.cfg.n_ctx:
                     break
                 logits = self.eval([out[-1]])
-                toks = [self._sample_host(logits, prompt_ids + out, sampler, state)]
-            else:
-                chunk = min(self.cfg.decode_chunk, n_predict - len(out),
-                            self.cfg.n_ctx - self.n_past)
-                if chunk <= 0:
-                    break
-                start = self.n_past
-                toks, generator = self.decode_chunk(out[-1], chunk, sampler, generator,
-                                                    last_tokens=prompt_ids + out)
-                self.timings.n_sample += chunk
-            for j, t in enumerate(map(int, toks)):
+                t = self._sample_host(logits, prompt_ids + out, sampler, state)
                 out.append(t)
                 if stream is not None:
                     stream(t)
                 if t in stop_ids:
-                    if on_device:  # positions beyond the stop are stale; roll back
-                        self.rollback(start + j + 1)
                     return out
+                continue
+            n_total = min(n_predict - len(out), self.cfg.n_ctx - self.n_past)
+            if n_total <= 0:
+                break
+            if n_total >= self.cfg.decode_chunk:  # whole chunks, then the tail
+                n_total -= n_total % self.cfg.decode_chunk
+            start, consumed, stopped = self.n_past, [0], [False]
+
+            def on_chunk(arr) -> bool:
+                self.timings.n_sample += len(arr)
+                for t in map(int, arr):
+                    out.append(t)
+                    consumed[0] += 1
+                    if stream is not None:
+                        stream(t)
+                    if t in stop_ids:
+                        stopped[0] = True
+                        return False
+                return True
+
+            _, generator = self.decode_pipelined(
+                out[-1], n_total, self.cfg.decode_chunk, sampler, generator,
+                last_tokens=prompt_ids + out, on_tokens=on_chunk)
+            if stopped[0]:  # positions beyond the stop are stale; roll back
+                self.rollback(start + consumed[0])
+                return out
         return out

@@ -10,12 +10,16 @@ size as `c_int`, and each entry point returns `cudaGetLastError()`.
 
 `launch_counts` counts successful kernel launches per wrapper name (and per
 variant, as "quant_matmul.q3_k" or "flash_decode.int8"); a wrapper adds one
-right after its launch returned 0 and nowhere else.
+right after its launch returned 0 and nowhere else. A CUDA graph's replay
+makes no Python call, so `Graph` records the counts its capture added (and
+takes them back: a capture launches nothing) and credits them once per
+replay, under the same names.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -142,6 +146,38 @@ def launch(name: str, counters, *args) -> None:
         raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")
     for counter in (counters,) if isinstance(counters, str) else counters:
         launch_counts[counter] += 1
+
+
+class Graph:
+    """A CUDA graph of kernel launches whose launch counts are credited on
+    every replay: `capture` records what the wrappers counted while it ran
+    and takes it off `launch_counts`; `replay` launches the graph and adds
+    the record back."""
+
+    def __init__(self):
+        import torch
+
+        self.graph = torch.cuda.CUDAGraph()
+        self.counts: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def capture(self, pool=None, stream=None):
+        import torch
+
+        before = collections.Counter(launch_counts)
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                yield self
+        finally:
+            self.counts = dict(launch_counts - before)
+            for name, n in self.counts.items():
+                launch_counts[name] -= n
+                if not launch_counts[name]:
+                    del launch_counts[name]
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launch_counts.update(self.counts)
 
 
 def stream_ptr(device) -> int:

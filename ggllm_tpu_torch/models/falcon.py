@@ -78,7 +78,9 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 
 
 def _positions(n_past, B: int, S: int, device) -> torch.Tensor:
-    """Per-row query positions (B, S). n_past: int or (B,) int tensor."""
+    """Per-row query positions (B, S). n_past: an int (a host value, for
+    prefill) or a (1,) / (B,) int tensor on the device (a decode step: the
+    positions are computed on the device, with no copy from the host)."""
     np_vec = torch.as_tensor(n_past, dtype=torch.long, device=device).reshape(-1).expand(B)
     return np_vec[:, None] + torch.arange(S, device=device)[None, :]
 
@@ -131,7 +133,9 @@ def attend(kv, l: int, q, kv_new, n_past, st, pending=None, n_pend: int = 0):
     cache in place first, then S == 1 runs flash_decode over the valid prefix
     and prefill runs flash_mqa (the plain `_attention` with st.flash False).
     With `pending` (chunk-deferred decode) the cache stays untouched and
-    attention reads it below n_past - n_pend plus [kv_new; pending[l, :n_pend]]."""
+    attention reads it below n_past - n_pend plus [kv_new; pending[l, :n_pend]].
+    n_past: an int or a device tensor (see Falcon.forward); n_pend is a
+    Python int, the step's index within a captured chunk."""
     if pending is not None:
         app = torch.cat([kv_new, pending[l, :, :, :n_pend].to(kv_new.dtype)], dim=2)
         if st.flash:
@@ -214,13 +218,16 @@ class Falcon(nn.Module):
             _attach(self, name, params[name])
         self.layers = nn.ModuleList(FalconLayer(lw) for lw in params["layers"])
 
-    def forward(self, tokens: torch.Tensor, kv, n_past: int, inv_freq: torch.Tensor,
+    def forward(self, tokens: torch.Tensor, kv, n_past, inv_freq: torch.Tensor,
                 logits_all: bool = False, last_pos: int | None = None,
                 pending: torch.Tensor | None = None, n_pend: int = 0):
         """tokens (B, S) int64 on the model's device; kv the stacked cache
         (L, 2, B, T, KV, D) or the int8 pair (codes, scales), updated in place
-        at [n_past, n_past + S). Returns f32 logits (B, S, V) if logits_all,
-        else (B, 1, V) at position last_pos (default S - 1).
+        at [n_past, n_past + S). n_past: a Python int, or a (1,) int tensor
+        on the model's device that RoPE, the cache write and flash_decode
+        read there (a decode step captured in a CUDA graph holds no host
+        value). Returns f32 logits (B, S, V) if logits_all, else (B, 1, V) at
+        position last_pos (default S - 1).
 
         pending / n_pend (chunk-deferred decode, S == 1): `pending` is the
         decode chunk's K/V buffer (L, 2, B, P, KV, D) whose first n_pend

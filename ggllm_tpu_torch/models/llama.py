@@ -114,12 +114,13 @@ class Llama(nn.Module):
             _attach(self, name, params[name])
         self.layers = nn.ModuleList(LlamaLayer(lw) for lw in params["layers"])
 
-    def forward(self, tokens: torch.Tensor, kv, n_past: int, inv_freq: torch.Tensor,
+    def forward(self, tokens: torch.Tensor, kv, n_past, inv_freq: torch.Tensor,
                 logits_all: bool = False, last_pos: int | None = None,
                 pending: torch.Tensor | None = None, n_pend: int = 0,
                 output_hidden: bool = False):
         """Same contract as models/falcon.py Falcon.forward (the engine
-        calls either), including the chunk-deferred decode mode (pending /
+        calls either; n_past an int or a device tensor), including the
+        chunk-deferred decode mode (pending /
         n_pend: the new K/V block (L, 2, B, 1, H, D) is returned beside the
         logits instead of written). output_hidden returns the final normed
         hidden state in f32 in place of the logits."""

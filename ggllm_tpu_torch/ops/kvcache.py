@@ -45,11 +45,29 @@ def quantize_new(kv_new: torch.Tensor):
     return q, scale
 
 
-def write_layer(kv, kv_new: torch.Tensor, l: int, n_past: int):
+def _time_index(n_past: torch.Tensor, S: int) -> torch.Tensor:
+    """Cache positions [n_past, n_past + S) of a (1,) or (B,) device n_past
+    (single stream: every row at row 0's position) as an int64 index."""
+    idx = n_past.reshape(-1)[:1].to(torch.int64)
+    return idx if S == 1 else idx + torch.arange(S, device=n_past.device)
+
+
+def write_layer(kv, kv_new: torch.Tensor, l: int, n_past):
     """Write kv_new (2, B, S, KV, D) into layer l at positions
-    [n_past, n_past + S), in place (quantized for an int8 cache); returns kv."""
+    [n_past, n_past + S), in place (quantized for an int8 cache); returns kv.
+    n_past: a Python int (prefill) or a (1,) / (B,) int tensor on the cache's
+    device, written by an indexed copy on the time axis, so that one
+    captured write serves any position."""
     S = kv_new.shape[2]
-    if is_quantized(kv):
+    if isinstance(n_past, torch.Tensor):
+        idx = _time_index(n_past, S)
+        if is_quantized(kv):
+            q, scale = quantize_new(kv_new)
+            kv[0][l].index_copy_(2, idx, q)
+            kv[1][l].index_copy_(2, idx, scale)
+        else:
+            kv[l].index_copy_(2, idx, kv_new.to(kv.dtype))
+    elif is_quantized(kv):
         q, scale = quantize_new(kv_new)
         kv[0][l, :, :, n_past:n_past + S] = q
         kv[1][l, :, :, n_past:n_past + S] = scale
@@ -58,17 +76,37 @@ def write_layer(kv, kv_new: torch.Tensor, l: int, n_past: int):
     return kv
 
 
-def write_all_layers(kv, kv_new: torch.Tensor, n_past: int):
+def write_all_layers(kv, kv_new: torch.Tensor, n_past):
     """Write every layer's kv_new (L, 2, B, S, KV, D) at positions
     [n_past, n_past + S), in place: the one write that ends a chunk-deferred
-    decode chunk (single stream: one n_past for all rows); returns kv."""
+    decode chunk (single stream: one n_past for all rows; an int or a device
+    tensor, as write_layer); returns kv."""
     S = kv_new.shape[3]
-    if is_quantized(kv):
+    if isinstance(n_past, torch.Tensor):
+        idx = _time_index(n_past, S)
+        if is_quantized(kv):
+            q, scale = quantize_new(kv_new)
+            kv[0].index_copy_(3, idx, q)
+            kv[1].index_copy_(3, idx, scale)
+        else:
+            kv.index_copy_(3, idx, kv_new.to(kv.dtype))
+    elif is_quantized(kv):
         q, scale = quantize_new(kv_new)
         kv[0][:, :, :, n_past:n_past + S] = q
         kv[1][:, :, :, n_past:n_past + S] = scale
     else:
         kv[:, :, :, n_past:n_past + S] = kv_new.to(kv.dtype)
+    return kv
+
+
+def zero_(kv):
+    """Reset a cache in place to what `new` allocates (codes 0, scales 1):
+    its storage, which captured CUDA graphs point at, is kept."""
+    if is_quantized(kv):
+        kv[0].zero_()
+        kv[1].fill_(1.0)
+    else:
+        kv.zero_()
     return kv
 
 

@@ -1,15 +1,21 @@
-"""Generation CLI (the core of ggllm_tpu/tools/main.py): load a Falcon GGCC
-file or a LLaMA GGJT file, tokenize the prompt with the file's tokenizer
-(BOS first), generate and print the text. Sampler settings that the device
-cascade covers sample on the card; the rest (--top-k 0, --tfs, --typical,
---mirostat) go through the host cascade (ops/sampling.py), as the JAX CLI's
-flags of the same names and defaults do.
+"""falcon_main equivalent on the port (ggllm_tpu/tools/main.py, minus the
+modes that wait for their modules): load a Falcon GGCC file or a LLaMA GGJT
+file, tokenize the prompt with the file's tokenizer (BOS first), and
+generate through engine/generator.py, with the full sampling cascade,
+antiprompts (-r), stopwords (-S, with streaming holdback so a stop string
+split across tokens never leaks), finetune templates, interactive mode,
+context swap past n_ctx (--keep, falcon_main.cpp:694-760) and logit bias.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
-Runs on the CUDA card unless --device cpu is given. --kv-dtype picks the KV
-cache's storage: bfloat16 (default), float32 (also --memory-f32) or int8
-(codes with one f32 scale per cached position and head).
+Sampler settings that the device cascade covers decode in pipelined chunks
+of --decode-chunk tokens, each one replay of a captured CUDA graph on the
+card; the rest (--top-k 0, --tfs, --typical, --mirostat), and every setting
+under --no-fused-decode, go one token at a time through the host cascade
+(ops/sampling.py). Flags, names and defaults are the JAX CLI's. Runs on the
+CUDA card unless --device cpu is given. --kv-dtype picks the KV cache's
+storage: bfloat16 (default), float32 (also --memory-f32) or int8 (codes
+with one f32 scale per cached position and head).
 """
 
 from __future__ import annotations
@@ -21,22 +27,85 @@ import time
 from ggllm_tpu_torch import tokenizer as tok_mod
 from ggllm_tpu_torch.core.config import EngineConfig
 from ggllm_tpu_torch.engine.engine import FalconEngine
+from ggllm_tpu_torch.engine.generator import Generator
 from ggllm_tpu_torch.io.loader import load_model
 from ggllm_tpu_torch.ops.sampling import SamplerParams
+from ggllm_tpu_torch.utils.finetune import build_prompt, detect_finetune, finetune_stopwords
+from ggllm_tpu_torch.utils.stream import StopStream
+
+
+def parse_logit_bias(specs: list[str]) -> dict[int, float]:
+    """--logit-bias TOKEN_ID(+|-)BIAS, e.g. '15043+1.5' or '2-inf' to ban
+    (falcon_common.cpp gpt_params_parse logit-bias handling)."""
+    out: dict[int, float] = {}
+    for spec in specs:
+        for sep in ("+", "-"):
+            i = spec.find(sep, 1)
+            if i > 0:
+                tid = int(spec[:i])
+                val = spec[i + 1:]
+                bias = float("-inf") if val.lower() == "inf" and sep == "-" else \
+                    float(val) * (1 if sep == "+" else -1)
+                out[tid] = bias
+                break
+        else:
+            raise ValueError(f"bad --logit-bias spec: {spec!r}")
+    return out
+
+
+ANSI_RESET = "\x1b[0m"
+ANSI_PROMPT = "\x1b[33m"        # yellow: prompt echo
+ANSI_USER = "\x1b[1;32m"        # bold green: user input
+
+RANDOM_PROMPTS = ["So", "Once upon a time", "When", "The", "After",
+                  "If", "import", "He", "She", "They"]
+
+
+def read_user_input(multiline: bool) -> str | None:
+    """Console line protocol (examples/common.cpp console_readline):
+
+    default mode — Return submits; a trailing '\\' continues on another
+    line; a trailing '/' submits without the final newline.
+    multiline mode — Return inserts a newline; a trailing '\\' submits;
+    '/' submits without the newline. Returns None at EOF with no input.
+    """
+    lines: list[str] = []
+    while True:
+        try:
+            line = input()
+        except EOFError:
+            return None if not lines else "\n".join(lines) + "\n"
+        if line.endswith("\\"):
+            lines.append(line[:-1])
+            if multiline:
+                return "\n".join(lines) + "\n"
+            continue
+        if line.endswith("/"):
+            lines.append(line[:-1])
+            return "\n".join(lines)
+        lines.append(line)
+        if not multiline:
+            return "\n".join(lines) + "\n"
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-m", "--model", required=True)
     ap.add_argument("-p", "--prompt", default="")
+    ap.add_argument("-f", "--file", help="read prompt from file")
+    ap.add_argument("--random-prompt", action="store_true",
+                    help="start with a short randomized prompt")
     ap.add_argument("-n", "--n-predict", type=int, default=128)
     ap.add_argument("-c", "--ctx-size", type=int, default=2048)
+    ap.add_argument("-b", "--batch-size", type=int, default=512)
     ap.add_argument("-s", "--seed", type=int, default=-1)
-    ap.add_argument("--temp", type=float, default=0.8)
+    ap.add_argument("--keep", type=int, default=0, dest="n_keep",
+                    help="tokens kept from the prompt head on context swap; -1 = whole prompt")
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--top-p", type=float, default=0.95)
     ap.add_argument("--tfs", type=float, default=1.0)
     ap.add_argument("--typical", type=float, default=1.0)
+    ap.add_argument("--temp", type=float, default=0.8)
     ap.add_argument("--repeat-penalty", type=float, default=1.1)
     ap.add_argument("--repeat-last-n", type=int, default=64)
     ap.add_argument("--frequency-penalty", type=float, default=0.0)
@@ -47,47 +116,219 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mirostat-eta", "--mirostat-lr", type=float, default=0.1,
                     dest="mirostat_eta", help="mirostat learning rate eta")
     ap.add_argument("--no-penalize-nl", action="store_true")
-    ap.add_argument("--ignore-eos", action="store_true")
+    ap.add_argument("-l", "--logit-bias", action="append", default=[],
+                    metavar="TOKEN_ID(+|-)BIAS",
+                    help="add BIAS to a token's logit ('-inf' bans it); repeatable")
+    ap.add_argument("--ignore-eos", action="store_true",
+                    help="never emit end-of-text (bans the EOS logit, the reference's"
+                         " --ignore-eos logit_bias[eos]=-inf)")
+    ap.add_argument("-r", "--reverse-prompt", action="append", default=[],
+                    help="antiprompt: stop generation when seen")
+    ap.add_argument("-S", "--stopwords", default=None,
+                    help="pipe-separated stopwords ('' disables finetune defaults)")
+    ap.add_argument("-i", "--interactive", action="store_true")
+    ap.add_argument("--interactive-first", action="store_true",
+                    help="interactive mode, waiting for input before generating anything")
+    ap.add_argument("-ins", "--instruct", action="store_true")
+    ap.add_argument("--in-prefix", default="",
+                    help="string prepended to every interactive user input")
+    ap.add_argument("--in-suffix", default="",
+                    help="string appended to every interactive user input")
+    ap.add_argument("--multiline-input", action="store_true",
+                    help="interactive input spans lines until a trailing '\\'")
+    ap.add_argument("--color", action="store_true",
+                    help="colorize output: prompt yellow, input green")
+    ap.add_argument("--sys-prompt", "--system", default=None, dest="sys_prompt",
+                    help="system prompt (finetune templated)")
+    ap.add_argument("--system-file", default=None, help="read the system prompt from a file")
+    ap.add_argument("--system-raw", action="store_true",
+                    help="prepend the system prompt verbatim, no template")
+    ap.add_argument("-enc", "--enclose-prompt", action="store_true",
+                    help="wrap -p in the detected finetune template")
+    ap.add_argument("--finetune", default="auto",
+                    choices=["auto", "none", "alpaca", "openassistant", "wizard", "falcon_ins"],
+                    help="finetune template override")
+    ap.add_argument("--verbose-prompt", action="store_true",
+                    help="print the tokenization of every ingested prompt")
+    ap.add_argument("--display-timings", dest="verbose_timings", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--memory-f32", action="store_true",
                     help="store the KV cache in f32 (sets --kv-dtype float32)")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
+    ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--no-fused-decode", action="store_true",
+                    help="force the per-token host sampling path")
+    ap.add_argument("--decode-chunk", type=int, default=16,
+                    help="tokens per CUDA graph replay in the fused decode loop (larger ="
+                         " faster, chunkier streaming)")
+    ap.add_argument("--verbose-timings", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    cfg = EngineConfig(n_ctx=args.ctx_size,
-                       kv_dtype="float32" if args.memory_f32 else args.kv_dtype)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.interactive_first:
+        args.interactive = True
+    if args.memory_f32:
+        args.kv_dtype = "float32"
+    if args.system_file:
+        with open(args.system_file, "rb") as f:
+            args.sys_prompt = f.read().decode("utf-8", errors="replace")
+    if args.ctx_size < 8:
+        print("warning: minimum context size is 8", file=sys.stderr)
+        args.ctx_size = 8
+    # large-context default-temperature derating (falcon_main.cpp:110-125
+    # intent: offset the perplexity increase at long NTK-scaled contexts;
+    # only when the user left --temp at its default)
+    if args.temp == parser.get_default("temp"):
+        for ctx, t in ((16384, 0.5), (8192, 0.6), (4096, 0.7)):
+            if args.ctx_size >= ctx:
+                print(f"info: context size {args.ctx_size} is large; reducing default"
+                      f" temperature to {t}", file=sys.stderr)
+                args.temp = t
+                break
+
+    cfg = EngineConfig(n_ctx=args.ctx_size, n_batch=args.batch_size, kv_dtype=args.kv_dtype,
+                       compute_dtype=args.compute_dtype, decode_chunk=args.decode_chunk)
     t0 = time.perf_counter()
     mf, params = load_model(args.model, cfg, device=args.device)
     tk = tok_mod.for_model(mf)
-    eng = FalconEngine(mf.hparams, params, cfg, device=args.device)
-    eng.timings.t_load_us = (time.perf_counter() - t0) * 1e6
-    prompt = args.prompt
-    prompt_ids = tk.tokenize(prompt, bos=not prompt.startswith("<|endoftext|>")) or [tk.bos_id]
+    engine = FalconEngine(mf.hparams, params, cfg, device=args.device)
+    engine.timings.t_load_us = (time.perf_counter() - t0) * 1e6
+    vocab = mf.vocab
+
     sampler = SamplerParams(
         temp=args.temp, top_k=args.top_k, top_p=args.top_p, tfs_z=args.tfs,
         typical_p=args.typical, repeat_penalty=args.repeat_penalty,
         repeat_last_n=args.repeat_last_n, frequency_penalty=args.frequency_penalty,
         presence_penalty=args.presence_penalty, mirostat=args.mirostat,
         mirostat_tau=args.mirostat_tau, mirostat_eta=args.mirostat_eta,
-        penalize_nl=not args.no_penalize_nl, seed=args.seed)
-    stop = set() if args.ignore_eos else {tk.eos_id}
-    n_predict = min(args.n_predict, cfg.n_ctx - len(prompt_ids))
-    out = sys.stdout.buffer
-    out.write(prompt.encode("utf-8"))
-    out.flush()
+        penalize_nl=not args.no_penalize_nl, logit_bias=parse_logit_bias(args.logit_bias),
+        seed=args.seed)
 
-    def stream(t: int):
-        if t not in stop:
-            out.write(tk.piece(t))
-            out.flush()
+    prompt = args.prompt
+    if args.file:
+        with open(args.file, "rb") as f:
+            prompt = f.read().decode("utf-8", errors="replace")
+    if args.random_prompt and not prompt:
+        import random
 
-    eng.generate(prompt_ids, n_predict, sampler, stop_ids=stop, stream=stream)
-    out.write(b"\n")
-    out.flush()
-    print(eng.timings.report(), file=sys.stderr)
+        prompt = random.Random(args.seed if args.seed >= 0 else None).choice(RANDOM_PROMPTS)
+    if args.sys_prompt and args.system_raw:
+        prompt = args.sys_prompt + prompt
+
+    finetune = detect_finetune(args.model, vocab) if args.finetune == "auto" else args.finetune
+    if args.enclose_prompt or args.instruct:
+        prompt = build_prompt(finetune, prompt, None if args.system_raw else args.sys_prompt)
+    stopwords = finetune_stopwords(finetune)
+    if args.stopwords is not None:
+        stopwords = [s for s in args.stopwords.split("|") if s]
+    print(f"finetune: {finetune}; stopwords: {stopwords}", file=sys.stderr)
+
+    prompt_ids = tk.tokenize(prompt, bos=not prompt.startswith("<|endoftext|>")) or [tk.bos_id]
+
+    def verbose_tokens(ids, label):
+        # falcon_main.cpp:542-555 "number of tokens in prompt" dump
+        if not args.verbose_prompt:
+            return
+        print(f"{label}: {len(ids)} tokens", file=sys.stderr)
+        for tid in ids:
+            s = tk.piece(tid).decode("utf-8", errors="replace")
+            s = s.replace("\n", "\\n").replace("\r", "\\r")
+            print(f"{tid:6d} -> '{s}'", file=sys.stderr)
+
+    verbose_tokens(prompt_ids, "prompt")
+
+    def set_color(code: str):
+        if args.color:
+            sys.stdout.write(code)
+            sys.stdout.flush()
+
+    if args.ignore_eos:
+        sampler.logit_bias[tk.eos_id] = float("-inf")
+    # keep the whole prompt on context swap when requested (reference
+    # falcon_main: n_keep < 0 or instruct mode -> full prompt)
+    n_keep = len(prompt_ids) if (args.n_keep < 0 or args.instruct) else args.n_keep
+    gen = Generator(engine, sampler, tk.eos_id, n_keep, fused_ok=not args.no_fused_decode,
+                    log=lambda m: print(f"\n[{m}]", file=sys.stderr))
+    stop_suffixes = [s.encode() for s in stopwords]
+    # the bytes given on the command line, also where they are no UTF-8
+    antiprompts = [a.encode("utf-8", "surrogateescape") for a in args.reverse_prompt]
+
+    set_color(ANSI_PROMPT)
+    sys.stdout.buffer.write(prompt.encode())
+    sys.stdout.flush()
+    set_color(ANSI_RESET)
+    logits = gen.prefill(prompt_ids)
+
+    def run_turn(logits):
+        ss = StopStream(stop_suffixes, antiprompts)
+
+        def on_token(tok: int) -> bool:
+            out = ss.push(tk.piece(tok))
+            if out:
+                sys.stdout.buffer.write(out)
+                sys.stdout.flush()
+            return not ss.stopped
+
+        reason = gen.generate(logits, args.n_predict, on_token)
+        if not ss.stopped:
+            tail = ss.flush()
+            if tail:
+                sys.stdout.buffer.write(tail)
+                sys.stdout.flush()
+        print()
+        return reason
+
+    # prefill logits not yet consumed by a generation turn (interactive-first
+    # defers the first turn until the user has spoken — or pressed Enter)
+    pending_logits = None
+    if args.interactive_first:
+        pending_logits = logits
+    else:
+        run_turn(logits)
+
+    if args.interactive:
+        control = (
+            " - To submit your input, end it with '\\'.\n"
+            if args.multiline_input else
+            " - Return submits; a trailing '\\' continues on another line;\n"
+            "   a trailing '/' submits without the final newline.\n")
+        print("== Running in interactive mode. ==\n"
+              " - An empty input continues the generation; Ctrl+D exits.\n"
+              + control, file=sys.stderr)
+        while True:
+            set_color(ANSI_USER)
+            if args.in_prefix:
+                sys.stdout.write(args.in_prefix)
+                sys.stdout.flush()
+            line = read_user_input(args.multiline_input)
+            set_color(ANSI_RESET)
+            if line is None:
+                break
+            if line.strip():
+                text = args.in_prefix + line + args.in_suffix
+                if args.in_suffix:
+                    sys.stdout.write(args.in_suffix)
+                    sys.stdout.flush()
+                if args.instruct:
+                    text = build_prompt(finetune, text, None)
+                ids = tk.tokenize(text)
+                verbose_tokens(ids, "input")
+                logits = gen.prefill(ids)
+            elif pending_logits is not None:
+                # interactive-first + empty input: generate from the prompt
+                logits = pending_logits
+            elif gen.pending_feed:
+                logits = gen.prefill([])  # continue the generation
+            else:
+                continue
+            pending_logits = None
+            run_turn(logits)
+
+    print(engine.timings.report(), file=sys.stderr)
     return 0
 
 

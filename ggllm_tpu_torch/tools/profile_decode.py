@@ -4,11 +4,14 @@ weights of one format from a seed), on the CUDA card.
 
     python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b|llama7b]
         [--format q4_0|q4_1|q5_0|q5_1|q8_0|q2_k|q3_k|q4_k|q5_k|q6_k]
-        [--kv-dtype bfloat16|float32|int8] [--prompt 300] [--tokens 16]
+        [--kv-dtype bfloat16|float32|int8] [--prompt 300] [--tokens 64]
 
 Prints one JSON object per phase: wall time, device busy time (the union
 of kernel intervals), the device's idle share, launches, and the kernels
-that take the most device time.
+that take the most device time. Decode runs through the replayed CUDA graph
+and through the eager step body in turns (time_kernels.py decode_turns:
+wall, device-busy and idle share, nodes a token, capture ms), then once
+more through the graph for its kernels by name.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.engine.engine import FalconEngine
 from ggllm_tpu_torch.ops.sampling import SamplerParams
+from ggllm_tpu_torch.tools.time_kernels import decode_turns
 from ggllm_tpu_torch.utils.benchgen import make_bench_params
 
 
@@ -63,14 +67,14 @@ def main(argv=None) -> int:
     ap.add_argument("--format", default="q4_0", help="2-D weight format (default q4_0)")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--prompt", type=int, default=300)
-    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=64, help="decode tokens a run (16-token chunks)")
     args = ap.parse_args(argv)
     hp = named_hparams(args.config)
     params = make_bench_params(hp, seed=7, gtype=GGMLType[args.format.upper()])
     eng = FalconEngine(hp, params, EngineConfig(kv_dtype=args.kv_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, args.prompt)]
     greedy = SamplerParams(temp=0.0)
-    eng.generate(prompt[:8], 4, greedy, stop_ids=set())  # warm-up
+    eng.eval(prompt[:8])  # warm-up
     eng.reset()
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -83,25 +87,29 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         logits = eng.eval(prompt)
         wall = time.perf_counter() - t0
-    print(json.dumps({"model": f"{args.config} {args.format} kv {args.kv_dtype}",
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "model": f"{args.config} {args.format} kv {args.kv_dtype}",
                       "phase": f"prefill {args.prompt}",
                       "wall_ms_per_token_unprofiled": plain_wall * 1e3 / args.prompt,
                       **_device_summary(prof, wall, args.prompt)}), flush=True)
 
     first = int(np.argmax(logits))
+    hist = prompt + [first]
+    turns = decode_turns(eng, first, hist, args.tokens)
     start = eng.n_past
-    t0 = time.perf_counter()  # the same tokens without the profiler's own cost
-    eng.decode_chunk(first, args.tokens, greedy, last_tokens=prompt + [first])
-    plain_wall = time.perf_counter() - t0
-    eng.rollback(start)
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof:  # one more graph run, for its kernels by name
         t0 = time.perf_counter()
-        eng.decode_chunk(first, args.tokens, greedy, last_tokens=prompt + [first])
+        out = []
+        for _ in range(args.tokens // 16):
+            toks, _ = eng.decode_chunk(out[-1] if out else first, 16, greedy,
+                                       last_tokens=hist + out)
+            out += [int(t) for t in toks]
         wall = time.perf_counter() - t0
-    print(json.dumps({"phase": f"decode {args.tokens} (greedy, n_past {args.prompt})",
-                      "wall_ms_per_token_unprofiled": plain_wall * 1e3 / args.tokens,
-                      **_device_summary(prof, wall, args.tokens)}), flush=True)
+    eng.rollback(start)
+    print(json.dumps({"phase": f"decode {args.tokens} (greedy, n_past {args.prompt}, 16-token"
+                               " chunks): graph and eager step body in turns",
+                      "turns": turns, "graph_run": _device_summary(prof, wall, len(out))}),
+          flush=True)
     return 0
 
 

@@ -7,7 +7,8 @@ turns within one call.
     python -m ggllm_tpu_torch.tools.time_kernels tile
     python ggllm_tpu_torch/tools/time_kernels.py attn [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
-        [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--chunks 4] [--tokens 64]
+        [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
+        [--prompt 300] [--tokens 64]
     python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR] [--family legacy|kq]
         [--shape q4_0:12288x4096 ...]
 
@@ -16,8 +17,10 @@ the `wgmma` tile's time with 128 and 256 x rows a block, with the width
 `tc_rows` picks, and `torch.matmul` on the dequantized bf16 weight (means of
 10 launches between two CUDA events, no L2 flush: lower than chip_smoke.py's
 medians with a flush). `decode` prints one JSON line: the prefill rate of a
-300-token prompt and the milliseconds per token of each greedy chunk at
-n_past 300. `attn` prints one JSON line per shape of the main paths' decode
+300-token prompt, then greedy decode at n_past 300 (`--prompt`) through the
+replayed CUDA graph and through the eager step body in turns (graph, eager,
+eager, graph; `decode_turns`): wall ms a token, device-busy ms a token, idle
+share and nodes a token, and the capture's ms. `attn` prints one JSON line per shape of the main paths' decode
 attention (Falcon-7B G=71 KV=1 D=64 at 1 / 300 / 2047 valid positions,
 Falcon-40B G=16 KV=8 at 300 / 2047, LLaMA-7B G=1 KV=32 D=128 at 1 / 300 /
 2047; bf16 and int8 caches of the model's depth and 2560 positions):
@@ -25,7 +28,9 @@ Falcon-40B G=16 KV=8 at 300 / 2047, LLaMA-7B G=1 KV=32 D=128 at 1 / 300 /
 cache for int8) timed two ways, `call_ms` = one call between two events as
 an eager decode step pays it (host work included), and `graph_ms` = device
 time, a CUDA graph of one call per layer replayed between two events,
-divided by the layers (both: medians of 20, L2 flushed before each).
+divided by the layers (both: medians of 20, L2 flushed before each);
+`graph_device_length_ms` the same with the length in a device tensor, as
+the decode graph passes it (the grid then covers all T positions).
 `gemv` prints one JSON line per decode weight shape of a family (legacy,
 the default: Q4_0, Q4_1, Q5_0, Q5_1 and Q8_0 at the Falcon-7B shapes, Q4_0 at
 LLaMA-7B's; kq: every K-quant at the Falcon-40B shapes, Q4_K at LLaMA-7B's;
@@ -153,9 +158,15 @@ def time_attn(T: int = 2560) -> None:
                 def ours(l):
                     return fd.flash_decode(cache, KV, l, q, valid - 1)
 
+                n_past = torch.full((1,), valid - 1, dtype=torch.int32, device="cuda")
+
+                def ours_dev(l):  # the decode graph's form: the grid covers all T
+                    return fd.flash_decode(cache, KV, l, q, n_past)
+
                 row = {"package": package, "cache": cache_name, "G": G, "KV": KV, "D": D,
                        "valid": valid, "call_ms": median_ms(lambda: ours(L - 1), flush),
                        "graph_ms": graph_ms(ours, L, flush),
+                       "graph_device_length_ms": graph_ms(ours_dev, L, flush),
                        "library_call_ms": median_ms(lambda: sdpa(L - 1), flush),
                        "library_graph_ms": graph_ms(sdpa, L, flush)}
                 print(json.dumps(row), flush=True)
@@ -254,37 +265,127 @@ def time_tile() -> None:
         del w, wd
 
 
-def time_decode(config: str, fmt: str, chunks: int, tokens: int) -> None:
+def chained_decode(eng, start: int, first: int, hist: list, n_tokens: int, sampler,
+                   eager: bool = False, chunk: int = 16) -> tuple[list, float]:
+    """n_tokens ids from n_past `start` (first sampled, not yet forwarded;
+    hist the history ending with it) as chained chunk-token decode_chunk
+    calls, through the replayed graphs or, with eager, the step body.
+    Returns (the ids, tok/s on the host clock, ending with the ids on the
+    host). A tree whose decode_chunk has no eager mode runs its own decode."""
+    import inspect
+
+    import torch
+
+    kw = {"eager": eager} if "eager" in inspect.signature(eng.decode_chunk).parameters else {}
+    eng.rollback(start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, tok, gen = [], first, None
+    for _ in range(n_tokens // chunk):
+        toks, gen = eng.decode_chunk(tok, chunk, sampler, gen, last_tokens=hist + out, **kw)
+        out += [int(t) for t in toks]
+        tok = out[-1]
+    return out, n_tokens / (time.perf_counter() - t0)
+
+
+def replay_device_ms(eng, chunk: int, sampler, reps: int) -> float:
+    """Device ms a token of `reps` back-to-back replays, between two CUDA
+    events, of the engine's captured chunk-token graph for `sampler`, with
+    its last inputs (the same cache positions and values). These replays
+    are not credited to the launch counters."""
+    import torch
+
+    g = eng.chunk_graph(chunk, sampler)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * chunk)
+
+
+def decode_turns(eng, first: int, hist: list, n_tokens: int, chunk: int = 16) -> dict:
+    """Greedy decode of n_tokens from the engine's n_past (first sampled, not
+    yet forwarded; hist the history ending with it) by `chained_decode`,
+    rolled back after each run: through the replayed graph and through the
+    eager step body, in turns (graph, eager, eager, graph). Each turn is one
+    run without the profiler (wall ms a token: host clock, ending with the
+    ids on the host) and one under torch.profiler (device-busy ms a token:
+    the union of the device's kernel, copy and fill intervals; nodes a
+    token: their count). Idle share = 1 - busy / the unprofiled wall. The
+    graph turns also give `replay_device_ms`. A tree whose decode_chunk has
+    no eager mode runs the eager turns only."""
+    import inspect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    greedy = SamplerParams(temp=0.0)
+    start = eng.n_past
+    has_graph = "eager" in inspect.signature(eng.decode_chunk).parameters
+
+    def run(eager: bool) -> float:
+        return chained_decode(eng, start, first, hist, n_tokens, greedy, eager, chunk)[1]
+
+    modes = ("graph", "eager", "eager", "graph") if has_graph else ("eager", "eager")
+    if has_graph:
+        run(False)  # capture
+    turns: dict = {}
+    for mode in modes:
+        eager = mode == "eager"
+        wall = n_tokens / run(eager)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_prof = n_tokens / run(eager)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, -1.0
+        for a, b in spans:  # union of device intervals, in microseconds
+            if a > end:
+                busy, end = busy + b - a, b
+            elif b > end:
+                busy, end = busy + b - end, b
+        row = {"wall_ms_per_token": wall * 1e3 / n_tokens,
+               "device_busy_ms_per_token": busy / 1e3 / n_tokens,
+               "idle_share": 1.0 - busy / 1e6 / wall,
+               "profiled_wall_ms_per_token": wall_prof * 1e3 / n_tokens,
+               "nodes_per_token": len(spans) / n_tokens}
+        if not eager:
+            row["replay_device_ms_per_token"] = replay_device_ms(eng, chunk, greedy, 4)
+        turns.setdefault(mode, []).append(row)
+    eng.rollback(start)
+    if has_graph:
+        turns["capture_ms"] = eng.timings.t_compile_us / 1e3
+    return turns
+
+
+def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: int) -> None:
     import numpy as np
     import torch
     from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
-    from ggllm_tpu_torch.ops.sampling import SamplerParams
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
     hp = named_hparams(config)
     eng = FalconEngine(hp, make_bench_params(hp, seed=7, gtype=GGMLType[fmt.upper()]),
-                       EngineConfig(kv_dtype="bfloat16"))
-    prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, 300)]
-    greedy = SamplerParams(temp=0.0)
-    eng.generate(prompt[:8], 4, greedy, stop_ids=set())  # warm-up
+                       EngineConfig(kv_dtype=kv_dtype))
+    prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, prompt_len)]
+    eng.eval(prompt[:8])  # warm-up
     eng.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = eng.eval(prompt)  # returns the logits on the host: the device is done
     prefill = time.perf_counter() - t0
-    first, start = int(np.argmax(logits)), eng.n_past
-    ms = []
-    for _ in range(chunks):
-        t0 = time.perf_counter()
-        eng.decode_chunk(first, tokens, greedy, last_tokens=prompt + [first])
-        ms.append((time.perf_counter() - t0) * 1e3 / tokens)
-        eng.rollback(start)
-        torch.cuda.synchronize()
+    first = int(np.argmax(logits))
+    turns = decode_turns(eng, first, prompt + [first], tokens)
     print(json.dumps({"package": str(Path(build.__file__).resolve().parents[2]),
-                      "model": f"{config} {fmt}", "prefill_tok_s": len(prompt) / prefill,
-                      "decode_ms_per_token": ms}), flush=True)
+                      "card": torch.cuda.get_device_name(0),
+                      "model": f"{config} {fmt} kv {kv_dtype}", "n_past": prompt_len,
+                      "prefill_tok_s": len(prompt) / prefill, "decode": turns}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -293,8 +394,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
     ap.add_argument("--format", default="q4_0")
-    ap.add_argument("--chunks", type=int, default=4)
-    ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
+    ap.add_argument("--prompt", type=int, default=300, help="decode: n_past")
+    ap.add_argument("--tokens", type=int, default=64, help="decode: tokens a run (16-token chunks)")
     ap.add_argument("--family", choices=("legacy", "kq"), default="legacy",
                     help="gemv: the legacy formats' shapes or the K-quants'")
     ap.add_argument("--shape", action="append", default=[],
@@ -316,7 +418,7 @@ def main(argv=None) -> int:
                 shapes.append((fmt, f"{O}x{K}", O, K))
         time_gemv(shapes)
     else:
-        time_decode(args.config, args.format, args.chunks, args.tokens)
+        time_decode(args.config, args.format, args.kv_dtype, args.prompt, args.tokens)
     return 0
 
 

@@ -8,9 +8,11 @@ tiles), 16- and 32-wide group sums, per-row
 n_past / valid vectors, head_dim 32, Falcon-40B's 16 query heads per K/V
 head, LLaMA's G == 1 head layouts (head_dim 32, 64, 128; head counts that do
 not fill a block) in both attention kernels, the int8 cache's partials with
-bf16 and f32 queries, refusals of what the kernels do not take, and tiny
+bf16 and f32 queries, refusals of what the kernels do not take, tiny
 Falcon and LLaMA models (some on an int8 cache) end to end on the card
-against the CPU. They import no JAX, so they run on a
+against the CPU, and decode as replayed CUDA graphs: the same ids as the
+eager step body, at several positions and after reset and rollback, no
+host synchronization inside a replay, launch counts credited per replay. They import no JAX, so they run on a
 machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -698,9 +700,174 @@ def test_tiny_llama_on_card_matches_cpu(dev, tmp_path, gtype, kv_dtype, compute)
         logits.append(eng.eval(prompt))
         eng.reset()
         ids.append(eng.generate(prompt, 20, SamplerParams(temp=0.0)))
-    assert build.launch_counts[counter] == before + 19 * hp.n_layer
+    # 19 decode tokens as two replays of one 16-step graph (the second's 13
+    # surplus steps dropped), plus the one eager step that warms it up
+    captures = sum(c.graph is not None for c in eng._chunks.values())
+    assert captures == 1 and build.launch_counts[counter] == before + (32 + captures) * hp.n_layer
     scale = np.abs(logits[0]).max()
     exact = compute == "float32" and kv_dtype != "int8"
     atol = 1e-4 if exact else 2e-3 if compute == "float32" else 2e-2
     np.testing.assert_allclose(logits[1] / scale, logits[0] / scale, atol=atol)
     assert len(ids[0]) == len(ids[1]) == 20 and (ids[0] == ids[1] or not exact)
+
+
+# ---------------------------------------------------------------- decode graphs
+
+
+def _graph_engine(tmp_path, family, kv_dtype, compute="bfloat16"):
+    """A tiny model at head_dim 64 on the card (Falcon: 4 heads over one K/V
+    head, the tensor-core decode kernel; LLaMA: the G == 1 kernel) after a
+    20-token prefill; returns (engine, first token, prompt)."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_llama, write_tiny_model
+
+    if family == "llama":
+        path = str(tmp_path / "tiny.ggjt")
+        write_tiny_llama(path, LlamaHParams(n_vocab=512, n_embd=256, n_mult=256, n_head=4,
+                                            n_layer=2, n_rot=64), GGMLType.Q4_0, seed=5)
+    else:
+        path = str(tmp_path / "tiny.ggcc")
+        write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                             n_layer=2, n_falcon_type=7, n_bpe_merges=0),
+                         GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=256, n_batch=64, kv_dtype=kv_dtype, compute_dtype=compute)
+    mf, params = load_model(path, cfg, device="cuda")
+    eng = FalconEngine(mf.hparams, params, cfg)
+    prompt = [int(t) for t in np.random.default_rng(4).integers(3, 500, 20)]
+    first = int(np.argmax(eng.eval(prompt)))
+    return eng, first, prompt
+
+
+def _chunks(eng, first, hist, n_chunks, n_steps, sampler, eager):
+    """n_chunks chained decode_chunk calls from the engine's n_past, one
+    generator throughout; returns the ids."""
+    ids, tok, gen = [], first, None
+    for _ in range(n_chunks):
+        toks, gen = eng.decode_chunk(tok, n_steps, sampler, gen, last_tokens=hist + ids,
+                                     eager=eager)
+        ids += [int(t) for t in toks]
+        tok = ids[-1]
+    return ids
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("family", ["falcon", "llama"])
+def test_graph_and_eager_ids_are_identical(dev, tmp_path, family, kv_dtype):
+    """From the same state, 64 greedy ids (four 16-step chunks) and 32
+    sampled ids (temp 0.8, top-k 40, top-p 0.95, repeat penalty 1.1, seed
+    1234) of the replayed graphs equal the eager step body's, and n_past
+    agrees; pipelined replays give the same greedy ids."""
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    eng, first, prompt = _graph_engine(tmp_path, family, kv_dtype)
+    start = eng.n_past
+    for sampler, n_chunks in ((SamplerParams(temp=0.0), 4),
+                              (SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1,
+                                             seed=1234), 2)):
+        got = {}
+        for eager in (False, True):
+            eng.rollback(start)
+            got[eager] = _chunks(eng, first, prompt + [first], n_chunks, 16, sampler, eager)
+            assert eng.n_past == start + 16 * n_chunks
+        assert got[False] == got[True] and len(set(got[False])) > 1
+    eng.rollback(start)
+    piped, _ = eng.decode_pipelined(first, 64, 16, SamplerParams(temp=0.0),
+                                    last_tokens=prompt + [first])
+    eng.rollback(start)
+    assert piped.tolist() == _chunks(eng, first, prompt + [first], 4, 16,
+                                     SamplerParams(temp=0.0), True)
+    assert all(c.graph is not None for c in eng._chunks.values())
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_graph_replays_at_new_positions_and_after_reset_and_rollback(dev, tmp_path, kv_dtype):
+    """One captured 8-step chunk replayed at three n_past values, after a
+    rollback into an earlier chunk and after reset() and a new prefill:
+    every replay gives the eager body's ids from the same state, and no
+    second graph is captured."""
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    eng, first, prompt = _graph_engine(tmp_path, "falcon", kv_dtype)
+    greedy = SamplerParams(temp=0.0)
+
+    def both(tok, hist):
+        at = eng.n_past
+        g, _ = eng.decode_chunk(tok, 8, greedy, last_tokens=hist)
+        eng.rollback(at)
+        e, _ = eng.decode_chunk(tok, 8, greedy, last_tokens=hist, eager=True)
+        assert g.tolist() == e.tolist() and eng.n_past == at + 8
+        return g.tolist()
+
+    hist = prompt + [first]
+    ids = both(first, hist)
+    for _ in range(2):  # n_past 28, 36
+        ids += both(ids[-1], hist + ids)
+    eng.rollback(len(prompt) + 5)  # into the first chunk
+    both(ids[4], hist + ids[:5])
+    eng.reset()
+    first = int(np.argmax(eng.eval(prompt[:9])))
+    both(first, prompt[:9] + [first])
+    assert len(eng._chunks) == 1
+
+
+def test_no_host_synchronization_inside_a_replayed_chunk(dev, tmp_path):
+    """A chunk's launch (its inputs written on the device, the uniforms
+    drawn, the graph replayed, the ids copied to pinned memory) makes no
+    synchronizing call: set_sync_debug_mode("error") raises on one."""
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    eng, first, prompt = _graph_engine(tmp_path, "falcon", "int8")
+    sampler = SamplerParams(temp=0.8, top_k=40, top_p=0.95, seed=3)
+    eng.decode_chunk(first, 8, sampler, last_tokens=prompt + [first])  # capture
+    c = next(iter(eng._chunks.values()))
+    gen = eng.new_generator(sampler)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            eng._launch(c, 3, gen, 0, eager=False)
+            c.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert 0 <= int(c.out.min()) and int(c.out.max()) < 512
+
+
+def test_launch_counts_are_credited_per_replay(dev, tmp_path):
+    """The capture's launches (the GEMV of every weight and the decode
+    kernel of every layer, 8 steps) are credited once per replay and only
+    then: three replays count three times the graph's record."""
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    eng, first, prompt = _graph_engine(tmp_path, "falcon", "bfloat16")
+    start = eng.n_past
+    eng.decode_chunk(first, 8, SamplerParams(temp=0.0), last_tokens=prompt + [first])
+    c = next(iter(eng._chunks.values()))
+    L = eng.hp.n_layer
+    assert c.graph.counts["flash_decode_tc"] == 8 * L
+    n_quant = sum(isinstance(m, QuantTensor) for m in eng.model.modules())
+    assert n_quant >= 2 * L and c.graph.counts["quant_matmul.gemv"] == 8 * n_quant
+    build.launch_counts.clear()
+    for _ in range(3):
+        eng.rollback(start)
+        eng.decode_chunk(first, 8, SamplerParams(temp=0.0), last_tokens=prompt + [first])
+    assert dict(build.launch_counts) == {k: 3 * v for k, v in c.graph.counts.items()}
+
+
+def test_a_failed_capture_raises_naming_the_step(dev, tmp_path, monkeypatch):
+    """A step that reads a value on the host cannot be captured: the engine
+    raises with the step and the reason, and runs no eager fallback."""
+    from ggllm_tpu_torch.ops import sampling_device
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    eng, first, prompt = _graph_engine(tmp_path, "falcon", "bfloat16")
+    real = sampling_device.sample_logits
+
+    def synced(logits, *a, **kw):
+        float(logits.max())  # a host read
+        return real(logits, *a, **kw)
+
+    monkeypatch.setattr(sampling_device, "sample_logits", synced)
+    with pytest.raises(RuntimeError, match="failed at step 0"):
+        eng.decode_chunk(first, 4, SamplerParams(temp=0.0), last_tokens=prompt + [first])

@@ -235,7 +235,8 @@ def test_port_imports_neither_jax_nor_reference():
         "       or m == 'ggllm_tpu' or m.startswith('ggllm_tpu.')]\n"
         "for m in ('models.llama', 'models.falcon', 'tokenizer.spm', 'utils.synthetic',\n"
         "          'utils.benchgen', 'tools.main', 'tools.profile_decode',\n"
-        "          'tools.time_kernels'):\n"
+        "          'tools.time_kernels', 'engine.generator', 'utils.stream',\n"
+        "          'utils.finetune'):\n"
         "    assert 'ggllm_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('ggllm_tpu_torch.')]), bad)\n"
     )

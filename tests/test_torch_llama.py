@@ -476,18 +476,20 @@ def test_cli_generates_on_cpu(llama_files, capsysbinary, name, extra):
 
 def test_cli_prompt_gets_bos_and_spm_ids(llama_files, monkeypatch):
     """The CLI tokenizes a LLaMA prompt with the SentencePiece tokenizer, BOS
-    first, and stops at its EOS (id 2), as the JAX CLI does."""
+    first, and stops at its EOS (id 2), as the JAX CLI does: the Generator
+    that drives it has prefilled those ids and holds that EOS id."""
+    from ggllm_tpu_torch.engine.generator import Generator
     from ggllm_tpu_torch.tools import main as tmain
 
     seen = {}
 
-    def generate(self, prompt_ids, n_predict, sampler, stop_ids=None, stream=None):
-        seen.update(ids=list(prompt_ids), stop=stop_ids)
-        return []
+    def generate(self, logits, n_predict, on_token):
+        seen.update(ids=list(self.all_tokens), stop=self.eos_id)
+        return "eos"
 
-    monkeypatch.setattr(TFalconEngine, "generate", generate)
+    monkeypatch.setattr(Generator, "generate", generate)
     assert tmain.main(["-m", llama_files["q4_0"], "-p", " the", "--device", "cpu"]) == 0
     vocab = tread_model(llama_files["q4_0"]).vocab
     assert seen["ids"] == jspm.tokenize(jsynthetic.make_tiny_sp_vocab(512), " the", bos=True)
     assert seen["ids"] == [tspm.BOS_ID, vocab.id_to_token.index(b" the")]
-    assert seen["stop"] == {tspm.EOS_ID}
+    assert seen["stop"] == tspm.EOS_ID

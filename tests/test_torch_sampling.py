@@ -34,7 +34,8 @@ def test_apply_penalties_matches_jax(kw):
     tspec = tsd.penalty_spec(TSamplerParams(**kw), V, nl_token=193)  # the JAX default's id
     assert tspec == jspec + (193,)
     ref = np.asarray(jsd.apply_penalties(jnp.asarray(logits), jnp.asarray(ring, jnp.int32), jspec))
-    got = tsd.apply_penalties(torch.from_numpy(logits), torch.from_numpy(ring), tspec).numpy()
+    got = tsd.apply_penalties(torch.from_numpy(logits), torch.from_numpy(ring), tspec,
+                              tsd.bias_tensors(tspec, "cpu")).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
@@ -61,7 +62,9 @@ def test_sample_logits_distribution(temp, top_k, top_p):
     gen = torch.Generator().manual_seed(3)
     t = torch.from_numpy(logits)
     n = 20000
-    draws = np.array([int(tsd.sample_logits(t, gen, temp, top_k, top_p)) for _ in range(n)])
+    k = tsd.n_candidates(top_k, V)
+    draws = np.array([int(tsd.sample_logits(t, temp, top_k, top_p, torch.rand(k, generator=gen)))
+                      for _ in range(n)])
     freq = np.bincount(draws, minlength=V) / n
     assert np.all(freq[expected == 0] == 0)
     np.testing.assert_allclose(freq, expected, atol=0.015)
@@ -70,7 +73,7 @@ def test_sample_logits_distribution(temp, top_k, top_p):
 def test_greedy_is_argmax_like_jax():
     logits = np.random.default_rng(2).standard_normal(V).astype(np.float32)
     ref = int(jsd.sample_logits(jnp.asarray(logits), None, 0.0, 40, 0.95))
-    assert int(tsd.sample_logits(torch.from_numpy(logits), None, 0.0, 40, 0.95)) == ref
+    assert int(tsd.sample_logits(torch.from_numpy(logits), 0.0, 40, 0.95, None)) == ref
 
 
 # ---- the host cascade (ops/sampling.py) against ggllm_tpu/ops/sampling.py
@@ -186,7 +189,8 @@ def test_newline_id_is_the_vocabularys():
     assert tsm.sample(logits, [13, 193], p, state, nl_token=13) == 13
     assert tsm.sample(logits, [13, 193], p, state, nl_token=193) == 193
     ring = torch.tensor([13, 193])
-    out = tsd.apply_penalties(torch.from_numpy(logits), ring, tsd.penalty_spec(p, V, 13))
+    spec = tsd.penalty_spec(p, V, 13)
+    out = tsd.apply_penalties(torch.from_numpy(logits), ring, spec, tsd.bias_tensors(spec, "cpu"))
     assert float(out[13]) == 2.0 and float(out[193]) == 0.5
 
 
