@@ -59,6 +59,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      versions to 1e-4, then decodes 16 tokens through the legacy GEMV (f32 x
      and y) and the SIMT decode kernel, and holds its graphs against the
      eager step body in the same way;
+     on the Falcon-7B Q4_0 engine, before its weights are freed, two more
+     paths: the single-stream HTTP server (server/app.py, on 127.0.0.1 at a
+     free port, in a thread): a greedy request equal to the engine's
+     Generator byte for byte, prefix reuse equal to a run from an empty
+     cache, two sampled requests at other temperatures, top-p and penalties
+     that share one graph (the second captures nothing), a streamed request,
+     /v1/chat/completions and /metrics; and perplexity (2 chunks of n_ctx
+     2048 from token ids of a seed, log-softmax gather on the card, timed per
+     512-token piece at n_past 0 … 1536) and embed() of a 700-token prompt,
+     each held against the plain versions, then the perplexity of one chunk
+     on an int8 cache;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -554,7 +565,7 @@ def graph_vs_eager(torch, eng, start: int, first: int, hist: list, label: str, g
 
 def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
                 peak_below: int | None = None, long_past: int | None = None,
-                host_route_tokens: int = 0) -> dict:
+                host_route_tokens: int = 0, then=None) -> dict:
     """One full-width model (`model` is "falcon7b", "falcon40b" or "llama7b")
     with random `fmt` weights and a `kv_dtype` cache through the engine's
     entry points; returns its launch counts and end-to-end figures. Fails if
@@ -563,7 +574,10 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     if peak memory reaches `peak_below`. An int8 path also compares decode
     rates with a bf16 cache at n_past 400 and, if given, at `long_past`;
     host_route_tokens > 0 times that many tokens sampled at top_k 0 (the
-    whole vocabulary: the host cascade, one forward and one draw a token)."""
+    whole vocabulary: the host cascade, one forward and one draw a token).
+    then(eng, params, hp, max |logit| of the plain prefill), if given, runs
+    further paths on the engine before it is freed; the paths it returns
+    come back under "then"."""
     import gc
 
     import numpy as np
@@ -728,6 +742,8 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
             log(f"  16-token greedy chunks at n_past {long_past}, tok/s in turns:"
                 f" {out[f'decode_tok_s_at_{long_past}']}")
         del dense, engines
+    if then is not None:
+        out["then"] = then(eng, params, hp, float(np.abs(ref).max()))
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -801,6 +817,274 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
     torch.cuda.empty_cache()
     return {"path": label, "launches": counts, "prefill_tok_s": prefill_tps, "logit_rel_err": rel,
             "argmax_same": same, "graph": graph}
+
+
+def _http(url: str, route: str, body: dict | None = None, stream: bool = False):
+    """One request to the server under test: JSON in, JSON out (GET without
+    a body); with stream, the SSE events' JSON (the last a "[DONE]" string
+    where the route sends one)."""
+    import urllib.request
+
+    data = None if body is None else json.dumps({**body, **({"stream": True} if stream else {})})
+    req = urllib.request.Request(url + route, data=None if data is None else data.encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if r.status != 200:
+            raise RuntimeError(f"{route}: HTTP {r.status}")
+        raw = r.read().decode()
+    if not stream:
+        return raw if route == "/metrics" else json.loads(raw)
+    return [d if d == "[DONE]" else json.loads(d)
+            for d in (line[len("data: "):] for line in raw.split("\n\n") if line)]
+
+
+def phase_server(torch, eng, hp) -> dict:
+    """The single-stream server (ggllm_tpu_torch/server/app.py serve) over a
+    full-width engine, on 127.0.0.1 at a free port, in a thread; the
+    requests come from this thread, the engine's work runs in the handler
+    threads. (a) a greedy /completion of 64 tokens equals the same engine's
+    Generator on the same prompt from an empty cache, run here first, byte
+    for byte (so the handler thread replays a graph this thread captured);
+    (b) a prompt that extends (a)'s evaluates only what (a)'s cached tokens
+    do not share and equals a Generator run from an empty cache; (c) two
+    sampled requests at temperature 0.7 and 0.9, other top-p and repeat
+    penalties, add exactly one sampled graph key, and the second captures
+    nothing; (d) a streamed request's chunks concatenate to the blocking
+    content of the same request (replacement characters aside: each chunk
+    is decoded on its own); (e) /v1/chat/completions and /metrics answer,
+    the counters matching the requests sent. Fails on any mismatch."""
+    import threading
+
+    from ggllm_tpu_torch.engine.generator import Generator
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.server.app import _common_part, serve
+    from ggllm_tpu_torch.utils.synthetic import make_tiny_vocab
+
+    vocab = make_tiny_vocab(hp.n_vocab)  # byte tokens, a few merges, fillers
+    httpd = serve(eng, vocab, "127.0.0.1", 0, alias="falcon-7b-q4_0-random")
+    state = httpd.state
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def graphs() -> int:
+        return sum(c.graph is not None for c in eng._chunks.values())
+
+    def direct(body: dict) -> str:
+        """The same engine's Generator from an empty cache, on this thread."""
+        with state.lock:
+            eng.reset()
+            ids = state.tk.tokenize(body["prompt"], bos=True)
+            gen = Generator(eng, state.sampler_from(body), state.tk.eos_id,
+                            eng.cfg.n_ctx // 4)
+            parts = []
+            gen.generate(gen.prefill(ids), body["n_predict"],
+                         lambda t: parts.append(vocab.id_to_token[t]) is None)
+            state.cache_tokens = []  # the server's record no longer holds
+        return b"".join(parts).decode("utf-8", "replace")
+
+    def text(s: str) -> str:
+        return s.replace("�", "")
+
+    a_body = {"prompt": "the thing and the other thing went south. " * 5, "n_predict": 64,
+              "temperature": 0, "ignore_eos": True}
+    b_body = {**a_body, "prompt": a_body["prompt"] + "And then it went north again, slowly."}
+    c_body = {"prompt": "Once upon a time there was a model that answered.", "n_predict": 64,
+              "ignore_eos": True}
+    d_body = {"prompt": "In a land far away, a server answered every request.",
+              "n_predict": 64, "temperature": 0, "ignore_eos": True}
+    timings, sent = {}, []
+    try:
+        ref_a, ref_b = direct(a_body), direct(b_body)  # the references, before the counts
+        build.launch_counts.clear()
+        a = _http(url, "/completion", a_body)
+        sent.append(a)
+        a_ids = state.tk.tokenize(a_body["prompt"], bos=True)
+        if (a["content"] != ref_a or a["tokens_predicted"] != 64
+                or a["tokens_evaluated"] != len(a_ids)):
+            raise RuntimeError(f"server (a): {a['tokens_predicted']} tokens from"
+                               f" {a['tokens_evaluated']} evaluated; content equal to the"
+                               f" Generator's: {a['content'] == ref_a}")
+        cached = list(state.cache_tokens)
+        b_ids = state.tk.tokenize(b_body["prompt"], bos=True)
+        b = _http(url, "/completion", b_body)
+        sent.append(b)
+        want = len(b_ids) - _common_part(cached, b_ids)
+        if b["tokens_evaluated"] != want or not want < len(b_ids) or b["content"] != ref_b:
+            raise RuntimeError(f"server (b): {b['tokens_evaluated']} tokens evaluated of"
+                               f" {len(b_ids)} (want {want}); content equal to a run from an"
+                               f" empty cache: {b['content'] == ref_b}")
+        sampled_before = {k for k in eng._chunks if not k[1].greedy}
+        compile_us = []
+        for temp, top_p, rp, seed in ((0.7, 0.9, 1.1, 1), (0.9, 0.8, 1.2, 2)):
+            sent.append(_http(url, "/completion", {**c_body, "temperature": temp, "top_p": top_p,
+                                                   "repeat_penalty": rp, "seed": seed}))
+            compile_us.append((eng.timings.t_compile_us, graphs()))
+        sampled = [k for k in eng._chunks if not k[1].greedy and k not in sampled_before]
+        if len(sampled) != 1 or compile_us[1] != compile_us[0] or any(
+                r["tokens_predicted"] != 64 for r in sent[2:4]):
+            raise RuntimeError(f"server (c): new sampled keys {sampled}; (compile us, graphs)"
+                               f" after each request {compile_us}")
+        events = _http(url, "/completion", d_body, stream=True)
+        sent.append(events[-1])
+        chat = _http(url, "/v1/chat/completions", {
+            "messages": [{"role": "system", "content": "be brief"},
+                         {"role": "user", "content": "what is the thing?"}],
+            "max_tokens": 32, "temperature": 0})
+        sent.append({"tokens_evaluated": chat["usage"]["prompt_tokens"],
+                     "tokens_predicted": chat["usage"]["completion_tokens"]})
+        d = _http(url, "/completion", d_body)
+        sent.append(d)
+        streamed = "".join(e["content"] for e in events[:-1])
+        if (not events[-1]["stop"] or text(streamed) != text(d["content"])
+                or chat["choices"][0]["message"]["role"] != "assistant"):
+            raise RuntimeError(f"server (d, e): streamed {streamed!r} against blocking"
+                               f" {d['content']!r}; chat {chat}")
+        metrics = _http(url, "/metrics")
+        want_m = {"requests_total": len(sent),
+                  "prompt_tokens_total": sum(r["tokens_evaluated"] for r in sent),
+                  "generated_tokens_total": sum(r["tokens_predicted"] for r in sent)}
+        for name, n in want_m.items():
+            if f"ggllm_{name} {n}\n" not in metrics:
+                raise RuntimeError(f"server (e): /metrics lacks ggllm_{name} {n}:\n{metrics}")
+        counts = dict(build.launch_counts)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    names = ("a greedy", "b extends a", "c1 sampled 0.7", "c2 sampled 0.9", "d streamed",
+             "e chat", "d blocking")
+    for name, r in zip(names, sent):
+        t = r.get("timings", {})
+        timings[name] = {"tokens_evaluated": r["tokens_evaluated"],
+                         "tokens_predicted": r["tokens_predicted"],
+                         "prompt_ms": t.get("prompt_ms"),
+                         "predicted_per_second": t.get("predicted_per_second")}
+        log(f"  server {name}: {r['tokens_evaluated']} evaluated, {r['tokens_predicted']}"
+            f" predicted, prompt_ms {t.get('prompt_ms')}, predicted_per_second"
+            f" {t.get('predicted_per_second')}")
+    log(f"  server: (a) equals the Generator byte for byte, (b) evaluated {b['tokens_evaluated']}"
+        f" of {len(b_ids)} prompt tokens and equals a run from an empty cache, (c) one sampled"
+        f" key, no capture by the second ({graphs()} graphs, capture"
+        f" {eng.timings.t_compile_us / 1e3:.1f} ms in all), (d) the stream concatenates to the"
+        f" blocking content, (e) /metrics {want_m}")
+    log(f"  launches on the server path: {counts}")
+    for name in ("quant_matmul.gemv", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc"):
+        if counts.get(name, 0) <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the server path")
+    return {"path": "falcon7b q4_0 server", "launches": counts, "requests": timings,
+            "graphs": graphs(), "capture_ms": eng.timings.t_compile_us / 1e3}
+
+
+def phase_scores(torch, eng, params, hp, logit_scale: float) -> list[dict]:
+    """Perplexity and embeddings on a full-width engine (bf16 cache, n_ctx
+    2048) through the kernels, against the plain versions on the same
+    weights: perplexity over 2 chunks of n_ctx from token ids of a seed
+    (log-softmax gather on the card), timed per 512-token piece of the first
+    chunk at n_past 0 … 1536; the first chunk's log-probs through the plain
+    versions (max |Δ| ≤ LP_TOL = 2 · LOGIT_TOL · logit_scale, the max |logit|
+    of the path's plain prefill: a log-softmax moves by at most twice the
+    largest logit change) and the chunk's log-perplexities within LP_TOL;
+    embed() of a 700-token prompt (one eval chunk, then the output_hidden
+    forward) within LOGIT_TOL of max |h| of the plain path's; then the
+    perplexity of the first chunk on an int8 cache, timed, and that chunk's
+    log-probs on the int8 cache against the plain versions on an int8 cache
+    (max |Δ| ≤ LP_TOL; the ratio of the two perplexities is only printed:
+    with random weights and targets it hardly depends on the hidden state).
+    Returns the paths' launch counts and figures."""
+    import math
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.engine.perplexity import perplexity
+    from ggllm_tpu_torch.kernels import build
+
+    lp_tol = 2 * LOGIT_TOL * logit_scale
+    n_ctx = eng.cfg.n_ctx
+    rng = np.random.default_rng(11)
+    toks = rng.integers(12, hp.n_vocab, 2 * n_ctx + 1)
+    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 700)]
+    build.launch_counts.clear()
+    eng.timings = type(eng.timings)()
+    res = perplexity(eng, toks, max_chunks=2)
+    ppl_tps = eng.timings.n_prefill / (eng.timings.t_prefill_us / 1e6)
+    eng.reset()
+    chunk, lp, piece_tps = toks[:n_ctx], [], []
+    for i in range(0, n_ctx, eng.cfg.n_batch):  # the first chunk, timed per piece
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp.append(eng._eval_chunk_logprobs(chunk[i:i + eng.cfg.n_batch],
+                                           chunk[i + 1:i + 1 + eng.cfg.n_batch]))
+        piece_tps.append(eng.cfg.n_batch / (time.perf_counter() - t0))
+    lp = np.concatenate(lp)
+    eng.reset()
+    emb = eng.embed(prompt)
+    counts = dict(build.launch_counts)
+
+    plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False))
+    lp_plain = plain.eval_logprobs(chunk)
+    res_plain = perplexity(plain, toks, max_chunks=1)
+    plain.reset()
+    emb_plain = plain.embed(prompt)
+    del plain
+    first_j = min(512, n_ctx // 2)
+    lp_err = float(np.abs(lp - lp_plain).max())
+    dlog_ppl = abs(math.log(res.per_chunk[0] / res_plain.ppl))
+    emb_rel = float(np.abs(emb - emb_plain).max()) / float(np.abs(emb_plain).max())
+    nll_check = abs(-lp[first_j:].astype(np.float64).mean() - math.log(res.per_chunk[0]))
+
+    eng8 = FalconEngine(hp, params, EngineConfig(kv_dtype="int8"))
+    build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res8 = perplexity(eng8, toks, max_chunks=1)
+    int8_s = time.perf_counter() - t0
+    counts8 = dict(build.launch_counts)
+    eng8.reset()
+    lp8 = eng8.eval_logprobs(chunk)
+    del eng8
+    plain8 = FalconEngine(hp, params, EngineConfig(kv_dtype="int8", kernel_layout=False,
+                                                   flash_attention=False))
+    lp8_plain = plain8.eval_logprobs(chunk)
+    del plain8
+    lp8_err = float(np.abs(lp8 - lp8_plain).max())
+    dlog_ppl8 = abs(math.log(res8.ppl / res_plain.ppl))
+    log(f"  perplexity, 2 chunks of {n_ctx} (kernels): {res.ppl:.4f} (chunk 1 {res.per_chunk[0]:.4f});"
+        f" plain versions, chunk 1: {res_plain.ppl:.4f}; |log ratio| {dlog_ppl:.3e} (limit"
+        f" {lp_tol:.3e}); prefill {ppl_tps:.1f} tok/s; per 512-token piece at n_past 0, 512, 1024,"
+        f" 1536: {', '.join(f'{t:.1f}' for t in piece_tps)} tok/s")
+    log(f"  log-probs of chunk 1, kernels vs plain versions: max |d| {lp_err:.4e} (limit"
+        f" {lp_tol:.4e} = 2 * {LOGIT_TOL} * max|logit| {logit_scale:.4f}); piecewise NLL vs"
+        f" perplexity() {nll_check:.2e}")
+    log(f"  embed() of {len(prompt)} tokens, kernels vs plain versions: max |d| / max |h|"
+        f" {emb_rel:.3e} (limit {LOGIT_TOL})")
+    log(f"  perplexity of chunk 1 on an int8 cache: {res8.ppl:.4f} in {int8_s * 1e3:.1f} ms"
+        f" ({n_ctx / int8_s:.1f} tok/s); |log ratio| to the plain bf16 one {dlog_ppl8:.3e};"
+        f" log-probs against the plain versions on an int8 cache: max |d| {lp8_err:.4e} (limit"
+        f" {lp_tol:.4e}); launches {counts8}")
+    log(f"  launches on the perplexity / embedding path: {counts}")
+    finite = all(math.isfinite(v) for v in (res.ppl, res_plain.ppl, res8.ppl))
+    if (not finite or not np.isfinite(lp).all() or not np.isfinite(emb).all()
+            or not np.isfinite(lp8).all() or lp8.shape != lp.shape
+            or lp.shape != (n_ctx - 1,) or emb.shape != (hp.n_embd,)
+            or lp_err > lp_tol or dlog_ppl > lp_tol or lp8_err > lp_tol
+            or emb_rel > LOGIT_TOL or nll_check > 1e-6):
+        raise RuntimeError("perplexity / embedding through the kernels disagree with the plain"
+                           " versions")
+    for name, c in (("perplexity / embedding", counts), ("int8 perplexity", counts8)):
+        for k in ("quant_matmul.tc", "flash_mqa.tc"):
+            if c.get(k, 0) <= 0:
+                raise RuntimeError(f"kernel {k} was not launched on the {name} path")
+        if any(c.get(k, 0) for k in ("quant_matmul.simt", "flash_mqa.simt", "group_sums")):
+            raise RuntimeError(f"an f32 kernel ran on the {name} path: {c}")
+    return [{"path": "falcon7b q4_0 perplexity / embedding", "launches": counts,
+             "ppl": res.ppl, "ppl_plain_chunk1": res_plain.ppl, "lp_max_abs_err": lp_err,
+             "lp_tol": lp_tol, "prefill_tok_s": ppl_tps, "piece_tok_s": piece_tps,
+             "embed_rel_err": emb_rel},
+            {"path": "falcon7b q4_0 int8 perplexity", "launches": counts8, "ppl": res8.ppl,
+             "ms": int8_s * 1e3, "lp_max_abs_err": lp8_err, "lp_tol": lp_tol}]
 
 
 def _cli_in_process(args: list) -> bytes:
@@ -978,10 +1262,23 @@ def main() -> int:
     log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
     log("phase 3: full-width main paths")
     paths = []
+    def serve_and_score(eng, params, hp, logit_scale):
+        log("  -- falcon7b q4_0: the server")
+        t0 = time.perf_counter()
+        served = phase_server(torch, eng, hp)
+        log(f"  -- falcon7b q4_0: perplexity and embeddings (the server took"
+            f" {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        scored = phase_scores(torch, eng, params, hp, logit_scale)
+        log(f"  (perplexity and embeddings took {time.perf_counter() - t0:.1f} s)")
+        return [served, *scored]
+
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")
-        paths.append(phase_model(torch, model, fmt,
-                                 host_route_tokens=32 if (model, fmt) == ("falcon7b", "q4_0") else 0))
+        first = (model, fmt) == ("falcon7b", "q4_0")
+        paths.append(phase_model(torch, model, fmt, host_route_tokens=32 if first else 0,
+                                 then=serve_and_score if first else None))
+        paths.extend(paths[-1].pop("then", []))
     log("  -- falcon40b q3_k, int8 cache")
     paths.append(phase_model(torch, "falcon40b", "q3_k", kv_dtype="int8",
                              peak_below=paths[-1]["peak_bytes"]))

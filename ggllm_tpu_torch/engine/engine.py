@@ -5,11 +5,14 @@ Prefill runs eagerly, each n_batch chunk at its own length (no power-of-two
 buckets). Decoding is the counterpart of the JAX engine's fused loop
 (`_decode_loop_fn:495`, one jitted lax.scan of forward, penalties, sampling
 and the penalty ring): on the card a chunk of n_steps tokens is ONE CUDA
-graph, captured once per key (n_steps, temp, top_k, top_p, penalty spec)
-with the step index j unrolled, and replayed. Its static inputs (the first
-token, n_past, the ring, the ring position, the chunk's uniforms) are
-written by device copies before each replay and its token ids are copied
-out after it; the graphs of an engine share one memory pool. Capture time
+graph, captured once per key (n_steps and the sampler's shape:
+ops/sampling_device.py sampler_key) with the step index j unrolled, and
+replayed. Its static inputs (the first token, n_past, the ring, the ring
+position, the chunk's uniforms, the sampler's temperature, top-p, penalty
+and bias values) are written by device copies before each replay and its
+token ids are copied out after it, so a new temperature or penalty value
+captures nothing; the graphs of an engine share one memory pool, and at
+most MAX_CHUNKS programs are kept. Capture time
 goes to Timings.t_compile_us, as the JAX engine books its compiles. On the
 CPU (device="cpu"), or on the card when the caller passes eager=True, the
 same step body runs eagerly on the same buffers. A failed capture raises,
@@ -29,6 +32,7 @@ place), since captured graphs point at it; assigning `kv` drops them.
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -43,6 +47,7 @@ from ggllm_tpu_torch.ops.rope import rope_angles
 from ggllm_tpu_torch.tokenizer import nl_id
 
 DECODE_CHUNK = 16
+MAX_CHUNKS = 8  # decode-chunk programs (graphs) an engine keeps, least recently used out
 
 
 @dataclass
@@ -83,21 +88,19 @@ class Timings:
 
 
 class _Chunk:
-    """One decode-chunk program: its key's settings, the static buffers its
-    steps read and write, and its CUDA graph once captured."""
+    """One decode-chunk program: its key (n_steps and the sampler's shape,
+    sampling_device.sampler_key), the static buffers its steps read and
+    write (the sampler's values among them), and its CUDA graph once
+    captured."""
 
-    def __init__(self, n_steps: int, temp: float, top_k: int, top_p: float, spec: tuple,
-                 n_vocab: int, device):
-        self.n_steps, self.temp, self.top_k, self.top_p, self.spec = (
-            n_steps, temp, top_k, top_p, spec)
-        self.L = max(int(spec[1]), 1)  # penalty ring length
-        self.bias = sampling_device.bias_tensors(spec, device)
+    def __init__(self, n_steps: int, key: sampling_device.SamplerKey, n_vocab: int, device):
+        self.n_steps, self.key, self.L = n_steps, key, key.ring  # L: the penalty ring's length
+        self.sv = sampling_device.SamplerValues(key, device)
         self.tok = torch.zeros(1, dtype=torch.long, device=device)
         self.n_past = torch.zeros(1, dtype=torch.int32, device=device)
         self.ring = torch.full((self.L,), n_vocab, dtype=torch.long, device=device)
         self.pos = torch.zeros(1, dtype=torch.long, device=device)
-        self.u = None if temp <= 0.0 else torch.full(
-            (n_steps, sampling_device.n_candidates(top_k, n_vocab)), 0.5, device=device)
+        self.u = None if key.greedy else torch.full((n_steps, key.n_cand), 0.5, device=device)
         self.out = torch.zeros(n_steps, dtype=torch.long, device=device)
         pin = device.type == "cuda"
         self.host = [torch.empty(n_steps, dtype=torch.long, pin_memory=pin) for _ in range(2)]
@@ -143,7 +146,7 @@ class FalconEngine:
         self.inv_freq = torch.from_numpy(rope_angles(
             self.cfg.rope, self.cfg.n_ctx, hparams.head_dim, arch=hparams.arch)).to(self.device)
         self.n_past = 0
-        self._chunks: dict[tuple, _Chunk] = {}
+        self._chunks: OrderedDict[tuple, _Chunk] = OrderedDict()
         self._stream = None  # the stream the decode graphs are captured on
         self._pool = None  # the memory pool they share
         self.kv = self.new_kv()
@@ -216,6 +219,54 @@ class FalconEngine:
             return np.concatenate(out, axis=0)
         return out[-1][0]
 
+    def eval_logprobs(self, tokens) -> np.ndarray:
+        """Next-token log-probabilities of one sequence starting at n_past:
+        out[j] = log softmax(logits_j)[tokens[j + 1]], shape (n - 1,), in
+        n_batch chunks (the JAX engine's eval_logprobs:454). Each chunk's
+        logits stay on the device: the f32 log-softmax and the gather of the
+        targets run there (the counterpart of `_gather_logprobs:96`, an XLA
+        fusion), so only one float a position crosses to the host. Booked
+        as prefill time."""
+        tokens = np.asarray(tokens, dtype=np.int64).reshape(-1)
+        out = []
+        t0 = time.perf_counter()
+        for i in range(0, tokens.size, self.cfg.n_batch):
+            chunk = tokens[i:i + self.cfg.n_batch]
+            out.append(self._eval_chunk_logprobs(chunk, tokens[i + 1:i + 1 + chunk.size]))
+        self.timings.t_prefill_us += (time.perf_counter() - t0) * 1e6
+        self.timings.n_prefill += tokens.size
+        return np.concatenate(out) if out else np.zeros(0, np.float32)
+
+    @torch.inference_mode()
+    def _eval_chunk_logprobs(self, chunk: np.ndarray, targets: np.ndarray) -> np.ndarray:
+        logits = self._forward(torch.from_numpy(chunk).to(self.device), logits_all=True)[0]
+        tgt = torch.from_numpy(targets).to(self.device)
+        lsm = torch.log_softmax(logits[:tgt.numel()].float(), dim=-1)
+        return lsm.gather(1, tgt[:, None])[:, 0].cpu().numpy()
+
+    @torch.inference_mode()
+    def embed(self, tokens) -> np.ndarray:
+        """The final-layer normed hidden state of the last token, in f32 (the
+        JAX engine's embed:843, the reference's examples/embedding): all but
+        the last n_batch tokens go through eval, the tail through one
+        output_hidden forward."""
+        tokens = np.asarray(tokens, dtype=np.int64).reshape(-1)
+        if tokens.size > self.cfg.n_batch:
+            head = tokens.size - self.cfg.n_batch
+            self.eval(tokens[:head])
+            tokens = tokens[head:]
+        n = tokens.size
+        if self.n_past + n > self.cfg.n_ctx:
+            raise ValueError("context overflow")
+        t0 = time.perf_counter()
+        hidden = self.model(torch.from_numpy(tokens).to(self.device).reshape(1, n), self.kv,
+                            self.n_past, self.inv_freq, output_hidden=True)
+        self.n_past += n
+        out = hidden[0, 0].float().cpu().numpy()
+        self.timings.t_prefill_us += (time.perf_counter() - t0) * 1e6
+        self.timings.n_prefill += n
+        return out
+
     # ------------------------------------------------------------ decoding
 
     def new_generator(self, sampler) -> torch.Generator:
@@ -224,16 +275,22 @@ class FalconEngine:
         return gen
 
     def _key(self, n_steps: int, sampler) -> tuple:
-        spec = sampling_device.penalty_spec(sampler, self.hp.n_vocab, self.nl_token)
-        return (n_steps, float(sampler.temp), int(sampler.top_k), float(sampler.top_p), spec)
+        return (n_steps, sampling_device.sampler_key(sampler, self.hp.n_vocab, self.nl_token))
 
     def _chunk(self, n_steps: int, sampler) -> _Chunk:
-        """The decode-chunk program of (n_steps, temp, top_k, top_p, penalty
-        spec), the JAX loop's program key."""
+        """The decode-chunk program of (n_steps, the sampler's shape), made
+        on first use; the least recently used one goes when more than
+        MAX_CHUNKS are kept (after the device has finished with it)."""
         key = self._key(n_steps, sampler)
-        if key not in self._chunks:
-            self._chunks[key] = _Chunk(*key, self.hp.n_vocab, self.device)
-        return self._chunks[key]
+        c = self._chunks.get(key)
+        if c is None:
+            if len(self._chunks) >= MAX_CHUNKS:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self._chunks.popitem(last=False)
+            c = self._chunks[key] = _Chunk(*key, self.hp.n_vocab, self.device)
+        self._chunks.move_to_end(key)
+        return c
 
     def _steps(self, c: _Chunk, n: int, at: list | None = None) -> None:
         """The step body: n forward + penalty + sample steps from c.tok at
@@ -258,8 +315,8 @@ class FalconEngine:
                                             pending=pending, n_pend=j)
                 pending[:, :, :, j:j + 1] = kv_new
                 logits = logits[0, 0]
-            penalized = sampling_device.apply_penalties(logits, c.ring, c.spec, c.bias)
-            nxt = sampling_device.sample_logits(penalized, c.temp, c.top_k, c.top_p,
+            penalized = sampling_device.apply_penalties(logits, c.ring, c.key, c.sv)
+            nxt = sampling_device.sample_logits(penalized, c.key, c.sv,
                                                 None if c.u is None else c.u[j])
             c.ring.index_copy_(0, (c.pos + j) % c.L, nxt.view(1))
             c.out[j] = nxt
@@ -290,14 +347,16 @@ class FalconEngine:
                 self._steps(c, c.n_steps, at)
         except Exception as e:
             raise RuntimeError(
-                f"capturing the {c.n_steps}-step decode chunk (temp {c.temp}, top_k {c.top_k},"
-                f" top_p {c.top_p}) failed at step {at[0]}: {e}") from e
+                f"capturing the {c.n_steps}-step decode chunk (sampler key {c.key})"
+                f" failed at step {at[0]}: {e}") from e
         c.graph = graph
         self.timings.t_compile_us += (time.perf_counter() - t0) * 1e6
 
-    def _start(self, c: _Chunk, first_token: int, last_tokens, eager: bool) -> int:
-        """Capture c if it runs as a graph and is not yet captured, then set
-        its first token and penalty ring; returns the ring position."""
+    def _start(self, c: _Chunk, sampler, first_token: int, last_tokens, eager: bool) -> int:
+        """Write the sampler's values into c, capture c if it runs as a graph
+        and is not yet captured, then set its first token and penalty ring;
+        returns the ring position."""
+        c.sv.set(sampler, self.hp.n_vocab)
         if not eager and self.device.type == "cuda" and c.graph is None:
             self._capture(c)
         window = list(last_tokens) if last_tokens else [int(first_token)]
@@ -391,7 +450,7 @@ class FalconEngine:
         c = self._chunk(n_steps, sampler)
         start, t_compile = self.n_past, self.timings.t_compile_us
         t0 = time.perf_counter()
-        pos = self._start(c, first_token, last_tokens, eager)
+        pos = self._start(c, sampler, first_token, last_tokens, eager)
         out: list[np.ndarray] = []
         states = []  # generator state after each enqueued chunk's draw
 

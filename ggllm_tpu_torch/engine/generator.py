@@ -16,6 +16,15 @@ from ggllm_tpu_torch.engine.engine import FalconEngine
 from ggllm_tpu_torch.ops import sampling, sampling_device
 
 
+GRAMMAR_NOT_PORTED = ("grammar-constrained decoding is not ported yet"
+                      " (ROADMAP.md, Queue 1: Grammar)")
+
+
+class GrammarNotPorted(NotImplementedError):
+    """A grammar-constrained generation was asked for (the server answers
+    such a request with HTTP 400 and this message)."""
+
+
 class Generator:
     """One generation stream over an engine: fused decode when the sampler
     allows, host cascade otherwise; context swap on overflow.
@@ -29,8 +38,7 @@ class Generator:
                  eos_id: int, n_keep: int = 0, fused_ok: bool = True,
                  log=None, grammar=None):
         if grammar is not None:
-            raise NotImplementedError(
-                "grammar-constrained decoding is not ported yet (ROADMAP.md, Queue 1: Grammar)")
+            raise GrammarNotPorted(GRAMMAR_NOT_PORTED)
         self.eng = engine
         self.sampler = sampler
         self.state = sampling.SamplerState.init(sampler)

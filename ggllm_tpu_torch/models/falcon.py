@@ -220,7 +220,8 @@ class Falcon(nn.Module):
 
     def forward(self, tokens: torch.Tensor, kv, n_past, inv_freq: torch.Tensor,
                 logits_all: bool = False, last_pos: int | None = None,
-                pending: torch.Tensor | None = None, n_pend: int = 0):
+                pending: torch.Tensor | None = None, n_pend: int = 0,
+                output_hidden: bool = False):
         """tokens (B, S) int64 on the model's device; kv the stacked cache
         (L, 2, B, T, KV, D) or the int8 pair (codes, scales), updated in place
         at [n_past, n_past + S). n_past: a Python int, or a (1,) int tensor
@@ -250,5 +251,8 @@ class Falcon(nn.Module):
         x = layer_norm(x, self.output_norm, self.output_norm_b)
         if not logits_all:
             x = select_last(x, last_pos)
-        logits = linear(self.lm_head, x, torch.float32, kernels=st.kernels)
-        return (logits, torch.stack(deferred)) if pending is not None else logits
+        if output_hidden:
+            out = x.to(torch.float32)
+        else:
+            out = linear(self.lm_head, x, torch.float32, kernels=st.kernels)
+        return (out, torch.stack(deferred)) if pending is not None else out

@@ -4,7 +4,9 @@ file, tokenize the prompt with the file's tokenizer (BOS first), and
 generate through engine/generator.py, with the full sampling cascade,
 antiprompts (-r), stopwords (-S, with streaming holdback so a stop string
 split across tokens never leaks), finetune templates, interactive mode,
-context swap past n_ctx (--keep, falcon_main.cpp:694-760) and logit bias.
+context swap past n_ctx (--keep, falcon_main.cpp:694-760) and logit bias;
+--perplexity (over -f FILE, engine/perplexity.py) and --embedding (the
+prompt's final hidden state) run those modes instead of generating.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
@@ -150,6 +152,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="finetune template override")
     ap.add_argument("--verbose-prompt", action="store_true",
                     help="print the tokenization of every ingested prompt")
+    ap.add_argument("--perplexity", action="store_true",
+                    help="compute perplexity over -f FILE and exit (the "
+                         "falcon_perplexity protocol)")
+    ap.add_argument("--embedding", action="store_true",
+                    help="print the prompt's final hidden state and exit "
+                         "(the examples/embedding mode)")
     ap.add_argument("--display-timings", dest="verbose_timings", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--memory-f32", action="store_true",
@@ -240,6 +248,20 @@ def main(argv=None) -> int:
             print(f"{tid:6d} -> '{s}'", file=sys.stderr)
 
     verbose_tokens(prompt_ids, "prompt")
+
+    if args.embedding:
+        emb = engine.embed(prompt_ids)
+        print(" ".join(f"{v:.6f}" for v in emb))
+        return 0
+
+    if args.perplexity:
+        # falcon_main's --perplexity mode delegates to the perplexity
+        # protocol over the -f text (falcon_perplexity.cpp:28-115)
+        from ggllm_tpu_torch.engine.perplexity import perplexity
+
+        res = perplexity(engine, tk.tokenize(prompt, bos=True))
+        print(f"perplexity: {res.ppl:.4f} [{res.n_chunks} chunks, {res.count} tokens]")
+        return 0
 
     def set_color(code: str):
         if args.color:

@@ -7,6 +7,7 @@ prompt file (-f), the host route, and the flags' names and defaults."""
 import builtins
 
 import pytest
+import torch
 
 from ggllm_tpu.core.config import FalconHParams
 from ggllm_tpu.core.dtypes import GGMLType
@@ -14,13 +15,17 @@ from ggllm_tpu.tools import main as jcli
 
 from ggllm_tpu_torch.tools import main as cli
 
+# pytest-xdist runs several test processes on the machine's cores at once: one
+# torch thread each, or their OpenMP threads spin against each other
+torch.set_num_threads(1)
+
 BASE = ["-c", "96", "-b", "32", "--kv-dtype", "float32", "--compute-dtype", "float32",
         "--temp", "0", "--decode-chunk", "4"]
 
-# flags that wait for their modules (LoRA, sessions, perplexity, embeddings,
-# grammar, speculative decoding, multi-chip, export, profiling)
+# flags that wait for their modules (LoRA, sessions, grammar, speculative
+# decoding, multi-chip, export, profiling)
 WAITING = ["--lora", "--lora-base", "--prompt-cache", "--prompt-cache-all", "--prompt-cache-ro",
-           "--perplexity", "--embedding", "--grammar", "--grammar-file", "--draft-model",
+           "--grammar", "--grammar-file", "--draft-model",
            "--self-draft", "-ts", "--kv-shard", "--multihost", "--export", "--profile"]
 
 
@@ -197,7 +202,8 @@ def test_flags_match_the_jax_cli():
               "--interactive-first", "-ins", "--in-prefix", "--in-suffix", "--multiline-input",
               "--color", "--sys-prompt", "--system", "--system-file", "--system-raw", "-enc",
               "--finetune", "--verbose-prompt", "--compute-dtype", "--decode-chunk",
-              "--no-fused-decode", "--display-timings", "--verbose-timings"):
+              "--no-fused-decode", "--display-timings", "--verbose-timings", "--perplexity",
+              "--embedding"):
         assert o in ported, o
     for o in WAITING:
         assert o in ref and o not in got, o

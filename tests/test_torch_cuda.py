@@ -12,8 +12,11 @@ bf16 and f32 queries, refusals of what the kernels do not take, tiny
 Falcon and LLaMA models (some on an int8 cache) end to end on the card
 against the CPU, and decode as replayed CUDA graphs: the same ids as the
 eager step body, at several positions and after reset and rollback, no
-host synchronization inside a replay, launch counts credited per replay. They import no JAX, so they run on a
-machine without it:
+host synchronization inside a replay, launch counts credited per replay,
+one graph for samplers that differ only in their values, replays from
+another thread than the capturing one; and eval_logprobs through the
+kernels against the plain versions at n_past 1536. They import no JAX, so
+they run on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -871,3 +874,97 @@ def test_a_failed_capture_raises_naming_the_step(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(sampling_device, "sample_logits", synced)
     with pytest.raises(RuntimeError, match="failed at step 0"):
         eng.decode_chunk(first, 4, SamplerParams(temp=0.0), last_tokens=prompt + [first])
+
+
+def test_one_graph_per_sampler_shape(dev, tmp_path):
+    """Two sampled decode_pipelined runs from one state at temperature 0.7
+    and 0.9 (with another top-p and repeat penalty too): one sampled chunk
+    key, captured once (t_compile_us grows in the first run only), and each
+    run's ids are the eager step body's with its own sampler."""
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    eng, first, prompt = _graph_engine(tmp_path, "falcon", "bfloat16")
+    start, grew, runs = eng.n_past, [], []
+    for temp, top_p, rp in ((0.7, 0.9, 1.1), (0.9, 0.8, 1.3)):
+        sampler = SamplerParams(temp=temp, top_k=40, top_p=top_p, repeat_penalty=rp, seed=5)
+        eng.rollback(start)
+        before = eng.timings.t_compile_us
+        ids, _ = eng.decode_pipelined(first, 32, 16, sampler, last_tokens=prompt + [first])
+        grew.append(eng.timings.t_compile_us > before)
+        eng.rollback(start)
+        runs.append(_chunks(eng, first, prompt + [first], 2, 16, sampler, True))
+        assert ids.tolist() == runs[-1]
+    sampled = [k for k in eng._chunks if not k[1].greedy]
+    assert len(sampled) == 1 and eng._chunks[sampled[0]].graph is not None
+    assert grew == [True, False] and runs[0] != runs[1]
+
+
+def test_a_replay_from_another_thread_gives_the_capturing_threads_ids(dev, tmp_path):
+    """Graphs captured on one thread replay on another (as the server's
+    handler threads replay them): a greedy graph captured here gives the
+    same ids when a second thread replays it, and a sampled graph captured
+    by the second thread gives the eager body's ids when replayed here; no
+    graph is captured twice."""
+    import threading
+
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    eng, first, prompt = _graph_engine(tmp_path, "falcon", "bfloat16")
+    start, hist = eng.n_past, prompt + [first]
+    greedy = SamplerParams(temp=0.0)
+    sampled = SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1, seed=9)
+    here, _ = eng.decode_pipelined(first, 32, 16, greedy, last_tokens=hist)
+    out = {}
+
+    def other():
+        try:
+            for name, sampler in (("greedy", greedy), ("sampled", sampled)):
+                eng.rollback(start)
+                out[name] = eng.decode_pipelined(first, 32, 16, sampler, last_tokens=hist)[0]
+        except BaseException as e:  # reported on the main thread
+            out["error"] = e
+
+    t = threading.Thread(target=other)
+    t.start()
+    t.join()
+    assert "error" not in out, out.get("error")
+    assert out["greedy"].tolist() == here.tolist()
+    captured = eng.timings.t_compile_us
+    eng.rollback(start)
+    again, _ = eng.decode_pipelined(first, 32, 16, sampled, last_tokens=hist)
+    eng.rollback(start)
+    assert again.tolist() == out["sampled"].tolist() == _chunks(eng, first, hist, 2, 16,
+                                                                sampled, True)
+    assert eng.timings.t_compile_us == captured and len(eng._chunks) == 2
+
+
+def test_eval_logprobs_through_the_kernels_at_n_past_1536(dev, tmp_path):
+    """eval_logprobs of a 2048-token chunk (four 512-row pieces, the last at
+    n_past 1536) through the tensor-core tile and flash_mqa.tc, against the
+    plain versions on the same weights: every log-prob within 2 * 5e-2 of
+    max |logit| (chip_smoke.py's LOGIT_TOL; a log-softmax moves by at most
+    twice the largest logit change), the last piece's too."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                         n_layer=2, n_falcon_type=7, n_bpe_merges=0),
+                     GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=2048, n_batch=512)
+    mf, params = load_model(path, cfg, device="cuda")
+    eng = FalconEngine(mf.hparams, params, cfg)
+    plain = FalconEngine(mf.hparams, params, EngineConfig(n_ctx=2048, n_batch=512,
+                                                          kernel_layout=False,
+                                                          flash_attention=False))
+    ids = [int(t) for t in np.random.default_rng(6).integers(3, 500, 2048)]
+    before = build.launch_counts["flash_mqa.tc"]
+    lp = eng.eval_logprobs(ids)
+    assert build.launch_counts["flash_mqa.tc"] == before + 4 * mf.hparams.n_layer
+    lp_plain = plain.eval_logprobs(ids)
+    plain.reset()
+    scale = float(np.abs(plain.eval(ids, logits_all=True)).max())
+    assert lp.shape == lp_plain.shape == (2047,) and np.isfinite(lp).all()
+    err = np.abs(lp - lp_plain)
+    assert err.max() <= 2 * 5e-2 * scale and err[1536:].max() <= 2 * 5e-2 * scale

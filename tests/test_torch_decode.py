@@ -32,6 +32,10 @@ from ggllm_tpu_torch.kernels import build
 from ggllm_tpu_torch.ops import kvcache
 from ggllm_tpu_torch.ops.sampling import SamplerParams as TSamplerParams
 
+# pytest-xdist runs several test processes on the machine's cores at once: one
+# torch thread each, or their OpenMP threads spin against each other
+torch.set_num_threads(1)
+
 PROMPT = [5, 17, 130, 42, 99, 260, 31, 7]
 
 
@@ -53,14 +57,24 @@ def files(tmp_path_factory):
     return {"falcon": falcon, "llama": llama}
 
 
+_JAX_ENGINES = {}  # (path, kv_dtype) -> one JAX engine, so each of its programs compiles once
+
+
 def _engines(files, family, kv_dtype, jax_too=True):
+    """A fresh port engine and (jax_too) the module's JAX engine of the same
+    file and cache, reset."""
     path = files[family]
     tmf, params = tload_model(path, _torch_cfg(kv_dtype), device="cpu")
     teng = TFalconEngine(tmf.hparams, params, _torch_cfg(kv_dtype), device="cpu")
     if not jax_too:
         return None, teng
-    mf = read_model(path)
-    return FalconEngine(mf.hparams, load_params(mf, _jax_cfg(kv_dtype)), _jax_cfg(kv_dtype)), teng
+    if (path, kv_dtype) not in _JAX_ENGINES:
+        mf = read_model(path)
+        _JAX_ENGINES[path, kv_dtype] = FalconEngine(mf.hparams, load_params(mf, _jax_cfg(kv_dtype)),
+                                                    _jax_cfg(kv_dtype))
+    jeng = _JAX_ENGINES[path, kv_dtype]
+    jeng.reset()
+    return jeng, teng
 
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
@@ -120,6 +134,53 @@ def test_pipelined_matches_chained_chunks(files, kv_dtype):
         assert eng_b.n_past == eng_a.n_past == len(prompt) + 16
         assert torch.equal(gen_b.get_state(), gen.get_state())
     assert len(set(chained)) > 1
+
+
+def test_samplers_differing_in_values_share_one_chunk_key(files):
+    """Samplers that differ only in temperature, top-p, penalty or bias
+    values map to one chunk key (one program: one CUDA graph on the card),
+    and each gives, through that one shared program, the ids of a fresh
+    engine's eager run with that sampler alone. What changes the step's
+    shapes or branches makes another key: greedy, the candidate count, top-p
+    cutting or not, a penalty on or off, penalize_nl, the ring length, the
+    bias count."""
+    from ggllm_tpu_torch.engine import engine as tengine
+
+    base = dict(temp=0.7, top_k=40, top_p=0.9, repeat_penalty=1.1, logit_bias={3: 1.5}, seed=5)
+    variants = [base, {**base, "temp": 0.95}, {**base, "top_p": 0.6},
+                {**base, "repeat_penalty": 1.4, "frequency_penalty": 0.3,
+                 "presence_penalty": 0.2},
+                {**base, "logit_bias": {9: -3.0}}]
+    prompt = [5, 17, 130, 42, 99]
+    _, eng = _engines(files, "falcon", "float32", jax_too=False)
+    keys = {eng._key(8, TSamplerParams(**kw)) for kw in variants}
+    assert len(keys) == 1
+    for change in ({"temp": 0.0}, {"top_k": 20}, {"top_p": 1.0}, {"repeat_penalty": 1.0},
+                   {"penalize_nl": False}, {"repeat_last_n": 32}, {"logit_bias": {}}):
+        assert eng._key(8, TSamplerParams(**{**base, **change})) not in keys, change
+    first = int(np.argmax(eng.eval(prompt)))
+    start, runs = eng.n_past, []
+    for kw in variants:
+        eng.rollback(start)
+        ids, _ = eng.decode_pipelined(first, 16, 8, TSamplerParams(**kw),
+                                      last_tokens=prompt + [first])
+        _, fresh = _engines(files, "falcon", "float32", jax_too=False)
+        fresh.eval(prompt)
+        ref, gen = [], None
+        for _ in range(2):
+            toks, gen = fresh.decode_chunk(([first] + ref)[-1], 8, TSamplerParams(**kw), gen,
+                                           last_tokens=prompt + [first] + ref, eager=True)
+            ref += [int(t) for t in toks]
+        assert ids.tolist() == ref, kw
+        runs.append(tuple(ref))
+    assert len(eng._chunks) == 1 and len(set(runs)) == len(runs)
+    # at most MAX_CHUNKS programs are kept, the least recently used out
+    for top_k in range(1, tengine.MAX_CHUNKS + 2):
+        eng.rollback(start)
+        eng.decode_chunk(first, 1, TSamplerParams(**{**base, "top_k": top_k}),
+                         last_tokens=prompt + [first])
+    assert len(eng._chunks) == tengine.MAX_CHUNKS and next(iter(keys)) not in eng._chunks
+    assert eng._key(1, TSamplerParams(**{**base, "top_k": 1})) not in eng._chunks
 
 
 def test_pipelined_early_stop_advances_then_rolls_back(files):

@@ -31,6 +31,10 @@ from ggllm_tpu_torch.io.loader import from_jax_params, load_model as tload_model
 from ggllm_tpu_torch.ops.sampling import SamplerParams as TSamplerParams
 from ggllm_tpu_torch.tokenizer import bpe as tbpe
 
+# pytest-xdist runs several test processes on the machine's cores at once: one
+# torch thread each, or their OpenMP threads spin against each other
+torch.set_num_threads(1)
+
 PROMPT = [5, 17, 130, 42, 99, 260, 31, 7]
 N_GEN = 16
 
@@ -88,13 +92,27 @@ def tiny_files(tmp_path_factory):
     return Files()
 
 
-@pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa", "7b_q4_1", "7b_q5_1", "40b_q4_k",
-                                     "40b_q6_k", "40b_q3_k", "40b_q2_k"])
-def test_slice_matches_jax_engine(tiny_files, hp_name):
-    path = tiny_files[hp_name]
-    mf = read_model(path)
-    cfg = _jax_cfg()
-    jeng = FalconEngine(mf.hparams, load_params(mf, cfg), cfg)
+@pytest.fixture(scope="module")
+def jax_engines(tiny_files):
+    """jax_engines(name, kv_dtype): one JAX engine a model and cache for the
+    module (reset on each call), so each of its programs compiles once."""
+    engines = {}
+
+    def get(name, kv_dtype="float32"):
+        if (name, kv_dtype) not in engines:
+            mf = read_model(tiny_files[name])
+            cfg = _jax_cfg(kv_dtype=kv_dtype)
+            engines[name, kv_dtype] = FalconEngine(mf.hparams, load_params(mf, cfg), cfg)
+        engines[name, kv_dtype].reset()
+        return engines[name, kv_dtype]
+
+    return get
+
+
+def slice_matches_jax_engine(path, jeng):
+    """Prefill logits within 1e-4 of max |logit| of the JAX engine's, and
+    N_GEN greedy ids equal (tests/test_torch_engine_kquants.py runs it on
+    the 40B-style K-quant files)."""
     ref = jeng.eval(PROMPT)
     jeng.reset()
     ref_ids = jeng.generate(PROMPT, N_GEN, SamplerParams(temp=0.0))
@@ -108,22 +126,25 @@ def test_slice_matches_jax_engine(tiny_files, hp_name):
     assert teng.generate(PROMPT, N_GEN, TSamplerParams(temp=0.0)) == ref_ids
 
 
+@pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa", "7b_q4_1", "7b_q5_1"])
+def test_slice_matches_jax_engine(tiny_files, jax_engines, hp_name):
+    slice_matches_jax_engine(tiny_files[hp_name], jax_engines(hp_name))
+
+
 @pytest.mark.parametrize("hp_name", ["tiny", "tiny_gqa"])
-def test_int8_cache_matches_jax_engine(tiny_files, hp_name):
+def test_int8_cache_matches_jax_engine(tiny_files, jax_engines, hp_name):
     """kv_dtype="int8", f32 compute, 7B-style and GQA 40B-style: prefill and
     single-token eval logits within 1e-4 of max |logit| of the JAX engine's
     (both read the quantized cache back dequantized); greedy ids equal over
-    three decode chunks (40 tokens at decode_chunk 16), which holds only if a
-    chunk's own tokens are attended unquantized and the chunk is quantized
-    once at its end; then the caches agree: scales to 1e-6, and codes exactly
-    but for rounding ties (the two packages' f32 K/V differ in their last
-    bits, so a value within those of a half may round to the neighbouring
-    code: at most one step, in under 0.1 % of the codes; on equal inputs the
-    quantizer is exact, tests/test_torch_kernels.py)."""
+    three decode chunks (40 tokens at decode_chunk 16: the last one
+    partial), which holds only if a chunk's own tokens are attended unquantized and
+    the chunk is quantized once at its end; then the caches agree: scales to
+    1e-6, and codes exactly but for rounding ties (the two packages' f32 K/V
+    differ in their last bits, so a value within those of a half may round
+    to the neighbouring code: at most one step, in under 0.1 % of the codes;
+    on equal inputs the quantizer is exact, tests/test_torch_kernels.py)."""
     path = tiny_files[hp_name]
-    mf = read_model(path)
-    cfg = _jax_cfg(kv_dtype="int8")
-    jeng = FalconEngine(mf.hparams, load_params(mf, cfg), cfg)
+    jeng = jax_engines(hp_name, "int8")
     tmf, params = tload_model(path, _torch_cfg("int8"), device="cpu")
     teng = TFalconEngine(tmf.hparams, params, _torch_cfg("int8"), device="cpu")
     assert isinstance(teng.kv, tuple) and teng.kv[0].dtype == torch.int8
@@ -148,12 +169,10 @@ def test_int8_cache_matches_jax_engine(tiny_files, hp_name):
     assert teng.kv[1].shape == jscales.shape
 
 
-def test_multi_chunk_prefill_matches_jax(tiny_files):
+def test_multi_chunk_prefill_matches_jax(tiny_files, jax_engines):
     """A prompt longer than n_batch prefills in chunks (16 + 16 + 8)."""
     prompt = [int(t) for t in np.random.default_rng(4).integers(12, 500, 40)]
-    mf = read_model(tiny_files["tiny"])
-    cfg = _jax_cfg()
-    ref = FalconEngine(mf.hparams, load_params(mf, cfg), cfg).eval(prompt)
+    ref = jax_engines("tiny").eval(prompt)
     tmf, params = tload_model(tiny_files["tiny"], _torch_cfg(), device="cpu")
     got = TFalconEngine(tmf.hparams, params, _torch_cfg(), device="cpu").eval(prompt)
     scale = np.abs(ref).max()
@@ -236,7 +255,8 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in ('models.llama', 'models.falcon', 'tokenizer.spm', 'utils.synthetic',\n"
         "          'utils.benchgen', 'tools.main', 'tools.profile_decode',\n"
         "          'tools.time_kernels', 'engine.generator', 'utils.stream',\n"
-        "          'utils.finetune'):\n"
+        "          'utils.finetune', 'engine.perplexity', 'tools.perplexity',\n"
+        "          'tools.embedding', 'server.app', 'server.__main__'):\n"
         "    assert 'ggllm_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('ggllm_tpu_torch.')]), bad)\n"
     )
@@ -254,13 +274,10 @@ def test_engine_defaults_to_cuda(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def tiny_engines(tiny_files):
+def tiny_engines(tiny_files, jax_engines):
     """The JAX engine and the port's (CPU) on the same tiny f32 model."""
-    path = tiny_files["tiny"]
-    mf = read_model(path)
-    jeng = FalconEngine(mf.hparams, load_params(mf, _jax_cfg()), _jax_cfg())
-    tmf, params = tload_model(path, _torch_cfg(), device="cpu")
-    return jeng, TFalconEngine(tmf.hparams, params, _torch_cfg(), device="cpu")
+    tmf, params = tload_model(tiny_files["tiny"], _torch_cfg(), device="cpu")
+    return jax_engines("tiny"), TFalconEngine(tmf.hparams, params, _torch_cfg(), device="cpu")
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])

@@ -11,6 +11,7 @@ the originals on the same inputs."""
 
 import numpy as np
 import pytest
+import torch
 
 from ggllm_tpu.core.config import EngineConfig, FalconHParams
 from ggllm_tpu.core.dtypes import GGMLType
@@ -33,6 +34,10 @@ from ggllm_tpu_torch.tokenizer.bpe import Vocab as TVocab
 from ggllm_tpu_torch.utils import finetune, stream
 from ggllm_tpu_torch.utils.stream import StopStream
 
+# pytest-xdist runs several test processes on the machine's cores at once: one
+# torch thread each, or their OpenMP threads spin against each other
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def path(tmp_path_factory):
@@ -43,15 +48,19 @@ def path(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def make(path):
-    """make("jax") / make("torch"): a fresh engine of that package."""
+    """make("jax") / make("torch"): an engine of that package in its initial
+    state (a fresh port engine; the module's one JAX engine, reset, so that
+    each of its programs compiles once)."""
     mf = read_model(path)
     jcfg = EngineConfig(n_ctx=96, n_batch=32, kv_dtype="float32", compute_dtype="float32")
     tcfg = TEngineConfig(n_ctx=96, n_batch=32, kv_dtype="float32", compute_dtype="float32")
     tmf, tparams = tload_model(path, tcfg, device="cpu")
+    jeng = FalconEngine(mf.hparams, load_params(mf, jcfg), jcfg)
 
     def _make(which):
         if which == "jax":
-            return FalconEngine(mf.hparams, load_params(mf, jcfg), jcfg)
+            jeng.reset()
+            return jeng
         return TFalconEngine(tmf.hparams, tparams, tcfg, device="cpu")
 
     return _make

@@ -6,9 +6,11 @@ counterpart in the port: RMS norm, classic RoPE and the SwiGLU FFN (atol
 reader (bytes and tensors identical); the SentencePiece tokenizer (ids and
 bytes identical); the loader bridge (tensors identical); and the slice as a
 whole on tiny GGJT files: f32 logits of every position within 1e-4 of max
-|logit| of the JAX engine's (tests/test_llama.py:86 allows 2e-3), greedy
-ids equal over three decode chunks on a dense and on an int8 cache. The JAX
-engine runs its Pallas kernels in interpret mode (decode attention takes
+|logit| of the JAX engine's (tests/test_llama.py:86 allows 2e-3) and greedy
+ids equal (over three decode chunks on a dense and on an int8 cache:
+tests/test_torch_llama_decode.py). The JAX engine (one a model and cache for
+the module, so that each of its programs compiles once) runs its Pallas
+kernels in interpret mode (decode attention takes
 `_cache_partials_mha`: KV * D is 128 or 256 here); the port runs its
 kernels' plain versions."""
 
@@ -46,6 +48,10 @@ from ggllm_tpu_torch.ops.sampling import SamplerParams as TSamplerParams
 from ggllm_tpu_torch.tokenizer import spm as tspm
 from ggllm_tpu_torch.tokenizer.bpe import Vocab as TVocab
 from ggllm_tpu_torch.utils import synthetic as tsynthetic
+
+# pytest-xdist runs several test processes on the machine's cores at once: one
+# torch thread each, or their OpenMP threads spin against each other
+torch.set_num_threads(1)
 
 PROMPT = [5, 300, 42, 17, 260, 99, 31, 7]
 
@@ -86,6 +92,23 @@ def llama_files(tmp_path_factory):
             return paths[name]
 
     return Files()
+
+
+@pytest.fixture(scope="module")
+def jax_engines(llama_files):
+    """jax_engines(name, kv_dtype): one JAX engine a model and cache for the
+    module (reset on each call), so each of its programs compiles once."""
+    engines = {}
+
+    def get(name, kv_dtype="float32"):
+        if (name, kv_dtype) not in engines:
+            mf = read_model(llama_files[name], arch="llama" if name.startswith("rot16") else "auto")
+            cfg = _jax_cfg(kv_dtype=kv_dtype)
+            engines[name, kv_dtype] = FalconEngine(mf.hparams, load_params(mf, cfg), cfg)
+        engines[name, kv_dtype].reset()
+        return engines[name, kv_dtype]
+
+    return get
 
 
 def _jax_cfg(kernel_layout=True, kv_dtype="float32"):
@@ -378,21 +401,19 @@ def test_mixed_types_across_layers_densify(tmp_path):
 # ------------------------------------------------------------------ the slice
 
 @pytest.mark.parametrize("name", list(MODELS))
-def test_slice_matches_jax_engine(llama_files, name):
+def test_slice_matches_jax_engine(llama_files, jax_engines, name):
     """Logits of every prompt position, of a later single-token eval, and 16
     greedy ids (one decode chunk after the first token)."""
     path = llama_files[name]
     arch = "llama" if name.startswith("rot16") else "auto"
-    mf = read_model(path, arch=arch)
-    cfg = _jax_cfg()
-    jeng = FalconEngine(mf.hparams, load_params(mf, cfg), cfg)
+    jeng = jax_engines(name)
     tmf = tread_model(path, arch=arch)
     teng = TFalconEngine(tmf.hparams, tload_params(tmf, _torch_cfg(), device="cpu"),
                          _torch_cfg(), device="cpu")
-    assert type(teng.model) is tllama.Llama and teng.st.n_rot == mf.hparams.n_rot
+    assert type(teng.model) is tllama.Llama and teng.st.n_rot == jeng.hp.n_rot
 
     ref, got = jeng.eval(PROMPT, logits_all=True), teng.eval(PROMPT, logits_all=True)
-    assert got.shape == ref.shape == (len(PROMPT), mf.hparams.n_vocab)
+    assert got.shape == ref.shape == (len(PROMPT), jeng.hp.n_vocab)
     scale = np.abs(ref).max()
     np.testing.assert_allclose(got / scale, ref / scale, atol=1e-4)
     ref1, got1 = jeng.eval([7]), teng.eval([7])
@@ -402,47 +423,6 @@ def test_slice_matches_jax_engine(llama_files, name):
     teng.reset()
     ref_ids = jeng.generate(PROMPT, 16, SamplerParams(temp=0.0))
     assert teng.generate(PROMPT, 16, TSamplerParams(temp=0.0)) == ref_ids
-
-
-@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
-@pytest.mark.parametrize("name", ["q4_0", "q4_k"])
-def test_three_decode_chunks_match_jax_engine(llama_files, name, kv_dtype):
-    """Greedy ids equal over three decode chunks (40 tokens at decode_chunk
-    16), on a dense cache (written in place here, deferred in the JAX
-    engine) and on an int8 cache (chunk-deferred in both: a chunk's own
-    tokens are attended unquantized and quantized once at its end). Then the
-    caches agree: dense values to 1e-4; int8 scales to 1e-6 in layer 0 and to
-    2e-3 of their value above it (a code that rounds the other way in layer 0
-    moves what layer 1 attends by a quantization step), and codes but for
-    rounding ties (at most one step, in under 0.5 % of the codes: 0.15 % at
-    n_embd 256, where the two packages' f32 K/V differ by about 1e-5)."""
-    path = llama_files[name]
-    mf = read_model(path)
-    cfg = _jax_cfg(kv_dtype=kv_dtype)
-    jeng = FalconEngine(mf.hparams, load_params(mf, cfg), cfg)
-    tmf, params = tload_model(path, _torch_cfg(kv_dtype), device="cpu")
-    teng = TFalconEngine(tmf.hparams, params, _torch_cfg(kv_dtype), device="cpu")
-
-    ref, got = jeng.eval(PROMPT), teng.eval(PROMPT)
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(got / scale, ref / scale, atol=1e-4)
-    jeng.reset()
-    teng.reset()
-    ref_ids = jeng.generate(PROMPT, 40, SamplerParams(temp=0.0))
-    assert teng.generate(PROMPT, 40, TSamplerParams(temp=0.0)) == ref_ids
-    n = teng.n_past
-    assert n == jeng.n_past == len(PROMPT) + 39
-    if kv_dtype == "int8":
-        assert isinstance(teng.kv, tuple) and teng.kv[0].dtype == torch.int8
-        jcodes, jscales = (np.asarray(a) for a in jeng.kv)
-        step = np.abs(teng.kv[0].numpy()[:, :, :, :n].astype(np.int32) - jcodes[:, :, :, :n])
-        assert step.max() <= 1 and (step != 0).mean() < 5e-3
-        tscales = teng.kv[1].numpy()
-        np.testing.assert_allclose(tscales[0, :, :, :n], jscales[0, :, :, :n], rtol=0, atol=1e-6)
-        np.testing.assert_allclose(tscales[:, :, :, :n], jscales[:, :, :, :n], rtol=2e-3)
-    else:
-        np.testing.assert_allclose(teng.kv.numpy()[:, :, :, :n], np.asarray(jeng.kv)[:, :, :, :n],
-                                   atol=1e-4)
 
 
 def test_output_hidden_and_last_pos(llama_files):

@@ -27,6 +27,10 @@ from ggllm_tpu_torch.ops.linear import QuantTensor
 from ggllm_tpu_torch.quant import planar as tplanar
 from ggllm_tpu_torch.quant import registry as tregistry
 
+# pytest-xdist runs several test processes on the machine's cores at once: one
+# torch thread each, or their OpenMP threads spin against each other
+torch.set_num_threads(1)
+
 ALL = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
        GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
 # bytes of the fp16 fields in a block, for the formats that get random blocks

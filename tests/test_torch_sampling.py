@@ -17,7 +17,18 @@ from ggllm_tpu.ops.sampling import SamplerParams
 from ggllm_tpu_torch.ops import sampling_device as tsd
 from ggllm_tpu_torch.ops.sampling import SamplerParams as TSamplerParams
 
+# pytest-xdist runs several test processes on the machine's cores at once: one
+# torch thread each, or their OpenMP threads spin against each other
+torch.set_num_threads(1)
+
 V = 300
+
+
+def _device_sampler(params, nl_token=193):
+    """A sampler as the decode step takes it: its shape key and its values
+    as (CPU) tensors."""
+    key = tsd.sampler_key(params, V, nl_token)
+    return key, tsd.SamplerValues(key, "cpu").set(params, V)
 
 
 @pytest.mark.parametrize("kw", [
@@ -34,9 +45,26 @@ def test_apply_penalties_matches_jax(kw):
     tspec = tsd.penalty_spec(TSamplerParams(**kw), V, nl_token=193)  # the JAX default's id
     assert tspec == jspec + (193,)
     ref = np.asarray(jsd.apply_penalties(jnp.asarray(logits), jnp.asarray(ring, jnp.int32), jspec))
-    got = tsd.apply_penalties(torch.from_numpy(logits), torch.from_numpy(ring), tspec,
-                              tsd.bias_tensors(tspec, "cpu")).numpy()
+    got = tsd.apply_penalties(torch.from_numpy(logits), torch.from_numpy(ring),
+                              *_device_sampler(TSamplerParams(**kw))).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_neutral_penalty_values_are_exact_no_ops():
+    """Under a key whose penalties are on, the neutral values (repeat 1,
+    frequency 0, presence 0) leave every logit as it was, bit for bit, zeros
+    and negative values included: a program keyed on "penalties on" serves
+    every penalty value without changing what the sampler computes."""
+    rng = np.random.default_rng(6)
+    logits = torch.from_numpy((rng.standard_normal(V) * 3).astype(np.float32))
+    logits[:4] = torch.tensor([0.0, -0.0, -5.0, float("-inf")])
+    ring = torch.from_numpy(np.concatenate([np.arange(8), rng.integers(0, V, 30)]))
+    key = tsd.sampler_key(TSamplerParams(repeat_penalty=1.3), V, 193)
+    assert key.penalized
+    sv = tsd.SamplerValues(key, "cpu").set(TSamplerParams(repeat_penalty=1.0), V)
+    assert torch.equal(tsd.apply_penalties(logits, ring, key, sv), logits)
+    assert torch.equal(torch.signbit(tsd.apply_penalties(logits, ring, key, sv)),
+                       torch.signbit(logits))
 
 
 def _cascade_probs(logits, temp, top_k, top_p):
@@ -63,7 +91,9 @@ def test_sample_logits_distribution(temp, top_k, top_p):
     t = torch.from_numpy(logits)
     n = 20000
     k = tsd.n_candidates(top_k, V)
-    draws = np.array([int(tsd.sample_logits(t, temp, top_k, top_p, torch.rand(k, generator=gen)))
+    key, sv = _device_sampler(TSamplerParams(temp=temp, top_k=top_k, top_p=top_p))
+    assert key.n_cand == k
+    draws = np.array([int(tsd.sample_logits(t, key, sv, torch.rand(k, generator=gen)))
                       for _ in range(n)])
     freq = np.bincount(draws, minlength=V) / n
     assert np.all(freq[expected == 0] == 0)
@@ -73,7 +103,8 @@ def test_sample_logits_distribution(temp, top_k, top_p):
 def test_greedy_is_argmax_like_jax():
     logits = np.random.default_rng(2).standard_normal(V).astype(np.float32)
     ref = int(jsd.sample_logits(jnp.asarray(logits), None, 0.0, 40, 0.95))
-    assert int(tsd.sample_logits(torch.from_numpy(logits), 0.0, 40, 0.95, None)) == ref
+    key, sv = _device_sampler(TSamplerParams(temp=0.0, top_k=40, top_p=0.95))
+    assert int(tsd.sample_logits(torch.from_numpy(logits), key, sv, None)) == ref
 
 
 # ---- the host cascade (ops/sampling.py) against ggllm_tpu/ops/sampling.py
@@ -189,8 +220,7 @@ def test_newline_id_is_the_vocabularys():
     assert tsm.sample(logits, [13, 193], p, state, nl_token=13) == 13
     assert tsm.sample(logits, [13, 193], p, state, nl_token=193) == 193
     ring = torch.tensor([13, 193])
-    spec = tsd.penalty_spec(p, V, 13)
-    out = tsd.apply_penalties(torch.from_numpy(logits), ring, spec, tsd.bias_tensors(spec, "cpu"))
+    out = tsd.apply_penalties(torch.from_numpy(logits), ring, *_device_sampler(p, 13))
     assert float(out[13]) == 2.0 and float(out[193]) == 0.5
 
 
