@@ -13,15 +13,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      LLaMA-7B shapes, S = 1 through the K-quant GEMV (K-quants) or the
      legacy GEMV and S = 512 through the tensor-core tile; the tile also at
      S = 2, 17 and 300 and at a ragged O;
-     the f32 SIMT tile at two shapes; the attention kernels at the three
-     models' head layouts, bf16 through the tensor-core kernel, with a
-     per-row n_past, and f32 through the SIMT kernels; flash-decode on bf16
+     the f32 tensor-core tile at two shapes at S = 300 and 512 and at three
+     more of the f32 paths' 300-row widths, group_sums on f32 x at the f32
+     paths' widths; the attention kernels at the
+     three models' head layouts, bf16 through the tensor-core kernel, with a
+     per-row n_past, f32 through the f32 tensor-core kernel (split TF32) at
+     Falcon-7B's and LLaMA-7B's, and bf16 at head dim 32 through the CUDA-core
+     kernel; flash-decode on bf16
      and on int8 caches, grouped heads through the tensor-core kernel and
      LLaMA's G == 1 through its own, with and without the append block and
-     with a length per row, and f32 through the SIMT kernel), and time
+     with a length per row, and f32 through the SIMT decode kernel), and time
      kernel, plain version and one PyTorch library call (CUDA events, after
      warm-up, median of 20 runs, L2 flushed before each run) beside the
-     card's bound; the GEMVs (S = 1), flash-decode and their library calls
+     card's bound; bf16 rows are held at 2e-2 of max |plain|, f32 rows at
+     2e-5; the GEMVs (S = 1), flash-decode and their library calls
      also as device time (a CUDA graph of one call, or of one call per
      layer divided by the layers); and a dense
      bf16 weight at Falcon-7B's lm_head shape through ops/linear.py against
@@ -51,14 +56,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      16-token decode chunks at n_past 400 (LLaMA: and at n_past 1900) on an
      int8 and on a bf16 cache, in turns. Each model's parameters are freed
      before the next one is built. On these bf16 paths prefill must run the
-     tensor-core tile and attention kernel and neither SIMT kernel, and
-     decode the head layout's and cache's decode kernel and no other. A
-     seventh, shallow path (Falcon-7B Q4_0, full width, 2 layers, float32
-     compute and cache) prefills the prompt through the f32 SIMT tile,
-     group_sums and the f32 attention kernel and must agree with the plain
-     versions to 1e-4, then decodes 16 tokens through the legacy GEMV (f32 x
-     and y) and the SIMT decode kernel, and holds its graphs against the
-     eager step body in the same way;
+     tensor-core tile and attention kernel and no f32 prefill kernel, and
+     decode the head layout's and cache's decode kernel and no other. Three
+     paths at full width with float32 compute and cache (Falcon-7B Q4_0 at 2
+     and at 32 layers, LLaMA-7B Q4_0 at 2) prefill the prompt through the f32
+     tensor-core tile, group_sums and the f32 attention kernel, run no bf16
+     tensor-core kernel, and must agree with the plain versions to 1e-4 of
+     max |logit|, then decode 16 tokens through the legacy GEMV (f32 x and y)
+     and the head layout's f32 decode kernel; the 2-layer paths hold their
+     graphs against the eager step body in the same way;
      on the Falcon-7B Q4_0 engine, before its weights are freed, two more
      paths: the single-stream HTTP server (server/app.py, on 127.0.0.1 at a
      free port, in a thread): a greedy request equal to the engine's
@@ -93,22 +99,28 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TOL = 2e-2  # of max |plain|, bf16 inputs (tests/test_kernels.py:45)
+F32_TOL = 2e-5  # of max |plain|, f32 inputs (tests/test_torch_cuda.py TOL)
 LOGIT_TOL = 5e-2
 N_RUNS, N_WARM = 20, 3
 
-# card peaks (NVIDIA data sheets): memory rate, dense bf16 tensor rate, and
-# float32 outside the tensor cores (the rate of the f32 kernels' operations)
-PEAKS = {"sxm": (3.35e12, 989e12, 67e12), "pcie": (2.0e12, 756e12, 51e12),
-         "nvl": (3.9e12, 835e12, 60e12)}
+# card peaks (NVIDIA data sheets): memory rate, dense bf16 and TF32 tensor
+# rates, and float32 outside the tensor cores
+PEAKS = {"sxm": (3.35e12, 989e12, 495e12, 67e12), "pcie": (2.0e12, 756e12, 378e12, 51e12),
+         "nvl": (3.9e12, 835e12, 417.5e12, 60e12)}
 
 QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k", "q6_k", "q2_k", "q3_k"]
-F32_LOGIT_TOL = 1e-4  # f32 path against the plain versions (tests/test_torch_cuda.py)
+# f32 paths against the plain versions (tests/test_torch_cuda.py); the
+# CUDA-core f32 kernels this slice replaced read 3.9e-6 at 32 layers of
+# Falcon-7B on an H100 (time_kernels.py f32path)
+F32_LOGIT_TOL = 1e-4
 # kernel -> (source, the TPU kernel it replaces). "quant_matmul" is the S == 1
 # GEMV of the legacy formats, ".gemv.kq" the K-quants' S == 1 GEMV (both
-# around the loop of ggllm_tpu_torch/csrc/gemv.cuh), ".tc" the
-# bf16 tensor-core tile, ".simt" the f32 tile; "flash_mqa" the
-# f32 attention kernels, ".tc" the bf16 tensor-core one. COUNTER names the
-# launch counter of a kernel where it is not the kernel's own name.
+# around the loop of ggllm_tpu_torch/csrc/gemv.cuh), ".tc" the bf16
+# tensor-core tile, ".f32" the f32 tensor-core tile; "flash_mqa.tc" the bf16
+# tensor-core attention kernel, ".f32" the f32 one (the CUDA-core kernel of
+# bf16 at head dim 32 serves no full-width path and is checked in phase 2
+# only). COUNTER names the launch counter of a kernel where it is not the
+# kernel's own name.
 REPLACES = {
     "quant_matmul": ("ggllm_tpu_torch/csrc/quant_gemv_legacy.cu",
                      "ggllm_tpu/kernels/quant_matmul.py:57"),
@@ -116,10 +128,11 @@ REPLACES = {
                              "ggllm_tpu/kernels/quant_matmul.py:57"),
     "quant_matmul.tc": ("ggllm_tpu_torch/csrc/quant_gemm_tc.cuh",
                         "ggllm_tpu/kernels/quant_matmul.py:57"),
-    "quant_matmul.simt": ("ggllm_tpu_torch/csrc/quant_matmul.cu",
-                          "ggllm_tpu/kernels/quant_matmul.py:57"),
-    "group_sums": ("ggllm_tpu_torch/csrc/quant_matmul.cu", "ggllm_tpu/kernels/quant_matmul.py:189"),
-    "flash_mqa": ("ggllm_tpu_torch/csrc/flash_attention.cu", "ggllm_tpu/kernels/flash_attention.py:33"),
+    "quant_matmul.f32": ("ggllm_tpu_torch/csrc/quant_gemm_f32.cuh",
+                         "ggllm_tpu/kernels/quant_matmul.py:57"),
+    "group_sums": ("ggllm_tpu_torch/csrc/group_sums.cu", "ggllm_tpu/kernels/quant_matmul.py:189"),
+    "flash_mqa.f32": ("ggllm_tpu_torch/csrc/flash_attention_f32.cu",
+                      "ggllm_tpu/kernels/flash_attention.py:33"),
     "flash_mqa.tc": ("ggllm_tpu_torch/csrc/flash_attention_tc.cu",
                      "ggllm_tpu/kernels/flash_attention.py:33"),
     # grouped query heads: bf16 q on the tensor cores, on a bf16 and (the same
@@ -137,7 +150,12 @@ REPLACES = {
     "flash_decode.mha.int8": ("ggllm_tpu_torch/csrc/flash_decode.cu",
                               "ggllm_tpu/kernels/flash_decode.py:123"),
 }
-COUNTER = {"quant_matmul": "quant_matmul.gemv", "flash_mqa": "flash_mqa.simt"}
+COUNTER = {"quant_matmul": "quant_matmul.gemv"}
+# the f32 prefill kernels (and the CUDA-core attention of bf16 at head dim 32),
+# which no bf16 path may run
+F32_KERNELS = ("quant_matmul.f32", "flash_mqa.f32", "flash_mqa.simt", "group_sums")
+# the bf16 tensor-core kernels, which no f32 path may run
+BF16_TC_KERNELS = ("quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc")
 # every flash-decode launch counter: the wrapper's (by head layout and cache)
 # and the route's
 DECODE_COUNTERS = ("flash_decode", "flash_decode.int8", "flash_decode.mha", "flash_decode.mha.int8",
@@ -167,19 +185,20 @@ class Timer:
         return median_ms(fn, self.flush, N_RUNS, N_WARM)
 
 
-def check(name: str, got, ref) -> tuple[float, float]:
-    """(max abs err, max abs err / max |ref|); raises above TOL."""
+def check(name: str, got, ref, tol: float = TOL) -> tuple[float, float]:
+    """(max abs err, max abs err / max |ref|); raises above `tol` (TOL for
+    bf16 rows, F32_TOL for f32 rows)."""
     got, ref = got.float(), ref.float()
     if not bool(got.isfinite().all()):
         raise RuntimeError(f"{name}: kernel output is not finite")
     err = float((got - ref).abs().max())
     rel = err / max(float(ref.abs().max()), 1e-30)
-    if rel > TOL:
-        raise RuntimeError(f"{name}: max err {err:.3e} = {rel:.3e} of max|ref| > {TOL}")
+    if rel > tol:
+        raise RuntimeError(f"{name}: max err {err:.3e} = {rel:.3e} of max|ref| > {tol}")
     return err, rel
 
 
-def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
+def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
     """Every kernel against its plain version at the main-path shapes."""
     import torch.nn.functional as F
 
@@ -198,9 +217,11 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
     bf16 = torch.bfloat16
     rows = []
 
-    def row(kernel, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops, f32=False, **device_ms):
-        """f32: the operations are f32 ones outside the tensor cores."""
-        tb, to = nbytes / bw * 1e3, ops / (peak_f32 if f32 else peak) * 1e3
+    def row(kernel, shape, err, rel, ms, plain_ms, lib_ms, nbytes, ops, rate=peak, **device_ms):
+        """ops at `rate`: the bf16 tensor rate unless given (the f32 rate of
+        the CUDA cores; the f32 tensor-core kernels' three products at the
+        bf16 or TF32 rate, with their f32 CUDA-core bound beside it)."""
+        tb, to = nbytes / bw * 1e3, ops / rate * 1e3
         r = {"kernel": kernel, "shape": shape, "max_abs_err": err, "rel_err": rel, "ms": ms,
              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(tb, to),
              "bound_by": "bytes" if tb >= to else "operations", **device_ms}
@@ -232,7 +253,9 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
         if build.launch_counts[f"quant_matmul.{path}"] != before + 1:
             raise RuntimeError(f"quant_matmul {fmt} S={S} {xdtype} did not run the {path} kernel")
         ref = qm.quant_matmul_plain(w, x, out_dtype)
-        err, rel = check(f"quant_matmul {fmt} {wname} S={S} {path}", got, ref)
+        f32 = xdtype == torch.float32
+        err, rel = check(f"quant_matmul {fmt} {wname} S={S} {path}", got, ref,
+                         F32_TOL if f32 else TOL)
         ms = timer(lambda: qm.quant_matmul(w, x, out_dtype))
         plain_ms = timer(lambda: qm.quant_matmul_plain(w, x, out_dtype))
         lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
@@ -244,9 +267,11 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
                                               timer.flush),
                          "library_graph_ms": graph_ms(lambda i: torch.matmul(x, wdeq.t()), 1,
                                                       timer.flush)}
+        if f32:  # three bf16 products on the tensor cores; 2 S O K f32 FMAs on the CUDA cores
+            device_ms["f32_core_bound_ms"] = 2 * S * O * K / peak_f32 * 1e3
         row("quant_matmul" if path == "gemv" else f"quant_matmul.{path}",
             f"{fmt} {wname} O={O} K={K} S={S}", err, rel, ms, plain_ms, lib_ms, nbytes,
-            2 * S * O * K, f32=xdtype == torch.float32, **device_ms)
+            (3 if f32 else 1) * 2 * S * O * K, **device_ms)
 
     cases = [(fmt, shapes_40b if GGMLType[fmt.upper()] in qm.K_QUANTS else shapes_7b)
              for fmt in QUANT_FORMATS]
@@ -266,7 +291,10 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
     # (2 and 17 rows: the 16- and 64-row tiles; 300: two 256-row chunks, or
     # three of 128 rows where those fill the card better) at
     # one legacy and one K-quant weight, and an O that is no multiple of 64;
-    # then the f32 SIMT tile, which serves f32 x only, at the same two weights
+    # then the f32 tile, which serves f32 x only, at the same two weights at
+    # S = 300 (the f32 paths' prefill: 64 x rows a block at both) and 512
+    # (128 rows), and at the f32 paths' other 300-row widths (128 rows):
+    # Falcon-7B's lm_head and LLaMA-7B's w13 and w2
     for fmt, wname, O, K in (("q4_0", "wqkvu", 22848, 4544), ("q4_k", "wqkv", 9216, 8192),
                              ("q4_0", "ragged", 4500, 4544), ("q4_k", "ragged", 9001, 8192)):
         w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
@@ -275,23 +303,34 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
         for S in ((300,) if wname == "ragged" else (2, 17, 300)):
             matmul_row(fmt, wname, w, wbytes, wdeq, S, bf16, bf16)
         if wname != "ragged":
-            matmul_row(fmt, wname, w, wbytes, wdeq.float(), 512, torch.float32, torch.float32)
+            wdeq = wdeq.float()
+            for S in (300, 512):
+                matmul_row(fmt, wname, w, wbytes, wdeq, S, torch.float32, torch.float32)
+        del w, wdeq
+    for wname, O, K in (("lm_head", 65024, 4544), ("llama.w13", 22016, 4096),
+                        ("llama.w2", 4096, 11008)):
+        w = random_quant(GGMLType.Q4_0, O, K, gen, "cuda")
+        wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+        wdeq = w.dequantize(torch.float32)
+        matmul_row("q4_0", wname, w, wbytes, wdeq, 300, torch.float32, torch.float32)
         del w, wdeq
 
-    # ---- group_sums: 32-wide at the Falcon-7B and LLaMA-7B widths, 16-wide
-    # (Q2_K, Q3_K, Q6_K) at the 40B ones
-    for K, g in ((4544, 32), (22720, 32), (8192, 16), (40960, 16), (4096, 32), (11008, 32)):
-        S = 512
-        x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+    # ---- group_sums: f32 x (only the f32 tile takes group sums), 32-wide at
+    # the Falcon-7B and LLaMA-7B widths at S = 300 (the f32 paths' prefill)
+    # and 512, 16-wide (Q2_K, Q3_K, Q6_K) at the 40B ones
+    for S, K, g in ((300, 4544, 32), (300, 22720, 32), (300, 4096, 32), (300, 11008, 32),
+                    (512, 4544, 32), (512, 22720, 32), (512, 4096, 32), (512, 11008, 32),
+                    (512, 8192, 16), (512, 40960, 16)):
+        x = torch.randn(S, K, generator=gen, device="cuda")
         emap = (torch.arange(K, device="cuda")[:, None] // g
-                == torch.arange(K // g, device="cuda")[None, :]).to(bf16)
-        err, rel = check(f"group_sums K={K} g={g}", qm.group_sums(x, g),
-                         qm.group_sums_plain(x, g))
+                == torch.arange(K // g, device="cuda")[None, :]).float()
+        err, rel = check(f"group_sums S={S} K={K} g={g}", qm.group_sums(x, g),
+                         qm.group_sums_plain(x, g), F32_TOL)
         ms = timer(lambda: qm.group_sums(x, g))
         plain_ms = timer(lambda: qm.group_sums_plain(x, g))
         lib_ms = timer(lambda: torch.matmul(x, emap))
         row("group_sums", f"S={S} K={K} g={g}", err, rel, ms, plain_ms, lib_ms,
-            S * K * 2 + S * K // g * 4, S * K, f32=True)
+            S * K * 4 + S * K // g * 4, S * K, rate=peak_f32)
         del emap
 
     # ---- flash_mqa: S=512 against one (1, T=2560, KV, D) cache layer, at
@@ -300,16 +339,16 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
     T, S = 2560, 512
 
     def mqa_row(q, k, v, n_past, H, KV, D):
-        """One case through the wrapper: bf16 runs the tensor-core kernel, f32
-        the SIMT kernels; timed beside scaled_dot_product_attention."""
-        name = "flash_mqa.tc" if q.dtype == bf16 else "flash_mqa"
-        counter = COUNTER.get(name, name)
-        before = build.launch_counts[counter]
+        """One case through the wrapper: bf16 runs the bf16 tensor-core
+        kernel, f32 the f32 one; timed beside scaled_dot_product_attention."""
+        f32 = q.dtype == torch.float32
+        name = "flash_mqa.f32" if f32 else "flash_mqa.tc"
+        before = build.launch_counts[name]
         got = flash_mqa(q, k, v, n_past)
-        if build.launch_counts[counter] != before + 1:
-            raise RuntimeError(f"flash_mqa {q.dtype} D={D} did not count under {counter}")
+        if build.launch_counts[name] != before + 1:
+            raise RuntimeError(f"flash_mqa {q.dtype} D={D} did not count under {name}")
         err, rel = check(f"{name} H={H} KV={KV} n_past={n_past}", got,
-                         flash_mqa_plain(q, k, v, n_past))
+                         flash_mqa_plain(q, k, v, n_past), F32_TOL if f32 else TOL)
         ms = timer(lambda: flash_mqa(q, k, v, n_past))
         plain_ms = timer(lambda: flash_mqa_plain(q, k, v, n_past))
         Tv = n_past + S
@@ -325,9 +364,12 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))
         pairs = S * n_past + S * (S + 1) // 2  # visible (query, key) pairs
         eb = q.element_size()
+        extra = {}
+        if f32:  # three TF32 products on the tensor cores; f32 FMAs on the CUDA cores
+            extra["f32_core_bound_ms"] = 4 * pairs * H * D / peak_f32 * 1e3
         row(name, f"S={S} n_past={n_past} H={H} KV={KV} D={D}", err, rel, ms, plain_ms, lib_ms,
-            2 * S * H * D * eb + 2 * Tv * KV * D * eb, 4 * pairs * H * D,
-            f32=q.dtype == torch.float32)
+            2 * S * H * D * eb + 2 * Tv * KV * D * eb, (3 if f32 else 1) * 4 * pairs * H * D,
+            rate=peak_tf32 if f32 else peak, **extra)
 
     for H, KV, D, past in ((71, 1, 64, (0, 300)), (128, 8, 64, (0,)), (32, 32, 128, (0, 300))):
         kvc = torch.randn(1, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
@@ -335,7 +377,7 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
         q = torch.randn(1, S, H, D, generator=gen, device="cuda").to(bf16)
         for n_past in past:
             mqa_row(q, k, v, n_past, H, KV, D)
-        if KV != 8:  # the f32 kernels, once per layout they still serve
+        if KV != 8:  # the f32 kernel at the layouts of the f32 paths
             mqa_row(q.float(), k.float(), v.float(), past[-1], H, KV, D)
         # a batch of two with its own n_past per row (300 query rows each)
         kv2 = torch.randn(1, 2, 2, T, KV, D, generator=gen, device="cuda").to(bf16)
@@ -346,6 +388,16 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
                          flash_mqa_plain(q2, kv2[0, 0], kv2[0, 1], rows_past))
         log(f"  flash_mqa.tc  B=2 S=300 n_past=[300, 7] H={H} KV={KV} D={D} err {err:.2e}"
             f" ({rel:.1e} rel)")
+    # bf16 at head dim 32 (the small test models): the CUDA-core kernel
+    q32 = torch.randn(2, 45, 6, 32, generator=gen, device="cuda").to(bf16)
+    kv32 = torch.randn(2, 2, 160, 2, 32, generator=gen, device="cuda").to(bf16)
+    before = build.launch_counts["flash_mqa.simt"]
+    err, rel = check("flash_mqa.simt bf16 D=32", flash_mqa(q32, kv32[0], kv32[1], rows_past),
+                     flash_mqa_plain(q32, kv32[0], kv32[1], rows_past))
+    if build.launch_counts["flash_mqa.simt"] != before + 1:
+        raise RuntimeError("bf16 flash_mqa at head dim 32 did not run the CUDA-core kernel")
+    log(f"  flash_mqa.simt B=2 S=45 n_past=[300, 7] H=6 KV=2 D=32 bf16 err {err:.2e}"
+        f" ({rel:.1e} rel)")
 
     # ---- flash_decode: the last layer of the full cache (32 layers at
     # Falcon-7B and LLaMA-7B, 60 at 40B); grouped heads take the tensor-core
@@ -444,7 +496,7 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
                       n_ff=4 * H * D, n_vocab=0, parallel_norms=False)
     before = build.launch_counts["flash_decode.simt"]
     err, rel = check("flash_decode.simt f32", fd.flash_decode(kv, KV, 1, q1, valid - 1),
-                     _attention(q1, kv[1, 0], kv[1, 1], valid - 1, st))
+                     _attention(q1, kv[1, 0], kv[1, 1], valid - 1, st), F32_TOL)
     if build.launch_counts["flash_decode.simt"] != before + 1:
         raise RuntimeError("f32 flash_decode did not run the SIMT kernel")
     kt, vt = (kv[1, i, :, :valid].transpose(1, 2).expand(1, H, valid, D) for i in (0, 1))
@@ -452,7 +504,7 @@ def phase_kernels(torch, timer, bw, peak, peak_f32) -> list[dict]:
         timer(lambda: fd.flash_decode(kv, KV, 1, q1, valid - 1)),
         timer(lambda: fd.flash_decode_plain(kv, KV, 1, q1, valid - 1)),
         timer(lambda: F.scaled_dot_product_attention(q1.transpose(1, 2), kt, vt)),
-        2 * valid * KV * D * 4 + 2 * H * D * 4, 4 * valid * H * D, f32=True,
+        2 * valid * KV * D * 4 + 2 * H * D * 4, 4 * valid * H * D, rate=peak_f32,
         graph_ms=graph_ms(lambda i: fd.flash_decode(kv, KV, i, q1, valid - 1), L, timer.flush))
     del kv
 
@@ -666,7 +718,7 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     if (any(counts.get(k, 0) for k in DECODE_COUNTERS if k not in decode_counters)
             or counts.get(other_gemv, 0)
             or len({counts[k] for k in decode_counters}) != 1
-            or any(counts.get(k, 0) for k in ("quant_matmul.simt", "flash_mqa.simt", "group_sums"))
+            or any(counts.get(k, 0) for k in F32_KERNELS)
             or counts["quant_matmul"] != counts[f"quant_matmul.{fmt}"]
             or counts["quant_matmul"] != counts["quant_matmul.tc"] + counts[gemv]
             or counts["flash_mqa"] != counts["flash_mqa.tc"]):
@@ -750,73 +802,64 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     return out
 
 
-def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: int = 2) -> dict:
-    """The f32 route at full width and `n_layer` layers: float32 compute and
-    cache, a 300-token prefill through the f32 SIMT tile, group_sums and the
-    f32 attention kernel, then 16 greedy tokens through the SIMT decode
-    kernel. Fails unless all of them ran, no tensor-core kernel did, and the
-    prefill logits of all positions agree with the plain versions to
-    F32_LOGIT_TOL of max |logit|."""
-    import dataclasses
-    import gc
-
-    import numpy as np
-
-    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
-    from ggllm_tpu_torch.core.dtypes import GGMLType
-    from ggllm_tpu_torch.engine.engine import FalconEngine
+def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: int = 2,
+                   graphs: bool = True) -> dict:
+    """The f32 route at full width and `n_layer` layers
+    (tools/time_kernels.py f32_path): float32 compute and cache, a 300-token
+    prefill (tok/s printed) through the f32 tensor-core tile, group_sums and
+    the f32 attention kernel, then 16 greedy tokens through the legacy GEMV
+    and the head layout's f32 decode kernel (the SIMT kernel for grouped
+    heads, the G == 1 kernel for LLaMA); with `graphs`, the decode graphs
+    against the eager step body. Fails unless all of them ran, no bf16
+    tensor-core kernel did, and the prefill logits of all positions agree
+    with the plain versions to F32_LOGIT_TOL of max |logit|."""
     from ggllm_tpu_torch.kernels import build
-    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+    from ggllm_tpu_torch.tools.time_kernels import f32_path
 
-    hp = dataclasses.replace(named_hparams(model), n_layer=n_layer)
     label = f"{n_layer}-layer {model} {fmt} float32"
-    params = make_bench_params(hp, compute_dtype=torch.float32, device="cuda", seed=7,
-                               gtype=GGMLType[fmt.upper()])
-    cfg = dict(kv_dtype="float32", compute_dtype="float32")
-    eng = FalconEngine(hp, params, EngineConfig(**cfg))
-    prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, 300)]
-    eng.eval(prompt[:8])  # warm-up
-    eng.reset()
-    torch.cuda.synchronize()
-    build.launch_counts.clear()
-    t0 = time.perf_counter()
-    got = eng.eval(prompt, logits_all=True)
-    prefill_tps = len(prompt) / (time.perf_counter() - t0)
-    first = int(got[-1].argmax())
-    decoded, _ = eng.decode_chunk(first, 16)  # f32 q: the SIMT decode kernel
-    counts = dict(build.launch_counts)
-    log(f"  launches on the {label} path: {counts}")
-    graph = graph_vs_eager(torch, eng, len(prompt), first, prompt + [first], label,
-                           "quant_matmul.gemv", "quant_matmul.gemv.kq",
-                           {"flash_decode", "flash_decode.simt"}, greedy_ref=decoded)
-    log(f"  decode graph vs eager step body: 64 greedy and 32 sampled ids identical; graph"
-        f" {graph['graph_tok_s']:.2f} tok/s, eager {graph['eager_tok_s']:.2f} tok/s (4 chained"
-        f" 16-token chunks each); device {graph['graph_device_ms_per_token']:.4f} ms a token;"
-        f" capture {eng.timings.t_compile_us / 1e3:.1f} ms; one replay credited:"
-        f" {graph['credited']}")
-    if len(decoded) != 16 or not 0 <= int(decoded.min()) <= int(decoded.max()) < hp.n_vocab:
-        raise RuntimeError(f"bad decoded ids on the {label} path: {decoded}")
-    for name in ("quant_matmul.simt", f"quant_matmul.{fmt}", "group_sums", "flash_mqa.simt",
-                 "flash_decode", "flash_decode.simt", "quant_matmul.gemv"):
-        if counts.get(name, 0) <= 0:
-            raise RuntimeError(f"kernel {name} was not launched on the {label} path")
-    if any(counts.get(k, 0) for k in ("quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc")):
-        raise RuntimeError(f"a tensor-core kernel ran on the {label} path: {counts}")
-    plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False, **cfg))
-    ref = plain.eval(prompt, logits_all=True)
-    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+
+    def decode(eng, prompt, logits) -> dict:
+        hp = eng.hp
+        first = int(logits[-1].argmax())
+        decoded, _ = eng.decode_chunk(first, 16)
+        counts = dict(build.launch_counts)  # the prefill's and the decode's
+        log(f"  launches on the {label} path: {counts}")
+        if len(decoded) != 16 or not 0 <= int(decoded.min()) <= int(decoded.max()) < hp.n_vocab:
+            raise RuntimeError(f"bad decoded ids on the {label} path: {decoded}")
+        # the wrapper's counter and the route's (G == 1: the wrapper counts
+        # under the route's name)
+        decode_counters = ({"flash_decode.mha"} if hp.n_head_kv == hp.n_head
+                           else {"flash_decode", "flash_decode.simt"})
+        for name in ("quant_matmul.f32", f"quant_matmul.{fmt}", "group_sums", "flash_mqa.f32",
+                     "quant_matmul.gemv", *decode_counters):
+            if counts.get(name, 0) <= 0:
+                raise RuntimeError(f"kernel {name} was not launched on the {label} path")
+        if any(counts.get(k, 0) for k in (*BF16_TC_KERNELS, "flash_mqa.simt")):
+            raise RuntimeError(f"a bf16 kernel ran on the {label} path: {counts}")
+        graph = None
+        if graphs:
+            graph = graph_vs_eager(torch, eng, len(prompt), first, prompt + [first], label,
+                                   "quant_matmul.gemv", "quant_matmul.gemv.kq", decode_counters,
+                                   greedy_ref=decoded)
+            log(f"  decode graph vs eager step body: 64 greedy and 32 sampled ids identical;"
+                f" graph {graph['graph_tok_s']:.2f} tok/s, eager {graph['eager_tok_s']:.2f} tok/s"
+                f" (4 chained 16-token chunks each); device"
+                f" {graph['graph_device_ms_per_token']:.4f} ms a token; capture"
+                f" {eng.timings.t_compile_us / 1e3:.1f} ms; one replay credited:"
+                f" {graph['credited']}")
+        return {"launches": counts, "graph": graph}
+
+    r = f32_path(model, fmt, n_layer, after=decode)
+    if not r["finite"]:
         raise RuntimeError("f32 prefill logits are not finite")
-    rel = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
-    same = int((got.argmax(axis=1) == ref.argmax(axis=1)).sum())
-    log(f"  prefill {len(prompt)} tokens: {prefill_tps:.1f} tok/s; logits at all positions, kernels"
-        f" vs plain versions: {rel:.3e} of max|ref|; same argmax at {same} positions")
-    if rel > F32_LOGIT_TOL:
+    log(f"  prefill 300 tokens: {r['prefill_tok_s']:.1f} tok/s; logits at all positions, kernels"
+        f" vs plain versions: {r['logit_rel_err']:.3e} of max|ref|; same argmax at"
+        f" {r['argmax_same']} positions")
+    if r["logit_rel_err"] > F32_LOGIT_TOL:
         raise RuntimeError(f"f32 kernel and plain prefill logits disagree on the {label} path")
-    del eng, plain, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"path": label, "launches": counts, "prefill_tok_s": prefill_tps, "logit_rel_err": rel,
-            "argmax_same": same, "graph": graph}
+    return {"path": label, "launches": r["after"]["launches"],
+            "prefill_tok_s": r["prefill_tok_s"], "logit_rel_err": r["logit_rel_err"],
+            "argmax_same": r["argmax_same"], "graph": r["after"]["graph"]}
 
 
 def _http(url: str, route: str, body: dict | None = None, stream: bool = False):
@@ -1077,7 +1120,7 @@ def phase_scores(torch, eng, params, hp, logit_scale: float) -> list[dict]:
         for k in ("quant_matmul.tc", "flash_mqa.tc"):
             if c.get(k, 0) <= 0:
                 raise RuntimeError(f"kernel {k} was not launched on the {name} path")
-        if any(c.get(k, 0) for k in ("quant_matmul.simt", "flash_mqa.simt", "group_sums")):
+        if any(c.get(k, 0) for k in F32_KERNELS):
             raise RuntimeError(f"an f32 kernel ran on the {name} path: {c}")
     return [{"path": "falcon7b q4_0 perplexity / embedding", "launches": counts,
              "ppl": res.ppl, "ppl_plain_chunk1": res_plain.ppl, "lp_max_abs_err": lp_err,
@@ -1213,7 +1256,8 @@ def main() -> int:
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True).stdout
     log(f"torch {torch.__version__} cuda {torch.version.cuda} driver {smi('driver_version')}"
         f" nvcc {nvcc.strip().splitlines()[-1]}")
-    bw, peak, peak_f32 = PEAKS["pcie" if "PCIe" in kind else "nvl" if "NVL" in kind else "sxm"]
+    bw, peak, peak_tf32, peak_f32 = PEAKS["pcie" if "PCIe" in kind else "nvl" if "NVL" in kind
+                                          else "sxm"]
 
     t_start = time.perf_counter()
     log("phase 1: build")
@@ -1256,7 +1300,7 @@ def main() -> int:
     log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
     log("phase 2: kernels vs plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = phase_kernels(torch, Timer(torch), bw, peak, peak_f32)
+    rows = phase_kernels(torch, Timer(torch), bw, peak, peak_tf32, peak_f32)
     (out_dir / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 
     log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
@@ -1288,6 +1332,10 @@ def main() -> int:
     paths.append(phase_model(torch, "llama7b", "q4_k", kv_dtype="int8", long_past=1900))
     log("  -- falcon7b q4_0, 2 layers, float32")
     paths.append(phase_f32_path(torch))
+    log("  -- llama7b q4_0, 2 layers, float32")
+    paths.append(phase_f32_path(torch, "llama7b"))
+    log("  -- falcon7b q4_0, 32 layers, float32")
+    paths.append(phase_f32_path(torch, n_layer=32, graphs=False))
     (out_dir / "chip_smoke_paths.json").write_text(json.dumps({"card": card, "paths": paths},
                                                               indent=1))
 
@@ -1297,9 +1345,9 @@ def main() -> int:
         "quant_matmul": "q4_0 wqkvu O=22848 K=4544 S=1",
         "quant_matmul.gemv.kq": "q4_k ffn_up O=32768 K=8192 S=1",
         "quant_matmul.tc": "q4_0 wqkvu O=22848 K=4544 S=512",
-        "quant_matmul.simt": "q4_0 wqkvu O=22848 K=4544 S=512",
-        "group_sums": "S=512 K=22720 g=32",
-        "flash_mqa": "S=512 n_past=300 H=71 KV=1",
+        "quant_matmul.f32": "q4_0 wqkvu O=22848 K=4544 S=300",
+        "group_sums": "S=300 K=22720 g=32",
+        "flash_mqa.f32": "S=512 n_past=300 H=71 KV=1",
         "flash_mqa.tc": "S=512 n_past=300 H=71 KV=1",
         "flash_decode_tc": "valid=2047 G=71",
         "flash_decode_tc.int8": "int8 valid=2047 G=71",
@@ -1316,21 +1364,23 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
+        if "f32_core_bound_ms" in r:  # the f32 work's bound on the CUDA cores
+            entry["f32_core_bound_ms"] = r["f32_core_bound_ms"]
         if "graph_ms" in r:  # device time: a CUDA graph of one call (or one per layer)
             entry["graph_ms"] = r["graph_ms"]
             entry["library_graph_ms"] = r.get("library_graph_ms")
         if entry["launches"] <= 0:
             raise RuntimeError(f"kernel {name} was launched on none of the main paths")
         if name.startswith("quant_matmul"):
-            entry["x_dtype"] = "float32" if name.endswith("simt") else "bfloat16"
+            entry["x_dtype"] = "float32" if name.endswith("f32") else "bfloat16"
         if name in ("quant_matmul", "quant_matmul.gemv.kq"):
             entry["formats"] = [f for f in QUANT_FORMATS
                                 if (GGMLType[f.upper()] in qm.K_QUANTS) == name.endswith("kq")]
             entry["launches_by_format"] = {
                 fmt: sum(p["launches"].get(f"quant_matmul.{fmt}", 0) for p in paths)
                 for fmt in entry["formats"]}
-        if name == "flash_mqa":
-            entry["head_dims"], entry["dtypes"] = [32, 64, 128], ["float32", "bfloat16 at D=32"]
+        if name == "flash_mqa.f32":
+            entry["head_dims"], entry["dtypes"] = [32, 64, 128], ["float32"]
         if name == "flash_mqa.tc":
             entry["head_dims"], entry["dtypes"] = [64, 128], ["bfloat16"]
         if name.startswith("flash_decode"):

@@ -2,7 +2,8 @@
 // an f32 online softmax.
 //
 // Replaces the Pallas kernel ggllm_tpu/kernels/flash_attention.py `_kern`
-// (launched by flash_mqa) for bf16; flash_attention.cu keeps f32 and D = 32.
+// (launched by flash_mqa) for bf16 at D = 64 and 128; flash_attention_f32.cu
+// takes f32, flash_attention.cu bf16 at D = 32.
 // Semantics as there: key t is visible to query i of batch row b iff
 // t <= n_past[b] + i; masked scores are -1e30 (not -inf); out = acc /
 // max(l, 1e-30) in bf16.
@@ -23,7 +24,7 @@
 //    row's diagonal skip the mask, and with G == 1 the layout is the usual
 //    64 positions of one head. The K/V tile of 64 keys feeds all 64 rows.
 //  * K and V tiles are staged as bf16 (half of the f32 staging of
-//    flash_attention.cu) by 16-byte `cp.async`, double-buffered, in an XOR
+//    flash_attention_f32.cu) by 16-byte `cp.async`, double-buffered, in an XOR
 //    swizzle (16-byte chunk c of row r at chunk c ^ (r & 7)) so that every
 //    ldmatrix reads 8 rows from 8 different bank groups.
 //  * Blocks with the most keys (the last positions) start first.

@@ -4,11 +4,13 @@
 // accumulation, y in bf16 or f32.
 //
 // Replaces the Pallas kernel ggllm_tpu/kernels/quant_matmul.py `_kern`
-// (launched by fused_matmul_2d) for prefill; the S == 1 GEMV, the f32 tile
-// and the group sums stay in quant_matmul.cu. The TPU kernel keeps the affine
-// part of the dequant out of the per-element path and subtracts it as a
-// second product with per-group sums of x. Here one more FMA per decoded
-// weight hides under the matrix instruction, so each weight is formed whole,
+// (launched by fused_matmul_2d) for bf16 prefill; the S == 1 GEMVs, the f32
+// tile (quant_gemm_f32.cuh, which shares this file's format traits and W
+// staging) and the group sums (group_sums.cu) are kernels of their own. The
+// TPU kernel keeps the affine part of the dequant out of the per-element
+// path and subtracts it as a second product with per-group sums of x. Here
+// one more FMA per decoded weight hides under the matrix instruction, so
+// each weight is formed whole,
 // w = q s - c by one f32 FMA with the group's s and c formed in f32 as the
 // reference does (d * sc, dmin * scm), and rounded once to bf16. The code q
 // (at most 6 bits) enters the FMA as the float 1 + q / 128, whose bits are
@@ -382,6 +384,58 @@ __device__ __forceinline__ void decode(const Raw& r, int gl, int t, uint32_t (&f
   }
 }
 
+// The W records of a block of BM rows (row r: o_base + r, clamped to O - 1):
+// unit u of every plane into stage u % WSTAGES. The code, high-bit and
+// sub-scale bytes go by `cp.async` (copy); the fp16 scales go device memory
+// -> registers (load_scalars) -> the records (store_scalars), the two a slab
+// apart so that the loads' latency hides behind a slab's products.
+template <int F>
+struct WStager {
+  using Q = Fmt<F>;
+  static constexpr int RS = RecordStride<F>::value;
+  static constexpr int STAGE_BYTES = BM * RS;
+  static constexpr int N16 = Q::N16;                             // fp16 scalars per row, unit, plane
+  static constexpr int NJ = (BM * N16 + THREADS - 1) / THREADS;  // scalar copies per thread and plane
+  const Planes& p;
+  uint32_t wsm0;  // the stages' shared address
+  uint8_t* wsm;   // and pointer
+  int o_base, O, tid;
+  uint16_t sreg[2][NJ];
+
+  __device__ __forceinline__ int nunit() const { return (p.ng + 7) / 8; }
+  __device__ __forceinline__ void copy(int u) {
+    if (u >= nunit()) return;
+    const StageArgs a{wsm0 + (u % WSTAGES) * STAGE_BYTES, RS, o_base, O, p.ng, u, tid};
+    Q::stage(a, p);
+  }
+  __device__ __forceinline__ void load_scalars(int u) {
+#pragma unroll
+    for (int pl = 0; pl < (Q::HAS_M ? 2 : 1); ++pl) {
+      const uint16_t* plane = reinterpret_cast<const uint16_t*>(pl ? p.m : p.d);
+      const int per_row = (p.ng * N16 + 7) / 8;  // ng (legacy) or ng / 8 (K-quants)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int idx = tid + j * THREADS;
+        const int r = idx / N16, e = u * N16 + idx % N16;
+        const bool ok = idx < BM * N16 && u < nunit() && e < per_row;
+        sreg[pl][j] = ok ? __ldg(plane + (size_t)min(o_base + r, O - 1) * per_row + e) : 0;
+      }
+    }
+  }
+  __device__ __forceinline__ void store_scalars(int u) const {
+    uint8_t* stage = wsm + (u % WSTAGES) * STAGE_BYTES;
+#pragma unroll
+    for (int pl = 0; pl < (Q::HAS_M ? 2 : 1); ++pl)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int idx = tid + j * THREADS;
+        if (idx < BM * N16)
+          *reinterpret_cast<uint16_t*>(stage + (idx / N16) * RS + Q::OFF_D + pl * 2 * N16 +
+                                       (idx % N16) * 2) = sreg[pl][j];
+      }
+  }
+};
+
 __device__ __forceinline__ void store_y(void* y, bool f32, size_t idx, float v) {
   if (f32)
     static_cast<float*>(y)[idx] = v;
@@ -396,9 +450,7 @@ quant_gemm_tc(const __nv_bfloat16* __restrict__ x, const Planes p, void* __restr
   using Q = Fmt<F>;
   constexpr int STAGE_BYTES = NT * BK * 2;
   constexpr int RS = RecordStride<F>::value;
-  constexpr int WSTAGE_BYTES = BM * RS;
-  constexpr int N16 = Q::N16;                             // fp16 scalars per row, unit, plane
-  constexpr int NJ = (BM * N16 + THREADS - 1) / THREADS;  // scalar copies per thread and plane
+  constexpr int WSTAGE_BYTES = WStager<F>::STAGE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t smem_base = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t smem0 = (smem_base + 1023u) & ~1023u;  // x stages, then W stages
@@ -411,7 +463,7 @@ quant_gemm_tc(const __nv_bfloat16* __restrict__ x, const Planes p, void* __restr
   const int o_base = blockIdx.x * BM;
   const int ra = wg * 64 + warp * 16 + g;  // the thread's rows of the block: ra and ra + 8
   const int s0 = blockIdx.y * NT;
-  const int ng = p.ng, nslab = (ng + 1) / 2, nunit = (ng + 7) / 8;
+  const int ng = p.ng, nslab = (ng + 1) / 2;
 
   // x slab `slab` -> stage slab % STAGES; rows past S and columns past K are
   // zero-filled. A thread copies chunk c = tid % 8 of rows tid / 8 + 32 it.
@@ -431,39 +483,7 @@ quant_gemm_tc(const __nv_bfloat16* __restrict__ x, const Planes p, void* __restr
       }
     }
   };
-  auto copy_w = [&](int u) {
-    if (u >= nunit) return;
-    const StageArgs a{wsm0 + (u % WSTAGES) * WSTAGE_BYTES, RS, o_base, O, ng, u, tid};
-    Q::stage(a, p);
-  };
-  // the fp16 scales of unit u: device memory -> registers -> the records
-  uint16_t sreg[2][NJ];
-  auto load_scalars = [&](int u) {
-#pragma unroll
-    for (int pl = 0; pl < (Q::HAS_M ? 2 : 1); ++pl) {
-      const uint16_t* plane = reinterpret_cast<const uint16_t*>(pl ? p.m : p.d);
-      const int per_row = (ng * N16 + 7) / 8;  // ng (legacy) or ng / 8 (K-quants)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int idx = tid + j * THREADS;
-        const int r = idx / N16, e = u * N16 + idx % N16;
-        const bool ok = idx < BM * N16 && u < nunit && e < per_row;
-        sreg[pl][j] = ok ? __ldg(plane + (size_t)min(o_base + r, O - 1) * per_row + e) : 0;
-      }
-    }
-  };
-  auto store_scalars = [&](int u) {
-    uint8_t* stage = wsm + (u % WSTAGES) * WSTAGE_BYTES;
-#pragma unroll
-    for (int pl = 0; pl < (Q::HAS_M ? 2 : 1); ++pl)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int idx = tid + j * THREADS;
-        if (idx < BM * N16)
-          *reinterpret_cast<uint16_t*>(stage + (idx / N16) * RS + Q::OFF_D + pl * 2 * N16 +
-                                       (idx % N16) * 2) = sreg[pl][j];
-      }
-  };
+  WStager<F> wst{p, wsm0, wsm, o_base, O, tid};
   // the record of the thread's row a for 32-group gi (row b: + 8 RS); the
   // row's offset passes through an empty asm so that it stays in a register
   // instead of being recomputed from the thread index at every group
@@ -476,12 +496,12 @@ quant_gemm_tc(const __nv_bfloat16* __restrict__ x, const Planes p, void* __restr
                       // ordinary instructions, makes the compiler serialize the wgmma)
 
   copy_x(0);
-  copy_w(0);
+  wst.copy(0);
   cp_async_commit();
   copy_x(1);
   cp_async_commit();
-  load_scalars(0);
-  store_scalars(0);
+  wst.load_scalars(0);
+  wst.store_scalars(0);
   Raw na, nb;              // the next group's bytes of rows a and b
   uint32_t frag[2][2][4];  // [buffer][row a / b][register]
 
@@ -492,11 +512,11 @@ quant_gemm_tc(const __nv_bfloat16* __restrict__ x, const Planes p, void* __restr
     copy_x(slab + 2);   // into the stage slab - 2 used
     const int u = slab >> 2;
     if ((slab & 3) == 0) {  // the next unit: its stage was last read in unit u - 1
-      copy_w(u + 1);
-      load_scalars(u + 1);
+      wst.copy(u + 1);
+      wst.load_scalars(u + 1);
     }
     cp_async_commit();
-    if ((slab & 3) == 1) store_scalars(u + 1);
+    if ((slab & 3) == 1) wst.store_scalars(u + 1);
     if (slab == 0) {
       Q::load(record(0), 0, t, na);
       Q::load(record(0) + 8 * RS, 0, t, nb);

@@ -41,21 +41,23 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 DECODE_ARGS = [P, I, P, I, P, I, P, I, P, I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
-    # gtype, x, x_is_bf16, qs, qh, d, m, sc, scm, xg, y, y_is_bf16, S, K, O, stream
-    "gq_quant_matmul": [I, P, I, P, P, P, P, P, P, P, P, I, I, I, I, P],
     # gtype, x, x_is_bf16, qs, qh, d, m, sc, scm, y, y_is_bf16, K, O, W rows a warp, stream
     "gq_quant_gemv_kq": [I, P, I, P, P, P, P, P, P, P, I, I, I, I, P],
     "gq_quant_gemv_legacy": [I, P, I, P, P, P, P, P, P, P, I, I, I, I, P],
     # gtype, x (bf16), qs, qh, d, m, sc, scm, y, y_is_f32, S, K, O, x rows per block, stream
     "gq_quant_matmul_tc": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # gtype, x (f32), qs, qh, d, m, sc, scm, xg, y, y_is_f32, S, K, O, x rows per block, stream
+    "gq_quant_matmul_f32": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, x_is_bf16, xg, S, K, group, stream
     "gq_group_sums": [P, I, P, I, I, I, P],
-    # q, k, v, out, is_bf16, n_past_vec, n_past, B, S, H, T, KV, D,
+    # q, k, v, out (bf16, D = 32), n_past_vec, n_past, B, S, H, T, KV, D,
     # k_batch_stride, k_time_stride, stream
-    "gq_flash_mqa": [P, P, P, P, I, P, I, I, I, I, I, I, I, I, I, P],
+    "gq_flash_mqa": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     # q, k, v, out (bf16), n_past_vec, n_past, B, S, H, T, KV, D, k_batch_stride,
     # k_time_stride (long long), stream
     "gq_flash_mqa_tc": [P, P, P, P, P, I, I, I, I, I, I, I, L, L, P],
+    # the same arguments, f32 q/k/v and out
+    "gq_flash_mqa_f32": [P, P, P, P, P, I, I, I, I, I, I, I, L, L, P],
     # one-launch flash-decode (flash_decode.cu: G == 1 and SIMT; flash_decode_tc.cu)
     "gq_decode": DECODE_ARGS,
     "gq_decode_tc": DECODE_ARGS,

@@ -1,7 +1,7 @@
 """Fused dequant x matmul (y = x @ W^T from the planes of a QuantTensor) and
-per-group sums of x, each a hand-written CUDA kernel (csrc/quant_matmul.cu,
-csrc/quant_gemv_legacy.cu, csrc/quant_gemv_kq.cu, csrc/quant_gemm_tc.cuh) with
-its plain PyTorch version beside it.
+per-group sums of x, each a hand-written CUDA kernel (csrc/quant_gemv_legacy.cu,
+csrc/quant_gemv_kq.cu, csrc/quant_gemm_tc.cuh, csrc/quant_gemm_f32.cuh,
+csrc/group_sums.cu) with its plain PyTorch version beside it.
 
 Replaces the Pallas kernels ggllm_tpu/kernels/quant_matmul.py `_kern`
 (launched by fused_matmul_2d) and `_xg_kern` (launched by _group_sums), for
@@ -26,9 +26,12 @@ each family's traits (`gemv_lane_table` and `gemv_emulated` state its lanes
 and sums for the CPU tests); more rows of bf16 x run the tensor-core tile
 (csrc/quant_gemm_tc.cuh: `wgmma` on weights decoded into registers,
 w = q s - c by one f32 FMA, rounded once to bf16, no group sums); more rows
-of f32 x run the f32 SIMT tile fed by group_sums, which keeps the correction
-form above and f32 accuracy. `tc_fragment_table` states the tile's
-per-thread decode as a table the CPU tests can check.
+of f32 x run the f32 tile (csrc/quant_gemm_f32.cuh: `mma.sync` on the exact
+codes times x cut into three bf16 terms that sum to x exactly, each group's
+partial scaled in f32), fed by group_sums, which keeps the correction form
+above and f32 accuracy. `tc_fragment_table` states both tiles' per-thread
+decode as a table the CPU tests can check; `split_bf16x3` and
+`f32_tile_emulated` restate the f32 tile's arithmetic.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.
@@ -71,14 +74,16 @@ _ARG_PLANE = {GGMLType.Q6_K: {"qs": "ql"}, GGMLType.Q4_K: {"m": "dmin"},
 
 
 TC_ROWS = (16, 64, 128, 256)  # x rows per block the tensor-core tile is built for
+F32_ROWS = (32, 64, 128)       # x rows per block the f32 tile is built for
 TC_BLOCK_O = 128               # W rows per block (two warpgroups of 64)
 N_SM = 132
 
 
 def route(S: int, x_dtype, gtype) -> str:
     """The kernel that serves S rows of x in `x_dtype` on the card: "gemv"
-    (S == 1), "tc" (bf16, S > 1: tensor cores), "simt" (f32, S > 1: the f32
-    tile with group sums). Raises for what no kernel takes."""
+    (S == 1), "tc" (bf16, S > 1: the bf16 tensor-core tile), "f32" (f32,
+    S > 1: the f32 tensor-core tile with group sums). Raises for what no
+    kernel takes."""
     if gtype not in KERNEL_FORMATS:
         raise NotImplementedError(f"quant_matmul kernel: no {GGMLType(gtype).name} variant")
     if x_dtype not in _DTYPES:
@@ -87,7 +92,7 @@ def route(S: int, x_dtype, gtype) -> str:
         raise ValueError(f"quant_matmul: {S} rows")
     if S == 1:
         return "gemv"
-    return "tc" if x_dtype == torch.bfloat16 else "simt"
+    return "tc" if x_dtype == torch.bfloat16 else "f32"
 
 
 def gemv_kernel(gtype) -> str:
@@ -112,6 +117,22 @@ def tc_rows(S: int, O: int) -> int:
     rounds256 = -(-row_blocks * -(-S // 256) // N_SM)
     rounds128 = -(-row_blocks * -(-S // 128) // (2 * N_SM))
     return 256 if rounds256 <= 1.4 * rounds128 else 128
+
+
+def f32_rows(S: int, O: int) -> int:
+    """x rows per block of the f32 tile: the narrowest width that holds a
+    short S; from 65 rows 128 (each weight decoded once per 128 rows) unless
+    64-row blocks, half the work each, need at most 0.8 of the 128-row
+    blocks' rounds over the card's SMs (one block an SM either way). On an
+    H100 it picks the faster width at every weight of time_kernels.py's
+    TILE_SHAPES at S = 512 and 300 (Falcon-7B's w_od, O = 4544, at S = 512:
+    144 blocks of 128 rows, two rounds, or 288 of 64, three half rounds)."""
+    if S <= F32_ROWS[1]:
+        return F32_ROWS[0] if S <= F32_ROWS[0] else F32_ROWS[1]
+    row_blocks = -(-O // TC_BLOCK_O)
+    rounds128 = -(-row_blocks * -(-S // 128) // N_SM)
+    rounds64 = -(-row_blocks * -(-S // 64) // N_SM) / 2
+    return 64 if rounds64 <= 0.8 * rounds128 else 128
 
 
 def tc_fragment_table(gtype, K: int) -> dict:
@@ -183,13 +204,10 @@ def tc_group_scales(w) -> tuple[torch.Tensor, torch.Tensor]:
     return s.reshape(O, -1), c.reshape(O, -1)
 
 
-def tc_dequant_emulated(w, kernel_arithmetic: bool = False) -> torch.Tensor:
-    """(O, K) bf16: W as the tensor-core tile's threads decode it, gathered
-    through tc_fragment_table: code from the plane bytes, w = q * s - c in
-    f32, rounded once to bf16. With `kernel_arithmetic` the value is formed as
-    the kernel forms it, fma(1 + q / 128, 128 s, -(c + 128 s)) with c + 128 s
-    rounded to f32 (Q8_0: (q + 128 - 128) * d, which is exact): at most
-    2^-17 |s| from q * s - c before the rounding to bf16."""
+def tc_codes(w) -> torch.Tensor:
+    """(O, K) int64: the raw code of every weight as the tiles' threads cut it
+    out of the plane bytes through tc_fragment_table (unsigned; Q8_0 the
+    signed byte)."""
     O, K = w.shape
     tab = tc_fragment_table(w.gtype, K)
 
@@ -205,9 +223,23 @@ def tc_dequant_emulated(w, kernel_arithmetic: bool = False) -> torch.Tensor:
         q = q | (hb << tab["hlshift"])
     if tab["signed"]:
         q = torch.where(q >= 128, q - 256, q)
+    out = torch.empty(O, K, dtype=torch.int64)
+    out[:, idx(tab["k"])] = q
+    return out
+
+
+def tc_dequant_emulated(w, kernel_arithmetic: bool = False) -> torch.Tensor:
+    """(O, K) bf16: W as the tensor-core tile's threads decode it, gathered
+    through tc_fragment_table (tc_codes): code from the plane bytes, w = q *
+    s - c in f32, rounded once to bf16. With `kernel_arithmetic` the value is
+    formed as the kernel forms it, fma(1 + q / 128, 128 s, -(c + 128 s)) with
+    c + 128 s rounded to f32 (Q8_0: (q + 128 - 128) * d, which is exact): at
+    most 2^-17 |s| from q * s - c before the rounding to bf16."""
+    O, K = w.shape
+    q = tc_codes(w)
     s, c = tc_group_scales(w)
-    group = idx(tab["group"])
-    if kernel_arithmetic and not tab["signed"]:
+    group = torch.arange(K) // KERNEL_FORMATS[w.gtype][0]
+    if kernel_arithmetic and w.gtype != GGMLType.Q8_0:
         s128 = 128.0 * s
         c128 = (c + s128).to(torch.float64)[:, group]  # c + 128 s, rounded to f32
         # the FMA is exact before its one rounding: float64 holds the 8-bit by
@@ -216,9 +248,48 @@ def tc_dequant_emulated(w, kernel_arithmetic: bool = False) -> torch.Tensor:
                 - c128).to(torch.float32)
     else:
         vals = q.to(torch.float32) * s[:, group] - c[:, group]
-    out = torch.empty(O, K, dtype=torch.float32)
-    out[:, idx(tab["k"])] = vals
-    return out.to(torch.bfloat16)
+    return vals.to(torch.bfloat16)
+
+
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (f32) as the f32 tile cuts it into three bf16 terms, each returned
+    as f32: x0 = the top 16 bits of x (bf16 by truncation), x1 = the top 16
+    bits of x - x0, x2 = x - x0 - x1; both differences are exact in f32.
+    x0 + x1 + x2 == x exactly wherever |x| >= 2^-110 (a term is then a bf16
+    normal or a bf16 subnormal it fits); below, within 2^-133 of x. No term
+    overflows: truncation never rounds up."""
+    def top16(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    x = x.to(torch.float32)
+    x0 = top16(x)
+    r = x - x0
+    x1 = top16(r)
+    return x0, x1, top16(r - x1)
+
+
+def f32_tile_emulated(w, x: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """y (S, O) f32 = x (S, K) f32 @ W^T as the f32 tile computes it: the
+    exact codes (tc_codes) times the first `terms` bf16 terms of x
+    (split_bf16x3), each product exact, summed per scale group into an f32
+    partial P_g (the small terms first), then acc += s_g P_g - c_g xg_g
+    over the groups in order, in f32 (tc_group_scales; xg = the f32 group
+    sums). terms < 3 drops the smallest terms: a negative control."""
+    O, K = w.shape
+    width = KERNEL_FORMATS[w.gtype][0]
+    xf = x.reshape(-1, K).to(torch.float32)
+    S, ng = xf.shape[0], K // width
+    q = tc_codes(w).to(torch.float32).reshape(O, ng, width)
+    parts = split_bf16x3(xf)[:terms]
+    P = torch.zeros(S, O, ng, dtype=torch.float32)
+    for xi in reversed(parts):
+        P = P + torch.einsum("sgj,ogj->sog", xi.reshape(S, ng, width), q)
+    s, c = tc_group_scales(w)
+    xg = group_sums_plain(xf, width)
+    acc = torch.zeros(S, O, dtype=torch.float32)
+    for gi in range(ng):
+        acc = acc + s[None, :, gi] * P[:, :, gi] - c[None, :, gi] * xg[:, gi, None]
+    return acc
 
 
 class GemvLayout(NamedTuple):
@@ -467,8 +538,9 @@ def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     S = 1 (decode) runs a GEMV, which forms its own sums of x: the K-quant
     GEMV for the K-quants (counted as "quant_matmul.gemv.kq"), the legacy
     GEMV for the others ("quant_matmul.gemv"); S > 1 rows of bf16 x run the
-    tensor-core tile; S > 1 rows of f32 x the f32 tile fed by group_sums
-    (S >= 256) or the plain reduce (S < 256). See `route`."""
+    bf16 tensor-core tile ("quant_matmul.tc"); S > 1 rows of f32 x the f32
+    tensor-core tile ("quant_matmul.f32") fed by group_sums (S >= 256) or
+    the plain reduce (S < 256). See `route`."""
     if x.device.type == "cpu":
         return quant_matmul_plain(w, x, out_dtype)
     if w.gtype not in KERNEL_FORMATS:
@@ -508,10 +580,8 @@ def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
         xg = group_sums_plain(x2, group)
     else:
         xg = group_sums(x2, group)
-    build.launch("gq_quant_matmul", ("quant_matmul", fmt_counter, f"quant_matmul.{path}"),
-                 int(w.gtype), x2.data_ptr(),
-                 int(x2.dtype == torch.bfloat16), *ptrs,
-                 None if xg is None else xg.data_ptr(), y.data_ptr(),
-                 int(out_dtype == torch.bfloat16), S, K, O,
+    build.launch("gq_quant_matmul_f32", ("quant_matmul", fmt_counter, "quant_matmul.f32"),
+                 int(w.gtype), x2.data_ptr(), *ptrs, None if xg is None else xg.data_ptr(),
+                 y.data_ptr(), int(out_dtype == torch.float32), S, K, O, f32_rows(S, O),
                  build.stream_ptr(x2.device))
     return y.reshape(*lead, O)

@@ -1,6 +1,7 @@
-"""What nvcc made of the decode GEMVs: instruction counts of every
-`quant_gemv_legacy` and `quant_gemv_kq` instantiation in the built kernel
-library, read from `cuobjdump -sass` (CUDA toolkit) on the card's machine.
+"""What nvcc made of the decode GEMVs and the f32 prefill tile: instruction
+counts of every `quant_gemv_legacy`, `quant_gemv_kq` and `quant_gemm_f32`
+instantiation in the built kernel library, read from `cuobjdump -sass` (CUDA
+toolkit) on the card's machine.
 
     python -m ggllm_tpu_torch.tools.sass_report
 
@@ -10,7 +11,10 @@ steps), x and y dtypes, instructions in the function, I2F (int to float
 conversions) in it, and its main loop (from the target of the last backward
 branch to that branch: `depth` steps of the lane's blocks) with the loop's
 instructions a weight. chip_smoke.py calls `gemv_report` after the build and
-fails if a GEMV holds an I2F.
+fails if a GEMV holds an I2F. Then one JSON line per f32 tile instantiation
+(`tile_report`): format, x rows a block, instructions, and its main loop
+(one 64-column slab: two 32-groups) with its `HMMA` count, opcode counts and
+instructions a `HMMA`.
 """
 
 from __future__ import annotations
@@ -59,24 +63,41 @@ def gemv_report(library: str | Path) -> list[dict]:
                                      text=True, check=True).stdout)
 
 
+def _functions(sass: str):
+    """(mangled name, [(address, opcode, operands)]) of each function in the
+    text `cuobjdump -sass` prints."""
+    for func in re.split(r"\n\s+Function : ", sass)[1:]:
+        yield (func.split("\n", 1)[0].strip(),
+               [(int(a, 16), op, arg) for a, op, _, arg in _INSTR.findall(func)])
+
+
+def _main_loop(ins: list) -> list | None:
+    """The instructions from the target of the last backward branch to that
+    branch, or None."""
+    for addr, op, arg in reversed(ins):
+        target = re.search(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            return [i for i in ins if int(target.group(1), 16) <= i[0] <= addr]
+    return None
+
+
+def _counts(ins: list) -> dict[str, int]:
+    ops: dict[str, int] = {}
+    for _, op, _ in ins:
+        ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
 def parse_sass(sass: str) -> list[dict]:
     """gemv_report's rows from the text `cuobjdump -sass` prints."""
     out = []
-    for func in re.split(r"\n\s+Function : ", sass)[1:]:
-        name = func.split("\n", 1)[0].strip()
+    for name, ins in _functions(sass):
         desc = _describe(name)
         if desc is None:
             continue
-        ins = [(int(a, 16), op, arg) for a, op, _, arg in _INSTR.findall(func)]
-        ops: dict[str, int] = {}
-        for _, op, _ in ins:
-            ops[op] = ops.get(op, 0) + 1
-        loop = None
-        for addr, op, arg in reversed(ins):
-            target = re.search(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
-            if target and int(target.group(1), 16) < addr:
-                loop = sum(1 for a, _, _ in ins if int(target.group(1), 16) <= a <= addr)
-                break
+        ops = _counts(ins)
+        body = _main_loop(ins)
+        loop = None if body is None else len(body)
         weights = desc["depth"] * desc["rows"] * 16 * _RUNS[desc["format"]]  # a lane's
         out.append({**desc, "instructions": len(ins), "I2F": ops.get("I2F", 0),
                     "loop_instructions": loop,
@@ -85,10 +106,37 @@ def parse_sass(sass: str) -> list[dict]:
     return out
 
 
+def parse_tile_sass(sass: str) -> list[dict]:
+    """tile_report's rows from the text `cuobjdump -sass` prints."""
+    fmts = {**_FORMATS["legacy"], **_FORMATS["kq"]}
+    out = []
+    for name, ins in _functions(sass):
+        m = re.search(r"quant_gemm_f32ILi(\d+)ELi(\d+)E", name)
+        if not m or int(m.group(1)) not in fmts:
+            continue
+        body = _main_loop(ins) or []
+        ops = _counts(body)
+        hmma = ops.get("HMMA", 0)
+        out.append({"kernel": "quant_gemm_f32", "format": fmts[int(m.group(1))],
+                    "rows": int(m.group(2)), "instructions": len(ins),
+                    "loop_instructions": len(body), "loop_HMMA": hmma,
+                    "loop_instructions_per_HMMA": len(body) / hmma if hmma else None,
+                    "loop_opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])})
+    return out
+
+
+def tile_report(library: str | Path) -> list[dict]:
+    """One dict per f32 tile instantiation in `library` (see the module's
+    docstring)."""
+    return parse_tile_sass(subprocess.run([_cuobjdump(), "-sass", str(library)],
+                                          capture_output=True, text=True, check=True).stdout)
+
+
 def main() -> int:
     from ggllm_tpu_torch.kernels import build
 
-    for row in gemv_report(build.build()):
+    lib = build.build()
+    for row in gemv_report(lib) + tile_report(lib):
         print(json.dumps(row), flush=True)
     return 0
 

@@ -1,8 +1,8 @@
 """Timing loops on the CUDA card that chip_smoke.py does not run: the
 tensor-core prefill tile at every tile width, decode attention and the
-decode GEMV at the main paths' shapes, and decode chunks of one stream, the
-last three for a tree given by its root, so that two trees can be timed in
-turns within one call.
+decode GEMV at the main paths' shapes, decode chunks of one stream, and the
+f32 prefill kernels and f32 route, all but the first for a tree given by
+its root, so that two trees can be timed in turns within one call.
 
     python -m ggllm_tpu_torch.tools.time_kernels tile
     python ggllm_tpu_torch/tools/time_kernels.py attn [--root DIR]
@@ -11,6 +11,9 @@ turns within one call.
         [--prompt 300] [--tokens 64]
     python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR] [--family legacy|kq]
         [--shape q4_0:12288x4096 ...]
+    python ggllm_tpu_torch/tools/time_kernels.py f32 [--root DIR]
+    python ggllm_tpu_torch/tools/time_kernels.py f32path [--root DIR]
+        [--config falcon7b|llama7b] [--format q4_0] [--layers 32]
 
 `tile` prints, per weight shape of the full-width models and S in 512 / 300,
 the `wgmma` tile's time with 128 and 256 x rows a block, with the width
@@ -42,6 +45,26 @@ pick under the plain keys), `torch.matmul` on the dequantized bf16 weight
 timed the same two ways, the GEMV launch counters, and the byte bound at
 3.35 TB/s (medians of 20, L2 flushed before each); `--shape FMT:OxK` (one or
 more) times those weights instead of the family's.
+`f32` prints one JSON line per shape of the f32 prefill kernels: the f32
+quant-matmul tile (f32 x and y) at every `TILE_SHAPES` weight for S in 512 and
+300 (also at 64 and 128 x rows a block, where the tree's tile has the
+choice) beside f32 `torch.matmul` on the dequantized f32 weight, and f32
+`flash_mqa` at the two prefill attention layouts (Falcon-7B H=71 KV=1 D=64,
+LLaMA-7B H=KV=32 D=128; S=512, n_past 300, a 2560-position cache layer)
+beside f32 `scaled_dot_product_attention` (medians of 20, L2 flushed before
+each; TF32 off for the library calls), each with the launch counters it
+moved, its largest difference from the plain version as a share of max
+|plain|, and its bounds: the bytes at 3.35 TB/s, the operations at the f32
+rate outside the tensor cores (67 TFLOP/s), and three bf16 products at
+989 TFLOP/s (the tile) or three TF32 products at 495 TFLOP/s (attention).
+`f32path` prints one JSON line: a full-width model (`--layers` deep) with
+float32 compute and cache prefills a 300-token prompt through the tree's
+kernels (tok/s on the host clock, ending with the logits on the host, after
+one untimed prefill of the same prompt: a kernel's first launch in a
+process loads it) and through the plain versions; the largest logit difference as a share of max
+|logit|, the positions whose argmax agree, whether both sets of logits are
+finite, and the launch counters (`f32_path`, which chip_smoke.py's f32 paths
+run too).
 --root names the directory that holds the `ggllm_tpu_torch` package to time
 (default: the one this file lies in).
 """
@@ -265,6 +288,138 @@ def time_tile() -> None:
         del w, wd
 
 
+F32_ATTN_SHAPES = ((71, 1, 64), (32, 32, 128))  # (H, KV, D): Falcon-7B, LLaMA-7B
+
+
+def time_f32(bw: float = 3.35e12) -> None:
+    import torch
+    import torch.nn.functional as F
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import flash_attention as fa
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.utils.benchgen import random_quant
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    base = {"package": str(Path(build.__file__).resolve().parents[2]),
+            "card": torch.cuda.get_device_name(0)}
+
+    def rel(got, ref) -> float:
+        return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+    for fmt, O, K in TILE_SHAPES:
+        w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
+        wd = w.dequantize(f32)
+        wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+        for S in (512, 300):
+            x = torch.randn(S, K, generator=gen, device="cuda")
+            build.launch_counts.clear()
+            err = rel(qm.quant_matmul(w, x, f32), qm.quant_matmul_plain(w, x, f32))
+            ops = 2 * S * O * K
+            row = {**base, "kernel": "quant_matmul f32", "fmt": fmt, "O": O, "K": K, "S": S,
+                   "launches": dict(build.launch_counts), "rel_err": err}
+            picked = getattr(qm, "f32_rows", None)  # a tree with a choice of tile widths
+            for nt in () if picked is None else qm.F32_ROWS[1:]:
+                qm.f32_rows = lambda *_, nt=nt: nt
+                try:
+                    row[f"ms_{nt}"] = median_ms(lambda: qm.quant_matmul(w, x, f32), flush)
+                finally:
+                    qm.f32_rows = picked
+            if picked is not None:
+                row["f32_rows"] = picked(S, O)
+            row.update({"ms": median_ms(lambda: qm.quant_matmul(w, x, f32), flush),
+                        "library_ms": median_ms(lambda: torch.matmul(x, wd.t()), flush),
+                        "bytes_bound_ms": (wbytes + 4 * S * K + 4 * S * O) / bw * 1e3,
+                        "f32_bound_ms": ops / 67e12 * 1e3,
+                        "tensor_bound_ms": 3 * ops / 989e12 * 1e3})
+            print(json.dumps(row), flush=True)
+        del w, wd
+    S, T, n_past = 512, 2560, 300
+    for H, KV, D in F32_ATTN_SHAPES:
+        kv = torch.randn(2, 1, T, KV, D, generator=gen, device="cuda")
+        k, v = kv[0], kv[1]
+        q = torch.randn(1, S, H, D, generator=gen, device="cuda")
+        build.launch_counts.clear()
+        err = rel(fa.flash_mqa(q, k, v, n_past), fa.flash_mqa_plain(q, k, v, n_past))
+        Tv = n_past + S
+        qt, kt, vt = q.transpose(1, 2), k[:, :Tv].transpose(1, 2), v[:, :Tv].transpose(1, 2)
+        mask = (torch.arange(Tv, device="cuda")[None, :]
+                <= n_past + torch.arange(S, device="cuda")[:, None])
+        kt, vt = kt.expand(1, H, Tv, D), vt.expand(1, H, Tv, D)  # views: G == 1 or MQA
+        ops = 4 * (S * n_past + S * (S + 1) // 2) * H * D
+        row = {**base, "kernel": "flash_mqa f32", "S": S, "n_past": n_past, "H": H, "KV": KV,
+               "D": D, "launches": dict(build.launch_counts), "rel_err": err,
+               "ms": median_ms(lambda: fa.flash_mqa(q, k, v, n_past), flush),
+               "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=mask), flush),
+               "bytes_bound_ms": 4 * (2 * S * H * D + 2 * Tv * KV * D) / bw * 1e3,
+               "f32_bound_ms": ops / 67e12 * 1e3, "tensor_bound_ms": 3 * ops / 495e12 * 1e3}
+        print(json.dumps(row), flush=True)
+        del kv, q
+
+
+def f32_path(config: str, fmt: str = "q4_0", n_layer: int = 2, after=None) -> dict:
+    """The f32 route at full width and `n_layer` layers (random weights from
+    seed 7): float32 compute and cache, one untimed prefill of a 300-token
+    prompt (a kernel's first launch in a process loads it), the timed one
+    (tok/s on the host clock, ending with the logits on the host) and its
+    launch counters; then `after(eng, prompt, logits)` where given, on the
+    same engine (its result under "after"); then the same prompt through
+    the plain versions: the largest logit difference as a share of max
+    |logit|, the positions whose argmax agree, and whether both sets of
+    logits are finite. chip_smoke.py's f32 paths and `f32path` below."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+    hp = dataclasses.replace(named_hparams(config), n_layer=n_layer)
+    params = make_bench_params(hp, compute_dtype=torch.float32, device="cuda", seed=7,
+                               gtype=GGMLType[fmt.upper()])
+    cfg = dict(kv_dtype="float32", compute_dtype="float32")
+    eng = FalconEngine(hp, params, EngineConfig(**cfg))
+    prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, 300)]
+    eng.eval(prompt, logits_all=True)
+    eng.reset()
+    torch.cuda.synchronize()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    got = eng.eval(prompt, logits_all=True)
+    tps = len(prompt) / (time.perf_counter() - t0)
+    launches = dict(build.launch_counts)
+    extra = None if after is None else after(eng, prompt, got)
+    plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False,
+                                                  **cfg))
+    ref = plain.eval(prompt, logits_all=True)
+    out = {"model": f"{config} {fmt} float32", "n_layer": n_layer, "prefill_tok_s": tps,
+           "logit_rel_err": float(np.abs(got - ref).max() / np.abs(ref).max()),
+           "argmax_same": int((got.argmax(1) == ref.argmax(1)).sum()),
+           "finite": bool(np.isfinite(got).all() and np.isfinite(ref).all()),
+           "launches": launches, "after": extra}
+    del eng, plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_f32_path(config: str, fmt: str, n_layer: int) -> None:
+    import torch
+    from ggllm_tpu_torch.kernels import build
+    r = f32_path(config, fmt, n_layer)
+    del r["after"]
+    print(json.dumps({"package": str(Path(build.__file__).resolve().parents[2]),
+                      "card": torch.cuda.get_device_name(0), **r}), flush=True)
+
+
 def chained_decode(eng, start: int, first: int, hist: list, n_tokens: int, sampler,
                    eager: bool = False, chunk: int = 16) -> tuple[list, float]:
     """n_tokens ids from n_past `start` (first sampled, not yet forwarded;
@@ -390,12 +545,13 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("tile", "attn", "decode", "gemv"))
+    ap.add_argument("what", choices=("tile", "attn", "decode", "gemv", "f32", "f32path"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
     ap.add_argument("--format", default="q4_0")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--prompt", type=int, default=300, help="decode: n_past")
+    ap.add_argument("--layers", type=int, default=32, help="f32path: the model's depth")
     ap.add_argument("--tokens", type=int, default=64, help="decode: tokens a run (16-token chunks)")
     ap.add_argument("--family", choices=("legacy", "kq"), default="legacy",
                     help="gemv: the legacy formats' shapes or the K-quants'")
@@ -408,6 +564,10 @@ def main(argv=None) -> int:
         time_tile()
     elif args.what == "attn":
         time_attn()
+    elif args.what == "f32":
+        time_f32()
+    elif args.what == "f32path":
+        time_f32_path(args.config, args.format, args.layers)
     elif args.what == "gemv":
         shapes = GEMV_SHAPES[args.family]
         if args.shape:

@@ -2,9 +2,11 @@
 
 Marked `cuda` and skipped without one. These cover what chip_smoke.py's
 full-width checks do not: every quant format with f32 and bf16 inputs
-(bf16 rows through the tensor-core tile at each of its four widths, f32 rows
-through the SIMT tile, counted as such), ragged tiles (odd S, O and query
-tiles), 16- and 32-wide group sums, per-row
+(bf16 rows through the bf16 tensor-core tile at each of its four widths,
+f32 rows through the f32 tensor-core tile at each of its three widths and
+at f32 accuracy, counted as such), ragged tiles (odd S, O and query tiles),
+16- and 32-wide group sums, the f32 attention kernel at head dim 32, 64 and
+128 with 1, 8 and 71 query heads a K/V head, per-row
 n_past / valid vectors, head_dim 32, Falcon-40B's 16 query heads per K/V
 head, LLaMA's G == 1 head layouts (head_dim 32, 64, 128; head counts that do
 not fill a block) in both attention kernels, the int8 cache's partials with
@@ -80,15 +82,15 @@ def test_quant_matmul(dev, gtype, dtype, S):
     and K = 768. One launch counts
     under the wrapper, the format and the route: one row of a K-quant runs
     the K-quant GEMV, of a legacy format the legacy one; bf16 rows > 1 run
-    the tensor-core tile, f32 rows the SIMT tile, neither the other's."""
+    the bf16 tensor-core tile, f32 rows the f32 one, neither the other's."""
     O, K = (301, 768) if S == 513 else (100, 512 if gtype in qm.K_QUANTS else 320)
     w = random_quant(gtype, O, K, _gen(S), dev, scale=0.2)
     x = torch.randn(S, K, generator=_gen(S + 1), device=dev).to(dtype)
-    path = "gemv" if S == 1 else "tc" if dtype == torch.bfloat16 else "simt"
+    path = "gemv" if S == 1 else "tc" if dtype == torch.bfloat16 else "f32"
     if path == "gemv" and gtype in qm.K_QUANTS:
         path = "gemv.kq"
     names = ["quant_matmul", f"quant_matmul.{gtype.name.lower()}", "quant_matmul.gemv",
-             "quant_matmul.gemv.kq", "quant_matmul.tc", "quant_matmul.simt"]
+             "quant_matmul.gemv.kq", "quant_matmul.tc", "quant_matmul.f32"]
     before = {n: build.launch_counts[n] for n in names}
     got = qm.quant_matmul(w, x, dtype)
     for n in names:
@@ -127,6 +129,119 @@ def test_quant_matmul_tc_odd_group_count(dev, gtype, K):
     _close(got, qm.quant_matmul_plain(w, x, torch.bfloat16), torch.bfloat16)
 
 
+@pytest.mark.parametrize("gtype", FORMATS, ids=[f.name.lower() for f in FORMATS])
+@pytest.mark.parametrize("S", [2, 17, 300, 512])
+def test_quant_matmul_f32(dev, gtype, S):
+    """The f32 tensor-core tile in every format at the prefill row counts
+    (the 32-, 64- and 128-row tiles; 300 and 512 rows take the group_sums
+    kernel, shorter ones the plain reduce), O = 200 (no multiple of the
+    128-row block), K = 768 (legacy: 24 groups; K-quants: 3 super-blocks):
+    f32 y within 2e-5 of max |plain|, bf16 y within the bf16 tolerance; one
+    launch under "quant_matmul.f32" a call and none of another route."""
+    O, K = 200, 768
+    w = random_quant(gtype, O, K, _gen(S + 7), dev, scale=0.2)
+    x = torch.randn(S, K, generator=_gen(S + 8), device=dev)
+    names = ("quant_matmul.f32", "quant_matmul.tc", "quant_matmul.gemv", "quant_matmul.gemv.kq",
+             "group_sums")
+    for ydtype in (torch.float32, torch.bfloat16):
+        before = {n: build.launch_counts[n] for n in names}
+        got = qm.quant_matmul(w, x, ydtype)
+        want = {"quant_matmul.f32": 1, "group_sums": int(S >= qm.GROUP_SUMS_MIN_S
+                                                         and gtype != GGMLType.Q8_0)}
+        for n in names:
+            assert build.launch_counts[n] == before[n] + want.get(n, 0), n
+        assert got.dtype == ydtype
+        _close(got, qm.quant_matmul_plain(w, x, ydtype), ydtype)
+
+
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q5_1, GGMLType.Q8_0, GGMLType.Q6_K,
+                                   GGMLType.Q2_K], ids=["q4_0", "q5_1", "q8_0", "q6_k", "q2_k"])
+@pytest.mark.parametrize("nt", qm.F32_ROWS)
+def test_quant_matmul_f32_every_tile_width(dev, gtype, nt, monkeypatch):
+    """Each of the f32 tile's three widths on the same ragged problem (S =
+    300, O = 200, K = 1024), whatever width the rule would pick."""
+    monkeypatch.setattr(qm, "f32_rows", lambda S, O: nt)
+    O, K, S = 200, 1024, 300
+    w = random_quant(gtype, O, K, _gen(nt), dev, scale=0.2)
+    x = torch.randn(S, K, generator=_gen(nt + 1), device=dev)
+    before = build.launch_counts["quant_matmul.f32"]
+    got = qm.quant_matmul(w, x, torch.float32)
+    assert build.launch_counts["quant_matmul.f32"] == before + 1
+    _close(got, qm.quant_matmul_plain(w, x, torch.float32), torch.float32)
+
+
+@pytest.mark.parametrize("gtype", FORMATS[:5], ids=[f.name.lower() for f in FORMATS[:5]])
+@pytest.mark.parametrize("K", [96, 352])
+def test_quant_matmul_f32_odd_group_count(dev, gtype, K):
+    """A legacy K that is an odd number of 32-groups: the f32 tile's last
+    64-column slab holds one group."""
+    O, S = 70, 33
+    w = random_quant(gtype, O, K, _gen(K), dev, scale=0.2)
+    x = torch.randn(S, K, generator=_gen(K + 1), device=dev)
+    before = build.launch_counts["quant_matmul.f32"]
+    got = qm.quant_matmul(w, x, torch.float32)
+    assert build.launch_counts["quant_matmul.f32"] == before + 1
+    _close(got, qm.quant_matmul_plain(w, x, torch.float32), torch.float32)
+
+
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=["q4_0", "q4_k", "q6_k"])
+def test_quant_matmul_f32_holds_f32_accuracy(dev, gtype):
+    """At Falcon-7B's width (K = 4544; 40B's 8192 for the K-quants), S = 300,
+    with x spread over 2^-20 .. 2^20 (three bf16 terms that all matter):
+    the tile's product within 2e-5 of max |y| of the plain f32 product and
+    of a float64 product of the same values."""
+    K = 8192 if gtype in qm.K_QUANTS else 4544
+    O, S = 256, 300
+    w = random_quant(gtype, O, K, _gen(1), dev, scale=0.2)
+    g = _gen(2)
+    x = torch.randn(S, K, generator=g, device=dev) * torch.exp2(
+        torch.randint(-20, 21, (S, K), generator=g, device=dev).float())
+    got = qm.quant_matmul(w, x, torch.float32)
+    plain = qm.quant_matmul_plain(w, x, torch.float32)
+    exact = (x.double() @ w.dequantize(torch.float32).double().t())
+    _close(got, plain, torch.float32)
+    _close(got.double(), exact, torch.float32)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 8, 71])
+@pytest.mark.parametrize("n_past", [0, 300, "rows"])
+def test_flash_mqa_f32(dev, D, G, n_past):
+    """The f32 attention kernel at every head dim with 1, 8 and 71 query
+    heads a K/V head (2 K/V heads, B = 2, S = 300, a ragged last block),
+    n_past 0, 300 and a per-row (B,) vector (300, 7): within 2e-5 of max
+    |plain|, one launch under "flash_mqa.f32" a call; the same shapes in
+    bf16 never reach it."""
+    KV, B, S = 2, 2, 300
+    H, T = KV * G, 700
+    g = _gen(D * G)
+    q = torch.randn(B, S, H, D, generator=g, device=dev)
+    kv = torch.randn(2, B, T, KV, D, generator=g, device=dev)
+    if n_past == "rows":
+        n_past = torch.tensor([300, 7], dtype=torch.int32, device=dev)
+    before = build.launch_counts["flash_mqa.f32"]
+    got = flash_mqa(q, kv[0], kv[1], n_past)
+    assert build.launch_counts["flash_mqa.f32"] == before + 1
+    _close(got, flash_mqa_plain(q, kv[0], kv[1], n_past), torch.float32)
+    bf = torch.bfloat16
+    flash_mqa(q.to(bf), kv[0].to(bf), kv[1].to(bf), n_past)
+    assert build.launch_counts["flash_mqa.f32"] == before + 1
+
+
+def test_f32_kernels_take_no_bf16_input(dev):
+    """bf16 x at S > 1 runs the bf16 tile and bf16 attention its own
+    kernels: neither f32 counter moves."""
+    w = random_quant(GGMLType.Q4_0, 128, 512, _gen(3), dev)
+    before = {n: build.launch_counts[n] for n in ("quant_matmul.f32", "flash_mqa.f32")}
+    qm.quant_matmul(w, torch.randn(300, 512, device=dev).to(torch.bfloat16), torch.float32)
+    for D in (32, 64, 128):
+        q = torch.zeros(1, 40, 8, D, device=dev, dtype=torch.bfloat16)
+        k = torch.zeros(1, 64, 1, D, device=dev, dtype=torch.bfloat16)
+        flash_mqa(q, k, k, 3)
+    assert {n: build.launch_counts[n] for n in before} == before
+
+
 def test_quant_matmul_refuses_what_is_not_ported(dev):
     """On a CUDA tensor a type that is no weight format, a K-quant width
     that is not whole super-blocks, or an f16 x raises; nothing falls back
@@ -156,9 +271,15 @@ def test_quant_matmul_refuses_what_is_not_ported(dev):
     with pytest.raises(RuntimeError):  # a tile width that is not built
         build.launch("gq_quant_matmul_tc", "quant_matmul.refused", int(w.gtype), x.data_ptr(), *ptrs,
                      y.data_ptr(), 0, 4, 256, 64, 32, build.stream_ptr(x.device))
-    with pytest.raises(RuntimeError):  # bf16 rows > 1 on the SIMT tile
-        build.launch("gq_quant_matmul", "quant_matmul.refused", int(w.gtype), x.data_ptr(), 1,
-                     *ptrs, None, y.data_ptr(), 1, 4, 256, 64, build.stream_ptr(x.device))
+    xf = x.float()
+    xg = torch.zeros(4, 8, device=dev)
+    with pytest.raises(RuntimeError):  # an f32 tile width that is not built
+        build.launch("gq_quant_matmul_f32", "quant_matmul.refused", int(w.gtype), xf.data_ptr(),
+                     *ptrs, xg.data_ptr(), y.data_ptr(), 0, 4, 256, 64, 16,
+                     build.stream_ptr(x.device))
+    with pytest.raises(RuntimeError):  # Q4_0 on the f32 tile without its group sums
+        build.launch("gq_quant_matmul_f32", "quant_matmul.refused", int(w.gtype), xf.data_ptr(),
+                     *ptrs, None, y.data_ptr(), 0, 4, 256, 64, 32, build.stream_ptr(x.device))
     assert build.launch_counts["quant_matmul.refused"] == 0
 
 
@@ -183,7 +304,7 @@ def test_gemv_kq(dev, gtype, xdtype, ydtype, K, rows, monkeypatch):
     w = random_quant(gtype, O, K, _gen(K + rows), dev, scale=0.2)
     x = torch.randn(1, K, generator=_gen(K + 7), device=dev).to(xdtype)
     names = ("quant_matmul", f"quant_matmul.{gtype.name.lower()}", "quant_matmul.gemv.kq",
-             "quant_matmul.gemv", "quant_matmul.tc", "quant_matmul.simt")
+             "quant_matmul.gemv", "quant_matmul.tc", "quant_matmul.f32")
     before = {n: build.launch_counts[n] for n in names}
     got = qm.quant_matmul(w, x, ydtype)
     torch.cuda.synchronize()
@@ -201,7 +322,8 @@ def test_gemv_kq(dev, gtype, xdtype, ydtype, K, rows, monkeypatch):
 def test_gemv_kq_refuses(dev):
     """The K-quant GEMV's entry point refuses a legacy format, a width that
     is not whole super-blocks, a rows-a-warp it is not built for and a
-    missing plane; the legacy GEMV no longer takes a K-quant row."""
+    missing plane; the legacy GEMV no longer takes a K-quant row, nor the
+    f32 tile a single row."""
     w = random_quant(GGMLType.Q4_K, 64, 512, _gen(0), dev)
     x = torch.randn(1, 512, device=dev).to(torch.bfloat16)
     y = torch.empty(1, 64, device=dev)
@@ -213,9 +335,11 @@ def test_gemv_kq_refuses(dev):
         with pytest.raises(RuntimeError):
             build.launch("gq_quant_gemv_kq", "quant_matmul.refused", gtype, x.data_ptr(), 1,
                          *planes, y.data_ptr(), 0, K, 64, rows, st)
+    xg = torch.zeros(1, 32, device=dev)
     with pytest.raises(RuntimeError):
-        build.launch("gq_quant_matmul", "quant_matmul.refused", int(w.gtype), x.data_ptr(), 1,
-                     *ptrs, None, y.data_ptr(), 0, 1, 512, 64, st)
+        build.launch("gq_quant_matmul_f32", "quant_matmul.refused", int(w.gtype),
+                     x.float().data_ptr(), *ptrs, xg.data_ptr(), y.data_ptr(), 1, 1, 512, 64, 32,
+                     st)
     assert build.launch_counts["quant_matmul.refused"] == 0
 
 
@@ -241,7 +365,7 @@ def test_gemv_legacy(dev, gtype, xdtype, ydtype, K, rows, monkeypatch):
     w = random_quant(gtype, O, K, _gen(K + rows), dev, scale=0.2)
     x = torch.randn(1, K, generator=_gen(K + 7), device=dev).to(xdtype)
     names = ("quant_matmul", f"quant_matmul.{gtype.name.lower()}", "quant_matmul.gemv",
-             "quant_matmul.gemv.kq", "quant_matmul.tc", "quant_matmul.simt")
+             "quant_matmul.gemv.kq", "quant_matmul.tc", "quant_matmul.f32")
     before = {n: build.launch_counts[n] for n in names}
     got = qm.quant_matmul(w, x, ydtype)
     torch.cuda.synchronize()
@@ -259,8 +383,8 @@ def test_gemv_legacy(dev, gtype, xdtype, ydtype, K, rows, monkeypatch):
 def test_gemv_legacy_refuses(dev):
     """The legacy GEMV's entry point refuses a K-quant format, a width that
     is not whole blocks, a rows-a-warp it is not built for and a missing
-    plane (Q5_1's qh, its m); the SIMT tile's entry point takes no single
-    row, of either dtype."""
+    plane (Q5_1's qh, its m); the f32 tile's entry point takes no single
+    row."""
     w = random_quant(GGMLType.Q5_1, 64, 512, _gen(0), dev)
     y = torch.empty(1, 64, device=dev)
     st = build.stream_ptr(y.device)
@@ -277,8 +401,9 @@ def test_gemv_legacy_refuses(dev):
                              xb, *planes, y.data_ptr(), 0, K, 64, rows, st)
         xg = torch.zeros(1, 16, device=dev)
         with pytest.raises(RuntimeError):
-            build.launch("gq_quant_matmul", "quant_matmul.refused", int(w.gtype), x.data_ptr(), xb,
-                         *ptrs, xg.data_ptr(), y.data_ptr(), 0, 1, 512, 64, st)
+            build.launch("gq_quant_matmul_f32", "quant_matmul.refused", int(w.gtype),
+                         x.float().data_ptr(), *ptrs, xg.data_ptr(), y.data_ptr(), 1, 1, 512, 64,
+                         32, st)
     assert build.launch_counts["quant_matmul.refused"] == 0
 
 
@@ -295,9 +420,9 @@ def test_group_sums(dev, dtype, g):
                                     (8, 2, 128)])
 @pytest.mark.parametrize("n_past", [0, 37, "rows"])
 def test_flash_mqa(dev, dtype, H, KV, D, n_past):
-    """bf16 at D 64 / 128 runs the tensor-core kernel, f32 and D = 32 the f32
-    kernels (G == 1 and D == 128: one head per block), counted as such; 45
-    query rows are a ragged last block in every layout."""
+    """bf16 at D 64 / 128 runs the bf16 tensor-core kernel, f32 the f32 one,
+    bf16 at D = 32 the CUDA-core kernel, each counted as such; 45 query rows
+    are a ragged last block in every layout."""
     _flash_mqa_case(dev, dtype, H, KV, D, n_past, S=45)
 
 
@@ -308,12 +433,12 @@ def _flash_mqa_case(dev, dtype, H, KV, D, n_past, S):
     kv = torch.randn(1, 2, B, T, KV, D, generator=g, device=dev).to(dtype)
     if n_past == "rows":
         n_past = torch.tensor([3, 90], dtype=torch.int32, device=dev)
-    tc = dtype == torch.bfloat16 and D in (64, 128)
-    before = {n: build.launch_counts[n] for n in ("flash_mqa", "flash_mqa.tc", "flash_mqa.simt")}
+    path = "f32" if dtype == torch.float32 else "tc" if D in (64, 128) else "simt"
+    names = ("flash_mqa", "flash_mqa.tc", "flash_mqa.f32", "flash_mqa.simt")
+    before = {n: build.launch_counts[n] for n in names}
     got = flash_mqa(q, kv[0, 0], kv[0, 1], n_past)
-    assert build.launch_counts["flash_mqa"] == before["flash_mqa"] + 1
-    assert build.launch_counts["flash_mqa.tc"] == before["flash_mqa.tc"] + int(tc)
-    assert build.launch_counts["flash_mqa.simt"] == before["flash_mqa.simt"] + int(not tc)
+    for n in names:
+        assert build.launch_counts[n] == before[n] + int(n in ("flash_mqa", f"flash_mqa.{path}"))
     _close(got, flash_mqa_plain(q, kv[0, 0], kv[0, 1], n_past), dtype)
 
 

@@ -112,7 +112,7 @@ def test_fragment_table_covers_each_element_once(gtype):
 @pytest.mark.parametrize("S", [1, 2, 300, 512])
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_route(gtype, S, xdtype):
-    want = "gemv" if S == 1 else "tc" if xdtype == torch.bfloat16 else "simt"
+    want = "gemv" if S == 1 else "tc" if xdtype == torch.bfloat16 else "f32"
     assert tqm.route(S, xdtype, TGGMLType(int(gtype))) == want
 
 
@@ -144,8 +144,8 @@ def test_tc_rows(S, O, want):
 
 
 @pytest.mark.parametrize("dtype,D,want", [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
-                                          (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
-                                          (torch.float32, 128, "simt"), (torch.float32, 32, "simt")])
+                                          (torch.bfloat16, 32, "simt"), (torch.float32, 64, "f32"),
+                                          (torch.float32, 128, "f32"), (torch.float32, 32, "f32")])
 def test_attention_route(dtype, D, want):
     assert tfa.route(dtype, D) == want
 
