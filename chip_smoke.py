@@ -22,7 +22,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      kernel; flash-decode on bf16
      and on int8 caches, grouped heads through the tensor-core kernel and
      LLaMA's G == 1 through its own, with and without the append block and
-     with a length per row, and f32 through the SIMT decode kernel), and time
+     with a length per row; f32 q on f32 and int8 caches through the f32
+     decode kernel (split TF32) at Falcon-7B's and Falcon-40B's head layouts,
+     the same way, its partials also against partials_emulated, and bf16 at
+     head dim 32 through it), and time
      kernel, plain version and one PyTorch library call (CUDA events, after
      warm-up, median of 20 runs, L2 flushed before each run) beside the
      card's bound; bf16 rows are held at 2e-2 of max |plain|, f32 rows at
@@ -32,10 +35,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bf16 weight at Falcon-7B's lm_head shape through ops/linear.py against
      the f32 product;
   3. drive the main path at full width and full depth through the engine's
-     entry points, with random weights from a seed, six times: Falcon-7B
+     entry points, with random weights from a seed, seven times: Falcon-7B
      Q4_0 and Q4_1 (32 layers), Falcon-40B Q4_K (60 layers) and LLaMA-7B
      Q4_0 (32 layers) on a bf16 cache; Falcon-40B Q3_K (60 layers) and
-     LLaMA-7B Q4_K (32 layers) on an int8 cache: prefill a 300-token prompt,
+     LLaMA-7B Q4_K (32 layers) on an int8 cache; Falcon-7B Q4_0 on an f32
+     cache with bf16 compute (`--memory-f32`, whose decode runs the f32
+     decode kernel): prefill a 300-token prompt,
      greedy-decode 128 tokens, then 32 sampled tokens, counting kernel
      launches (set to 0 just before each path and read just after); decode
      runs as replays of captured CUDA graphs (pipelined chunks in generate),
@@ -56,8 +61,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      16-token decode chunks at n_past 400 (LLaMA: and at n_past 1900) on an
      int8 and on a bf16 cache, in turns. Each model's parameters are freed
      before the next one is built. On these bf16 paths prefill must run the
-     tensor-core tile and attention kernel and no f32 prefill kernel, and
-     decode the head layout's and cache's decode kernel and no other. Three
+     tensor-core tile and attention kernel and no f32 prefill kernel (on the
+     f32 cache, whose dtype q takes, the f32 attention kernel), and decode
+     the head layout's and cache's decode kernel and no other. Three
      paths at full width with float32 compute and cache (Falcon-7B Q4_0 at 2
      and at 32 layers, LLaMA-7B Q4_0 at 2) prefill the prompt through the f32
      tensor-core tile, group_sums and the f32 attention kernel, run no bf16
@@ -137,13 +143,14 @@ REPLACES = {
                      "ggllm_tpu/kernels/flash_attention.py:33"),
     # grouped query heads: bf16 q on the tensor cores, on a bf16 and (the same
     # Pallas kernel with quant=True, its int8 branches at :79 and :93) an int8
-    # cache; f32 q (and head_dim 32) on the SIMT kernel
+    # cache; f32 q (f32 and int8 caches; and bf16 q at head_dim 32) on the
+    # tensor cores as split TF32
     "flash_decode_tc": ("ggllm_tpu_torch/csrc/flash_decode_tc.cu",
                         "ggllm_tpu/kernels/flash_decode.py:56"),
     "flash_decode_tc.int8": ("ggllm_tpu_torch/csrc/flash_decode_tc.cu",
                              "ggllm_tpu/kernels/flash_decode.py:79"),
-    "flash_decode.simt": ("ggllm_tpu_torch/csrc/flash_decode.cu",
-                          "ggllm_tpu/kernels/flash_decode.py:56"),
+    "flash_decode.f32": ("ggllm_tpu_torch/csrc/flash_decode_f32.cu",
+                         "ggllm_tpu/kernels/flash_decode.py:56"),
     # the G == 1 kernel, dense and with quant=True
     "flash_decode.mha": ("ggllm_tpu_torch/csrc/flash_decode.cu",
                          "ggllm_tpu/kernels/flash_decode.py:123"),
@@ -159,7 +166,13 @@ BF16_TC_KERNELS = ("quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc")
 # every flash-decode launch counter: the wrapper's (by head layout and cache)
 # and the route's
 DECODE_COUNTERS = ("flash_decode", "flash_decode.int8", "flash_decode.mha", "flash_decode.mha.int8",
-                   "flash_decode_tc", "flash_decode_tc.int8", "flash_decode.simt")
+                   "flash_decode_tc", "flash_decode_tc.int8", "flash_decode.f32")
+# the caches and head dims each decode kernel takes (the kernels line)
+DECODE_LAYOUTS = {"flash_decode_tc": (["bfloat16"], [64, 128]),
+                  "flash_decode_tc.int8": (["int8"], [64, 128]),
+                  "flash_decode.f32": (["float32", "int8", "bfloat16"], [32, 64, 128]),
+                  "flash_decode.mha": (["bfloat16", "float32"], [32, 64, 128]),
+                  "flash_decode.mha.int8": (["int8"], [32, 64, 128])}
 
 
 def log(msg: str):
@@ -388,16 +401,26 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                          flash_mqa_plain(q2, kv2[0, 0], kv2[0, 1], rows_past))
         log(f"  flash_mqa.tc  B=2 S=300 n_past=[300, 7] H={H} KV={KV} D={D} err {err:.2e}"
             f" ({rel:.1e} rel)")
-    # bf16 at head dim 32 (the small test models): the CUDA-core kernel
+    # bf16 at head dim 32 (the small test models): the CUDA-core kernel, timed
+    # beside SDPA with the same causal mask (its bound: q, the visible K/V and
+    # out; 4 D operations a visible (query, key) pair and head)
     q32 = torch.randn(2, 45, 6, 32, generator=gen, device="cuda").to(bf16)
-    kv32 = torch.randn(2, 2, 160, 2, 32, generator=gen, device="cuda").to(bf16)
+    kv32 = torch.randn(2, 2, 400, 2, 32, generator=gen, device="cuda").to(bf16)
     before = build.launch_counts["flash_mqa.simt"]
     err, rel = check("flash_mqa.simt bf16 D=32", flash_mqa(q32, kv32[0], kv32[1], rows_past),
                      flash_mqa_plain(q32, kv32[0], kv32[1], rows_past))
     if build.launch_counts["flash_mqa.simt"] != before + 1:
         raise RuntimeError("bf16 flash_mqa at head dim 32 did not run the CUDA-core kernel")
-    log(f"  flash_mqa.simt B=2 S=45 n_past=[300, 7] H=6 KV=2 D=32 bf16 err {err:.2e}"
-        f" ({rel:.1e} rel)")
+    pos = rows_past[:, None] + torch.arange(45, device="cuda")  # (B, S) query positions
+    mask32 = (torch.arange(400, device="cuda")[None, None, :] <= pos[:, :, None])[:, None]
+    pairs = int((pos + 1).sum())
+    row("flash_mqa.simt", "B=2 S=45 n_past=[300, 7] H=6 KV=2 D=32 bf16", err, rel,
+        timer(lambda: flash_mqa(q32, kv32[0], kv32[1], rows_past)),
+        timer(lambda: flash_mqa_plain(q32, kv32[0], kv32[1], rows_past)),
+        timer(lambda: F.scaled_dot_product_attention(
+            q32.transpose(1, 2), kv32[0].transpose(1, 2), kv32[1].transpose(1, 2),
+            attn_mask=mask32, enable_gqa=True)),
+        2 * q32.numel() * 2 + int((pos[:, -1] + 1).sum()) * 2 * 2 * 32 * 2, 4 * pairs * 6 * 32)
 
     # ---- flash_decode: the last layer of the full cache (32 layers at
     # Falcon-7B and LLaMA-7B, 60 at 40B); grouped heads take the tensor-core
@@ -487,26 +510,110 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                 f" +append {err_a:.2e} ({rel_a:.1e} rel)")
         del kv, kv8, deq, deq32, kv2, kv8_2, deq2
 
-    # ---- the SIMT kernel of grouped heads, which serves f32 queries: the
-    # 2-layer float32 path's decode shape (Falcon-7B heads, f32 cache)
-    L, H, KV, D, valid = 2, 71, 1, 64, 300
-    kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda")
-    q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda")
-    st = FalconStatic(n_layer=L, n_head=H, n_head_kv=KV, head_dim=D, n_embd=H * D,
-                      n_ff=4 * H * D, n_vocab=0, parallel_norms=False)
-    before = build.launch_counts["flash_decode.simt"]
-    err, rel = check("flash_decode.simt f32", fd.flash_decode(kv, KV, 1, q1, valid - 1),
-                     _attention(q1, kv[1, 0], kv[1, 1], valid - 1, st), F32_TOL)
-    if build.launch_counts["flash_decode.simt"] != before + 1:
-        raise RuntimeError("f32 flash_decode did not run the SIMT kernel")
-    kt, vt = (kv[1, i, :, :valid].transpose(1, 2).expand(1, H, valid, D) for i in (0, 1))
-    row("flash_decode.simt", f"f32 valid={valid} G={H} KV={KV} D={D}", err, rel,
-        timer(lambda: fd.flash_decode(kv, KV, 1, q1, valid - 1)),
-        timer(lambda: fd.flash_decode_plain(kv, KV, 1, q1, valid - 1)),
-        timer(lambda: F.scaled_dot_product_attention(q1.transpose(1, 2), kt, vt)),
-        2 * valid * KV * D * 4 + 2 * H * D * 4, 4 * valid * H * D, rate=peak_f32,
-        graph_ms=graph_ms(lambda i: fd.flash_decode(kv, KV, i, q1, valid - 1), L, timer.flush))
-    del kv
+    # ---- flash_decode on the f32 route: f32 q on an f32 cache and on an int8
+    # cache (the f32 route's decode; --memory-f32 casts bf16 q to its f32
+    # cache) at Falcon-7B's and Falcon-40B's head layouts, the last layer of
+    # the full-depth cache, held at F32_TOL against the plain attention; the
+    # partials also against partials_emulated (the kernel's splits, warps'
+    # key tiles and split-TF32 terms); timed as the bf16 rows, beside f32 SDPA
+    # (TF32 off). Bound: the valid K and V (2 D 4 bytes a position and K/V
+    # head in f32, 2 D + 8 as codes and scales) + q + out, or the products on
+    # the tensor cores (three split-TF32 products a product, two for int8
+    # codes, at the TF32 rate)
+    for L, H, KV, D, valids in ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (1, 300, 2047))):
+        l, G = L - 1, H // KV
+        kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda")
+        q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda")
+        qg = q1.reshape(1, KV, G, D)
+        app = torch.randn(2, 1, 16, KV, D, generator=gen, device="cuda")
+        st = FalconStatic(n_layer=L, n_head=H, n_head_kv=KV, head_dim=D, n_embd=H * D,
+                          n_ff=4 * H * D, n_vocab=0, parallel_norms=KV > 1)
+        kv8 = kvcache.quantize_new(kv)
+        deq = kv8[0].float() * kv8[1]  # the library's f32 cache
+        for tag, cache, lib_kv, key_bytes, products in (("f32 ", kv, kv, 8 * D, 3),
+                                                         ("int8 ", kv8, deq, 2 * D + 8, 2)):
+            kr, vr = lib_kv[l, 0], lib_kv[l, 1]
+            for valid in valids:
+                name = "flash_decode.f32"
+                before = build.launch_counts[name]
+                got = fd.flash_decode(cache, KV, l, q1, valid - 1)
+                if build.launch_counts[name] != before + 1:
+                    raise RuntimeError(f"f32 flash_decode {tag}G={G} did not run the {name} kernel")
+                err, rel = check(f"{name} {tag}G={G} valid={valid}", got,
+                                 _attention(q1, kr, vr, valid - 1, st), F32_TOL)
+                err_a, rel_a = check(f"{name} {tag}G={G} valid={valid} +append",
+                                     fd.flash_decode(cache, KV, l, q1, valid + 4, kv_append=app,
+                                                     append_valid=5),
+                                     _attention(q1, kr, vr, valid + 4, st, kv_append=app,
+                                                append_valid=5), F32_TOL)
+                acc, m, lsum = fd.cache_partials(cache, KV, l, qg, valid)
+                for what, (acc_r, m_r, l_r) in (
+                        ("plain", fd.cache_partials_plain(cache, KV, l, qg, valid)),
+                        ("emulated", fd.partials_emulated(cache, KV, l, qg, valid,
+                                                          n_sm=fd._sm_count(qg.device)))):
+                    check(f"cache_partials {tag}G={G} valid={valid} vs {what}", acc / lsum,
+                          acc_r / l_r, F32_TOL)
+                    check(f"cache_partials {tag}m G={G} valid={valid} vs {what}", m, m_r, F32_TOL)
+                    check(f"cache_partials {tag}l G={G} valid={valid} vs {what}", lsum, l_r,
+                          F32_TOL)
+                ms = timer(lambda: fd.flash_decode(cache, KV, l, q1, valid - 1))
+                dev_ms = graph_ms(lambda i: fd.flash_decode(cache, KV, i, q1, valid - 1), L,
+                                  timer.flush)
+                plain_ms = timer(lambda: fd.flash_decode_plain(cache, KV, l, q1, valid - 1))
+                kt = [lib_kv[i, 0, :, :valid].transpose(1, 2) for i in range(L)]
+                vt = [lib_kv[i, 1, :, :valid].transpose(1, 2) for i in range(L)]
+                if KV == 1:
+                    kt = [k.expand(1, H, valid, D) for k in kt]
+                    vt = [v.expand(1, H, valid, D) for v in vt]
+
+                def sdpa32(i):
+                    return F.scaled_dot_product_attention(q1.transpose(1, 2), kt[i], vt[i],
+                                                          enable_gqa=KV > 1)
+
+                lib_ms = timer(lambda: sdpa32(l))
+                lib_dev_ms = graph_ms(sdpa32, L, timer.flush)
+                row(name, f"{tag}valid={valid} G={G} KV={KV} D={D} (+append err {err_a:.1e})",
+                    max(err, err_a), max(rel, rel_a), ms, plain_ms, lib_ms,
+                    valid * KV * key_bytes + 2 * H * D * 4, products * 4 * valid * H * D,
+                    rate=peak_tf32, graph_ms=dev_ms, library_graph_ms=lib_dev_ms,
+                    f32_core_bound_ms=4 * valid * H * D / peak_f32 * 1e3)
+        del deq
+        # one length per batch row (B = 2, two layers), with and without the
+        # append block
+        kv2 = torch.randn(2, 2, 2, T, KV, D, generator=gen, device="cuda")
+        q2 = torch.randn(2, 1, H, D, generator=gen, device="cuda")
+        app2 = torch.randn(2, 2, 16, KV, D, generator=gen, device="cuda")
+        kv8_2 = kvcache.quantize_new(kv2)
+        deq2 = kv8_2[0][1].float() * kv8_2[1][1]
+        lens = torch.tensor([2047, 300], dtype=torch.int32, device="cuda")
+        for tag, cache, kr, vr in (("f32", kv2, kv2[1, 0], kv2[1, 1]), ("int8", kv8_2, deq2[0], deq2[1])):
+            err, rel = check(f"flash_decode.f32 {tag} per-row valid",
+                             fd.flash_decode(cache, KV, 1, q2, lens - 1),
+                             _attention(q2, kr, vr, lens - 1, st), F32_TOL)
+            err_a, rel_a = check(f"flash_decode.f32 {tag} per-row valid +append",
+                                 fd.flash_decode(cache, KV, 1, q2, lens + 4, kv_append=app2,
+                                                 append_valid=5),
+                                 _attention(q2, kr, vr, lens + 4, st, kv_append=app2,
+                                            append_valid=5), F32_TOL)
+            log(f"  flash_decode.f32 {tag} B=2 valid=[2047, 300] G={G} err {err:.2e} ({rel:.1e}"
+                f" rel), +append {err_a:.2e} ({rel_a:.1e} rel)")
+        del kv, kv8, kv2, kv8_2, deq2
+    # bf16 q at head dim 32 (the small test models) on a bf16 and an int8 cache
+    for tag in ("bf16", "int8"):
+        kvs = torch.randn(2, 2, 2, 160, 2, 32, generator=gen, device="cuda")
+        kvs = kvcache.quantize_new(kvs) if tag == "int8" else kvs.to(bf16)
+        q6 = torch.randn(2, 1, 6, 32, generator=gen, device="cuda").to(bf16)
+        app6 = torch.randn(2, 2, 5, 2, 32, generator=gen, device="cuda").to(bf16)
+        lens = torch.tensor([150, 7], dtype=torch.int32, device="cuda")
+        before = build.launch_counts["flash_decode.f32"]
+        err, rel = check(f"flash_decode.f32 bf16 q D=32 {tag} cache",
+                         fd.flash_decode(kvs, 2, 1, q6, lens, kv_append=app6, append_valid=3),
+                         fd.flash_decode_plain(kvs, 2, 1, q6, lens, kv_append=app6,
+                                               append_valid=3))
+        if build.launch_counts["flash_decode.f32"] != before + 1:
+            raise RuntimeError("bf16 flash_decode at head dim 32 did not run the f32 kernel")
+        log(f"  flash_decode.f32 B=2 valid=[150, 7] H=6 KV=2 D=32 bf16 q, {tag} cache, +append:"
+            f" err {err:.2e} ({rel:.1e} rel)")
 
     # ---- a dense weight at Falcon-7B's lm_head shape (an F16 tensor as the
     # loader holds it: in the compute dtype, bf16), bf16 x, S = 1: linear's
@@ -675,9 +782,11 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     counts = dict(build.launch_counts)
     capture_ms = (warm_capture_us + tm.t_compile_us) / 1e3
     mha = hp.n_head_kv == hp.n_head
-    # the wrapper's counter for this head layout and cache, and the route's
-    decode_counters = {"flash_decode" + (".mha" if mha else "") + (".int8" if int8 else ""),
-                       ("flash_decode.mha" if mha else "flash_decode_tc") + (".int8" if int8 else "")}
+    # the wrapper's counter for this head layout and cache, and the route's:
+    # an f32 cache casts q to f32, which the f32 decode kernel takes
+    base = "flash_decode" + (".mha" if mha else "") + (".int8" if int8 else "")
+    decode_counters = {base, base if mha else "flash_decode.f32" if kv_dtype == "float32"
+                       else "flash_decode_tc" + (".int8" if int8 else "")}
     gemv, other_gemv = (("quant_matmul.gemv.kq", "quant_matmul.gemv") if GGMLType[fmt.upper()]
                         in qm.K_QUANTS else ("quant_matmul.gemv", "quant_matmul.gemv.kq"))
     graph = graph_vs_eager(torch, eng, len(prompt), greedy[0], prompt + greedy[:1], label,
@@ -709,19 +818,21 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
         f" sampled decode 32 tokens: {sampled_tps:.2f} tok/s;"
         f" peak device memory {peak / 2**30:.2f} GiB")
     log(f"  launches on the {label} path: {counts}")
-    # prefill: the tensor-core tile and attention kernel; decode: the format's
+    # prefill: the tensor-core tile and attention kernel (on an f32 cache q
+    # takes the cache's dtype: the f32 attention kernel); decode: the format's
     # GEMV (and not the other) and this head layout's and cache's decode kernel
+    attn = "flash_mqa.f32" if kv_dtype == "float32" else "flash_mqa.tc"
     for name in ("quant_matmul", f"quant_matmul.{fmt}", "quant_matmul.tc", gemv,
-                 "flash_mqa", "flash_mqa.tc", *decode_counters):
+                 "flash_mqa", attn, *decode_counters):
         if counts.get(name, 0) <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the {label} path")
     if (any(counts.get(k, 0) for k in DECODE_COUNTERS if k not in decode_counters)
             or counts.get(other_gemv, 0)
             or len({counts[k] for k in decode_counters}) != 1
-            or any(counts.get(k, 0) for k in F32_KERNELS)
+            or any(counts.get(k, 0) for k in F32_KERNELS if k != attn)
             or counts["quant_matmul"] != counts[f"quant_matmul.{fmt}"]
             or counts["quant_matmul"] != counts["quant_matmul.tc"] + counts[gemv]
-            or counts["flash_mqa"] != counts["flash_mqa.tc"]):
+            or counts["flash_mqa"] != counts[attn]):
         raise RuntimeError(f"a kernel variant of another path ran on the {label} path: {counts}")
     if peak_below is not None and peak >= peak_below:
         raise RuntimeError(f"peak memory {peak} on the {label} path is not below {peak_below}")
@@ -808,7 +919,7 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
     (tools/time_kernels.py f32_path): float32 compute and cache, a 300-token
     prefill (tok/s printed) through the f32 tensor-core tile, group_sums and
     the f32 attention kernel, then 16 greedy tokens through the legacy GEMV
-    and the head layout's f32 decode kernel (the SIMT kernel for grouped
+    and the head layout's f32 decode kernel (flash_decode_f32.cu for grouped
     heads, the G == 1 kernel for LLaMA); with `graphs`, the decode graphs
     against the eager step body. Fails unless all of them ran, no bf16
     tensor-core kernel did, and the prefill logits of all positions agree
@@ -829,7 +940,7 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
         # the wrapper's counter and the route's (G == 1: the wrapper counts
         # under the route's name)
         decode_counters = ({"flash_decode.mha"} if hp.n_head_kv == hp.n_head
-                           else {"flash_decode", "flash_decode.simt"})
+                           else {"flash_decode", "flash_decode.f32"})
         for name in ("quant_matmul.f32", f"quant_matmul.{fmt}", "group_sums", "flash_mqa.f32",
                      "quant_matmul.gemv", *decode_counters):
             if counts.get(name, 0) <= 0:
@@ -1330,6 +1441,8 @@ def main() -> int:
     paths.append(phase_model(torch, "llama7b", "q4_0"))
     log("  -- llama7b q4_k, int8 cache")
     paths.append(phase_model(torch, "llama7b", "q4_k", kv_dtype="int8", long_past=1900))
+    log("  -- falcon7b q4_0, f32 cache (--memory-f32)")
+    paths.append(phase_model(torch, "falcon7b", "q4_0", kv_dtype="float32"))
     log("  -- falcon7b q4_0, 2 layers, float32")
     paths.append(phase_f32_path(torch))
     log("  -- llama7b q4_0, 2 layers, float32")
@@ -1351,7 +1464,7 @@ def main() -> int:
         "flash_mqa.tc": "S=512 n_past=300 H=71 KV=1",
         "flash_decode_tc": "valid=2047 G=71",
         "flash_decode_tc.int8": "int8 valid=2047 G=71",
-        "flash_decode.simt": "f32 valid=300 G=71",
+        "flash_decode.f32": "f32 valid=300 G=71",
         "flash_decode.mha": "valid=2047 G=1 KV=32",
         "flash_decode.mha.int8": "int8 valid=2047 G=1 KV=32",
     }
@@ -1384,11 +1497,7 @@ def main() -> int:
         if name == "flash_mqa.tc":
             entry["head_dims"], entry["dtypes"] = [64, 128], ["bfloat16"]
         if name.startswith("flash_decode"):
-            entry["cache_dtypes"] = (["int8"] if name.endswith("int8") else ["bfloat16"]
-                                     if name == "flash_decode_tc" else ["float32", "int8"]
-                                     if name.endswith("simt") else ["bfloat16", "float32"])
-            entry["head_dims"] = ([32, 64, 128] if ".mha" in name else [64, 128]
-                                  if name.startswith("flash_decode_tc") else [32, 64])
+            entry["cache_dtypes"], entry["head_dims"] = DECODE_LAYOUTS[name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

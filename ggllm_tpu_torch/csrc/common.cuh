@@ -1,7 +1,7 @@
 // Helpers shared by the kernels: the per-device grant of dynamic shared
-// memory, dtype conversion, staging of K/V rows (f32, bf16 or int8 codes)
-// from device memory into shared memory as f32, and the in-launch merge of
-// the flash-decode kernels' time splits.
+// memory, dtype conversion, staging of bf16 K/V rows from device memory into
+// shared memory as f32, and the in-launch merge of the flash-decode kernels'
+// time splits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,27 +44,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// 16 bytes of T -> f32 at dst (16-byte aligned)
-__device__ __forceinline__ void unpack16(const uint4& v, float* dst, float) {
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(__uint_as_float(v.x), __uint_as_float(v.y), __uint_as_float(v.z),
-                  __uint_as_float(v.w));
-}
+// 16 bytes of bf16 -> f32 at dst (16-byte aligned)
 __device__ __forceinline__ void unpack16(const uint4& v, float* dst, __nv_bfloat16) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
   const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
   const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
   *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
   *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
-}
-
-// 16 int8 codes -> 16 floats
-__device__ __forceinline__ void unpack16(const uint4& v, float* dst, int8_t) {
-  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 16; i += 4)
-    *reinterpret_cast<float4*>(dst + i) =
-        make_float4((float)c[i], (float)c[i + 1], (float)c[i + 2], (float)c[i + 3]);
 }
 
 // Stage ROWS rows of D elements of K and of V (row r at ksrc/vsrc + r *
@@ -269,7 +255,8 @@ __device__ void merge_splits(const float* part_acc, const float* part_ml, int R,
 }
 
 // Where one flash-decode launch's output goes and what it merges; the same
-// for the kernels of flash_decode.cu and flash_decode_tc.cu.
+// for the kernels of flash_decode.cu, flash_decode_tc.cu and
+// flash_decode_f32.cu.
 template <typename TQ>
 struct Finish {
   const int* valid_vec;  // (B,) int32 or null

@@ -50,25 +50,8 @@ constexpr float NEG_INF = -1e30f;
 using gq::cp_async16;
 using gq::cp_async_commit;
 using gq::cp_async_wait;
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-// v = hi + lo + (a remainder below 2^-21 |v|)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
-}
-// c += a b, TF32 in, f32 accumulate (not volatile: independent products may interleave)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using gq::mma_tf32;
+using gq::split_tf32;
 
 template <int D>
 struct Tile {

@@ -1,7 +1,8 @@
-// Tensor-core fragment helpers shared by the attention kernels that run
-// their products as mma.sync.m16n8k16 (flash_attention_tc.cu,
-// flash_decode_tc.cu): 16-byte and 4-byte cp.async into shared memory,
-// ldmatrix (plain and transposed) and the bf16 MMA with f32 accumulation.
+// Tensor-core fragment helpers shared by the attention kernels: 16-byte and
+// 4-byte cp.async into shared memory; ldmatrix (plain and transposed) and
+// the bf16 mma.sync.m16n8k16 with f32 accumulation (flash_attention_tc.cu,
+// flash_decode_tc.cu); the TF32 split and mma.sync.m16n8k8.tf32 of the f32
+// kernels (flash_attention_f32.cu, flash_decode_f32.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +50,27 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// f32 -> TF32: to nearest, ties away from zero
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = hi + lo + (a remainder below max(2^-21 |v|, 2^-137))
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
+// c (16 x 8) += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate (not
+// volatile: independent products may interleave)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace gq

@@ -48,8 +48,8 @@ SIGNATURES = {
     "gq_quant_matmul_tc": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # gtype, x (f32), qs, qh, d, m, sc, scm, xg, y, y_is_f32, S, K, O, x rows per block, stream
     "gq_quant_matmul_f32": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-    # x, x_is_bf16, xg, S, K, group, stream
-    "gq_group_sums": [P, I, P, I, I, I, P],
+    # x (f32), xg, S, K, group, stream
+    "gq_group_sums": [P, P, I, I, I, P],
     # q, k, v, out (bf16, D = 32), n_past_vec, n_past, B, S, H, T, KV, D,
     # k_batch_stride, k_time_stride, stream
     "gq_flash_mqa": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
@@ -58,9 +58,11 @@ SIGNATURES = {
     "gq_flash_mqa_tc": [P, P, P, P, P, I, I, I, I, I, I, I, L, L, P],
     # the same arguments, f32 q/k/v and out
     "gq_flash_mqa_f32": [P, P, P, P, P, I, I, I, I, I, I, I, L, L, P],
-    # one-launch flash-decode (flash_decode.cu: G == 1 and SIMT; flash_decode_tc.cu)
+    # one-launch flash-decode (flash_decode.cu: G == 1; flash_decode_tc.cu: grouped
+    # heads, bf16 q; flash_decode_f32.cu: grouped heads, f32 q or head_dim 32)
     "gq_decode": DECODE_ARGS,
     "gq_decode_tc": DECODE_ARGS,
+    "gq_decode_f32": DECODE_ARGS,
 }
 
 launch_counts: collections.Counter = collections.Counter()

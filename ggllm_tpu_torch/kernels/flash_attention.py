@@ -87,22 +87,27 @@ def flash_mqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past) -
 
 def tf32_rna(a: torch.Tensor) -> torch.Tensor:
     """f32 -> TF32 (10 mantissa bits) as the kernel's `cvt.rna.tf32.f32`
-    rounds: to nearest, ties away from zero, by adding half a unit of the
-    kept bits to the magnitude's bit pattern and masking the 13 dropped bits
-    (a carry moves into the exponent, as it should). Finite inputs below
-    the largest TF32."""
+    rounds: to the nearest TF32 value, ties away from zero, by adding half a
+    unit of the kept bits to the magnitude's bit pattern and masking the 13
+    dropped bits (a carry moves into the exponent, as it should). Finite
+    inputs below the largest TF32. A subnormal input keeps its bits from
+    2^-136 up, as the conversion does: its 13 low bits are masked too."""
     bits = a.to(torch.float32).view(torch.int32)
     return ((bits + 0x1000) & -8192).view(torch.float32)
 
 
 def split_tf32(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) = (tf32(a), tf32(a - hi)), both as f32: a - hi - lo is about
-    2^-22 |a|."""
+    """(hi, lo) = (tf32(a), tf32(a - hi)), both as f32. hi is the nearest
+    TF32 value of a, ties away from zero, and
+        |hi + lo - a| <= max(|a| 2^-21, 2^-137):
+    the relative term wherever the remainder a - hi is a normal float; the
+    absolute term covers a remainder below 2^-126, whose bits under 2^-136
+    the conversion drops (tf32_rna)."""
     hi = tf32_rna(a)
     return hi, tf32_rna(a.to(torch.float32) - hi)
 
 
-def _mm3(a: torch.Tensor, b: torch.Tensor, eq: str, terms: int) -> torch.Tensor:
+def mm_split_tf32(a: torch.Tensor, b: torch.Tensor, eq: str, terms: int = 3) -> torch.Tensor:
     """einsum(eq, a, b) from the split-TF32 terms, the small products first:
     lo x hi + hi x lo + hi x hi (terms = 3), or hi x hi alone (terms = 1, a
     negative control), each product summed in f32."""
@@ -134,14 +139,14 @@ def flash_mqa_f32_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_
     acc = torch.zeros(B, KV, G, S, D, dtype=f32)
     for t0 in range(0, T, BT):
         kt, vt = k[:, t0:t0 + BT].to(f32), v[:, t0:t0 + BT].to(f32)
-        s = _mm3(qg, kt, "bskgd,btkd->bkgst", terms)
+        s = mm_split_tf32(qg, kt, "bskgd,btkd->bkgst", terms)
         keys = t0 + torch.arange(kt.shape[1])
         s = torch.where((keys[None, None, :] <= q_pos[:, :, None])[:, None, None], s, NEG_INF)
         mx = torch.maximum(m, s.amax(-1))
         alpha = torch.exp2((m - mx) * sl2)
         p = torch.exp2(s * sl2 - (mx * sl2)[..., None])
         lsum = lsum * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + _mm3(p, vt, "bkgst,btkd->bkgsd", terms)
+        acc = acc * alpha[..., None] + mm_split_tf32(p, vt, "bkgst,btkd->bkgsd", terms)
         m = mx
     out = acc / torch.clamp(lsum, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)

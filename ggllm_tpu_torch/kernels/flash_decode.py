@@ -10,10 +10,11 @@ ops/kvcache.py. `route` picks the kernel:
 
 * "tc"   grouped heads, bf16 q on a bf16 or int8 cache, head_dim 64 / 128:
          csrc/flash_decode_tc.cu, the products on the tensor cores;
+* "f32"  grouped heads, f32 q on an f32 or int8 cache at head_dim 32 / 64 /
+         128, or bf16 q at head_dim 32: csrc/flash_decode_f32.cu, the
+         products as split TF32 on the tensor cores, at f32 accuracy;
 * "mha"  G == 1 and KV > 1, any cache, head_dim 32 / 64 / 128:
-         csrc/flash_decode.cu decode_mha_kernel;
-* "simt" grouped heads with f32 q (f32 or int8 cache) or head_dim 32:
-         csrc/flash_decode.cu partials_kernel.
+         csrc/flash_decode.cu decode_mha_kernel.
 
 Each is ONE launch per call: the time axis is cut into splits (decode_plan),
 every block writes its (acc, m, l) partial to a workspace that is allocated
@@ -26,9 +27,9 @@ scalar; a (B,) int32 device tensor is read on the device with a grid fixed
 by the cache length, so a call allocates only its output and can be
 captured in a CUDA graph. Launch counters: "flash_decode" (+ ".mha") (+
 ".int8") as before, and the route's "flash_decode_tc" (+ ".int8") or
-"flash_decode.simt". Beside the kernels their plain PyTorch versions,
+"flash_decode.f32". Beside the kernels their plain PyTorch versions,
 `cache_partials_plain` and `flash_decode_plain`, which a CPU tensor gets, and
-`partials_emulated` / `decode_emulated`, the kernels' split / merge
+`partials_emulated` / `decode_emulated`, the grouped kernels' split / merge
 arithmetic in PyTorch.
 """
 
@@ -39,10 +40,11 @@ import math
 import torch
 
 from ggllm_tpu_torch.kernels import build
+from ggllm_tpu_torch.kernels.flash_attention import F32_TILE_KEYS, mm_split_tf32
 
 NEG_INF = -1e30
-SIMT_CHUNK = 64  # cache positions per block of the SIMT kernel (csrc/flash_decode.cu CT)
 MAX_GROUP = 128  # query heads per K/V head that a block takes
+TC_TILE_KEYS = 64  # keys of a staged K/V tile of the bf16 kernel (csrc/flash_decode_tc.cu BT)
 MIN_KEYS = 32  # keys a split gets at least
 WAVES = 4  # blocks per SM that the split count aims at
 # The merging block reads the partials from L2; a split reads its keys from
@@ -56,7 +58,7 @@ _CACHES = ("bfloat16", "float32", "int8")
 def route(KV: int, G: int, D: int, cache: str, compute: str = "bfloat16") -> str:
     """Which kernel takes a (KV, G, D) head shape on a `cache` ("bfloat16",
     "float32" or "int8") with `compute` queries (a dense cache takes q in its
-    own dtype, the int8 cache in the compute dtype): "tc", "mha" or "simt".
+    own dtype, the int8 cache in the compute dtype): "tc", "mha" or "f32".
     Raises NotImplementedError with the reason for a shape none takes."""
     if cache not in _CACHES or compute not in ("bfloat16", "float32"):
         raise NotImplementedError(f"a {cache} cache with {compute} queries")
@@ -67,13 +69,10 @@ def route(KV: int, G: int, D: int, cache: str, compute: str = "bfloat16") -> str
         if D in (32, 64, 128):
             return "mha"
         raise NotImplementedError(f"head_dim {D} (the G == 1 kernel takes 32, 64, 128)")
-    if q == "bfloat16" and D in (64, 128):
-        return "tc"
-    if D in (32, 64):
-        return "simt"
-    raise NotImplementedError(
-        f"head_dim {D} with grouped heads and {q} queries (the tensor-core kernel takes bf16"
-        " queries at head_dim 64 or 128, the SIMT kernel head_dim 32 or 64)")
+    if D not in (32, 64, 128):
+        raise NotImplementedError(f"head_dim {D} with grouped heads (the kernels take 32, 64,"
+                                  " 128)")
+    return "tc" if q == "bfloat16" and D != 32 else "f32"
 
 
 def supports(KV: int, G: int, D: int, cache: str, compute: str = "bfloat16") -> tuple[bool, str]:
@@ -86,19 +85,22 @@ def supports(KV: int, G: int, D: int, cache: str, compute: str = "bfloat16") -> 
 
 
 def _rows(G: int, rt: str) -> int:
-    """Rows of one (batch row, K/V head)'s partial: the tensor-core kernel
-    pads the G query heads to a multiple of 16 (its m16 tiles)."""
-    return 16 * -(-G // 16) if rt == "tc" else G
+    """Rows of one (batch row, K/V head)'s partial: the grouped kernels pad
+    the G query heads to a multiple of 16 (their m16 tiles)."""
+    return G if rt == "mha" else 16 * -(-G // 16)
 
 
 def _splits(valid: int, B: int, KV: int, G: int, D: int, cache: str, n_sm: int, rt: str) -> int:
-    if rt == "simt":
-        return max(1, -(-valid // SIMT_CHUNK))
+    fill = -(-n_sm * WAVES // (B * KV))
+    by_keys = valid // MIN_KEYS
+    if rt == "f32":
+        # a split's time is its tensor-core work, not its bytes: one key tile
+        # a split (the merge rule's longer splits ran slower at every length
+        # measured on an H100, PERF.md PR 13)
+        return max(1, min(fill, by_keys, -(-valid // tile_keys(D, rt))))
     elem = {"bfloat16": 2, "float32": 4, "int8": 1}[cache]
     key_bytes = 2 * D * elem + (8 if cache == "int8" else 0)  # K and V of a position and head
     part_bytes = _rows(G, rt) * (D + 2) * 4
-    fill = -(-n_sm * WAVES // (B * KV))
-    by_keys = valid // MIN_KEYS
     by_merge = math.isqrt(MERGE_RATE * valid * key_bytes // part_bytes)
     return max(1, min(fill, by_keys, by_merge))
 
@@ -108,12 +110,12 @@ def decode_plan(valid: int, B: int, KV: int, G: int, D: int, cache: str = "bfloa
     """(n_split, chunk): the blocks per (batch row, K/V head) along the time
     axis and the keys each takes, for `valid` keys (the cache length T when
     the lengths lie on the device). Enough splits that B * KV * n_split fills
-    WAVES blocks an SM, at least MIN_KEYS keys a split, and no more splits
-    than the merge can read back in the time a split reads its keys
-    (MERGE_RATE); the SIMT kernel keeps its fixed 64-position chunks."""
+    WAVES blocks an SM, at least MIN_KEYS keys a split, and on the bf16
+    routes no more splits than the merge can read back in the time a split
+    reads its keys (MERGE_RATE), on the f32 route one key tile a split (the
+    merge reads only the splits that hold keys, so a plan made for T costs
+    short rows nothing)."""
     rt = rt or route(KV, G, D, cache)
-    if rt == "simt":
-        return max(1, -(-valid // SIMT_CHUNK)), SIMT_CHUNK
     s = _splits(valid, B, KV, G, D, cache, n_sm, rt)
     chunk = max(16, 16 * -(-valid // (16 * s)))
     return max(1, -(-valid // chunk)), chunk
@@ -213,6 +215,8 @@ def _launch(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid, *, valid_add
     if not kv.is_contiguous():
         raise ValueError("flash_decode kernel: the cache must be contiguous")
     qg = (qg if quant else qg.to(kv.dtype)).contiguous()
+    if qg.data_ptr() % 16:  # the kernels stage q rows by 16-byte copies
+        qg = qg.clone()
     rt = route(KV, G, D, cache, str(qg.dtype).removeprefix("torch."))
     if isinstance(cache_valid, torch.Tensor):
         vv, valid, top = _valid_vec(cache_valid, B, kv.device), valid_add, T
@@ -238,10 +242,10 @@ def _launch(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid, *, valid_add
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    name = "gq_decode_tc" if rt == "tc" else "gq_decode"
+    name = {"tc": "gq_decode_tc", "f32": "gq_decode_f32", "mha": "gq_decode"}[rt]
     base = "flash_decode" + (".mha" if rt == "mha" else "") + (".int8" if quant else "")
     counters_ = (base, {"tc": "flash_decode_tc" + (".int8" if quant else ""),
-                        "simt": "flash_decode.simt", "mha": base}[rt])
+                        "f32": "flash_decode.f32", "mha": base}[rt])
     build.launch(name, tuple(dict.fromkeys(counters_)),
                  kv.data_ptr(), 2 if quant else int(kv.dtype == torch.bfloat16), ptr(scales),
                  layer, qg.data_ptr(), int(qg.dtype == torch.bfloat16), ptr(vv), valid, ptr(app),
@@ -322,30 +326,40 @@ def flash_decode_plain(kv, KV: int, layer: int, q: torch.Tensor, n_past,
 
 
 def _kernel_warps(G: int, rt: str) -> int:
-    """Warps that share each 64-key tile of a split: the tensor-core
-    kernel's warps_per_tile (csrc/flash_decode_tc.cu) for its ceil(G / 16)
-    row tiles; one for the other kernels, whose order of f32 sums the
-    emulation does not follow."""
-    if rt != "tc":
+    """Warps that share each key tile of a split: the grouped kernels'
+    warps_per_tile (csrc/flash_decode_tc.cu, flash_decode_f32.cu) for their
+    ceil(G / 16) row tiles; one for the G == 1 kernel, whose order of f32
+    sums the emulation does not follow."""
+    if rt == "mha":
         return 1
     mt = -(-G // 16)
     return 4 if mt == 1 else 2 if mt == 2 else 1
 
 
+def tile_keys(D: int, rt: str) -> int:
+    """Keys of a staged K/V tile: the f32 kernel's F32_TILE_KEYS[D] (32 at
+    D = 128), else 64."""
+    return F32_TILE_KEYS[D] if rt == "f32" else TC_TILE_KEYS
+
+
 def partials_emulated(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid,
                       n_sm: int = 132, rt: str | None = None,
-                      round_p: bool | None = None):
+                      round_p: bool | None = None, terms: int = 3):
     """cache_partials' arithmetic as the one-launch kernels run it, in
     PyTorch, for the tests. decode_plan's splits for route `rt` (default:
     the one the operands take; the plan is made for the largest length, or
     for the cache length T when cache_valid is a tensor, as the wrapper
-    makes it); in each split, the keys of each 64-key tile shared between
-    the warps of a row tile, every warp with its own running maximum in
-    base-2 units (scores times log2(e) / sqrt(D), exponent by one fused
-    multiply-add, as the kernel); with round_p (the default on the "tc"
-    route) P times V's int8 scale rounded to bf16 before the P V product,
-    at each tile's running maximum; then the warps merged in order, and
-    the splits as the last block merges them. Returns (acc, m, l) f32."""
+    makes it); in each split, the keys of each tile (tile_keys) shared
+    between the warps of a row tile, every warp with its own running
+    maximum in base-2 units (scores times log2(e) / sqrt(D), exponent by one
+    fused multiply-add, as the kernel); on the "f32" route both products
+    formed from split-TF32 terms as the kernel forms them (mm_split_tf32:
+    three products, or with terms = 1 hi x hi alone, a negative control; an
+    operand exact in TF32 has a zero lo term), on the others in f32; with
+    round_p (the default on the "tc" route) P times V's int8 scale rounded
+    to bf16 before the P V product, at each tile's running maximum; then
+    the warps merged in order, and the splits as the last block merges
+    them. Returns (acc, m, l) f32."""
     quant = isinstance(kv, tuple)
     codes = kv[0] if quant else kv
     _, _, B, T, _, D = codes.shape
@@ -360,7 +374,12 @@ def partials_emulated(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid,
         top = max(lens)
     n_split, chunk = decode_plan(top, B, KV, G, D, cache, n_sm, rt)
     n_warps = _kernel_warps(G, rt)
-    kpw = 64 // n_warps
+    bt = tile_keys(D, rt)
+    kpw = bt // n_warps
+
+    def product(a, b, eq):
+        return mm_split_tf32(a, b, eq, terms) if rt == "f32" else torch.einsum(eq, a, b)
+
     dev, f32 = codes.device, torch.float32
     sl2 = torch.tensor(math.log2(math.e), dtype=f32) / torch.tensor(float(D), dtype=f32).sqrt()
     scale = 1.0 / torch.tensor(float(D), dtype=f32).sqrt()
@@ -382,9 +401,9 @@ def partials_emulated(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid,
                 m = torch.full((KV, G, 1), NEG_INF, dtype=f32, device=dev)
                 o = torch.zeros(KV, G, D, dtype=f32, device=dev)
                 l = torch.zeros(KV, G, 1, dtype=f32, device=dev)
-                for t0 in range(k0 + w * kpw, k1, 64):
+                for t0 in range(k0 + w * kpw, k1, bt):
                     t1 = min(t0 + kpw, k1)
-                    sc = torch.einsum("kgd,tkd->kgt", q32[b], k[b, t0:t1])
+                    sc = product(q32[b], k[b, t0:t1], "kgd,tkd->kgt")
                     if quant:
                         sc = sc * ks[b, t0:t1].t()[:, None, :]
                     mx = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
@@ -395,7 +414,7 @@ def partials_emulated(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid,
                     pv = p * vs[b, t0:t1].t()[:, None, :] if quant else p
                     if round_p:
                         pv = pv.to(torch.bfloat16).to(f32)
-                    o = o * alpha + torch.einsum("kgt,tkd->kgd", pv, v[b, t0:t1])
+                    o = o * alpha + product(pv, v[b, t0:t1], "kgt,tkd->kgd")
                     m = mx
                 warps.append((o, m, l))
             o, m, l = warps[0]
@@ -416,18 +435,21 @@ def partials_emulated(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid,
 def decode_emulated(kv, KV: int, layer: int, q: torch.Tensor, n_past,
                     kv_append: torch.Tensor | None = None, append_valid=None,
                     n_sm: int = 132, rt: str | None = None,
-                    round_p: bool | None = None) -> torch.Tensor:
+                    round_p: bool | None = None, terms: int = 3) -> torch.Tensor:
     """flash_decode's arithmetic as the kernels run it, in PyTorch, for the
-    tests: partials_emulated over the cache rows of a Python-int n_past,
-    then the append block merged in as the last block merges it, and the
-    output normalized."""
+    tests: partials_emulated over the cache rows of n_past (a Python int, or
+    a sequence of ints, one a row: planned by the longest, as the wrapper
+    plans host lengths), then the append block merged in as the last block
+    merges it, and the output normalized."""
     B, _, H, D = q.shape
     G = H // KV
     quant = isinstance(kv, tuple)
     codes = kv[0] if quant else kv
     qg = (q if quant else q.to(codes.dtype)).reshape(B, KV, G, D)
-    valid = _cache_valid(int(n_past), B, q.device, kv_append, append_valid)
-    acc, M, l = partials_emulated(kv, KV, layer, qg, valid, n_sm, rt, round_p)
+    shift = _shift(kv_append, append_valid)
+    valid = (int(n_past) + shift if isinstance(n_past, int)
+             else [int(v) + shift for v in n_past])
+    acc, M, l = partials_emulated(kv, KV, layer, qg, valid, n_sm, rt, round_p, terms)
     if kv_append is not None:
         acc, M, l = _merge_append(qg.to(torch.float32), acc, M, l, kv_append, append_valid)
     return (acc / torch.clamp(l, min=1e-30)).reshape(B, 1, H, D).to(q.dtype)

@@ -497,18 +497,34 @@ def _aligned(x2: torch.Tensor) -> torch.Tensor:
     return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
 
 
+def group_sums_emulated(x2: torch.Tensor, g: int = 32) -> torch.Tensor:
+    """group_sums as csrc/group_sums.cu adds, for the tests: each lane's four
+    floats as (x0 + x1) + (x2 + x3), then the g / 4 lanes of a group by a
+    pairwise tree in lane order (the kernel's xor 1, 2, 4 shuffles)."""
+    S, K = x2.shape
+    v = x2.to(torch.float32).reshape(S, K // g, g // 4, 4)
+    t = (v[..., 0] + v[..., 1]) + (v[..., 2] + v[..., 3])
+    while t.shape[-1] > 1:
+        t = t[..., 0::2] + t[..., 1::2]
+    return t[..., 0]
+
+
 def group_sums(x2: torch.Tensor, g: int = 32) -> torch.Tensor:
-    """(S, K) bf16/f32 -> (S, K/g) f32 per-group sums of x, g in {16, 32}."""
+    """(S, K) -> (S, K/g) f32 per-group sums of x, g in {16, 32}. The kernel
+    takes f32 x, the only x the f32 tile gives it; the plain version (a CPU
+    tensor) takes bf16 too."""
     if x2.device.type == "cpu":
         return group_sums_plain(x2, g)
     if g not in (16, 32):
         raise ValueError(f"group_sums kernel: group {g} (16 or 32)")
+    if x2.dtype != torch.float32:
+        raise TypeError(f"group_sums kernel: x dtype {x2.dtype} (float32: only the f32 tile"
+                        " takes group sums)")
     S, K = x2.shape
     _check_x(x2, K)
     x2 = _aligned(x2)
     xg = torch.empty(S, K // g, dtype=torch.float32, device=x2.device)
-    build.launch("gq_group_sums", "group_sums", x2.data_ptr(),
-                 int(x2.dtype == torch.bfloat16), xg.data_ptr(), S, K, g,
+    build.launch("gq_group_sums", "group_sums", x2.data_ptr(), xg.data_ptr(), S, K, g,
                  build.stream_ptr(x2.device))
     return xg
 

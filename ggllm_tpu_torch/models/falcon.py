@@ -148,7 +148,12 @@ def attend(kv, l: int, q, kv_new, n_past, st, pending=None, n_pend: int = 0):
         return flash_decode(kv, st.n_head_kv, l, q, n_past)
     k, v = kvcache.read_layer(kv, l, q.dtype)
     if st.flash:
-        return flash_mqa(q, k, v, n_past)
+        # q and a dense cache in another dtype (an f32 cache under bf16
+        # compute, --memory-f32, or a bf16 cache under f32 compute) meet in
+        # the wider of the two, since the kernels take one dtype: the JAX
+        # kernel computes in f32 over both
+        dt = torch.promote_types(q.dtype, k.dtype)
+        return flash_mqa(q.to(dt), k.to(dt), v.to(dt), n_past).to(q.dtype)
     return _attention(q, k, v, n_past, st)
 
 

@@ -6,12 +6,14 @@ its root, so that two trees can be timed in turns within one call.
 
     python -m ggllm_tpu_torch.tools.time_kernels tile
     python ggllm_tpu_torch/tools/time_kernels.py attn [--root DIR]
+        [--cache bfloat16 --cache int8 --cache float32 --cache int8-f32q]
     python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
         [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
-        [--prompt 300] [--tokens 64]
+        [--compute-dtype bfloat16] [--prompt 300] [--tokens 64]
     python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR] [--family legacy|kq]
         [--shape q4_0:12288x4096 ...]
     python ggllm_tpu_torch/tools/time_kernels.py f32 [--root DIR]
+    python ggllm_tpu_torch/tools/time_kernels.py group_sums [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py f32path [--root DIR]
         [--config falcon7b|llama7b] [--format q4_0] [--layers 32]
 
@@ -26,9 +28,11 @@ eager, graph; `decode_turns`): wall ms a token, device-busy ms a token, idle
 share and nodes a token, and the capture's ms. `attn` prints one JSON line per shape of the main paths' decode
 attention (Falcon-7B G=71 KV=1 D=64 at 1 / 300 / 2047 valid positions,
 Falcon-40B G=16 KV=8 at 300 / 2047, LLaMA-7B G=1 KV=32 D=128 at 1 / 300 /
-2047; bf16 and int8 caches of the model's depth and 2560 positions):
-`flash_decode` and `scaled_dot_product_attention` (on the dequantized bf16
-cache for int8) timed two ways, `call_ms` = one call between two events as
+2047; caches of the model's depth and 2560 positions, `--cache` (one or
+more; default bfloat16 and int8): bf16 q on a bfloat16 or int8 cache, f32 q
+on a float32 cache or on an int8 one, "int8-f32q"):
+`flash_decode` and `scaled_dot_product_attention` (on the dequantized cache
+for int8, in q's dtype) timed two ways, `call_ms` = one call between two events as
 an eager decode step pays it (host work included), and `graph_ms` = device
 time, a CUDA graph of one call per layer replayed between two events,
 divided by the layers (both: medians of 20, L2 flushed before each);
@@ -57,6 +61,13 @@ moved, its largest difference from the plain version as a share of max
 |plain|, and its bounds: the bytes at 3.35 TB/s, the operations at the f32
 rate outside the tensor cores (67 TFLOP/s), and three bf16 products at
 989 TFLOP/s (the tile) or three TF32 products at 495 TFLOP/s (attention).
+`group_sums` prints one JSON line per shape of the f32 paths' group sums
+(f32 x, S = 300 and 512 at Falcon-7B's and LLaMA-7B's widths with 32-wide
+groups, S = 512 at Falcon-40B's with 16-wide ones): `group_sums` beside
+`torch.matmul` with a 0/1 group map (TF32 off), its largest difference from
+the plain version as a share of max |plain|, and its byte bound (4 bytes an
+element in, 4 a sum out, at 3.35 TB/s; medians of 20, L2 flushed before
+each).
 `f32path` prints one JSON line: a full-width model (`--layers` deep) with
 float32 compute and cache prefills a 300-token prompt through the tree's
 kernels (tok/s on the host clock, ending with the logits on the host, after
@@ -148,7 +159,7 @@ ATTN_SHAPES = ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (300, 2047)),
                (32, 32, 32, 128, (1, 300, 2047)))
 
 
-def time_attn(T: int = 2560) -> None:
+def time_attn(caches=("bfloat16", "int8"), T: int = 2560) -> None:
     import torch
     import torch.nn.functional as F
     from ggllm_tpu_torch.kernels import build
@@ -161,11 +172,17 @@ def time_attn(T: int = 2560) -> None:
     package = str(Path(build.__file__).resolve().parents[2])
     for L, H, KV, D, valids in ATTN_SHAPES:
         G = H // KV
-        kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
-        q = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
-        kv8 = kvcache.quantize_new(kv)
-        for cache_name, cache in (("bfloat16", kv), ("int8", kv8)):
-            lib = kv if cache_name == "bfloat16" else (kv8[0].float() * kv8[1]).to(bf16)
+        kv32 = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda")
+        q32 = torch.randn(1, 1, H, D, generator=gen, device="cuda")
+        kv8 = kvcache.quantize_new(kv32)
+        for cache_name in caches:
+            f32 = cache_name in ("float32", "int8-f32q")
+            q = q32 if f32 else q32.to(bf16)
+            if cache_name.startswith("int8"):
+                cache = kv8
+                lib = (kv8[0].float() * kv8[1]).to(q.dtype)
+            else:
+                cache = lib = kv32.to(q.dtype)
             for valid in valids:
                 kt = [lib[l, 0, :, :valid].transpose(1, 2) for l in range(L)]
                 vt = [lib[l, 1, :, :valid].transpose(1, 2) for l in range(L)]
@@ -193,8 +210,8 @@ def time_attn(T: int = 2560) -> None:
                        "library_call_ms": median_ms(lambda: sdpa(L - 1), flush),
                        "library_graph_ms": graph_ms(sdpa, L, flush)}
                 print(json.dumps(row), flush=True)
-            del lib
-        del kv, kv8
+            del lib, cache
+        del kv32, kv8
 
 
 # the decode GEMVs' weights: every legacy format at Falcon-7B's shapes and
@@ -362,6 +379,33 @@ def time_f32(bw: float = 3.35e12) -> None:
         del kv, q
 
 
+GROUP_SUMS_SHAPES = tuple((S, K, 32) for S in (300, 512) for K in (4544, 22720, 4096, 11008)) + (
+    (512, 8192, 16), (512, 40960, 16))
+
+
+def time_group_sums(bw: float = 3.35e12) -> None:
+    import torch
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    package = str(Path(build.__file__).resolve().parents[2])
+    for S, K, g in GROUP_SUMS_SHAPES:
+        x = torch.randn(S, K, generator=gen, device="cuda")
+        emap = (torch.arange(K, device="cuda")[:, None] // g
+                == torch.arange(K // g, device="cuda")[None, :]).float()
+        ref = qm.group_sums_plain(x, g)
+        err = float((qm.group_sums(x, g) - ref).abs().max() / ref.abs().max())
+        print(json.dumps({"package": package, "card": torch.cuda.get_device_name(0), "S": S,
+                          "K": K, "g": g, "rel_err": err,
+                          "ms": median_ms(lambda: qm.group_sums(x, g), flush),
+                          "library_ms": median_ms(lambda: torch.matmul(x, emap), flush),
+                          "bound_ms": (S * K * 4 + S * K // g * 4) / bw * 1e3}), flush=True)
+        del x, emap
+
+
 def f32_path(config: str, fmt: str = "q4_0", n_layer: int = 2, after=None) -> dict:
     """The f32 route at full width and `n_layer` layers (random weights from
     seed 7): float32 compute and cache, one untimed prefill of a 300-token
@@ -517,7 +561,8 @@ def decode_turns(eng, first: int, hist: list, n_tokens: int, chunk: int = 16) ->
     return turns
 
 
-def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: int) -> None:
+def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: int,
+                compute_dtype: str = "bfloat16") -> None:
     import numpy as np
     import torch
     from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
@@ -526,8 +571,9 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
     hp = named_hparams(config)
-    eng = FalconEngine(hp, make_bench_params(hp, seed=7, gtype=GGMLType[fmt.upper()]),
-                       EngineConfig(kv_dtype=kv_dtype))
+    params = make_bench_params(hp, compute_dtype=getattr(torch, compute_dtype), seed=7,
+                               gtype=GGMLType[fmt.upper()])
+    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=kv_dtype, compute_dtype=compute_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, prompt_len)]
     eng.eval(prompt[:8])  # warm-up
     eng.reset()
@@ -539,17 +585,21 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
     turns = decode_turns(eng, first, prompt + [first], tokens)
     print(json.dumps({"package": str(Path(build.__file__).resolve().parents[2]),
                       "card": torch.cuda.get_device_name(0),
-                      "model": f"{config} {fmt} kv {kv_dtype}", "n_past": prompt_len,
+                      "model": f"{config} {fmt} kv {kv_dtype} compute {compute_dtype}",
+                      "n_past": prompt_len,
                       "prefill_tok_s": len(prompt) / prefill, "decode": turns}), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("tile", "attn", "decode", "gemv", "f32", "f32path"))
+    ap.add_argument("what", choices=("tile", "attn", "decode", "gemv", "f32", "f32path",
+                                     "group_sums"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
     ap.add_argument("--format", default="q4_0")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
+    ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="decode: the activations' dtype")
     ap.add_argument("--prompt", type=int, default=300, help="decode: n_past")
     ap.add_argument("--layers", type=int, default=32, help="f32path: the model's depth")
     ap.add_argument("--tokens", type=int, default=64, help="decode: tokens a run (16-token chunks)")
@@ -557,15 +607,20 @@ def main(argv=None) -> int:
                     help="gemv: the legacy formats' shapes or the K-quants'")
     ap.add_argument("--shape", action="append", default=[],
                     help="gemv: a weight FMT:OxK to time instead, e.g. q4_0:12288x4096")
+    ap.add_argument("--cache", action="append", default=[],
+                    choices=("bfloat16", "int8", "float32", "int8-f32q"),
+                    help="attn: the caches to time (default bfloat16 and int8)")
     args = ap.parse_args(argv)
     if "ggllm_tpu_torch" not in sys.modules:  # run as a file: take the package from --root
         sys.path.insert(0, args.root)
     if args.what == "tile":
         time_tile()
     elif args.what == "attn":
-        time_attn()
+        time_attn(tuple(args.cache) or ("bfloat16", "int8"))
     elif args.what == "f32":
         time_f32()
+    elif args.what == "group_sums":
+        time_group_sums()
     elif args.what == "f32path":
         time_f32_path(args.config, args.format, args.layers)
     elif args.what == "gemv":
@@ -578,7 +633,8 @@ def main(argv=None) -> int:
                 shapes.append((fmt, f"{O}x{K}", O, K))
         time_gemv(shapes)
     else:
-        time_decode(args.config, args.format, args.kv_dtype, args.prompt, args.tokens)
+        time_decode(args.config, args.format, args.kv_dtype, args.prompt, args.tokens,
+                    args.compute_dtype)
     return 0
 
 

@@ -10,7 +10,9 @@ at f32 accuracy, counted as such), ragged tiles (odd S, O and query tiles),
 n_past / valid vectors, head_dim 32, Falcon-40B's 16 query heads per K/V
 head, LLaMA's G == 1 head layouts (head_dim 32, 64, 128; head counts that do
 not fill a block) in both attention kernels, the int8 cache's partials with
-bf16 and f32 queries, refusals of what the kernels do not take, tiny
+bf16 and f32 queries, the f32 decode kernel (split TF32) at the main paths'
+head layouts on f32 and int8 caches held to f32 accuracy and to
+partials_emulated, refusals of what the kernels do not take, tiny
 Falcon and LLaMA models (some on an int8 cache) end to end on the card
 against the CPU, and decode as replayed CUDA graphs: the same ids as the
 eager step body, at several positions and after reset and rollback, no
@@ -410,8 +412,18 @@ def test_gemv_legacy_refuses(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("g", [32, 16])
 def test_group_sums(dev, dtype, g):
+    """f32 x against the plain version, and bit for bit against
+    group_sums_emulated (the kernel's order of sums), at S K not a multiple
+    of a warp's 512-float step; bf16 x, which no path gives the kernel, is
+    refused."""
     x = torch.randn(300, 320, generator=_gen(0), device=dev).to(dtype)
-    _close(qm.group_sums(x, g), qm.group_sums_plain(x, g), torch.float32)
+    if dtype == torch.bfloat16:
+        with pytest.raises(TypeError):
+            qm.group_sums(x, g)
+        return
+    got = qm.group_sums(x, g)
+    _close(got, qm.group_sums_plain(x, g), torch.float32)
+    assert torch.equal(got, qm.group_sums_emulated(x, g))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -468,7 +480,8 @@ def test_cache_partials(dev, dtype, KV, H, D, valid):
     acc too, but on the tensor-core route (bf16 q, grouped heads, D 64 / 128),
     which rounds P to bf16 for the P V product, to bf16 accuracy, and there
     the splits and their merge are held to partials_emulated, which rounds
-    P where the kernel does."""
+    P where the kernel does; on the f32 route (grouped heads otherwise) to
+    partials_emulated at f32 accuracy."""
     B, T, L, l = 2, 256, 3, 2
     g = _gen(H)
     kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
@@ -485,16 +498,17 @@ def test_cache_partials(dev, dtype, KV, H, D, valid):
     _close(m, m_p, torch.float32)
     _close(lsum, l_p, torch.float32)
     cache = "int8" if dtype == "int8" else str(dtype).removeprefix("torch.")
-    tc = fd.route(KV, H // KV, D, cache, str(qg.dtype).removeprefix("torch.")) == "tc"
-    _close(acc, acc_p, torch.bfloat16 if tc else torch.float32)
-    if tc:
+    rt = fd.route(KV, H // KV, D, cache, str(qg.dtype).removeprefix("torch."))
+    _close(acc, acc_p, torch.bfloat16 if rt == "tc" else torch.float32)
+    if rt != "mha":
         _close_emulated((acc, m, lsum), kv, KV, l, qg, valid)
 
 
 def _close_emulated(got, kv, KV, layer, qg, cache_valid):
     """cache_partials' (acc, m, l) against partials_emulated at this card's
     SM count (so with the kernel's splits): acc to TOL_EMULATED of max
-    |ref|, m and l to f32 accuracy."""
+    |ref| on the tensor-core route, to f32 accuracy on the f32 route; m and
+    l to f32 accuracy."""
     acc_e, m_e, l_e = fd.partials_emulated(kv, KV, layer, qg, cache_valid,
                                            n_sm=fd._sm_count(qg.device))
     acc, m, lsum = got
@@ -502,7 +516,10 @@ def _close_emulated(got, kv, KV, layer, qg, cache_valid):
     _close(lsum, l_e, torch.float32)
     got, ref = acc.float().cpu(), acc_e.cpu()
     err = (got - ref).abs().max().item() / (ref.abs().max().item() + 1e-6)
-    assert err <= TOL_EMULATED, err
+    quant = isinstance(kv, tuple)
+    cache = "int8" if quant else str(kv.dtype).removeprefix("torch.")
+    rt = fd.route(KV, qg.shape[2], qg.shape[3], cache, str(qg.dtype).removeprefix("torch."))
+    assert err <= (TOL_EMULATED if rt == "tc" else TOL[torch.float32]), err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"],
@@ -567,9 +584,10 @@ def test_mha_decode_at_llama7b_heads(dev, qdtype, cache, valid):
 
 
 def test_flash_decode_refuses_head_shapes_it_does_not_take(dev):
-    """D = 128 with grouped query heads on an f32 cache (the SIMT route),
-    and D = 256, raise on the card."""
-    for KV, H, D in ((2, 8, 128), (4, 4, 256), (1, 1, 128)):
+    """D = 256 and more than 128 query heads a K/V head raise on the card
+    (grouped f32 at D = 128, which the CUDA-core kernel refused, runs on the
+    f32 kernel since it replaced it: test_grouped_decode_at_head_dim_128)."""
+    for KV, H, D in ((4, 4, 256), (1, 130, 64)):
         kv = torch.zeros(1, 2, 1, 64, KV, D, device=dev)
         with pytest.raises(NotImplementedError):
             fd.flash_decode(kv, KV, 0, torch.zeros(1, 1, H, D, device=dev), 5)
@@ -594,75 +612,89 @@ def test_flash_decode_refuses_head_shapes_it_does_not_take(dev):
 
 
 def _decode_case(dev, cache, KV, H, D, valid, append, T=2560, L=2, seed=0):
-    """A random L-layer cache (bf16, or int8 codes and scales), a bf16 q and
-    flash_decode's arguments for `valid` cache positions ("rows": B = 2 with
-    lengths [2047, 300] as an int32 device tensor), with or without a
+    """A random L-layer cache (bf16, f32, or int8 codes and scales: "int8"
+    with bf16 q, "int8f32" with f32 q), q in the cache's dtype (bf16 or f32)
+    and flash_decode's arguments for `valid` cache positions ("rows": B = 2
+    with lengths [2047, 300] as an int32 device tensor), with or without a
     16-entry append block of which 5 are valid."""
     B = 2 if valid == "rows" else 1
     g = _gen(seed)
+    qd = torch.float32 if cache in ("f32", "int8f32") else torch.bfloat16
     kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
-    kv = kvcache.quantize_new(kv) if cache == "int8" else kv.to(torch.bfloat16)
-    q = torch.randn(B, 1, H, D, generator=g, device=dev).to(torch.bfloat16)
+    kv = kvcache.quantize_new(kv) if cache.startswith("int8") else kv.to(qd)
+    q = torch.randn(B, 1, H, D, generator=g, device=dev).to(qd)
     lens = (torch.tensor([2047, 300], dtype=torch.int32, device=dev) if valid == "rows"
             else valid)
     if append:  # the cache is valid below n_past - 4
-        app = torch.randn(2, B, 16, KV, D, generator=g, device=dev).to(torch.bfloat16)
+        app = torch.randn(2, B, 16, KV, D, generator=g, device=dev).to(qd)
         return kv, q, lens + 4, {"kv_append": app, "append_valid": 5}
     return kv, q, lens - 1, {}
 
 
-@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "f32", "int8f32"])
 @pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (8, 128, 64), (32, 32, 128)],
                          ids=["falcon7b", "falcon40b", "llama7b"])
 @pytest.mark.parametrize("valid", [1, 300, 2047, "rows"])
 @pytest.mark.parametrize("append", [False, True], ids=["cache", "append"])
 def test_decode_at_main_path_shapes(dev, cache, KV, H, D, valid, append):
     """The one-launch kernels at the main paths' head layouts against the
-    plain version (2e-2 of max |ref|): grouped heads on the tensor-core
-    kernel, G == 1 on decode_mha_kernel; bf16 and int8 caches, with and
-    without the append block, one length or one per row."""
+    plain version (2e-2 of max |ref| with bf16 q, 2e-5 with f32 q): grouped
+    heads on the tensor-core kernel (bf16 q) or the f32 kernel (f32 q), G ==
+    1 on decode_mha_kernel; bf16, f32 and int8 caches, with and without the
+    append block, one length or one per row; grouped heads' splits and merge
+    also against partials_emulated."""
     kv, q, n_past, kw = _decode_case(dev, cache, KV, H, D, valid, append)
-    counter = ("flash_decode_tc" + (".int8" if cache == "int8" else "") if H > KV
-               else _decode_counter(KV, H, cache == "int8"))
+    int8 = cache.startswith("int8")
+    if H == KV:
+        counter = _decode_counter(KV, H, int8)
+    elif q.dtype == torch.float32:
+        counter = "flash_decode.f32"
+    else:
+        counter = "flash_decode_tc" + (".int8" if int8 else "")
     before = build.launch_counts[counter]
     got = fd.flash_decode(kv, KV, 1, q, n_past, **kw)
     assert build.launch_counts[counter] == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
-    _close(got, fd.flash_decode_plain(kv, KV, 1, q, n_past, **kw), torch.bfloat16)
+    _close(got, fd.flash_decode_plain(kv, KV, 1, q, n_past, **kw), q.dtype)
     qg = q.reshape(q.shape[0], KV, H // KV, D)
     lens = n_past - 3 if append else n_past + 1  # the cache rows attended
     acc, m, lsum = fd.cache_partials(kv, KV, 1, qg, lens)
     acc_p, m_p, l_p = fd.cache_partials_plain(kv, KV, 1, qg, lens)
-    _close(acc / lsum, acc_p / l_p, torch.bfloat16)
-    _close(m, m_p, torch.bfloat16)
-    if H > KV:  # the tensor-core route: its splits and merge as partials_emulated's
+    _close(acc / lsum, acc_p / l_p, q.dtype)
+    _close(m, m_p, q.dtype)
+    if H > KV:  # the grouped routes: their splits and merge as partials_emulated's
         _close_emulated((acc, m, lsum), kv, KV, 1, qg, lens)
 
 
-@pytest.mark.parametrize("cache", ["bf16", "int8"])
-@pytest.mark.parametrize("KV,H", [(2, 8), (1, 71)])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "f32", "int8f32"])
+@pytest.mark.parametrize("KV,H", [(2, 8), (1, 71), (1, 1)])
 def test_grouped_decode_at_head_dim_128(dev, cache, KV, H):
-    """Grouped heads at D = 128 take the tensor-core kernel (the SIMT kernel
-    stops at 64), with per-row lengths and the append block."""
-    ok, rt = fd.supports(KV, H // KV, 128, "int8" if cache == "int8" else "bfloat16")
-    assert ok and rt == "tc"
+    """Grouped heads (and one query head over one K/V head) at D = 128 take
+    the tensor-core kernel with bf16 q and the f32 kernel with f32 q (the
+    CUDA-core kernel this one replaced stopped at 64), with per-row lengths
+    and the append block."""
+    qd = "float32" if cache in ("f32", "int8f32") else "bfloat16"
+    ok, rt = fd.supports(KV, H // KV, 128, "int8" if cache.startswith("int8") else qd, qd)
+    assert ok and rt == ("f32" if qd == "float32" else "tc")
     for append in (False, True):
         kv, q, n_past, kw = _decode_case(dev, cache, KV, H, 128, "rows", append, seed=3)
         _close(fd.flash_decode(kv, KV, 0, q, n_past, **kw),
-               fd.flash_decode_plain(kv, KV, 0, q, n_past, **kw), torch.bfloat16)
+               fd.flash_decode_plain(kv, KV, 0, q, n_past, **kw), q.dtype)
 
 
 @pytest.mark.parametrize("cache,KV,H,D", [("bf16", 1, 71, 64), ("int8", 8, 128, 64),
-                                          ("bf16", 32, 32, 128), ("int8", 32, 32, 128)])
+                                          ("bf16", 32, 32, 128), ("int8", 32, 32, 128),
+                                          ("f32", 1, 71, 64), ("int8f32", 8, 128, 64)])
 def test_decode_graph_replays_at_new_lengths(dev, cache, KV, H, D):
     """32 calls (one per layer of a 4-layer cache, in turn) captured in one
     CUDA graph with the lengths in an int32 device tensor, replayed at two
     sets of lengths: every output equals the plain version's."""
     L, T, B = 4, 2304, 2
     g = _gen(KV + H)
+    qd = torch.float32 if cache in ("f32", "int8f32") else torch.bfloat16
     kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
-    kv = kvcache.quantize_new(kv) if cache == "int8" else kv.to(torch.bfloat16)
-    qs = [torch.randn(B, 1, H, D, generator=g, device=dev).to(torch.bfloat16) for _ in range(32)]
+    kv = kvcache.quantize_new(kv) if cache.startswith("int8") else kv.to(qd)
+    qs = [torch.randn(B, 1, H, D, generator=g, device=dev).to(qd) for _ in range(32)]
     n_past = torch.tensor([300, 7], dtype=torch.int32, device=dev)
 
     def step():
@@ -681,10 +713,10 @@ def test_decode_graph_replays_at_new_lengths(dev, cache, KV, H, D):
         graph.replay()
         torch.cuda.synchronize()
         for i, (q, out) in enumerate(zip(qs, outs)):
-            _close(out, fd.flash_decode_plain(kv, KV, i % L, q, n_past), torch.bfloat16)
+            _close(out, fd.flash_decode_plain(kv, KV, i % L, q, n_past), qd)
 
 
-@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "f32", "int8f32"])
 @pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (32, 32, 128)], ids=["grouped", "mha"])
 def test_decode_is_one_launch_that_allocates_only_its_output(dev, cache, KV, H, D):
     """The profiler sees one kernel a call (no merge_kernel or
@@ -793,6 +825,32 @@ def test_tiny_model_on_card_matches_cpu(dev, tmp_path, gtype, kv_dtype):
     scale = np.abs(logits[0]).max()
     np.testing.assert_allclose(logits[1] / scale, logits[0] / scale, atol=1e-4)
     assert ids[0] == ids[1]
+
+
+def test_memory_f32_tiny_model_on_card_matches_cpu(dev, tmp_path):
+    """An f32 cache under bf16 compute (the CLI's --memory-f32): prefill
+    attention takes q in the cache's f32 (the f32 attention kernel), decode
+    the f32 decode kernel, and the logits of a 3-chunk prompt and a decode
+    step stay within bf16 accuracy of the CPU's plain versions."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams.tiny(), GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="bfloat16")
+    prompt = [int(t) for t in np.random.default_rng(4).integers(12, 500, 40)]  # 3 chunks
+    logits = []
+    for device in ("cpu", "cuda"):
+        mf, params = load_model(path, cfg, device=device)
+        eng = FalconEngine(mf.hparams, params, cfg, device=device)
+        build.launch_counts.clear()
+        logits.append(np.concatenate([eng.eval(prompt)[None], eng.eval([7])[None]]))
+    counts = dict(build.launch_counts)
+    assert counts.get("flash_mqa.f32", 0) > 0 and counts.get("flash_decode.f32", 0) > 0
+    assert not counts.get("flash_mqa.tc", 0) and not counts.get("flash_decode_tc", 0)
+    scale = np.abs(logits[0]).max()
+    np.testing.assert_allclose(logits[1] / scale, logits[0] / scale, atol=2e-2)
 
 
 @pytest.mark.parametrize("gtype,kv_dtype,compute", [

@@ -109,7 +109,10 @@ def test_decode_plan(B, KV, G, D, cache):
         assert B * KV * n < tfd.WAVES * 132 + B * KV
         assert n >= prev
         prev = n
-    assert tfd.decode_plan(300, B, KV, G, 32, "float32", rt="simt") == (5, 64)
+    # the f32 route (f32 queries of grouped heads) plans one key tile a split
+    n, chunk = tfd.decode_plan(300, B, KV, G, 32, "float32", rt="f32")
+    assert n <= tfd._splits(300, B, KV, G, 32, "float32", 132, "f32") and n * chunk >= 300
+    assert chunk <= tfd.tile_keys(32, "f32") or B * KV * n >= tfd.WAVES * 132
 
 
 def _emulation_case(KV, H, D, cache, seed, A=9):
@@ -128,7 +131,7 @@ def _emulation_case(KV, H, D, cache, seed, A=9):
 
 
 @pytest.mark.parametrize("KV,H,D,rt", [(1, 40, 64, "tc"), (2, 8, 128, "tc"), (4, 4, 32, "mha"),
-                                       (1, 5, 32, "simt")])
+                                       (1, 5, 32, "f32")])
 @pytest.mark.parametrize("cache", ["float32", "int8"])
 @pytest.mark.parametrize("n_past,append", [(299, False), (40, False), (0, False), (250, True),
                                            (3, True)])
@@ -143,7 +146,7 @@ def test_one_launch_merge_matches_jax(KV, H, D, rt, cache, n_past, append):
         kw_j = {"kv_append": jnp.asarray(app), "append_valid": jnp.int32(4)}
         kw_t = {"kv_append": torch.from_numpy(app), "append_valid": 4}
     tq = torch.from_numpy(q)
-    if rt == "simt" or n_past < 5:  # a small group: give the splits a few keys each
+    if rt == "f32" or n_past < 5:  # a small group: give the splits a few keys each
         n_sm = 4
     else:
         n_sm = 132
@@ -159,7 +162,7 @@ def test_one_launch_merge_matches_jax(KV, H, D, rt, cache, n_past, append):
 
 
 @pytest.mark.parametrize("KV,H,D,rt", [(1, 40, 64, "tc"), (2, 8, 128, "tc"), (4, 4, 32, "mha"),
-                                       (1, 5, 32, "simt")])
+                                       (1, 5, 32, "f32")])
 @pytest.mark.parametrize("valid", [[200, 7], [0, 65], "tensor"])
 @pytest.mark.parametrize("cache", ["float32", "int8"])
 def test_partials_emulated_per_row_lengths(KV, H, D, rt, valid, cache):

@@ -313,19 +313,20 @@ def test_first_sampled_token_matches_jax_engine(tiny_engines):
 
 def test_unsupported_head_shape_raises_when_the_engine_is_built(monkeypatch):
     """On the card with flash attention on, a head shape that no decode
-    kernel takes (grouped heads at head_dim 128 with f32 queries) raises in
+    kernel takes (grouped heads at head_dim 256) raises in
     FalconEngine.__init__, with the shape and the reason; flash_attention=
     False (the plain route) is not refused."""
     from ggllm_tpu_torch.kernels import flash_decode as tfd
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    hp = TFalconHParams(n_vocab=64, n_embd=1024, n_head=8, n_head_kv=2, n_layer=1,
+    hp = TFalconHParams(n_vocab=64, n_embd=2048, n_head=8, n_head_kv=2, n_layer=1,
                         n_falcon_type=40, n_bpe_merges=0)
-    assert hp.head_dim == 128
+    assert hp.head_dim == 256
     cfg = TEngineConfig(n_ctx=64, kv_dtype="float32", compute_dtype="float32")
-    assert tfd.supports(2, 4, 128, "float32", "float32")[0] is False
+    assert tfd.supports(2, 4, 256, "float32", "float32")[0] is False
+    assert tfd.supports(2, 4, 128, "float32", "float32")[0] is True  # the f32 kernel's
     assert tfd.supports(2, 4, 128, "bfloat16")[0] is True
-    with pytest.raises(NotImplementedError, match="head_dim 128"):
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
         TFalconEngine(hp, {}, cfg)
     calls = []
     monkeypatch.setattr(tfd, "supports", lambda *a: calls.append(a) or (False, "refused"))

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from ggllm_tpu.core.dtypes import GGMLType
@@ -101,20 +101,53 @@ def test_bf16_split_edges():
     assert float(x1) != 0 and float(x2) != 0
 
 
-@settings(max_examples=200, deadline=None)
-@given(st.floats(width=32, min_value=-2.0 ** 127, max_value=2.0 ** 127, allow_nan=False,
-                 allow_subnormal=False))
-def test_tf32_split_keeps_22_bits(v):
-    """tf32_rna keeps 10 mantissa bits, rounding to nearest with ties away
-    from zero; hi + lo is within 2^-21 of |x|."""
+def _tf32_split_error(v: float) -> tuple[float, bool]:
+    """(|hi + lo - v|, whether the remainder v - hi is a normal float) of
+    split_tf32, after checking that hi and lo are TF32 values and that hi
+    is the nearest one (the dropped part at most half a unit)."""
     x = torch.tensor([v], dtype=torch.float32)
     hi, lo = tfa.split_tf32(x)
     for t in (hi, lo):
         assert int(t.view(torch.int32)) & 0x1FFF == 0
-    # hi is the nearest TF32 value: the dropped part is at most half a unit
     ulp = 2.0 ** (np.floor(np.log2(abs(v))) - 10) if v else 0.0
     assert abs(float(hi) - v) <= ulp / 2 * (1 + 1e-12)
-    assert abs((float(hi) + float(lo)) - v) <= abs(v) * 2.0 ** -21
+    rem = float(x - hi)  # exact: hi holds the leading bits of x
+    return abs((float(hi) + float(lo)) - v), rem == 0 or abs(rem) >= 2.0 ** -126
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.floats(width=32, min_value=-2.0 ** 127, max_value=2.0 ** 127, allow_nan=False,
+                 allow_subnormal=False))
+@example(2.2522432626291517e-38)
+def test_tf32_split_keeps_22_bits(v):
+    """tf32_rna keeps 10 mantissa bits, rounding to nearest with ties away
+    from zero; hi + lo is within 2^-21 |x| of x wherever the remainder
+    x - hi is a normal float, and within max(2^-21 |x|, 2^-137) where it is
+    subnormal: the conversion drops its bits below 2^-136 (split_tf32's
+    contract). The example is a draw whose remainder is -2.2e-43."""
+    err, normal = _tf32_split_error(v)
+    if normal:
+        assert err <= abs(v) * 2.0 ** -21
+    else:
+        assert err <= max(abs(v) * 2.0 ** -21, 2.0 ** -137)
+
+
+def test_tf32_split_edges():
+    """The smallest normal (exact), 2.2522432626291517e-38 (a subnormal
+    remainder: within 2^-137 but not within 2^-21 |x|), a value whose
+    remainder is normal (the relative bound, with lo nonzero) and 2^127
+    (exact, no overflow)."""
+    err, normal = _tf32_split_error(2.0 ** -126)
+    assert err == 0 and normal
+    v = 2.2522432626291517e-38
+    err, normal = _tf32_split_error(v)
+    assert not normal and abs(v) * 2.0 ** -21 < err <= 2.0 ** -137
+    v = float(_f32(0x3F812345))
+    err, normal = _tf32_split_error(v)
+    assert normal and err <= abs(v) * 2.0 ** -21
+    assert float(tfa.split_tf32(_f32(0x3F812345))[1]) != 0
+    err, normal = _tf32_split_error(2.0 ** 127)
+    assert err == 0 and normal
 
 
 def test_tf32_rounds_ties_away_from_zero():
