@@ -22,10 +22,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      kernel; flash-decode on bf16
      and on int8 caches, grouped heads through the tensor-core kernel and
      LLaMA's G == 1 through its own, with and without the append block and
-     with a length per row; f32 q on f32 and int8 caches through the f32
+     with a length per row, also at 5 decode rows (valid 300, 17, 2047, 1
+     and a parked row); f32 q on f32 and int8 caches through the f32
      decode kernel (split TF32) at Falcon-7B's and Falcon-40B's head layouts,
-     the same way, its partials also against partials_emulated, and bf16 at
-     head dim 32 through it), and time
+     the same way, its partials also against partials_emulated, f32 q on a
+     bf16 cache at Falcon-7B's (valid 300 and 2047), and bf16 at
+     head dim 32 through it; the tensor-core tile at B = 2, 4, 8, 16 decode
+     rows at Falcon-7B Q4_0's decode shapes beside B one-row GEMVs), and time
      kernel, plain version and one PyTorch library call (CUDA events, after
      warm-up, median of 20 runs, L2 flushed before each run) beside the
      card's bound; bf16 rows are held at 2e-2 of max |plain|, f32 rows at
@@ -81,7 +84,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      2048 from token ids of a seed, log-softmax gather on the card, timed per
      512-token piece at n_past 0 … 1536) and embed() of a 700-token prompt,
      each held against the plain versions, then the perplexity of one chunk
-     on an int8 cache;
+     on an int8 cache; and continuous batching: 8 requests (prompts of 5-300
+     tokens, 64 tokens each, 4 greedy and 4 sampled, one with mirostat 2,
+     one with penalize_nl false) through a ContinuousBatcher over
+     FalconEngine(batch_size=4), decoding as replayed B-row CUDA graphs, whose
+     ids must equal the eager B-row step body's, every greedy id within
+     LOGIT_TOL of its step's top logit in the batch-1 engine with the
+     batched ids forced (a request's ids on another's prompt must fail it;
+     the same on the f32 route at 2 layers, F32_LOGIT_TOL), with
+     aggregate and per-row tok/s beside the single stream's, admission time,
+     B-row step device ms at B = 1, 2, 4, 8, 16 and capture ms;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -252,11 +264,11 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
     shapes_llama = (("llama.wqkv", 12288, 4096), ("llama.w13", 22016, 4096),
                     ("llama.wo", 4096, 4096), ("llama.w2", 4096, 11008),
                     ("llama.lm_head", 32000, 4096))
-    def matmul_row(fmt, wname, w, wbytes, wdeq, S, xdtype, out_dtype):
+    def matmul_row(fmt, wname, w, wbytes, wdeq, S, xdtype, out_dtype, graphs=False, **extra):
         """One (weight, S, x dtype) case: the route's kernel against the plain
         version, counted under its own counter, timed beside `x @ wdeq^T`;
-        a GEMV (S = 1) and its library call also as device time (a CUDA
-        graph of one call)."""
+        a GEMV (S = 1), or any S with `graphs`, and its library call also as
+        device time (a CUDA graph of one call); `extra` goes into the row."""
         (O, K), path = w.shape, qm.route(S, xdtype, w.gtype)
         if path == "gemv" and qm.gemv_kernel(w.gtype) == "kq":
             path = "gemv.kq"
@@ -274,9 +286,9 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
         nbytes = (wbytes + S * K * x.element_size()
                   + S * O * (4 if out_dtype == torch.float32 else 2))
-        device_ms = {}
-        if S == 1:
-            device_ms = {"graph_ms": graph_ms(lambda i: qm.quant_matmul(w, x, out_dtype), 1,
+        device_ms = dict(extra)
+        if S == 1 or graphs:
+            device_ms |= {"graph_ms": graph_ms(lambda i: qm.quant_matmul(w, x, out_dtype), 1,
                                               timer.flush),
                          "library_graph_ms": graph_ms(lambda i: torch.matmul(x, wdeq.t()), 1,
                                                       timer.flush)}
@@ -326,6 +338,25 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
         wdeq = w.dequantize(torch.float32)
         matmul_row("q4_0", wname, w, wbytes, wdeq, 300, torch.float32, torch.float32)
+        del w, wdeq
+
+    # ---- B decode rows (continuous batching): S = B rows of bf16 x through
+    # the tensor-core tile at Falcon-7B Q4_0's three decode shapes, B = 2, 4,
+    # 8, 16, beside B one-row GEMVs (one call and a graph of one call, times
+    # B) and the library matmul; bound: the weight planes' bytes (x and y
+    # are 0.1 % of them)
+    for wname, O, K in shapes_7b:
+        w = random_quant(GGMLType.Q4_0, O, K, gen, "cuda")
+        wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+        wdeq = w.dequantize(bf16)
+        out_dtype = torch.float32 if wname == "lm_head" else bf16
+        x1 = torch.randn(1, K, generator=gen, device="cuda").to(bf16)
+        gemv_ms = timer(lambda: qm.quant_matmul(w, x1, out_dtype))
+        gemv_graph = graph_ms(lambda i: qm.quant_matmul(w, x1, out_dtype), 1, timer.flush)
+        for S in (2, 4, 8, 16):
+            matmul_row("q4_0", f"rows {wname}", w, wbytes, wdeq, S, bf16, out_dtype,
+                       graphs=True, gemv_ms_times_S=S * gemv_ms,
+                       gemv_graph_ms_times_S=S * gemv_graph)
         del w, wdeq
 
     # ---- group_sums: f32 x (only the f32 tile takes group sums), 32-wide at
@@ -510,6 +541,51 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                 f" +append {err_a:.2e} ({rel_a:.1e} rel)")
         del kv, kv8, deq, deq32, kv2, kv8_2, deq2
 
+    # ---- flash_decode at B decode rows (continuous batching): Falcon-7B's
+    # heads, four live rows at valid 300, 17, 2047 and 1 and one parked at
+    # n_ctx (its step writes at 2048: valid 2049), lengths in a device tensor
+    # as the B-row decode graph passes them; bf16 and int8 caches, bf16 q;
+    # timed as above (a graph of one call per layer of a 2-layer cache), the
+    # library call SDPA with each row's mask; bound: each row's valid K/V
+    H, KV, D = 71, 1, 64
+    st = FalconStatic(n_layer=2, n_head=H, n_head_kv=KV, head_dim=D, n_embd=H * D,
+                      n_ff=4 * H * D, n_vocab=0, parallel_norms=False)
+    lens5 = torch.tensor([300, 17, 2047, 1, 2049], dtype=torch.int32, device="cuda")
+    kv5 = torch.randn(2, 2, 5, T, KV, D, generator=gen, device="cuda").to(bf16)
+    q5 = torch.randn(5, 1, H, D, generator=gen, device="cuda").to(bf16)
+    kv8_5 = kvcache.quantize_new(kv5)
+    mask5 = (torch.arange(T, device="cuda")[None, :] < lens5[:, None].long())[:, None, None]
+    for name, cache, lib_kv, per_pos in (
+            ("flash_decode_tc", kv5, kv5, 2 * D),
+            ("flash_decode_tc.int8", kv8_5,
+             (kv8_5[0].float() * kv8_5[1]).to(bf16), D + 4)):
+        ref_kv = ((kv8_5[0][1].float() * kv8_5[1][1]) if name.endswith("int8")
+                  else kv5[1].float())
+        before = build.launch_counts[name]
+        got = fd.flash_decode(cache, KV, 1, q5, lens5 - 1)
+        if build.launch_counts[name] != before + 1:
+            raise RuntimeError(f"flash_decode at 5 rows did not run the {name} kernel")
+        err, rel = check(f"{name} 5 rows valid [300, 17, 2047, 1, parked]", got,
+                         _attention(q5, ref_kv[0], ref_kv[1], lens5 - 1, st))
+        kt = [lib_kv[i, 0].transpose(1, 2).expand(5, H, T, D) for i in range(2)]
+        vt = [lib_kv[i, 1].transpose(1, 2).expand(5, H, T, D) for i in range(2)]
+
+        def sdpa5(i):
+            return F.scaled_dot_product_attention(q5.transpose(1, 2), kt[i], vt[i],
+                                                  attn_mask=mask5)
+
+        tag = "int8 " if name.endswith("int8") else ""
+        row(name, f"{tag}rows B=5 valid=[300, 17, 2047, 1, 2049] G={H} KV={KV} D={D}", err, rel,
+            timer(lambda: fd.flash_decode(cache, KV, 1, q5, lens5 - 1)),
+            timer(lambda: fd.flash_decode_plain(cache, KV, 1, q5, lens5 - 1)),
+            timer(lambda: sdpa5(1)),
+            2 * int(lens5.sum()) * KV * per_pos + 2 * 5 * H * D * 2, 4 * int(lens5.sum()) * H * D,
+            graph_ms=graph_ms(lambda i: fd.flash_decode(cache, KV, i, q5, lens5 - 1), 2,
+                              timer.flush),
+            library_graph_ms=graph_ms(sdpa5, 2, timer.flush))
+        del ref_kv, kt, vt
+    del kv5, kv8_5, q5, mask5
+
     # ---- flash_decode on the f32 route: f32 q on an f32 cache and on an int8
     # cache (the f32 route's decode; --memory-f32 casts bf16 q to its f32
     # cache) at Falcon-7B's and Falcon-40B's head layouts, the last layer of
@@ -530,10 +606,13 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                           n_ff=4 * H * D, n_vocab=0, parallel_norms=KV > 1)
         kv8 = kvcache.quantize_new(kv)
         deq = kv8[0].float() * kv8[1]  # the library's f32 cache
-        for tag, cache, lib_kv, key_bytes, products in (("f32 ", kv, kv, 8 * D, 3),
-                                                         ("int8 ", kv8, deq, 2 * D + 8, 2)):
+        cases = [("f32 ", kv, kv, 8 * D, 3, valids), ("int8 ", kv8, deq, 2 * D + 8, 2, valids)]
+        if G == 71:  # f32 compute on the default bf16 cache: q stays f32
+            kvb = kv.to(bf16)
+            cases.append(("bf16 cache f32 q ", kvb, kvb.float(), 4 * D, 2, (300, 2047)))
+        for tag, cache, lib_kv, key_bytes, products, tag_valids in cases:
             kr, vr = lib_kv[l, 0], lib_kv[l, 1]
-            for valid in valids:
+            for valid in tag_valids:
                 name = "flash_decode.f32"
                 before = build.launch_counts[name]
                 got = fd.flash_decode(cache, KV, l, q1, valid - 1)
@@ -577,7 +656,7 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                     valid * KV * key_bytes + 2 * H * D * 4, products * 4 * valid * H * D,
                     rate=peak_tf32, graph_ms=dev_ms, library_graph_ms=lib_dev_ms,
                     f32_core_bound_ms=4 * valid * H * D / peak_f32 * 1e3)
-        del deq
+        del deq, cases
         # one length per batch row (B = 2, two layers), with and without the
         # append block
         kv2 = torch.randn(2, 2, 2, T, KV, D, generator=gen, device="cuda")
@@ -971,6 +1050,217 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
     return {"path": label, "launches": r["after"]["launches"],
             "prefill_tok_s": r["prefill_tok_s"], "logit_rel_err": r["logit_rel_err"],
             "argmax_same": r["argmax_same"], "graph": r["after"]["graph"]}
+
+
+def _batch_run(torch, eng, prompts, specs, eager: bool, chunk: int = 16):
+    """Requests (prompt, Request keywords) through a ContinuousBatcher on
+    `eng` (seed 1234, prefill_chunk 256) to the end; returns the requests,
+    the launch counts of the run (set to 0 just before it) and its wall s."""
+    from ggllm_tpu_torch.engine.batching import ContinuousBatcher, Request
+    from ggllm_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    cb = ContinuousBatcher(eng, chunk=chunk, seed=1234, prefill_chunk=256, eager=eager)
+    reqs = [cb.submit(Request(p, **kw)) for p, kw in zip(prompts, specs)]
+    cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [r.rid for r in reqs if r.error is not None or len(r.out) != r.n_predict]
+    if bad:
+        raise RuntimeError(f"batched requests {bad} failed or ended early")
+    return reqs, dict(build.launch_counts), wall
+
+
+def _teacher_forced(eng1, prompt, ids: list, rel_tol: float) -> dict:
+    """`ids` held to the batch-1 engine's logits with those ids forced: the
+    single stream evaluates prompt + ids[:-1] from an empty cache, and at
+    every step t the id's logit must lie within rel_tol of max |logit| of
+    that step's top logit (an id equal to the argmax meets it at 0).
+    Returns the largest deficit as a share of its tolerance (`worst`, >= 1
+    fails), the steps whose id is not the argmax, and the median top-2 gap
+    with the steps whose top-2 gap is below the tolerance (where the check
+    cannot tell the top two apart)."""
+    import numpy as np
+
+    eng1.reset()
+    lg = eng1.eval(prompt + ids[:-1], logits_all=True)[-len(ids):]
+    rows = np.arange(len(ids))
+    top2 = np.sort(lg, axis=1)[:, -2:]
+    tol = rel_tol * np.abs(lg).max(axis=1)
+    deficit = top2[:, 1] - lg[rows, ids]
+    gap = top2[:, 1] - top2[:, 0]
+    return {"worst": float((deficit / tol).max()), "worst_step": int((deficit / tol).argmax()),
+            "not_argmax": [int(t) for t in np.flatnonzero(deficit > 0)],
+            "median_top2_gap": float(np.median(gap)), "median_tol": float(np.median(tol)),
+            "steps_below_tol": int((gap < tol).sum()), "steps": len(ids),
+            "deficit": deficit, "gap": gap, "tol": tol}
+
+
+def _against_single(eng1, prompt, batched: list, label: str, rel_tol: float) -> dict:
+    """A greedy request's batched ids against the batch-1 engine on the same
+    weights. Its free-running greedy ids (one stream on the GEMV) are
+    compared for the step where the two part, printed with the single
+    stream's top-2 logit gap there and the batched id's deficit; then every
+    batched id is held to the single stream's logits with the batched ids
+    forced (`_teacher_forced`): each must be within rel_tol of max |logit|
+    of its step's top logit (B rows take the tile, one stream the GEMV: the
+    two sum in other orders, so ids may part at a near-tie, and past it the
+    batched ids are still checked, against their own history)."""
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    eng1.reset()
+    ref = eng1.generate(prompt, len(batched), SamplerParams(temp=0.0, repeat_penalty=1.0),
+                        stop_ids=set())
+    tf = _teacher_forced(eng1, prompt, batched, rel_tol)
+    out = {k: v for k, v in tf.items() if k not in ("deficit", "gap", "tol")}
+    out["equal"] = ref == batched
+    if not out["equal"]:
+        t = next(i for i, (a, b) in enumerate(zip(ref, batched)) if a != b)
+        out.update(step=t, gap=float(tf["gap"][t]), deficit_at_step=float(tf["deficit"][t]),
+                   tol_at_step=float(tf["tol"][t]))
+        log(f"  {label}: batched and single-stream ids part at step {t} ({batched[t]} vs"
+            f" {ref[t]}); the single stream's top-2 logit gap there {out['gap']:.4e}, the"
+            f" batched id {out['deficit_at_step']:.4e} below the top, tolerance"
+            f" {out['tol_at_step']:.4e}")
+    log(f"  {label}, every batched id against the single stream's logits with the batched"
+        f" ids forced: worst deficit {out['worst']:.3f} of its tolerance (step"
+        f" {out['worst_step']}); not the argmax at steps {out['not_argmax']}; median top-2"
+        f" gap {out['median_top2_gap']:.4e} (median tolerance {out['median_tol']:.4e},"
+        f" {out['steps_below_tol']} of {out['steps']} steps' gaps below it)")
+    if out["worst"] >= 1.0:
+        raise RuntimeError(f"{label}: batched id at step {out['worst_step']} lies"
+                           f" {out['worst']:.3f} tolerances below the single stream's top"
+                           f" logit: no near-tie")
+    return out
+
+
+def phase_batching(torch, eng1, params, hp) -> dict:
+    """Continuous batching at full width and depth: 8 requests (prompts of
+    5-300 tokens from a seed, 64 tokens each; 4 greedy, 4 sampled at temp
+    0.8, top-k 40, top-p 0.95, repeat penalty 1.1, one with mirostat 2, one
+    with penalize_nl False) through a ContinuousBatcher over
+    FalconEngine(batch_size=4) (chunk 16, prefill_chunk 256) on the bf16
+    cache, with the decode chunks as replayed B-row CUDA graphs and again
+    through the eager B-row step body: every request's ids must be the
+    same. Each greedy request's ids against the batch-1 engine `eng1` on the
+    same weights: every id within LOGIT_TOL of its step's top logit with the
+    batched ids forced (`_against_single`), and a control that must fail (a
+    request's ids on another's prompt); the same at 2 layers on the f32
+    route (F32_LOGIT_TOL). Prints aggregate and per-row decode tok/s
+    beside the single stream's, admission (prefill) time, the device ms of
+    one B-row step at B = 1, 2, 4, 8, 16 (CUDA events around replays, engines
+    sharing `params`), capture ms and peak memory. Fails unless the graph
+    run launched the tensor-core tile, flash_mqa.tc and the decode kernel,
+    and no GEMV."""
+    import dataclasses
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.ops.sampling_device import RowKey
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    B, n_predict = 4, 64
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(12, hp.n_vocab, n)]
+               for n in (5, 300, 37, 120, 250, 16, 80, 199)]
+    sampled = dict(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1)
+    specs = [dict(), sampled, dict(), {**sampled, "mirostat": 2}, dict(),
+             {**sampled, "penalize_nl": False}, dict(), sampled]
+    specs = [{"n_predict": n_predict, **kw} for kw in specs]
+    greedy = [i for i, kw in enumerate(specs) if "temp" not in kw]
+
+    eng = FalconEngine(hp, params, EngineConfig(), batch_size=B)
+    reqs, counts, wall = _batch_run(torch, eng, prompts, specs, eager=False)
+    tm = eng.timings
+    consumed = sum(len(r.out) - 1 for r in reqs)  # the first ids come from prefill
+    agg = consumed / (tm.t_decode_us / 1e6)
+    capture_ms = tm.t_compile_us / 1e3
+    prefill_ms, prefill_tokens = tm.t_prefill_us / 1e3, tm.n_prefill
+    log(f"  batcher, 8 requests through {B} rows, graphs: {wall:.2f} s; decode {consumed} tokens"
+        f" at {agg:.2f} tok/s aggregate, {agg / B:.2f} tok/s a row; prefill (admission)"
+        f" {prefill_tokens} tokens in {prefill_ms:.1f} ms"
+        f" ({prefill_tokens / (prefill_ms / 1e3):.1f} tok/s, forwarding all {B} rows);"
+        f" capture {capture_ms:.1f} ms")
+    for name in ("quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc", "flash_decode"):
+        if counts.get(name, 0) <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the batching path: {counts}")
+    if counts.get("quant_matmul.gemv", 0) or counts.get("flash_decode.f32", 0):
+        raise RuntimeError(f"a one-row or f32 kernel ran on the 4-row path: {counts}")
+    eager_reqs, _, eager_wall = _batch_run(torch, eng, prompts, specs, eager=True)
+    for r, e in zip(reqs, eager_reqs):
+        if r.out != e.out:
+            raise RuntimeError(f"request {r.rid}: the B-row graph's ids differ from the eager"
+                               f" step body's:\n{r.out}\n{e.out}")
+    log(f"  B-row graph and eager step body: all 8 requests' ids identical (eager run"
+        f" {eager_wall:.2f} s)")
+
+    eng1.timings = type(eng1.timings)()
+    single = {}
+    for i in greedy:
+        single[i] = _against_single(eng1, prompts[i], reqs[i].out, f"greedy request {i}",
+                                    LOGIT_TOL)
+    single_tps = eng1.timings.n_decode / (eng1.timings.t_decode_us / 1e6)
+    log(f"  greedy requests against the batch-1 engine: {single}; single stream"
+        f" {single_tps:.2f} tok/s in the same run")
+    # control: the check must refuse ids from the wrong row (each greedy
+    # request's ids held to the next greedy request's prompt)
+    for i, j in zip(greedy, greedy[1:] + greedy[:1]):
+        ctl = _teacher_forced(eng1, prompts[j], reqs[i].out, LOGIT_TOL)
+        log(f"  control: request {i}'s ids on request {j}'s prompt: worst deficit"
+            f" {ctl['worst']:.3f} of its tolerance, {len(ctl['not_argmax'])} of"
+            f" {ctl['steps']} ids not the argmax")
+        if ctl["worst"] < 1.0:
+            raise RuntimeError(f"the batched-id check passed request {i}'s ids on request"
+                               f" {j}'s prompt: it cannot tell a wrong row")
+
+    step_ms = {}
+    for b in (1, 2, 4, 8, 16):
+        e = FalconEngine(hp, params, EngineConfig(), batch_size=b)
+        e.decode_rows(np.arange(b) + 100, np.full(b, 300), 16)  # captures, replays once
+        g = e.rows_graph(16, RowKey(64, 1, 0, False)).graph  # replays not credited
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(3):
+            g.replay()
+        z.record()
+        torch.cuda.synchronize()
+        step_ms[b] = a.elapsed_time(z) / (3 * 16)
+        del e, g
+    log("  device ms a B-row step (16-step graph replays at n_past 300): "
+        + ", ".join(f"B={b} {ms:.4f} ({b / ms * 1e3:.1f} tok/s)" for b, ms in step_ms.items()))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory {peak / 2**30:.2f} GiB")
+
+    # the f32 route at 2 layers: batched greedy ids against the single stream
+    hp2 = dataclasses.replace(hp, n_layer=2)
+    params2 = make_bench_params(hp2, compute_dtype=torch.float32, device="cuda", seed=7,
+                                gtype=GGMLType.Q4_0)
+    cfg32 = EngineConfig(kv_dtype="float32", compute_dtype="float32")
+    e4 = FalconEngine(hp2, params2, cfg32, batch_size=B)
+    g_prompts = [prompts[i] for i in greedy]
+    g_specs = [specs[i] for i in greedy]
+    f32_reqs, f32_counts, _ = _batch_run(torch, e4, g_prompts, g_specs, eager=False)
+    f32_eager, _, _ = _batch_run(torch, e4, g_prompts, g_specs, eager=True)
+    if [r.out for r in f32_reqs] != [r.out for r in f32_eager]:
+        raise RuntimeError("f32 route: the B-row graph's ids differ from the eager step body's")
+    if not f32_counts.get("quant_matmul.f32", 0) or not f32_counts.get("flash_decode.f32", 0):
+        raise RuntimeError(f"the f32 4-row path did not run the f32 kernels: {f32_counts}")
+    e1 = FalconEngine(hp2, params2, cfg32)
+    f32_single = {i: _against_single(e1, p, r.out, f"f32 greedy request {i}", F32_LOGIT_TOL)
+                  for i, p, r in zip(greedy, g_prompts, f32_reqs)}
+    log(f"  2-layer f32 route, 4 greedy requests through {B} rows: graph = eager; against the"
+        f" batch-1 engine: {f32_single}")
+    del e4, e1, params2
+    return {"path": f"falcon7b q4_0 continuous batching B={B}", "launches": counts,
+            "decode_tok_s": agg, "decode_tok_s_per_row": agg / B, "single_tok_s": single_tps,
+            "prefill_ms": prefill_ms, "prefill_tokens": prefill_tokens,
+            "capture_ms": capture_ms, "wall_s": wall, "step_ms": step_ms,
+            "peak_bytes": peak, "greedy_vs_single": single, "f32_greedy_vs_single": f32_single}
 
 
 def _http(url: str, route: str, body: dict | None = None, stream: bool = False):
@@ -1426,7 +1716,11 @@ def main() -> int:
         t0 = time.perf_counter()
         scored = phase_scores(torch, eng, params, hp, logit_scale)
         log(f"  (perplexity and embeddings took {time.perf_counter() - t0:.1f} s)")
-        return [served, *scored]
+        log("  -- falcon7b q4_0: continuous batching, 4 rows")
+        t0 = time.perf_counter()
+        batched = phase_batching(torch, eng, params, hp)
+        log(f"  (batching took {time.perf_counter() - t0:.1f} s)")
+        return [served, *scored, batched]
 
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")

@@ -1,7 +1,7 @@
 // One-token decode attention for grouped query heads on the tensor cores,
-// held at f32 accuracy: f32 q on an f32 cache or on the int8 cache (codes
-// with one f32 scale per cached (position, head)) at head_dim 32, 64 or 128,
-// and bf16 q on a bf16 or an int8 cache at head_dim 32.
+// held at f32 accuracy: f32 q on an f32 or a bf16 cache or on the int8 cache
+// (codes with one f32 scale per cached (position, head)) at head_dim 32, 64
+// or 128, and bf16 q on a bf16 or an int8 cache at head_dim 32.
 //
 // Replaces the Pallas kernel ggllm_tpu/kernels/flash_decode.py `_kern`
 // (launched by cache_partials, wrapped by flash_decode), dense and with
@@ -408,8 +408,9 @@ cudaError_t dispatch(int D, const void* cache, const void* scales, int layer, co
 
 // The whole decode attention of one layer in one launch, grouped query heads
 // at f32 accuracy on the tensor cores. The arguments are gq_decode's
-// (flash_decode.cu): cache_kind 0 (f32) with f32 q, 1 (bf16) with bf16 q at
-// D = 32, or 2 (int8 codes with f32 scales) with f32 q, or bf16 q at D = 32;
+// (flash_decode.cu): cache_kind 0 (f32) with f32 q, 1 (bf16) with f32 q, or
+// bf16 q at D = 32, or 2 (int8 codes with f32 scales) with f32 q, or bf16 q
+// at D = 32;
 // D 32, 64 or 128 and G in 1..128; any split length `chunk` >= 1; q 16-byte
 // aligned.
 extern "C" int gq_decode_f32(const void* cache, int cache_kind, const void* scales, int layer,
@@ -420,7 +421,7 @@ extern "C" int gq_decode_f32(const void* cache, int cache_kind, const void* scal
                              int ws, void* stream) {
   if (layer < 0 || layer >= L || B < 1 || KV < 1 || G < 1 || G > 128 || n_split < 1 ||
       n_split > ws || chunk < 1 || (D != 32 && D != 64 && D != 128) || (q_bf16 && D != 32) ||
-      (cache_kind == 0 && q_bf16) || (cache_kind == 1 && !q_bf16) || cache_kind < 0 ||
+      (cache_kind == 0 && q_bf16) || cache_kind < 0 ||
       cache_kind > 2 || (cache_kind == 2) != (scales != nullptr) ||
       reinterpret_cast<uintptr_t>(q) % 16 || n_app < 0 || app_valid < 0 || app_valid > n_app ||
       (n_app > 0) != (app != nullptr) || (n_app > 0 && app_valid < 1) ||
@@ -433,8 +434,10 @@ extern "C" int gq_decode_f32(const void* cache, int cache_kind, const void* scal
                       part_ml, counters, n_split, chunk, ws)
   if (cache_kind == 0)
     return dispatch<float, float>(D, cache, scales, layer, q, GQ_FIN(float), B, Tn, KV, G, st);
-  if (cache_kind == 1)
+  if (cache_kind == 1 && q_bf16)
     return dispatch<bf16, bf16>(D, cache, scales, layer, q, GQ_FIN(bf16), B, Tn, KV, G, st);
+  if (cache_kind == 1)  // bf16 K/V are exact in TF32: EXACT_KV drops their lo terms
+    return dispatch<bf16, float>(D, cache, scales, layer, q, GQ_FIN(float), B, Tn, KV, G, st);
   if (q_bf16)
     return dispatch<int8_t, bf16>(D, cache, scales, layer, q, GQ_FIN(bf16), B, Tn, KV, G, st);
   return dispatch<int8_t, float>(D, cache, scales, layer, q, GQ_FIN(float), B, Tn, KV, G, st);

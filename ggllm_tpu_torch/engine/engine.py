@@ -27,6 +27,17 @@ in the compute dtype, attention reads the quantized cache below the
 chunk's start plus that buffer, and one quantizing write ends the chunk.
 The cache's storage lives as long as the engine (`reset` zeroes it in
 place), since captured graphs point at it; assigning `kv` drops them.
+
+With batch_size B > 1 (the JAX engine's batched entry points,
+engine.py:917-1310, which engine/batching.py's ContinuousBatcher drives) the
+cache holds B rows, each at its own position, and the single-stream entry
+points refuse. prefill_rows forwards all B rows at once, admitted rows at
+their prompts' positions and the others at their live or parked positions,
+whose writes land beyond their n_past (the stale-cache invariant);
+decode_rows runs n_steps steps of all B rows with a (B,) n_past and per-row
+sampler values (ops/sampling_device.py RowValues) as device tensors, on the
+card as one CUDA graph a chunk key (n_steps and RowKey), captured and
+replayed as the single stream's, sharing MAX_CHUNKS and the memory pool.
 """
 
 from __future__ import annotations
@@ -108,6 +119,25 @@ class _Chunk:
         self.graph: build.Graph | None = None
 
 
+class _RowChunk:
+    """One B-row decode-chunk program: its key (n_steps and the rows'
+    sampling_device.RowKey), the static buffers its steps read and write
+    (each row's token, n_past, penalty ring and ring position, the chunk's
+    (n_steps, B) uniforms, the per-row sampler values and mirostat mu), and
+    its CUDA graph once captured."""
+
+    def __init__(self, n_steps: int, key: sampling_device.RowKey, B: int, n_vocab: int, device):
+        self.n_steps, self.key, self.L = n_steps, key, key.ring
+        self.rv = sampling_device.RowValues(key, B, device)
+        self.tok = torch.zeros(B, dtype=torch.long, device=device)
+        self.n_past = torch.zeros(B, dtype=torch.int32, device=device)
+        self.ring = torch.full((B, key.ring), n_vocab, dtype=torch.long, device=device)
+        self.pos = torch.zeros(B, dtype=torch.long, device=device)
+        self.u = torch.full((n_steps, B), 0.5, device=device)
+        self.out = torch.zeros(n_steps, B, dtype=torch.long, device=device)
+        self.graph: build.Graph | None = None
+
+
 class FalconEngine:
     """Single-model, single-stream inference engine for both model families
     (the model is resolved by hparams.arch; the class keeps the JAX
@@ -121,14 +151,20 @@ class FalconEngine:
     with flash attention on, a head shape that the decode kernels do not
     take raises here (kernels/flash_decode.py supports). penalize_nl=False
     exempts the newline id of the model family's vocabulary from the
-    penalties (tokenizer.nl_id: 193 for Falcon, 13 for LLaMA)."""
+    penalties (tokenizer.nl_id: 193 for Falcon, 13 for LLaMA).
+
+    batch_size B > 1 gives the cache B rows for prefill_row / prefill_rows /
+    decode_rows (continuous batching, engine/batching.py); the
+    single-stream entry points then refuse."""
 
     def __init__(self, hparams: FalconHParams | LlamaHParams, params: dict,
-                 cfg: EngineConfig | None = None, device=None):
+                 cfg: EngineConfig | None = None, device=None, batch_size: int = 1):
         self.device = resolve_device(device)
         self.hp = hparams
         self.cfg = cfg or EngineConfig()
-        self.batch = 1
+        if batch_size < 1:
+            raise ValueError(f"batch_size {batch_size}")
+        self.batch = batch_size
         self.nl_token = nl_id(hparams.arch)
         if self.device.type == "cuda" and self.cfg.flash_attention is not False:
             G = hparams.n_head // hparams.n_head_kv
@@ -183,10 +219,19 @@ class FalconEngine:
         self.n_past = 0
         kvcache.zero_(self.kv)
 
+    def _single(self, what: str) -> None:
+        """Refuse a single-stream entry point on a B-row engine."""
+        if self.batch > 1:
+            raise ValueError(
+                f"FalconEngine.{what} serves one stream; this engine has {self.batch} rows:"
+                " use prefill_row / prefill_rows / decode_rows (or engine/batching.py"
+                " ContinuousBatcher)")
+
     # ---------------------------------------------------------------- eval
 
     @torch.inference_mode()
     def _forward(self, tokens: torch.Tensor, logits_all: bool = False) -> torch.Tensor:
+        self._single("eval")
         n = tokens.shape[-1]
         if self.n_past + n > self.cfg.n_ctx:
             raise ValueError("context overflow")
@@ -250,6 +295,7 @@ class FalconEngine:
         JAX engine's embed:843, the reference's examples/embedding): all but
         the last n_batch tokens go through eval, the tail through one
         output_hidden forward."""
+        self._single("embed")
         tokens = np.asarray(tokens, dtype=np.int64).reshape(-1)
         if tokens.size > self.cfg.n_batch:
             head = tokens.size - self.cfg.n_batch
@@ -278,17 +324,21 @@ class FalconEngine:
         return (n_steps, sampling_device.sampler_key(sampler, self.hp.n_vocab, self.nl_token))
 
     def _chunk(self, n_steps: int, sampler) -> _Chunk:
-        """The decode-chunk program of (n_steps, the sampler's shape), made
-        on first use; the least recently used one goes when more than
-        MAX_CHUNKS are kept (after the device has finished with it)."""
+        """The decode-chunk program of (n_steps, the sampler's shape)."""
         key = self._key(n_steps, sampler)
+        return self._program(key, lambda: _Chunk(*key, self.hp.n_vocab, self.device))
+
+    def _program(self, key: tuple, make):
+        """The decode-chunk program (single-stream or B-row) of `key`, made
+        by make() on first use; the least recently used one goes when more
+        than MAX_CHUNKS are kept (after the device has finished with it)."""
         c = self._chunks.get(key)
         if c is None:
             if len(self._chunks) >= MAX_CHUNKS:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self._chunks.popitem(last=False)
-            c = self._chunks[key] = _Chunk(*key, self.hp.n_vocab, self.device)
+            c = self._chunks[key] = make()
         self._chunks.move_to_end(key)
         return c
 
@@ -324,30 +374,32 @@ class FalconEngine:
         if pending is not None:  # the chunk's one (quantizing) write
             kvcache.write_all_layers(kv, pending, c.n_past)
 
-    def _capture(self, c: _Chunk) -> None:
-        """Capture c's n_steps steps as one CUDA graph on the engine's
-        capture stream, after one eager step there (which makes the
-        stream's flash-decode workspaces and library workspaces outside the
-        capture). The warm-up writes only cache positions at and above
-        n_past, which the chunk rewrites, and the inputs that every replay
-        sets. Raises if the capture fails, naming the step and the reason."""
+    def _capture(self, c, steps) -> None:
+        """Capture c's n_steps steps of the step body `steps` (_steps or
+        _row_steps) as one CUDA graph on the engine's capture stream, after
+        one eager step there (which makes the stream's flash-decode
+        workspaces and library workspaces outside the capture), from the
+        positions in c.n_past. The warm-up writes only cache positions at and
+        above each row's n_past, which the chunk rewrites, and the inputs
+        that every replay sets. Raises if the capture fails, naming the step
+        and the reason."""
         t0 = time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
-        c.n_past.fill_(self.n_past)
         side = self._stream
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._steps(c, 1)
+            steps(c, 1)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph, at = build.Graph(), [0]
         try:
             with graph.capture(pool=self._pool, stream=side):
-                self._steps(c, c.n_steps, at)
+                steps(c, c.n_steps, at)
         except Exception as e:
+            rows = f"{self.batch}-row " if isinstance(c, _RowChunk) else ""
             raise RuntimeError(
-                f"capturing the {c.n_steps}-step decode chunk (sampler key {c.key})"
+                f"capturing the {c.n_steps}-step {rows}decode chunk (sampler key {c.key})"
                 f" failed at step {at[0]}: {e}") from e
         c.graph = graph
         self.timings.t_compile_us += (time.perf_counter() - t0) * 1e6
@@ -358,7 +410,8 @@ class FalconEngine:
         returns the ring position."""
         c.sv.set(sampler, self.hp.n_vocab)
         if not eager and self.device.type == "cuda" and c.graph is None:
-            self._capture(c)
+            c.n_past.fill_(self.n_past)
+            self._capture(c, self._steps)
         window = list(last_tokens) if last_tokens else [int(first_token)]
         window = window[-min(c.L, self.cfg.n_ctx):]
         ring = np.full(c.L, self.hp.n_vocab, dtype=np.int64)
@@ -437,6 +490,7 @@ class FalconEngine:
 
     def _decode(self, first_token: int, n_total: int, n_steps: int, sampler, generator,
                 last_tokens, on_tokens, eager: bool):
+        self._single("decode_chunk / decode_pipelined")
         sampler = sampler or sampling.SamplerParams(temp=0.0)
         if not n_total > 0 < n_steps:
             raise ValueError(f"n_total {n_total} and n_steps {n_steps} must be positive")
@@ -485,6 +539,181 @@ class FalconEngine:
         """Roll the logical KV position back (stale cache beyond is masked)."""
         assert 0 <= n_past <= self.n_past
         self.n_past = n_past
+
+    # --------------------------------------------- batched (per-row) decoding
+    # These take an explicit per-row n_past vector and leave the scalar
+    # self.n_past alone; engine/batching.py's ContinuousBatcher owns the rows'
+    # state.
+
+    @torch.inference_mode()
+    def prefill_row(self, row: int, tokens, n_past_vec) -> np.ndarray:
+        """Evaluate `tokens` on one batch row from its n_past_vec entry (the
+        JAX engine's prefill_row:967); the other rows' entries are their live
+        or parked positions. Returns the row's last logits (n_vocab,)."""
+        return self.prefill_rows([row], [tokens], n_past_vec)[row]
+
+    @torch.inference_mode()
+    def prefill_rows(self, rows, prompts, n_past_vec, fetch_rows=None) -> dict:
+        """Evaluate several rows' prompts together (the JAX engine's
+        prefill_rows:999, the batcher's admission path), in forwards of all
+        B rows n_batch positions wide at most. rows: the batch row of each
+        prompt; n_past_vec (B,): admitted rows at their prompts' start, the
+        others at their live or parked positions (>= n_ctx): their tokens in
+        a forward are zeros whose writes land at and beyond their n_past,
+        which attention masks and later writes overwrite (the stale-cache
+        invariant), as do an admitted row's padding positions past its
+        prompt. fetch_rows: only these rows' last logits go to the host
+        (None: every row whose prompt ends here). Returns {row: last logits
+        (n_vocab,) f32}."""
+        B, T = self.batch, self.kv_T
+        prompts = [np.asarray(p, dtype=np.int64).reshape(-1) for p in prompts]
+        npv = np.asarray(n_past_vec, dtype=np.int64).reshape(-1).copy()
+        if npv.shape != (B,) or len(rows) != len(prompts) or len(set(rows)) != len(rows):
+            raise ValueError(f"rows {list(rows)} and {len(prompts)} prompts for n_past"
+                             f" {npv.tolist()} of a {B}-row engine")
+        for row, p in zip(rows, prompts):
+            if not 0 <= row < B or p.size == 0 or npv[row] + p.size > self.cfg.n_ctx:
+                raise ValueError(f"row {row}: {p.size} tokens from n_past {npv[row]}"
+                                 f" (context {self.cfg.n_ctx})")
+        out: dict[int, np.ndarray] = {}
+        maxlen = max(p.size for p in prompts)
+        t0 = time.perf_counter()
+        for done in range(0, maxlen, self.cfg.n_batch):
+            width = min(self.cfg.n_batch, maxlen - done)
+            if npv.max() + width > T:
+                raise ValueError(f"a {width}-token forward from n_past {npv.tolist()} runs past"
+                                 f" the cache's {T} positions")
+            buf = np.zeros((B, width), dtype=np.int64)
+            last = np.zeros(B, dtype=np.int64)
+            fetch, sizes = [], []
+            for row, p in zip(rows, prompts):
+                chunk = p[done:done + width]
+                if chunk.size == 0:
+                    continue  # this row's prompt ended in an earlier forward
+                buf[row, :chunk.size] = chunk
+                last[row] = chunk.size - 1
+                if done + chunk.size >= p.size and (fetch_rows is None or row in fetch_rows):
+                    fetch.append(row)
+                sizes.append((row, chunk.size))
+            dev = self.device
+            logits = self.model(torch.from_numpy(buf).to(dev), self.kv,
+                                torch.from_numpy(npv.astype(np.int32)).to(dev), self.inv_freq,
+                                last_pos=torch.from_numpy(last).to(dev))
+            if fetch:  # only the finishing rows' logits cross to the host
+                got = logits[torch.tensor(fetch, device=dev), 0].float().cpu().numpy()
+                out.update(zip(fetch, got))
+            for row, n in sizes:
+                npv[row] += n
+                self.timings.n_prefill += n
+        self.timings.t_prefill_us += (time.perf_counter() - t0) * 1e6
+        return out
+
+    def _row_steps(self, c: _RowChunk, n: int, at: list | None = None) -> None:
+        """The B-row step body (the JAX engine's _decode_rows_fn:1058): n
+        forward + sample steps of every row from c.tok at the rows' own
+        positions c.n_past, each row's ids into c.out[j] and its penalty ring
+        (slot (c.pos + j) mod L), sampled by sampling_device.sample_rows_step
+        on c.u[j]; with an int8 cache the chunk's K/V gather in a pending
+        buffer and one quantizing per-row write ends the chunk. Reads and
+        writes only device tensors: this is what a graph captures. at[0]
+        follows the step (for the capture's error message)."""
+        kv, tok, pending, B = self.kv, c.tok, None, self.batch
+        if kvcache.is_quantized(kv):  # chunk-deferred: the cache is read-only
+            L_, _, _, _, KV, D = kv[0].shape
+            pending = torch.zeros(L_, 2, B, n, KV, D, device=self.device,
+                                  dtype=getattr(torch, self.cfg.compute_dtype))
+        for j in range(n):
+            if at is not None:
+                at[0] = j
+            pos = c.n_past if j == 0 else c.n_past + j
+            if pending is None:
+                logits = self.model(tok.view(B, 1), kv, pos, self.inv_freq)[:, 0]
+            else:
+                logits, kv_new = self.model(tok.view(B, 1), kv, pos, self.inv_freq,
+                                            pending=pending, n_pend=j)
+                pending[:, :, :, j:j + 1] = kv_new
+                logits = logits[:, 0]
+            nxt = sampling_device.sample_rows_step(logits, c.ring, c.key, c.rv, c.u[j],
+                                                   self.nl_token)
+            c.ring.scatter_(1, ((c.pos + j) % c.L)[:, None], nxt[:, None])
+            c.out[j] = nxt
+            tok = nxt
+        if pending is not None:  # the chunk's one (quantizing) per-row write
+            kvcache.write_all_layers(kv, pending, c.n_past)
+
+    @torch.inference_mode()
+    def decode_rows(self, toks, n_past_vec, n_steps: int, values: dict | None = None,
+                    rings=None, ring_fill=None, bias_ids=None, bias_vals=None, mu=None,
+                    top_k: int = 64, generator: torch.Generator | None = None,
+                    eager: bool = False):
+        """n_steps decode steps of all B rows (the JAX engine's
+        decode_rows:1232): toks (B,) each row's last sampled id, not yet
+        forwarded; n_past_vec (B,) the rows' positions (parked rows at
+        n_ctx or beyond: their writes land in the cache's scratch region).
+        On the card one replay of the chunk's CUDA graph, captured on first
+        use per (n_steps, RowKey); on the CPU or with eager=True the same
+        step body. The draw's (n_steps, B) uniforms come from `generator`
+        (the engine's device) in one launch before the steps.
+
+        values: the per-row knobs, name -> (B,) array keyed by
+        sampling_device.ROW_FIELDS (a missing name: its idle value; "top_k"
+        within the static cap top_k, which it defaults to; "penalize_nl"
+        False keeps the family's newline logit unpenalized). The penalties
+        run over `rings` (B, L), each row's recent ids ENDING WITH toks[b]
+        (>= n_vocab: empty), of which ring_fill (B,) are filled; bias_ids /
+        bias_vals (B, NB); mu (B,) mirostat's state. Returns ((n_steps, B)
+        ids, the (n_steps, B) uniforms consumed, also kept as self.last_us,
+        and the rows' mirostat mu after the chunk) as numpy."""
+        B, V = self.batch, self.hp.n_vocab
+        npv = np.asarray(n_past_vec, dtype=np.int64).reshape(-1)
+        toks = np.asarray(toks, dtype=np.int64).reshape(-1)
+        if npv.shape != (B,) or toks.shape != (B,) or n_steps < 1:
+            raise ValueError(f"decode_rows: toks {toks.shape}, n_past {npv.shape}, {n_steps}"
+                             f" steps on a {B}-row engine")
+        if npv.min() < 0 or npv.max() + n_steps > self.kv_T:
+            raise ValueError(f"{n_steps}-step rows from n_past {npv.tolist()} run past the"
+                             f" cache's {self.kv_T} positions")
+        rings = (np.full((B, 1), V, np.int64) if rings is None
+                 else np.asarray(rings, np.int64).reshape(B, -1))
+        fill = (np.full(B, rings.shape[1], np.int64) if ring_fill is None
+                else np.asarray(ring_fill, np.int64).reshape(B))
+        bias_ids = (np.full((B, 0), V, np.int64) if bias_ids is None
+                    else np.asarray(bias_ids, np.int64).reshape(B, -1))
+        bias_vals = (np.zeros(bias_ids.shape, np.float32) if bias_vals is None
+                     else np.asarray(bias_vals, np.float32).reshape(bias_ids.shape))
+        values = {"top_k": np.full(B, top_k), **(values or {})}
+        use_miro = bool(np.any(values.get("mirostat", 0)))
+        key = sampling_device.RowKey(top_k, rings.shape[1], bias_ids.shape[1], use_miro)
+        c = self._program(("rows", n_steps, key),
+                          lambda: _RowChunk(n_steps, key, B, V, self.device))
+        mu = np.full(B, 10.0, np.float32) if mu is None else mu
+        generator = generator or torch.Generator(device=self.device).manual_seed(0)
+        t_compile = self.timings.t_compile_us
+        t0 = time.perf_counter()
+        c.n_past.copy_(torch.from_numpy(npv.astype(np.int32)))  # the warm-up's positions too
+        if not eager and self.device.type == "cuda" and c.graph is None:
+            self._capture(c, self._row_steps)
+        pin = self.device.type == "cuda"
+        for dst, src in ((c.tok, toks), (c.ring, rings), (c.pos, fill)):
+            src = torch.from_numpy(np.ascontiguousarray(src))
+            dst.copy_(src.pin_memory() if pin else src, non_blocking=True)
+        c.rv.set(values, bias_ids, bias_vals, mu)
+        c.u.uniform_(generator=generator)
+        if eager or not pin:
+            self._row_steps(c, n_steps)
+        else:
+            c.graph.replay()
+        out, us, new_mu = (t.cpu().numpy() for t in (c.out, c.u, c.rv.mu))
+        self.timings.t_decode_us += ((time.perf_counter() - t0) * 1e6
+                                     - (self.timings.t_compile_us - t_compile))
+        self.timings.n_decode += n_steps * B
+        self.last_us = us
+        return out, us, new_mu
+
+    def rows_graph(self, n_steps: int, key: sampling_device.RowKey) -> build.Graph | None:
+        """The captured graph of the B-row chunk key (n_steps, key), or None."""
+        c = self._chunks.get(("rows", n_steps, key))
+        return None if c is None else c.graph
 
     def _sample_host(self, logits: np.ndarray, last_tokens: list, sampler,
                      state: sampling.SamplerState) -> int:

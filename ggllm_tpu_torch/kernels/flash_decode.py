@@ -10,9 +10,9 @@ ops/kvcache.py. `route` picks the kernel:
 
 * "tc"   grouped heads, bf16 q on a bf16 or int8 cache, head_dim 64 / 128:
          csrc/flash_decode_tc.cu, the products on the tensor cores;
-* "f32"  grouped heads, f32 q on an f32 or int8 cache at head_dim 32 / 64 /
-         128, or bf16 q at head_dim 32: csrc/flash_decode_f32.cu, the
-         products as split TF32 on the tensor cores, at f32 accuracy;
+* "f32"  grouped heads, f32 q on any cache (f32, bf16 or int8) at head_dim
+         32 / 64 / 128, or bf16 q at head_dim 32: csrc/flash_decode_f32.cu,
+         the products as split TF32 on the tensor cores, at f32 accuracy;
 * "mha"  G == 1 and KV > 1, any cache, head_dim 32 / 64 / 128:
          csrc/flash_decode.cu decode_mha_kernel.
 
@@ -55,16 +55,29 @@ _DTYPES = (torch.bfloat16, torch.float32)
 _CACHES = ("bfloat16", "float32", "int8")
 
 
+def q_dtype(KV: int, G: int, cache: str, compute: str) -> str:
+    """The dtype q meets the cache in: the compute dtype on the int8 cache
+    and, for grouped heads, on a bf16 cache (f32 q stays f32, as the JAX
+    `_kern` keeps q in f32 over any cache, ggllm_tpu/kernels/flash_decode.py
+    :77); f32 on an f32 cache; a bf16 cache's bf16 for G == 1 over several
+    K/V heads, as the JAX `_cache_partials_mha` casts q to a dense cache's
+    dtype (flash_decode.py:201-207)."""
+    if cache == "int8" or (cache == "bfloat16" and not (G == 1 and KV > 1)):
+        return compute
+    return cache
+
+
 def route(KV: int, G: int, D: int, cache: str, compute: str = "bfloat16") -> str:
     """Which kernel takes a (KV, G, D) head shape on a `cache` ("bfloat16",
-    "float32" or "int8") with `compute` queries (a dense cache takes q in its
-    own dtype, the int8 cache in the compute dtype): "tc", "mha" or "f32".
-    Raises NotImplementedError with the reason for a shape none takes."""
+    "float32" or "int8") with `compute` queries, which meet the cache in
+    `q_dtype`: "tc", "mha" or "f32". f32 queries on a bf16 cache take "f32"
+    for grouped heads and "mha", with q cast to bf16, for G == 1. Raises
+    NotImplementedError with the reason for a shape none takes."""
     if cache not in _CACHES or compute not in ("bfloat16", "float32"):
         raise NotImplementedError(f"a {cache} cache with {compute} queries")
     if not 1 <= G <= MAX_GROUP or KV < 1:
         raise NotImplementedError(f"{G} query heads per K/V head (the kernels take 1..{MAX_GROUP})")
-    q = compute if cache == "int8" else cache
+    q = q_dtype(KV, G, cache, compute)
     if G == 1 and KV > 1:
         if D in (32, 64, 128):
             return "mha"
@@ -214,10 +227,11 @@ def _launch(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid, *, valid_add
         raise TypeError(f"flash_decode kernel: cache dtype {kv.dtype}")
     if not kv.is_contiguous():
         raise ValueError("flash_decode kernel: the cache must be contiguous")
-    qg = (qg if quant else qg.to(kv.dtype)).contiguous()
+    qdt = q_dtype(KV, G, cache, str(qg.dtype).removeprefix("torch."))
+    qg = qg.to(getattr(torch, qdt)).contiguous()
     if qg.data_ptr() % 16:  # the kernels stage q rows by 16-byte copies
         qg = qg.clone()
-    rt = route(KV, G, D, cache, str(qg.dtype).removeprefix("torch."))
+    rt = route(KV, G, D, cache, qdt)
     if isinstance(cache_valid, torch.Tensor):
         vv, valid, top = _valid_vec(cache_valid, B, kv.device), valid_add, T
         if vv.device != kv.device:
@@ -257,8 +271,9 @@ def _launch(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid, *, valid_add
 def cache_partials(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid):
     """Online-softmax partials of qg against layer `layer`'s cache rows
     t < cache_valid[b]. kv (L, 2, B, T, KV, D) bf16/f32, or the int8 pair
-    (codes int8, scales f32 (L, 2, B, T, KV, 1)); qg (B, KV, G, D), cast to a
-    dense cache's dtype and left in its own (bf16/f32) for an int8 cache;
+    (codes int8, scales f32 (L, 2, B, T, KV, 1)); qg (B, KV, G, D), in the
+    dtype `q_dtype` names (its own for an int8 cache and for f32 q on a bf16
+    cache with grouped heads, else the dense cache's);
     cache_valid an int, a sequence of ints, or a (B,) int tensor.
     Returns (acc (B,KV,G,D), m (B,KV,G,1), l (B,KV,G,1)), all f32."""
     if qg.device.type == "cpu":
@@ -445,7 +460,9 @@ def decode_emulated(kv, KV: int, layer: int, q: torch.Tensor, n_past,
     G = H // KV
     quant = isinstance(kv, tuple)
     codes = kv[0] if quant else kv
-    qg = (q if quant else q.to(codes.dtype)).reshape(B, KV, G, D)
+    cache = "int8" if quant else str(codes.dtype).removeprefix("torch.")
+    qdt = q_dtype(KV, G, cache, str(q.dtype).removeprefix("torch."))
+    qg = q.to(getattr(torch, qdt)).reshape(B, KV, G, D)
     shift = _shift(kv_append, append_valid)
     valid = (int(n_past) + shift if isinstance(n_past, int)
              else [int(v) + shift for v in n_past])
@@ -473,7 +490,8 @@ def flash_decode(kv, KV: int, layer: int, q: torch.Tensor, n_past,
     if q.device.type == "cpu":
         return flash_decode_plain(kv, KV, layer, q, n_past, kv_append, append_valid)
     quant = isinstance(kv, tuple)
-    cdtype = q.dtype if quant else kv.dtype
+    cache = "int8" if quant else str(kv.dtype).removeprefix("torch.")
+    cdtype = getattr(torch, q_dtype(KV, H // KV, cache, str(q.dtype).removeprefix("torch.")))
     app, n_real = None, 0
     if kv_append is not None:
         A = kv_append.shape[2]

@@ -157,8 +157,13 @@ def attend(kv, l: int, q, kv_new, n_past, st, pending=None, n_pend: int = 0):
     return _attention(q, k, v, n_past, st)
 
 
-def select_last(x: torch.Tensor, last_pos: int | None) -> torch.Tensor:
-    """(B, S, E) -> (B, 1, E) at position last_pos (None: the last one)."""
+def select_last(x: torch.Tensor, last_pos) -> torch.Tensor:
+    """(B, S, E) -> (B, 1, E) at position last_pos: None (the last one), an
+    int, or a (B,) int tensor on x's device, a position a row (the JAX
+    `_forward_rows_fn`'s last_pos_vec, ggllm_tpu/engine/engine.py:921)."""
+    if isinstance(last_pos, torch.Tensor):
+        B, _, E = x.shape
+        return x.gather(1, last_pos.reshape(B, 1, 1).to(torch.int64).expand(B, 1, E))
     lp = x.shape[1] - 1 if last_pos is None else last_pos
     return x[:, lp:lp + 1]
 
@@ -224,16 +229,17 @@ class Falcon(nn.Module):
         self.layers = nn.ModuleList(FalconLayer(lw) for lw in params["layers"])
 
     def forward(self, tokens: torch.Tensor, kv, n_past, inv_freq: torch.Tensor,
-                logits_all: bool = False, last_pos: int | None = None,
+                logits_all: bool = False, last_pos=None,
                 pending: torch.Tensor | None = None, n_pend: int = 0,
                 output_hidden: bool = False):
         """tokens (B, S) int64 on the model's device; kv the stacked cache
         (L, 2, B, T, KV, D) or the int8 pair (codes, scales), updated in place
-        at [n_past, n_past + S). n_past: a Python int, or a (1,) int tensor
-        on the model's device that RoPE, the cache write and flash_decode
-        read there (a decode step captured in a CUDA graph holds no host
-        value). Returns f32 logits (B, S, V) if logits_all, else (B, 1, V) at
-        position last_pos (default S - 1).
+        at [n_past, n_past + S). n_past: a Python int, or a (1,) or (B,) int
+        tensor on the model's device (a position a row) that RoPE, the cache
+        write and the attention kernels read there (a decode step captured in
+        a CUDA graph holds no host value). Returns f32 logits (B, S, V) if
+        logits_all, else (B, 1, V) at position last_pos (default S - 1; an
+        int, or a (B,) device tensor, a position a row).
 
         pending / n_pend (chunk-deferred decode, S == 1): `pending` is the
         decode chunk's K/V buffer (L, 2, B, P, KV, D) whose first n_pend

@@ -115,7 +115,7 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(LlamaLayer(lw) for lw in params["layers"])
 
     def forward(self, tokens: torch.Tensor, kv, n_past, inv_freq: torch.Tensor,
-                logits_all: bool = False, last_pos: int | None = None,
+                logits_all: bool = False, last_pos=None,
                 pending: torch.Tensor | None = None, n_pend: int = 0,
                 output_hidden: bool = False):
         """Same contract as models/falcon.py Falcon.forward (the engine

@@ -45,28 +45,47 @@ def quantize_new(kv_new: torch.Tensor):
     return q, scale
 
 
-def _time_index(n_past: torch.Tensor, S: int) -> torch.Tensor:
-    """Cache positions [n_past, n_past + S) of a (1,) or (B,) device n_past
-    (single stream: every row at row 0's position) as an int64 index."""
-    idx = n_past.reshape(-1)[:1].to(torch.int64)
-    return idx if S == 1 else idx + torch.arange(S, device=n_past.device)
+def _flat_index(n_past: torch.Tensor, B: int, T: int, S: int) -> torch.Tensor:
+    """Positions [n_past[b], n_past[b] + S) of every row b of a (1,) or (B,)
+    device n_past as one int64 index into the cache's (B * T) rows-by-time
+    axis, built on the device (no host value: a write by this index can be
+    captured in a CUDA graph). One row (the single stream) is its time axis:
+    one cast at S = 1."""
+    dev = n_past.device
+    if B == 1:
+        idx = n_past.reshape(-1)[:1].to(torch.int64)
+    else:  # int64 row starts + int32 positions: one add, promoted to int64
+        idx = torch.arange(0, B * T, T, device=dev) + n_past.reshape(-1)
+    return idx if S == 1 else (idx[:, None] + torch.arange(S, device=dev)).reshape(-1)
+
+
+def _write_rows(dst: torch.Tensor, axis: int, idx: torch.Tensor, new: torch.Tensor) -> None:
+    """Copy new (..., B, S, ...) into dst (..., B, T, ...) at the flat
+    (B * T) index idx, where B and T are dst's axes `axis` and `axis + 1`."""
+    shape = dst.shape
+    flat = dst.view(*shape[:axis], shape[axis] * shape[axis + 1], *shape[axis + 2:])
+    ns = new.shape
+    flat.index_copy_(axis, idx, new.reshape(*ns[:axis], ns[axis] * ns[axis + 1],
+                                            *ns[axis + 2:]).to(dst.dtype))
 
 
 def write_layer(kv, kv_new: torch.Tensor, l: int, n_past):
     """Write kv_new (2, B, S, KV, D) into layer l at positions
     [n_past, n_past + S), in place (quantized for an int8 cache); returns kv.
-    n_past: a Python int (prefill) or a (1,) / (B,) int tensor on the cache's
-    device, written by an indexed copy on the time axis, so that one
-    captured write serves any position."""
+    n_past: a Python int (prefill, every row at one position), or a (1,) or
+    (B,) int tensor on the cache's device, each row at its own position
+    (ggllm_tpu/ops/kvcache.py write_layer:55), written by an indexed copy,
+    so that one captured write serves any positions."""
     S = kv_new.shape[2]
     if isinstance(n_past, torch.Tensor):
-        idx = _time_index(n_past, S)
+        codes = kv[0] if is_quantized(kv) else kv
+        idx = _flat_index(n_past, codes.shape[2], codes.shape[3], S)
         if is_quantized(kv):
             q, scale = quantize_new(kv_new)
-            kv[0][l].index_copy_(2, idx, q)
-            kv[1][l].index_copy_(2, idx, scale)
+            _write_rows(kv[0][l], 1, idx, q)
+            _write_rows(kv[1][l], 1, idx, scale)
         else:
-            kv[l].index_copy_(2, idx, kv_new.to(kv.dtype))
+            _write_rows(kv[l], 1, idx, kv_new)
     elif is_quantized(kv):
         q, scale = quantize_new(kv_new)
         kv[0][l, :, :, n_past:n_past + S] = q
@@ -79,17 +98,19 @@ def write_layer(kv, kv_new: torch.Tensor, l: int, n_past):
 def write_all_layers(kv, kv_new: torch.Tensor, n_past):
     """Write every layer's kv_new (L, 2, B, S, KV, D) at positions
     [n_past, n_past + S), in place: the one write that ends a chunk-deferred
-    decode chunk (single stream: one n_past for all rows; an int or a device
-    tensor, as write_layer); returns kv."""
+    decode chunk (ggllm_tpu/ops/kvcache.py write_all_layers:79; n_past an int
+    or a (1,) / (B,) device tensor, each row at its own position, as
+    write_layer); returns kv."""
     S = kv_new.shape[3]
     if isinstance(n_past, torch.Tensor):
-        idx = _time_index(n_past, S)
+        codes = kv[0] if is_quantized(kv) else kv
+        idx = _flat_index(n_past, codes.shape[2], codes.shape[3], S)
         if is_quantized(kv):
             q, scale = quantize_new(kv_new)
-            kv[0].index_copy_(3, idx, q)
-            kv[1].index_copy_(3, idx, scale)
+            _write_rows(kv[0], 2, idx, q)
+            _write_rows(kv[1], 2, idx, scale)
         else:
-            kv.index_copy_(3, idx, kv_new.to(kv.dtype))
+            _write_rows(kv, 2, idx, kv_new)
     elif is_quantized(kv):
         q, scale = quantize_new(kv_new)
         kv[0][:, :, :, n_past:n_past + S] = q

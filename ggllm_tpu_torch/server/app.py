@@ -52,8 +52,9 @@ from ggllm_tpu_torch.engine.generator import GRAMMAR_NOT_PORTED, Generator
 from ggllm_tpu_torch.ops import sampling
 from ggllm_tpu_torch.utils.stream import StopStream
 
-PARALLEL_REFUSAL = ("--parallel > 1 (continuous batching) is not ported yet"
-                    " (ROADMAP.md, Queue 1: continuous batching and the server's --parallel)")
+PARALLEL_REFUSAL = ("--parallel > 1 (continuous batching in the server) is not ported yet"
+                    " (ROADMAP.md, Queue 1: continuous batching in the server, --parallel over"
+                    " engine/batching.py ContinuousBatcher)")
 DRAFT_REFUSAL = ("--draft-model / --self-draft (speculative decoding) is not ported yet"
                  " (ROADMAP.md, Queue 1: speculative decoding)")
 LORA_REFUSAL = "--lora / --lora-base are not ported yet (ROADMAP.md, Queue 1: LoRA)"

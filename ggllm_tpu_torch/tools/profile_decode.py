@@ -4,14 +4,18 @@ weights of one format from a seed), on the CUDA card.
 
     python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b|llama7b]
         [--format q4_0|q4_1|q5_0|q5_1|q8_0|q2_k|q3_k|q4_k|q5_k|q6_k]
-        [--kv-dtype bfloat16|float32|int8] [--prompt 300] [--tokens 64]
+        [--kv-dtype bfloat16|float32|int8] [--prompt 300] [--tokens 64] [--rows B]
 
 Prints one JSON object per phase: wall time, device busy time (the union
 of kernel intervals), the device's idle share, launches, and the kernels
 that take the most device time. Decode runs through the replayed CUDA graph
 and through the eager step body in turns (time_kernels.py decode_turns:
 wall, device-busy and idle share, nodes a token, capture ms), then once
-more through the graph for its kernels by name.
+more through the graph for its kernels by name. With --rows B > 1 the
+engine has B rows (continuous batching): the prompt is prefilled into every
+row (prefill_rows), then the decode steps run as replayed B-row graphs
+(decode_rows, 16 steps a chunk, greedy), profiled for their kernels by name
+a step.
 """
 
 from __future__ import annotations
@@ -68,9 +72,12 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--prompt", type=int, default=300)
     ap.add_argument("--tokens", type=int, default=64, help="decode tokens a run (16-token chunks)")
+    ap.add_argument("--rows", type=int, default=1, help="batch rows (> 1: the B-row decode)")
     args = ap.parse_args(argv)
     hp = named_hparams(args.config)
     params = make_bench_params(hp, seed=7, gtype=GGMLType[args.format.upper()])
+    if args.rows > 1:
+        return _rows(args, hp, params)
     eng = FalconEngine(hp, params, EngineConfig(kv_dtype=args.kv_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, args.prompt)]
     greedy = SamplerParams(temp=0.0)
@@ -110,6 +117,40 @@ def main(argv=None) -> int:
                                " chunks): graph and eager step body in turns",
                       "turns": turns, "graph_run": _device_summary(prof, wall, len(out))}),
           flush=True)
+    return 0
+
+
+def _rows(args, hp, params) -> int:
+    """The B-row decode: every row prefilled with the prompt, then
+    args.tokens steps as 16-step decode_rows graph replays, once unprofiled
+    (wall) and once under the profiler."""
+    B = args.rows
+    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=args.kv_dtype), batch_size=B)
+    prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, args.prompt)]
+    first = eng.prefill_rows(list(range(B)), [prompt] * B, np.zeros(B, np.int64))
+    toks = np.asarray([int(np.argmax(first[r])) for r in range(B)])
+    npv = np.full(B, args.prompt)
+    eng.decode_rows(toks, npv, 16)  # capture
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = toks
+        for i in range(args.tokens // 16):
+            last = eng.decode_rows(last, npv + 16 * i, 16)[0][-1]
+        return time.perf_counter() - t0
+
+    plain_wall = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    steps = args.tokens // 16 * 16
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "model": f"{args.config} {args.format} kv {args.kv_dtype}",
+                      "phase": f"decode_rows, {B} rows, {steps} steps at n_past {args.prompt}"
+                               " (greedy, 16-step graphs); per-token figures are a step's",
+                      "wall_ms_per_step_unprofiled": plain_wall * 1e3 / steps,
+                      "capture_ms": eng.timings.t_compile_us / 1e3,
+                      **_device_summary(prof, wall, steps)}), flush=True)
     return 0
 
 

@@ -613,15 +613,17 @@ def test_flash_decode_refuses_head_shapes_it_does_not_take(dev):
 
 def _decode_case(dev, cache, KV, H, D, valid, append, T=2560, L=2, seed=0):
     """A random L-layer cache (bf16, f32, or int8 codes and scales: "int8"
-    with bf16 q, "int8f32" with f32 q), q in the cache's dtype (bf16 or f32)
-    and flash_decode's arguments for `valid` cache positions ("rows": B = 2
-    with lengths [2047, 300] as an int32 device tensor), with or without a
-    16-entry append block of which 5 are valid."""
+    with bf16 q, "int8f32" with f32 q; "bf16f32q": a bf16 cache with f32 q),
+    q in the cache's dtype (bf16 or f32) or f32 and flash_decode's arguments
+    for `valid` cache positions ("rows": B = 2 with lengths [2047, 300] as
+    an int32 device tensor), with or without a 16-entry append block of
+    which 5 are valid."""
     B = 2 if valid == "rows" else 1
     g = _gen(seed)
-    qd = torch.float32 if cache in ("f32", "int8f32") else torch.bfloat16
+    qd = torch.float32 if cache in ("f32", "int8f32", "bf16f32q") else torch.bfloat16
     kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
-    kv = kvcache.quantize_new(kv) if cache.startswith("int8") else kv.to(qd)
+    kv = (kvcache.quantize_new(kv) if cache.startswith("int8")
+          else kv.to(torch.bfloat16) if cache == "bf16f32q" else kv.to(qd))
     q = torch.randn(B, 1, H, D, generator=g, device=dev).to(qd)
     lens = (torch.tensor([2047, 300], dtype=torch.int32, device=dev) if valid == "rows"
             else valid)
@@ -631,7 +633,7 @@ def _decode_case(dev, cache, KV, H, D, valid, append, T=2560, L=2, seed=0):
     return kv, q, lens - 1, {}
 
 
-@pytest.mark.parametrize("cache", ["bf16", "int8", "f32", "int8f32"])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "f32", "int8f32", "bf16f32q"])
 @pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (8, 128, 64), (32, 32, 128)],
                          ids=["falcon7b", "falcon40b", "llama7b"])
 @pytest.mark.parametrize("valid", [1, 300, 2047, "rows"])
@@ -639,11 +641,13 @@ def _decode_case(dev, cache, KV, H, D, valid, append, T=2560, L=2, seed=0):
 def test_decode_at_main_path_shapes(dev, cache, KV, H, D, valid, append):
     """The one-launch kernels at the main paths' head layouts against the
     plain version (2e-2 of max |ref| with bf16 q, 2e-5 with f32 q): grouped
-    heads on the tensor-core kernel (bf16 q) or the f32 kernel (f32 q), G ==
-    1 on decode_mha_kernel; bf16, f32 and int8 caches, with and without the
-    append block, one length or one per row; grouped heads' splits and merge
-    also against partials_emulated."""
+    heads on the tensor-core kernel (bf16 q) or the f32 kernel (f32 q, also
+    over a bf16 cache, where q stays f32), G == 1 on decode_mha_kernel (f32
+    q over a bf16 cache meets it as bf16: held at 2e-2); bf16, f32 and int8
+    caches, with and without the append block, one length or one per row;
+    grouped heads' splits and merge also against partials_emulated."""
     kv, q, n_past, kw = _decode_case(dev, cache, KV, H, D, valid, append)
+    tol = torch.bfloat16 if (cache == "bf16f32q" and H == KV) else q.dtype
     int8 = cache.startswith("int8")
     if H == KV:
         counter = _decode_counter(KV, H, int8)
@@ -655,13 +659,13 @@ def test_decode_at_main_path_shapes(dev, cache, KV, H, D, valid, append):
     got = fd.flash_decode(kv, KV, 1, q, n_past, **kw)
     assert build.launch_counts[counter] == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
-    _close(got, fd.flash_decode_plain(kv, KV, 1, q, n_past, **kw), q.dtype)
+    _close(got, fd.flash_decode_plain(kv, KV, 1, q, n_past, **kw), tol)
     qg = q.reshape(q.shape[0], KV, H // KV, D)
     lens = n_past - 3 if append else n_past + 1  # the cache rows attended
     acc, m, lsum = fd.cache_partials(kv, KV, 1, qg, lens)
     acc_p, m_p, l_p = fd.cache_partials_plain(kv, KV, 1, qg, lens)
-    _close(acc / lsum, acc_p / l_p, q.dtype)
-    _close(m, m_p, q.dtype)
+    _close(acc / lsum, acc_p / l_p, tol)
+    _close(m, m_p, tol)
     if H > KV:  # the grouped routes: their splits and merge as partials_emulated's
         _close_emulated((acc, m, lsum), kv, KV, 1, qg, lens)
 
@@ -1151,3 +1155,145 @@ def test_eval_logprobs_through_the_kernels_at_n_past_1536(dev, tmp_path):
     assert lp.shape == lp_plain.shape == (2047,) and np.isfinite(lp).all()
     err = np.abs(lp - lp_plain)
     assert err.max() <= 2 * 5e-2 * scale and err[1536:].max() <= 2 * 5e-2 * scale
+
+
+def test_f32_compute_on_a_bf16_cache_matches_cpu(dev, tmp_path):
+    """f32 compute on the default bf16 cache (`--compute-dtype float32`):
+    decode keeps q in f32 on the grouped route (the f32 decode kernel, not
+    the bf16 tensor-core one), and the logits of a 3-chunk prefill and a
+    decode step, and 20 greedy ids through the decode graphs, agree with
+    the CPU's plain versions within the f32 route's 1e-4 of max |logit|."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                         n_layer=2, n_falcon_type=7, n_bpe_merges=0),
+                     GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=64, n_batch=16, kv_dtype="bfloat16", compute_dtype="float32")
+    assert fd.route(1, 4, 64, "bfloat16", "float32") == "f32"
+    prompt = [int(t) for t in np.random.default_rng(4).integers(12, 500, 40)]  # 3 chunks
+    logits, ids = [], []
+    for device in ("cpu", "cuda"):
+        mf, params = load_model(path, cfg, device=device)
+        eng = FalconEngine(mf.hparams, params, cfg, device=device)
+        build.launch_counts.clear()
+        logits.append(np.concatenate([eng.eval(prompt)[None], eng.eval([7])[None]]))
+        eng.reset()
+        ids.append(eng.generate(prompt, 20, SamplerParams(temp=0.0)))
+    counts = dict(build.launch_counts)
+    assert counts.get("flash_decode.f32", 0) > 0 and not counts.get("flash_decode_tc", 0)
+    scale = np.abs(logits[0]).max()
+    np.testing.assert_allclose(logits[1] / scale, logits[0] / scale, atol=1e-4)
+    assert ids[0] == ids[1]
+
+
+# ---------------------------------------------------------------- B-row decode
+
+
+ROW_PROMPTS = [[5, 17, 130, 42, 99, 260, 31], [300, 301, 302], [7, 8, 9, 10, 11, 12, 13, 14, 15]]
+
+
+def _row_run(eng, n_chunks: int, eager: bool, seed: int = 3):
+    """The three rows' prompts prefilled together (row 2 then parked: it
+    decodes in n_ctx's scratch region), then n_chunks chained 8-step
+    decode_rows chunks: rows 0 and 2 greedy (row 0 with a logit bias), row 1
+    sampled by mirostat 2 (temp 0.8, repeat penalty 1.1, penalize_nl False)
+    on a generator seeded `seed`, its mu carried across the chunks. Returns
+    the ids by row and the prefill logits."""
+    B, V = eng.batch, eng.hp.n_vocab
+    first = eng.prefill_rows(list(range(B)), ROW_PROMPTS, np.zeros(B, np.int64))
+    npv = np.asarray([len(p) for p in ROW_PROMPTS], np.int64)
+    npv[2] = eng.cfg.n_ctx  # parked
+    last = np.asarray([int(np.argmax(first[r])) for r in range(B)])
+    gen = torch.Generator(device=eng.device).manual_seed(seed)
+    hist = [list(p) + [int(t)] for p, t in zip(ROW_PROMPTS, last)]
+    knobs = dict(temp=np.asarray([0.0, 0.8, 0.0]), top_p=np.asarray([1.0, 0.95, 1.0]),
+                 top_k=np.full(B, 40), repeat_penalty=np.asarray([1.0, 1.1, 1.0]),
+                 penalize_nl=np.asarray([True, False, True]), mirostat=np.asarray([0, 2, 0]),
+                 mirostat_tau=np.full(B, 4.0), mirostat_eta=np.full(B, 0.15))
+    bias_ids = np.asarray([[7, V], [V, V], [V, V]])
+    bias_vals = np.asarray([[2.5, 0.0], [0.0, 0.0], [0.0, 0.0]])
+    mu = np.full(B, 8.0, np.float32)
+    out = [[] for _ in range(B)]
+    for _ in range(n_chunks):
+        rings = np.full((B, 64), V, np.int64)
+        for r in range(B):
+            rings[r, :len(hist[r][-64:])] = hist[r][-64:]
+        fill = np.asarray([len(h[-64:]) for h in hist])
+        toks, _, mu = eng.decode_rows(last, npv, 8, knobs, rings, fill, bias_ids, bias_vals, mu,
+                                      generator=gen, eager=eager)
+        for r in range(B):
+            out[r] += toks[:, r].tolist()
+            hist[r] += toks[:, r].tolist()
+        last = toks[-1]
+        npv = npv + 8
+    return out, np.stack([first[r] for r in range(B)])
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "float32"])
+def test_row_graph_equals_the_eager_rows_and_the_cpu(dev, tmp_path, kv_dtype):
+    """A tiny Falcon (4 heads over one K/V head, head_dim 64) at 3 rows, f32
+    compute on a bf16, int8 or f32 cache: two 8-step chunks of decode_rows
+    replayed as one captured CUDA graph give the eager B-row body's ids on
+    every row, greedy and sampled, and the S = 3 rows ran the f32
+    tensor-core tile and the f32 decode kernel, never a GEMV. Against the
+    CPU's plain versions: prefill logits within 1e-4 of max |logit| on the
+    dense caches and 2e-3 on the int8 one (its codes may round the other
+    way at a tie), and on the dense caches the greedy rows' ids equal."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                         n_layer=2, n_falcon_type=7, n_bpe_merges=0),
+                     GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=64, n_batch=16, kv_dtype=kv_dtype, compute_dtype="float32")
+    runs = {}
+    for device in ("cpu", "cuda"):
+        mf, params = load_model(path, cfg, device=device)
+        eng = FalconEngine(mf.hparams, params, cfg, device=device, batch_size=3)
+        if device == "cuda":
+            build.launch_counts.clear()
+            runs["graph"] = _row_run(eng, 2, eager=False)
+            counts = dict(build.launch_counts)
+            assert len(eng._chunks) == 1 and next(iter(eng._chunks.values())).graph is not None
+            assert counts.get("quant_matmul.f32", 0) > 0 and counts.get("flash_decode.f32", 0) > 0
+            assert not counts.get("quant_matmul.gemv", 0) and not counts.get("flash_decode_tc", 0)
+        runs["eager" if device == "cuda" else "cpu"] = _row_run(eng, 2, eager=True)
+    assert runs["graph"][0] == runs["eager"][0] and len(set(runs["graph"][0][1])) > 1
+    scale = np.abs(runs["cpu"][1]).max()
+    np.testing.assert_allclose(runs["eager"][1] / scale, runs["cpu"][1] / scale,
+                               atol=2e-3 if kv_dtype == "int8" else 1e-4)
+    if kv_dtype != "int8":
+        assert [runs["graph"][0][r] for r in (0, 2)] == [runs["cpu"][0][r] for r in (0, 2)]
+
+
+def test_a_failed_row_capture_raises_naming_the_step(dev, tmp_path, monkeypatch):
+    """A B-row step that reads a value on the host cannot be captured:
+    decode_rows raises, naming the rows, the step and the reason, and runs
+    no eager fallback."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops import sampling_device
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams.tiny(), GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=64, n_batch=16)
+    mf, params = load_model(path, cfg, device="cuda")
+    eng = FalconEngine(mf.hparams, params, cfg, batch_size=2)
+    eng.prefill_rows([0, 1], ROW_PROMPTS[:2], np.zeros(2, np.int64))
+    real = sampling_device.sample_rows_u
+
+    def synced(logits, *a, **kw):
+        float(logits.max())  # a host read
+        return real(logits, *a, **kw)
+
+    monkeypatch.setattr(sampling_device, "sample_rows_u", synced)
+    with pytest.raises(RuntimeError, match="2-row decode chunk .* failed at step 0"):
+        eng.decode_rows([5, 6], [len(p) for p in ROW_PROMPTS[:2]], 4)
+    assert next(iter(eng._chunks.values())).graph is None

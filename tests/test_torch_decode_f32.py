@@ -11,7 +11,9 @@ from numpy seeds:
    against `flash_decode`: Falcon-like groups (G 5 and 71 over 1 or 2 K/V
    heads) at head_dim 32, 64 and 128, f32 and int8 caches, one row or two
    rows with their own lengths, at 2e-5 of max |ref| (the f32 tolerance of
-   the card tests and chip_smoke.py);
+   the card tests and chip_smoke.py); f32 q on a bf16 cache (G 5 and 71 at
+   head_dim 64), which the route keeps in f32, the same way, and q rounded
+   to bf16 outside the tolerance;
  * the negative control: with one TF32 product (hi x hi), the same
    restatement lands outside 2e-5;
  * the f32 route's decode_plan and `route`; prefill attention where q and
@@ -57,13 +59,17 @@ def _rel(got, ref) -> float:
 def _case(G, KV, D, cache, B):
     """(JAX cache operand, port cache, q (B, KV, G, D), append block
     (2, B, A, KV, D), the rows' cache lengths): a random L-layer cache of T
-    positions, f32 or quantized by the JAX package, f32 q."""
+    positions, f32, bf16 or quantized by the JAX package, f32 q."""
     seed = G * 1000 + KV * 100 + D + B
     rng = np.random.default_rng(seed)
     if cache == "int8":
         codes, scales = _int8_cache(L, B, T, KV, D, seed)
         jkv = _jax_int8_view(codes, scales)
         tkv = tkvcache.from_jax_cache((codes, scales), device="cpu")
+    elif cache == "bfloat16":  # the same bf16 values on both sides
+        tkv = torch.from_numpy(rng.standard_normal((L, 2, B, T, KV, D)).astype(np.float32))
+        tkv = tkv.to(torch.bfloat16)
+        jkv = jnp.asarray(tkv.float().numpy().reshape(L, 2, B, T, KV * D)).astype(jnp.bfloat16)
     else:
         kv = rng.standard_normal((L, 2, B, T, KV, D)).astype(np.float32)
         jkv, tkv = jnp.asarray(kv.reshape(L, 2, B, T, KV * D)), torch.from_numpy(kv)
@@ -122,6 +128,47 @@ def test_f32_decode_with_append_matches_jax(G, KV, D, cache, B):
     assert _rel(got.numpy(), ref) <= TOL
 
 
+BF16_SHAPES = [(G, KV, 64) for G in (5, 71) for KV in (1, 2)]
+BF16_IDS = [f"G{g}_KV{kv}_D64" for g, kv, _ in BF16_SHAPES]
+
+
+@pytest.mark.parametrize("B", [1, 2], ids=["B1", "B2_rows"])
+@pytest.mark.parametrize("G,KV,D", BF16_SHAPES, ids=BF16_IDS)
+def test_f32_q_on_a_bf16_cache_partials_match_jax_kernel(G, KV, D, B):
+    """f32 queries over a bf16 cache (f32 compute on the default cache) stay
+    in f32 on the grouped route, as the Pallas `_kern` keeps them: the f32
+    route's restatement (bf16 K/V exact in TF32, so their lo terms are zero)
+    within 2e-5 of max |ref| of `cache_partials` in acc, m and l."""
+    assert tfd.route(KV, G, D, "bfloat16", "float32") == "f32"
+    got = _emulated_partials(G, KV, D, "bfloat16", B)
+    for g, r in zip(got, _jax_partials(G, KV, D, "bfloat16", B)):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        assert _rel(g.numpy(), r) <= TOL
+
+
+@pytest.mark.parametrize("B", [1, 2], ids=["B1", "B2_rows"])
+@pytest.mark.parametrize("G,KV,D", BF16_SHAPES, ids=BF16_IDS)
+def test_f32_q_on_a_bf16_cache_decode_with_append_matches_jax(G, KV, D, B):
+    """The whole decode attention of f32 q over a bf16 cache with the append
+    block (4 of 9 entries valid), as decode_emulated merges it on the route
+    `route` picks, within 2e-5 of max |ref| of the JAX flash_decode; rounding
+    q to the cache's bf16 first (what the card did before) lands outside."""
+    jkv, tkv, q, app, lens = _case(G, KV, D, "bfloat16", B)
+    n_past = lens + 3
+    H = KV * G
+    ref = np.asarray(jfd.flash_decode(jkv, KV, LAYER, jnp.asarray(q.reshape(B, 1, H, D)),
+                                      jnp.asarray(n_past), kv_append=jnp.asarray(app),
+                                      append_valid=jnp.int32(4), interpret=True))
+    tq = torch.from_numpy(q).reshape(B, 1, H, D)
+    got = tfd.decode_emulated(tkv, KV, LAYER, tq, n_past.tolist(),
+                              kv_append=torch.from_numpy(app), append_valid=4)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel(got.numpy(), ref) <= TOL
+    rounded = tfd.decode_emulated(tkv, KV, LAYER, tq.to(torch.bfloat16).float(), n_past.tolist(),
+                                  kv_append=torch.from_numpy(app), append_valid=4)
+    assert _rel(rounded.numpy(), ref) > TOL
+
+
 @pytest.mark.parametrize("cache", ["float32", "int8"])
 @pytest.mark.parametrize("G,KV,D", [(71, 1, 64), (5, 2, 128), (71, 2, 32)],
                          ids=["G71_KV1_D64", "G5_KV2_D128", "G71_KV2_D32"])
@@ -163,14 +210,22 @@ def test_f32_decode_plan(B, KV, G, D, cache):
     (2, 4, 128, "float32", "float32", "f32"), (1, 71, 128, "int8", "float32", "f32"),
     (1, 5, 32, "bfloat16", "bfloat16", "f32"), (2, 3, 32, "int8", "bfloat16", "f32"),
     (1, 1, 64, "float32", "float32", "f32"), (1, 71, 64, "bfloat16", "bfloat16", "tc"),
-    (8, 16, 128, "int8", "bfloat16", "tc"), (32, 1, 128, "float32", "float32", "mha")])
+    (8, 16, 128, "int8", "bfloat16", "tc"), (32, 1, 128, "float32", "float32", "mha"),
+    (1, 71, 64, "bfloat16", "float32", "f32"), (8, 16, 128, "bfloat16", "float32", "f32"),
+    (1, 1, 64, "bfloat16", "float32", "f32"), (32, 1, 128, "bfloat16", "float32", "mha")])
 def test_decode_route(KV, G, D, cache, compute, want):
-    """f32 queries take the f32 kernel at head_dim 32, 64 and 128, and bf16
-    queries at head_dim 32 (every shape the CUDA-core kernel took, and
-    grouped f32 at 128); bf16 at 64 / 128 the bf16 tensor-core kernel; G == 1
-    over several K/V heads the G == 1 kernel."""
+    """f32 queries take the f32 kernel at head_dim 32, 64 and 128 on every
+    cache with grouped heads (on a bf16 cache too: q stays f32, as the JAX
+    `_kern` keeps it), and bf16 queries at head_dim 32 (every shape the
+    CUDA-core kernel took, and grouped f32 at 128); bf16 at 64 / 128 the bf16
+    tensor-core kernel; G == 1 over several K/V heads the G == 1 kernel,
+    where f32 q meets a bf16 cache as bf16 (the JAX `_cache_partials_mha`
+    casts q to a dense cache's dtype)."""
     assert tfd.route(KV, G, D, cache, compute) == want
     assert tfd.supports(KV, G, D, cache, compute) == (True, want)
+    mha_cast = cache == "bfloat16" and G == 1 and KV > 1
+    assert tfd.q_dtype(KV, G, cache, compute) == (
+        compute if cache == "int8" or (cache == "bfloat16" and not mha_cast) else cache)
 
 
 def test_decode_route_refuses():
