@@ -5,14 +5,14 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. build the hand-written kernels from ggllm_tpu_torch/csrc with nvcc, and
-     read the decode GEMVs' SASS (cuobjdump): no I2F in any instantiation of
-     the legacy or the K-quant GEMV;
+     read the decode GEMVs' and the rows kernel's SASS (cuobjdump): no I2F in
+     any instantiation of the legacy or the K-quant GEMV or the rows kernel;
   2. hold every kernel against its plain PyTorch version at the main-path
      shapes (quant_matmul in all ten formats: Q4_0 … Q8_0 at the Falcon-7B
      shapes, Q2_K … Q6_K at the Falcon-40B shapes, Q4_0 and Q4_K at the
      LLaMA-7B shapes, S = 1 through the K-quant GEMV (K-quants) or the
      legacy GEMV and S = 512 through the tensor-core tile; the tile also at
-     S = 2, 17 and 300 and at a ragged O;
+     S = 17 and 300 and at a ragged O;
      the f32 tensor-core tile at two shapes at S = 300 and 512 and at three
      more of the f32 paths' 300-row widths, group_sums on f32 x at the f32
      paths' widths; the attention kernels at the
@@ -27,8 +27,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      decode kernel (split TF32) at Falcon-7B's and Falcon-40B's head layouts,
      the same way, its partials also against partials_emulated, f32 q on a
      bf16 cache at Falcon-7B's (valid 300 and 2047), and bf16 at
-     head dim 32 through it; the tensor-core tile at B = 2, 4, 8, 16 decode
-     rows at Falcon-7B Q4_0's decode shapes beside B one-row GEMVs), and time
+     head dim 32 through it; the rows kernel at B = 2, 4, 8, 16 decode rows
+     at Falcon-7B Q4_0's, LLaMA-7B Q4_0's and Falcon-40B Q4_K's decode
+     weights and every other format at B = 4, f32 y held at 2e-5, beside B
+     one-row GEMVs and the tensor-core tile at the same rows, and a row's y
+     held bit for bit against the same call with the other rows redrawn and
+     at two rows), and time
      kernel, plain version and one PyTorch library call (CUDA events, after
      warm-up, median of 20 runs, L2 flushed before each run) beside the
      card's bound; bf16 rows are held at 2e-2 of max |plain|, f32 rows at
@@ -88,10 +92,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      tokens, 64 tokens each, 4 greedy and 4 sampled, one with mirostat 2,
      one with penalize_nl false) through a ContinuousBatcher over
      FalconEngine(batch_size=4), decoding as replayed B-row CUDA graphs, whose
-     ids must equal the eager B-row step body's, every greedy id within
-     LOGIT_TOL of its step's top logit in the batch-1 engine with the
-     batched ids forced (a request's ids on another's prompt must fail it;
-     the same on the f32 route at 2 layers, F32_LOGIT_TOL), with
+     ids must equal the eager B-row step body's and whose capture records
+     hold one rows-kernel launch for each quantized weight a step and no
+     tile or GEMV, every greedy id within ROWS_LOGIT_TOL of its step's top
+     logit in the batch-1 engine with the batched ids forced (a request's
+     ids on another's prompt must fail it; the same on the f32 route at 2
+     layers, F32_LOGIT_TOL), with
      aggregate and per-row tok/s beside the single stream's, admission time,
      B-row step device ms at B = 1, 2, 4, 8, 16 and capture ms;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
@@ -119,6 +125,13 @@ ROOT = Path(__file__).resolve().parent
 TOL = 2e-2  # of max |plain|, bf16 inputs (tests/test_kernels.py:45)
 F32_TOL = 2e-5  # of max |plain|, f32 inputs (tests/test_torch_cuda.py TOL)
 LOGIT_TOL = 5e-2
+# bf16 batched greedy ids against the single stream (phase 3's batching):
+# the rows kernel and the one-row GEMV both form exact code x bf16 products
+# summed in f32, so the two paths differ only where an activation's bf16
+# rounding flips; the bf16 tensor-core tile that B rows ran before, which
+# rounded every decoded weight to bf16, read worst deficits of 0.039-0.148 of
+# LOGIT_TOL (at most 7.4e-3 of max |logit|) on an H100
+ROWS_LOGIT_TOL = 1e-2
 N_RUNS, N_WARM = 20, 3
 
 # card peaks (NVIDIA data sheets): memory rate, dense bf16 and TF32 tensor
@@ -133,9 +146,10 @@ QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k", "q6_k",
 F32_LOGIT_TOL = 1e-4
 # kernel -> (source, the TPU kernel it replaces). "quant_matmul" is the S == 1
 # GEMV of the legacy formats, ".gemv.kq" the K-quants' S == 1 GEMV (both
-# around the loop of ggllm_tpu_torch/csrc/gemv.cuh), ".tc" the bf16
-# tensor-core tile, ".f32" the f32 tensor-core tile; "flash_mqa.tc" the bf16
-# tensor-core attention kernel, ".f32" the f32 one (the CUDA-core kernel of
+# around the loop of ggllm_tpu_torch/csrc/gemv.cuh), ".rows" the kernel of
+# 2-16 bf16 rows (B decode rows), ".tc" the bf16 tensor-core tile, ".f32"
+# the f32 tensor-core tile; "flash_mqa.tc" the bf16 tensor-core attention
+# kernel, ".f32" the f32 one (the CUDA-core kernel of
 # bf16 at head dim 32 serves no full-width path and is checked in phase 2
 # only). COUNTER names the launch counter of a kernel where it is not the
 # kernel's own name.
@@ -144,6 +158,8 @@ REPLACES = {
                      "ggllm_tpu/kernels/quant_matmul.py:57"),
     "quant_matmul.gemv.kq": ("ggllm_tpu_torch/csrc/quant_gemv_kq.cu",
                              "ggllm_tpu/kernels/quant_matmul.py:57"),
+    "quant_matmul.rows": ("ggllm_tpu_torch/csrc/quant_mmv.cuh",
+                          "ggllm_tpu/kernels/quant_matmul.py:57"),
     "quant_matmul.tc": ("ggllm_tpu_torch/csrc/quant_gemm_tc.cuh",
                         "ggllm_tpu/kernels/quant_matmul.py:57"),
     "quant_matmul.f32": ("ggllm_tpu_torch/csrc/quant_gemm_f32.cuh",
@@ -174,7 +190,7 @@ COUNTER = {"quant_matmul": "quant_matmul.gemv"}
 # which no bf16 path may run
 F32_KERNELS = ("quant_matmul.f32", "flash_mqa.f32", "flash_mqa.simt", "group_sums")
 # the bf16 tensor-core kernels, which no f32 path may run
-BF16_TC_KERNELS = ("quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc")
+BF16_TC_KERNELS = ("quant_matmul.rows", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc")
 # every flash-decode launch counter: the wrapper's (by head layout and cache)
 # and the route's
 DECODE_COUNTERS = ("flash_decode", "flash_decode.int8", "flash_decode.mha", "flash_decode.mha.int8",
@@ -313,8 +329,8 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
             del w, wdeq
 
     # ---- the tensor-core tile off the main-path shapes: short and ragged S
-    # (2 and 17 rows: the 16- and 64-row tiles; 300: two 256-row chunks, or
-    # three of 128 rows where those fill the card better) at
+    # (17 rows: the 64-row tile; 300: two 256-row chunks, or three of 128
+    # rows where those fill the card better) at
     # one legacy and one K-quant weight, and an O that is no multiple of 64;
     # then the f32 tile, which serves f32 x only, at the same two weights at
     # S = 300 (the f32 paths' prefill: 64 x rows a block at both) and 512
@@ -325,7 +341,7 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
         wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
         wdeq = w.dequantize(bf16)
-        for S in ((300,) if wname == "ragged" else (2, 17, 300)):
+        for S in ((300,) if wname == "ragged" else (17, 300)):
             matmul_row(fmt, wname, w, wbytes, wdeq, S, bf16, bf16)
         if wname != "ragged":
             wdeq = wdeq.float()
@@ -341,23 +357,62 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         del w, wdeq
 
     # ---- B decode rows (continuous batching): S = B rows of bf16 x through
-    # the tensor-core tile at Falcon-7B Q4_0's three decode shapes, B = 2, 4,
-    # 8, 16, beside B one-row GEMVs (one call and a graph of one call, times
-    # B) and the library matmul; bound: the weight planes' bytes (x and y
-    # are 0.1 % of them)
-    for wname, O, K in shapes_7b:
-        w = random_quant(GGMLType.Q4_0, O, K, gen, "cuda")
-        wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
-        wdeq = w.dequantize(bf16)
-        out_dtype = torch.float32 if wname == "lm_head" else bf16
-        x1 = torch.randn(1, K, generator=gen, device="cuda").to(bf16)
-        gemv_ms = timer(lambda: qm.quant_matmul(w, x1, out_dtype))
-        gemv_graph = graph_ms(lambda i: qm.quant_matmul(w, x1, out_dtype), 1, timer.flush)
-        for S in (2, 4, 8, 16):
-            matmul_row("q4_0", f"rows {wname}", w, wbytes, wdeq, S, bf16, out_dtype,
-                       graphs=True, gemv_ms_times_S=S * gemv_ms,
-                       gemv_graph_ms_times_S=S * gemv_graph)
-        del w, wdeq
+    # the rows kernel at B = 2, 4, 8, 16 at Falcon-7B Q4_0's, LLaMA-7B Q4_0's
+    # and Falcon-40B Q4_K's decode weights, every other format at B = 4 on its
+    # model's: f32 y held at F32_TOL (exact products summed in f32), the
+    # path's y (bf16 but for the lm_head) at TOL; timed as one call and as
+    # device time (a graph of one call) beside B one-row GEMVs, the
+    # tensor-core tile at the same rows (quant_matmul_tc: its 64-row width)
+    # and torch.matmul on the dequantized weight (both ways); bound: the
+    # weight planes' bytes (x and y are 0.1 % of them). At the largest B a
+    # row's y must equal, bit for bit, the same call's with the other rows
+    # redrawn and the call at two rows with a zero row
+    llama_rows = tuple(sh for sh in shapes_llama if sh[0] in ("llama.wqkv", "llama.wo", "llama.w2"))
+    rows_cases = [("q4_0", shapes_7b, (2, 4, 8, 16)), ("q4_0", llama_rows, (2, 4, 8, 16)),
+                  ("q4_k", shapes_40b[::2], (2, 4, 8, 16))]
+    rows_cases += [(fmt, shapes_40b if GGMLType[fmt.upper()] in qm.K_QUANTS else shapes_7b, (4,))
+                   for fmt in QUANT_FORMATS if fmt not in ("q4_0", "q4_k")]
+    for fmt, shapes, batch in rows_cases:
+        for wname, O, K in shapes:
+            w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
+            wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+            wdeq = w.dequantize(bf16)
+            out_dtype = torch.float32 if wname.endswith("lm_head") else bf16
+            x1 = torch.randn(1, K, generator=gen, device="cuda").to(bf16)
+            gemv_graph = graph_ms(lambda i: qm.quant_matmul(w, x1, out_dtype), 1, timer.flush)
+            for S in batch:
+                x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+                label = f"quant_matmul.rows {fmt} {wname} S={S}"
+                before = build.launch_counts["quant_matmul.rows"]
+                got32 = qm.quant_matmul(w, x, torch.float32)
+                got = qm.quant_matmul(w, x, out_dtype)
+                if build.launch_counts["quant_matmul.rows"] != before + 2:
+                    raise RuntimeError(f"{label} did not run the rows kernel")
+                err, rel = check(f"{label} f32 y", got32,
+                                 qm.quant_matmul_plain(w, x, torch.float32), F32_TOL)
+                check(f"{label} {out_dtype} y", got, qm.quant_matmul_plain(w, x, out_dtype))
+                if S == batch[-1]:
+                    other = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+                    for r in (0, S - 1):
+                        pair = torch.stack([x[r], torch.zeros_like(x[r])])
+                        mixed = other.clone()
+                        mixed[r] = x[r]
+                        if not (torch.equal(qm.quant_matmul(w, pair, torch.float32)[0], got32[r])
+                                and torch.equal(qm.quant_matmul(w, mixed, torch.float32)[r],
+                                                got32[r])):
+                            raise RuntimeError(f"{label}: row {r}'s y depends on the other rows")
+                ms = timer(lambda: qm.quant_matmul(w, x, out_dtype))
+                plain_ms = timer(lambda: qm.quant_matmul_plain(w, x, out_dtype))
+                lib_ms = timer(lambda: torch.matmul(x, wdeq.t()))
+                nbytes = wbytes + S * K * 2 + S * O * (4 if out_dtype == torch.float32 else 2)
+                row("quant_matmul.rows", f"{fmt} rows {wname} O={O} K={K} S={S}", err, rel, ms,
+                    plain_ms, lib_ms, nbytes, 2 * S * O * K,
+                    graph_ms=graph_ms(lambda i: qm.quant_matmul(w, x, out_dtype), 1, timer.flush),
+                    library_graph_ms=graph_ms(lambda i: torch.matmul(x, wdeq.t()), 1, timer.flush),
+                    tile_graph_ms=graph_ms(lambda i: qm.quant_matmul_tc(w, x, out_dtype), 1,
+                                           timer.flush),
+                    gemv_graph_ms_times_S=S * gemv_graph, cluster=qm.rows_cluster(O))
+            del w, wdeq
 
     # ---- group_sums: f32 x (only the f32 tile takes group sums), 32-wide at
     # the Falcon-7B and LLaMA-7B widths at S = 300 (the f32 paths' prefill)
@@ -1105,9 +1160,9 @@ def _against_single(eng1, prompt, batched: list, label: str, rel_tol: float) -> 
     stream's top-2 logit gap there and the batched id's deficit; then every
     batched id is held to the single stream's logits with the batched ids
     forced (`_teacher_forced`): each must be within rel_tol of max |logit|
-    of its step's top logit (B rows take the tile, one stream the GEMV: the
-    two sum in other orders, so ids may part at a near-tie, and past it the
-    batched ids are still checked, against their own history)."""
+    of its step's top logit (B rows take the rows kernel, one stream the
+    GEMV: the two sum in other orders, so ids may part at a near-tie, and
+    past it the batched ids are still checked, against their own history)."""
     from ggllm_tpu_torch.ops.sampling import SamplerParams
 
     eng1.reset()
@@ -1145,22 +1200,25 @@ def phase_batching(torch, eng1, params, hp) -> dict:
     cache, with the decode chunks as replayed B-row CUDA graphs and again
     through the eager B-row step body: every request's ids must be the
     same. Each greedy request's ids against the batch-1 engine `eng1` on the
-    same weights: every id within LOGIT_TOL of its step's top logit with the
-    batched ids forced (`_against_single`), and a control that must fail (a
+    same weights: every id within ROWS_LOGIT_TOL of its step's top logit
+    with the batched ids forced (`_against_single`), and a control that must fail (a
     request's ids on another's prompt); the same at 2 layers on the f32
     route (F32_LOGIT_TOL). Prints aggregate and per-row decode tok/s
     beside the single stream's, admission (prefill) time, the device ms of
     one B-row step at B = 1, 2, 4, 8, 16 (CUDA events around replays, engines
     sharing `params`), capture ms and peak memory. Fails unless the graph
-    run launched the tensor-core tile, flash_mqa.tc and the decode kernel,
-    and no GEMV."""
+    run launched the rows kernel, flash_mqa.tc and the decode kernel (the
+    tile in admission) and no GEMV, and unless each B-row graph's capture
+    record holds one rows-kernel launch for each quantized weight a step and
+    no tile or GEMV."""
     import dataclasses
 
     import numpy as np
 
     from ggllm_tpu_torch.core.config import EngineConfig
     from ggllm_tpu_torch.core.dtypes import GGMLType
-    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.engine.engine import FalconEngine, _RowChunk
+    from ggllm_tpu_torch.ops.linear import QuantTensor
     from ggllm_tpu_torch.ops.sampling_device import RowKey
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
 
@@ -1186,11 +1244,25 @@ def phase_batching(torch, eng1, params, hp) -> dict:
         f" {prefill_tokens} tokens in {prefill_ms:.1f} ms"
         f" ({prefill_tokens / (prefill_ms / 1e3):.1f} tok/s, forwarding all {B} rows);"
         f" capture {capture_ms:.1f} ms")
-    for name in ("quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc", "flash_decode"):
+    for name in ("quant_matmul.rows", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc",
+                 "flash_decode"):
         if counts.get(name, 0) <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the batching path: {counts}")
     if counts.get("quant_matmul.gemv", 0) or counts.get("flash_decode.f32", 0):
         raise RuntimeError(f"a one-row or f32 kernel ran on the 4-row path: {counts}")
+    # decode: each B-row graph's capture record, credited per replay
+    n_quant = sum(isinstance(m, QuantTensor) for m in eng.model.modules())
+    records = [(c.n_steps, c.graph.counts) for c in eng._chunks.values()
+               if isinstance(c, _RowChunk) and c.graph is not None]
+    if not records or any(
+            rec.get("quant_matmul.rows", 0) != n * n_quant
+            or any(rec.get(k, 0) for k in ("quant_matmul.tc", "quant_matmul.gemv",
+                                           "quant_matmul.gemv.kq", "quant_matmul.f32"))
+            for n, rec in records):
+        raise RuntimeError(f"the B-row decode graphs' records are not one rows-kernel launch for"
+                           f" each of the {n_quant} quantized weights a step: {records}")
+    log(f"  B-row decode graphs: {len(records)}, each {n_quant} rows-kernel launches a step"
+        f" (two a layer and the lm_head), no tile and no GEMV")
     eager_reqs, _, eager_wall = _batch_run(torch, eng, prompts, specs, eager=True)
     for r, e in zip(reqs, eager_reqs):
         if r.out != e.out:
@@ -1203,14 +1275,14 @@ def phase_batching(torch, eng1, params, hp) -> dict:
     single = {}
     for i in greedy:
         single[i] = _against_single(eng1, prompts[i], reqs[i].out, f"greedy request {i}",
-                                    LOGIT_TOL)
+                                    ROWS_LOGIT_TOL)
     single_tps = eng1.timings.n_decode / (eng1.timings.t_decode_us / 1e6)
     log(f"  greedy requests against the batch-1 engine: {single}; single stream"
         f" {single_tps:.2f} tok/s in the same run")
     # control: the check must refuse ids from the wrong row (each greedy
     # request's ids held to the next greedy request's prompt)
     for i, j in zip(greedy, greedy[1:] + greedy[:1]):
-        ctl = _teacher_forced(eng1, prompts[j], reqs[i].out, LOGIT_TOL)
+        ctl = _teacher_forced(eng1, prompts[j], reqs[i].out, ROWS_LOGIT_TOL)
         log(f"  control: request {i}'s ids on request {j}'s prompt: worst deficit"
             f" {ctl['worst']:.3f} of its tolerance, {len(ctl['not_argmax'])} of"
             f" {ctl['steps']} ids not the argmax")
@@ -1673,15 +1745,27 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         cli = start_cli(d)
         try:
-            # the GEMVs decode their codes without int -> float conversions:
-            # every format, rows a warp (1, 2), x and y dtype of both kernels
-            from ggllm_tpu_torch.tools.sass_report import gemv_report
+            # the GEMVs and the rows kernel decode their codes and scales
+            # without int -> float conversions: every format, rows a warp (1,
+            # 2), x and y dtype of both GEMVs; n-tiles (1, 2) and cluster
+            # sizes (1, 2) of the rows kernel
+            from ggllm_tpu_torch.tools.sass_report import parse_rows_sass, parse_sass, sass_text
 
-            sass = gemv_report(build.BUILD / build.LIB_NAME)
+            text = sass_text(build.BUILD / build.LIB_NAME)
+            sass, rows_sass = parse_sass(text), parse_rows_sass(text)
             (out_dir / "sass_gemv.json").write_text(json.dumps(sass, indent=1))
+            (out_dir / "sass_rows.json").write_text(json.dumps(rows_sass, indent=1))
             if len(sass) != len(qm.GEMV_LAYOUT) * 2 * 2 * 2 or any(r["I2F"] for r in sass):
                 raise RuntimeError(f"GEMV SASS: {len(sass)} kernels, I2F in"
                                    f" {[r for r in sass if r['I2F']]}")
+            if (len(rows_sass) != len(qm.KERNEL_FORMATS) * 2 * len(qm.ROWS_CLUSTERS)
+                    or any(r["I2F"] for r in rows_sass)):
+                raise RuntimeError(f"rows kernel SASS: {len(rows_sass)} kernels, I2F in"
+                                   f" {[r for r in rows_sass if r['I2F']]}")
+            loops = [(r["ntiles"], r["cluster"], r["loop_instructions"], r["loop_HMMA"])
+                     for r in rows_sass if r["format"] == "q4_0"]
+            log(f"  quant_mmv_rows: {len(rows_sass)} instantiations, no I2F; q4_0's main loop (two"
+                f" units) at (n-tiles, cluster, instructions, HMMA): {loops}")
             for r in sass:  # the instantiations the bf16 decode paths launch
                 if (r["x"] == r["y"] == "bfloat16"
                         and r["rows"] == qm.GEMV_ROWS[GGMLType[r["format"].upper()]]):
@@ -1751,6 +1835,7 @@ def main() -> int:
     headline = {  # the JSON line's shape per kernel
         "quant_matmul": "q4_0 wqkvu O=22848 K=4544 S=1",
         "quant_matmul.gemv.kq": "q4_k ffn_up O=32768 K=8192 S=1",
+        "quant_matmul.rows": "q4_0 rows w_od O=4544 K=22720 S=4",
         "quant_matmul.tc": "q4_0 wqkvu O=22848 K=4544 S=512",
         "quant_matmul.f32": "q4_0 wqkvu O=22848 K=4544 S=300",
         "group_sums": "S=300 K=22720 g=32",
@@ -1780,6 +1865,8 @@ def main() -> int:
             raise RuntimeError(f"kernel {name} was launched on none of the main paths")
         if name.startswith("quant_matmul"):
             entry["x_dtype"] = "float32" if name.endswith("f32") else "bfloat16"
+        if name == "quant_matmul.rows":
+            entry["tile_graph_ms"], entry["rows"] = r["tile_graph_ms"], [2, qm.ROWS_MAX_S]
         if name in ("quant_matmul", "quant_matmul.gemv.kq"):
             entry["formats"] = [f for f in QUANT_FORMATS
                                 if (GGMLType[f.upper()] in qm.K_QUANTS) == name.endswith("kq")]

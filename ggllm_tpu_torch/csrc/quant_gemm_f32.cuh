@@ -83,17 +83,24 @@ __device__ __forceinline__ void mma_bf16_first(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
-// bf16 pair (128 + q0, 128 + q1) -> (q0, q1), exact
+// bf16 pair (128 + q0, 128 + q1) -> (q0 - OFF, q1 - OFF), exact for
+// |q - OFF| <= 128: one bf16x2 FMA with -(128 + OFF), whose bf16 bits are
+// 0xC300 | OFF (OFF < 128)
+template <int OFF = 0>
 __device__ __forceinline__ uint32_t minus128(uint32_t v) {
+  static_assert(OFF >= 0 && OFF < 128, "the offset sits in the constant's mantissa");
+  constexpr uint32_t c = 0xC300u | OFF;
   uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(0xC300C300u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(c | c << 16));
   return r;
 }
 
-// One row's 32-group as exact bf16 codes: f[j] packs slots 2j and 2j + 1
+// One row's 32-group as exact bf16 codes less OFF (the rows kernel folds a
+// format's offset there; Q8_0 takes none): f[j] packs slots 2j and 2j + 1
 // (slot e of lane t is element 2t + (e & 1) + 8 (e >> 1) of the group)
-template <int F>
+template <int F, int OFF = 0>
 __device__ __forceinline__ void code_pairs(const Raw& r, int gl, int t, uint32_t (&f)[4]) {
+  static_assert(F != Q8_0 || OFF == 0, "Q8_0's codes are its signed bytes");
   uint32_t w[2];
   Fmt<F>::codes(r, gl, t, w);
 #pragma unroll
@@ -103,8 +110,8 @@ __device__ __forceinline__ void code_pairs(const Raw& r, int gl, int t, uint32_t
       f[2 * j] = pack_bf16(two23_plus<0>(u) - 8388736.f, two23_plus<1>(u) - 8388736.f);
       f[2 * j + 1] = pack_bf16(two23_plus<2>(u) - 8388736.f, two23_plus<3>(u) - 8388736.f);
     } else {
-      f[2 * j] = minus128(__byte_perm(w[j], 0x43434343u, 0x4140));
-      f[2 * j + 1] = minus128(__byte_perm(w[j], 0x43434343u, 0x4342));
+      f[2 * j] = minus128<OFF>(__byte_perm(w[j], 0x43434343u, 0x4140));
+      f[2 * j + 1] = minus128<OFF>(__byte_perm(w[j], 0x43434343u, 0x4342));
     }
   }
 }

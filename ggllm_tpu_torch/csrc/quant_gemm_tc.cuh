@@ -4,9 +4,10 @@
 // accumulation, y in bf16 or f32.
 //
 // Replaces the Pallas kernel ggllm_tpu/kernels/quant_matmul.py `_kern`
-// (launched by fused_matmul_2d) for bf16 prefill; the S == 1 GEMVs, the f32
-// tile (quant_gemm_f32.cuh, which shares this file's format traits and W
-// staging) and the group sums (group_sums.cu) are kernels of their own. The
+// (launched by fused_matmul_2d) for bf16 prefill (S > 16); the S == 1 GEMVs,
+// the rows kernel of 2-16 bf16 rows (quant_mmv.cuh) and the f32 tile
+// (quant_gemm_f32.cuh; both share this file's format traits and W staging)
+// and the group sums (group_sums.cu) are kernels of their own. The
 // TPU kernel keeps the affine part of the dequant out of the per-element
 // path and subtracts it as a second product with per-group sums of x. Here
 // one more FMA per decoded weight hides under the matrix instruction, so
@@ -40,8 +41,9 @@
 //  * The B operand is the x tile as it lies in memory ((S, K) row-major is
 //    K-major): NT rows x 64 columns per stage, copied by 16-byte `cp.async`
 //    into a ring of four stages in the 128-byte swizzle, two slabs ahead.
-//    NT (the x rows of one block) is 256, 128, 64 or 16: every weight is
-//    decoded once per NT x rows, and a short S pays a narrow N.
+//    NT (the x rows of one block) is 256, 128 or 64: every weight is decoded
+//    once per NT x rows, and a short S pays a narrow N (2 to 16 rows of x,
+//    B decode rows, run a kernel of their own: quant_mmv.cuh).
 //  * A block is two warpgroups (128 rows of W) sharing the x stages, so an x
 //    tile read from L2 feeds 128 W rows.
 //  * The wgmma of one 32-group runs while the next group is decoded into the
@@ -115,24 +117,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// What a block needs to stage one plane: rows o_base .. o_base + 127 (clamped
-// to O - 1), unit u, W stage at shared address `stage`, records RS bytes apart
+// What a block needs to stage one plane: rows o_base .. o_base + ROWS - 1
+// (clamped to O - 1), unit u, W stage at shared address `stage`, records RS
+// bytes apart
 struct StageArgs {
   uint32_t stage;
   int rs, o_base, O, ng, u, tid;
 };
 
 // Copy unit u of a plane with B bytes per row and unit (B / 8 per 32-group)
-// into the records at byte offset `off`, in chunks of CH bytes; chunks past
-// the row's end become zeros.
-template <int B, int CH>
+// into the records of ROWS rows at byte offset `off`, in chunks of CH bytes,
+// by NTH threads; chunks past the row's end become zeros.
+template <int B, int CH, int ROWS, int NTH>
 __device__ __forceinline__ void stage_plane(const StageArgs& a, int off, const void* plane) {
   constexpr int CPR = B / CH;  // chunks per row
   const size_t row_bytes = (size_t)a.ng * (B / 8);
 #pragma unroll
-  for (int it = 0; it < (BM * CPR + THREADS - 1) / THREADS; ++it) {
-    const int idx = a.tid + it * THREADS;
-    if ((BM * CPR) % THREADS == 0 || idx < BM * CPR) {
+  for (int it = 0; it < (ROWS * CPR + NTH - 1) / NTH; ++it) {
+    const int idx = a.tid + it * NTH;
+    if ((ROWS * CPR) % NTH == 0 || idx < ROWS * CPR) {
       const int r = idx / CPR, c = idx % CPR;
       const size_t in_row = (size_t)a.u * B + c * CH;
       const bool ok = in_row < row_bytes;
@@ -160,6 +163,15 @@ __device__ __forceinline__ uint32_t ld2(const uint8_t* p) {
 __device__ __forceinline__ float ldh(const uint8_t* p) {
   return __half2float(*reinterpret_cast<const __half*>(p));
 }
+// a signed byte as f32 without an integer-to-float conversion: the float
+// 2^23 + (b ^ 0x80) = 2^23 + 128 + b, less 2^23 + 128 (both steps exact)
+__device__ __forceinline__ float sbyte_f32(uint32_t b) {
+  return __uint_as_float(0x4B000000u | ((b ^ 0x80u) & 0xFFu)) - 8388736.f;
+}
+// v < 2^23 as f32 the same way: 2^23 + v, less 2^23
+__device__ __forceinline__ float small_f32(uint32_t v) {
+  return __uint_as_float(0x4B000000u | v) - 8388608.f;
+}
 // the four 2-byte pieces of a 32-byte run at offsets 2t, 2t+8, 2t+16, 2t+24
 __device__ __forceinline__ void ld_run32(const uint8_t* p, int t, uint32_t (&q)[2]) {
   q[0] = ld2(p + 2 * t) | (ld2(p + 2 * t + 8) << 16);
@@ -168,7 +180,8 @@ __device__ __forceinline__ void ld_run32(const uint8_t* p, int t, uint32_t (&q)[
 // A format's record of one row and unit: code bytes at 0, then the high-bit
 // bytes (OFF_H), the int8 sub-scales (OFF_SC; a second plane at OFF_SC + 8),
 // the fp16 scales d (OFF_D, N16 of them) and m / dmin (OFF_D + 2 N16).
-//   stage(a, p): start the cp.async copies of unit a.u;
+//   stage<ROWS, NTH>(a, p): start the cp.async copies of unit a.u of ROWS
+//     rows, by NTH threads;
 //   load(rec, gl, t, r): fill r for 32-group gl (0..7) of the unit from the
 //     row's record;
 //   codes(r, gl, t, w): the unsigned codes of slots 0-3 in the bytes of w[0],
@@ -182,9 +195,10 @@ struct Legacy {  // Q4_0, Q4_1, Q5_0, Q5_1
   static constexpr bool HIGH = F == Q5_0 || F == Q5_1;
   static constexpr int OFF_H = 128, OFF_D = OFF_H + (HIGH ? 32 : 0);
   static constexpr int REC = OFF_D + (HAS_M ? 32 : 16);
+  template <int ROWS, int NTH>
   __device__ static void stage(const StageArgs& a, const Planes& p) {
-    stage_plane<128, 16>(a, 0, p.qs);
-    if (HIGH) stage_plane<32, 4>(a, OFF_H, p.qh);
+    stage_plane<128, 16, ROWS, NTH>(a, 0, p.qs);
+    if (HIGH) stage_plane<32, 4, ROWS, NTH>(a, OFF_H, p.qh);
   }
   __device__ static void load(const uint8_t* rec, int gl, int t, Raw& r) {
     const uint8_t* qp = rec + gl * 16;
@@ -211,8 +225,9 @@ struct Q8 {
   static constexpr int SUB = 32, N16 = 8;
   static constexpr bool HAS_M = false;
   static constexpr int OFF_D = 256, REC = OFF_D + 16;
+  template <int ROWS, int NTH>
   __device__ static void stage(const StageArgs& a, const Planes& p) {
-    stage_plane<256, 16>(a, 0, p.qs);
+    stage_plane<256, 16, ROWS, NTH>(a, 0, p.qs);
   }
   __device__ static void load(const uint8_t* rec, int gl, int t, Raw& r) {
     ld_run32(rec + gl * 32, t, r.q);
@@ -232,17 +247,18 @@ struct KQ45 {  // Q4_K, Q5_K: 32-group gl = 2 j + h of the super-block
   static constexpr bool HIGH = F == Q5_K;
   static constexpr int OFF_H = 128, OFF_SC = OFF_H + (HIGH ? 32 : 0), OFF_D = OFF_SC + 16;
   static constexpr int REC = OFF_D + 4;
+  template <int ROWS, int NTH>
   __device__ static void stage(const StageArgs& a, const Planes& p) {
-    stage_plane<128, 16>(a, 0, p.qs);
-    if (HIGH) stage_plane<32, 16>(a, OFF_H, p.qh);
-    stage_plane<8, 8>(a, OFF_SC, p.sc);
-    stage_plane<8, 8>(a, OFF_SC + 8, p.scm);
+    stage_plane<128, 16, ROWS, NTH>(a, 0, p.qs);
+    if (HIGH) stage_plane<32, 16, ROWS, NTH>(a, OFF_H, p.qh);
+    stage_plane<8, 8, ROWS, NTH>(a, OFF_SC, p.sc);
+    stage_plane<8, 8, ROWS, NTH>(a, OFF_SC + 8, p.scm);
   }
   __device__ static void load(const uint8_t* rec, int gl, int t, Raw& r) {
     ld_run32(rec + (gl >> 1) * 32, t, r.q);
     if (HIGH) ld_run32(rec + OFF_H, t, r.h);
-    r.s[0] = ldh(rec + OFF_D) * (float)static_cast<int8_t>(rec[OFF_SC + gl]);
-    r.c[0] = ldh(rec + OFF_D + 2) * (float)static_cast<int8_t>(rec[OFF_SC + 8 + gl]);
+    r.s[0] = ldh(rec + OFF_D) * sbyte_f32(rec[OFF_SC + gl]);
+    r.c[0] = ldh(rec + OFF_D + 2) * sbyte_f32(rec[OFF_SC + 8 + gl]);
   }
   __device__ static void codes(const Raw& r, int gl, int, uint32_t (&w)[2]) {
 #pragma unroll
@@ -257,10 +273,11 @@ struct Q6K {  // 32-group gl = 4 half + strip; two 16-groups
   static constexpr int SUB = 16, N16 = 1;
   static constexpr bool HAS_M = false;
   static constexpr int OFF_H = 128, OFF_SC = 192, OFF_D = 208, REC = OFF_D + 2;
+  template <int ROWS, int NTH>
   __device__ static void stage(const StageArgs& a, const Planes& p) {
-    stage_plane<128, 16>(a, 0, p.qs);
-    stage_plane<64, 16>(a, OFF_H, p.qh);
-    stage_plane<16, 16>(a, OFF_SC, p.sc);
+    stage_plane<128, 16, ROWS, NTH>(a, 0, p.qs);
+    stage_plane<64, 16, ROWS, NTH>(a, OFF_H, p.qh);
+    stage_plane<16, 16, ROWS, NTH>(a, OFF_SC, p.sc);
   }
   __device__ static void load(const uint8_t* rec, int gl, int t, Raw& r) {
     const int half = gl >> 2, strip = gl & 3;
@@ -268,8 +285,8 @@ struct Q6K {  // 32-group gl = 4 half + strip; two 16-groups
     ld_run32(rec + OFF_H + half * 32, t, r.h);
     const float d = ldh(rec + OFF_D);
     const uint8_t* scp = rec + OFF_SC + 2 * gl;
-    r.s[0] = d * (float)static_cast<int8_t>(scp[0]);
-    r.s[1] = d * (float)static_cast<int8_t>(scp[1]);
+    r.s[0] = d * sbyte_f32(scp[0]);
+    r.s[1] = d * sbyte_f32(scp[1]);
     r.c[0] = 32.f * r.s[0];
     r.c[1] = 32.f * r.s[1];
   }
@@ -289,10 +306,11 @@ struct KQ23 {  // Q2_K, Q3_K: 32-group gl = 4 half + strip; two 16-groups
   static constexpr bool HAS_M = !HIGH;
   static constexpr int OFF_H = 64, OFF_SC = OFF_H + (HIGH ? 32 : 0), OFF_D = OFF_SC + 16;
   static constexpr int REC = OFF_D + (HAS_M ? 4 : 2);
+  template <int ROWS, int NTH>
   __device__ static void stage(const StageArgs& a, const Planes& p) {
-    stage_plane<64, 16>(a, 0, p.qs);
-    if (HIGH) stage_plane<32, 16>(a, OFF_H, p.qh);
-    stage_plane<16, 16>(a, OFF_SC, p.sc);
+    stage_plane<64, 16, ROWS, NTH>(a, 0, p.qs);
+    if (HIGH) stage_plane<32, 16, ROWS, NTH>(a, OFF_H, p.qh);
+    stage_plane<16, 16, ROWS, NTH>(a, OFF_SC, p.sc);
   }
   __device__ static void load(const uint8_t* rec, int gl, int t, Raw& r) {
     ld_run32(rec + (gl >> 2) * 32, t, r.q);
@@ -300,17 +318,17 @@ struct KQ23 {  // Q2_K, Q3_K: 32-group gl = 4 half + strip; two 16-groups
     const uint8_t* scp = rec + OFF_SC + 2 * gl;  // the group's two 16-groups
     if (HIGH) {
       ld_run32(rec + OFF_H, t, r.h);
-      r.s[0] = d * (float)static_cast<int8_t>(scp[0]);
-      r.s[1] = d * (float)static_cast<int8_t>(scp[1]);
+      r.s[0] = d * sbyte_f32(scp[0]);
+      r.s[1] = d * sbyte_f32(scp[1]);
       r.c[0] = 4.f * r.s[0];
       r.c[1] = 4.f * r.s[1];
     } else {
       const float dmin = ldh(rec + OFF_D + 2);
       const uint32_t b0 = scp[0], b1 = scp[1];
-      r.s[0] = d * (float)(b0 & 0xFu);
-      r.s[1] = d * (float)(b1 & 0xFu);
-      r.c[0] = dmin * (float)(b0 >> 4);
-      r.c[1] = dmin * (float)(b1 >> 4);
+      r.s[0] = d * small_f32(b0 & 0xFu);
+      r.s[1] = d * small_f32(b1 & 0xFu);
+      r.c[0] = dmin * small_f32(b0 >> 4);
+      r.c[1] = dmin * small_f32(b1 >> 4);
     }
   }
   __device__ static void codes(const Raw& r, int gl, int, uint32_t (&w)[2]) {
@@ -384,18 +402,19 @@ __device__ __forceinline__ void decode(const Raw& r, int gl, int t, uint32_t (&f
   }
 }
 
-// The W records of a block of BM rows (row r: o_base + r, clamped to O - 1):
-// unit u of every plane into stage u % WSTAGES. The code, high-bit and
-// sub-scale bytes go by `cp.async` (copy); the fp16 scales go device memory
-// -> registers (load_scalars) -> the records (store_scalars), the two a slab
-// apart so that the loads' latency hides behind a slab's products.
-template <int F>
+// The W records of a block of ROWS rows (row r: o_base + r, clamped to
+// O - 1), staged by NTH threads: unit u of every plane into stage u % NSTAGE.
+// The code, high-bit and sub-scale bytes go by `cp.async` (copy); the fp16
+// scales go device memory -> registers (load_scalars) -> the records
+// (store_scalars), the two apart so that the loads' latency hides behind
+// the products (the tiles: a slab; the rows kernel: a unit).
+template <int F, int ROWS = BM, int NTH = THREADS, int NSTAGE = WSTAGES>
 struct WStager {
   using Q = Fmt<F>;
   static constexpr int RS = RecordStride<F>::value;
-  static constexpr int STAGE_BYTES = BM * RS;
-  static constexpr int N16 = Q::N16;                             // fp16 scalars per row, unit, plane
-  static constexpr int NJ = (BM * N16 + THREADS - 1) / THREADS;  // scalar copies per thread and plane
+  static constexpr int STAGE_BYTES = ROWS * RS;
+  static constexpr int N16 = Q::N16;                          // fp16 scalars per row, unit, plane
+  static constexpr int NJ = (ROWS * N16 + NTH - 1) / NTH;     // scalar copies per thread and plane
   const Planes& p;
   uint32_t wsm0;  // the stages' shared address
   uint8_t* wsm;   // and pointer
@@ -403,33 +422,63 @@ struct WStager {
   uint16_t sreg[2][NJ];
 
   __device__ __forceinline__ int nunit() const { return (p.ng + 7) / 8; }
-  __device__ __forceinline__ void copy(int u) {
+  // unit u into stage `slot` % NSTAGE (a block that takes every unit: slot u)
+  __device__ __forceinline__ void copy(int u, int slot) const {
     if (u >= nunit()) return;
-    const StageArgs a{wsm0 + (u % WSTAGES) * STAGE_BYTES, RS, o_base, O, p.ng, u, tid};
-    Q::stage(a, p);
+    const StageArgs a{wsm0 + (slot % NSTAGE) * STAGE_BYTES, RS, o_base, O, p.ng, u, tid};
+    Q::template stage<ROWS, NTH>(a, p);
+  }
+  __device__ __forceinline__ void copy(int u) const { copy(u, u); }
+  // where copy j of plane pl of unit u reads (null past the row's end, the
+  // last unit or the block's scalars)
+  __device__ __forceinline__ const uint16_t* scalar_src(int pl, int j, int u) const {
+    const uint16_t* plane = reinterpret_cast<const uint16_t*>(pl ? p.m : p.d);
+    const int per_row = (p.ng * N16 + 7) / 8;  // ng (legacy) or ng / 8 (K-quants)
+    const int idx = tid + j * NTH;
+    const int r = idx / N16, e = u * N16 + idx % N16;
+    const bool ok = idx < ROWS * N16 && u < nunit() && e < per_row;
+    return ok ? plane + (size_t)min(o_base + r, O - 1) * per_row + e : nullptr;
   }
   __device__ __forceinline__ void load_scalars(int u) {
-#pragma unroll
-    for (int pl = 0; pl < (Q::HAS_M ? 2 : 1); ++pl) {
-      const uint16_t* plane = reinterpret_cast<const uint16_t*>(pl ? p.m : p.d);
-      const int per_row = (p.ng * N16 + 7) / 8;  // ng (legacy) or ng / 8 (K-quants)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int idx = tid + j * THREADS;
-        const int r = idx / N16, e = u * N16 + idx % N16;
-        const bool ok = idx < BM * N16 && u < nunit() && e < per_row;
-        sreg[pl][j] = ok ? __ldg(plane + (size_t)min(o_base + r, O - 1) * per_row + e) : 0;
-      }
-    }
-  }
-  __device__ __forceinline__ void store_scalars(int u) const {
-    uint8_t* stage = wsm + (u % WSTAGES) * STAGE_BYTES;
 #pragma unroll
     for (int pl = 0; pl < (Q::HAS_M ? 2 : 1); ++pl)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int idx = tid + j * THREADS;
-        if (idx < BM * N16)
+        const uint16_t* src = scalar_src(pl, j, u);
+        sreg[pl][j] = src ? __ldg(src) : 0;
+      }
+  }
+  // the fp16 scales of unit u by 4-byte `cp.async` into the records, as the
+  // other planes go: for the legacy formats (8 a row and unit, 16 bytes)
+  // when a row's scales start 4-byte aligned (an even count of 32-groups);
+  // else they take load_scalars and store_scalars
+  __device__ __forceinline__ void copy_scalars(int u, int slot) const {
+    static_assert(N16 == 8, "legacy formats: 16 bytes of scales a row and unit");
+    if (u >= nunit()) return;
+    const StageArgs a{wsm0 + (slot % NSTAGE) * STAGE_BYTES, RS, o_base, O, p.ng, u, tid};
+    stage_plane<16, 4, ROWS, NTH>(a, Q::OFF_D, p.d);
+    if (Q::HAS_M) stage_plane<16, 4, ROWS, NTH>(a, Q::OFF_D + 16, p.m);
+  }
+  // asks L2 for the scalars load_scalars(u) will read (the rows kernel,
+  // whose units are short, issues this with the unit's copies)
+  __device__ __forceinline__ void prefetch_scalars(int u) const {
+#pragma unroll
+    for (int pl = 0; pl < (Q::HAS_M ? 2 : 1); ++pl)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const uint16_t* src = scalar_src(pl, j, u);
+        if (src) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(src));
+      }
+  }
+  // the scalars load_scalars took into stage `slot` % NSTAGE
+  __device__ __forceinline__ void store_scalars(int slot) const {
+    uint8_t* stage = wsm + (slot % NSTAGE) * STAGE_BYTES;
+#pragma unroll
+    for (int pl = 0; pl < (Q::HAS_M ? 2 : 1); ++pl)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int idx = tid + j * NTH;
+        if (idx < ROWS * N16)
           *reinterpret_cast<uint16_t*>(stage + (idx / N16) * RS + Q::OFF_D + pl * 2 * N16 +
                                        (idx % N16) * 2) = sreg[pl][j];
       }
@@ -579,7 +628,6 @@ template <int F>
 cudaError_t launch_fmt(int nt, const void* x, const Planes& p, void* y, int y_f32, int S, int K,
                        int O, cudaStream_t st) {
   switch (nt) {
-    case 16: return launch_nt<F, 16>(x, p, y, y_f32, S, K, O, st);
     case 64: return launch_nt<F, 64>(x, p, y, y_f32, S, K, O, st);
     case 128: return launch_nt<F, 128>(x, p, y, y_f32, S, K, O, st);
     case 256: return launch_nt<F, 256>(x, p, y, y_f32, S, K, O, st);

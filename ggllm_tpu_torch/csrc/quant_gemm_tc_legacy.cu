@@ -12,7 +12,7 @@ int gq_quant_matmul_tc_kq(int gtype, const void* x, const void* qs, const void* 
 // y (S, O) bf16 or f32 = x (S, K) bf16 @ W^T on the tensor cores, S > 1; x and
 // the planes 16-byte aligned (null for planes the format lacks; qs holds
 // Q6_K's ql, qh Q3_K's hmask, m holds dmin, sc Q2_K's scb). nt: the x rows per
-// block, 16, 64, 128 or 256 (kernels/quant_matmul.py tc_rows chooses it).
+// block, 64, 128 or 256 (kernels/quant_matmul.py tc_rows chooses it).
 extern "C" int gq_quant_matmul_tc(int gtype, const void* x, const void* qs, const void* qh,
                                   const void* d, const void* m, const void* sc, const void* scm,
                                   void* y, int y_f32, int S, int K, int O, int nt, void* stream) {

@@ -111,7 +111,7 @@ class _Chunk:
         self.n_past = torch.zeros(1, dtype=torch.int32, device=device)
         self.ring = torch.full((self.L,), n_vocab, dtype=torch.long, device=device)
         self.pos = torch.zeros(1, dtype=torch.long, device=device)
-        self.u = None if key.greedy else torch.full((n_steps, key.n_cand), 0.5, device=device)
+        self.u = None if key.greedy else torch.full((n_steps,), 0.5, device=device)
         self.out = torch.zeros(n_steps, dtype=torch.long, device=device)
         pin = device.type == "cuda"
         self.host = [torch.empty(n_steps, dtype=torch.long, pin_memory=pin) for _ in range(2)]

@@ -46,6 +46,8 @@ SIGNATURES = {
     "gq_quant_gemv_legacy": [I, P, I, P, P, P, P, P, P, P, I, I, I, I, P],
     # gtype, x (bf16), qs, qh, d, m, sc, scm, y, y_is_f32, S, K, O, x rows per block, stream
     "gq_quant_matmul_tc": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # gtype, x (bf16), qs, qh, d, m, sc, scm, y, y_is_f32, S, K, O, blocks a cluster, stream
+    "gq_quant_matmul_rows": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # gtype, x (f32), qs, qh, d, m, sc, scm, xg, y, y_is_f32, S, K, O, x rows per block, stream
     "gq_quant_matmul_f32": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x (f32), xg, S, K, group, stream

@@ -1,7 +1,8 @@
 """Fused dequant x matmul (y = x @ W^T from the planes of a QuantTensor) and
 per-group sums of x, each a hand-written CUDA kernel (csrc/quant_gemv_legacy.cu,
-csrc/quant_gemv_kq.cu, csrc/quant_gemm_tc.cuh, csrc/quant_gemm_f32.cuh,
-csrc/group_sums.cu) with its plain PyTorch version beside it.
+csrc/quant_gemv_kq.cu, csrc/quant_mmv.cuh, csrc/quant_gemm_tc.cuh,
+csrc/quant_gemm_f32.cuh, csrc/group_sums.cu) with its plain PyTorch version
+beside it.
 
 Replaces the Pallas kernels ggllm_tpu/kernels/quant_matmul.py `_kern`
 (launched by fused_matmul_2d) and `_xg_kern` (launched by _group_sums), for
@@ -19,11 +20,15 @@ multiply and one correction. Per family:
   Q2_K (16-groups)     s = d * (scb & 15); c = dmin * (scb >> 4)
 (the K-quant products formed in f32 exactly as the reference does).
 
-Four kernels serve a CUDA tensor (`route`): one row of x runs a GEMV
+Five kernels serve a CUDA tensor (`route`): one row of x runs a GEMV
 (`gemv_kernel`), csrc/quant_gemv_kq.cu for Q2_K-Q6_K and
 csrc/quant_gemv_legacy.cu for Q4_0-Q8_0, one kernel loop (csrc/gemv.cuh) over
 each family's traits (`gemv_lane_table` and `gemv_emulated` state its lanes
-and sums for the CPU tests); more rows of bf16 x run the tensor-core tile
+and sums for the CPU tests); 2 to 16 rows of bf16 x (B decode rows) run the
+rows kernel (csrc/quant_mmv.cuh: `mma.sync` on the exact codes, less a
+folded offset, times bf16 x, each scale group's partial scaled in f32, K
+split among a block's warps (and a cluster's blocks) and summed in a fixed
+order; `rows_emulated` restates it); more rows of bf16 x run the tensor-core tile
 (csrc/quant_gemm_tc.cuh: `wgmma` on weights decoded into registers,
 w = q s - c by one f32 FMA, rounded once to bf16, no group sums); more rows
 of f32 x run the f32 tile (csrc/quant_gemm_f32.cuh: `mma.sync` on the exact
@@ -73,17 +78,28 @@ _ARG_PLANE = {GGMLType.Q6_K: {"qs": "ql"}, GGMLType.Q4_K: {"m": "dmin"},
               GGMLType.Q3_K: {"qh": "hmask"}}
 
 
-TC_ROWS = (16, 64, 128, 256)  # x rows per block the tensor-core tile is built for
-F32_ROWS = (32, 64, 128)       # x rows per block the f32 tile is built for
-TC_BLOCK_O = 128               # W rows per block (two warpgroups of 64)
+TC_ROWS = (64, 128, 256)  # x rows per block the tensor-core tile is built for
+F32_ROWS = (32, 64, 128)  # x rows per block the f32 tile is built for
+TC_BLOCK_O = 128          # W rows per block (two warpgroups of 64)
 N_SM = 132
+ROWS_MAX_S = 16           # the most bf16 rows of x the rows kernel takes
+ROWS_WARPS = 8            # the rows kernel's K split: warp w takes the 32-groups w, w + 8, ...
+ROWS_CLUSTERS = (1, 2)    # blocks of a cluster that split the rows kernel's K
+# offsets the rows kernel folds into the codes (the GEMVs' own, GEMV_LAYOUT):
+# the code less it is a small integer, exact in bf16, and the format pays no
+# correction; ROWS_CORR pays -c * (the group's sum of x); Q8_0 takes its
+# signed bytes and neither
+ROWS_OFFSET = {GGMLType.Q4_0: 8, GGMLType.Q5_0: 16, GGMLType.Q3_K: 4, GGMLType.Q6_K: 32}
+ROWS_CORR = (GGMLType.Q4_1, GGMLType.Q5_1, GGMLType.Q2_K, GGMLType.Q4_K, GGMLType.Q5_K)
 
 
 def route(S: int, x_dtype, gtype) -> str:
     """The kernel that serves S rows of x in `x_dtype` on the card: "gemv"
-    (S == 1), "tc" (bf16, S > 1: the bf16 tensor-core tile), "f32" (f32,
-    S > 1: the f32 tensor-core tile with group sums). Raises for what no
-    kernel takes."""
+    (S == 1), "rows" (bf16, 2 <= S <= 16: B decode rows), "tc" (bf16,
+    S > 16: the bf16 tensor-core tile), "f32" (f32, S > 1: the f32
+    tensor-core tile with group sums). f32 x at 2 <= S <= 16 stays on the
+    f32 tile on purpose: only the 2-layer f32 test path batches decode rows
+    in f32 (ROADMAP Queue 2 M). Raises for what no kernel takes."""
     if gtype not in KERNEL_FORMATS:
         raise NotImplementedError(f"quant_matmul kernel: no {GGMLType(gtype).name} variant")
     if x_dtype not in _DTYPES:
@@ -92,7 +108,20 @@ def route(S: int, x_dtype, gtype) -> str:
         raise ValueError(f"quant_matmul: {S} rows")
     if S == 1:
         return "gemv"
-    return "tc" if x_dtype == torch.bfloat16 else "f32"
+    if x_dtype == torch.float32:
+        return "f32"
+    return "rows" if S <= ROWS_MAX_S else "tc"
+
+
+def rows_cluster(O: int) -> int:
+    """Blocks of a cluster that share a block's 64 W rows in the rows kernel,
+    each staging every other unit of K and adding its sums through
+    distributed shared memory in a fixed order: two where the row blocks
+    are few (O <= 9216, at most 144 blocks: Falcon-7B's w_od, 71 blocks for
+    132 SMs, Falcon-40B's wqkv and w_od, LLaMA-7B's wo and w2), else one. As
+    measured on an H100 at S = 2 ... 16 (PERF.md: time_kernels.py rows at
+    both sizes). A row's y depends on O alone, not on the batch."""
+    return ROWS_CLUSTERS[1] if O <= 9216 else ROWS_CLUSTERS[0]
 
 
 def gemv_kernel(gtype) -> str:
@@ -103,14 +132,15 @@ def gemv_kernel(gtype) -> str:
 
 
 def tc_rows(S: int, O: int) -> int:
-    """x rows per block of the tensor-core tile: the narrowest width that
-    holds a short S; from 129 rows the 256-wide tile (each weight decoded once
-    per 256 rows, one block an SM) unless its blocks need more rounds over
+    """x rows per block of the tensor-core tile (S > ROWS_MAX_S): the
+    narrowest width that holds a short S; from 129 rows the 256-wide tile
+    (each weight decoded once per 256 rows, one block an SM) unless its
+    blocks need more rounds over
     the card's SMs than 1.4 times those of the 128-wide tile, which pads S
     less, fits two blocks an SM, and takes 0.7 of the time per block (as
     measured on an H100: a Falcon-40B wqkv at S = 300 is 144 blocks of 256
     rows, two rounds, or 216 of 128, one)."""
-    for nt in TC_ROWS[:3]:
+    for nt in TC_ROWS[:2]:
         if S <= nt:
             return nt
     row_blocks = -(-O // TC_BLOCK_O)
@@ -290,6 +320,53 @@ def f32_tile_emulated(w, x: torch.Tensor, terms: int = 3) -> torch.Tensor:
     for gi in range(ng):
         acc = acc + s[None, :, gi] * P[:, :, gi] - c[None, :, gi] * xg[:, gi, None]
     return acc
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of f32 tensors with one rounding to f32 (the product is
+    exact in float64)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def rows_emulated(w, x: torch.Tensor, out_dtype=torch.float32, scales=None,
+                  cluster: int | None = None) -> torch.Tensor:
+    """y (S, O) = x (S, K) @ W^T as the rows kernel (csrc/quant_mmv.cuh)
+    computes it: x as one bf16 term; the exact codes (tc_codes, the tiles'
+    fragment decode) less the format's folded offset (ROWS_OFFSET), each
+    product exact, summed per scale group into an f32 partial P_g (exact
+    first, rounded once); block r of a cluster of `cluster` (rows_cluster)
+    takes the units (8 32-groups) r, r + cluster, ..., its warp w their
+    32-group w, and folds them in order, acc = fma(s_g, P_g, acc), then
+    acc = fma(-c_g, xg_g, acc) for ROWS_CORR (tc_group_scales; xg the f32
+    group sums of x), from acc = 0; a block adds its warps' sums in warp
+    order, the cluster its blocks' in rank order, and y is rounded once to
+    out_dtype. `scales` replaces the (s, c) of tc_group_scales (a negative
+    control)."""
+    O, K = w.shape
+    width = KERNEL_FORMATS[w.gtype][0]
+    xf = x.reshape(-1, K).to(torch.bfloat16).to(torch.float64)
+    S, ng, seg = xf.shape[0], K // 32, 32 // width
+    q = (tc_codes(w) - ROWS_OFFSET.get(w.gtype, 0)).to(torch.float64)
+    P = torch.einsum("sgj,ogj->sog", xf.reshape(S, ng * seg, width),
+                     q.reshape(O, ng * seg, width)).to(torch.float32)
+    s, c = tc_group_scales(w) if scales is None else scales
+    xg = group_sums_plain(xf.to(torch.float32), width)
+    corr = w.gtype in ROWS_CORR
+    cluster = rows_cluster(O) if cluster is None else cluster
+    y = None
+    for rank in range(cluster):
+        block = None
+        for warp in range(ROWS_WARPS):
+            acc = torch.zeros(S, O, dtype=torch.float32)
+            for gi in range(warp + ROWS_WARPS * rank, ng, ROWS_WARPS * cluster):
+                for k in range(seg):
+                    sg = gi * seg + k
+                    acc = _fma(s[None, :, sg], P[:, :, sg], acc)
+                    if corr:
+                        acc = _fma(-c[None, :, sg], xg[:, sg, None], acc)
+            block = acc if block is None else block + acc
+        y = block if y is None else y + block
+    return y.to(out_dtype)
 
 
 class GemvLayout(NamedTuple):
@@ -548,38 +625,68 @@ def _plane_ptrs(w, device) -> list:
     return ptrs
 
 
-def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
-    """y = x @ W^T for a QuantTensor W; x (..., K) -> (..., O) in out_dtype.
-
-    S = 1 (decode) runs a GEMV, which forms its own sums of x: the K-quant
-    GEMV for the K-quants (counted as "quant_matmul.gemv.kq"), the legacy
-    GEMV for the others ("quant_matmul.gemv"); S > 1 rows of bf16 x run the
-    bf16 tensor-core tile ("quant_matmul.tc"); S > 1 rows of f32 x the f32
-    tensor-core tile ("quant_matmul.f32") fed by group_sums (S >= 256) or
-    the plain reduce (S < 256). See `route`."""
-    if x.device.type == "cpu":
-        return quant_matmul_plain(w, x, out_dtype)
+def _prepare(w, x: torch.Tensor, out_dtype):
+    """Checks of a CUDA call; returns (x as (S, K), contiguous and aligned,
+    the plane pointers, the format's counter)."""
     if w.gtype not in KERNEL_FORMATS:
         raise NotImplementedError(f"quant_matmul kernel: no {GGMLType(w.gtype).name} variant")
     if out_dtype not in _DTYPES:
         raise TypeError(f"out dtype {out_dtype} not supported")
     O, K = w.shape
-    group, corr = KERNEL_FORMATS[w.gtype]
     if w.gtype in K_QUANTS and K % 256:
         raise ValueError(f"{w.gtype.name}: K={K} is not a multiple of the 256-element super-block")
-    lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     _check_x(x2, K)
     ptrs = _plane_ptrs(w, x2.device)
-    x2 = _aligned(x2)
-    S = x2.shape[0]
-    fmt_counter = f"quant_matmul.{w.gtype.name.lower()}"
+    return _aligned(x2), ptrs, f"quant_matmul.{w.gtype.name.lower()}"
+
+
+def _tile(w, x2, ptrs, fmt_counter, out_dtype) -> torch.Tensor:
+    (S, K), O = x2.shape, w.shape[0]
     y = torch.empty(S, O, dtype=out_dtype, device=x2.device)
+    build.launch("gq_quant_matmul_tc", ("quant_matmul", fmt_counter, "quant_matmul.tc"),
+                 int(w.gtype), x2.data_ptr(), *ptrs, y.data_ptr(),
+                 int(out_dtype == torch.float32), S, K, O, tc_rows(S, O),
+                 build.stream_ptr(x2.device))
+    return y
+
+
+def quant_matmul_tc(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The bf16 tensor-core tile at any S > 1 of bf16 x on the card, counted
+    as "quant_matmul.tc": `quant_matmul` routes S > ROWS_MAX_S there, and
+    tools/time_kernels.py and chip_smoke.py call it at fewer rows to compare
+    it with the rows kernel."""
+    x2, ptrs, fmt_counter = _prepare(w, x, out_dtype)
+    if x2.dtype != torch.bfloat16 or x2.shape[0] < 2:
+        raise TypeError(f"the tensor-core tile takes 2 or more bf16 rows, not {tuple(x2.shape)}"
+                        f" {x2.dtype}")
+    return _tile(w, x2, ptrs, fmt_counter, out_dtype).reshape(*x.shape[:-1], w.shape[0])
+
+
+def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
+    """y = x @ W^T for a QuantTensor W; x (..., K) -> (..., O) in out_dtype.
+
+    S = 1 (decode) runs a GEMV, which forms its own sums of x: the K-quant
+    GEMV for the K-quants (counted as "quant_matmul.gemv.kq"), the legacy
+    GEMV for the others ("quant_matmul.gemv"); 2 to 16 rows of bf16 x run
+    the rows kernel ("quant_matmul.rows"), more the bf16 tensor-core tile
+    ("quant_matmul.tc"); S > 1 rows of f32 x the f32 tensor-core tile
+    ("quant_matmul.f32") fed by group_sums (S >= 256) or the plain reduce
+    (S < 256). See `route`."""
+    if x.device.type == "cpu":
+        return quant_matmul_plain(w, x, out_dtype)
+    x2, ptrs, fmt_counter = _prepare(w, x, out_dtype)
+    (S, K), O = x2.shape, w.shape[0]
+    lead = x.shape[:-1]
+    group, corr = KERNEL_FORMATS[w.gtype]
     path = route(S, x2.dtype, w.gtype)
     if path == "tc":
-        build.launch("gq_quant_matmul_tc", ("quant_matmul", fmt_counter, "quant_matmul.tc"),
+        return _tile(w, x2, ptrs, fmt_counter, out_dtype).reshape(*lead, O)
+    y = torch.empty(S, O, dtype=out_dtype, device=x2.device)
+    if path == "rows":
+        build.launch("gq_quant_matmul_rows", ("quant_matmul", fmt_counter, "quant_matmul.rows"),
                      int(w.gtype), x2.data_ptr(), *ptrs, y.data_ptr(),
-                     int(out_dtype == torch.float32), S, K, O, tc_rows(S, O),
+                     int(out_dtype == torch.float32), S, K, O, rows_cluster(O),
                      build.stream_ptr(x2.device))
         return y.reshape(*lead, O)
     if path == "gemv":  # the GEMVs form their own sums of x

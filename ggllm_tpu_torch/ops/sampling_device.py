@@ -12,11 +12,11 @@ written before each replay, so one graph serves every value.
 `device_samplable` says which sampler settings this covers; the engine
 routes the rest to the host cascade (ops/sampling.py).
 
-The categorical draw takes its uniforms as an input: the engine draws a
-whole chunk's ((n_steps, n_candidates), one launch from the engine's
-torch.Generator) into a static buffer before each replay of the
-captured chunk, the `sample_rows_u` idea of ggllm_tpu/ops/sampling_device.py
-:275. The graph holds no generator state, and the graph and the eager step
+The draw takes its uniforms as an input: the engine draws a whole chunk's
+((n_steps,), one a token, one launch from the engine's torch.Generator)
+into a static buffer before each replay of the captured chunk, the
+`sample_rows_u` idea of ggllm_tpu/ops/sampling_device.py:275. The graph
+holds no generator state, and the graph and the eager step
 body draw the same numbers for one seed, so they give the same ids."""
 
 from __future__ import annotations
@@ -154,29 +154,39 @@ def n_candidates(top_k: int, n_vocab: int) -> int:
     return top_k if 0 < top_k < n_vocab else min(n_vocab, 1024)
 
 
+def cascade_slice(logits: torch.Tensor, key: SamplerKey, sv: SamplerValues):
+    """The single stream's distribution at temp > 0: the rows' cascade at
+    B = 1 (cascade_mask_probs) over the top-k slice of (n_vocab,) logits
+    (the key's candidate count): top-p on the unscaled distribution where
+    the key says it cuts, the token whose mass crosses top_p dropped, then
+    the temperature, with the temperature and top-p read from sv on the
+    device. Returns (probs (1, k), mask (1, k), ids (k,) of the slice,
+    descending)."""
+    vals, idx = torch.topk(logits, key.n_cand)  # descending
+    k = torch.full((1,), key.n_cand, dtype=torch.long, device=logits.device)
+    probs, mask = cascade_mask_probs(vals[None], sv.vals[0:1],
+                                     sv.vals[1:2] if key.top_p_cuts else None, k)
+    return probs, mask, idx
+
+
 def sample_logits(logits: torch.Tensor, key: SamplerKey, sv: SamplerValues,
                   u: torch.Tensor | None) -> torch.Tensor:
     """One token id (0-d int64 tensor) from (n_vocab,) f32 logits: greedy
-    when the key says so, else top-k (the key's candidate count) ->
-    temperature -> top-p (where the key says it cuts) -> categorical, with
-    the temperature and top-p read from sv on the device. u: this draw's
-    (n_candidates,) uniforms in [0, 1) (unused, and may be None, when
-    greedy)."""
+    when the key says so, else one inverse-CDF draw (_draw) on the uniform u
+    over cascade_slice's distribution. That is the host cascade's order
+    (ops/sampling.py sample) and the rows' draw, so one uniform gives one id
+    on the single stream, the rows and the host. u: this draw's uniform in
+    [0, 1), 0-d or (1,) (unused, and may be None, when greedy).
+
+    The JAX single stream (ggllm_tpu/ops/sampling_device.py sample_logits:
+    333) is not copied: it divides by the temperature before top-p and keeps
+    the crossing token (Gumbel-max over the candidates), so it draws from
+    another distribution than the JAX host cascade and rows it sits beside."""
     if key.greedy:
         return torch.argmax(logits)
-    vals, idx = torch.topk(logits, key.n_cand)  # descending
-    vals = vals / sv.vals[0]
-    if key.top_p_cuts:
-        cum = torch.cumsum(torch.softmax(vals, dim=-1), dim=-1)
-        # keep tokens while the cumulative mass BEFORE them is < top_p
-        # (the reference keeps at least one, llama_sample_top_p libfalcon.cpp:3122)
-        keep = torch.cat([torch.ones(1, dtype=torch.bool, device=vals.device),
-                          cum[:-1] < sv.vals[1]])
-        vals = torch.where(keep, vals, float("-inf"))
-    # categorical draw as Gumbel-max (as jax.random.categorical does);
-    # torch.multinomial would synchronize with the host every token
-    pick = torch.argmax(vals - torch.log(-torch.log(u)))
-    return idx.gather(0, pick.reshape(1)).reshape(())  # a tensor index would read it on the host
+    probs, mask, idx = cascade_slice(logits, key, sv)
+    pick = _draw(probs, mask, u.reshape(1))
+    return idx.gather(0, pick).reshape(())  # a tensor index would read it on the host
 
 
 # ---------------------------------------------------------------------------
@@ -249,13 +259,13 @@ def _draw(probs: torch.Tensor, mask: torch.Tensor, u: torch.Tensor) -> torch.Ten
     return torch.where(sel.any(dim=-1), _first(sel), last_kept)
 
 
-def cascade_mask_probs(vals: torch.Tensor, temp: torch.Tensor, top_p: torch.Tensor,
+def cascade_mask_probs(vals: torch.Tensor, temp: torch.Tensor, top_p: torch.Tensor | None,
                        top_k_rows: torch.Tensor, tfs_z: torch.Tensor | None = None,
                        typical_p: torch.Tensor | None = None):
     """The truncations and the temperature of cascade_rows without the draw
     (cascade_mask_probs:129): (probs, mask) over the descending top-k slice
     `vals` (B, k), in the host order top-k -> tail-free -> typical -> top-p
-    (on the unscaled distribution) -> temperature."""
+    (on the unscaled distribution; None: no row cuts) -> temperature."""
     B, k = vals.shape
     rank = torch.arange(k, device=vals.device)[None, :]
     mask = rank < torch.clamp(top_k_rows, min=1)[:, None]
@@ -288,10 +298,12 @@ def cascade_mask_probs(vals: torch.Tensor, temp: torch.Tensor, top_p: torch.Tens
         lastx = torch.where(over.any(dim=-1), _first(over) + 1, k)
         keep = torch.zeros_like(mask).scatter(1, order, rank < lastx[:, None])
         mask = mask & torch.where((typical_p < 1.0)[:, None], keep, True)
-    probs = _masked_softmax(vals, mask)
-    cum = torch.cumsum(probs, dim=-1)
-    is_first = torch.cumsum(mask.to(torch.int32), dim=-1) == 1
-    mask = mask & torch.where((top_p < 1.0)[:, None], is_first | (cum <= top_p[:, None]), True)
+    if top_p is not None:
+        probs = _masked_softmax(vals, mask)
+        cum = torch.cumsum(probs, dim=-1)
+        is_first = torch.cumsum(mask.to(torch.int32), dim=-1) == 1
+        mask = mask & torch.where((top_p < 1.0)[:, None], is_first | (cum <= top_p[:, None]),
+                                  True)
     scaled = vals / torch.clamp(temp, min=1e-6)[:, None]
     return _masked_softmax(scaled, mask), mask
 

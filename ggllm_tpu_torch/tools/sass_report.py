@@ -1,7 +1,7 @@
-"""What nvcc made of the decode GEMVs and the f32 prefill tile: instruction
-counts of every `quant_gemv_legacy`, `quant_gemv_kq` and `quant_gemm_f32`
-instantiation in the built kernel library, read from `cuobjdump -sass` (CUDA
-toolkit) on the card's machine.
+"""What nvcc made of the decode GEMVs, the rows kernel and the f32 prefill
+tile: instruction counts of every `quant_gemv_legacy`, `quant_gemv_kq`,
+`quant_mmv_rows` and `quant_gemm_f32` instantiation in the built kernel
+library, read from `cuobjdump -sass` (CUDA toolkit) on the card's machine.
 
     python -m ggllm_tpu_torch.tools.sass_report
 
@@ -10,11 +10,14 @@ rows a warp, steps of row bytes in flight or in use (the loop's unrolled
 steps), x and y dtypes, instructions in the function, I2F (int to float
 conversions) in it, and its main loop (from the target of the last backward
 branch to that branch: `depth` steps of the lane's blocks) with the loop's
-instructions a weight. chip_smoke.py calls `gemv_report` after the build and
-fails if a GEMV holds an I2F. Then one JSON line per f32 tile instantiation
-(`tile_report`): format, x rows a block, instructions, and its main loop
-(one 64-column slab: two 32-groups) with its `HMMA` count, opcode counts and
-instructions a `HMMA`.
+instructions a weight (`parse_sass`). Then one JSON line per rows kernel
+instantiation (`parse_rows_sass`): format, n-tiles, cluster size,
+instructions, I2F, and its main loop (two units of 256 columns) with its
+`HMMA` count. chip_smoke.py reads both after the build (`sass_text`) and
+fails on an I2F in either kernel. Then one JSON line per f32 tile
+instantiation (`parse_tile_sass`): format, x rows a block, instructions,
+and its main loop (one 64-column slab: two 32-groups) with its `HMMA`
+count, opcode counts and instructions a `HMMA`.
 """
 
 from __future__ import annotations
@@ -56,11 +59,10 @@ def _describe(name: str) -> dict | None:
             "x": "bfloat16" if x_bf16 else "float32", "y": "bfloat16" if y_bf16 else "float32"}
 
 
-def gemv_report(library: str | Path) -> list[dict]:
-    """One dict per GEMV instantiation in `library` (see the module's
-    docstring)."""
-    return parse_sass(subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True,
-                                     text=True, check=True).stdout)
+def sass_text(library: str | Path) -> str:
+    """What `cuobjdump -sass` prints for `library`."""
+    return subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
 
 
 def _functions(sass: str):
@@ -89,7 +91,8 @@ def _counts(ins: list) -> dict[str, int]:
 
 
 def parse_sass(sass: str) -> list[dict]:
-    """gemv_report's rows from the text `cuobjdump -sass` prints."""
+    """One dict per GEMV instantiation in the text `cuobjdump -sass` prints
+    (see the module's docstring)."""
     out = []
     for name, ins in _functions(sass):
         desc = _describe(name)
@@ -107,7 +110,8 @@ def parse_sass(sass: str) -> list[dict]:
 
 
 def parse_tile_sass(sass: str) -> list[dict]:
-    """tile_report's rows from the text `cuobjdump -sass` prints."""
+    """One dict per f32 tile instantiation in the text `cuobjdump -sass`
+    prints (see the module's docstring)."""
     fmts = {**_FORMATS["legacy"], **_FORMATS["kq"]}
     out = []
     for name, ins in _functions(sass):
@@ -125,18 +129,31 @@ def parse_tile_sass(sass: str) -> list[dict]:
     return out
 
 
-def tile_report(library: str | Path) -> list[dict]:
-    """One dict per f32 tile instantiation in `library` (see the module's
-    docstring)."""
-    return parse_tile_sass(subprocess.run([_cuobjdump(), "-sass", str(library)],
-                                          capture_output=True, text=True, check=True).stdout)
+def parse_rows_sass(sass: str) -> list[dict]:
+    """One dict per rows kernel instantiation in the text `cuobjdump -sass`
+    prints (see the module's docstring)."""
+    fmts = {**_FORMATS["legacy"], **_FORMATS["kq"]}
+    out = []
+    for name, ins in _functions(sass):
+        m = re.search(r"quant_mmv_rowsILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if not m or int(m.group(1)) not in fmts:
+            continue
+        ops = _counts(ins)
+        body = _main_loop(ins) or []
+        loop_ops = _counts(body)
+        out.append({"kernel": "quant_mmv_rows", "format": fmts[int(m.group(1))],
+                    "ntiles": int(m.group(2)), "cluster": int(m.group(3)),
+                    "instructions": len(ins), "I2F": ops.get("I2F", 0),
+                    "loop_instructions": len(body), "loop_HMMA": loop_ops.get("HMMA", 0),
+                    "loop_opcodes": dict(sorted(loop_ops.items(), key=lambda kv: -kv[1])[:12])})
+    return out
 
 
 def main() -> int:
     from ggllm_tpu_torch.kernels import build
 
-    lib = build.build()
-    for row in gemv_report(lib) + tile_report(lib):
+    text = sass_text(build.build())
+    for row in parse_sass(text) + parse_rows_sass(text) + parse_tile_sass(text):
         print(json.dumps(row), flush=True)
     return 0
 

@@ -12,6 +12,7 @@ its root, so that two trees can be timed in turns within one call.
         [--compute-dtype bfloat16] [--prompt 300] [--tokens 64]
     python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR] [--family legacy|kq]
         [--shape q4_0:12288x4096 ...]
+    python ggllm_tpu_torch/tools/time_kernels.py rows [--root DIR] [--shape q4_0:4544x22720 ...]
     python ggllm_tpu_torch/tools/time_kernels.py f32 [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py group_sums [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py f32path [--root DIR]
@@ -49,6 +50,18 @@ pick under the plain keys), `torch.matmul` on the dequantized bf16 weight
 timed the same two ways, the GEMV launch counters, and the byte bound at
 3.35 TB/s (medians of 20, L2 flushed before each); `--shape FMT:OxK` (one or
 more) times those weights instead of the family's.
+`rows` prints one JSON line per decode weight of the three families' B-row
+steps (Falcon-7B Q4_0 wqkvu / w_od / lm_head, LLaMA-7B Q4_0 wqkv / wo / w13
+/ w2 / lm_head, Falcon-40B Q4_K wqkv / ffn_up / w_od / lm_head; `--shape
+FMT:OxK` instead) and S = 1 ... 16 rows of bf16 x (bf16 y, f32 for lm_head),
+all as device time (a CUDA graph of one call, median of 20, L2 flushed
+before each): `quant_matmul` as the tree routes it (`graph_ms`: S = 1 the
+GEMV, 2-16 the rows kernel where the tree has one, with `cluster` the
+blocks that split K, also at every cluster size it is built for), the
+tensor-core tile at the
+same rows (`tile_graph_ms`: `quant_matmul_tc`, or a tree's own route where
+it has none), `torch.matmul` on the dequantized bf16 weight and the byte
+bound at 3.35 TB/s.
 `f32` prints one JSON line per shape of the f32 prefill kernels: the f32
 quant-matmul tile (f32 x and y) at every `TILE_SHAPES` weight for S in 512 and
 300 (also at 64 and 128 x rows a block, where the tree's tile has the
@@ -276,6 +289,56 @@ def time_gemv(shapes, bw: float = 3.35e12) -> None:
                                            flush)
         del deq
         print(json.dumps(row), flush=True)
+
+
+# the decode weights of the three families' B-row steps
+ROWS_SHAPES = (("q4_0", "wqkvu", 22848, 4544), ("q4_0", "w_od", 4544, 22720),
+               ("q4_0", "lm_head", 65024, 4544)) + tuple(
+    ("q4_0", "llama." + name, O, K) for name, O, K in _LLAMA7B) + (
+    ("q4_k", "40b.wqkv", 9216, 8192), ("q4_k", "40b.ffn_up", 32768, 8192),
+    ("q4_k", "40b.w_od", 8192, 40960), ("q4_k", "40b.lm_head", 65024, 8192))
+
+
+def time_rows(shapes, bw: float = 3.35e12) -> None:
+    import torch
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.utils.benchgen import random_quant
+    bf16 = torch.bfloat16
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    package = str(Path(build.__file__).resolve().parents[2])
+    tile = getattr(qm, "quant_matmul_tc", qm.quant_matmul)  # a tree without the rows kernel
+    picked = getattr(qm, "rows_cluster", None)
+    for fmt, name, O, K in shapes:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(O + K)
+        w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
+        wd = w.dequantize(bf16)
+        out = torch.float32 if name.endswith("lm_head") else bf16
+        wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+        for S in range(1, 17):
+            x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+            row = {"package": package, "fmt": fmt, "weight": name, "O": O, "K": K, "S": S,
+                   "bound_ms": (wbytes + S * K * 2 + S * O * out.itemsize) / bw * 1e3,
+                   "graph_ms": graph_ms(lambda i: qm.quant_matmul(w, x, out), 1, flush)}
+            if S > 1 and picked is not None:
+                row["cluster"] = picked(O)
+                for cl in qm.ROWS_CLUSTERS:
+                    qm.rows_cluster = lambda O_, cl=cl: cl
+                    try:
+                        row[f"graph_ms_cl{cl}"] = graph_ms(lambda i: qm.quant_matmul(w, x, out), 1,
+                                                           flush)
+                    finally:
+                        qm.rows_cluster = picked
+            if S > 1:
+                row["tile_graph_ms"] = graph_ms(lambda i: tile(w, x, out), 1, flush)
+            row["library_graph_ms"] = graph_ms(lambda i: torch.matmul(x, wd.t()), 1, flush)
+            row["launches"] = {k: v for k, v in build.launch_counts.items()
+                               if k.startswith("quant_matmul.")}
+            build.launch_counts.clear()
+            print(json.dumps(row), flush=True)
+        del w, wd
 
 
 def time_tile() -> None:
@@ -592,7 +655,7 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("tile", "attn", "decode", "gemv", "f32", "f32path",
+    ap.add_argument("what", choices=("tile", "attn", "decode", "gemv", "rows", "f32", "f32path",
                                      "group_sums"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
@@ -606,7 +669,7 @@ def main(argv=None) -> int:
     ap.add_argument("--family", choices=("legacy", "kq"), default="legacy",
                     help="gemv: the legacy formats' shapes or the K-quants'")
     ap.add_argument("--shape", action="append", default=[],
-                    help="gemv: a weight FMT:OxK to time instead, e.g. q4_0:12288x4096")
+                    help="gemv, rows: a weight FMT:OxK to time instead, e.g. q4_0:12288x4096")
     ap.add_argument("--cache", action="append", default=[],
                     choices=("bfloat16", "int8", "float32", "int8-f32q"),
                     help="attn: the caches to time (default bfloat16 and int8)")
@@ -623,15 +686,15 @@ def main(argv=None) -> int:
         time_group_sums()
     elif args.what == "f32path":
         time_f32_path(args.config, args.format, args.layers)
-    elif args.what == "gemv":
-        shapes = GEMV_SHAPES[args.family]
+    elif args.what in ("gemv", "rows"):
+        shapes = GEMV_SHAPES[args.family] if args.what == "gemv" else ROWS_SHAPES
         if args.shape:
             shapes = []
             for spec in args.shape:
                 fmt, dims = spec.split(":")
                 O, K = (int(v) for v in dims.split("x"))
                 shapes.append((fmt, f"{O}x{K}", O, K))
-        time_gemv(shapes)
+        (time_gemv if args.what == "gemv" else time_rows)(shapes)
     else:
         time_decode(args.config, args.format, args.kv_dtype, args.prompt, args.tokens,
                     args.compute_dtype)

@@ -208,7 +208,7 @@ def test_pipelined_early_stop_advances_then_rolls_back(files):
     assert eng.n_past == base + 8
     eng.rollback(base + 4)
     assert eng.n_past == base + 4
-    torch.empty(4, 40).uniform_(generator=ref_gen)  # the one consumed chunk's draw
+    torch.empty(4).uniform_(generator=ref_gen)  # the one consumed chunk's draw: a uniform a token
     assert torch.equal(gen.get_state(), ref_gen.get_state())
 
 

@@ -292,7 +292,7 @@ TILE_SASS = """
 
 
 def test_tile_sass_report_reads_cuobjdump_text():
-    """The f32 tile's SASS report (tools/sass_report.py tile_report) on text
+    """The f32 tile's SASS report (tools/sass_report.py parse_tile_sass) on text
     shaped as cuobjdump prints it: only quant_gemm_f32 instantiations, named
     by format and x rows a block; its loop from the backward branch's target
     to the branch, with the HMMA count and instructions a HMMA."""

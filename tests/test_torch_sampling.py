@@ -1,9 +1,13 @@
 """The port's device sampling cascade against the JAX package's, on the CPU.
 
 Penalties are deterministic and compared value for value. Draws cannot match
-(jax threefry and torch's generator differ), so the sampled distribution is
-compared with the one JAX's cascade defines: top-k, then temperature, then
-the top-p keep rule of ggllm_tpu/ops/sampling_device.py:344-347.
+(jax threefry and torch's generator differ), so the single stream's
+distribution over its top-k slice is compared with the JAX rows' cascade
+(cascade_mask_probs: top-k, top-p on the unscaled distribution, then the
+temperature, the host cascade's order), and its draw on an explicit uniform
+with the rows' and the host cascade's. The JAX single stream's own cascade
+(sample_logits, temperature before top-p) is not the reference: it disagrees
+with the JAX host cascade and rows.
 """
 
 import numpy as np
@@ -67,37 +71,66 @@ def test_neutral_penalty_values_are_exact_no_ops():
                        torch.signbit(logits))
 
 
-def _cascade_probs(logits, temp, top_k, top_p):
-    """The distribution jax sample_logits draws from, over the vocab."""
-    k = top_k if 0 < top_k < logits.size else min(logits.size, 1024)
-    idx = np.argsort(-logits, kind="stable")[:k]
-    vals = logits[idx] / temp
-    if top_p < 1.0:
-        p = np.exp(vals - vals.max())
-        cum = np.cumsum(p / p.sum())
-        keep = np.concatenate([[True], cum[:-1] < top_p])
-        vals = np.where(keep, vals, -np.inf)
-    p = np.exp(vals - vals.max())
-    out = np.zeros(logits.size)
-    out[idx] = p / p.sum()
-    return out
-
-
 @pytest.mark.parametrize("temp,top_k,top_p", [(0.7, 10, 0.8), (1.0, 0, 1.0), (0.5, 40, 0.95)])
 def test_sample_logits_distribution(temp, top_k, top_p):
+    """The single stream's probabilities over its top-k slice equal the JAX
+    cascade_mask_probs' on the same slice within 1e-6, and 20000 draws on
+    uniforms from a seed follow them within 0.015 (none outside the kept
+    set)."""
     logits = (np.random.default_rng(1).standard_normal(V) * 2).astype(np.float32)
-    expected = _cascade_probs(logits.astype(np.float64), temp, top_k, top_p)
-    gen = torch.Generator().manual_seed(3)
-    t = torch.from_numpy(logits)
-    n = 20000
     k = tsd.n_candidates(top_k, V)
     key, sv = _device_sampler(TSamplerParams(temp=temp, top_k=top_k, top_p=top_p))
     assert key.n_cand == k
-    draws = np.array([int(tsd.sample_logits(t, key, sv, torch.rand(k, generator=gen)))
+    t = torch.from_numpy(logits)
+    probs, mask, idx = tsd.cascade_slice(t, key, sv)
+    vals = t[idx].numpy()
+    jprobs, jmask = jsd.cascade_mask_probs(
+        jnp.asarray(vals)[None], jnp.asarray([temp], jnp.float32),
+        jnp.asarray([top_p], jnp.float32), jnp.asarray([k], jnp.int32))
+    assert mask.numpy().tolist() == np.asarray(jmask).tolist()
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), rtol=0, atol=1e-6)
+    expected = np.zeros(V)
+    expected[idx.numpy()] = np.asarray(jprobs, np.float64)[0]
+    gen = torch.Generator().manual_seed(3)
+    n = 20000
+    draws = np.array([int(tsd.sample_logits(t, key, sv, torch.rand(1, generator=gen)))
                       for _ in range(n)])
     freq = np.bincount(draws, minlength=V) / n
     assert np.all(freq[expected == 0] == 0)
     np.testing.assert_allclose(freq, expected, atol=0.015)
+
+
+class _Replay:
+    """np.random.Generator stand-in replaying preset uniforms."""
+
+    def __init__(self, us):
+        self.us = list(us)
+
+    def random(self):
+        return self.us.pop(0)
+
+
+@pytest.mark.parametrize("temp,top_k,top_p", [(0.7, 10, 0.8), (1.0, 200, 1.0), (0.5, 40, 0.95),
+                                              (1.3, 64, 0.9)])
+def test_single_stream_draw_is_the_rows_and_the_hosts(temp, top_k, top_p):
+    """For the same logits, knobs and uniform u, the single stream's id
+    equals cascade_rows' at B = 1 and the host cascade's (ops/sampling.py
+    sample) replaying u, at eleven uniforms (knobs the device path takes:
+    top_k <= 0 goes to the host, device_samplable)."""
+    logits = (np.random.default_rng(4).standard_normal(V) * 3).astype(np.float32)
+    t = torch.from_numpy(logits)
+    params = TSamplerParams(temp=temp, top_k=top_k, top_p=top_p, repeat_penalty=1.0,
+                            repeat_last_n=0)
+    assert tsd.device_samplable(params)
+    key, sv = _device_sampler(params)
+    vals, idx = torch.topk(t, key.n_cand)
+    for u in np.linspace(0.01, 0.99, 11).astype(np.float32):
+        got = int(tsd.sample_logits(t, key, sv, torch.tensor(u)))
+        rank = tsd.cascade_rows(vals[None], torch.tensor([u]), torch.tensor([temp]),
+                                torch.tensor([top_p]), torch.tensor([key.n_cand]))
+        assert got == int(idx[rank[0]]), u
+        state = tsm.SamplerState(rng=_Replay([float(u)]), mu=10.0)
+        assert got == tsm.sample(logits, [], params, state, nl_token=193), u
 
 
 def test_greedy_is_argmax_like_jax():

@@ -6,7 +6,8 @@ run only on the card. Their index arithmetic is stated once more in Python
 tc_block_plan) and held here against the plain versions:
  * the tile's per-thread fragment decode reproduces dequantize(f32) rounded
    once to bf16, bit for bit, for all ten formats;
- * `route` and `tc_rows`, the rules that pick a kernel and its tile width;
+ * `route` and `tc_rows`, the rules that pick a kernel and its tile width
+   (S > 16; fewer bf16 rows run the rows kernel, tests/test_torch_rows.py);
  * x @ bf16(dequant(W))^T in f32, the value the tile accumulates, stays
    within the bf16 tolerance of the JAX package's Pallas kernel (interpret
    mode), which is the tolerance the card check uses;
@@ -112,7 +113,10 @@ def test_fragment_table_covers_each_element_once(gtype):
 @pytest.mark.parametrize("S", [1, 2, 300, 512])
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_route(gtype, S, xdtype):
-    want = "gemv" if S == 1 else "tc" if xdtype == torch.bfloat16 else "f32"
+    """One row the GEMV, 2 to 16 bf16 rows the rows kernel, more the tile; f32
+    rows > 1 the f32 tile."""
+    want = ("gemv" if S == 1 else "f32" if xdtype == torch.float32
+            else "rows" if S <= tqm.ROWS_MAX_S else "tc")
     assert tqm.route(S, xdtype, TGGMLType(int(gtype))) == want
 
 
@@ -129,7 +133,7 @@ def test_route_refuses():
         tfa.route(torch.bfloat16, 256)
 
 
-@pytest.mark.parametrize("S,O,want", [(2, 100, 16), (16, 100, 16), (17, 100, 64), (64, 4544, 64),
+@pytest.mark.parametrize("S,O,want", [(17, 100, 64), (64, 4544, 64),
                                       (65, 4544, 128), (128, 4544, 128), (129, 4544, 256),
                                       (300, 22848, 256), (300, 9216, 128), (512, 22848, 256),
                                       (512, 4544, 256), (512, 4096, 256), (513, 65024, 256),
