@@ -100,6 +100,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      layers, F32_LOGIT_TOL), with
      aggregate and per-row tok/s beside the single stream's, admission time,
      B-row step device ms at B = 1, 2, 4, 8, 16 and capture ms;
+     on the same Falcon-7B Q4_0 engine also grammar-constrained decoding
+     (the Generator's masked chunks): 64 greedy ids under `root ::= [0-9]+`
+     and under a small JSON grammar through the masked graphs equal to the
+     eager masked step body's, every id accepted by the grammar, at least
+     one 16-step masked chunk rolled back, the unmasked greedy graph's node
+     count the parent's (UNMASKED_GRAPH_NODES), a sampled run at temperature
+     0.8 within the grammar, grammar tok/s beside the unmasked rate and the
+     host ms of valid_bits at the full vocabulary; and the server with
+     --parallel 4 over the batching engine (serve(parallel=4, chunk=16,
+     prefill_chunk=256) on 127.0.0.1 at a free port): 8 requests at once (4
+     greedy, 2 sampled, 1 grammar, 1 streamed) beside a top-k 100 request
+     and a bad grammar, which must get HTTP 400 while the others complete,
+     every greedy request's ids within ROWS_LOGIT_TOL of the batch-1 engine
+     with its ids forced, digits for the grammar request, the stream
+     concatenating to its request's ids' pieces, /metrics counting the
+     requests sent, the rows kernel and the grouped decode kernel and no
+     GEMV launched, with aggregate tok/s, each request's prompt_ms and
+     predicted_per_second, and the aggregate of 4 requests with and without
+     a grammar row among them;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -133,6 +152,25 @@ LOGIT_TOL = 5e-2
 # LOGIT_TOL (at most 7.4e-3 of max |logit|) on an H100
 ROWS_LOGIT_TOL = 1e-2
 N_RUNS, N_WARM = 20, 3
+# nodes of the single stream's unmasked greedy 16-step decode graph on the
+# Falcon-7B Q4_0 engine (32 layers, bf16 cache; cuGraphGetNodes on the
+# captured graph, tools/time_kernels.py nodes), as the tree before masked
+# decode captured it on an H100: the masked chunks must leave it as it was
+# (a change to the single stream's step body updates this number)
+UNMASKED_GRAPH_NODES = 12847
+DIGITS = "root ::= [0-9]+"
+JSON_GBNF = r"""
+root   ::= object
+value  ::= object | array | string | number | "true" | "false" | "null"
+object ::= "{" ws ( member ( "," ws member )* )? "}" ws
+member ::= string ":" ws value
+array  ::= "[" ws ( value ( "," ws value )* )? "]" ws
+string ::= "\"" char* "\"" ws
+char   ::= [^"\\\x00-\x1f] | "\\" (["\\/bfnrt] | "u" [0-9a-fA-F] [0-9a-fA-F] [0-9a-fA-F] [0-9a-fA-F])
+number ::= "-"? [0-9]+ ("." [0-9]+)? ws
+ws     ::= [ \t\n]*
+"""
+GRAMMARS = (("digits", DIGITS), ("json", JSON_GBNF))
 
 # card peaks (NVIDIA data sheets): memory rate, dense bf16 and TF32 tensor
 # rates, and float32 outside the tensor cores
@@ -1328,7 +1366,7 @@ def phase_batching(torch, eng1, params, hp) -> dict:
     log(f"  2-layer f32 route, 4 greedy requests through {B} rows: graph = eager; against the"
         f" batch-1 engine: {f32_single}")
     del e4, e1, params2
-    return {"path": f"falcon7b q4_0 continuous batching B={B}", "launches": counts,
+    return {"path": f"falcon7b q4_0 continuous batching B={B}", "launches": counts, "engine": eng,
             "decode_tok_s": agg, "decode_tok_s_per_row": agg / B, "single_tok_s": single_tps,
             "prefill_ms": prefill_ms, "prefill_tokens": prefill_tokens,
             "capture_ms": capture_ms, "wall_s": wall, "step_ms": step_ms,
@@ -1490,6 +1528,283 @@ def phase_server(torch, eng, hp) -> dict:
             raise RuntimeError(f"kernel {name} was not launched on the server path")
     return {"path": "falcon7b q4_0 server", "launches": counts, "requests": timings,
             "graphs": graphs(), "capture_ms": eng.timings.t_compile_us / 1e3}
+
+
+def phase_grammar(torch, eng, hp) -> dict:
+    """Grammar-constrained decoding on the single stream (engine/generator.py
+    over decode_chunk_masked) at full width and depth, from a 300-token
+    prompt, the vocabulary make_tiny_vocab's at n_vocab: 64 greedy ids
+    (the end of text banned) under `root ::= [0-9]+` and under JSON_GBNF
+    through the masked graphs must equal the eager masked step body's, each
+    accepted by a fresh GrammarSampler; at least one 16-step masked chunk
+    must have been rolled back at a state change or the run's end; the
+    unmasked greedy 16-step graph of the main path must hold
+    UNMASKED_GRAPH_NODES nodes; a sampled digit run (temperature 0.8, top-k
+    40, top-p 0.95, repeat penalty 1.1) must stay in the grammar. Prints
+    grammar tok/s (the graphs' captures apart, the host's valid_bits walks
+    included) beside the unmasked Generator's on the same prompt and
+    sampler, and the host ms of valid_bits at n_vocab (a new state, the JSON
+    string's interior, a cached state). The unmasked and the eager runs come
+    first; the launch counts are those of the masked graphs' runs alone
+    (their prefills, host-path first ids and masked chunks), which must have
+    launched the tile, the GEMV and both attention kernels."""
+    from ggllm_tpu_torch.engine.generator import Generator
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.grammar import GrammarSampler, build_token_trie, parse_gbnf
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.tools.time_kernels import graph_nodes
+    from ggllm_tpu_torch.utils.synthetic import make_tiny_vocab
+
+    import numpy as np
+
+    pieces, eos = make_tiny_vocab(hp.n_vocab).id_to_token, 11
+    main_graph = eng.chunk_graph(16, SamplerParams(temp=0.0))
+    if main_graph is None:
+        raise RuntimeError("the main path's greedy 16-step graph is not in the engine")
+    nodes = graph_nodes(main_graph.graph)
+    t0 = time.perf_counter()
+    trie = build_token_trie(pieces, eos)
+    trie_ms = (time.perf_counter() - t0) * 1e3
+    prompt = [int(t) for t in np.random.default_rng(3).integers(12, hp.n_vocab, 300)]
+    greedy = SamplerParams(temp=0.0, repeat_penalty=1.0, logit_bias={eos: float("-inf")})
+    sampled = SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1, seed=5,
+                            logit_bias={eos: float("-inf")})
+
+    def run(text, sampler, eager=False, n=64):
+        gs = None if text is None else GrammarSampler(parse_gbnf(text), pieces, eos, trie=trie)
+        eng.reset()
+        gen = Generator(eng, sampler, eos, grammar=gs)
+        gen.eager = eager
+        logits = gen.prefill(prompt)
+        toks = []
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), eng.timings.t_compile_us
+        gen.generate(logits, n, lambda t: toks.append(t) or True)
+        # the first use of a sampler key captures its graphs: not decode time
+        tps = len(toks) / (time.perf_counter() - t0 - (eng.timings.t_compile_us - c0) / 1e6)
+        if len(toks) != n:
+            raise RuntimeError(f"grammar run {text!r}: {len(toks)} ids of {n}")
+        if text is not None:
+            check = GrammarSampler(parse_gbnf(text), pieces, eos, trie=trie)
+            for t in toks:
+                check.accept(t)  # GrammarError if an id left the grammar
+        return toks, tps, gen.masked_stats
+
+    _, plain_tps, _ = run(None, greedy)
+    out = {"unmasked_tok_s": plain_tps, "unmasked_graph_nodes": nodes, "trie_ms": trie_ms}
+    eager = {name: run(text, greedy, eager=True) for name, text in GRAMMARS}
+    build.launch_counts.clear()  # the masked graphs' runs from here
+    greedy_ids = {}
+    for name, text in GRAMMARS:
+        ids, tps, stats = greedy_ids[name] = run(text, greedy)
+        eager_ids, eager_tps, _ = eager[name]
+        if ids != eager_ids:
+            raise RuntimeError(f"{name} grammar: the masked graphs' ids differ from the eager"
+                               f" masked step body's:\n{ids}\n{eager_ids}")
+        text_out = b"".join(pieces[t] for t in ids)
+        out[name] = {"tok_s": tps, "eager_tok_s": eager_tps, "stats": dict(stats),
+                     "text": text_out[:80].decode("utf-8", "replace")}
+        log(f"  grammar {name}: 64 greedy ids, masked graphs = eager masked body, all accepted;"
+            f" {tps:.2f} tok/s (eager {eager_tps:.2f}; unmasked Generator {plain_tps:.2f});"
+            f" masked dispatches {stats}; text {out[name]['text']!r}")
+    if not any(out[k]["stats"]["chunks"] and out[k]["stats"]["rolled_back"]
+               for k in ("digits", "json")):
+        raise RuntimeError(f"no 16-step masked chunk was rolled back: {out}")
+    if not all(pieces[t].isdigit() for t in greedy_ids["digits"][0]):
+        raise RuntimeError("greedy digit run left the digits")
+    ids, tps, stats = run(DIGITS, sampled)
+    if not all(pieces[t].isdigit() for t in ids):
+        raise RuntimeError(f"sampled digit run left the digits: {ids}")
+    out["digits_sampled"] = {"tok_s": tps, "stats": dict(stats)}
+    counts = dict(build.launch_counts)
+    masked = eng.chunk_graph(16, greedy, masked=True)
+    out["masked_graph_nodes"] = None if masked is None else graph_nodes(masked.graph)
+    log(f"  grammar sampled digits (temp 0.8): 64 ids in the grammar, {tps:.2f} tok/s; unmasked"
+        f" greedy 16-step graph {nodes} nodes (want"
+        f" {UNMASKED_GRAPH_NODES}), masked 16-step graph {out['masked_graph_nodes']}")
+    # the host's part: valid_bits at the full vocabulary
+    ms = {}
+    for label, text, prefix in (("digits, new state", DIGITS, b""),
+                                ("json, new state", JSON_GBNF, b""),
+                                ("json, string interior", JSON_GBNF, b'{"')):
+        gs = GrammarSampler(parse_gbnf(text), pieces, eos, trie=trie)
+        for b in prefix:
+            gs.accept(pieces.index(bytes([b])))
+        t0 = time.perf_counter()
+        gs.valid_bits()
+        t1 = time.perf_counter()
+        gs.valid_bits()
+        ms[label] = {"ms": (t1 - t0) * 1e3, "cached_ms": (time.perf_counter() - t1) * 1e3,
+                     "valid": int(gs.valid_token_ids().size)}
+    out["valid_bits_ms"] = ms
+    log(f"  valid_bits at V = {hp.n_vocab} on the host: {ms}; the token trie built in"
+        f" {trie_ms:.1f} ms")
+    log(f"  launches of the masked graphs' runs: {counts}")
+    for name in ("quant_matmul.gemv", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc"):
+        if counts.get(name, 0) <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the grammar path")
+    if nodes != UNMASKED_GRAPH_NODES:
+        raise RuntimeError(f"the unmasked greedy graph holds {nodes} nodes,"
+                           f" not {UNMASKED_GRAPH_NODES}")
+    eng.reset()
+    return {"path": "falcon7b q4_0 grammar, single stream", "launches": counts, **out}
+
+
+def phase_server_parallel(torch, eng4, eng1, hp) -> dict:
+    """The server with --parallel 4 (server/app.py serve(parallel=4,
+    chunk=16, prefill_chunk=256)) over the batching phase's 4-row engine
+    `eng4`, on 127.0.0.1 at a free port: 8 requests sent at once from
+    threads (4 greedy at repeat penalty 1, 2 sampled at the server's
+    defaults, 1 under `root ::= [0-9]+` with ignore_eos, 1 greedy streamed)
+    and beside them a top-k 100 request and a bad grammar, which must get
+    HTTP 400 while the others complete; twice, the first burst warming the
+    server (graph captures, the token trie), the second measured and held
+    to what follows. The batcher's Requests are recorded
+    at submit: every greedy request's ids (the streamed one's too) within
+    ROWS_LOGIT_TOL of the batch-1 engine `eng1` with its ids forced
+    (_against_single), the grammar request's content digits, the stream's
+    chunks the pieces of its request's ids, /metrics the requests sent;
+    the rows kernel and flash_decode_tc ran and no GEMV. Then 4 greedy
+    requests at once, and 3 with one grammar request: aggregate tok/s of
+    each (tokens over the wall time, admission included)."""
+    import concurrent.futures
+    import threading
+    import urllib.error
+
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.server.app import serve
+    from ggllm_tpu_torch.utils.synthetic import make_tiny_vocab
+
+    vocab = make_tiny_vocab(hp.n_vocab)
+    httpd = serve(eng4, vocab, "127.0.0.1", 0, parallel=4, alias="falcon-7b-q4_0-random",
+                  chunk=16, prefill_chunk=256)
+    state = httpd.state
+    submitted, submit = [], state.batcher.submit
+
+    def record(req):
+        submitted.append(req)
+        return submit(req)
+
+    state.batcher.submit = record
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    text = ("the thing and the other thing went south, and then it went north again. " * 4)
+
+    def prompt(i: int, n: int = 60) -> str:
+        return f"request {i}: " + text[i * 7:i * 7 + n]
+
+    greedy = {"n_predict": 64, "temperature": 0, "repeat_penalty": 1.0}
+    bodies = ([{"prompt": prompt(i, 40 + 40 * i), **greedy} for i in range(4)]
+              + [{"prompt": prompt(4 + i), "n_predict": 64, "seed": i} for i in range(2)]
+              + [{"prompt": prompt(6), "n_predict": 32, "temperature": 0,
+                  "repeat_penalty": 1.0, "grammar": DIGITS, "ignore_eos": True}]
+              + [{"prompt": prompt(7, 200), **greedy}])
+    bad = [{"prompt": prompt(8), "n_predict": 8, "temperature": 0.8, "top_k": 100},
+           {"prompt": prompt(9), "n_predict": 8, "grammar": "root ::= [z-a]"}]
+
+    def call(body, stream=False):
+        try:
+            return 200, _http(url, "/completion", body, stream=stream)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def burst(batch, streamed=()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(batch)) as ex:
+            futs = [ex.submit(call, b, i in streamed) for i, b in enumerate(batch)]
+            got = [f.result() for f in futs]
+        return got, time.perf_counter() - t0
+
+    try:
+        # a first burst of the same requests captures the B-row graphs of
+        # their keys and builds the grammar's token trie (the server's
+        # one-time costs); the second is the measured one
+        cold, cold_wall = burst(bodies + bad, streamed={7})
+        cold_ms = [r["timings"]["prompt_ms"] for _, r in cold[:7]]
+        log(f"  --parallel 4, first burst: {cold_wall:.3f} s, prompt_ms {cold_ms} (captures of"
+            f" the requests' B-row graph keys, {eng4.timings.t_compile_us / 1e3:.1f} ms of capture"
+            f" in the engine so far, and the grammar's token trie)")
+        submitted.clear()
+        build.launch_counts.clear()
+        got, wall = burst(bodies + bad, streamed={7})
+        counts = dict(build.launch_counts)
+        codes = [c for c, _ in got]
+        if codes != [200] * 8 + [400, 400]:
+            raise RuntimeError(f"--parallel 4: HTTP codes {codes}: {got}")
+        if not got[9][1]["error"].startswith("bad grammar") or "top_k" not in got[8][1]["error"]:
+            raise RuntimeError(f"--parallel 4: the 400s' reasons: {got[8:]}")
+        finals = [r for _, r in got[:7]] + [got[7][1][-1]]
+        by_prompt = {tuple(r.prompt_ids): r for r in submitted}
+        reqs = [by_prompt[tuple(state.tk.tokenize(b["prompt"], bos=True))] for b in bodies]
+        if any(r.error is not None for r in reqs):
+            raise RuntimeError(f"--parallel 4: failed requests {[r.error for r in reqs]}")
+        n_tokens = sum(f["tokens_predicted"] for f in finals)
+        if finals[6]["tokens_predicted"] != 32 or not finals[6]["content"].isdigit():
+            raise RuntimeError(f"--parallel 4: the grammar request answered {finals[6]}")
+        streamed = "".join(e["content"] for e in got[7][1][:-1])
+        want = "".join(vocab.id_to_token[t].decode("utf-8", "replace") for t in reqs[7].out
+                       if t != 11)
+        if streamed != want or not got[7][1][-1]["stop"]:
+            raise RuntimeError(f"--parallel 4: the stream {streamed!r} is not its ids' {want!r}")
+        metrics = _http(url, "/metrics")
+        cold_finals = [r for _, r in cold[:7]] + [cold[7][1][-1]]
+        want_m = {"requests_total": 16,
+                  "prompt_tokens_total": sum(f["tokens_evaluated"]
+                                             for f in finals + cold_finals),
+                  "generated_tokens_total": n_tokens + sum(f["tokens_predicted"]
+                                                           for f in cold_finals)}
+        for name, n in want_m.items():
+            if f"ggllm_{name} {n}\n" not in metrics:
+                raise RuntimeError(f"--parallel 4: /metrics lacks ggllm_{name} {n}:\n{metrics}")
+        log(f"  --parallel 4: 8 requests and 2 refused (400: {got[8][1]['error']!r},"
+            f" {got[9][1]['error']!r}) at once: {n_tokens} tokens in {wall:.3f} s,"
+            f" {n_tokens / wall:.2f} tok/s aggregate; /metrics {want_m}")
+        names = ["greedy 0", "greedy 1", "greedy 2", "greedy 3", "sampled 4", "sampled 5",
+                 "grammar 6", "streamed 7"]
+        per_request = {}
+        for name, f in zip(names, finals):
+            t = f["timings"]
+            per_request[name] = {"tokens_evaluated": f["tokens_evaluated"],
+                                 "tokens_predicted": f["tokens_predicted"],
+                                 "prompt_ms": t["prompt_ms"],
+                                 "predicted_per_second": t["predicted_per_second"]}
+            log(f"  --parallel 4 {name}: {f['tokens_evaluated']} evaluated,"
+                f" {f['tokens_predicted']} predicted, prompt_ms {t['prompt_ms']},"
+                f" predicted_per_second {t['predicted_per_second']}")
+        log(f"  launches on the --parallel 4 path: {counts}")
+        for name in ("quant_matmul.rows", "flash_decode_tc"):
+            if counts.get(name, 0) <= 0:
+                raise RuntimeError(f"kernel {name} was not launched on the --parallel 4 path")
+        if counts.get("quant_matmul.gemv", 0) or counts.get("quant_matmul.gemv.kq", 0):
+            raise RuntimeError(f"a one-row GEMV ran on the --parallel 4 path: {counts}")
+        # aggregate rate with and without a grammar row among 4 requests
+        agg = {}
+        four = [{"prompt": prompt(10 + i, 120), **greedy} for i in range(4)]
+        with_grammar = four[:3] + [{**bodies[6], "prompt": prompt(14, 120), "n_predict": 64}]
+        for label, batch in (("4 greedy", four), ("3 greedy + 1 grammar", with_grammar)):
+            res, w = burst(batch)
+            if any(c != 200 for c, _ in res):
+                raise RuntimeError(f"--parallel 4, {label}: {res}")
+            n = sum(r["tokens_predicted"] for _, r in res)
+            agg[label] = {"tokens": n, "wall_s": w, "tok_s": n / w}
+        log(f"  --parallel 4 aggregate, 4 requests of 64 tokens at once: " + "; ".join(
+            f"{k} {v['tok_s']:.2f} tok/s ({v['tokens']} tokens in {v['wall_s']:.3f} s)"
+            for k, v in agg.items()))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        state.thread.join(timeout=60)
+    single = {}
+    for i in (0, 1, 2, 3, 7):
+        single[names[i]] = _against_single(eng1, reqs[i].prompt_ids, reqs[i].out,
+                                           f"--parallel 4 {names[i]}", ROWS_LOGIT_TOL)
+    return {"path": "falcon7b q4_0 server --parallel 4", "launches": counts,
+            "aggregate_tok_s": n_tokens / wall, "wall_s": wall, "requests": per_request,
+            "first_burst_wall_s": cold_wall, "first_burst_prompt_ms": cold_ms,
+            "aggregate_4": agg, "greedy_vs_single": single}
 
 
 def phase_scores(torch, eng, params, hp, logit_scale: float) -> list[dict]:
@@ -1792,7 +2107,10 @@ def main() -> int:
     log("phase 3: full-width main paths")
     paths = []
     def serve_and_score(eng, params, hp, logit_scale):
-        log("  -- falcon7b q4_0: the server")
+        log("  -- falcon7b q4_0: grammar on the single stream")
+        t0 = time.perf_counter()
+        grammar = phase_grammar(torch, eng, hp)
+        log(f"  -- falcon7b q4_0: the server (grammar took {time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         served = phase_server(torch, eng, hp)
         log(f"  -- falcon7b q4_0: perplexity and embeddings (the server took"
@@ -1803,8 +2121,12 @@ def main() -> int:
         log("  -- falcon7b q4_0: continuous batching, 4 rows")
         t0 = time.perf_counter()
         batched = phase_batching(torch, eng, params, hp)
-        log(f"  (batching took {time.perf_counter() - t0:.1f} s)")
-        return [served, *scored, batched]
+        log(f"  -- falcon7b q4_0: the server with --parallel 4 (batching took"
+            f" {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        parallel = phase_server_parallel(torch, batched.pop("engine"), eng, hp)
+        log(f"  (--parallel 4 took {time.perf_counter() - t0:.1f} s)")
+        return [grammar, served, *scored, batched, parallel]
 
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")

@@ -23,10 +23,18 @@ The uniforms come from one explicit, seeded torch.Generator; those a
 sampled row consumed are kept on its request (Request.us), so that the host
 cascade can replay them.
 
+Grammar rows (Request.grammar_sampler, ops/grammar.py GrammarSampler): the
+first id goes through filter_logits, the host cascade and `accept`; while
+any row holds a grammar, the whole batch decodes in 1-step chunks with a
+(B, ceil(V/8)) mask of packed bits (each grammar row's valid_bits, all ones
+for the other rows), applied on the device before the bias and the
+penalties, and every id of a grammar row is `accept`ed (the JAX batcher's
+batching.py:328-337, :371-372).
+
 Unlike the JAX batcher, whose scheduler dies when one row raises
-(engine/batching.py:337), a row whose stream callback raises fails alone:
-its request ends with Request.error set and its slot is freed. Grammar
-requests are refused (not ported: ROADMAP.md Queue 1 item 3).
+(engine/batching.py:337), a row whose stream callback, on_done callback or
+grammar raises (a GrammarError from valid_bits or accept) fails alone: its
+request ends with Request.error set and its slot is freed.
 """
 
 from __future__ import annotations
@@ -40,11 +48,10 @@ import torch
 
 from ggllm_tpu_torch.engine.engine import DECODE_CHUNK, FalconEngine
 from ggllm_tpu_torch.ops import sampling
-from ggllm_tpu_torch.ops.sampling_device import ROW_FIELDS
+from ggllm_tpu_torch.ops.grammar import GrammarError
+from ggllm_tpu_torch.ops.sampling_device import ROW_FIELDS, mask_bytes
 
 RING_LEN = 64  # penalty window (repeat_last_n's default, falcon_common.h)
-GRAMMAR_REFUSAL = ("grammar requests in the batcher are not ported yet"
-                   " (ROADMAP.md, Queue 1 item 3: grammar)")
 
 
 @dataclass
@@ -68,7 +75,9 @@ class Request:
     penalize_nl: bool = True
     logit_bias: dict = field(default_factory=dict)  # token id -> bias
     stop_ids: frozenset = frozenset()
-    grammar_sampler: object = None  # refused by submit (not ported)
+    # ops.grammar.GrammarSampler (this request's state): while any row holds
+    # one, the batch decodes one masked step a chunk
+    grammar_sampler: object = None
     # per-token callback(token_id); returning False stops the row, raising
     # fails this request alone
     stream: object = None
@@ -121,8 +130,6 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------ api
 
     def submit(self, req: Request) -> Request:
-        if req.grammar_sampler is not None:
-            raise NotImplementedError(GRAMMAR_REFUSAL)
         req.prompt_ids = list(map(int, np.asarray(req.prompt_ids).reshape(-1)))
         if not req.prompt_ids:
             raise ValueError("a request needs at least one prompt token")
@@ -193,7 +200,12 @@ class ContinuousBatcher:
         return min(req.top_k, self.top_k) if req.top_k > 0 else self.top_k
 
     def _activate(self, row: int, req: Request, logits: np.ndarray):
-        tok = self._sample_first(logits, req)
+        try:
+            tok = self._sample_first(logits, req)
+        except GrammarError as e:  # this request fails alone
+            req.error, req.done = e, True
+            self._free(row)
+            return
         self._emit(req, tok)
         if req.done:
             self._free(row)
@@ -207,7 +219,8 @@ class ContinuousBatcher:
     def _sample_first(self, logits: np.ndarray, req: Request) -> int:
         """The first token after the prompt: the whole host cascade, its
         uniform drawn from the batcher's generator and kept on req.us;
-        mirostat's mu goes on to the device rows through req.mu."""
+        mirostat's mu goes on to the device rows through req.mu; a grammar
+        masks the logits first (filter_logits) and accepts the id."""
         params = sampling.SamplerParams(
             temp=req.temp, top_k=self._top_k(req), top_p=req.top_p, tfs_z=req.tfs_z,
             typical_p=req.typical_p, repeat_penalty=req.repeat_penalty, repeat_last_n=RING_LEN,
@@ -224,8 +237,13 @@ class ContinuousBatcher:
                 return u
 
         state = sampling.SamplerState(rng=_Rec(), mu=2.0 * req.mirostat_tau)
+        gs = req.grammar_sampler
+        if gs is not None:
+            logits = gs.filter_logits(logits)
         tok = sampling.sample(logits, req.prompt_ids, params, state, n_ctx=self.eng.cfg.n_ctx,
                               nl_token=self.eng.nl_token)
+        if gs is not None:
+            gs.accept(tok)
         req.mu = state.mu
         return tok
 
@@ -290,6 +308,25 @@ class ContinuousBatcher:
                     vals[row, i] = float(b)
         return ids, vals
 
+    def _masks(self) -> np.ndarray | None:
+        """The rows' packed grammar masks (B, mask_bytes(V)) for the next
+        step, all ones for rows without a grammar; None when no live row
+        holds one. A row whose grammar cannot go on (valid_bits raises)
+        fails alone and is freed here."""
+        grammar_rows = [(row, r) for row, r in enumerate(self.rows)
+                        if r is not None and r.grammar_sampler is not None
+                        and row not in self.prefilling]
+        if not grammar_rows:
+            return None
+        mask = np.full((self.B, mask_bytes(self.eng.hp.n_vocab)), 0xFF, np.uint8)
+        for row, req in grammar_rows:
+            try:
+                mask[row] = req.grammar_sampler.valid_bits()
+            except GrammarError as e:
+                req.error, req.done = e, True
+                self._free(row)
+        return mask if any(self.rows[row] is not None for row, _ in grammar_rows) else None
+
     def _decode_chunk(self):
         # rows whose context is full end now (no token left to produce)
         for row, req in enumerate(self.rows):
@@ -297,14 +334,15 @@ class ContinuousBatcher:
                     and self.n_past[row] >= self.eng.cfg.n_ctx):
                 req.done = True
                 self._free(row)
+        mask = self._masks()
         if not self.active:
             return
         rings, fill = self._rings()
         bias_ids, bias_vals = self._bias_arrays()
-        steps = self.chunk
+        steps = self.chunk if mask is None else 1  # a grammar state holds for one id
         toks, us, new_mu = self.eng.decode_rows(
             self.last_tok, self.n_past, steps, self.knobs, rings, fill, bias_ids, bias_vals,
-            self.mu, top_k=self.top_k, generator=self.rng, eager=self.eager)
+            self.mu, top_k=self.top_k, generator=self.rng, eager=self.eager, mask_bits=mask)
         for row, req in enumerate(self.rows):
             if req is None or row in self.prefilling:
                 continue  # a row mid-prefill took junk steps
@@ -318,9 +356,19 @@ class ContinuousBatcher:
                 consumed = j + 1
                 if req.temp > 0:  # the host cascade draws one uniform a token
                     req.us.append(float(us[j, row]))
-                self._emit(req, int(toks[j, row]))
+                tok = int(toks[j, row])
+                if req.grammar_sampler is not None:
+                    try:
+                        req.grammar_sampler.accept(tok)  # raises if the mask failed
+                    except GrammarError as e:
+                        req.error, req.done = e, True
+                        break
+                self._emit(req, tok)
                 if req.done:
                     break
+            if req.error is not None:
+                self._free(row)
+                continue
             self.n_past[row] += consumed  # the forwards behind the consumed ids
             self.last_tok[row] = req.out[-1]
             if avail <= steps and consumed == avail:

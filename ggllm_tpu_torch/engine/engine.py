@@ -28,6 +28,14 @@ chunk's start plus that buffer, and one quantizing write ends the chunk.
 The cache's storage lives as long as the engine (`reset` zeroes it in
 place), since captured graphs point at it; assigning `kv` drops them.
 
+decode_chunk_masked runs the same chunks under a grammar's mask (the JAX
+engine's _masked_step_fn:733 / decode_chunk_masked:799): the chunk's key is
+masked, its packed mask bits (ops/grammar.py valid_bits) are one more
+static input written before each replay, so a new mask captures nothing,
+and the mask is applied before the bias and the penalties. The mask holds
+for the whole chunk: the caller (engine/generator.py) consumes ids up to
+the grammar state's first change and rolls the rest back.
+
 With batch_size B > 1 (the JAX engine's batched entry points,
 engine.py:917-1310, which engine/batching.py's ContinuousBatcher drives) the
 cache holds B rows, each at its own position, and the single-stream entry
@@ -106,7 +114,7 @@ class _Chunk:
 
     def __init__(self, n_steps: int, key: sampling_device.SamplerKey, n_vocab: int, device):
         self.n_steps, self.key, self.L = n_steps, key, key.ring  # L: the penalty ring's length
-        self.sv = sampling_device.SamplerValues(key, device)
+        self.sv = sampling_device.SamplerValues(key, device, n_vocab)
         self.tok = torch.zeros(1, dtype=torch.long, device=device)
         self.n_past = torch.zeros(1, dtype=torch.int32, device=device)
         self.ring = torch.full((self.L,), n_vocab, dtype=torch.long, device=device)
@@ -123,12 +131,13 @@ class _RowChunk:
     """One B-row decode-chunk program: its key (n_steps and the rows'
     sampling_device.RowKey), the static buffers its steps read and write
     (each row's token, n_past, penalty ring and ring position, the chunk's
-    (n_steps, B) uniforms, the per-row sampler values and mirostat mu), and
-    its CUDA graph once captured."""
+    (n_steps, B) uniforms, the per-row sampler values and mirostat mu, and
+    under a masked key the rows' grammar masks), and its CUDA graph once
+    captured."""
 
     def __init__(self, n_steps: int, key: sampling_device.RowKey, B: int, n_vocab: int, device):
         self.n_steps, self.key, self.L = n_steps, key, key.ring
-        self.rv = sampling_device.RowValues(key, B, device)
+        self.rv = sampling_device.RowValues(key, B, device, n_vocab)
         self.tok = torch.zeros(B, dtype=torch.long, device=device)
         self.n_past = torch.zeros(B, dtype=torch.int32, device=device)
         self.ring = torch.full((B, key.ring), n_vocab, dtype=torch.long, device=device)
@@ -320,12 +329,13 @@ class FalconEngine:
         gen.manual_seed(sampler.seed if sampler.seed >= 0 else 0)
         return gen
 
-    def _key(self, n_steps: int, sampler) -> tuple:
-        return (n_steps, sampling_device.sampler_key(sampler, self.hp.n_vocab, self.nl_token))
+    def _key(self, n_steps: int, sampler, masked: bool = False) -> tuple:
+        return (n_steps, sampling_device.sampler_key(sampler, self.hp.n_vocab, self.nl_token,
+                                                     masked))
 
-    def _chunk(self, n_steps: int, sampler) -> _Chunk:
-        """The decode-chunk program of (n_steps, the sampler's shape)."""
-        key = self._key(n_steps, sampler)
+    def _chunk(self, n_steps: int, sampler, masked: bool = False) -> _Chunk:
+        """The decode-chunk program of (n_steps, the sampler's shape, masked)."""
+        key = self._key(n_steps, sampler, masked)
         return self._program(key, lambda: _Chunk(*key, self.hp.n_vocab, self.device))
 
     def _program(self, key: tuple, make):
@@ -404,11 +414,15 @@ class FalconEngine:
         c.graph = graph
         self.timings.t_compile_us += (time.perf_counter() - t0) * 1e6
 
-    def _start(self, c: _Chunk, sampler, first_token: int, last_tokens, eager: bool) -> int:
-        """Write the sampler's values into c, capture c if it runs as a graph
-        and is not yet captured, then set its first token and penalty ring;
-        returns the ring position."""
+    def _start(self, c: _Chunk, sampler, first_token: int, last_tokens, eager: bool,
+               bits=None) -> int:
+        """Write the sampler's values (and under a masked key the mask
+        `bits`) into c, capture c if it runs as a graph and is not yet
+        captured, then set its first token and penalty ring; returns the
+        ring position."""
         c.sv.set(sampler, self.hp.n_vocab)
+        if c.key.masked:
+            c.sv.set_mask(bits)
         if not eager and self.device.type == "cuda" and c.graph is None:
             c.n_past.fill_(self.n_past)
             self._capture(c, self._steps)
@@ -464,6 +478,24 @@ class FalconEngine:
                             None, eager)
 
     @torch.inference_mode()
+    def decode_chunk_masked(self, first_token: int, mask_bits, n_steps: int = 1, sampler=None,
+                            generator: torch.Generator | None = None, last_tokens=None,
+                            eager: bool = False):
+        """decode_chunk under one constant grammar mask (the JAX engine's
+        decode_chunk_masked:799): mask_bits = np.packbits(valid, bitorder=
+        "little") over the vocabulary (ops/grammar.py valid_bits), applied
+        before the bias and the penalties at every step. One graph a
+        (n_steps, the sampler's shape) key, the mask written before each
+        replay. Returns (the n_steps ids, the generator); advances n_past by
+        n_steps, and the caller rolls back past the ids it does not commit
+        (a grammar state that changed mid-chunk): with a dense cache the
+        positions past the rollback are stale, with an int8 cache the
+        chunk's one quantizing write put them past n_past, where attention
+        does not read and the next chunk writes."""
+        return self._decode(first_token, n_steps, n_steps, sampler, generator, last_tokens,
+                            None, eager, mask_bits)
+
+    @torch.inference_mode()
     def decode_pipelined(self, first_token: int, n_total: int, n_steps: int, sampler=None,
                          generator: torch.Generator | None = None, last_tokens=None,
                          on_tokens=None):
@@ -489,7 +521,7 @@ class FalconEngine:
                             on_tokens, False)
 
     def _decode(self, first_token: int, n_total: int, n_steps: int, sampler, generator,
-                last_tokens, on_tokens, eager: bool):
+                last_tokens, on_tokens, eager: bool, bits=None):
         self._single("decode_chunk / decode_pipelined")
         sampler = sampler or sampling.SamplerParams(temp=0.0)
         if not n_total > 0 < n_steps:
@@ -501,10 +533,10 @@ class FalconEngine:
             raise ValueError(f"{n_steps}-step chunks for {n_total} tokens from n_past"
                              f" {self.n_past} run past the cache's {self.kv_T} positions")
         generator = generator or self.new_generator(sampler)
-        c = self._chunk(n_steps, sampler)
+        c = self._chunk(n_steps, sampler, bits is not None)
         start, t_compile = self.n_past, self.timings.t_compile_us
         t0 = time.perf_counter()
-        pos = self._start(c, sampler, first_token, last_tokens, eager)
+        pos = self._start(c, sampler, first_token, last_tokens, eager, bits)
         out: list[np.ndarray] = []
         states = []  # generator state after each enqueued chunk's draw
 
@@ -530,9 +562,10 @@ class FalconEngine:
         self.timings.n_decode += n_done
         return np.concatenate(out), generator
 
-    def chunk_graph(self, n_steps: int, sampler) -> build.Graph | None:
-        """The captured graph of the chunk key (n_steps, sampler), or None."""
-        c = self._chunks.get(self._key(n_steps, sampler))
+    def chunk_graph(self, n_steps: int, sampler, masked: bool = False) -> build.Graph | None:
+        """The captured graph of the chunk key (n_steps, sampler, masked), or
+        None."""
+        c = self._chunks.get(self._key(n_steps, sampler, masked))
         return None if c is None else c.graph
 
     def rollback(self, n_past: int):
@@ -645,7 +678,7 @@ class FalconEngine:
     def decode_rows(self, toks, n_past_vec, n_steps: int, values: dict | None = None,
                     rings=None, ring_fill=None, bias_ids=None, bias_vals=None, mu=None,
                     top_k: int = 64, generator: torch.Generator | None = None,
-                    eager: bool = False):
+                    eager: bool = False, mask_bits=None):
         """n_steps decode steps of all B rows (the JAX engine's
         decode_rows:1232): toks (B,) each row's last sampled id, not yet
         forwarded; n_past_vec (B,) the rows' positions (parked rows at
@@ -661,9 +694,13 @@ class FalconEngine:
         False keeps the family's newline logit unpenalized). The penalties
         run over `rings` (B, L), each row's recent ids ENDING WITH toks[b]
         (>= n_vocab: empty), of which ring_fill (B,) are filled; bias_ids /
-        bias_vals (B, NB); mu (B,) mirostat's state. Returns ((n_steps, B)
-        ids, the (n_steps, B) uniforms consumed, also kept as self.last_us,
-        and the rows' mirostat mu after the chunk) as numpy."""
+        bias_vals (B, NB); mu (B,) mirostat's state; mask_bits (B, ceil(n_vocab
+        / 8)) uint8, each row's packed grammar mask (all ones: no grammar),
+        applied before the bias and the penalties at every step (a masked
+        RowKey, the JAX engine's use_mask; the batcher runs it one step a
+        chunk, since a row's grammar state changes with its ids). Returns
+        ((n_steps, B) ids, the (n_steps, B) uniforms consumed, also kept as
+        self.last_us, and the rows' mirostat mu after the chunk) as numpy."""
         B, V = self.batch, self.hp.n_vocab
         npv = np.asarray(n_past_vec, dtype=np.int64).reshape(-1)
         toks = np.asarray(toks, dtype=np.int64).reshape(-1)
@@ -683,7 +720,8 @@ class FalconEngine:
                      else np.asarray(bias_vals, np.float32).reshape(bias_ids.shape))
         values = {"top_k": np.full(B, top_k), **(values or {})}
         use_miro = bool(np.any(values.get("mirostat", 0)))
-        key = sampling_device.RowKey(top_k, rings.shape[1], bias_ids.shape[1], use_miro)
+        key = sampling_device.RowKey(top_k, rings.shape[1], bias_ids.shape[1], use_miro,
+                                     mask_bits is not None)
         c = self._program(("rows", n_steps, key),
                           lambda: _RowChunk(n_steps, key, B, V, self.device))
         mu = np.full(B, 10.0, np.float32) if mu is None else mu
@@ -697,7 +735,7 @@ class FalconEngine:
         for dst, src in ((c.tok, toks), (c.ring, rings), (c.pos, fill)):
             src = torch.from_numpy(np.ascontiguousarray(src))
             dst.copy_(src.pin_memory() if pin else src, non_blocking=True)
-        c.rv.set(values, bias_ids, bias_vals, mu)
+        c.rv.set(values, bias_ids, bias_vals, mu, mask_bits)
         c.u.uniform_(generator=generator)
         if eager or not pin:
             self._row_steps(c, n_steps)

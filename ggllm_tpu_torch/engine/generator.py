@@ -1,11 +1,23 @@
-"""Generation loop for the CLI (port of ggllm_tpu/engine/generator.py:18-228).
+"""Generation loop for the CLI and the server (port of
+ggllm_tpu/engine/generator.py:18-272).
 
 Wraps a FalconEngine with the falcon_main generation-loop semantics
 (falcon_main.cpp:676-1056): host-sampled first token, pipelined chunks of
 device decode when the sampler config is device-coverable (engine
 decode_pipelined: on the card, replays of the chunk's CUDA graph), the
 per-token host cascade otherwise, and context swap with n_keep on overflow
-(falcon_main.cpp:694-760). Grammar-constrained decoding is not ported yet.
+(falcon_main.cpp:694-760).
+
+Under a grammar (ops/grammar.py GrammarSampler) every id is sampled from
+logits masked to the grammar state's valid tokens, before the bias and the
+penalties, and then `accept`ed, which raises GrammarError for a token the
+mask should have excluded (nothing is resampled). Samplers the device
+cascade covers decode through engine.decode_chunk_masked (the mask uploaded
+as packed bits): one step a chunk while the grammar state changes, and once
+the state has looped onto itself twice, chunks of C = max(2, min(16,
+decode_chunk)) steps, whose ids are consumed up to the state's first change
+or a stop, the rest rolled back. The others (and the first id after a
+prompt) go through the host cascade over filter_logits.
 """
 
 from __future__ import annotations
@@ -14,15 +26,6 @@ import time
 
 from ggllm_tpu_torch.engine.engine import FalconEngine
 from ggllm_tpu_torch.ops import sampling, sampling_device
-
-
-GRAMMAR_NOT_PORTED = ("grammar-constrained decoding is not ported yet"
-                      " (ROADMAP.md, Queue 1: Grammar)")
-
-
-class GrammarNotPorted(NotImplementedError):
-    """A grammar-constrained generation was asked for (the server answers
-    such a request with HTTP 400 and this message)."""
 
 
 class Generator:
@@ -37,14 +40,21 @@ class Generator:
     def __init__(self, engine: FalconEngine, sampler: sampling.SamplerParams,
                  eos_id: int, n_keep: int = 0, fused_ok: bool = True,
                  log=None, grammar=None):
-        if grammar is not None:
-            raise GrammarNotPorted(GRAMMAR_NOT_PORTED)
         self.eng = engine
         self.sampler = sampler
         self.state = sampling.SamplerState.init(sampler)
         self.eos_id = eos_id
         self.n_keep = n_keep
-        self.fused = fused_ok and sampling_device.device_samplable(sampler)
+        self.grammar = grammar  # ops.grammar.GrammarSampler or None
+        device_ok = fused_ok and sampling_device.device_samplable(sampler)
+        self.fused = device_ok and grammar is None
+        # a grammar's masked device steps (engine.decode_chunk_masked); the
+        # host cascade over filter_logits otherwise
+        self.grammar_device = device_ok and grammar is not None
+        self.eager = False  # masked chunks through the eager step body (a reference)
+        self._gloop_run = 0  # masked steps in a row whose state looped onto itself
+        # masked dispatches: 1-step, C-step, and C-step chunks rolled back
+        self.masked_stats = {"steps": 0, "chunks": 0, "rolled_back": 0}
         self.rng = None  # the engine's torch.Generator, made on first use
         self.log = log or (lambda msg: None)
         self.all_tokens: list[int] = []  # full prompt+generation history
@@ -87,9 +97,56 @@ class Generator:
         self.log(f"context swap: kept {len(head)}+{len(tail)} tokens")
 
     def _host_sample(self, logits) -> int:
-        """One host-cascade sample over the whole history."""
-        return sampling.sample(logits, self.all_tokens, self.sampler, self.state,
-                               self.eng.cfg.n_ctx, nl_token=self.eng.nl_token)
+        """One host-cascade sample over the whole history, grammar-masked
+        when constrained (filter_logits before the cascade, then `accept`)."""
+        if self.grammar is not None:
+            logits = self.grammar.filter_logits(logits)
+        tok = sampling.sample(logits, self.all_tokens, self.sampler, self.state,
+                              self.eng.cfg.n_ctx, nl_token=self.eng.nl_token)
+        if self.grammar is not None:
+            self.grammar.accept(tok)
+        return tok
+
+    def _masked_chunk(self, rem: int, consume) -> bool:
+        """One masked device dispatch (the JAX Generator's grammar_device
+        branch): the grammar state's packed mask, 1 step, or C steps while
+        the state loops onto itself; every id is accepted (GrammarError if
+        the mask let a wrong one through) and consumed up to the state's
+        first change or a stop, the rest rolled back. False once
+        generation ends."""
+        eng, g = self.eng, self.grammar
+        s0 = (g.stacks, g.partial)
+        bits = g.valid_bits()
+        # one of two chunk sizes (two graphs): rem and room do not shrink it
+        C = max(2, min(16, eng.cfg.decode_chunk))
+        room = eng.cfg.n_ctx - eng.n_past
+        n = C if self._gloop_run >= 2 and room >= C and rem >= 2 else 1
+        win = max(int(self.sampler.repeat_last_n), 1)
+        n_before = eng.n_past
+        toks, self.rng = eng.decode_chunk_masked(
+            self.all_tokens[-1], bits, n, self.sampler, self.rng,
+            last_tokens=self.all_tokens[-win:], eager=self.eager)
+        eng.timings.n_sample += len(toks)
+        self.masked_stats["chunks" if n > 1 else "steps"] += 1
+        consumed, going = 0, True
+        try:
+            for t in map(int, toks):
+                g.accept(t)
+                consumed += 1
+                if (g.stacks, g.partial) == s0 and t != self.eos_id:
+                    self._gloop_run += 1
+                    state_changed = False
+                else:
+                    self._gloop_run = 0
+                    state_changed = True
+                going = consume(t)
+                if state_changed or not going:
+                    break
+        finally:
+            if consumed < len(toks):  # ids sampled under a stale mask, or unconsumed
+                eng.rollback(n_before + consumed)
+                self.masked_stats["rolled_back"] += 1
+        return going
 
     def generate(self, logits, n_predict: int, on_token) -> str:
         """Sample up to n_predict tokens; on_token(tok) -> False to stop.
@@ -161,6 +218,9 @@ class Generator:
                             # always left unforwarded
                             eng.rollback(n_before + consumed[0])
                     if st["reason"] is not None:
+                        return st["reason"]
+                elif self.grammar_device:
+                    if not self._masked_chunk(n_predict - st["n_out"], consume):
                         return st["reason"]
                 else:
                     new_logits = eng.eval([self.all_tokens[-1]])

@@ -158,12 +158,14 @@ class Graph:
     """A CUDA graph of kernel launches whose launch counts are credited on
     every replay: `capture` records what the wrappers counted while it ran
     and takes it off `launch_counts`; `replay` launches the graph and adds
-    the record back."""
+    the record back. The captured cudaGraph_t is kept beside its
+    instantiation (`graph.raw_cuda_graph()`), so that its nodes can be
+    counted (tools/time_kernels.py graph_nodes)."""
 
     def __init__(self):
         import torch
 
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.counts: dict[str, int] = {}
 
     @contextlib.contextmanager
@@ -174,6 +176,7 @@ class Graph:
         try:
             with torch.cuda.graph(self.graph, pool=pool, stream=stream):
                 yield self
+            self.graph.instantiate()  # here, not at the first replay
         finally:
             self.counts = dict(launch_counts - before)
             for name, n in self.counts.items():

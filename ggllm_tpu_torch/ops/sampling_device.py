@@ -12,6 +12,13 @@ written before each replay, so one graph serves every value.
 `device_samplable` says which sampler settings this covers; the engine
 routes the rest to the host cascade (ops/sampling.py).
 
+A grammar's mask (ops/grammar.py GrammarSampler.valid_bits: ceil(V/8)
+little-endian packed bytes) is applied on the device by apply_grammar_mask,
+first of all, before the bias and the penalties (llama.cpp's order, and the
+JAX engine's, ggllm_tpu/engine/engine.py:761-775 and :1120-1127), where
+the key says `masked`; the bits are a static device buffer of the key's
+values (SamplerValues.bits, RowValues.bits), written before each replay.
+
 The draw takes its uniforms as an input: the engine draws a whole chunk's
 ((n_steps,), one a token, one launch from the engine's torch.Generator)
 into a static buffer before each replay of the captured chunk, the
@@ -62,9 +69,28 @@ def penalty_spec(sampler, n_vocab: int, nl_token: int) -> tuple:
     )
 
 
+def apply_grammar_mask(logits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Logits (..., V) with every token whose bit is 0 in `bits` (..., nb)
+    uint8, little-endian packed (np.packbits(valid, bitorder="little"),
+    nb >= ceil(V / 8)), set to -inf: the bits unpacked on the device (the
+    JAX engine's jnp.repeat / shift unpack, engine.py:761-766), then one
+    masked_fill. -inf survives the bias and the penalties that follow."""
+    V = logits.shape[-1]
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    valid = ((bits[..., None] >> shifts) & 1).flatten(-2)[..., :V]
+    return logits.masked_fill(valid == 0, float("-inf"))
+
+
+def mask_bytes(n_vocab: int) -> int:
+    """Bytes of a packed grammar mask over n_vocab tokens."""
+    return (n_vocab + 7) // 8
+
+
 class SamplerKey(NamedTuple):
     """What a captured decode step's shapes and branches depend on, and
-    nothing else (sampler_key)."""
+    nothing else (sampler_key). `masked`: a grammar's mask applies (the
+    masked chunks of engine.decode_chunk_masked); an unmasked key's step is
+    the step without it."""
 
     greedy: bool
     n_cand: int  # candidates the draw chooses among (0 when greedy)
@@ -74,9 +100,10 @@ class SamplerKey(NamedTuple):
     ring: int  # the penalty ring's length
     n_bias: int
     nl_token: int
+    masked: bool = False
 
 
-def sampler_key(sampler, n_vocab: int, nl_token: int) -> SamplerKey:
+def sampler_key(sampler, n_vocab: int, nl_token: int, masked: bool = False) -> SamplerKey:
     """The sampler's shape: samplers that differ only in their values
     (temperature, top-p, the penalty values, the bias values) share a key,
     and the values go to the step as device tensors (SamplerValues)."""
@@ -85,22 +112,25 @@ def sampler_key(sampler, n_vocab: int, nl_token: int) -> SamplerKey:
     return SamplerKey(greedy, 0 if greedy else n_candidates(int(sampler.top_k), n_vocab),
                       not greedy and sampler.top_p < 1.0,
                       rln > 0 and (rp != 1.0 or fp != 0.0 or pp != 0.0),
-                      penalize_nl, max(rln, 1), len(bias), nl)
+                      penalize_nl, max(rln, 1), len(bias), nl, masked)
 
 
 class SamplerValues:
     """The values a SamplerKey leaves out, as device tensors: `vals` =
-    (temp, top_p, repeat, frequency, presence penalty) in f32 and the bias
-    as (ids int64, values f32). `set` writes a sampler's values by
-    non-blocking copies from pinned memory, outside any capture; the step
-    reads them on the device."""
+    (temp, top_p, repeat, frequency, presence penalty) in f32, the bias
+    as (ids int64, values f32) and, under a masked key, the grammar's
+    packed mask `bits` (mask_bytes(n_vocab),) uint8. `set` and `set_mask`
+    write them by non-blocking copies from pinned memory, outside any
+    capture; the step reads them on the device."""
 
-    def __init__(self, key: SamplerKey, device):
+    def __init__(self, key: SamplerKey, device, n_vocab: int = 0):
         device = torch.device(device)
         self.pin = device.type == "cuda"
         self.vals = torch.zeros(5, dtype=torch.float32, device=device)
         self.bias_ids = torch.zeros(key.n_bias, dtype=torch.long, device=device)
         self.bias_vals = torch.zeros(key.n_bias, dtype=torch.float32, device=device)
+        self.bits = (torch.full((mask_bytes(n_vocab),), 255, dtype=torch.uint8, device=device)
+                     if key.masked else None)
 
     def set(self, sampler, n_vocab: int) -> "SamplerValues":
         bias = _bias(sampler, n_vocab)
@@ -115,12 +145,27 @@ class SamplerValues:
             dst.copy_(src.pin_memory() if self.pin else src, non_blocking=True)
         return self
 
+    def set_mask(self, bits) -> "SamplerValues":
+        """Write a grammar state's packed mask (numpy uint8, the key's
+        mask_bytes long)."""
+        _copy_bits(self.bits, bits, self.pin)
+        return self
+
+
+def _copy_bits(dst: torch.Tensor, bits, pin: bool) -> None:
+    src = torch.from_numpy(np.ascontiguousarray(bits, dtype=np.uint8))
+    if src.shape != dst.shape:
+        raise ValueError(f"grammar mask of {tuple(src.shape)} bytes for a buffer of"
+                         f" {tuple(dst.shape)}")
+    dst.copy_(src.pin_memory() if pin else src, non_blocking=True)
+
 
 def apply_penalties(logits: torch.Tensor, ring: torch.Tensor, key: SamplerKey,
                     sv: SamplerValues) -> torch.Tensor:
     """Logit bias + repetition/frequency/presence penalties against a ring
     buffer of recent token ids (ids >= n_vocab are empty slots); sv holds
-    the values of the sampler whose key is `key`.
+    the values of the sampler whose key is `key`. Under a masked key the
+    grammar's mask (sv.bits) comes first of all.
 
     Mirrors the host cascade head (falcon_main.cpp:899-946): bias first,
     then penalties over the last-n window, then the optional newline
@@ -129,6 +174,8 @@ def apply_penalties(logits: torch.Tensor, ring: torch.Tensor, key: SamplerKey,
     neutral value (rp 1, fp or pp 0) is an exact no-op: x * 1, x / 1 and
     x - 0 * c are x in f32."""
     V, nl_token = logits.shape[-1], key.nl_token
+    if key.masked:
+        logits = apply_grammar_mask(logits, sv.bits)
     if key.n_bias:
         logits = logits.index_add(0, sv.bias_ids, sv.bias_vals)
     if not key.penalized:
@@ -391,12 +438,14 @@ def sample_rows_u(logits: torch.Tensor, u: torch.Tensor, temp: torch.Tensor,
 class RowKey(NamedTuple):
     """What a captured B-row decode step's shapes depend on (the batched
     counterpart of SamplerKey): the candidate cap, the penalty ring's
-    length, the bias width, and whether a mirostat row is present."""
+    length, the bias width, whether a mirostat row is present, and whether
+    the rows take grammar masks."""
 
     top_k: int
     ring: int
     n_bias: int
     miro: bool
+    masked: bool = False
 
 
 ROW_FIELDS = (  # (name, dtype, the value of an idle row)
@@ -411,11 +460,12 @@ ROW_FIELDS = (  # (name, dtype, the value of an idle row)
 class RowValues:
     """The per-row sampler values of a B-row decode step as device tensors:
     one (B,) tensor a ROW_FIELDS entry (`v[name]`), the bias as (B, n_bias)
-    ids (>= n_vocab: empty) and values, and mirostat's mu, which the step
-    updates. `set` writes them by non-blocking copies from pinned memory,
-    outside any capture."""
+    ids (>= n_vocab: empty) and values, mirostat's mu, which the step
+    updates, and under a masked key the rows' packed grammar masks `bits`
+    (B, mask_bytes(n_vocab)) uint8. `set` writes them by non-blocking copies
+    from pinned memory, outside any capture."""
 
-    def __init__(self, key: RowKey, B: int, device):
+    def __init__(self, key: RowKey, B: int, device, n_vocab: int = 0):
         device = torch.device(device)
         self.pin = device.type == "cuda"
         self.v = {name: torch.full((B,), idle, dtype=dt, device=device)
@@ -423,9 +473,12 @@ class RowValues:
         self.bias_ids = torch.zeros(B, key.n_bias, dtype=torch.long, device=device)
         self.bias_vals = torch.zeros(B, key.n_bias, dtype=torch.float32, device=device)
         self.mu = torch.full((B,), 10.0, dtype=torch.float32, device=device)
+        self.bits = (torch.full((B, mask_bytes(n_vocab)), 255, dtype=torch.uint8, device=device)
+                     if key.masked else None)
 
-    def set(self, host: dict, bias_ids, bias_vals, mu) -> "RowValues":
-        """host: name -> (B,) numpy values (missing names: the idle value)."""
+    def set(self, host: dict, bias_ids, bias_vals, mu, bits=None) -> "RowValues":
+        """host: name -> (B,) numpy values (missing names: the idle value);
+        bits: the rows' packed masks (B, nb) uint8 under a masked key."""
         B = self.mu.shape[0]
         pairs = [(self.v[name], torch.from_numpy(np.ascontiguousarray(
             host.get(name, np.full(B, idle)), dtype=np.dtype(str(dt).removeprefix("torch.")))))
@@ -436,17 +489,23 @@ class RowValues:
         for dst, src in pairs:
             dst.copy_(src.reshape(dst.shape).pin_memory() if self.pin else src.reshape(dst.shape),
                       non_blocking=True)
+        if (bits is None) != (self.bits is None):
+            raise ValueError("grammar masks go with a masked RowKey, and only with one")
+        if bits is not None:
+            _copy_bits(self.bits, bits, self.pin)
         return self
 
 
 def sample_rows_step(logits: torch.Tensor, rings: torch.Tensor, key: RowKey, rv: RowValues,
                      u: torch.Tensor, nl_token: int) -> torch.Tensor:
     """One B-row decode step's sampling (the body of the JAX engine's
-    _decode_rows_fn:1106-1146): bias, penalties with the per-row newline
-    restore, then sample_rows_u on uniforms u (B,); mirostat rows update
-    rv.mu in place. Returns the (B,) ids. Reads and writes only device
-    tensors."""
+    _decode_rows_fn:1106-1146): under a masked key the rows' grammar masks
+    first, then bias, penalties with the per-row newline restore, then
+    sample_rows_u on uniforms u (B,); mirostat rows update rv.mu in place.
+    Returns the (B,) ids. Reads and writes only device tensors."""
     v = rv.v
+    if key.masked:
+        logits = apply_grammar_mask(logits, rv.bits)
     lg = apply_bias_rows(logits, rv.bias_ids, rv.bias_vals) if key.n_bias else logits
     lg = apply_penalties_rows(lg, rings, v["repeat_penalty"], v["frequency_penalty"],
                               v["presence_penalty"], v["penalize_nl"], nl_token)

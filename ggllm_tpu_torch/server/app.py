@@ -1,10 +1,13 @@
-"""HTTP inference server on the port, single-stream mode (the port of the
-single-stream part of ggllm_tpu/server/app.py; the capability analogue of
+"""HTTP inference server on the port (the port of ggllm_tpu/server/app.py
+without speculative decoding; the capability analogue of
 examples/server/server.cpp:784-895):
 
   POST /completion  — generate from a prompt; JSON body with the sampling
                       surface of llama_server_context; ``stream: true`` sends
-                      SSE chunks (``data: {json}\\n\\n``), else one JSON object.
+                      SSE chunks (``data: {json}\\n\\n``), else one JSON object;
+                      ``grammar`` (GBNF text, ops/grammar.py) constrains
+                      sampling in both modes (a grammar that does not parse:
+                      HTTP 400).
   POST /tokenize    — {"content": str} -> {"tokens": [int]}
   POST /detokenize  — {"tokens": [int]} -> {"content": str}
   GET  /            — liveness/info JSON.
@@ -18,46 +21,91 @@ OpenAI-compatible surface:
 
     python -m ggllm_tpu_torch.server -m model.ggcc --port 8080
 
-The server wraps ONE engine and serializes requests under a lock; every
-request generates through engine/generator.py, so a device-coverable
-sampler decodes in pipelined replays of the engine's CUDA graphs, keyed on
-the sampler's shape only (a client's new temperature or penalty captures
-nothing). Prompt-prefix reuse (common_part, server.cpp:281-292) keeps the
-KV cache warm across requests by rolling n_past back to the longest shared
-prefix. Stop strings are matched over the generated text with
-partial-suffix holdback in streaming mode. The engine runs on the CUDA card
-unless --device cpu is given; handler threads replay graphs captured on
-another thread (the engine's work is on its own streams, under the lock).
+With --parallel 1 (ServerState) the server wraps ONE engine and serializes
+requests under a lock; every request generates through
+engine/generator.py, so a device-coverable sampler decodes in pipelined
+replays of the engine's CUDA graphs, keyed on the sampler's shape only (a
+client's new temperature or penalty captures nothing). Prompt-prefix reuse
+(common_part, server.cpp:281-292) keeps the KV cache warm across requests by
+rolling n_past back to the longest shared prefix. Handler threads replay
+graphs captured on another thread (the engine's work is on its own
+streams, under the lock).
+
+With --parallel N > 1 (BatchedServerState, over FalconEngine(batch_size=N))
+one scheduler thread owns the engine and steps an engine/batching.py
+ContinuousBatcher (--decode-chunk tokens a decode chunk, --prefill-chunk
+prompt tokens a row an admission forward): the handler threads only submit
+requests and wait on a queue of text pieces, so concurrent requests decode
+together as B-row CUDA graphs, captured and replayed on the scheduler
+thread. A request the rows cannot serve exactly (top-k above the 64-id
+cap, more than 64 merged bias ids) gets HTTP 400; unlike the JAX batched
+server, penalize_nl false is served (the port's rows restore the newline).
+A request whose grammar or client fails ends alone (HTTP 500, or an SSE
+event with "error"); a fault of the scheduler itself fails every waiting
+request the same way, ends the scheduler, and later requests get 500.
+
+Stop strings are matched over the generated text with partial-suffix
+holdback in streaming mode. The engine runs on the CUDA card unless
+--device cpu is given.
 
 Not ported yet, and refused with the ROADMAP item rather than served
-otherwise: --parallel > 1 (continuous batching), --draft-model /
---self-draft (speculative decoding), --lora / --lora-base, and a request's
-"grammar" (HTTP 400). The JAX server's --decode-chunk, --prefill-chunk and
---draft-k, which feed only the batcher and the speculative decoder, are not
-flags here: argparse refuses them.
+otherwise: --draft-model / --self-draft (speculative decoding) and --lora /
+--lora-base. The JAX server's --draft-k, which feeds only the speculative
+decoder, is not a flag here: argparse refuses it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
+import queue as queue_mod
 import sys
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ggllm_tpu_torch import tokenizer as tok_mod
+from ggllm_tpu_torch.engine.batching import RING_LEN, ContinuousBatcher, Request
 from ggllm_tpu_torch.engine.engine import FalconEngine
-from ggllm_tpu_torch.engine.generator import GRAMMAR_NOT_PORTED, Generator
+from ggllm_tpu_torch.engine.generator import Generator
 from ggllm_tpu_torch.ops import sampling
+from ggllm_tpu_torch.ops.grammar import (Grammar, GrammarError, GrammarSampler, build_token_trie,
+                                         parse_gbnf)
 from ggllm_tpu_torch.utils.stream import StopStream
 
-PARALLEL_REFUSAL = ("--parallel > 1 (continuous batching in the server) is not ported yet"
-                    " (ROADMAP.md, Queue 1: continuous batching in the server, --parallel over"
-                    " engine/batching.py ContinuousBatcher)")
+# the SamplerParams fields a batched Request takes, under the same names
+_ROW_SAMPLER = ("temp", "top_p", "top_k", "repeat_penalty", "frequency_penalty",
+                "presence_penalty", "tfs_z", "typical_p", "mirostat", "mirostat_tau",
+                "mirostat_eta", "penalize_nl", "logit_bias")
 DRAFT_REFUSAL = ("--draft-model / --self-draft (speculative decoding) is not ported yet"
                  " (ROADMAP.md, Queue 1: speculative decoding)")
 LORA_REFUSAL = "--lora / --lora-base are not ported yet (ROADMAP.md, Queue 1: LoRA)"
+
+
+class RequestFailed(RuntimeError):
+    """A batched request that ended with an error (its grammar, its client
+    or the scheduler failed): the handler answers it with HTTP 500."""
+
+
+class _GrammarTrie:
+    """The vocabulary's token byte trie (ops/grammar.py build_token_trie),
+    built on the first grammar request and shared by all of them."""
+
+    def __init__(self, vocab, eos_id: int):
+        self.vocab, self.eos_id = vocab, eos_id
+        self._trie = None
+        self._lock = threading.Lock()
+
+    def sampler(self, grammar: Grammar | None) -> GrammarSampler | None:
+        """A GrammarSampler for a parsed grammar, or None without one."""
+        if grammar is None:
+            return None
+        with self._lock:
+            if self._trie is None:
+                self._trie = build_token_trie(self.vocab.id_to_token, self.eos_id)
+        return GrammarSampler(grammar, self.vocab.id_to_token, self.eos_id, trie=self._trie)
 
 
 def _common_part(a: list[int], b: list[int]) -> int:
@@ -98,8 +146,9 @@ def _stop_fields(stop_reason: str, stop_match: bytes | None) -> dict:
     }
 
 
-class ServerState:
-    """One engine + its conversation cache, guarded by a lock."""
+class _State:
+    """What both server states share: the engine, its vocabulary and
+    tokenizer, the shared grammar trie, and a request's sampler."""
 
     def __init__(self, engine: FalconEngine, vocab, arch: str = "falcon",
                  alias: str = "unknown"):
@@ -107,10 +156,7 @@ class ServerState:
         self.vocab = vocab
         self.alias = alias
         self.tk = tok_mod.Tokenizer(vocab=vocab, arch=arch)
-        self.lock = threading.Lock()
-        self.cache_tokens: list[int] = []  # what the engine's KV cache holds
-
-    # ------------------------------------------------------------ generate
+        self.grammars = _GrammarTrie(vocab, self.tk.eos_id)
 
     def sampler_from(self, body: dict) -> sampling.SamplerParams:
         logit_bias = {int(t): (float("-inf") if b is False else float(b))
@@ -137,13 +183,58 @@ class ServerState:
             seed=int(body.get("seed", -1)),
         )
 
-    def completion(self, body: dict, emit=None) -> dict:
-        """Run one completion. emit(chunk_dict) streams; returns final dict.
+    def unsupported(self, body: dict) -> str | None:
+        """Why this request can't be served (None = it can)."""
+        return None
 
-        Raises GrammarNotPorted for a grammar request (the Generator
-        refuses it before the cache is touched). If emit raises (a
-        client gone mid-stream), the Generator rolls n_past back to the
-        tokens it consumed and the cache record follows the cache."""
+    def _response(self, body: dict, emit, ss: StopStream, parts: list[bytes], reason: str,
+                  settings: dict, truncated: bool, n_predicted: int, n_evaluated: int,
+                  timings: dict) -> dict:
+        """Flush what the stop stream holds back (through emit when
+        streaming), then the final response (server.cpp's fields)."""
+        if not ss.stopped:
+            tail = ss.flush()
+            if tail:
+                parts.append(tail)
+                if emit is not None:
+                    emit({"content": tail.decode("utf-8", "replace"), "stop": False})
+        return {
+            "content": "" if emit else b"".join(parts).decode("utf-8", "replace"),
+            "stop": True,
+            "model": self.alias,
+            "prompt": body.get("prompt", ""),
+            "truncated": truncated,
+            "stopped_reason": reason,
+            **_stop_fields(reason, ss.stop_match),
+            "generation_settings": settings,
+            "tokens_predicted": n_predicted,
+            "tokens_evaluated": n_evaluated,
+            "timings": timings,
+        }
+
+
+class ServerState(_State):
+    """One engine + its conversation cache, guarded by a lock."""
+
+    def __init__(self, engine: FalconEngine, vocab, arch: str = "falcon",
+                 alias: str = "unknown"):
+        super().__init__(engine, vocab, arch, alias)
+        # reentrant: a caller that holds it to use the engine may call completion
+        self.lock = threading.RLock()
+        self.cache_tokens: list[int] = []  # what the engine's KV cache holds
+
+    def completion(self, body: dict, emit=None, grammar: Grammar | None = None) -> dict:
+        """Run one completion under the state's lock. emit(chunk_dict)
+        streams; returns final dict.
+
+        `grammar` (the body's "grammar", parsed) constrains the Generator.
+        If emit raises (a client gone mid-stream), the Generator rolls n_past
+        back to the tokens it consumed and the cache record follows the
+        cache."""
+        with self.lock:
+            return self._completion(body, emit, grammar)
+
+    def _completion(self, body: dict, emit, grammar: Grammar | None) -> dict:
         eng = self.engine
         cfg = eng.cfg
         prompt = body.get("prompt", "")
@@ -162,7 +253,8 @@ class ServerState:
             prompt_ids = prompt_ids[:n_keep] + prompt_ids[-tail:]
             truncated = True
 
-        gen = Generator(eng, sampler, self.tk.eos_id, n_keep, grammar=body.get("grammar") or None)
+        gen = Generator(eng, sampler, self.tk.eos_id, n_keep,
+                        grammar=self.grammars.sampler(grammar))
         # prefix reuse against the previous request's tokens
         n_common = _common_part(self.cache_tokens, prompt_ids)
         if n_common == len(prompt_ids):
@@ -200,34 +292,174 @@ class ServerState:
             reason = gen.generate(logits, n_predict, on_token)
         finally:  # the tokens the cache holds (all but the last forwarded)
             self.cache_tokens = list(gen.all_tokens) if not gen.swapped else []
-        if not ss.stopped:
-            tail = ss.flush()
-            if tail:
-                parts.append(tail)
-                if emit is not None:
-                    emit({"content": tail.decode("utf-8", "replace"), "stop": False})
         t_gen = time.perf_counter() - t0
-
-        stop_reason = {"callback": "stop", "eos": "eos"}.get(reason, "limit")
-        out = b"".join(parts)
-        return {
-            "content": "" if emit else out.decode("utf-8", "replace"),
-            "stop": True,
-            "model": self.alias,
-            "prompt": prompt,
-            "truncated": truncated,
-            "stopped_reason": stop_reason,
-            **_stop_fields(stop_reason, ss.stop_match),
-            "generation_settings": _generation_settings(
-                sampler, n_predict, n_keep, stops, self.tk.eos_id),
-            "tokens_predicted": tokens_predicted,
-            "tokens_evaluated": len(to_eval),
-            "timings": {
+        return self._response(
+            body, emit, ss, parts, {"callback": "stop", "eos": "eos"}.get(reason, "limit"),
+            _generation_settings(sampler, n_predict, n_keep, stops, self.tk.eos_id),
+            truncated, tokens_predicted, len(to_eval), {
                 "prompt_ms": round(t_prompt * 1e3, 2),
                 "predicted_ms": round(t_gen * 1e3, 2),
                 "predicted_per_second": round(tokens_predicted / t_gen, 2) if t_gen > 0 else None,
-            },
-        }
+            })
+
+
+class BatchedServerState(_State):
+    """Continuous-batching server state (--parallel N > 1; the JAX
+    BatchedServerState, ggllm_tpu/server/app.py:337-540): one scheduler
+    thread owns the engine (FalconEngine(batch_size=N)) and steps a
+    ContinuousBatcher; concurrent /completion requests decode together in
+    B-row chunks. The handler threads submit Requests and wait on their
+    queues; they never touch the engine.
+
+    Per request: the rows' device cascade (greedy, temperature, top-k
+    within the 64-id cap, top-p, tail-free, typical, repetition / frequency
+    / presence penalties over a 64-token window, up to 64 bias ids with
+    ignore_eos, mirostat v1 / v2, penalize_nl) and GBNF grammars (while a
+    grammar row is live the batch decodes one masked step a chunk)."""
+
+    def __init__(self, engine: FalconEngine, vocab, arch: str = "falcon", chunk: int = 8,
+                 alias: str = "unknown", prefill_chunk: int = 256):
+        super().__init__(engine, vocab, arch, alias)
+        self.batcher = ContinuousBatcher(engine, chunk=chunk, prefill_chunk=prefill_chunk)
+        self.cv = threading.Condition()
+        self._stop = False
+        self.fault: BaseException | None = None  # what ended the scheduler
+        self.thread = threading.Thread(target=self._loop, name="batch-scheduler", daemon=True)
+        self.thread.start()
+
+    def shutdown(self):
+        """End the scheduler thread (after its current step)."""
+        with self.cv:
+            self._stop = True
+            self.cv.notify_all()
+
+    def _loop(self):
+        while True:
+            with self.cv:
+                while not self._stop and not (self.batcher.queue or self.batcher.active):
+                    self.cv.wait()
+                if self._stop:
+                    break
+            try:
+                self.batcher.step()
+            except Exception as e:  # the scheduler's own fault: fail every waiter, then end
+                traceback.print_exc(file=sys.stderr)
+                with self.cv:
+                    self.fault, self._stop = e, True
+                break
+        self._fail_waiting(self.fault or RuntimeError("the server shut down"))
+
+    def _fail_waiting(self, error: BaseException) -> None:
+        """End every queued and live request with `error` (their handlers
+        answer 500 instead of waiting forever)."""
+        with self.cv:
+            waiting = list(self.batcher.queue) + self.batcher.active
+            self.batcher.queue.clear()
+        for r in waiting:
+            r.error, r.done = r.error or error, True
+            if r.on_done is not None:
+                r.on_done()
+
+    def unsupported(self, body: dict) -> str | None:
+        """Why this request can't run in batched mode (None = it can): the
+        JAX server's rules (:396), except that penalize_nl false is served."""
+        # count MERGED bias entries: ignore_eos adds a -inf bias on eos, so
+        # 64 explicit entries + ignore_eos would overflow the rows' 64 slots
+        bias_ids = {int(t) for t, _ in body.get("logit_bias", [])}
+        if body.get("ignore_eos"):
+            bias_ids.add(self.tk.eos_id)
+        if len(bias_ids) > 64:
+            return ("logit_bias is capped at 64 entries in batched mode "
+                    "(ignore_eos counts as one)")
+        if float(body.get("temperature", 0.8)) > 0 and \
+                not (0 < int(body.get("top_k", 40)) <= 64):
+            return "top_k must be in 1..64 in batched mode"
+        return None
+
+    def completion(self, body: dict, emit=None, grammar: Grammar | None = None) -> dict:
+        """Submit one request to the scheduler and wait for it, streaming
+        text pieces through emit(chunk_dict) when given; `grammar` (the
+        body's "grammar", parsed) constrains its row. Raises
+        RequestFailed if the request ended with an error, or the scheduler
+        has stopped; if emit raises (a client gone), the request is told to
+        stop at its next id and the exception goes on."""
+        cfg = self.engine.cfg
+        n_predict = int(body.get("n_predict", 128))
+        stops = [s.encode() for s in body.get("stop", []) if s]
+        prompt_ids = self.tk.tokenize(body.get("prompt", ""), bos=True)
+        truncated = False
+        if len(prompt_ids) + n_predict >= cfg.n_ctx:
+            n_keep = max(0, min(int(body.get("n_keep", 0)) or cfg.n_ctx // 4,
+                                cfg.n_ctx - n_predict - 1))
+            tail = max(1, cfg.n_ctx - n_keep - n_predict)
+            prompt_ids = prompt_ids[:n_keep] + prompt_ids[-tail:]
+            truncated = True
+
+        ss = StopStream(stops)
+        q: queue_mod.Queue = queue_mod.Queue()
+        eos = self.tk.eos_id
+        outcome = {"reason": "limit"}
+        clock = {"submit": time.perf_counter()}
+        cancelled = [False]
+
+        def stream(tok: int) -> bool:  # on the scheduler thread
+            clock.setdefault("first", time.perf_counter())
+            clock["last"] = time.perf_counter()
+            if cancelled[0]:
+                return False
+            if tok == eos:
+                outcome["reason"] = "eos"
+                return False
+            out = ss.push(self.vocab.id_to_token[tok])
+            if out:
+                q.put(out)
+            if ss.stopped:
+                outcome["reason"] = "stop"
+                return False
+            return True
+
+        # the rows' penalty window is the batcher's fixed RING_LEN
+        sampler = dataclasses.replace(self.sampler_from(body), repeat_last_n=RING_LEN)
+        req = Request(prompt_ids=prompt_ids, n_predict=n_predict, stream=stream,
+                      grammar_sampler=self.grammars.sampler(grammar),
+                      **{k: getattr(sampler, k) for k in _ROW_SAMPLER})
+        req.on_done = lambda: q.put(None)
+        with self.cv:
+            if self._stop:
+                raise RequestFailed(f"the batch scheduler has stopped: {self.fault!r}")
+            self.batcher.submit(req)
+            self.cv.notify()
+
+        parts: list[bytes] = []
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                parts.append(item)
+                if emit is not None:
+                    emit({"content": item.decode("utf-8", "replace"), "stop": False})
+        except BaseException:
+            cancelled[0] = True  # the row stops at its next id and frees its slot
+            raise
+        if req.error is not None:
+            raise RequestFailed(f"the request failed: {req.error!r}") from req.error
+        done = time.perf_counter()
+        n_out = len(req.out)
+        first = clock.get("first", done)
+        # the first id comes from the prompt's logits: prompt_ms is the time
+        # to it (queueing and admission included), predicted_* the ids after
+        t_pred = clock.get("last", done) - first
+        return self._response(
+            body, emit, ss, parts, outcome["reason"],
+            _generation_settings(sampler, n_predict, int(body.get("n_keep", 0)), stops, eos),
+            truncated, n_out, len(prompt_ids), {
+                "prompt_ms": round((first - clock["submit"]) * 1e3, 2),
+                "predicted_ms": round(t_pred * 1e3, 2),
+                "predicted_per_second": (round((n_out - 1) / t_pred, 2)
+                                         if n_out > 1 and t_pred > 0 else None),
+                "total_ms": round((done - clock["submit"]) * 1e3, 2),
+            })
 
 
 def _chat_to_prompt(messages: list[dict]) -> tuple[str, list[str]]:
@@ -401,17 +633,26 @@ def make_handler(state: ServerState):
 
         def _run_completion(self, body: dict, openai: str | None,
                             stream: bool | None = None):
-            if body.get("grammar"):
-                self._json(400, {"error": GRAMMAR_NOT_PORTED})
+            why = state.unsupported(body)
+            if why is not None:
+                self._json(400, {"error": why})
                 return
+            grammar = None
+            if body.get("grammar"):
+                try:
+                    grammar = parse_gbnf(body["grammar"])
+                except GrammarError as e:
+                    self._json(400, {"error": f"bad grammar: {e}"})
+                    return
             if stream is None:
                 stream = bool(body.get("stream"))
             metrics = getattr(state, "metrics", None)
+            # handler threads run concurrently in batched mode: rids come
+            # from an atomic counter, and the counters' updates take a lock
             rid = next(state.rid_counter)
 
             def run(emit=None):
-                with state.lock:
-                    final = state.completion(body, emit=emit)
+                final = state.completion(body, emit=emit, grammar=grammar)
                 if metrics is not None:
                     with state.metrics_lock:
                         metrics["requests_total"] += 1
@@ -432,7 +673,11 @@ def make_handler(state: ServerState):
                     self.wfile.flush()
 
                 if openai is None:
-                    send(run(emit=send))
+                    try:
+                        send(run(emit=send))
+                    except (RequestFailed, GrammarError) as e:
+                        send({"content": "", "stop": True, "stopped_reason": "error",
+                              "error": str(e)})
                     return
                 # OpenAI streaming: per-token delta chunks + [DONE]
                 base = {"id": f"{'chatcmpl' if chat else 'cmpl'}-{rid}",
@@ -447,14 +692,24 @@ def make_handler(state: ServerState):
                              else {"text": text, "logprobs": None})
                     send({**base, "choices": [{"index": 0, "finish_reason": None, **delta}]})
 
-                final = run(emit=emit)
+                try:
+                    final = run(emit=emit)
+                except (RequestFailed, GrammarError) as e:
+                    send({"error": str(e)})
+                    self.wfile.write(b"data: [DONE]\n\n")
+                    self.wfile.flush()
+                    return
                 finish = "length" if final.get("stopped_limit") else "stop"
                 tail = {"delta": {}} if chat else {"text": "", "logprobs": None}
                 send({**base, "choices": [{"index": 0, "finish_reason": finish, **tail}]})
                 self.wfile.write(b"data: [DONE]\n\n")
                 self.wfile.flush()
                 return
-            final = run()
+            try:
+                final = run()
+            except (RequestFailed, GrammarError) as e:
+                self._json(500, {"error": str(e)})
+                return
             if openai is None:
                 self._json(200, final)
             else:
@@ -464,17 +719,35 @@ def make_handler(state: ServerState):
 
 
 class _Server(ThreadingHTTPServer):
+    # the stdlib's listen backlog is 5: a burst of concurrent clients (what
+    # --parallel is for) would overflow it and have connections refused
     request_queue_size = 256
     daemon_threads = True
 
+    def server_close(self):
+        super().server_close()
+        stop = getattr(getattr(self, "state", None), "shutdown", None)
+        if stop is not None:  # the batched state's scheduler thread
+            stop()
+
 
 def serve(engine: FalconEngine, vocab, host: str = "127.0.0.1", port: int = 8080,
-          arch: str = "falcon", parallel: int = 1, alias: str = "unknown"):
-    """The single-stream server over `engine` (not yet serving: call
-    serve_forever on the result). parallel > 1 is refused."""
+          arch: str = "falcon", parallel: int = 1, alias: str = "unknown", chunk: int = 8,
+          prefill_chunk: int = 256):
+    """The server over `engine` (not yet serving: call serve_forever on the
+    result; server_close also ends a batched state's scheduler).
+    parallel > 1 serves concurrent requests through the continuous batcher
+    (chunk decode steps a chunk, prefill_chunk prompt tokens a row an
+    admission forward) and needs FalconEngine(batch_size=parallel); one
+    stream needs a batch-1 engine."""
+    if engine.batch != max(parallel, 1):
+        raise ValueError(f"--parallel {parallel} needs an engine of batch_size"
+                         f" {max(parallel, 1)}; this engine has {engine.batch} rows")
     if parallel > 1:
-        raise NotImplementedError(PARALLEL_REFUSAL)
-    state = ServerState(engine, vocab, arch, alias=alias)
+        state = BatchedServerState(engine, vocab, arch, chunk=chunk, alias=alias,
+                                   prefill_chunk=prefill_chunk)
+    else:
+        state = ServerState(engine, vocab, arch, alias=alias)
     state.metrics = {name: 0 for name, _ in METRICS}
     httpd = _Server((host, port), make_handler(state))
     httpd.state = state
@@ -491,8 +764,12 @@ def build_parser():
     ap.add_argument("-c", "--ctx-size", type=int, default=2048)
     ap.add_argument("-b", "--batch-size", type=int, default=512)
     ap.add_argument("-np", "--parallel", type=int, default=1,
-                    help="concurrent requests through continuous batching (not ported:"
-                         " only 1)")
+                    help="serve N concurrent requests via continuous batching")
+    ap.add_argument("--decode-chunk", type=int, default=8,
+                    help="batched decode tokens per dispatch (CUDA graph replay)")
+    ap.add_argument("--prefill-chunk", type=int, default=256,
+                    help="admission prefill tokens per dispatch: bounds the decode stall"
+                         " in-flight streams see while a new request's prompt evaluates")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--weight-mode", default="fused", choices=["fused", "dequant"])
@@ -516,8 +793,8 @@ def main(argv=None):
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.parallel > 1:
-        ap.error(PARALLEL_REFUSAL)
+    if args.parallel < 1:
+        ap.error(f"--parallel {args.parallel}: at least 1")
     if args.draft_model or args.self_draft:
         ap.error(DRAFT_REFUSAL)
     if args.lora or args.lora_base:
@@ -527,9 +804,11 @@ def main(argv=None):
                        compute_dtype=args.compute_dtype,
                        kernel_layout=args.weight_mode == "fused")
     mf, params = load_model(args.model, cfg, device=args.device)
-    engine = FalconEngine(mf.hparams, params, cfg, device=args.device)
+    engine = FalconEngine(mf.hparams, params, cfg, device=args.device,
+                          batch_size=args.parallel)
     httpd = serve(engine, mf.vocab, args.host, args.port, arch=mf.arch,
-                  alias=args.alias or args.model)
+                  parallel=args.parallel, alias=args.alias or args.model,
+                  chunk=args.decode_chunk, prefill_chunk=args.prefill_chunk)
     print(f"listening on http://{args.host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()

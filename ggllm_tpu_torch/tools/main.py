@@ -7,6 +7,8 @@ split across tokens never leaks), finetune templates, interactive mode,
 context swap past n_ctx (--keep, falcon_main.cpp:694-760) and logit bias;
 --perplexity (over -f FILE, engine/perplexity.py) and --embedding (the
 prompt's final hidden state) run those modes instead of generating.
+--grammar GBNF / --grammar-file FNAME constrain generation to a grammar
+(ops/grammar.py; masked decode chunks on the device, engine/generator.py).
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
@@ -169,6 +171,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode-chunk", type=int, default=16,
                     help="tokens per CUDA graph replay in the fused decode loop (larger ="
                          " faster, chunkier streaming)")
+    ap.add_argument("--grammar", default="", metavar="GBNF",
+                    help="constrain generation to a GBNF grammar (llama.cpp grammar dialect;"
+                         " masked device steps, multi-step chunks over self-looping states)")
+    ap.add_argument("--grammar-file", default="", metavar="FNAME",
+                    help="read the GBNF grammar from a file")
     ap.add_argument("--verbose-timings", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
@@ -273,8 +280,17 @@ def main(argv=None) -> int:
     # keep the whole prompt on context swap when requested (reference
     # falcon_main: n_keep < 0 or instruct mode -> full prompt)
     n_keep = len(prompt_ids) if (args.n_keep < 0 or args.instruct) else args.n_keep
+    grammar = None
+    if args.grammar or args.grammar_file:
+        from ggllm_tpu_torch.ops.grammar import GrammarSampler, parse_gbnf
+
+        text = args.grammar
+        if args.grammar_file:
+            with open(args.grammar_file) as f:
+                text = f.read()
+        grammar = GrammarSampler(parse_gbnf(text), vocab.id_to_token, tk.eos_id)
     gen = Generator(engine, sampler, tk.eos_id, n_keep, fused_ok=not args.no_fused_decode,
-                    log=lambda m: print(f"\n[{m}]", file=sys.stderr))
+                    log=lambda m: print(f"\n[{m}]", file=sys.stderr), grammar=grammar)
     stop_suffixes = [s.encode() for s in stopwords]
     # the bytes given on the command line, also where they are no UTF-8
     antiprompts = [a.encode("utf-8", "surrogateescape") for a in args.reverse_prompt]

@@ -17,6 +17,8 @@ its root, so that two trees can be timed in turns within one call.
     python ggllm_tpu_torch/tools/time_kernels.py group_sums [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py f32path [--root DIR]
         [--config falcon7b|llama7b] [--format q4_0] [--layers 32]
+    python ggllm_tpu_torch/tools/time_kernels.py nodes [--root DIR]
+        [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
 
 `tile` prints, per weight shape of the full-width models and S in 512 / 300,
 the `wgmma` tile's time with 128 and 256 x rows a block, with the width
@@ -89,6 +91,11 @@ process loads it) and through the plain versions; the largest logit difference a
 |logit|, the positions whose argmax agree, whether both sets of logits are
 finite, and the launch counters (`f32_path`, which chip_smoke.py's f32 paths
 run too).
+`nodes` prints one JSON line: the node count (`graph_nodes`) of the greedy
+16-step decode graph (`SamplerParams(temp=0.0)`) of a full-width engine
+with random weights, captured as chip_smoke.py's main paths capture it
+(`generate` of 4 ids from an 8-token prompt); a tree whose graphs do not
+keep their cudaGraph_t is made to keep it.
 --root names the directory that holds the `ggllm_tpu_torch` package to time
 (default: the one this file lies in).
 """
@@ -624,6 +631,46 @@ def decode_turns(eng, first: int, hist: list, n_tokens: int, chunk: int = 16) ->
     return turns
 
 
+def graph_nodes(cuda_graph) -> int:
+    """The node count of a captured torch.cuda.CUDAGraph made with
+    keep_graph=True (cuGraphGetNodes on its cudaGraph_t): its kernels,
+    copies and fills, and the empty nodes that join the capture's streams.
+    Unlike a profiler trace of a replay, it reads the graph itself."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(int(cuda_graph.raw_cuda_graph())), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return n.value
+
+
+def time_nodes(config: str, fmt: str, kv_dtype: str) -> None:
+    import numpy as np
+    import torch
+
+    keep = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = lambda *a, **k: keep(keep_graph=True)
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+    hp = named_hparams(config)
+    params = make_bench_params(hp, device="cuda", seed=7, gtype=GGMLType[fmt.upper()])
+    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=kv_dtype))
+    prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, 8)]
+    eng.generate(prompt, 4, SamplerParams(temp=0.0), stop_ids=set())
+    graph = eng.chunk_graph(16, SamplerParams(temp=0.0)).graph
+    torch.cuda.CUDAGraph = keep
+    print(json.dumps({"package": str(Path(build.__file__).resolve().parents[2]),
+                      "card": torch.cuda.get_device_name(0),
+                      "model": f"{config} {fmt} kv {kv_dtype}",
+                      "greedy_16_step_graph_nodes": graph_nodes(graph)}), flush=True)
+
+
 def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: int,
                 compute_dtype: str = "bfloat16") -> None:
     import numpy as np
@@ -656,7 +703,7 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("tile", "attn", "decode", "gemv", "rows", "f32", "f32path",
-                                     "group_sums"))
+                                     "group_sums", "nodes"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
     ap.add_argument("--format", default="q4_0")
@@ -695,6 +742,8 @@ def main(argv=None) -> int:
                 O, K = (int(v) for v in dims.split("x"))
                 shapes.append((fmt, f"{O}x{K}", O, K))
         (time_gemv if args.what == "gemv" else time_rows)(shapes)
+    elif args.what == "nodes":
+        time_nodes(args.config, args.format, args.kv_dtype)
     else:
         time_decode(args.config, args.format, args.kv_dtype, args.prompt, args.tokens,
                     args.compute_dtype)

@@ -8,8 +8,8 @@ and the JAX ContinuousBatcher's (computed once a module), on Falcon and
 LLaMA, dense and int8 caches; stop ids and streaming; more requests than
 rows; chunked admission interleaving decode; sampled rows whose consumed
 uniforms, replayed through the port's host cascade, give the batched ids; a
-request whose stream raises fails alone; grammar requests are refused; the
-single-stream entry points refuse on a B-row engine. Also the per-row cache
+request whose stream raises fails alone; the single-stream entry points
+refuse on a B-row engine (grammar rows: tests/test_torch_batching_grammar.py). Also the per-row cache
 writes (ops/kvcache.py write_layer / write_all_layers with a (B,) n_past)
 against the JAX kvcache functions, and prefill_rows' logits against the JAX
 engine's."""
@@ -268,13 +268,6 @@ def test_a_failing_row_leaves_the_other_rows_running(files):
     assert isinstance(bad.error, RuntimeError) and bad.done and len(bad.out) == 4
     assert [r.out for r in good] == [_sequential(files, "falcon", p, 12) for p in PROMPTS[1:3]]
     assert all(r.error is None for r in good) and not cb.active
-
-
-def test_grammar_requests_are_refused(files):
-    cb = ContinuousBatcher(_engine(files, "falcon", batch_size=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        cb.submit(Request(PROMPTS[0], grammar_sampler=object()))
-    assert not cb.queue
 
 
 def test_single_stream_entry_points_refuse_on_a_row_engine(files):

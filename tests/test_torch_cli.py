@@ -22,11 +22,11 @@ torch.set_num_threads(1)
 BASE = ["-c", "96", "-b", "32", "--kv-dtype", "float32", "--compute-dtype", "float32",
         "--temp", "0", "--decode-chunk", "4"]
 
-# flags that wait for their modules (LoRA, sessions, grammar, speculative
-# decoding, multi-chip, export, profiling)
+# flags that wait for their modules (LoRA, sessions, speculative decoding,
+# multi-chip, export, profiling)
 WAITING = ["--lora", "--lora-base", "--prompt-cache", "--prompt-cache-all", "--prompt-cache-ro",
-           "--grammar", "--grammar-file", "--draft-model",
-           "--self-draft", "-ts", "--kv-shard", "--multihost", "--export", "--profile"]
+           "--draft-model", "--self-draft", "-ts", "--kv-shard", "--multihost", "--export",
+           "--profile"]
 
 
 @pytest.fixture(scope="module")
@@ -203,7 +203,7 @@ def test_flags_match_the_jax_cli():
               "--color", "--sys-prompt", "--system", "--system-file", "--system-raw", "-enc",
               "--finetune", "--verbose-prompt", "--compute-dtype", "--decode-chunk",
               "--no-fused-decode", "--display-timings", "--verbose-timings", "--perplexity",
-              "--embedding"):
+              "--embedding", "--grammar", "--grammar-file"):
         assert o in ported, o
     for o in WAITING:
         assert o in ref and o not in got, o

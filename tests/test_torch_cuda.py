@@ -1407,3 +1407,102 @@ def test_a_failed_row_capture_raises_naming_the_step(dev, tmp_path, monkeypatch)
     with pytest.raises(RuntimeError, match="2-row decode chunk .* failed at step 0"):
         eng.decode_rows([5, 6], [len(p) for p in ROW_PROMPTS[:2]], 4)
     assert next(iter(eng._chunks.values())).graph is None
+
+
+def _grammar_run(eng, text, eager: bool, n: int = 24):
+    """n greedy ids (the end of text banned) under `text` through the
+    Generator's masked chunks on `eng` from ROW_PROMPTS[0]."""
+    from ggllm_tpu_torch.engine.generator import Generator
+    from ggllm_tpu_torch.ops.grammar import GrammarSampler, parse_gbnf
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.synthetic import make_tiny_vocab
+
+    pieces = make_tiny_vocab(eng.hp.n_vocab).id_to_token
+    eng.reset()
+    gen = Generator(eng, SamplerParams(temp=0.0, repeat_penalty=1.1,
+                                       logit_bias={11: float("-inf")}), 11,
+                    grammar=GrammarSampler(parse_gbnf(text), pieces, 11))
+    gen.eager = eager
+    toks = []
+    gen.generate(gen.prefill(ROW_PROMPTS[0]), n, lambda t: toks.append(t) or True)
+    assert len(toks) == n
+    return toks, dict(gen.masked_stats)
+
+
+@pytest.mark.parametrize("kv_dtype,compute", [("float32", "float32"), ("int8", "float32"),
+                                               ("bfloat16", "bfloat16")])
+def test_masked_graphs_equal_the_eager_masked_body_and_the_cpu(dev, tmp_path, kv_dtype,
+                                                               compute):
+    """Grammar-constrained greedy decode through the masked chunk graphs
+    (1-step and 16-step, the latter rolled back at the run's end) gives the
+    eager masked step body's ids, and on the dense f32 cache the CPU's; a
+    second grammar (another mask on the same keys) captures nothing."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                         n_layer=2, n_falcon_type=7, n_bpe_merges=0),
+                     GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=64, n_batch=16, kv_dtype=kv_dtype, compute_dtype=compute)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        mf, params = load_model(path, cfg, device=device)
+        eng = FalconEngine(mf.hparams, params, cfg, device=device)
+        if device == "cuda":
+            runs["graph"] = _grammar_run(eng, "root ::= [0-9]+", eager=False)
+            assert runs["graph"][1]["chunks"] and runs["graph"][1]["rolled_back"]
+            masked = [c for c in eng._chunks.values() if c.key.masked]
+            assert sorted(c.n_steps for c in masked) == [1, 16]
+            assert all(c.graph is not None for c in masked)
+            compile_us = eng.timings.t_compile_us
+            _grammar_run(eng, 'root ::= [0-9] [0-9a-f]*', eager=False)
+            assert eng.timings.t_compile_us == compile_us and len(eng._chunks) == len(masked)
+        runs["eager" if device == "cuda" else "cpu"] = _grammar_run(
+            eng, "root ::= [0-9]+", eager=True)
+    assert runs["graph"][0] == runs["eager"][0]
+    if kv_dtype == "float32":
+        assert runs["graph"][0] == runs["cpu"][0]
+
+
+def test_masked_row_graph_equals_the_eager_rows(dev, tmp_path):
+    """decode_rows with per-row masks (one 1-step graph of a masked RowKey)
+    gives the eager B-row body's ids with each row's mask in force, over
+    masks that change every step without a new capture."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.sampling_device import mask_bytes
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                         n_layer=2, n_falcon_type=7, n_bpe_merges=0),
+                     GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=64, n_batch=16, kv_dtype="float32", compute_dtype="float32")
+    mf, params = load_model(path, cfg, device="cuda")
+    B, V = 3, mf.hparams.n_vocab
+    rng = np.random.default_rng(2)
+    masks = [np.packbits(rng.random((B, V)) < 0.1, axis=1, bitorder="little") for _ in range(6)]
+    assert masks[0].shape == (B, mask_bytes(V))
+    masks = [np.where(np.arange(B)[:, None] == 1, 255, m).astype(np.uint8) for m in masks]
+    runs = {}
+    for eager in (False, True):
+        eng = FalconEngine(mf.hparams, params, cfg, batch_size=B)
+        first = eng.prefill_rows(list(range(B)), ROW_PROMPTS, np.zeros(B, np.int64))
+        last = np.asarray([int(np.argmax(first[r])) for r in range(B)])
+        npv = np.asarray([len(p) for p in ROW_PROMPTS], np.int64)
+        out, compile_us = [], None
+        for m in masks:
+            toks, _, _ = eng.decode_rows(last, npv, 1, {"temp": np.asarray([0.0, 0.0, 0.9])},
+                                         generator=torch.Generator(device=dev).manual_seed(1),
+                                         eager=eager, mask_bits=m)
+            valid = np.unpackbits(m, axis=1, bitorder="little")[:, :V].astype(bool)
+            assert all(valid[r, toks[0, r]] for r in range(B))
+            out.append(toks[0].tolist())
+            last, npv = toks[-1], npv + 1
+            if compile_us is None:
+                compile_us = eng.timings.t_compile_us
+        assert eng.timings.t_compile_us == compile_us and len(eng._chunks) == 1
+        runs[eager] = out
+    assert runs[False] == runs[True]

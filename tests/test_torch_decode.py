@@ -328,6 +328,12 @@ def test_graph_credits_its_counts_per_replay(monkeypatch):
     replays = []
 
     class FakeGraph:
+        def __init__(self, keep_graph=False):
+            pass
+
+        def instantiate(self):
+            pass
+
         def replay(self):
             replays.append(1)
 

@@ -256,7 +256,8 @@ def test_port_imports_neither_jax_nor_reference():
         "          'utils.benchgen', 'tools.main', 'tools.profile_decode',\n"
         "          'tools.time_kernels', 'engine.generator', 'utils.stream',\n"
         "          'utils.finetune', 'engine.perplexity', 'tools.perplexity',\n"
-        "          'tools.embedding', 'server.app', 'server.__main__', 'engine.batching'):\n"
+        "          'tools.embedding', 'server.app', 'server.__main__', 'engine.batching',\n"
+        "          'ops.grammar'):\n"
         "    assert 'ggllm_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('ggllm_tpu_torch.')]), bad)\n"
     )

@@ -172,11 +172,6 @@ def test_generator_callback_stop_uncommits_like_jax(make):
     assert gen.eng.n_past == jgen.eng.n_past and gen.pending_feed == jgen.pending_feed
 
 
-def test_generator_refuses_grammar(make):
-    with pytest.raises(NotImplementedError, match="[Gg]rammar"):
-        Generator(make("torch"), TSamplerParams(), eos_id=-1, grammar=object())
-
-
 # ---------------------------------------------------------------- StopStream
 
 

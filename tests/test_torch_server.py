@@ -10,12 +10,12 @@ are taken once a module. Greedy content, tokens_predicted and
 tokens_evaluated (prefix reuse), truncation, stopping word and ignore_eos
 fields must be equal, the SSE stream must concatenate to the blocking
 content, and the /v1 responses must have the same fields. The helpers the
-port keeps copies of are held to the originals; a grammar request gets a
-400 that names the ROADMAP item and --parallel 2 is refused."""
+port keeps copies of are held to the originals; a draft model and LoRA are
+refused naming their ROADMAP items. (Grammar requests and --parallel:
+tests/test_torch_server_parallel.py.)"""
 
 import json
 import threading
-import urllib.error
 import urllib.request
 
 import pytest
@@ -31,7 +31,6 @@ from ggllm_tpu.utils.synthetic import write_tiny_model
 
 from ggllm_tpu_torch.core.config import EngineConfig as TEngineConfig
 from ggllm_tpu_torch.engine.engine import FalconEngine as TFalconEngine
-from ggllm_tpu_torch.engine.generator import GrammarNotPorted
 from ggllm_tpu_torch.io.loader import load_model as tload_model
 from ggllm_tpu_torch.server import app
 
@@ -251,37 +250,19 @@ def test_client_gone_mid_stream_leaves_a_consistent_cache(server, path):
     assert got["content"] == ref["content"] and got["tokens_predicted"] == ref["tokens_predicted"]
 
 
-def test_grammar_and_parallel_are_refused(server, path, capsys):
-    """A grammar request gets HTTP 400 naming the ROADMAP item, blocking and
-    streamed; called directly, the state raises before it touches the cache;
-    --parallel 2, a draft model and LoRA are refused by main() before any
-    model loads, so are the unported batcher's and draft's knobs, and
-    serve(parallel=2) raises."""
-    url, state = server
-    for route, body in (("/completion", {"prompt": "x", "grammar": "root ::= [0-9]+"}),
-                        ("/completion", {"prompt": "x", "grammar": "root ::= [0-9]+",
-                                         "stream": True})):
-        with pytest.raises(urllib.error.HTTPError) as e:
-            _post(url, route, body)
-        assert e.value.code == 400
-        assert "ROADMAP.md, Queue 1: Grammar" in json.loads(e.value.read())["error"]
-    n_past, cached = state.engine.n_past, list(state.cache_tokens)
-    with state.lock, pytest.raises(GrammarNotPorted, match="Queue 1: Grammar"):
-        state.completion({"prompt": "x", "grammar": "root ::= [0-9]+"})
-    assert state.engine.n_past == n_past and state.cache_tokens == cached
-    for extra, item in ((["--parallel", "2"], "continuous batching"),
-                        (["--draft-model", path], "speculative decoding"),
+def test_draft_and_lora_are_refused(path, capsys):
+    """A draft model and LoRA are refused by main() naming their ROADMAP
+    items, before any model loads; the draft's --draft-k is not a flag
+    here."""
+    for extra, item in ((["--draft-model", path], "speculative decoding"),
                         (["--self-draft", "1"], "speculative decoding"),
                         (["--lora", path], "LoRA")):
         with pytest.raises(SystemExit):
             app.main(["-m", "/nonexistent.ggcc", *extra])
         assert f"ROADMAP.md, Queue 1: {item}" in capsys.readouterr().err
-    for extra in (["--decode-chunk", "8"], ["--prefill-chunk", "256"], ["--draft-k", "6"]):
-        with pytest.raises(SystemExit):  # the batcher's and the draft's knobs: not flags here
-            app.main(["-m", "/nonexistent.ggcc", *extra])
-        assert "unrecognized arguments" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="continuous batching"):
-        app.serve(state.engine, state.vocab, port=0, parallel=2)
+    with pytest.raises(SystemExit):
+        app.main(["-m", "/nonexistent.ggcc", "--draft-k", "6"])
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_helpers_match_the_originals():
