@@ -118,11 +118,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      requests sent, the rows kernel and the grouped decode kernel and no
      GEMV launched, with aggregate tok/s, each request's prompt_ms and
      predicted_per_second, and the aggregate of 4 requests with and without
-     a grammar row among them;
+     a grammar row among them; on the same engine also sessions
+     (phase_session: a saved 300-token prompt loaded into a fresh engine
+     gives 32 greedy ids bit for bit those of an engine that prefilled the
+     same split without a file, a sampled run restored after 8 ids continues
+     with the uninterrupted run's; the file's bytes, save and load ms) and
+     speculative decoding (phase_speculative, k = 6, 4 rounds a graph: 64
+     greedy ids with a perfect draft and with --self-draft 8, each held to the
+     single stream with the ids forced within ROWS_LOGIT_TOL, the round graph's
+     ids, n_acc and both caches equal to the eager rounds', the round graph's
+     capture record holding quant_matmul.rows, quant_matmul.gemv, flash_mqa.tc
+     and flash_decode_tc; stochastic rounds on fixed uniforms equal to a
+     float64 replay of their accept / resample and the graph's to the eager
+     rounds'; tok/s, ms a round and acceptance beside the single stream's
+     tok/s), and the server answers one greedy request with --self-draft 8
+     carrying its speculative field;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
-     --kv-dtype int8; on the Q4_0 file also a context swap, -f and -r. These
+     --kv-dtype int8; on the Q4_0 file also a context swap, -f, -r,
+     --prompt-cache twice (the second run must reuse the prompt and print the
+     first run's text) and --draft-model (the Q4_K file as the draft). These
      processes run alongside phase 1's SASS report, and end before phase 2.
 The last two lines of standard output are the kernel table as JSON and
 {"ok": true, "device": {...}}. Per-shape rows also go to
@@ -1392,7 +1408,7 @@ def _http(url: str, route: str, body: dict | None = None, stream: bool = False):
             for d in (line[len("data: "):] for line in raw.split("\n\n") if line)]
 
 
-def phase_server(torch, eng, hp) -> dict:
+def phase_server(torch, eng, params, hp) -> dict:
     """The single-stream server (ggllm_tpu_torch/server/app.py serve) over a
     full-width engine, on 127.0.0.1 at a free port, in a thread; the
     requests come from this thread, the engine's work runs in the handler
@@ -1406,7 +1422,9 @@ def phase_server(torch, eng, hp) -> dict:
     nothing; (d) a streamed request's chunks concatenate to the blocking
     content of the same request (replacement characters aside: each chunk
     is decoded on its own); (e) /v1/chat/completions and /metrics answer,
-    the counters matching the requests sent. Fails on any mismatch."""
+    the counters matching the requests sent; (f) a server with --self-draft
+    8 over the same engine answers a greedy request speculatively
+    (_spec_request). Fails on any mismatch."""
     import threading
 
     from ggllm_tpu_torch.engine.generator import Generator
@@ -1506,6 +1524,9 @@ def phase_server(torch, eng, hp) -> dict:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=60)
+    spec = _spec_request(torch, eng, params, hp, vocab, a_body)
+    for name, n in spec.pop("launches").items():
+        counts[name] = counts.get(name, 0) + n
     names = ("a greedy", "b extends a", "c1 sampled 0.7", "c2 sampled 0.9", "d streamed",
              "e chat", "d blocking")
     for name, r in zip(names, sent):
@@ -1527,7 +1548,242 @@ def phase_server(torch, eng, hp) -> dict:
         if counts.get(name, 0) <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the server path")
     return {"path": "falcon7b q4_0 server", "launches": counts, "requests": timings,
-            "graphs": graphs(), "capture_ms": eng.timings.t_compile_us / 1e3}
+            "graphs": graphs(), "capture_ms": eng.timings.t_compile_us / 1e3, "self_draft": spec}
+
+
+def _spec_request(torch, eng, params, hp, vocab, body: dict) -> dict:
+    """The same greedy request of 64 tokens twice (repeat penalty 1, so that
+    the fused rounds take it; the first captures the round graph) to a
+    server over `eng` with --self-draft 8 (serve's draft_engine, draft_k 6):
+    each response must carry the speculative field with rounds and 6 drafts
+    a round, and /metrics the spec_* counters. Returns the fields, the
+    requests' timings and their launches."""
+    import dataclasses
+    import threading
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.engine.speculative import truncate_params
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.server.app import serve
+
+    draft = FalconEngine(dataclasses.replace(hp, n_layer=8), truncate_params(params, 8),
+                         EngineConfig())
+    httpd = serve(eng, vocab, "127.0.0.1", 0, alias="falcon-7b-q4_0-random", draft_engine=draft,
+                  draft_k=6)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        build.launch_counts.clear()
+        got, capture_ms = [], []
+        for _ in range(2):  # the first captures the round graph
+            t_compile = eng.timings.t_compile_us
+            got.append(_http(url, "/completion", {**body, "repeat_penalty": 1.0,
+                                                  "ignore_eos": False}))
+            capture_ms.append((eng.timings.t_compile_us - t_compile) / 1e3)
+        counts = dict(build.launch_counts)
+        metrics = _http(url, "/metrics")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    for i, r in enumerate(got):
+        sp = r.get("speculative") or {}
+        log(f"  server --self-draft 8, request {i + 1}: {r['tokens_predicted']} predicted"
+            f" ({r['stopped_reason']}), {r['tokens_evaluated']} evaluated, speculative {sp},"
+            f" timings {r['timings']}, capture {capture_ms[i]:.1f} ms")
+        if not sp.get("rounds") or sp["drafted"] != 6 * sp["rounds"] or r["tokens_predicted"] < 1:
+            raise RuntimeError(f"server --self-draft 8: response {r}")
+    rounds = sum(r["speculative"]["rounds"] for r in got)
+    if f"ggllm_spec_rounds_total {rounds}\n" not in metrics:
+        raise RuntimeError(f"server --self-draft 8: /metrics lacks {rounds} rounds:\n{metrics}")
+    return {"speculative": [r["speculative"] for r in got],
+            "timings": [r["timings"] for r in got], "capture_ms": capture_ms, "launches": counts}
+
+
+def phase_session(torch, eng, params, hp) -> dict:
+    """Sessions on the Falcon-7B Q4_0 engine (engine/session.py), bf16
+    cache: a 300-token prompt prefilled and saved; the file loaded into a
+    fresh engine over the same weights gives 32 greedy ids bit for bit those
+    of an engine that prefilled the same split (prompt[:n], then the rest)
+    without a file; a sampled Generator run saved after 8 ids and restored
+    into a fresh engine continues with the uninterrupted run's 24 ids. Prints
+    the file's bytes and the save and load ms."""
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine import session
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.engine.generator import Generator
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    rng = np.random.default_rng(11)
+    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
+    greedy = SamplerParams(temp=0.0)
+    fresh = FalconEngine(hp, params, EngineConfig())
+    with tempfile.TemporaryDirectory() as d:
+        f = str(Path(d) / "prompt.session")
+        eng.reset()
+        eng.eval(prompt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.save(f, eng, prompt)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = Path(f).stat().st_size
+        t0 = time.perf_counter()
+        rest = session.try_load(f, fresh, prompt)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        n = len(prompt) - len(rest)
+        got = fresh.generate(rest, 32, greedy, stop_ids=set())
+        eng.reset()
+        eng.eval(prompt[:n])
+        want = eng.generate(prompt[n:], 32, greedy, stop_ids=set())
+        log(f"  session: {nbytes} bytes for {n} positions, save {save_ms:.1f} ms, load"
+            f" {load_ms:.1f} ms; 32 greedy ids after the load {'equal' if got == want else 'differ'}")
+        if n != len(prompt) - 1 or got != want:
+            raise RuntimeError(f"session: reused {n} of {len(prompt)}; ids after the load\n{got}\n"
+                               f"without a file\n{want}")
+        sampler = SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1, seed=77)
+        eng.reset()
+        gen = Generator(eng, sampler, eos_id=-1)
+        gen.generate(gen.prefill(prompt), 8, lambda t: True)
+        session.save(f, eng, gen.all_tokens[:eng.n_past], sampler_state=gen.state,
+                     generator=gen.rng)
+        saved, tail_a, tail_b = list(gen.all_tokens), [], []
+        gen.generate(gen.prefill([]), 24, lambda t: tail_a.append(t) is None)
+        fresh.reset()
+        rest = session.try_load(f, fresh, saved)
+        gen_b = Generator(fresh, sampler, eos_id=-1)
+        gen_b.state, gen_b.rng, _ = session.load_sampler_state(f, sampler, fresh)
+        gen_b.all_tokens = saved[:len(saved) - len(rest)]
+        gen_b.generate(gen_b.prefill(rest), 24, lambda t: tail_b.append(t) is None)
+        log(f"  session: a sampled run restored after 8 ids continues with the uninterrupted"
+            f" run's 24: {tail_a == tail_b}")
+        if tail_a != tail_b or len(set(tail_a)) < 2:
+            raise RuntimeError(f"session: sampled continuation\n{tail_b}\nuninterrupted\n{tail_a}")
+    del fresh
+    return {"path": "falcon7b q4_0 session", "launches": {}, "bytes": nbytes,
+            "positions": n, "save_ms": save_ms, "load_ms": load_ms}
+
+
+def phase_speculative(torch, eng, params, hp) -> dict:
+    """Speculative decoding on the Falcon-7B Q4_0 engine (engine/speculative.py,
+    k = 6, 4 rounds a graph), bf16 caches, from a 300-token prompt: 64 greedy
+    ids with (a) a second engine over the same weights (the perfect draft:
+    the all-accept and bonus-token path) and (b) the first 8 layers
+    (--self-draft 8). Each run's ids are held to the single stream's with
+    the ids forced within ROWS_LOGIT_TOL (_against_single: the verify runs
+    S = 7 rows through the rows kernel, the single stream the GEMV); the
+    replayed round graph gives the eager round body's ids, n_acc and both
+    caches bit for bit; the round graph's capture record holds
+    quant_matmul.rows (verify), quant_matmul.gemv (draft), flash_mqa.tc
+    (verify attention) and flash_decode_tc (draft attention). Then 4
+    stochastic rounds (temperature 0.8, top-k 40, top-p 0.95) on fixed
+    uniforms: the eager rounds' ids and n_acc equal a float64 host replay
+    over each round's p and q, and the graph's equal the eager rounds'.
+    Prints tok/s, ms a round and acceptance of both drafts beside the
+    single stream's tok/s on the same prompt."""
+    import dataclasses
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.engine import FalconEngine, Timings
+    from ggllm_tpu_torch.engine.speculative import (SpeculativeDecoder, replay_round,
+                                                    truncate_params)
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.tools.time_kernels import round_device_ms, replay_device_ms
+
+    rng = np.random.default_rng(13)
+    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
+    greedy = SamplerParams(temp=0.0, repeat_penalty=1.0)
+    eng.reset()
+    eng.generate(prompt, 64, greedy, stop_ids=set())  # the single stream, warm
+    eng.reset()
+    eng.timings = Timings()
+    single = eng.generate(prompt, 64, greedy, stop_ids=set())
+    single_tps = eng.timings.n_decode / (eng.timings.t_decode_us / 1e6)
+    single_device_ms = replay_device_ms(eng, 16, greedy, 2)
+    drafts = {"a: perfect draft": FalconEngine(hp, params, EngineConfig()),
+              "b: --self-draft 8": FalconEngine(dataclasses.replace(hp, n_layer=8),
+                                                truncate_params(params, 8), EngineConfig())}
+    out = {"path": "falcon7b q4_0 speculative", "single_tok_s": single_tps,
+           "single_device_ms_per_token": single_device_ms}
+    counts = {}
+    want = ("quant_matmul.rows", "quant_matmul.gemv", "flash_mqa.tc", "flash_decode_tc")
+
+    def run(spec, sampler, n, uniforms=None):
+        eng.reset()
+        spec.draft.reset()
+        eng.timings = Timings()
+        ids = spec.generate(prompt, n, sampler, uniforms=uniforms)
+        torch.cuda.synchronize()
+        kv = tuple(e.kv[:, :, :, :e.n_past].clone() for e in (eng, spec.draft))
+        return ids, [a for _, a, _ in spec.last_rounds], kv
+
+    for label, dr in drafts.items():
+        spec = SpeculativeDecoder(eng, dr, k=6)
+        run(spec, greedy, 16)  # captures the greedy round graph
+        capture_ms = eng.timings.t_compile_us / 1e3
+        build.launch_counts.clear()
+        ids, n_acc, kv = run(spec, greedy, 64)
+        for name, c in build.launch_counts.items():
+            counts[name] = counts.get(name, 0) + c
+        tm, st = eng.timings, spec.stats
+        tps, ms_round = 64 / (tm.t_decode_us / 1e6), tm.t_decode_us / 1e3 / st.n_rounds
+        record = spec.round_graph(greedy).counts
+        device_ms = round_device_ms(spec, greedy, 2)
+        e_ids, e_acc, e_kv = run(SpeculativeDecoder(eng, dr, k=6, eager=True), greedy, 64)
+        same_kv = all(torch.equal(a, b) for a, b in zip(kv, e_kv))
+        log(f"  speculative {label}: {tps:.2f} tok/s ({st.n_rounds} rounds, {ms_round:.3f} ms a"
+            f" round on the host's clock, {device_ms:.3f} on the device's, acceptance"
+            f" {st.acceptance:.4f}, {st.n_emitted / st.n_rounds:.2f} ids a round) against the"
+            f" single stream's {single_tps:.2f} ({single_device_ms:.4f} device ms a token);"
+            f" capture {capture_ms:.1f} ms; graph = eager body: ids {ids == e_ids}, n_acc"
+            f" {n_acc == e_acc}, caches {same_kv}; the round graph's record a replay: {record}")
+        if ids != e_ids or n_acc != e_acc or not same_kv:
+            raise RuntimeError(f"speculative {label}: the round graph and the eager body differ:"
+                               f"\n{ids}\n{e_ids}\n{n_acc}\n{e_acc}; caches equal {same_kv}")
+        if any(record.get(name, 0) <= 0 for name in want):
+            raise RuntimeError(f"speculative {label}: the round graph launches {record}, not all"
+                               f" of {want}")
+        tf = _against_single(eng, prompt, ids, f"speculative {label}", ROWS_LOGIT_TOL)
+        out[label] = {"tok_s": tps, "ms_a_round": ms_round, "device_ms_a_round": device_ms,
+                      "rounds": st.n_rounds,
+                      "acceptance": st.acceptance, "capture_ms": capture_ms,
+                      "round_graph_launches": record, "equal_single": tf["equal"],
+                      "worst_deficit": tf["worst"]}
+        if label.startswith("a") and st.acceptance < 0.9:
+            raise RuntimeError(f"speculative {label}: acceptance {st.acceptance} with the"
+                               " target's own weights as the draft")
+
+    # stochastic rounds on fixed uniforms, with the 8-layer draft
+    sampler = SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.0, seed=5)
+    us = rng.random((8, 14)).astype(np.float32)
+    spec = SpeculativeDecoder(eng, drafts["b: --self-draft 8"], k=6, eager=True)
+    spec.record = []
+    e_ids, e_acc, _ = run(spec, sampler, 24, us)
+    rounds = spec.last_rounds
+    replays = [replay_round(rec["p"].double().cpu().numpy(), rec["q"].double().cpu().numpy(),
+                            rec["xs"].tolist(), u) for rec, (_, _, u) in zip(spec.record, rounds)]
+    g_ids, g_acc, _ = run(SpeculativeDecoder(eng, drafts["b: --self-draft 8"], k=6), sampler,
+                          24, us)
+    ok = replays == [(e, a) for e, a, _ in rounds]
+    log(f"  speculative stochastic (8-layer draft, fixed uniforms): {len(rounds)} rounds, n_acc"
+        f" {e_acc}; float64 replay of accept / resample {'equal' if ok else 'differs'}; graph ="
+        f" eager: ids {g_ids == e_ids}, n_acc {g_acc == e_acc}")
+    if not ok or g_ids != e_ids or g_acc != e_acc or len(e_ids) != 24:
+        raise RuntimeError(f"speculative stochastic rounds: replays {replays}, rounds"
+                           f" {[(e, a) for e, a, _ in rounds]}; graph {g_ids} {g_acc}, eager"
+                           f" {e_ids} {e_acc}")
+    out["stochastic"] = {"rounds": len(rounds), "n_acc": e_acc}
+    out["launches"] = counts
+    del drafts, spec
+    eng.timings = Timings()
+    return out
 
 
 def phase_grammar(torch, eng, hp) -> dict:
@@ -1976,29 +2232,50 @@ def start_cli(d: str) -> dict:
              ["-m", q4_0, "-f", str(prompt_file), "-n", "16", *greedy],
              ["-m", q4_0, "-p", "the thing", "-n", "40", "--reverse-prompt=" + os.fsdecode(anti),
               *greedy]]
-    procs = []
-    for i, cmd in enumerate(cmds):
-        with open(Path(d) / f"{i}.out", "wb") as out, open(Path(d) / f"{i}.err", "wb") as err:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "ggllm_tpu_torch.tools.main", *cmd], cwd=ROOT,
-                stdout=out, stderr=err))
-    return {"dir": d, "cases": cases, "base": base, "anti": anti, "procs": procs}
+    # --prompt-cache twice (the second run starts when the first has ended)
+    # and a draft model (the 40B-style Q4_K file, same vocabulary)
+    cached = ["-m", q4_0, "-p", "the thing and the other thing", "-n", "16", *greedy,
+              "--prompt-cache", str(Path(d) / "cli.session")]
+    cmds += [cached, ["-m", q4_0, "-p", "the thing", "-n", "24", "--temp", "0",
+                      "--repeat-penalty", "1", "--draft-model", cmds[1][1]]]
+    run = {"dir": d, "cases": cases, "base": base, "anti": anti, "procs": [],
+           "then": {len(cmds) - 2: cached}}
+    for cmd in cmds:
+        _start_cli_process(run, cmd)
+    return run
+
+
+def _start_cli_process(run: dict, cmd: list) -> None:
+    i = len(run["procs"])
+    with open(Path(run["dir"]) / f"{i}.out", "wb") as out, \
+            open(Path(run["dir"]) / f"{i}.err", "wb") as err:
+        run["procs"].append(subprocess.Popen(
+            [sys.executable, "-m", "ggllm_tpu_torch.tools.main", *cmd], cwd=ROOT,
+            stdout=out, stderr=err))
 
 
 def wait_cli(run: dict) -> list:
-    """Wait for start_cli's processes; returns ((stdout bytes, stderr text), rc) each."""
+    """Wait for start_cli's processes, starting run["then"][i] when process i
+    has ended; returns ((stdout bytes, stderr text), rc) each, in the order
+    they started."""
     results = []
-    for i, p in enumerate(run["procs"]):
-        rc = p.wait(timeout=600)
+    i = 0
+    while i < len(run["procs"]):
+        rc = run["procs"][i].wait(timeout=600)
         results.append(((Path(run["dir"], f"{i}.out").read_bytes(),
                          Path(run["dir"], f"{i}.err").read_text(errors="replace")), rc))
+        if i in run["then"]:
+            _start_cli_process(run, run["then"][i])
+        i += 1
     return results
 
 
 def check_cli(run: dict, results: list) -> None:
     """The CLI runs of start_cli: each must succeed and print its prompt
     and timings, the Q4_0 run the text of the run in this process, the
-    context swap at least one swap, -f and -r the 16 tokens of -p -n 16."""
+    context swap at least one swap, -f and -r the 16 tokens of -p -n 16,
+    the second --prompt-cache run the first's text with reused prompt
+    tokens, the --draft-model run its acceptance report."""
     cases, base, anti = run["cases"], run["base"], run["anti"]
 
     def compile_ms(err: str) -> str:  # the CLI's decode-graph capture time
@@ -2026,6 +2303,20 @@ def check_cli(run: dict, results: list) -> None:
         if rc != 0 or not same:
             raise RuntimeError(f"CLI {what} run failed or printed other text than -p -n 16:\n"
                                f"{out}\n{base}\n{err}")
+    (out1, err1), rc1 = results[len(cases) + 3]
+    (out2, err2), rc2 = results[len(cases) + 5]
+    reused = re.search(r"session: reused (\d+) prompt tokens", err2)
+    log(f"  cli --prompt-cache rc={rc1}, {rc2}: the second run reused"
+        f" {reused.group(1) if reused else 'no'} prompt tokens,"
+        f" {'the same' if out1 == out2 else 'other'} output")
+    if rc1 or rc2 or "session: reused" in err1 or not reused or out1 != out2:
+        raise RuntimeError(f"CLI --prompt-cache runs:\n{out1}\n{err1}\n{out2}\n{err2}")
+    (out, err), rc = results[len(cases) + 4]
+    stats = re.search(r"speculative: \d+ tokens in (\d+) rounds.*", err)
+    log(f"  cli --draft-model rc={rc}: {stats.group(0) if stats else 'no speculative report'},"
+        f" stdout={out.strip()[:80]!r}")
+    if rc or not out.startswith(b"the thing") or not stats or not int(stats.group(1)):
+        raise RuntimeError(f"CLI --draft-model run failed:\n{out}\n{err}")
 
 
 def main() -> int:
@@ -2107,12 +2398,20 @@ def main() -> int:
     log("phase 3: full-width main paths")
     paths = []
     def serve_and_score(eng, params, hp, logit_scale):
+        log("  -- falcon7b q4_0: sessions")
+        t0 = time.perf_counter()
+        sessions = phase_session(torch, eng, params, hp)
+        log(f"  -- falcon7b q4_0: speculative decoding (sessions took"
+            f" {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        speculative = phase_speculative(torch, eng, params, hp)
+        log(f"  (speculative decoding took {time.perf_counter() - t0:.1f} s)")
         log("  -- falcon7b q4_0: grammar on the single stream")
         t0 = time.perf_counter()
         grammar = phase_grammar(torch, eng, hp)
         log(f"  -- falcon7b q4_0: the server (grammar took {time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
-        served = phase_server(torch, eng, hp)
+        served = phase_server(torch, eng, params, hp)
         log(f"  -- falcon7b q4_0: perplexity and embeddings (the server took"
             f" {time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
@@ -2126,7 +2425,7 @@ def main() -> int:
         t0 = time.perf_counter()
         parallel = phase_server_parallel(torch, batched.pop("engine"), eng, hp)
         log(f"  (--parallel 4 took {time.perf_counter() - t0:.1f} s)")
-        return [grammar, served, *scored, batched, parallel]
+        return [sessions, speculative, grammar, served, *scored, batched, parallel]
 
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")

@@ -384,15 +384,16 @@ class FalconEngine:
         if pending is not None:  # the chunk's one (quantizing) write
             kvcache.write_all_layers(kv, pending, c.n_past)
 
-    def _capture(self, c, steps) -> None:
-        """Capture c's n_steps steps of the step body `steps` (_steps or
-        _row_steps) as one CUDA graph on the engine's capture stream, after
-        one eager step there (which makes the stream's flash-decode
-        workspaces and library workspaces outside the capture), from the
-        positions in c.n_past. The warm-up writes only cache positions at and
-        above each row's n_past, which the chunk rewrites, and the inputs
-        that every replay sets. Raises if the capture fails, naming the step
-        and the reason."""
+    def _capture(self, c, steps, what: str | None = None) -> None:
+        """Capture c's n_steps steps of the step body `steps` (_steps,
+        _row_steps, or engine/speculative.py's rounds) as one CUDA graph on
+        the engine's capture stream, after one eager step there (which makes
+        the stream's flash-decode workspaces and library workspaces outside
+        the capture), from the positions in c.n_past. The warm-up writes only
+        cache positions at and above each row's n_past, which the chunk
+        rewrites, and the inputs that every replay sets. Raises if the
+        capture fails, naming the program (`what`, by default the decode
+        chunk), the step and the reason."""
         t0 = time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -408,9 +409,8 @@ class FalconEngine:
                 steps(c, c.n_steps, at)
         except Exception as e:
             rows = f"{self.batch}-row " if isinstance(c, _RowChunk) else ""
-            raise RuntimeError(
-                f"capturing the {c.n_steps}-step {rows}decode chunk (sampler key {c.key})"
-                f" failed at step {at[0]}: {e}") from e
+            what = what or f"the {c.n_steps}-step {rows}decode chunk (sampler key {c.key})"
+            raise RuntimeError(f"capturing {what} failed at step {at[0]}: {e}") from e
         c.graph = graph
         self.timings.t_compile_us += (time.perf_counter() - t0) * 1e6
 

@@ -1,6 +1,5 @@
-"""HTTP inference server on the port (the port of ggllm_tpu/server/app.py
-without speculative decoding; the capability analogue of
-examples/server/server.cpp:784-895):
+"""HTTP inference server on the port (the port of ggllm_tpu/server/app.py;
+the capability analogue of examples/server/server.cpp:784-895):
 
   POST /completion  — generate from a prompt; JSON body with the sampling
                       surface of llama_server_context; ``stream: true`` sends
@@ -48,10 +47,18 @@ Stop strings are matched over the generated text with partial-suffix
 holdback in streaming mode. The engine runs on the CUDA card unless
 --device cpu is given.
 
+With --draft-model FNAME or --self-draft N (--parallel 1 only) the single
+stream decodes speculatively (engine/speculative.py, --draft-k drafts a
+round): a request whose sampler the fused rounds cover (greedy, or the
+truncation cascade without penalties or bias) and that has no grammar runs
+draft / verify rounds, replayed as one CUDA graph a dispatch, and its
+response carries a "speculative" field (rounds, drafted, accepted,
+emitted, acceptance); /metrics adds the spec_* counters. The prefix reuse
+is clamped to what the draft's cache holds too. Every other request takes
+the Generator path on the target alone.
+
 Not ported yet, and refused with the ROADMAP item rather than served
-otherwise: --draft-model / --self-draft (speculative decoding) and --lora /
---lora-base. The JAX server's --draft-k, which feeds only the speculative
-decoder, is not a flag here: argparse refuses it.
+otherwise: --lora / --lora-base.
 """
 
 from __future__ import annotations
@@ -79,8 +86,6 @@ from ggllm_tpu_torch.utils.stream import StopStream
 _ROW_SAMPLER = ("temp", "top_p", "top_k", "repeat_penalty", "frequency_penalty",
                 "presence_penalty", "tfs_z", "typical_p", "mirostat", "mirostat_tau",
                 "mirostat_eta", "penalize_nl", "logit_bias")
-DRAFT_REFUSAL = ("--draft-model / --self-draft (speculative decoding) is not ported yet"
-                 " (ROADMAP.md, Queue 1: speculative decoding)")
 LORA_REFUSAL = "--lora / --lora-base are not ported yet (ROADMAP.md, Queue 1: LoRA)"
 
 
@@ -214,14 +219,18 @@ class _State:
 
 
 class ServerState(_State):
-    """One engine + its conversation cache, guarded by a lock."""
+    """One engine + its conversation cache, guarded by a lock; with `spec`
+    (an engine/speculative.py SpeculativeDecoder over this engine and a
+    draft) the requests its fused rounds cover decode speculatively."""
 
     def __init__(self, engine: FalconEngine, vocab, arch: str = "falcon",
-                 alias: str = "unknown"):
+                 alias: str = "unknown", spec=None):
         super().__init__(engine, vocab, arch, alias)
         # reentrant: a caller that holds it to use the engine may call completion
         self.lock = threading.RLock()
         self.cache_tokens: list[int] = []  # what the engine's KV cache holds
+        self.spec = spec
+        self.draft_tokens: list[int] = []  # what the draft engine's KV cache holds
 
     def completion(self, body: dict, emit=None, grammar: Grammar | None = None) -> dict:
         """Run one completion under the state's lock. emit(chunk_dict)
@@ -253,10 +262,13 @@ class ServerState(_State):
             prompt_ids = prompt_ids[:n_keep] + prompt_ids[-tail:]
             truncated = True
 
-        gen = Generator(eng, sampler, self.tk.eos_id, n_keep,
-                        grammar=self.grammars.sampler(grammar))
+        use_spec = (self.spec is not None and grammar is None
+                    and self.spec._fused_ok(sampler) and n_predict > 0)
         # prefix reuse against the previous request's tokens
         n_common = _common_part(self.cache_tokens, prompt_ids)
+        if use_spec:  # the draft's cache must hold the reused prefix too
+            n_common = min(n_common, _common_part(self.draft_tokens, prompt_ids),
+                           self.spec.draft.n_past)
         if n_common == len(prompt_ids):
             n_common -= 1  # always re-eval at least the final token
         if 0 < n_common <= eng.n_past:
@@ -267,6 +279,11 @@ class ServerState(_State):
             to_eval = prompt_ids
             eng.reset()
         self.cache_tokens = []  # until the cache holds what the record says
+        if use_spec:
+            return self._spec_completion(body, emit, prompt_ids, to_eval, n_common, n_predict,
+                                         stops, sampler, truncated, n_keep)
+        gen = Generator(eng, sampler, self.tk.eos_id, n_keep,
+                        grammar=self.grammars.sampler(grammar))
         gen.all_tokens = list(prompt_ids[:n_common])
 
         t0 = time.perf_counter()
@@ -301,6 +318,70 @@ class ServerState(_State):
                 "predicted_ms": round(t_gen * 1e3, 2),
                 "predicted_per_second": round(tokens_predicted / t_gen, 2) if t_gen > 0 else None,
             })
+
+    def _spec_completion(self, body: dict, emit, prompt_ids, to_eval, n_common, n_predict,
+                         stops, sampler, truncated, n_keep) -> dict:
+        """One completion through the speculative decoder (the JAX server's
+        _spec_completion:255): streaming, stop strings and the response
+        schema as on the Generator path, plus the "speculative" field.
+        Greedy content equals the Generator path's (the target's greedy
+        ids). The target already stands at n_common; the draft follows it
+        there. If emit raises (a client gone), the decoder rolls both
+        engines back to the ids committed so far and the cache records
+        follow them."""
+        spec, eng = self.spec, self.engine
+        if n_common > 0:
+            spec.draft.rollback(n_common)
+        else:
+            spec.draft.reset()
+        self.draft_tokens = []
+        t0 = time.perf_counter()
+        if len(to_eval) > 1:  # prefill both models up to the pending token
+            eng.eval(to_eval[:-1])
+            spec.draft.eval(to_eval[:-1])
+        t_prompt = time.perf_counter() - t0
+
+        ss = StopStream(stops)
+        parts: list[bytes] = []
+        committed: list[int] = []  # every id the decoder committed, eos included
+        outcome = {"reason": "limit", "n": 0}
+        eos = self.tk.eos_id
+
+        def on_token(tok: int) -> bool:
+            committed.append(tok)
+            if tok == eos:
+                outcome["reason"] = "eos"
+                return False
+            outcome["n"] += 1
+            out = ss.push(self.vocab.id_to_token[tok])
+            if out:
+                parts.append(out)
+                if emit is not None:
+                    emit({"content": out.decode("utf-8", "replace"), "stop": False})
+            if ss.stopped:
+                outcome["reason"] = "stop"
+                return False
+            return True
+
+        t0 = time.perf_counter()
+        try:
+            spec.generate([to_eval[-1]], n_predict, sampler, on_token=on_token)
+        finally:  # what both caches hold: all but the last committed id
+            self.cache_tokens = self.draft_tokens = list(prompt_ids) + committed
+        t_gen = time.perf_counter() - t0
+        st = spec.stats
+        final = self._response(
+            body, emit, ss, parts, outcome["reason"],
+            _generation_settings(sampler, n_predict, n_keep, stops, eos),
+            truncated, outcome["n"], len(to_eval), {
+                "prompt_ms": round(t_prompt * 1e3, 2),
+                "predicted_ms": round(t_gen * 1e3, 2),
+                "predicted_per_second": round(outcome["n"] / t_gen, 2) if t_gen > 0 else None,
+            })
+        final["speculative"] = {"rounds": st.n_rounds, "drafted": st.n_drafted,
+                                "accepted": st.n_accepted, "emitted": st.n_emitted,
+                                "acceptance": round(st.acceptance, 4)}
+        return final
 
 
 class BatchedServerState(_State):
@@ -541,6 +622,9 @@ def _openai_response(final: dict, chat: bool, rid: int, model: str) -> dict:
 METRICS = (("requests_total", "Completed completion requests"),
            ("prompt_tokens_total", "Prompt tokens evaluated"),
            ("generated_tokens_total", "Tokens generated"))
+SPEC_METRICS = (("spec_rounds_total", "Speculative draft/verify rounds"),
+                ("spec_drafted_total", "Draft tokens proposed"),
+                ("spec_accepted_total", "Draft tokens accepted"))
 
 
 def make_handler(state: ServerState):
@@ -578,7 +662,8 @@ def make_handler(state: ServerState):
                 # is stderr tables)
                 m = getattr(state, "metrics", None) or {}
                 lines = []
-                for name, help_ in METRICS:
+                spec = getattr(state, "spec", None) is not None
+                for name, help_ in METRICS + (SPEC_METRICS if spec else ()):
                     lines.append(f"# HELP ggllm_{name} {help_}")
                     lines.append(f"# TYPE ggllm_{name} counter")
                     lines.append(f"ggllm_{name} {m.get(name, 0)}")
@@ -658,6 +743,11 @@ def make_handler(state: ServerState):
                         metrics["requests_total"] += 1
                         metrics["prompt_tokens_total"] += final.get("tokens_evaluated", 0)
                         metrics["generated_tokens_total"] += final.get("tokens_predicted", 0)
+                        sp = final.get("speculative") or {}
+                        for name, field in (("spec_rounds_total", "rounds"),
+                                            ("spec_drafted_total", "drafted"),
+                                            ("spec_accepted_total", "accepted")):
+                            metrics[name] += sp.get(field, 0)
                 return final
 
             chat = openai == "chat"
@@ -733,22 +823,31 @@ class _Server(ThreadingHTTPServer):
 
 def serve(engine: FalconEngine, vocab, host: str = "127.0.0.1", port: int = 8080,
           arch: str = "falcon", parallel: int = 1, alias: str = "unknown", chunk: int = 8,
-          prefill_chunk: int = 256):
+          prefill_chunk: int = 256, draft_engine: FalconEngine | None = None,
+          draft_k: int = 6):
     """The server over `engine` (not yet serving: call serve_forever on the
     result; server_close also ends a batched state's scheduler).
     parallel > 1 serves concurrent requests through the continuous batcher
     (chunk decode steps a chunk, prefill_chunk prompt tokens a row an
     admission forward) and needs FalconEngine(batch_size=parallel); one
-    stream needs a batch-1 engine."""
+    stream needs a batch-1 engine. draft_engine (one stream only) turns on
+    speculative decoding with draft_k drafts a round."""
     if engine.batch != max(parallel, 1):
         raise ValueError(f"--parallel {parallel} needs an engine of batch_size"
                          f" {max(parallel, 1)}; this engine has {engine.batch} rows")
     if parallel > 1:
+        if draft_engine is not None:
+            raise ValueError("speculative serving requires --parallel 1")
         state = BatchedServerState(engine, vocab, arch, chunk=chunk, alias=alias,
                                    prefill_chunk=prefill_chunk)
     else:
-        state = ServerState(engine, vocab, arch, alias=alias)
-    state.metrics = {name: 0 for name, _ in METRICS}
+        spec = None
+        if draft_engine is not None:
+            from ggllm_tpu_torch.engine.speculative import SpeculativeDecoder
+
+            spec = SpeculativeDecoder(engine, draft_engine, k=draft_k)
+        state = ServerState(engine, vocab, arch, alias=alias, spec=spec)
+    state.metrics = {name: 0 for name, _ in METRICS + SPEC_METRICS}
     httpd = _Server((host, port), make_handler(state))
     httpd.state = state
     return httpd
@@ -780,9 +879,12 @@ def build_parser():
     ap.add_argument("--lora-base", default=None,
                     help="unquantized base model for --lora (not ported)")
     ap.add_argument("--draft-model", default=None, metavar="FNAME",
-                    help="speculative decoding's draft model (not ported)")
+                    help="speculative decoding: a smaller same-vocab model drafts tokens the"
+                         " main model verifies (fused device rounds; --parallel 1 only)")
     ap.add_argument("--self-draft", type=int, default=0, metavar="N",
-                    help="speculative decoding with the model's first N layers (not ported)")
+                    help="speculative decoding with the model's own first N layers as the draft"
+                         " (--parallel 1 only)")
+    ap.add_argument("--draft-k", type=int, default=6, help="draft tokens per speculative round")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
@@ -795,10 +897,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.parallel < 1:
         ap.error(f"--parallel {args.parallel}: at least 1")
-    if args.draft_model or args.self_draft:
-        ap.error(DRAFT_REFUSAL)
     if args.lora or args.lora_base:
         ap.error(LORA_REFUSAL)
+    spec = bool(args.draft_model or args.self_draft)
+    if spec and args.parallel > 1:
+        print("error: speculative serving requires --parallel 1", file=sys.stderr)
+        return 1
 
     cfg = EngineConfig(n_ctx=args.ctx_size, n_batch=args.batch_size, kv_dtype=args.kv_dtype,
                        compute_dtype=args.compute_dtype,
@@ -806,9 +910,22 @@ def main(argv=None):
     mf, params = load_model(args.model, cfg, device=args.device)
     engine = FalconEngine(mf.hparams, params, cfg, device=args.device,
                           batch_size=args.parallel)
+    draft = None
+    if args.self_draft:
+        from ggllm_tpu_torch.engine.speculative import truncate_params
+
+        if not 0 < args.self_draft < mf.hparams.n_layer:
+            print(f"error: --self-draft must be in 1..{mf.hparams.n_layer - 1}", file=sys.stderr)
+            return 1
+        draft = FalconEngine(dataclasses.replace(mf.hparams, n_layer=args.self_draft),
+                             truncate_params(params, args.self_draft), cfg, device=args.device)
+    elif args.draft_model:
+        dmf, dparams = load_model(args.draft_model, cfg, device=args.device)
+        draft = FalconEngine(dmf.hparams, dparams, cfg, device=args.device)
     httpd = serve(engine, mf.vocab, args.host, args.port, arch=mf.arch,
                   parallel=args.parallel, alias=args.alias or args.model,
-                  chunk=args.decode_chunk, prefill_chunk=args.prefill_chunk)
+                  chunk=args.decode_chunk, prefill_chunk=args.prefill_chunk,
+                  draft_engine=draft, draft_k=args.draft_k)
     print(f"listening on http://{args.host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()

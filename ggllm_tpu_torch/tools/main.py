@@ -9,6 +9,11 @@ context swap past n_ctx (--keep, falcon_main.cpp:694-760) and logit bias;
 prompt's final hidden state) run those modes instead of generating.
 --grammar GBNF / --grammar-file FNAME constrain generation to a grammar
 (ops/grammar.py; masked decode chunks on the device, engine/generator.py).
+--prompt-cache FNAME reuses the longest prompt prefix a session file holds
+and saves the evaluated prompt (engine/session.py; --prompt-cache-all also
+the generated ids, --prompt-cache-ro never writes). --draft-model FNAME or
+--self-draft N decode speculatively (engine/speculative.py: --draft-k drafts
+a round, verified in one forward of the model), plain generation only.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
@@ -30,6 +35,7 @@ import time
 
 from ggllm_tpu_torch import tokenizer as tok_mod
 from ggllm_tpu_torch.core.config import EngineConfig
+from ggllm_tpu_torch.engine import session as session_mod
 from ggllm_tpu_torch.engine.engine import FalconEngine
 from ggllm_tpu_torch.engine.generator import Generator
 from ggllm_tpu_torch.io.loader import load_model
@@ -152,6 +158,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--finetune", default="auto",
                     choices=["auto", "none", "alpaca", "openassistant", "wizard", "falcon_ins"],
                     help="finetune template override")
+    ap.add_argument("--prompt-cache", default=None, help="session file path")
+    ap.add_argument("--prompt-cache-all", action="store_true",
+                    help="also save generated output to the session file")
+    ap.add_argument("--prompt-cache-ro", action="store_true",
+                    help="use the session file read-only, never update it")
     ap.add_argument("--verbose-prompt", action="store_true",
                     help="print the tokenization of every ingested prompt")
     ap.add_argument("--perplexity", action="store_true",
@@ -171,11 +182,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode-chunk", type=int, default=16,
                     help="tokens per CUDA graph replay in the fused decode loop (larger ="
                          " faster, chunkier streaming)")
+    ap.add_argument("--draft-model", default=None, metavar="FNAME",
+                    help="speculative decoding: a smaller same-vocab model drafts tokens the main"
+                         " model verifies in batches; output is distributed exactly as without a"
+                         " draft (engine/speculative.py; not in the reference)")
+    ap.add_argument("--draft-k", type=int, default=6,
+                    help="draft tokens per speculative round")
     ap.add_argument("--grammar", default="", metavar="GBNF",
                     help="constrain generation to a GBNF grammar (llama.cpp grammar dialect;"
                          " masked device steps, multi-step chunks over self-looping states)")
     ap.add_argument("--grammar-file", default="", metavar="FNAME",
                     help="read the GBNF grammar from a file")
+    ap.add_argument("--self-draft", type=int, default=0, metavar="N",
+                    help="speculative decoding with a depth-truncated view of the SAME model as"
+                         " the draft (its first N layers; the views alias the loaded weights)")
     ap.add_argument("--verbose-timings", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
@@ -280,6 +300,22 @@ def main(argv=None) -> int:
     # keep the whole prompt on context swap when requested (reference
     # falcon_main: n_keep < 0 or instruct mode -> full prompt)
     n_keep = len(prompt_ids) if (args.n_keep < 0 or args.instruct) else args.n_keep
+
+    if args.draft_model or args.self_draft:
+        if args.interactive or args.instruct or args.prompt_cache:
+            print("error: speculative decoding supports plain generation only (no"
+                  " interactive/instruct/session modes)", file=sys.stderr)
+            return 1
+        return _speculative(args, mf, params, cfg, engine, tk, prompt, prompt_ids, sampler,
+                            stopwords, set_color)
+
+    # session reuse (--prompt-cache): skip the matching prefix
+    eval_ids = list(prompt_ids)
+    if args.prompt_cache:
+        eval_ids = session_mod.try_load(args.prompt_cache, engine, prompt_ids)
+        reused = len(prompt_ids) - len(eval_ids)
+        if reused:
+            print(f"session: reused {reused} prompt tokens", file=sys.stderr)
     grammar = None
     if args.grammar or args.grammar_file:
         from ggllm_tpu_torch.ops.grammar import GrammarSampler, parse_gbnf
@@ -291,6 +327,12 @@ def main(argv=None) -> int:
         grammar = GrammarSampler(parse_gbnf(text), vocab.id_to_token, tk.eos_id)
     gen = Generator(engine, sampler, tk.eos_id, n_keep, fused_ok=not args.no_fused_decode,
                     log=lambda m: print(f"\n[{m}]", file=sys.stderr), grammar=grammar)
+    if args.prompt_cache:
+        # the host rng, mu and the device generator from the session, so a
+        # sampled continuation reproduces (falcon_copy_state_data rng parity,
+        # libfalcon.cpp:4254); the generator exists before the first save
+        gen.state, gen.rng, _ = session_mod.load_sampler_state(args.prompt_cache, sampler, engine)
+    gen.all_tokens = list(prompt_ids[:len(prompt_ids) - len(eval_ids)])
     stop_suffixes = [s.encode() for s in stopwords]
     # the bytes given on the command line, also where they are no UTF-8
     antiprompts = [a.encode("utf-8", "surrogateescape") for a in args.reverse_prompt]
@@ -299,7 +341,12 @@ def main(argv=None) -> int:
     sys.stdout.buffer.write(prompt.encode())
     sys.stdout.flush()
     set_color(ANSI_RESET)
-    logits = gen.prefill(prompt_ids)
+    logits = gen.prefill(eval_ids)
+    if args.prompt_cache and not args.prompt_cache_ro and len(eval_ids) > 1:
+        # cache the evaluated prompt at once (falcon_main.cpp:867-871 saves at
+        # the first sample), so that an interrupted run still reuses it
+        session_mod.save(args.prompt_cache, engine, gen.all_tokens[:engine.n_past],
+                         sampler_state=gen.state, generator=gen.rng)
 
     def run_turn(logits):
         ss = StopStream(stop_suffixes, antiprompts)
@@ -366,6 +413,63 @@ def main(argv=None) -> int:
             pending_logits = None
             run_turn(logits)
 
+    if args.prompt_cache and args.prompt_cache_all and not args.prompt_cache_ro:
+        # --prompt-cache-all: the final save includes the generated ids
+        # (falcon_main.cpp:1228-1231)
+        if gen.swapped:
+            print("session: not saved (context swap invalidated the cache)", file=sys.stderr)
+        else:
+            session_mod.save(args.prompt_cache, engine, gen.all_tokens[:engine.n_past],
+                             sampler_state=gen.state, generator=gen.rng)
+    print(engine.timings.report(), file=sys.stderr)
+    return 0
+
+
+def _speculative(args, mf, params, cfg, engine, tk, prompt, prompt_ids, sampler, stopwords,
+                 set_color) -> int:
+    """--draft-model / --self-draft: plain generation through
+    engine/speculative.py, the acceptance report on stderr."""
+    import dataclasses
+
+    from ggllm_tpu_torch.engine.speculative import SpeculativeDecoder, truncate_params
+
+    t0 = time.perf_counter()
+    if args.self_draft:
+        if not 0 < args.self_draft < mf.hparams.n_layer:
+            print(f"error: --self-draft must be in 1..{mf.hparams.n_layer - 1}", file=sys.stderr)
+            return 1
+        dhp = dataclasses.replace(mf.hparams, n_layer=args.self_draft)
+        draft = FalconEngine(dhp, truncate_params(params, args.self_draft), cfg,
+                             device=args.device)
+        print(f"self-draft: first {args.self_draft}/{mf.hparams.n_layer} layers (weights"
+              " aliased)", file=sys.stderr)
+    else:
+        dmf, dparams = load_model(args.draft_model, cfg, device=args.device)
+        draft = FalconEngine(dmf.hparams, dparams, cfg, device=args.device)
+        print(f"draft model loaded in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    spec = SpeculativeDecoder(engine, draft, k=args.draft_k)
+    ss = StopStream([s.encode() for s in stopwords],
+                    [a.encode("utf-8", "surrogateescape") for a in args.reverse_prompt])
+    set_color(ANSI_PROMPT)
+    sys.stdout.buffer.write(prompt.encode())
+    sys.stdout.flush()
+    set_color(ANSI_RESET)
+
+    def on_tok(tok: int):
+        out = ss.push(tk.piece(tok))
+        if out:
+            sys.stdout.buffer.write(out)
+            sys.stdout.flush()
+        return not ss.stopped
+
+    spec.generate(prompt_ids, args.n_predict, sampler, stop_ids={tk.eos_id}, on_token=on_tok)
+    if not ss.stopped:
+        tail = ss.flush()
+        if tail:
+            sys.stdout.buffer.write(tail)
+            sys.stdout.flush()
+    print()
+    print(spec.stats.report(), file=sys.stderr)
     print(engine.timings.report(), file=sys.stderr)
     return 0
 

@@ -574,6 +574,24 @@ def replay_device_ms(eng, chunk: int, sampler, reps: int) -> float:
     return a.elapsed_time(b) / (reps * chunk)
 
 
+def round_device_ms(spec, sampler, reps: int) -> float:
+    """Device ms a round of `reps` back-to-back replays, between two CUDA
+    events, of a SpeculativeDecoder's captured round graph for `sampler`,
+    from its last device state (each replay moves n_past on by the rounds'
+    ids, into positions past the committed stream). Not credited to the
+    launch counters."""
+    import torch
+
+    g = spec.round_graph(sampler)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * spec.rounds)
+
+
 def decode_turns(eng, first: int, hist: list, n_tokens: int, chunk: int = 16) -> dict:
     """Greedy decode of n_tokens from the engine's n_past (first sampled, not
     yet forwarded; hist the history ending with it) by `chained_decode`,

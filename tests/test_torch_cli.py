@@ -22,11 +22,8 @@ torch.set_num_threads(1)
 BASE = ["-c", "96", "-b", "32", "--kv-dtype", "float32", "--compute-dtype", "float32",
         "--temp", "0", "--decode-chunk", "4"]
 
-# flags that wait for their modules (LoRA, sessions, speculative decoding,
-# multi-chip, export, profiling)
-WAITING = ["--lora", "--lora-base", "--prompt-cache", "--prompt-cache-all", "--prompt-cache-ro",
-           "--draft-model", "--self-draft", "-ts", "--kv-shard", "--multihost", "--export",
-           "--profile"]
+# flags that wait for their modules (LoRA, multi-chip, export, profiling)
+WAITING = ["--lora", "--lora-base", "-ts", "--kv-shard", "--multihost", "--export", "--profile"]
 
 
 @pytest.fixture(scope="module")
@@ -203,7 +200,9 @@ def test_flags_match_the_jax_cli():
               "--color", "--sys-prompt", "--system", "--system-file", "--system-raw", "-enc",
               "--finetune", "--verbose-prompt", "--compute-dtype", "--decode-chunk",
               "--no-fused-decode", "--display-timings", "--verbose-timings", "--perplexity",
-              "--embedding", "--grammar", "--grammar-file"):
+              "--embedding", "--grammar", "--grammar-file", "--prompt-cache",
+              "--prompt-cache-all", "--prompt-cache-ro", "--draft-model", "--draft-k",
+              "--self-draft"):
         assert o in ported, o
     for o in WAITING:
         assert o in ref and o not in got, o

@@ -1506,3 +1506,103 @@ def test_masked_row_graph_equals_the_eager_rows(dev, tmp_path):
         assert eng.timings.t_compile_us == compile_us and len(eng._chunks) == 1
         runs[eager] = out
     assert runs[False] == runs[True]
+
+
+# ------------------------------------------------------- speculative rounds
+
+
+def _spec_pair(tmp_path, kv_dtype, compute="bfloat16", **cfg_kw):
+    """A tiny Falcon (4 heads over one K/V head, head_dim 64, 2 layers) on
+    the card and its first layer as the draft (weights aliased)."""
+    import dataclasses
+
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.engine.speculative import truncate_params
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                         n_layer=2, n_falcon_type=7, n_bpe_merges=0),
+                     GGMLType.Q4_0, seed=5)
+    cfg = EngineConfig(n_ctx=256, n_batch=64, kv_dtype=kv_dtype, compute_dtype=compute, **cfg_kw)
+    mf, params = load_model(path, cfg, device="cuda")
+    return (FalconEngine(mf.hparams, params, cfg),
+            FalconEngine(dataclasses.replace(mf.hparams, n_layer=1), truncate_params(params, 1),
+                         cfg))
+
+
+SPEC_PROMPT = [int(t) for t in np.random.default_rng(4).integers(3, 500, 20)]
+
+
+def _spec_run(spec, sampler, n, uniforms=None):
+    """Both engines reset, n ids from SPEC_PROMPT; returns (ids, n_acc a
+    round, both caches' committed prefix)."""
+    spec.target.reset()
+    spec.draft.reset()
+    ids = spec.generate(SPEC_PROMPT, n, sampler, uniforms=uniforms)
+    kv = []
+    for e in (spec.target, spec.draft):
+        for a in (e.kv if isinstance(e.kv, tuple) else (e.kv,)):
+            kv.append(a[:, :, :, :e.n_past].clone())
+    return ids, [a for _, a, _ in spec.last_rounds], kv
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_round_graph_equals_the_eager_rounds(dev, tmp_path, kv_dtype, sampled):
+    """The replayed round graph (k = 6, 4 rounds a graph) gives the eager
+    round body's ids, n_acc and both caches bit for bit, greedy and on fixed
+    uniforms; its capture record holds the rows kernel and flash_mqa (the
+    verify over 7 positions), the GEMV and the decode kernel (the draft)."""
+    from ggllm_tpu_torch.engine.speculative import SpeculativeDecoder
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    tgt, dr = _spec_pair(tmp_path, kv_dtype)
+    sampler = (SamplerParams(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.0, seed=2)
+               if sampled else SamplerParams(temp=0.0, repeat_penalty=1.0))
+    us = np.random.default_rng(6).random((24, 14)) if sampled else None
+    got = {eager: _spec_run(SpeculativeDecoder(tgt, dr, k=6, eager=eager), sampler, 48, us)
+           for eager in (False, True)}
+    assert got[False][:2] == got[True][:2] and len(got[False][0]) == 48
+    assert all(torch.equal(a, b) for a, b in zip(got[False][2], got[True][2]))
+    spec = SpeculativeDecoder(tgt, dr, k=6)
+    _spec_run(spec, sampler, 8, us)
+    record = spec.round_graph(sampler).counts
+    decode = "flash_decode_tc" + (".int8" if kv_dtype == "int8" else "")
+    for name in ("quant_matmul.rows", "quant_matmul.gemv", "flash_mqa.tc", decode):
+        assert record.get(name, 0) > 0, (name, record)
+    assert not record.get("quant_matmul.tc")
+
+
+def test_speculative_ids_hold_to_the_plain_versions(dev, tmp_path):
+    """Greedy speculative ids through the kernels, each within 1e-2 of max
+    |logit| of the top logit of the plain versions' target with those ids
+    forced (bf16: the rows kernel and the GEMV may part at a near-tie)."""
+    from ggllm_tpu_torch.engine.speculative import SpeculativeDecoder
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    tgt, dr = _spec_pair(tmp_path, "bfloat16")
+    ids, _, _ = _spec_run(SpeculativeDecoder(tgt, dr, k=6),
+                          SamplerParams(temp=0.0, repeat_penalty=1.0), 48)
+    plain, _ = _spec_pair(tmp_path, "bfloat16", kernel_layout=False, flash_attention=False)
+    lg = plain.eval(SPEC_PROMPT + ids[:-1], logits_all=True)[-len(ids):]
+    top = lg.max(axis=1)
+    assert np.all(top - lg[np.arange(len(ids)), ids] <= 1e-2 * np.abs(lg).max(axis=1))
+
+
+def test_sampled_rounds_equal_their_float64_replay(dev, tmp_path):
+    """Eager stochastic rounds on the card: each round's ids and n_acc equal
+    a float64 host replay over its own p, q and drafts."""
+    from ggllm_tpu_torch.engine.speculative import SpeculativeDecoder, replay_round
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    tgt, dr = _spec_pair(tmp_path, "bfloat16")
+    spec = SpeculativeDecoder(tgt, dr, k=6, eager=True)
+    spec.record = []
+    _spec_run(spec, SamplerParams(temp=0.9, top_k=40, top_p=0.9, tfs_z=0.95, typical_p=0.9,
+                                  repeat_penalty=1.0, seed=3), 32)
+    assert len(spec.last_rounds) > 4
+    for rec, (emitted, n_acc, us) in zip(spec.record, spec.last_rounds):
+        assert replay_round(rec["p"].double().cpu().numpy(), rec["q"].double().cpu().numpy(),
+                            rec["xs"].tolist(), us) == (emitted, n_acc)

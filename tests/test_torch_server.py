@@ -10,8 +10,12 @@ are taken once a module. Greedy content, tokens_predicted and
 tokens_evaluated (prefix reuse), truncation, stopping word and ignore_eos
 fields must be equal, the SSE stream must concatenate to the blocking
 content, and the /v1 responses must have the same fields. The helpers the
-port keeps copies of are held to the originals; a draft model and LoRA are
-refused naming their ROADMAP items. (Grammar requests and --parallel:
+port keeps copies of are held to the originals; LoRA is refused naming its
+ROADMAP item. With a --self-draft 1 draft (engine/speculative.py) greedy
+requests give the plain path's content and carry the "speculative" field and
+the spec_* counters, also with prefix reuse, streaming and a client gone
+mid-stream; grammar and penalized requests take the plain path; a draft with
+--parallel 2 is refused. (Grammar requests and --parallel:
 tests/test_torch_server_parallel.py.)"""
 
 import json
@@ -251,18 +255,22 @@ def test_client_gone_mid_stream_leaves_a_consistent_cache(server, path):
 
 
 def test_draft_and_lora_are_refused(path, capsys):
-    """A draft model and LoRA are refused by main() naming their ROADMAP
-    items, before any model loads; the draft's --draft-k is not a flag
-    here."""
-    for extra, item in ((["--draft-model", path], "speculative decoding"),
-                        (["--self-draft", "1"], "speculative decoding"),
-                        (["--lora", path], "LoRA")):
+    """LoRA is refused by main() naming its ROADMAP item, before any model
+    loads. The draft flags are the JAX server's (--draft-model, --self-draft,
+    --draft-k); a draft is refused with --parallel above 1 (before any model
+    loads) and a --self-draft depth outside 1 .. n_layer - 1."""
+    for extra in (["--lora", path], ["--lora-base", path]):
         with pytest.raises(SystemExit):
             app.main(["-m", "/nonexistent.ggcc", *extra])
-        assert f"ROADMAP.md, Queue 1: {item}" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        app.main(["-m", "/nonexistent.ggcc", "--draft-k", "6"])
-    assert "unrecognized arguments" in capsys.readouterr().err
+        assert "ROADMAP.md, Queue 1: LoRA" in capsys.readouterr().err
+    args = app.build_parser().parse_args(["-m", path, "--draft-model", path, "--self-draft", "1",
+                                          "--draft-k", "4"])
+    assert (args.draft_model, args.self_draft, args.draft_k) == (path, 1, 4)
+    for extra in (["--self-draft", "1"], ["--draft-model", path]):
+        assert app.main(["-m", "/nonexistent.ggcc", "--parallel", "2", *extra]) == 1
+        assert "speculative serving requires --parallel 1" in capsys.readouterr().err
+    assert app.main(["-m", path, "--device", "cpu", "--self-draft", "2"]) == 1
+    assert "--self-draft must be in 1..1" in capsys.readouterr().err
 
 
 def test_helpers_match_the_originals():
@@ -294,3 +302,107 @@ def test_helpers_match_the_originals():
         got, ref = app._openai_response(final, chat, 7, "m"), japp._openai_response(final, chat,
                                                                                      7, "m")
         assert abs(got.pop("created") - ref.pop("created")) <= 2 and got == ref
+
+
+# ------------------------------------------------------- speculative serving
+
+# no ignore_eos: its logit bias takes the plain path
+SPEC_BODIES = [{"prompt": "the thing", "n_predict": 21, "temperature": 0, "repeat_penalty": 1.0},
+               {"prompt": "the thing and more of it", "n_predict": 17, "temperature": 0,
+                "repeat_penalty": 1.0}]
+
+
+@pytest.fixture(scope="module")
+def spec_server(path):
+    """A server whose draft is the target's first layer (--self-draft 1),
+    three drafts a round."""
+    from ggllm_tpu_torch.engine.speculative import truncate_params
+
+    tmf, eng = _engine(path)
+    cfg = eng.cfg
+    _, params = tload_model(path, cfg, device="cpu")
+    eng = TFalconEngine(tmf.hparams, params, cfg, device="cpu")
+    import dataclasses
+
+    draft = TFalconEngine(dataclasses.replace(tmf.hparams, n_layer=1), truncate_params(params, 1),
+                          cfg, device="cpu")
+    httpd = app.serve(eng, tmf.vocab, port=0, draft_engine=draft, draft_k=3)
+    url = _start(httpd)
+    yield url, httpd.state
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def _plain(path, body):
+    """A fresh plain server state's response (the handler's grammar parse
+    included)."""
+    tmf, eng = _engine(path)
+    grammar = app.parse_gbnf(body["grammar"]) if body.get("grammar") else None
+    return app.ServerState(eng, tmf.vocab).completion(body, grammar=grammar)
+
+
+def test_self_draft_requests_equal_the_plain_path(spec_server, path):
+    """Greedy requests through the speculative server give the plain path's
+    content, carry the speculative field, reuse the cached prefix on both
+    engines, and /metrics counts the rounds."""
+    url, state = spec_server
+    rounds = drafted = 0
+    for body in SPEC_BODIES:
+        got, ref = _post(url, "/completion", body), _plain(path, body)
+        assert got["content"] == ref["content"]
+        assert got["tokens_predicted"] == ref["tokens_predicted"]
+        sp = got["speculative"]
+        assert sp["rounds"] > 0 and sp["drafted"] == 3 * sp["rounds"] and "speculative" not in ref
+        rounds, drafted = rounds + sp["rounds"], drafted + sp["drafted"]
+    assert got["tokens_evaluated"] < len(state.tk.tokenize(SPEC_BODIES[1]["prompt"], bos=True))
+    assert state.engine.n_past == state.spec.draft.n_past == len(state.cache_tokens) - 1
+    assert state.cache_tokens == state.draft_tokens
+    text = _get(url, "/metrics").decode()
+    assert f"ggllm_spec_rounds_total {rounds}" in text
+    assert f"ggllm_spec_drafted_total {drafted}" in text
+    assert "ggllm_spec_accepted_total" in text
+
+
+def test_grammar_and_penalized_requests_take_the_plain_path(spec_server, path):
+    url, state = spec_server
+    for body in ({"prompt": "the thing", "n_predict": 9, "temperature": 0,
+                  "repeat_penalty": 1.0, "grammar": "root ::= [0-9]+"},
+                 {"prompt": "the thing", "n_predict": 9, "temperature": 0,
+                  "repeat_penalty": 1.3}):
+        got = _post(url, "/completion", body)
+        assert "speculative" not in got
+        assert got["content"] == _plain(path, body)["content"]
+    assert state.engine.n_past == len(state.cache_tokens) - 1
+
+
+def test_a_streamed_speculative_request_and_a_client_gone(spec_server, path):
+    """A streamed request's chunks concatenate to the blocking content; an
+    emit that raises leaves both engines at the ids committed so far and
+    the next request equal to a fresh server's."""
+    url, state = spec_server
+    body = {**SPEC_BODIES[0], "n_predict": 25}
+    events = _sse(url, "/completion", body)
+    assert events[-1]["stop"] and events[-1]["speculative"]["rounds"] > 0
+    want = _plain(path, body)["content"]
+    assert _text("".join(e["content"] for e in events[:-1])) == _text(want)
+    calls = [0]
+
+    def emit(chunk):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise BrokenPipeError("client gone")
+
+    with state.lock, pytest.raises(BrokenPipeError):
+        state.completion({**SPEC_BODIES[0], "prompt": "in the south"}, emit=emit)
+    assert state.engine.n_past == state.spec.draft.n_past == len(state.cache_tokens) - 1
+    follow = {**SPEC_BODIES[1], "prompt": "in the south and north"}
+    got = _post(url, "/completion", follow)
+    assert got["content"] == _plain(path, follow)["content"] and got["speculative"]["rounds"] > 0
+
+
+def test_a_draft_needs_one_stream(path):
+    tmf, eng = _engine(path)
+    _, params = tload_model(path, eng.cfg, device="cpu")
+    eng2 = TFalconEngine(tmf.hparams, params, eng.cfg, device="cpu", batch_size=2)
+    with pytest.raises(ValueError, match="--parallel 1"):
+        app.serve(eng2, tmf.vocab, port=0, parallel=2, draft_engine=eng)
