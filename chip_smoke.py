@@ -12,7 +12,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      shapes, Q2_K … Q6_K at the Falcon-40B shapes, Q4_0 and Q4_K at the
      LLaMA-7B shapes, S = 1 through the K-quant GEMV (K-quants) or the
      legacy GEMV and S = 512 through the tensor-core tile; the tile also at
-     S = 17 and 300 and at a ragged O;
+     S = 17 and 300 and at a ragged O, and at S = 28 (a batched verify) at the
+     Falcon-7B decode weights;
      the f32 tensor-core tile at two shapes at S = 300 and 512 and at three
      more of the f32 paths' 300-row widths, group_sums on f32 x at the f32
      paths' widths; the attention kernels at the
@@ -132,13 +133,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      float64 replay of their accept / resample and the graph's to the eager
      rounds'; tok/s, ms a round and acceptance beside the single stream's
      tok/s), and the server answers one greedy request with --self-draft 8
-     carrying its speculative field;
+     carrying its speculative field; batched speculative rounds
+     (phase_speculative_rows: generate_rows at B = 4 and 2 with a perfect
+     draft, --self-draft 8 and an int8 draft cache, the round graphs against
+     the eager rounds bit for bit, every row's ids held to the single stream,
+     the verify on the tile at 28 rows and on the rows kernel at 14, f32 at
+     2 layers, a row ending alone at its context end); --weight-mode dequant
+     at full width (phase_dequant: bf16 weights dequantized on the card,
+     prefill logits held to the plain versions, its rate beside the fused
+     one); and after the LLaMA paths the quantize tool (phase_quantize:
+     2-layer full-width f16 files, Falcon-7B -> q4_0 and LLaMA-7B -> q4_k_m,
+     each loaded and held against the plain versions);
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
      --kv-dtype int8; on the Q4_0 file also a context swap, -f, -r,
      --prompt-cache twice (the second run must reuse the prompt and print the
-     first run's text) and --draft-model (the Q4_K file as the draft). These
+     first run's text), --draft-model (the Q4_K file as the draft), --mtest
+     with --alias, -dt 1 (its table lists the GEMV and the decode kernel from
+     the graph replays), --weight-mode dequant (its ids held to the fused
+     engine's), --export (exit 1) and -t 8 -ngl 100 (ignored). These
      processes run alongside phase 1's SASS report, and end before phase 2.
 The last two lines of standard output are the kernel table as JSON and
 {"ok": true, "device": {...}}. Per-shape rows also go to
@@ -401,6 +415,15 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
             wdeq = wdeq.float()
             for S in (300, 512):
                 matmul_row(fmt, wname, w, wbytes, wdeq, S, torch.float32, torch.float32)
+        del w, wdeq
+    # the batched speculative rounds' verify at B = 4, k = 6: 28 rows of the
+    # Falcon-7B decode weights on the tile, also as device time
+    for wname, O, K in shapes_7b:
+        w = random_quant(GGMLType.Q4_0, O, K, gen, "cuda")
+        wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+        wdeq = w.dequantize(bf16)
+        matmul_row("q4_0", wname, w, wbytes, wdeq, 28, bf16,
+                   torch.float32 if wname == "lm_head" else bf16, graphs=True)
         del w, wdeq
     for wname, O, K in (("lm_head", 65024, 4544), ("llama.w13", 22016, 4096),
                         ("llama.w2", 4096, 11008)):
@@ -1786,6 +1809,348 @@ def phase_speculative(torch, eng, params, hp) -> dict:
     return out
 
 
+def _row_caches(spec, prompts, ids) -> list:
+    """Both engines' caches over each row's committed prefix (the prompt but
+    its last token, the last token, the ids but the last), cloned."""
+    def rows_of(kv, b, n):
+        parts = kv if isinstance(kv, tuple) else (kv,)
+        return [t[:, :, b, :n].clone() for t in parts]
+
+    return [rows_of(e.kv, b, len(p) - 1 + len(o)) for e in (spec.target, spec.draft)
+            for b, (p, o) in enumerate(zip(prompts, ids))]
+
+
+def phase_speculative_rows(torch, eng1, params, hp, single_spec: dict, batcher: dict) -> dict:
+    """Batched speculative rounds (engine/speculative.py generate_rows) on the
+    Falcon-7B Q4_0 weights at full width and depth, bf16 caches, k = 6, R = 4
+    rounds a graph, 64 greedy ids a row from prompts of 5, 37, 120 and 300
+    tokens: a perfect draft (a second B-row engine over the same weights) at
+    B = 4 and B = 2 (the first two prompts), --self-draft 8 at B = 4, the
+    perfect draft on an int8 draft cache at B = 4 (a perfect draft's
+    acceptance at least 0.5: bf16 near-ties between the draft's and the
+    verify's kernels reject some; at f32, 2 layers, at least 0.95). Each
+    run's replayed round
+    graphs give the eager round body's ids, n_acc and both caches over the
+    committed prefixes bit for bit; every row's ids lie within ROWS_LOGIT_TOL
+    of the single stream's (eng1) top logit with the ids forced
+    (`_against_single`); a replay's record holds the verify on quant_matmul.tc
+    at B = 4 (28 rows) and on quant_matmul.rows at B = 2 (14), the draft
+    steps on quant_matmul.rows, flash_mqa.tc and flash_decode_tc, no GEMV. Then
+    a 360-position context: the 300-token row ends early and alone (fewer than
+    64 ids, frozen by its live mask while the others run on), and the other
+    rows' ids equal a run with a short fourth prompt on the same engines.
+    Prints aggregate and per-row tok/s, ms a round on the host's and the
+    device's clocks, acceptance, capture ms and one replay's launches, beside
+    the batcher's B = 4 rate and the single-stream speculative rate of this
+    run."""
+    import dataclasses
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine, Timings
+    from ggllm_tpu_torch.engine.speculative import SpeculativeDecoder, truncate_params
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.linear import QuantTensor
+    from ggllm_tpu_torch.tools.time_kernels import round_device_ms
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    k, R, n = 6, 4, 64
+    rng = np.random.default_rng(17)
+    prompts = [[int(t) for t in rng.integers(12, hp.n_vocab, m)] for m in (5, 37, 120, 300)]
+    n_quant = sum(isinstance(m, QuantTensor) for m in eng1.model.modules())
+
+    def decoder(B, n_layer=None, kv_dtype="bfloat16", n_ctx=2048):
+        dhp = hp if n_layer is None else dataclasses.replace(hp, n_layer=n_layer)
+        dparams = params if n_layer is None else truncate_params(params, n_layer)
+        return SpeculativeDecoder(
+            FalconEngine(hp, params, EngineConfig(n_ctx=n_ctx), batch_size=B),
+            FalconEngine(dhp, dparams, EngineConfig(n_ctx=n_ctx, kv_dtype=kv_dtype), batch_size=B),
+            k=k, rounds_per_dispatch=R)
+
+    def run(spec, ps, eager=False):
+        spec.eager = eager
+        for e in (spec.target, spec.draft):
+            e.reset()
+        spec.target.timings = Timings()
+        build.launch_counts.clear()
+        ids = spec.generate_rows(ps, n)
+        torch.cuda.synchronize()
+        return ids, spec.last_rows["n_acc"], _row_caches(spec, ps, ids), dict(build.launch_counts)
+
+    out = {"path": "falcon7b q4_0 batched speculative rounds", "launches": {}}
+    runs = (("B=4 perfect draft", 4, {}), ("B=2 perfect draft", 2, {}),
+            ("B=4 --self-draft 8", 4, {"n_layer": 8}),
+            ("B=4 perfect draft, int8 draft cache", 4, {"kv_dtype": "int8"}))
+    for label, B, kw in runs:
+        ps = prompts[:B]
+        spec = decoder(B, **kw)
+        run(spec, [p[:8] for p in ps])  # captures the round graph
+        capture_ms = spec.target.timings.t_compile_us / 1e3
+        ids, n_acc, caches, counts = run(spec, ps)
+        for name, c in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + c
+        tm, st = spec.target.timings, spec.stats
+        wall_s = tm.t_decode_us / 1e6
+        agg = sum(map(len, ids)) / wall_s
+        ms_round = tm.t_decode_us / 1e3 / st.n_rounds
+        record = spec.rows_graph().counts
+        device_ms = round_device_ms(spec, None, 2)
+        e_ids, e_acc, e_caches, _ = run(spec, ps, eager=True)
+        same_kv = all(torch.equal(a, b) for x, y in zip(caches, e_caches) for a, b in zip(x, y))
+        verify = "quant_matmul.tc" if B * (k + 1) > 16 else "quant_matmul.rows"
+        log(f"  speculative rows, {label}: {agg:.2f} tok/s aggregate, per row"
+            f" {[round(len(o) / wall_s, 2) for o in ids]}; {st.n_rounds} rounds, {ms_round:.3f} ms"
+            f" a round on the host's clock, {device_ms:.3f} on the device's; acceptance"
+            f" {st.acceptance:.4f}; capture {capture_ms:.1f} ms; graph = eager body: ids"
+            f" {ids == e_ids}, n_acc {n_acc == e_acc}, caches {same_kv}; one replay launches"
+            f" {record} (the verify's {B * (k + 1)} rows on {verify})")
+        if ids != e_ids or n_acc != e_acc or not same_kv:
+            raise RuntimeError(f"speculative rows {label}: the round graph and the eager body"
+                               f" differ:\n{ids}\n{e_ids}\n{n_acc}\n{e_acc}; caches {same_kv}")
+        if any(len(o) != n for o in ids):
+            raise RuntimeError(f"speculative rows {label}: {[len(o) for o in ids]} ids")
+        steps = R * (k + 1) * (2 * kw.get("n_layer", hp.n_layer) + 1)  # the draft's weights
+        want_rows = steps + (R * n_quant if verify.endswith("rows") else 0)
+        if (record.get(verify, 0) < R * n_quant or record.get("quant_matmul.rows", 0) != want_rows
+                or any(record.get(name, 0) for name in ("quant_matmul.gemv", "quant_matmul.gemv.kq"))
+                or (verify.endswith("rows") and record.get("quant_matmul.tc", 0))
+                or record.get("flash_mqa.tc", 0) != R * hp.n_layer
+                or record.get("flash_decode_tc" + (".int8" if kw.get("kv_dtype") else ""), 0)
+                != R * (k + 1) * kw.get("n_layer", hp.n_layer)):
+            raise RuntimeError(f"speculative rows {label}: one replay launches {record}")
+        tfs = [_against_single(eng1, p, o, f"speculative rows {label}, row {b}", ROWS_LOGIT_TOL)
+               for b, (p, o) in enumerate(zip(ps, ids))]
+        # the target's own weights on the same cache: every draft id the
+        # verify's argmax but at bf16 near-ties, where the draft's decode
+        # attention and the verify's prefill attention (and at 28 rows the
+        # tile's bf16-rounded weights) part; random weights put 11-20 of 64
+        # steps' top-2 gaps below 1e-2 of max |logit|
+        if "n_layer" not in kw and "kv_dtype" not in kw and st.acceptance < 0.5:
+            raise RuntimeError(f"speculative rows {label}: acceptance {st.acceptance} with the"
+                               " target's own weights as the draft")
+        out[label] = {"tok_s": agg, "tok_s_per_row": [len(o) / wall_s for o in ids],
+                      "ms_a_round": ms_round, "device_ms_a_round": device_ms,
+                      "rounds": st.n_rounds, "acceptance": st.acceptance,
+                      "capture_ms": capture_ms, "replay_launches": record,
+                      "worst_deficit": max(t["worst"] for t in tfs),
+                      "equal_single": [t["equal"] for t in tfs]}
+        if label == "B=4 perfect draft":
+            full = ids
+        del spec
+
+    # the same rounds at f32 (2 layers): a perfect draft whose kernels agree
+    # to f32 rounding is accepted at (nearly) every position
+    hp2 = dataclasses.replace(hp, n_layer=2)
+    params2 = make_bench_params(hp2, compute_dtype=torch.float32, device="cuda", seed=7,
+                                gtype=GGMLType.Q4_0)
+    cfg32 = EngineConfig(kv_dtype="float32", compute_dtype="float32")
+    spec = SpeculativeDecoder(FalconEngine(hp2, params2, cfg32, batch_size=4),
+                              FalconEngine(hp2, params2, cfg32, batch_size=4), k=k,
+                              rounds_per_dispatch=R)
+    f32_ids, _, _, f32_counts = run(spec, prompts)
+    log(f"  speculative rows, B=4 perfect draft at f32 (2 layers): acceptance"
+        f" {spec.stats.acceptance:.4f} in {spec.stats.n_rounds} rounds; launches {f32_counts}")
+    if spec.stats.acceptance < 0.95 or not f32_counts.get("quant_matmul.f32"):
+        raise RuntimeError(f"speculative rows at f32: acceptance {spec.stats.acceptance},"
+                           f" launches {f32_counts}")
+    out["f32_acceptance"] = spec.stats.acceptance
+    del spec, params2
+
+    # a row at its context end: 300 + 2 R (k + 1) = 356 <= 360 lets it run
+    # one dispatch or two, while the others reach 64 ids
+    spec = decoder(4, n_ctx=360)
+    ended, _, _, _ = run(spec, prompts)
+    lives = np.stack(spec.last_rows["live"])
+    n_past = spec.last_rows["n_past"]
+    short = prompts[:3] + [prompts[0][:3]]
+    others, _, _, _ = run(spec, short)
+    log(f"  speculative rows, context 360: ids a row {[len(o) for o in ended]}; live masks a"
+        f" dispatch {lives.astype(int).tolist()}; device n_past at the end {n_past.tolist()};"
+        f" rows 0-2 equal to a run with a short fourth prompt: {ended[:3] == others[:3]}, to"
+        f" the 2048-context run: {ended[:3] == full[:3]}")
+    if (not 0 < len(ended[3]) < n or [len(o) for o in ended[:3]] != [n] * 3
+            or ended[:3] != others[:3] or lives[-1, 3] or n_past.max() > 360):
+        raise RuntimeError(f"speculative rows: the 300-token row did not end alone at the"
+                           f" context's end: {[len(o) for o in ended]}, {lives.tolist()},"
+                           f" {n_past.tolist()}")
+    _against_single(eng1, prompts[3], ended[3], "speculative rows, the ended row", ROWS_LOGIT_TOL)
+    out["context_end"] = {"ids": [len(o) for o in ended], "n_past": n_past.tolist(),
+                          "dispatches": len(lives)}
+    del spec
+    log(f"  beside: the batcher's B = 4 rate {batcher['decode_tok_s']:.2f} tok/s, the"
+        f" single-stream speculative (perfect draft) {single_spec['a: perfect draft']['tok_s']:.2f}"
+        f" and single stream {single_spec['single_tok_s']:.2f} tok/s in this run")
+    return out
+
+
+def phase_dequant(torch, eng, params, hp) -> dict:
+    """--weight-mode dequant at full width: the Falcon-7B Q4_0 weights
+    dequantized once to bf16 on the card (io/loader.py dequantize_params,
+    about 14 GB), 64 greedy tokens from a 300-token prompt through the
+    decode graphs (dense torch.matmul, the library's path: a yardstick)
+    beside the fused engine's rate in the same call. No quantized-matmul
+    kernel may run. Its 300 prefill logits are held against the plain
+    versions (exact f32 dequantization) at LOGIT_TOL, as the kernels' are;
+    the fused engine's distance from the plain versions and the step where
+    the two engines' greedy ids part are printed beside (bf16-rounded dense
+    weights and the kernels' exact codes part at near-ties)."""
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.engine import FalconEngine, Timings
+    from ggllm_tpu_torch.io.loader import dequantize_params
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    rng = np.random.default_rng(19)
+    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
+    greedy = SamplerParams(temp=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = dequantize_params(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    deq_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for lw in dense["layers"] for t in lw.values())
+    nbytes += dense["lm_head"].numel() * 2
+    deq = FalconEngine(hp, dense, EngineConfig())
+    runs = {}
+    for label, e in (("dequant", deq), ("fused", eng)):
+        e.reset()
+        e.generate(prompt[:8], 16, greedy, stop_ids=set())  # captures
+        e.reset()
+        e.timings = Timings()
+        build.launch_counts.clear()
+        ids = e.generate(prompt, 65, greedy, stop_ids=set())
+        runs[label] = (e.timings.n_decode / (e.timings.t_decode_us / 1e6), ids,
+                       dict(build.launch_counts))
+        e.reset()
+        runs[label] += (e.eval(prompt, logits_all=True),)
+    plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False))
+    ref = plain.eval(prompt, logits_all=True)
+    del plain
+    rel = {k: float(np.abs(r[3] - ref).max() / np.abs(ref).max()) for k, r in runs.items()}
+    tok_s, ids, counts, _ = runs["dequant"]
+    part = next((t for t, (a, b) in enumerate(zip(ids, runs["fused"][1])) if a != b), None)
+    log(f"  --weight-mode dequant: {nbytes / 2**30:.2f} GiB of bf16 weights, dequantized in"
+        f" {deq_s:.2f} s; 64 greedy tokens {tok_s:.2f} tok/s against the fused"
+        f" {runs['fused'][0]:.2f} (same prompt, same call); prefill logits against the plain"
+        f" versions {rel['dequant']:.3e} of max |plain| (the fused engine's {rel['fused']:.3e});"
+        f" greedy ids part from the fused engine's at step {part}; launches {counts}")
+    if (any(name.startswith("quant_matmul") for name in counts) or not counts.get("flash_decode")
+            or rel["dequant"] > LOGIT_TOL or len(ids) != 65):
+        raise RuntimeError(f"--weight-mode dequant: logits {rel}, launches {counts}")
+    fused_tok_s = runs["fused"][0]
+    del deq, dense, runs
+    torch.cuda.empty_cache()
+    return {"path": "falcon7b q4_0 --weight-mode dequant", "launches": counts, "tok_s": tok_s,
+            "fused_tok_s": fused_tok_s, "dequant_s": deq_s, "weight_bytes": nbytes,
+            "logit_rel_err": rel["dequant"], "fused_logit_rel_err": rel["fused"],
+            "ids_part_at": part}
+
+
+def _write_f16_model(torch, path: str, hp) -> None:
+    """A full-width f16 file of `hp` (GGCC for Falcon, GGJT for LLaMA): the
+    port synthetic writer's names, shapes and spreads (weight_specs), drawn
+    on the card from a seed; 1-D tensors in f32."""
+    import numpy as np
+
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.io.ggcc import GGCCWriter, GGJTWriter
+    from ggllm_tpu_torch.utils.synthetic import make_tiny_sp_vocab, make_tiny_vocab, weight_specs
+
+    if hp.arch == "llama":
+        writer = GGJTWriter(path, hp, make_tiny_sp_vocab(hp.n_vocab))
+    else:
+        vocab = make_tiny_vocab(hp.n_vocab)
+        hp.n_bpe_merges = len(vocab.merges)
+        writer = GGCCWriter(path, hp, vocab)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for name, shape, scale, offset in weight_specs(hp):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale + offset
+        gtype = GGMLType.F16 if len(shape) == 2 else GGMLType.F32
+        x = x.half() if len(shape) == 2 else x
+        writer.write_tensor(name, gtype, tuple(reversed(shape)),
+                            np.ascontiguousarray(x.cpu().numpy()).reshape(-1).view(np.uint8))
+    writer.close()
+
+
+def phase_quantize(torch) -> dict:
+    """The quantize tool (tools/quantize.py, the C++ codecs) at full width and
+    2 layers: an f16 Falcon-7B file -> q4_0 and an f16 LLaMA-7B file ->
+    q4_k_m (the mixed policy: layer 1's wv and w2 in Q6_K, the others Q4_K).
+    Each quantized file is loaded on the card; a 300-token prefill's logits
+    and one decode step's are held against the plain versions (LOGIT_TOL),
+    and 16 greedy tokens run through the decode graphs. Prints the seconds
+    and MB in -> out; the files are deleted."""
+    import dataclasses
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.tools.quantize import quantize_file
+
+    out = {"path": "quantize tool, 2-layer full-width files", "launches": {}}
+    for model, ftype, gemv in (("falcon7b", "q4_0", "quant_matmul.gemv"),
+                               ("llama7b", "q4_k_m", "quant_matmul.gemv.kq")):
+        hp = dataclasses.replace(named_hparams(model), n_layer=2)
+        if hp.arch == "llama":  # llama.cpp writes n_rot = n_embd / n_head; the reader
+            hp.n_rot = hp.head_dim  # tells a GGJT LLaMA from a Falcon by it
+        with tempfile.TemporaryDirectory() as d:
+            src, dst = str(Path(d) / "f16.bin"), str(Path(d) / f"{ftype}.bin")
+            t0 = time.perf_counter()
+            _write_f16_model(torch, src, hp)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sizes = quantize_file(src, dst, ftype, log=lambda *a: None)
+            quant_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mf, params = load_model(dst, EngineConfig())
+            load_s = time.perf_counter() - t0
+        rng = np.random.default_rng(29)
+        prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
+        eng = FalconEngine(mf.hparams, params, EngineConfig())
+        plain = FalconEngine(mf.hparams, params, EngineConfig(kernel_layout=False,
+                                                               flash_attention=False))
+        build.launch_counts.clear()
+        got = eng.eval(prompt, logits_all=True)
+        ref = plain.eval(prompt, logits_all=True)
+        tok = int(ref[-1].argmax())
+        got_d, ref_d = eng.eval([tok]), plain.eval([tok])
+        eng.reset()
+        ids = eng.generate(prompt, 17, SamplerParams(temp=0.0), stop_ids=set())
+        counts = dict(build.launch_counts)
+        for name, c in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + c
+        rel = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+        rel_d = float(np.abs(got_d - ref_d).max()) / float(np.abs(ref_d).max())
+        graph = eng.chunk_graph(16, SamplerParams(temp=0.0)) is not None
+        types = sorted({GGMLType(t.gtype).name for t in mf.tensors.values()})
+        log(f"  quantize {model} 2 layers f16 -> {ftype}: {sizes['total_org'] / 2**20:.1f} MB ->"
+            f" {sizes['total_new'] / 2**20:.1f} MB in {quant_s:.2f} s (writing the f16 file"
+            f" {write_s:.2f} s, loading the {ftype} file on the card {load_s:.2f} s); types"
+            f" {types}; prefill logits {rel:.3e} and a decode step's {rel_d:.3e} of max |plain|;"
+            f" 16 greedy ids through the decode graph ({graph}); launches {counts}")
+        if (rel > LOGIT_TOL or rel_d > LOGIT_TOL or not np.isfinite(got).all() or not graph
+                or len(ids) != 17 or counts.get("quant_matmul.tc", 0) <= 0
+                or counts.get(gemv, 0) <= 0):
+            raise RuntimeError(f"the quantized {model} {ftype} file: logits {rel}, {rel_d};"
+                               f" graph {graph}; launches {counts}")
+        out[f"{model} {ftype}"] = {"seconds": quant_s, "mb_in": sizes["total_org"] / 2**20,
+                                   "mb_out": sizes["total_new"] / 2**20, "write_f16_s": write_s,
+                                   "load_s": load_s, "logit_rel_err": rel,
+                                   "decode_logit_rel_err": rel_d, "types": types}
+        del eng, plain, params, mf
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_grammar(torch, eng, hp) -> dict:
     """Grammar-constrained decoding on the single stream (engine/generator.py
     over decode_chunk_masked) at full width and depth, from a 300-token
@@ -2233,13 +2598,29 @@ def start_cli(d: str) -> dict:
              ["-m", q4_0, "-p", "the thing", "-n", "40", "--reverse-prompt=" + os.fsdecode(anti),
               *greedy]]
     # --prompt-cache twice (the second run starts when the first has ended)
-    # and a draft model (the 40B-style Q4_K file, same vocabulary)
+    # and a draft model (the 40B-style Q4_K file, same vocabulary); then the
+    # flags of the slice after: --mtest with --alias, -dt 1 over 64 tokens,
+    # --weight-mode dequant, --export (refused) and the reference's ignored
+    # thread / VRAM flags
     cached = ["-m", q4_0, "-p", "the thing and the other thing", "-n", "16", *greedy,
               "--prompt-cache", str(Path(d) / "cli.session")]
-    cmds += [cached, ["-m", q4_0, "-p", "the thing", "-n", "24", "--temp", "0",
-                      "--repeat-penalty", "1", "--draft-model", cmds[1][1]]]
-    run = {"dir": d, "cases": cases, "base": base, "anti": anti, "procs": [],
-           "then": {len(cmds) - 2: cached}}
+    named = {"swap": len(cases), "-f": len(cases) + 1, "-r": len(cases) + 2}
+    for name, cmd in (
+            ("cache", cached),
+            ("draft", ["-m", q4_0, "-p", "the thing", "-n", "24", "--temp", "0",
+                       "--repeat-penalty", "1", "--draft-model", cmds[1][1]]),
+            ("mtest", ["-m", q4_0, "--mtest", "--alias", "small-falcon-q4_0"]),
+            ("dt", ["-m", q4_0, "-p", "the thing", "-n", "64", *greedy, "-dt", "1"]),
+            ("dequant", ["-m", q4_0, "-p", "the thing", "-n", "16", *greedy,
+                         "--weight-mode", "dequant"]),
+            ("export", ["-m", q4_0, "--export", str(Path(d) / "graph.mlir")]),
+            ("compat", ["-m", q4_0, "-p", "the thing", "-n", "16", *greedy, "-t", "8",
+                        "-ngl", "100"])):
+        named[name] = len(cmds)
+        cmds.append(cmd)
+    named["cache2"] = len(cmds)  # started when the first --prompt-cache run has ended
+    run = {"dir": d, "cases": cases, "base": base, "anti": anti, "procs": [], "named": named,
+           "then": {named["cache"]: cached}, "q4_0": q4_0}
     for cmd in cmds:
         _start_cli_process(run, cmd)
     return run
@@ -2290,33 +2671,84 @@ def check_cli(run: dict, results: list) -> None:
     if results[0][0][0] != base:
         raise RuntimeError(f"the CLI printed other text in this process:\n{base}\n"
                            f"{results[0][0][0]}")
-    (out, err), rc = results[len(cases)]
+    got = {name: results[i] for name, i in run["named"].items()}
+    (out, err), rc = got["swap"]
     swaps = err.count("context swap: kept")
     log(f"  cli context swap (-c 128 --keep 16 -n 200) rc={rc}: {swaps} swap(s), {len(out)} bytes"
         f" out, capture {compile_ms(err)} ms")
     if rc != 0 or not swaps or not out.startswith(b"the thing") or "eval time" not in err:
         raise RuntimeError(f"CLI context swap run failed:\n{out}\n{err}")
-    for what, ((out, err), rc) in zip(("-f", f"-r {anti!r} with -n 40"), results[len(cases) + 1:]):
+    for what, ((out, err), rc) in (("-f", got["-f"]), (f"-r {anti!r} with -n 40", got["-r"]),
+                                   ("-t 8 -ngl 100 (ignored)", got["compat"])):
         same = out == base
         log(f"  cli {what} rc={rc}: {'the 16 tokens of -p -n 16' if same else 'another output'},"
             f" capture {compile_ms(err)} ms")
         if rc != 0 or not same:
             raise RuntimeError(f"CLI {what} run failed or printed other text than -p -n 16:\n"
                                f"{out}\n{base}\n{err}")
-    (out1, err1), rc1 = results[len(cases) + 3]
-    (out2, err2), rc2 = results[len(cases) + 5]
+    (out1, err1), rc1 = got["cache"]
+    (out2, err2), rc2 = got["cache2"]
     reused = re.search(r"session: reused (\d+) prompt tokens", err2)
     log(f"  cli --prompt-cache rc={rc1}, {rc2}: the second run reused"
         f" {reused.group(1) if reused else 'no'} prompt tokens,"
         f" {'the same' if out1 == out2 else 'other'} output")
     if rc1 or rc2 or "session: reused" in err1 or not reused or out1 != out2:
         raise RuntimeError(f"CLI --prompt-cache runs:\n{out1}\n{err1}\n{out2}\n{err2}")
-    (out, err), rc = results[len(cases) + 4]
+    (out, err), rc = got["draft"]
     stats = re.search(r"speculative: \d+ tokens in (\d+) rounds.*", err)
     log(f"  cli --draft-model rc={rc}: {stats.group(0) if stats else 'no speculative report'},"
         f" stdout={out.strip()[:80]!r}")
     if rc or not out.startswith(b"the thing") or not stats or not int(stats.group(1)):
         raise RuntimeError(f"CLI --draft-model run failed:\n{out}\n{err}")
+    (out, err), rc = got["mtest"]
+    mem = re.search(r"mtest: ([0-9.]+) MiB allocated, peak ([0-9.]+) MiB", err)
+    log(f"  cli --mtest --alias rc={rc}: {mem.group(0) if mem else 'no memory line'};"
+        f" {'alias reported' if 'model alias: small-falcon-q4_0' in err else 'no alias'}")
+    if (rc or out or not mem or "model alias: small-falcon-q4_0" not in err
+            or "batch eval time" not in err or "eval time" not in err):
+        raise RuntimeError(f"CLI --mtest run failed:\n{out}\n{err}")
+    (out, err), rc = got["dt"]
+    table = err[err.find("op "):err.find("TOTAL")]
+    kernels = [line[:60].strip() for line in table.splitlines()[1:] if line.strip()]
+    log(f"  cli -dt 1 rc={rc}: the op table's top rows {kernels}")
+    if (rc or not out.startswith(base[:-1]) or not any("quant_gemv" in k for k in kernels)
+            or not any("decode_tc_kernel" in k for k in kernels)):
+        raise RuntimeError(f"CLI -dt 1 run failed or its table lists no quant_matmul and"
+                           f" flash_decode kernel:\n{out}\n{err}")
+    (out, err), rc = got["export"]
+    log(f"  cli --export rc={rc}: {err.strip().splitlines()[-1] if err.strip() else ''}")
+    if rc != 1 or "no StableHLO" not in err:
+        raise RuntimeError(f"CLI --export was not refused:\n{err}")
+    (out, err), rc = got["dequant"]
+    if rc or not out.startswith(b"the thing"):
+        raise RuntimeError(f"CLI --weight-mode dequant run failed:\n{out}\n{err}")
+    _dequant_ids(run["q4_0"], out == base)
+
+
+def _dequant_ids(path: str, same_text: bool) -> None:
+    """--weight-mode dequant on a small file: 16 greedy ids of the dequantized
+    engine held to the fused engine's logits with the ids forced, within
+    ROWS_LOGIT_TOL (bf16 dense products and the kernels sum in other
+    orders); the CLI's text equal to the fused run's or not is printed."""
+    from ggllm_tpu_torch import tokenizer as tok_mod
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    mf, fused = load_model(path, EngineConfig())
+    _, dense = load_model(path, EngineConfig(weight_mode="dequant"))
+    prompt = tok_mod.for_model(mf).tokenize("the thing", bos=True)
+    eng = FalconEngine(mf.hparams, fused, EngineConfig())
+    ids = FalconEngine(mf.hparams, dense, EngineConfig()).generate(
+        prompt, 16, SamplerParams(temp=0.0, repeat_penalty=1.0), stop_ids=set())
+    tf = _teacher_forced(eng, prompt, ids, ROWS_LOGIT_TOL)
+    log(f"  cli --weight-mode dequant: the CLI's text {'equals' if same_text else 'differs from'}"
+        f" the fused run's; 16 greedy ids of the dequantized engine against the fused engine's"
+        f" logits with the ids forced: worst deficit {tf['worst']:.3f} of ROWS_LOGIT_TOL, not the"
+        f" argmax at steps {tf['not_argmax']}")
+    if tf["worst"] >= 1.0:
+        raise RuntimeError(f"--weight-mode dequant ids {ids} leave the fused engine's near-ties")
 
 
 def main() -> int:
@@ -2424,8 +2856,17 @@ def main() -> int:
             f" {time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         parallel = phase_server_parallel(torch, batched.pop("engine"), eng, hp)
-        log(f"  (--parallel 4 took {time.perf_counter() - t0:.1f} s)")
-        return [sessions, speculative, grammar, served, *scored, batched, parallel]
+        log(f"  -- falcon7b q4_0: batched speculative rounds (--parallel 4 took"
+            f" {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        spec_rows = phase_speculative_rows(torch, eng, params, hp, speculative, batched)
+        log(f"  -- falcon7b q4_0: --weight-mode dequant (batched rounds took"
+            f" {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        dequant = phase_dequant(torch, eng, params, hp)
+        log(f"  (--weight-mode dequant took {time.perf_counter() - t0:.1f} s)")
+        return [sessions, speculative, grammar, served, *scored, batched, parallel, spec_rows,
+                dequant]
 
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")
@@ -2440,6 +2881,10 @@ def main() -> int:
     paths.append(phase_model(torch, "llama7b", "q4_0"))
     log("  -- llama7b q4_k, int8 cache")
     paths.append(phase_model(torch, "llama7b", "q4_k", kv_dtype="int8", long_past=1900))
+    log("  -- the quantize tool: 2-layer Falcon-7B q4_0 and LLaMA-7B q4_k_m files")
+    t0 = time.perf_counter()
+    paths.append(phase_quantize(torch))
+    log(f"  (the quantize tool took {time.perf_counter() - t0:.1f} s)")
     log("  -- falcon7b q4_0, f32 cache (--memory-f32)")
     paths.append(phase_model(torch, "falcon7b", "q4_0", kv_dtype="float32"))
     log("  -- falcon7b q4_0, 2 layers, float32")

@@ -121,6 +121,10 @@ class EngineConfig:
     kv_dtype: str = "bfloat16"  # "float32" for exactness; "int8": codes + f32 scales
     compute_dtype: str = "bfloat16"
     rope: RopeConfig = field(default_factory=RopeConfig)
+    # "fused": quantized weights stay packed and run through the kernels;
+    # "dequant": the loader dequantizes each quantized 2-D weight once into
+    # the compute dtype, and they multiply as dense tensors
+    weight_mode: str = "fused"
     # quantized matmuls through the hand-written kernel (True) or the plain
     # dequantize-then-matmul version (False); None = True
     kernel_layout: bool | None = None

@@ -49,7 +49,20 @@ path: rounds of single-token draft evals and one target eval, with the
 accept / resample math on the host over ops/sampling.py cascade_probs.
 Mirostat defines no per-step distribution and is refused.
 
-The batched rounds (the JAX generate_rows) are not ported.
+generate_rows is the batched counterpart (the JAX _fused_round_rows:324 and
+generate_rows:408): greedy offline batch inference from B prompts on two
+B-row engines. A batched round runs k + 1 draft steps of all B rows at
+their own positions (S = B: the rows kernel, the decode attention kernel
+with a (B,) valid length), ONE target forward of the B x (k + 1) rows
+[tok0; x_1..x_k] at the rows' device n_past (B (k + 1) <= 16 rows on the
+rows kernel, more on the tensor-core tile, and flash_mqa with a (B,)
+n_past), then each row's longest argmax-match prefix, committed on the
+device. R rounds are one CUDA graph, captured once a decoder (B and the
+draft's cache kind are its engines', k and R its own) and replayed. Rows end
+one by one: a (B,) live mask, written before each replay, freezes a done
+row's n_past and token on the device (its n_acc counts 0), while the
+others go on. Unlike the JAX generate_rows, which stops every row when the
+longest nears the context, a row ends at its own context end.
 """
 
 from __future__ import annotations
@@ -232,9 +245,36 @@ class _Round:
         self.caches = None  # (target kv, draft kv) the graph was captured on
 
 
+ROWS_KEY = "rows"  # the batched rounds' program: one a decoder
+
+
+class _RowRound:
+    """One batched-round program (generate_rows): its key, the static
+    buffers its rounds read and write (each row's pending token, n_past and
+    live flag, the rounds' (R, B, k + 1) ids and (R, B) n_acc), pinned host
+    buffers for two dispatches, each a tensor of its own, and its CUDA graph
+    once captured (with the caches it points at)."""
+
+    def __init__(self, key: str, B: int, R: int, k: int, device):
+        self.key, self.n_steps = key, R  # a step of the program is a round
+        self.tok = torch.zeros(B, dtype=torch.long, device=device)
+        self.n_past = torch.zeros(B, dtype=torch.int32, device=device)
+        self.live = torch.ones(B, dtype=torch.int32, device=device)
+        self.toks = torch.zeros(R, B, k + 1, dtype=torch.long, device=device)
+        self.n_acc = torch.zeros(R, B, dtype=torch.long, device=device)
+        pin = device.type == "cuda"
+        # each copied whole (a strided pinned destination makes the copy synchronous)
+        self.host = [(torch.empty(R, B, k + 1, dtype=torch.long, pin_memory=pin),
+                      torch.empty(R, B, dtype=torch.long, pin_memory=pin)) for _ in range(2)]
+        self.done = [torch.cuda.Event() if pin else None for _ in range(2)]
+        self.graph: build.Graph | None = None
+        self.caches = None  # (target kv, draft kv) the graph was captured on
+
+
 class SpeculativeDecoder:
-    """Wraps a target and a draft engine (single-stream, batch 1); generates
-    from the target's sampling distribution at > 1 token per target forward.
+    """Wraps a target and a draft engine; generates from the target's
+    sampling distribution at > 1 token per target forward. generate takes
+    single-stream engines (batch 1), generate_rows two B-row engines.
 
     Both engines must be at the same n_past with identical committed
     history. `k` is the draft length per round (2 <= k + 1 <= 16 keeps the
@@ -256,6 +296,9 @@ class SpeculativeDecoder:
         self.record: list | None = None  # eager rounds append their p, q, drafts here
         self.stats = SpecStats()
         self.last_rounds: list[tuple[list[int], int, np.ndarray]] = []
+        # generate_rows: each row's n_acc per consumed round, the live masks
+        # of the dispatches, and the rows' device n_past at the end
+        self.last_rows: dict = {}
 
     # ------------------------------------------------- fused device rounds
 
@@ -274,14 +317,17 @@ class SpeculativeDecoder:
             return True
         return 0 < sampler.top_k <= 1024
 
-    def _program(self, key: RoundKey) -> _Round:
+    def _program(self, key, make=None):
+        """The program of `key` (a RoundKey, made by `make` otherwise), built
+        on first use; at most MAX_CHUNKS are kept, least recently used out."""
         c = self._programs.get(key)
         if c is None:
             if len(self._programs) >= MAX_CHUNKS:
                 if self.target.device.type == "cuda":
                     torch.cuda.synchronize(self.target.device)
                 self._programs.popitem(last=False)
-            c = self._programs[key] = _Round(key, self.rounds, self.k, self.target.device)
+            c = self._programs[key] = (make() if make is not None
+                                       else _Round(key, self.rounds, self.k, self.target.device))
         self._programs.move_to_end(key)
         return c
 
@@ -486,6 +532,189 @@ class SpeculativeDecoder:
                                         - (tgt.timings.t_compile_us - t_compile))
             tgt.timings.n_decode += len(out)
         return out[:n_predict]
+
+    # ------------------------------------------- batched fused rounds (B rows)
+
+    def _row_program(self) -> _RowRound:
+        return self._program(ROWS_KEY, lambda: _RowRound(ROWS_KEY, self.target.batch,
+                                                         self.rounds, self.k, self.target.device))
+
+    def rows_graph(self) -> build.Graph | None:
+        """The captured batched-round graph, or None."""
+        c = self._programs.get(ROWS_KEY)
+        return None if c is None else c.graph
+
+    def _rounds_rows(self, c: _RowRound, n_rounds: int, at: list | None = None) -> None:
+        """The batched round body (the JAX _fused_round_rows:324): n_rounds
+        greedy rounds of all B rows from c.tok at the rows' own positions
+        c.n_past, each round's ids into c.toks[r] and n_acc into c.n_acc[r];
+        a row whose c.live is 0 commits nothing (n_acc 0, its n_past and
+        token unchanged). Reads and writes only device tensors: this is
+        what a graph captures. at[0] follows the round."""
+        tgt, dr, k = self.target, self.draft, self.k
+        B, dkv = tgt.batch, dr.kv
+        quant = kvcache.is_quantized(dkv)
+        ar = torch.arange(k + 1, device=tgt.device)
+        for r in range(n_rounds):
+            if at is not None:
+                at[0] = r
+            npv, tok0 = c.n_past, c.tok.clone()
+            pending = None
+            if quant:  # chunk-deferred: the draft's cache is read-only in the round
+                L_, _, _, _, KV, D = dkv[0].shape
+                pending = torch.zeros(L_, 2, B, k + 1, KV, D, device=dr.device,
+                                      dtype=getattr(torch, dr.cfg.compute_dtype))
+            tok, drafted = tok0, []
+            for j in range(k + 1):  # every row at its own position, S = B
+                pos = npv if j == 0 else npv + j
+                if pending is None:
+                    lg = dr.model(tok.view(B, 1), dkv, pos, dr.inv_freq)[:, 0]
+                else:
+                    lg, kv_new = dr.model(tok.view(B, 1), dkv, pos, dr.inv_freq,
+                                          pending=pending, n_pend=j)
+                    pending[:, :, :, j:j + 1] = kv_new
+                    lg = lg[:, 0]
+                tok = torch.argmax(lg, dim=-1)
+                drafted.append(tok)
+            if pending is not None:  # the round's one (quantizing) per-row write
+                kvcache.write_all_layers(dkv, pending, npv)
+            xs = torch.stack(drafted[:k], dim=1)  # (B, k)
+            seq = torch.cat([tok0[:, None], xs], dim=1)  # (B, k + 1): one verify forward
+            rows = tgt.model(seq, tgt.kv, npv, tgt.inv_freq, logits_all=True).float()
+            pargmax = torch.argmax(rows, dim=-1)  # (B, k + 1)
+            ok = torch.cumprod((pargmax[:, :k] == xs).to(torch.int64), dim=1)
+            n_acc = ok.sum(dim=1) * c.live
+            final = pargmax.gather(1, n_acc[:, None])[:, 0]
+            c.toks[r] = torch.where(ar[None, :] < n_acc[:, None],
+                                    torch.cat([xs, xs[:, :1]], dim=1), final[:, None])
+            c.n_acc[r] = n_acc
+            c.n_past.add_(((n_acc + 1) * c.live).to(torch.int32))
+            c.tok.copy_(torch.where(c.live > 0, final, c.tok))
+
+    def _start_rows(self, c: _RowRound, toks: np.ndarray, npv: np.ndarray, eager: bool) -> None:
+        """Capture c if it runs as a graph and has none for the engines'
+        current caches, then set every row live at its token and n_past."""
+        tok = torch.from_numpy(np.asarray(toks, np.int64))
+        n_past = torch.from_numpy(np.asarray(npv, np.int32))
+        caches = (self.target.kv, self.draft.kv)
+        c.live.fill_(1)
+        if not eager and self.target.device.type == "cuda" and (
+                c.graph is None or c.caches[0] is not caches[0] or c.caches[1] is not caches[1]):
+            # on the target's capture stream and memory pool, after one eager
+            # round there; the warm-up writes cache positions at and above
+            # each row's n_past only, and moves c.tok / c.n_past, set below
+            c.tok.copy_(tok)
+            c.n_past.copy_(n_past)
+            self.target._capture(c, self._rounds_rows,
+                                 f"the {c.n_steps}-round batched speculative program"
+                                 f" ({self.target.batch} rows, k {self.k}; a step here is a round)")
+            c.caches = caches
+        c.tok.copy_(tok)
+        c.n_past.copy_(n_past)
+
+    def _dispatch_rows(self, c: _RowRound, slot: int, live: np.ndarray, eager: bool) -> None:
+        """One dispatch of R batched rounds: the live mask written, the graph
+        replayed (or the body run), its ids and n_acc copied to pinned host
+        buffer `slot` behind an event. Nothing here waits for the device."""
+        src = torch.from_numpy(live.astype(np.int32))
+        pin = c.done[0] is not None
+        c.live.copy_(src.pin_memory() if pin else src, non_blocking=True)
+        if eager or c.graph is None:
+            self._rounds_rows(c, c.n_steps)
+        else:
+            c.graph.replay()
+        toks, n_acc = c.host[slot]
+        toks.copy_(c.toks, non_blocking=True)
+        n_acc.copy_(c.n_acc, non_blocking=True)
+        if pin:
+            c.done[slot].record()
+
+    @torch.inference_mode()
+    def generate_rows(self, prompts, n_predict: int,
+                      stop_ids: set | None = None) -> list[list[int]]:
+        """Generate GREEDILY from B prompts at once through batched fused
+        rounds (the JAX generate_rows:408; offline batch inference). Both
+        engines are B-row engines (batch_size == B == len(prompts)) and
+        enter fresh: each row's prompt but its last token is prefilled at
+        position 0, and the last is the row's first pending token.
+
+        A row is done when it has n_predict ids, emits a stop id, or when
+        its position plus 2 R (k + 1) would pass the context (then it ends
+        with fewer ids, as the single stream's fused rounds do); the others
+        go on. The host fetches a dispatch's ids while the next one runs, so
+        a row may run one dispatch past its end before its live mask takes
+        effect: those ids are discarded, and the margin keeps its writes
+        inside the cache. Returns one list of ids per row; fills `stats` and
+        the target's timings (capture time under compile) and `last_rows`."""
+        tgt, dr, k, R = self.target, self.draft, self.k, self.rounds
+        B = tgt.batch
+        if dr.batch != B or len(prompts) != B:
+            raise ValueError(f"generate_rows: {len(prompts)} prompts for a {B}-row target and a"
+                             f" {dr.batch}-row draft: one prompt a row")
+        prompts = [[int(t) for t in np.asarray(p).reshape(-1)] for p in prompts]
+        if not all(prompts):
+            raise ValueError("generate_rows: every row needs a prompt")
+        n_ctx = min(tgt.cfg.n_ctx, dr.cfg.n_ctx)
+        stats = self.stats = SpecStats()
+        heads = [b for b in range(B) if len(prompts[b]) > 1]
+        if heads:
+            zeros = np.zeros(B, np.int64)
+            for eng in (tgt, dr):
+                eng.prefill_rows(heads, [prompts[b][:-1] for b in heads], zeros, fetch_rows=set())
+        npv = np.asarray([len(p) - 1 for p in prompts], np.int64)  # the consumed positions
+        eager = self.eager or tgt.device.type != "cuda"
+        c = self._row_program()
+        span = R * (k + 1)  # the most one dispatch advances a row
+        out: list[list[int]] = [[] for _ in range(B)]
+        accs: list[list[int]] = [[] for _ in range(B)]
+        done = [False] * B
+        lives: list[np.ndarray] = []
+
+        def consume(fetched, live: np.ndarray) -> None:
+            """Commit one fetched dispatch to the rows that were live in it
+            and are not done."""
+            toks_h, acc_h = fetched
+            for r in range(R):
+                stats.n_rounds += 1
+                for b in range(B):
+                    if not live[b] or done[b]:
+                        continue
+                    n_acc = int(acc_h[r, b])
+                    accs[b].append(n_acc)
+                    stats.n_drafted += k
+                    stats.n_accepted += n_acc
+                    npv[b] += n_acc + 1
+                    for t in toks_h[r, b, :n_acc + 1]:
+                        out[b].append(int(t))
+                        stats.n_emitted += 1
+                        if (stop_ids and int(t) in stop_ids) or len(out[b]) >= n_predict:
+                            done[b] = True
+                            break
+
+        t_compile = tgt.timings.t_compile_us
+        t0 = time.perf_counter()
+        self._start_rows(c, [p[-1] for p in prompts], npv, eager)
+        # dispatch i goes out before dispatch i - 1's ids are fetched: a live
+        # row's device position is at most its consumed npv + span then, and
+        # dispatch i adds at most span more, so npv + 2 span <= n_ctx keeps
+        # it inside the context; a row that fails it stays frozen
+        n_disp = 0
+        while True:
+            live = np.asarray([not done[b] and npv[b] + 2 * span <= n_ctx for b in range(B)])
+            if not live.any():
+                break
+            self._dispatch_rows(c, n_disp % 2, live, eager)
+            lives.append(live)
+            n_disp += 1
+            if n_disp > 1:
+                consume(self._fetch(c, n_disp % 2), lives[n_disp - 2])
+        if n_disp:
+            consume(self._fetch(c, (n_disp - 1) % 2), lives[n_disp - 1])
+        self.last_rows = {"n_acc": accs, "live": lives, "n_past": c.n_past.cpu().numpy()}
+        tgt.timings.t_decode_us += ((time.perf_counter() - t0) * 1e6
+                                    - (tgt.timings.t_compile_us - t_compile))
+        tgt.timings.n_decode += sum(len(o) for o in out)
+        return [o[:n_predict] for o in out]
 
     # ------------------------------------------------------------ host rounds
 

@@ -18,6 +18,11 @@ rows -> "w13" (each pair shares an input), else the split keys; "wo" and
 "w2" stay separate. A key whose ggml type differs between layers (the
 reference's mixed K-type policy) is dequantized in every layer.
 
+EngineConfig(weight_mode="dequant") then dequantizes every quantized weight
+once, on its device, into the compute dtype (dequantize_params; the JAX
+loader's dequant mode): the model multiplies dense weights, attention keeps
+its kernels.
+
 LoRA, the .kcache sidecar and meshes are not ported.
 """
 
@@ -167,15 +172,32 @@ def _load_llama_params(mf: ModelFile, dtype, device) -> dict:
     return params
 
 
+def dequantize_params(params: dict, dtype) -> dict:
+    """The tree with every QuantTensor dequantized (in f32, then to dtype)
+    on its own device; dense leaves and the layer list's structure kept."""
+    def leaf(w):
+        return w.dequantize(torch.float32).to(dtype) if isinstance(w, QuantTensor) else w
+
+    return {k: [{n: leaf(w) for n, w in lw.items()} for lw in v] if k == "layers" else leaf(v)
+            for k, v in params.items()}
+
+
 def load_params(mf: ModelFile, cfg: EngineConfig | None = None, device=None) -> dict:
     """Build the parameter tree from a parsed model file, on `device`
-    (default "cuda"; raises if CUDA is missing unless device="cpu")."""
+    (default "cuda"; raises if CUDA is missing unless device="cpu");
+    weight_mode "dequant" dequantizes it there (dequantize_params)."""
     cfg = cfg or EngineConfig()
+    if cfg.weight_mode not in ("fused", "dequant"):
+        raise ValueError(f"weight_mode {cfg.weight_mode!r}: fused or dequant")
     device = resolve_device(device)
-    hp = mf.hparams
     dtype = getattr(torch, cfg.compute_dtype)
-    if mf.arch == "llama":
-        return _load_llama_params(mf, dtype, device)
+    load = _load_llama_params if mf.arch == "llama" else _load_falcon_params
+    params = load(mf, dtype, device)
+    return dequantize_params(params, dtype) if cfg.weight_mode == "dequant" else params
+
+
+def _load_falcon_params(mf: ModelFile, dtype, device) -> dict:
+    hp = mf.hparams
 
     def vec(name):
         return torch.from_numpy(mf.tensor_f32(name).astype(np.float32)).to(device)

@@ -1,6 +1,5 @@
-"""Legacy 32-element block quantization codecs (a copy of that subset of
-ggllm_tpu/quant/legacy.py): Q4_0 and Q8_0 both ways, and the dequantizers of
-Q4_1, Q5_0 and Q5_1 (their quantizers are not ported).
+"""Legacy 32-element block quantization codecs (Q4_0/Q4_1/Q5_0/Q5_1/Q8_0/Q8_1;
+a copy of ggllm_tpu/quant/legacy.py, which the port does not import).
 
 Bit-faithful, vectorized numpy re-implementations of the reference scalar
 codecs (ggml.c:927-1131 quantize, ggml.c:1447-1586 dequantize). The packed
@@ -11,7 +10,8 @@ semantics (strict IEEE, no FMA contraction).
 Layout conventions shared by all 32-wide formats:
   * a block holds 32 consecutive elements of one row;
   * 4-bit packing splits the block in two halves: byte j holds element j in its
-    low nibble and element j+16 in its high nibble.
+    low nibble and element j+16 in its high nibble;
+  * 5-bit formats store the 5th bit of element j at bit j of a 32-bit mask.
 """
 
 from __future__ import annotations
@@ -31,6 +31,11 @@ def _signed_absmax(x: np.ndarray) -> np.ndarray:
     """Per-block value with the largest magnitude (first occurrence, like C)."""
     idx = np.argmax(np.abs(x), axis=1)
     return x[np.arange(x.shape[0]), idx]
+
+
+def _trunc_u8(x: np.ndarray) -> np.ndarray:
+    """C-style (int8_t) cast: truncation toward zero; inputs here are >= 0."""
+    return x.astype(np.int32).astype(np.uint8)
 
 
 def _roundf(x: np.ndarray) -> np.ndarray:
@@ -70,6 +75,23 @@ def dequantize_q4_0(buf: np.ndarray, n: int) -> np.ndarray:
 
 # ---------------------------------------------------------------- Q4_1
 
+def quantize_q4_1(x: np.ndarray) -> np.ndarray:
+    x = _f32(x)
+    nb = x.shape[0]
+    mn = x.min(axis=1)
+    mx = x.max(axis=1)
+    d = ((mx - mn) / np.float32(15.0)).astype(np.float32)
+    idv = _safe_inv(d)
+    xi = np.minimum(
+        15, ((x - mn[:, None]) * idv[:, None] + np.float32(0.5)).astype(np.int32)
+    ).astype(np.uint8)
+    out = np.empty((nb, 20), dtype=np.uint8)
+    out[:, 0:2] = d.astype(np.float16)[:, None].view(np.uint8)
+    out[:, 2:4] = mn.astype(np.float16)[:, None].view(np.uint8)
+    out[:, 4:20] = xi[:, :16] | (xi[:, 16:] << 4)
+    return out.reshape(-1)
+
+
 def dequantize_q4_1(buf: np.ndarray, n: int) -> np.ndarray:
     b = np.asarray(buf, dtype=np.uint8).reshape(-1, 20)
     d = b[:, 0:2].copy().view(np.float16).astype(np.float32)
@@ -81,13 +103,36 @@ def dequantize_q4_1(buf: np.ndarray, n: int) -> np.ndarray:
     return y.reshape(-1)[:n]
 
 
-# ---------------------------------------------------------------- Q5_0 / Q5_1
+# ---------------------------------------------------------------- Q5_0
+
+def _pack_qh(xi: np.ndarray) -> np.ndarray:
+    """Pack bit 4 of each of the 32 block elements into a little-endian u32."""
+    bits = ((xi >> 4) & 1).astype(np.uint32)  # (nb, 32)
+    shifts = np.arange(32, dtype=np.uint32)
+    qh = (bits << shifts[None, :]).sum(axis=1, dtype=np.uint32)
+    return qh
+
 
 def _unpack_qh(qh_bytes: np.ndarray) -> np.ndarray:
     """(nb,4) uint8 -> (nb,32) uint8 of 5th bits."""
     qh = qh_bytes.copy().view(np.uint32).reshape(-1)  # (nb,)
     shifts = np.arange(32, dtype=np.uint32)
     return ((qh[:, None] >> shifts[None, :]) & 1).astype(np.uint8)
+
+
+def quantize_q5_0(x: np.ndarray) -> np.ndarray:
+    x = _f32(x)
+    nb = x.shape[0]
+    maxv = _signed_absmax(x)
+    d = (maxv / np.float32(-16.0)).astype(np.float32)
+    idv = _safe_inv(d)
+    xi = np.minimum(31, (x * idv[:, None] + np.float32(16.5)).astype(np.int32)).astype(np.uint8)
+    out = np.empty((nb, 22), dtype=np.uint8)
+    out[:, 0:2] = d.astype(np.float16)[:, None].view(np.uint8)
+    # bit j of qh <- 5th bit of element j (first half), bit j+16 <- second half
+    out[:, 2:6] = _pack_qh(xi)[:, None].view(np.uint8)
+    out[:, 6:22] = (xi[:, :16] & 0x0F) | ((xi[:, 16:] & 0x0F) << 4)
+    return out.reshape(-1)
 
 
 def dequantize_q5_0(buf: np.ndarray, n: int) -> np.ndarray:
@@ -99,6 +144,24 @@ def dequantize_q5_0(buf: np.ndarray, n: int) -> np.ndarray:
     hi = ((qs >> 4) | (hb[:, 16:] << 4)).astype(np.int16) - 16
     y = np.concatenate([lo, hi], axis=1).astype(np.float32) * d
     return y.reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------- Q5_1
+
+def quantize_q5_1(x: np.ndarray) -> np.ndarray:
+    x = _f32(x)
+    nb = x.shape[0]
+    mn = x.min(axis=1)
+    mx = x.max(axis=1)
+    d = ((mx - mn) / np.float32(31.0)).astype(np.float32)
+    idv = _safe_inv(d)
+    xi = ((x - mn[:, None]) * idv[:, None] + np.float32(0.5)).astype(np.int32).astype(np.uint8)
+    out = np.empty((nb, 24), dtype=np.uint8)
+    out[:, 0:2] = d.astype(np.float16)[:, None].view(np.uint8)
+    out[:, 2:4] = mn.astype(np.float16)[:, None].view(np.uint8)
+    out[:, 4:8] = _pack_qh(xi)[:, None].view(np.uint8)
+    out[:, 8:24] = (xi[:, :16] & 0x0F) | ((xi[:, 16:] & 0x0F) << 4)
+    return out.reshape(-1)
 
 
 def dequantize_q5_1(buf: np.ndarray, n: int) -> np.ndarray:
@@ -132,4 +195,28 @@ def dequantize_q8_0(buf: np.ndarray, n: int) -> np.ndarray:
     b = np.asarray(buf, dtype=np.uint8).reshape(-1, 34)
     d = b[:, 0:2].copy().view(np.float16).astype(np.float32)
     qs = b[:, 2:34].copy().view(np.int8).astype(np.float32)
+    return (qs * d).reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------- Q8_1
+
+def quantize_q8_1(x: np.ndarray) -> np.ndarray:
+    x = _f32(x)
+    nb = x.shape[0]
+    amax = np.abs(x).max(axis=1)
+    d = (amax / np.float32(127.0)).astype(np.float32)
+    idv = _safe_inv(d)
+    qs = _roundf(x * idv[:, None]).astype(np.int8)
+    s = (qs.astype(np.int32).sum(axis=1).astype(np.float32) * d).astype(np.float32)
+    out = np.empty((nb, 40), dtype=np.uint8)
+    out[:, 0:4] = d[:, None].view(np.uint8)
+    out[:, 4:8] = s[:, None].view(np.uint8)
+    out[:, 8:40] = qs.view(np.uint8)
+    return out.reshape(-1)
+
+
+def dequantize_q8_1(buf: np.ndarray, n: int) -> np.ndarray:
+    b = np.asarray(buf, dtype=np.uint8).reshape(-1, 40)
+    d = b[:, 0:4].copy().view(np.float32)
+    qs = b[:, 8:40].copy().view(np.int8).astype(np.float32)
     return (qs * d).reshape(-1)[:n]

@@ -14,6 +14,14 @@ and saves the evaluated prompt (engine/session.py; --prompt-cache-all also
 the generated ids, --prompt-cache-ro never writes). --draft-model FNAME or
 --self-draft N decode speculatively (engine/speculative.py: --draft-k drafts
 a round, verified in one forward of the model), plain generation only.
+--mtest runs a full-batch prefill and one decode step and reports the
+timings and the card's memory; --weight-mode dequant dequantizes every
+quantized weight once at load (dense matmuls, the library's path);
+--profile DIR writes a torch.profiler trace of generation, and -dt LEVEL
+prints its op table (utils/traceview.py). The reference's thread, VRAM and
+mmap flags are accepted and ignored, so reference command lines run
+unchanged; --export, --lora / --lora-base and the multi-GPU flags (-ts,
+--kv-shard, --multihost) exit 1 naming why.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
@@ -31,7 +39,9 @@ from __future__ import annotations
 
 import argparse
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 from ggllm_tpu_torch import tokenizer as tok_mod
 from ggllm_tpu_torch.core.config import EngineConfig
@@ -66,6 +76,12 @@ def parse_logit_bias(specs: list[str]) -> dict[int, float]:
 ANSI_RESET = "\x1b[0m"
 ANSI_PROMPT = "\x1b[33m"        # yellow: prompt echo
 ANSI_USER = "\x1b[1;32m"        # bold green: user input
+
+LORA_REFUSAL = "--lora / --lora-base are not ported yet (ROADMAP.md, Queue 1 item 8: LoRA)"
+MULTI_GPU_REFUSAL = ("-ts / --tensor-split, --kv-shard and --multihost shard the model over several"
+                     " cards: multi-GPU is not ported yet (ROADMAP.md, Queue 1 item 10)")
+EXPORT_REFUSAL = ("--export writes the JAX forward's lowered StableHLO: the port has no StableHLO"
+                  " and no exported forward")
 
 RANDOM_PROMPTS = ["So", "Once upon a time", "When", "The", "After",
                   "If", "import", "He", "She", "They"]
@@ -171,12 +187,38 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--embedding", action="store_true",
                     help="print the prompt's final hidden state and exit "
                          "(the examples/embedding mode)")
+    ap.add_argument("--mtest", action="store_true",
+                    help="compute maximum-memory usage (full-batch prefill + one decode step),"
+                         " report, and exit")
+    ap.add_argument("--export", default=None, metavar="PATH",
+                    help="refused: the port has no StableHLO export")
+    ap.add_argument("--lora", default=None, help="refused: LoRA is not ported yet")
+    ap.add_argument("--lora-base", default=None, help="refused: LoRA is not ported yet")
+    # accepted-and-ignored reference flags, so reference command lines run
+    # unchanged (the thread and VRAM knobs mean nothing here: the weights
+    # and the cache live on the card, PyTorch owns its memory)
+    for flag, extra in (("--threads", {"type": int}), ("-t", {"type": int}),
+                        ("--n-gpu-layers", {"type": int}),
+                        ("-ngl", {"type": int}), ("--gpu-layers", {"type": int}),
+                        ("--main-gpu", {"type": int}),
+                        ("--gpu-reserve-mb-main", {"type": int}),
+                        ("--gpu-reserve-mb-other", {"type": int}),
+                        ("--override-max-gpu", {"type": int}),
+                        ("--mlock", {"action": "store_true"}),
+                        ("--low-vram", {"action": "store_true"}),
+                        ("--no-mmap", {"action": "store_true"})):
+        ap.add_argument(flag, dest="_compat", help=argparse.SUPPRESS, **extra)
+    ap.add_argument("--alias", default=None,
+                    help="model display name in reports (falcon_common model_alias)")
     ap.add_argument("--display-timings", dest="verbose_timings", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--memory-f32", action="store_true",
                     help="store the KV cache in f32 (sets --kv-dtype float32)")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--weight-mode", default="fused", choices=["fused", "dequant"],
+                    help="fused: quantized weights through the kernels; dequant: every quantized"
+                         " weight dequantized once at load to the compute dtype")
     ap.add_argument("--no-fused-decode", action="store_true",
                     help="force the per-token host sampling path")
     ap.add_argument("--decode-chunk", type=int, default=16,
@@ -196,14 +238,60 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--self-draft", type=int, default=0, metavar="N",
                     help="speculative decoding with a depth-truncated view of the SAME model as"
                          " the draft (its first N layers; the views alias the loaded weights)")
+    ap.add_argument("-ts", "--tensor-split", default="1", metavar="N|auto", dest="mesh_model",
+                    help="refused unless 1: multi-GPU is not ported yet")
+    ap.add_argument("--kv-shard", default="heads", choices=["heads", "sequence"],
+                    help="refused unless heads: multi-GPU is not ported yet")
+    ap.add_argument("--multihost", action="store_true",
+                    help="refused: multi-GPU is not ported yet")
     ap.add_argument("--verbose-timings", action="store_true")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of generation (Chrome trace JSON) to DIR")
+    ap.add_argument("-dt", "--debug-timings", type=int, default=0, metavar="LEVEL",
+                    choices=[0, 1, 2, 3],
+                    help="print a per-op timing table after generation (1 = top 10 ops, 2 = top"
+                         " 30, 3 = all; the reference's falcon_main -dt)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
+
+
+def refusal(args) -> str | None:
+    """Why a flag the port accepts cannot run yet, or None."""
+    if args.export:
+        return EXPORT_REFUSAL
+    if args.lora or args.lora_base:
+        return LORA_REFUSAL
+    if args.mesh_model != "1" or args.kv_shard != "heads" or args.multihost:
+        return MULTI_GPU_REFUSAL
+    return None
+
+
+def mtest(engine) -> None:
+    """The reference's --mtest: the worst-case paths (a full-batch prefill of
+    zeros and one single-token step), their timings, and the card's memory
+    allocated and at its peak."""
+    import torch
+
+    cfg = engine.cfg
+    engine.eval([0] * min(cfg.n_batch, cfg.n_ctx - 1))
+    engine.eval([0])
+    print(engine.timings.report(), file=sys.stderr)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+        print(f"mtest: {torch.cuda.memory_allocated(engine.device) / 2**20:.1f} MiB allocated,"
+              f" peak {torch.cuda.max_memory_allocated(engine.device) / 2**20:.1f} MiB",
+              file=sys.stderr)
+    else:
+        print("mtest: no device memory figure: the engine runs on the CPU", file=sys.stderr)
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    why = refusal(args)
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return 1
     if args.interactive_first:
         args.interactive = True
     if args.memory_f32:
@@ -226,13 +314,19 @@ def main(argv=None) -> int:
                 break
 
     cfg = EngineConfig(n_ctx=args.ctx_size, n_batch=args.batch_size, kv_dtype=args.kv_dtype,
-                       compute_dtype=args.compute_dtype, decode_chunk=args.decode_chunk)
+                       compute_dtype=args.compute_dtype, decode_chunk=args.decode_chunk,
+                       weight_mode=args.weight_mode)
     t0 = time.perf_counter()
     mf, params = load_model(args.model, cfg, device=args.device)
     tk = tok_mod.for_model(mf)
     engine = FalconEngine(mf.hparams, params, cfg, device=args.device)
     engine.timings.t_load_us = (time.perf_counter() - t0) * 1e6
+    if args.alias:
+        print(f"model alias: {args.alias}", file=sys.stderr)
     vocab = mf.vocab
+    if args.mtest:
+        mtest(engine)
+        return 0
 
     sampler = SamplerParams(
         temp=args.temp, top_k=args.top_k, top_p=args.top_p, tfs_z=args.tfs,
@@ -341,6 +435,9 @@ def main(argv=None) -> int:
     sys.stdout.buffer.write(prompt.encode())
     sys.stdout.flush()
     set_color(ANSI_RESET)
+    if args.debug_timings and not args.profile:
+        args.profile = tempfile.mkdtemp(prefix="ggllm_dt_")
+    prof = start_profile(engine) if args.profile else None
     logits = gen.prefill(eval_ids)
     if args.prompt_cache and not args.prompt_cache_ro and len(eval_ids) > 1:
         # cache the evaluated prompt at once (falcon_main.cpp:867-871 saves at
@@ -413,6 +510,8 @@ def main(argv=None) -> int:
             pending_logits = None
             run_turn(logits)
 
+    if prof is not None:
+        stop_profile(prof, args.profile, args.debug_timings)
     if args.prompt_cache and args.prompt_cache_all and not args.prompt_cache_ro:
         # --prompt-cache-all: the final save includes the generated ids
         # (falcon_main.cpp:1228-1231)
@@ -423,6 +522,37 @@ def main(argv=None) -> int:
                              sampler_state=gen.state, generator=gen.rng)
     print(engine.timings.report(), file=sys.stderr)
     return 0
+
+
+def start_profile(engine):
+    """A running torch.profiler over the host's operators and, on the card,
+    its kernels (CUDA graph replays' kernels included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if engine.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, out_dir: str, level: int) -> None:
+    """Stop the profiler, write its Chrome trace into out_dir, and with
+    level > 0 print the op table (utils/traceview.py) to stderr."""
+    from ggllm_tpu_torch.utils import traceview
+
+    prof.stop()
+    path = Path(out_dir) / "trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    print(f"profiler trace written to {path}", file=sys.stderr)
+    if level:
+        try:
+            print(traceview.format_table(traceview.load_op_stats(str(path)), level),
+                  file=sys.stderr)
+        except (OSError, ValueError) as e:
+            print(f"debug-timings: could not parse the trace: {e}", file=sys.stderr)
 
 
 def _speculative(args, mf, params, cfg, engine, tk, prompt, prompt_ids, sampler, stopwords,

@@ -55,7 +55,8 @@ more) times those weights instead of the family's.
 `rows` prints one JSON line per decode weight of the three families' B-row
 steps (Falcon-7B Q4_0 wqkvu / w_od / lm_head, LLaMA-7B Q4_0 wqkv / wo / w13
 / w2 / lm_head, Falcon-40B Q4_K wqkv / ffn_up / w_od / lm_head; `--shape
-FMT:OxK` instead) and S = 1 ... 16 rows of bf16 x (bf16 y, f32 for lm_head),
+FMT:OxK` instead) and S = 1 ... 32 rows of bf16 x (past 16, the batched
+speculative rounds' verify, the tree routes to the tile) (bf16 y, f32 for lm_head),
 all as device time (a CUDA graph of one call, median of 20, L2 flushed
 before each): `quant_matmul` as the tree routes it (`graph_ms`: S = 1 the
 GEMV, 2-16 the rows kernel where the tree has one, with `cluster` the
@@ -324,12 +325,12 @@ def time_rows(shapes, bw: float = 3.35e12) -> None:
         wd = w.dequantize(bf16)
         out = torch.float32 if name.endswith("lm_head") else bf16
         wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
-        for S in range(1, 17):
+        for S in range(1, 33):
             x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
             row = {"package": package, "fmt": fmt, "weight": name, "O": O, "K": K, "S": S,
                    "bound_ms": (wbytes + S * K * 2 + S * O * out.itemsize) / bw * 1e3,
                    "graph_ms": graph_ms(lambda i: qm.quant_matmul(w, x, out), 1, flush)}
-            if S > 1 and picked is not None:
+            if 1 < S <= getattr(qm, "ROWS_MAX_S", 0) and picked is not None:
                 row["cluster"] = picked(O)
                 for cl in qm.ROWS_CLUSTERS:
                     qm.rows_cluster = lambda O_, cl=cl: cl
@@ -576,13 +577,14 @@ def replay_device_ms(eng, chunk: int, sampler, reps: int) -> float:
 
 def round_device_ms(spec, sampler, reps: int) -> float:
     """Device ms a round of `reps` back-to-back replays, between two CUDA
-    events, of a SpeculativeDecoder's captured round graph for `sampler`,
-    from its last device state (each replay moves n_past on by the rounds'
-    ids, into positions past the committed stream). Not credited to the
-    launch counters."""
+    events, of a SpeculativeDecoder's captured round graph for `sampler`
+    (None: its batched-round graph, generate_rows'), from its last device
+    state (each replay moves n_past on by the rounds' ids, into positions
+    past the committed stream; the batched rounds' live mask as the last
+    dispatch left it). Not credited to the launch counters."""
     import torch
 
-    g = spec.round_graph(sampler)
+    g = spec.rows_graph() if sampler is None else spec.round_graph(sampler)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):

@@ -22,8 +22,9 @@ torch.set_num_threads(1)
 BASE = ["-c", "96", "-b", "32", "--kv-dtype", "float32", "--compute-dtype", "float32",
         "--temp", "0", "--decode-chunk", "4"]
 
-# flags that wait for their modules (LoRA, multi-chip, export, profiling)
-WAITING = ["--lora", "--lora-base", "-ts", "--kv-shard", "--multihost", "--export", "--profile"]
+# flags that wait for their modules (LoRA, multi-chip) or have no
+# counterpart (export): accepted, then refused at run time
+WAITING = ["--lora", "--lora-base", "-ts", "--kv-shard", "--multihost", "--export"]
 
 
 @pytest.fixture(scope="module")
@@ -186,8 +187,9 @@ def test_logit_bias_parses_as_the_jax_cli():
 
 def test_flags_match_the_jax_cli():
     """Every flag of the port's CLI but --device is a JAX CLI flag with the
-    same destination and default; the flags that wait for their modules are
-    refused."""
+    same destination and default, and every JAX CLI flag is the port's; the
+    flags that wait for their modules parse, and main refuses them
+    (test_torch_cli_flags.py)."""
     def flags(ap):
         return {o: (a.dest, a.default) for a in ap._actions for o in a.option_strings
                 if o not in ("-h", "--help")}
@@ -204,7 +206,10 @@ def test_flags_match_the_jax_cli():
               "--prompt-cache-all", "--prompt-cache-ro", "--draft-model", "--draft-k",
               "--self-draft"):
         assert o in ported, o
+    assert set(ported) == set(ref)
     for o in WAITING:
-        assert o in ref and o not in got, o
-        with pytest.raises(SystemExit):
-            cli.build_parser().parse_args(["-m", "x", o, "1"])
+        assert o in got, o
+        args = cli.build_parser().parse_args(["-m", "x", o, "sequence" if o == "--kv-shard"
+                                              else "2" if o == "-ts" else "1"]
+                                             if o != "--multihost" else ["-m", "x", o])
+        assert cli.refusal(args), o

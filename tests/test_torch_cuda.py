@@ -1511,9 +1511,10 @@ def test_masked_row_graph_equals_the_eager_rows(dev, tmp_path):
 # ------------------------------------------------------- speculative rounds
 
 
-def _spec_pair(tmp_path, kv_dtype, compute="bfloat16", **cfg_kw):
+def _spec_pair(tmp_path, kv_dtype, compute="bfloat16", batch=1, **cfg_kw):
     """A tiny Falcon (4 heads over one K/V head, head_dim 64, 2 layers) on
-    the card and its first layer as the draft (weights aliased)."""
+    the card and its first layer as the draft (weights aliased), `batch`
+    rows each."""
     import dataclasses
 
     from ggllm_tpu_torch.engine.engine import FalconEngine
@@ -1527,9 +1528,9 @@ def _spec_pair(tmp_path, kv_dtype, compute="bfloat16", **cfg_kw):
                      GGMLType.Q4_0, seed=5)
     cfg = EngineConfig(n_ctx=256, n_batch=64, kv_dtype=kv_dtype, compute_dtype=compute, **cfg_kw)
     mf, params = load_model(path, cfg, device="cuda")
-    return (FalconEngine(mf.hparams, params, cfg),
+    return (FalconEngine(mf.hparams, params, cfg, batch_size=batch),
             FalconEngine(dataclasses.replace(mf.hparams, n_layer=1), truncate_params(params, 1),
-                         cfg))
+                         cfg, batch_size=batch))
 
 
 SPEC_PROMPT = [int(t) for t in np.random.default_rng(4).integers(3, 500, 20)]
@@ -1606,3 +1607,61 @@ def test_sampled_rounds_equal_their_float64_replay(dev, tmp_path):
     for rec, (emitted, n_acc, us) in zip(spec.record, spec.last_rounds):
         assert replay_round(rec["p"].double().cpu().numpy(), rec["q"].double().cpu().numpy(),
                             rec["xs"].tolist(), us) == (emitted, n_acc)
+
+
+ROWS_PROMPTS = [[int(t) for t in np.random.default_rng(8 + b).integers(3, 500, n)]
+                for b, n in enumerate((20, 5, 37, 2))]
+
+
+def _rows_run(spec, prompts, n):
+    """Both B-row engines reset, n ids a row; returns (ids, n_acc a round a
+    row, both caches over each row's committed prefix)."""
+    spec.target.reset()
+    spec.draft.reset()
+    ids = spec.generate_rows(prompts, n)
+    kv = [a[:, :, b, :len(p) - 1 + len(o)].clone()
+          for e in (spec.target, spec.draft) for a in (e.kv if isinstance(e.kv, tuple) else (e.kv,))
+          for b, (p, o) in enumerate(zip(prompts, ids))]
+    return ids, spec.last_rows["n_acc"], kv
+
+
+@pytest.mark.parametrize("B", [2, 4])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_rows_round_graph_equals_the_eager_rounds(dev, tmp_path, kv_dtype, B):
+    """generate_rows' replayed round graph (k = 6, 4 rounds a graph) gives
+    the eager round body's ids, n_acc and both caches over the committed
+    prefixes bit for bit; its record holds the verify's B x 7 rows on the
+    rows kernel at B = 2 (14 rows) and on the tile at B = 4 (28), the draft's
+    B-row steps on the rows kernel and the decode kernel, no GEMV."""
+    from ggllm_tpu_torch.engine.speculative import SpeculativeDecoder
+
+    tgt, dr = _spec_pair(tmp_path, kv_dtype, batch=B)
+    got = {eager: _rows_run(SpeculativeDecoder(tgt, dr, k=6, eager=eager), ROWS_PROMPTS[:B], 40)
+           for eager in (False, True)}
+    assert got[False][:2] == got[True][:2] and all(len(o) == 40 for o in got[False][0])
+    assert all(torch.equal(a, b) for a, b in zip(got[False][2], got[True][2]))
+    spec = SpeculativeDecoder(tgt, dr, k=6)
+    _rows_run(spec, ROWS_PROMPTS[:B], 8)
+    record = spec.rows_graph().counts
+    decode = "flash_decode_tc" + (".int8" if kv_dtype == "int8" else "")
+    for name in ("quant_matmul.rows", "flash_mqa.tc", decode):
+        assert record.get(name, 0) > 0, (name, record)
+    assert bool(record.get("quant_matmul.tc")) == (B == 4)
+    assert not record.get("quant_matmul.gemv")
+
+
+def test_rows_ids_hold_to_the_plain_versions(dev, tmp_path):
+    """Every row's generate_rows ids through the kernels lie within 1e-2 of
+    max |logit| of the top logit of the plain versions' single stream with
+    those ids forced (bf16: the tile, the rows kernel and the GEMV sum in
+    other orders)."""
+    from ggllm_tpu_torch.engine.speculative import SpeculativeDecoder
+
+    tgt, dr = _spec_pair(tmp_path, "bfloat16", batch=4)
+    ids, _, _ = _rows_run(SpeculativeDecoder(tgt, dr, k=6), ROWS_PROMPTS, 40)
+    plain, _ = _spec_pair(tmp_path, "bfloat16", kernel_layout=False, flash_attention=False)
+    for p, o in zip(ROWS_PROMPTS, ids):
+        plain.reset()
+        lg = plain.eval(p + o[:-1], logits_all=True)[-len(o):]
+        top = lg.max(axis=1)
+        assert np.all(top - lg[np.arange(len(o)), o] <= 1e-2 * np.abs(lg).max(axis=1))

@@ -257,7 +257,9 @@ def test_port_imports_neither_jax_nor_reference():
         "          'tools.time_kernels', 'engine.generator', 'utils.stream',\n"
         "          'utils.finetune', 'engine.perplexity', 'tools.perplexity',\n"
         "          'tools.embedding', 'server.app', 'server.__main__', 'engine.batching',\n"
-        "          'ops.grammar', 'engine.session', 'engine.speculative'):\n"
+        "          'ops.grammar', 'engine.session', 'engine.speculative',\n"
+        "          'tools.quantize', 'tools.quantize_stats', 'utils.traceview',\n"
+        "          'quant.native'):\n"
         "    assert 'ggllm_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('ggllm_tpu_torch.')]), bad)\n"
     )

@@ -208,7 +208,7 @@ def test_hparams_match_jax():
 
 # ------------------------------------------------------------------ GGJT files
 
-@pytest.mark.parametrize("ftype", ["F32", "F16", "Q4_0", "Q8_0"])
+@pytest.mark.parametrize("ftype", ["F32", "F16", "Q4_0", "Q8_0", "Q4_1", "Q5_0", "Q5_1"])
 def test_ggjt_writer_bytes_equal_jax(tmp_path, ftype):
     """The port's GGJT writer (vocab, weights and quantizer of its own) writes
     the JAX writer's file byte for byte."""
@@ -235,8 +235,8 @@ def test_ggjt_read_and_arch_detect(llama_files, name):
 
 
 def test_random_block_ggjt_reads_in_both(tmp_path):
-    """A Q4_K file from the port's writer (random blocks: it has no K-quant
-    quantizer) reads as LLaMA, with equal tensors, in both packages."""
+    """A Q4_K file from the port's writer (through its K-quant quantizer)
+    reads as LLaMA, with equal tensors, in both packages."""
     path = str(tmp_path / "t.ggjt")
     tsynthetic.write_tiny_llama(path, _hp_256(TLlamaHParams), TGGMLType.Q4_K, seed=2)
     mf, tmf = read_model(path), tread_model(path)

@@ -145,13 +145,17 @@ def test_group_sums_16_match_jax(xdtype):
 
 @pytest.mark.parametrize("gtype", [GGMLType.Q2_K, GGMLType.Q3_K], ids=["q2_k", "q3_k"])
 def test_unported_formats_raise(gtype):
-    """What the port still refuses: the Q2_K and Q3_K quantizers (the port
-    reads and multiplies both formats but cannot write them from floats),
-    and planes or a QuantTensor of a type that is no weight format."""
-    x = np.zeros(256, np.float32)
-    assert not tregistry.can_quantize(TGGMLType(int(gtype)))
+    """What the port still refuses: a quantizer for a type that is no block
+    format (I8), and planes or a QuantTensor of a type that is no weight
+    format. The Q2_K and Q3_K quantizers, refused here before the quantize
+    tool's slice, now write the JAX numpy codec's bytes."""
+    x = np.random.default_rng(int(gtype)).standard_normal(512).astype(np.float32)
+    assert tregistry.can_quantize(TGGMLType(int(gtype)))
+    assert np.array_equal(tregistry.quantize(TGGMLType(int(gtype)), x),
+                          jregistry.quantize(gtype, x, native=False))
+    assert not tregistry.can_quantize(TGGMLType.I8)
     with pytest.raises(NotImplementedError):
-        tregistry.quantize(TGGMLType(int(gtype)), x)
+        tregistry.quantize(TGGMLType.I8, x)
     with pytest.raises(NotImplementedError):
         tplanar.to_planes(TGGMLType.Q8_K, np.zeros(292, np.uint8), 1, 256)
     with pytest.raises(NotImplementedError):
