@@ -141,9 +141,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
      2 layers, a row ending alone at its context end); --weight-mode dequant
      at full width (phase_dequant: bf16 weights dequantized on the card,
      prefill logits held to the plain versions, its rate beside the fused
-     one); and after the LLaMA paths the quantize tool (phase_quantize:
-     2-layer full-width f16 files, Falcon-7B -> q4_0 and LLaMA-7B -> q4_k_m,
-     each loaded and held against the plain versions);
+     one); a LoRA adapter at load (phase_lora: the Falcon-7B Q4_0 tree
+     written as a GGCC file, an adapter of r 16 on query_key_value and
+     dense_4h_to_h of every layer loaded with it on the card, 64 greedy ids
+     through the decode graphs beside the fused rate, the prefill and a
+     decode step held to the plain versions on the patched tree and the
+     prefill far from the unpatched engine's); after the LLaMA paths the
+     quantize tool (phase_quantize: 2-layer full-width f16 files, Falcon-7B
+     -> q4_0 and LLaMA-7B -> q4_k_m, each loaded and held against the plain
+     versions); and the converters (phase_convert: 2-layer full-width bf16
+     HF checkpoints from utils/synthetic.py, Falcon-7B -> GGCC f16 -> q4_0
+     loaded with a converted PEFT adapter and the f16 file as --lora-base,
+     LLaMA-7B -> GGJT f16, each held against the plain versions);
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -1985,6 +1994,23 @@ def phase_speculative_rows(torch, eng1, params, hp, single_spec: dict, batcher: 
     return out
 
 
+def _greedy_rate(eng, prompt) -> tuple[float, list, dict]:
+    """64 greedy ids after `prompt` through the decode graphs (captured by a
+    short run first): (decode tok/s, the ids, the launch counts of the run)."""
+    from ggllm_tpu_torch.engine.engine import Timings
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    greedy = SamplerParams(temp=0.0)
+    eng.reset()
+    eng.generate(prompt[:8], 16, greedy, stop_ids=set())  # captures
+    eng.reset()
+    eng.timings = Timings()
+    build.launch_counts.clear()
+    ids = eng.generate(prompt, 65, greedy, stop_ids=set())
+    return eng.timings.n_decode / (eng.timings.t_decode_us / 1e6), ids, dict(build.launch_counts)
+
+
 def phase_dequant(torch, eng, params, hp) -> dict:
     """--weight-mode dequant at full width: the Falcon-7B Q4_0 weights
     dequantized once to bf16 on the card (io/loader.py dequantize_params,
@@ -1999,14 +2025,11 @@ def phase_dequant(torch, eng, params, hp) -> dict:
     import numpy as np
 
     from ggllm_tpu_torch.core.config import EngineConfig
-    from ggllm_tpu_torch.engine.engine import FalconEngine, Timings
+    from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.io.loader import dequantize_params
-    from ggllm_tpu_torch.kernels import build
-    from ggllm_tpu_torch.ops.sampling import SamplerParams
 
     rng = np.random.default_rng(19)
     prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
-    greedy = SamplerParams(temp=0.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dense = dequantize_params(params, torch.bfloat16)
@@ -2017,14 +2040,7 @@ def phase_dequant(torch, eng, params, hp) -> dict:
     deq = FalconEngine(hp, dense, EngineConfig())
     runs = {}
     for label, e in (("dequant", deq), ("fused", eng)):
-        e.reset()
-        e.generate(prompt[:8], 16, greedy, stop_ids=set())  # captures
-        e.reset()
-        e.timings = Timings()
-        build.launch_counts.clear()
-        ids = e.generate(prompt, 65, greedy, stop_ids=set())
-        runs[label] = (e.timings.n_decode / (e.timings.t_decode_us / 1e6), ids,
-                       dict(build.launch_counts))
+        runs[label] = _greedy_rate(e, prompt)
         e.reset()
         runs[label] += (e.eval(prompt, logits_all=True),)
     plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False))
@@ -2119,17 +2135,12 @@ def phase_quantize(torch) -> dict:
         plain = FalconEngine(mf.hparams, params, EngineConfig(kernel_layout=False,
                                                                flash_attention=False))
         build.launch_counts.clear()
-        got = eng.eval(prompt, logits_all=True)
-        ref = plain.eval(prompt, logits_all=True)
-        tok = int(ref[-1].argmax())
-        got_d, ref_d = eng.eval([tok]), plain.eval([tok])
+        rel, rel_d, got = _held(eng, plain, prompt)
         eng.reset()
         ids = eng.generate(prompt, 17, SamplerParams(temp=0.0), stop_ids=set())
         counts = dict(build.launch_counts)
         for name, c in counts.items():
             out["launches"][name] = out["launches"].get(name, 0) + c
-        rel = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
-        rel_d = float(np.abs(got_d - ref_d).max()) / float(np.abs(ref_d).max())
         graph = eng.chunk_graph(16, SamplerParams(temp=0.0)) is not None
         types = sorted({GGMLType(t.gtype).name for t in mf.tensors.values()})
         log(f"  quantize {model} 2 layers f16 -> {ftype}: {sizes['total_org'] / 2**20:.1f} MB ->"
@@ -2147,6 +2158,284 @@ def phase_quantize(torch) -> dict:
                                    "load_s": load_s, "logit_rel_err": rel,
                                    "decode_logit_rel_err": rel_d, "types": types}
         del eng, plain, params, mf
+        torch.cuda.empty_cache()
+    return out
+
+
+def _write_params_file(path: str, params: dict, hp) -> None:
+    """The Falcon-7B-style parameter tree `params` (merged "wqkvu" and
+    "w_od" QuantTensors on the card) as a GGCC file: each merged weight split
+    back into the file's four matrices (rows of "wqkvu", 32-wide blocks of
+    "w_od"), planes to ggml blocks (quant/planar.py from_planes), the
+    embedding in f32 (exactly its bf16 values)."""
+    import numpy as np
+
+    from ggllm_tpu_torch.core.dtypes import TYPE_TRAITS, GGMLType
+    from ggllm_tpu_torch.io.ggcc import GGCCWriter
+    from ggllm_tpu_torch.quant import planar
+    from ggllm_tpu_torch.utils.synthetic import make_tiny_vocab
+
+    vocab = make_tiny_vocab(hp.n_vocab)
+    hp.n_bpe_merges = len(vocab.merges)
+    w = GGCCWriter(path, hp, vocab)
+
+    def quant(name, q, rows=slice(None), blocks=slice(None)):
+        planes = {k: v[rows, blocks].cpu().numpy() for k, v in q.planes.items()}
+        blob = planar.from_planes(q.gtype, planes)
+        n_rows = blob.shape[0]
+        cols = blob.shape[1] // TYPE_TRAITS[q.gtype].type_size * TYPE_TRAITS[q.gtype].block_size
+        w.write_tensor(name, q.gtype, (cols, n_rows), blob.reshape(-1))
+
+    def f32(name, t):
+        a = t.float().cpu().numpy()
+        w.write_tensor(name, GGMLType.F32, tuple(reversed(a.shape)), a.reshape(-1).view(np.uint8))
+
+    f32("transformer.word_embeddings.weight", params["tok_embeddings"])
+    f32("transformer.ln_f.weight", params["output_norm"])
+    f32("transformer.ln_f.bias", params["output_norm_b"])
+    quant("lm_head.weight", params["lm_head"])
+    n_qkv = (hp.n_head + 2 * hp.n_head_kv) * hp.head_dim
+    nb_wo = hp.n_head * hp.head_dim // 32
+    for i, lw in enumerate(params["layers"]):
+        p = f"transformer.h.{i}"
+        f32(f"{p}.input_layernorm.weight", lw["input_ln_w"])
+        f32(f"{p}.input_layernorm.bias", lw["input_ln_b"])
+        quant(f"{p}.self_attention.query_key_value.weight", lw["wqkvu"], rows=slice(0, n_qkv))
+        quant(f"{p}.self_attention.dense.weight", lw["w_od"], blocks=slice(0, nb_wo))
+        quant(f"{p}.mlp.dense_h_to_4h.weight", lw["wqkvu"], rows=slice(n_qkv, None))
+        quant(f"{p}.mlp.dense_4h_to_h.weight", lw["w_od"], blocks=slice(nb_wo, None))
+    w.close()
+
+
+def _held(eng, plain, prompt) -> tuple[float, float, np.ndarray]:
+    """A prefill of `prompt` (logits of every position) and one decode step
+    on the kernels' engine and the plain versions' (fresh caches): each
+    max |d| / max |plain|, and the kernels' prefill logits."""
+    import numpy as np
+
+    eng.reset()
+    plain.reset()
+    got, ref = eng.eval(prompt, logits_all=True), plain.eval(prompt, logits_all=True)
+    tok = int(ref[-1].argmax())
+    got_d, ref_d = eng.eval([tok]), plain.eval([tok])
+    if not (np.isfinite(got).all() and np.isfinite(got_d).all()):
+        raise RuntimeError("logits are not finite")
+    return (float(np.abs(got - ref).max() / np.abs(ref).max()),
+            float(np.abs(got_d - ref_d).max() / np.abs(ref_d).max()), got)
+
+
+def phase_lora(torch, eng, params, hp) -> dict:
+    """A LoRA adapter at load (io/loader.py load_params(lora=)) on the main
+    path's Falcon-7B Q4_0 weights, all 32 layers: the tree written as a GGCC
+    file, a ggla adapter (r = 16, alpha = 32) on query_key_value and
+    dense_4h_to_h of every layer, the file loaded on the card with it (the
+    patched keys dense bf16, "wqkvu" and "w_od" split, ffn_up and wo still
+    Q4_0). A 300-token prefill and 64 greedy ids through the decode graphs;
+    the prefill and one decode step's logits held to the plain versions on
+    the same patched tree at LOGIT_TOL, and the prefill logits far (over 5
+    LOGIT_TOL) from the unpatched engine's; the GEMV, flash_mqa.tc and
+    flash_decode must launch. Prints tok/s beside the fused engine's in the
+    same call, and the seconds of writing the file and of the load."""
+    import warnings
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.lora import write_lora
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.linear import QuantTensor
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    rng = np.random.default_rng(20)
+    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
+    r, alpha = 16, 32
+    n_qkv = (hp.n_head + 2 * hp.n_head_kv) * hp.head_dim
+    tensors = {}
+    for i in range(hp.n_layer):  # delta spread 2 * 4 * 0.03^2 = 0.0072, the weights' 0.0116
+        for name, (out, cols) in ((f"transformer.h.{i}.self_attention.query_key_value.weight",
+                                   (n_qkv, hp.n_embd)),
+                                  (f"transformer.h.{i}.mlp.dense_4h_to_h.weight",
+                                   (hp.n_embd, hp.n_ff))):
+            tensors[name] = {"loraA": (rng.standard_normal((r, cols)) * 0.03).astype(np.float32),
+                             "loraB": (rng.standard_normal((out, r)) * 0.03).astype(np.float32)}
+    with tempfile.TemporaryDirectory() as d:
+        path, ggla = str(Path(d) / "falcon7b-q4_0.ggcc"), str(Path(d) / "adapter.ggla")
+        t0 = time.perf_counter()
+        _write_params_file(path, params, hp)
+        write_lora(ggla, r, alpha, tensors)
+        write_s = time.perf_counter() - t0
+        file_mb, ggla_mb = os.path.getsize(path) / 2**20, os.path.getsize(ggla) / 2**20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            mf, lparams = load_model(path, EngineConfig(), lora=ggla)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    lw = lparams["layers"][0]
+    kinds = {k: "dense " + str(v.dtype).split(".")[-1] if isinstance(v, torch.Tensor)
+             and v.dim() == 2 else type(v).__name__ for k, v in lw.items() if k not in
+             ("input_ln_w", "input_ln_b")}
+    if (kinds != {"wqkv": "dense bfloat16", "ffn_up": "QuantTensor", "wo": "QuantTensor",
+                  "ffn_down": "dense bfloat16"}
+            or not all(isinstance(l["wo"], QuantTensor) and not isinstance(l["ffn_down"],
+                       QuantTensor) for l in lparams["layers"])):
+        raise RuntimeError(f"the patched tree's layer weights: {kinds}")
+    leng = FalconEngine(mf.hparams, lparams, EngineConfig())
+    runs = {label: _greedy_rate(e, prompt) for label, e in (("lora", leng), ("fused", eng))}
+    tok_s, ids, counts = runs["lora"]
+    graph = leng.chunk_graph(16, SamplerParams(temp=0.0)) is not None
+    plain = FalconEngine(mf.hparams, lparams, EngineConfig(kernel_layout=False,
+                                                           flash_attention=False))
+    rel, rel_d, got = _held(leng, plain, prompt)
+    del plain
+    eng.reset()
+    base = eng.eval(prompt, logits_all=True)
+    rel_base = float(np.abs(got - base).max() / np.abs(base).max())
+    nbytes = sum(t.numel() * t.element_size() if isinstance(t, torch.Tensor) else
+                 sum(p.numel() * p.element_size() for p in t.planes.values())
+                 for t in [lparams["lm_head"], *(w for l in lparams["layers"] for w in l.values())])
+    log(f"  LoRA r {r} alpha {alpha} on query_key_value and dense_4h_to_h of {hp.n_layer} layers:"
+        f" the {file_mb:.1f} MB Q4_0 file and the {ggla_mb:.1f} MB adapter written in"
+        f" {write_s:.2f} s, loaded with the adapter on the card in {load_s:.2f} s"
+        f" ({[str(w.message)[:60] for w in said]}); layer weights {kinds},"
+        f" {nbytes / 2**30:.2f} GiB a token; 64 greedy tokens {tok_s:.2f} tok/s through the decode"
+        f" graph ({graph}) against the fused {runs['fused'][0]:.2f} (same prompt, same call);"
+        f" prefill logits {rel:.3e} and a decode step's {rel_d:.3e} of max |plain| on the patched"
+        f" tree; {rel_base:.3e} of max |unpatched| from the unpatched engine's; launches {counts}")
+    if (rel > LOGIT_TOL or rel_d > LOGIT_TOL or rel_base < 5 * LOGIT_TOL or not graph
+            or len(ids) != 65 or any(counts.get(k, 0) <= 0 for k in (
+                "quant_matmul.gemv", "quant_matmul.tc", "flash_mqa.tc", "flash_decode",
+                "flash_decode_tc"))):
+        raise RuntimeError(f"the LoRA path: logits {rel}, {rel_d}, from the unpatched {rel_base};"
+                           f" graph {graph}; launches {counts}")
+    del leng, lparams
+    torch.cuda.empty_cache()
+    return {"path": "falcon7b q4_0 --lora (r 16, qkv and dense_4h_to_h)", "launches": counts,
+            "tok_s": tok_s, "fused_tok_s": runs["fused"][0], "write_s": write_s,
+            "load_s": load_s, "file_mb": file_mb, "weight_bytes": nbytes,
+            "logit_rel_err": rel, "decode_logit_rel_err": rel_d,
+            "unpatched_logit_rel_diff": rel_base}
+
+
+def _card_draw(torch, hp, seed: int):
+    """draw(HF name, shape) for synthetic.write_hf_model: weight_specs'
+    spreads, drawn on the card from a seed (f32, to the host)."""
+    from ggllm_tpu_torch.utils.synthetic import hf_name, weight_specs
+
+    spreads = {hf_name(hp, name): (scale, offset) for name, _, scale, offset in weight_specs(hp)}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(name, shape):
+        scale, offset = spreads[name]
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + offset).cpu().numpy()
+
+    return draw
+
+
+def phase_convert(torch) -> dict:
+    """The converters at full width and 2 layers, without `safetensors` or
+    `transformers` (the card's machine has neither): a Falcon-7B HF
+    directory (utils/synthetic.py: bf16 safetensors, the embedding tied so
+    lm_head is absent, a tokenizer.json of 65024 ids) -> GGCC f16
+    (io/convert_hf.py) -> q4_0 (tools/quantize.py); a PEFT adapter (r 16,
+    alpha 32, query_key_value and dense_4h_to_h, bf16) -> ggla
+    (io/convert_lora.py); the q4_0 file loaded with --lora and --lora-base
+    (the f16 file). A LLaMA-7B HF directory (a 32000-piece tokenizer.model)
+    -> GGJT f16 (io/convert_hf_llama.py; n_rot 128 from the converter),
+    loaded as it is. On each loaded model a 300-token prefill's logits and a
+    decode step's are held to the plain versions (LOGIT_TOL) and 16 greedy
+    ids run through the decode graph. Prints each step's seconds and MB in
+    and out; the files are deleted."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io import convert_hf, convert_hf_llama, convert_lora
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.linear import QuantTensor
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.tools.quantize import quantize_file
+    from ggllm_tpu_torch.utils.synthetic import write_hf_model, write_peft_adapter
+
+    def mb(*paths):
+        return sum(os.path.getsize(p) for p in paths) / 2**20
+
+    def timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        return out, time.perf_counter() - t0
+
+    out = {"path": "converters, 2-layer full-width checkpoints", "launches": {}}
+    quiet = lambda *a: None  # noqa: E731
+    rng = np.random.default_rng(31)
+    prompt = [int(t) for t in rng.integers(12, 32000, 300)]
+    for model in ("falcon7b", "llama7b"):
+        hp = dataclasses.replace(named_hparams(model), n_layer=2)
+        steps = {}
+        with tempfile.TemporaryDirectory() as d:
+            d = Path(d)
+            _, steps["write_hf_s"] = timed(write_hf_model, d / "hf", hp,
+                                           draw=_card_draw(torch, hp, 37))
+            src = mb(*(d / "hf").iterdir())
+            f16 = str(d / "f16.bin")
+            conv = convert_hf_llama.convert if hp.arch == "llama" else convert_hf.convert
+            chp, steps["convert_s"] = timed(conv, str(d / "hf"), f16, "f16", log=quiet)
+            steps["mb_in_out"] = [src, mb(f16)]
+            lora = None
+            if hp.arch == "llama":
+                if chp.n_rot != 128:
+                    raise RuntimeError(f"the converted LLaMA's n_rot {chp.n_rot}")
+                load, kw = f16, {}
+            else:
+                q4 = str(d / "q4_0.bin")
+                _, steps["quantize_s"] = timed(quantize_file, f16, q4, "q4_0", log=quiet)
+                steps["quantize_mb_in_out"] = [mb(f16), mb(q4)]
+                n_qkv = (hp.n_head + 2 * hp.n_head_kv) * hp.head_dim
+                targets = {f"transformer.h.{i}.{k}.weight": shape for i in range(hp.n_layer)
+                           for k, shape in (("self_attention.query_key_value", (n_qkv, hp.n_embd)),
+                                            ("mlp.dense_4h_to_h", (hp.n_embd, hp.n_ff)))}
+                write_peft_adapter(d / "peft", targets, r=16, alpha=32, seed=41)
+                lora = str(d / "adapter.ggla")
+                _, steps["convert_lora_s"] = timed(convert_lora.convert, str(d / "peft"), lora)
+                steps["lora_mb_in_out"] = [mb(*(d / "peft").iterdir()), mb(lora)]
+                load, kw = q4, {"lora": lora, "lora_base": f16}
+            torch.cuda.synchronize()
+            with warnings.catch_warnings():  # --lora-base: no quantized-patch warning
+                warnings.filterwarnings("error", message="applying a LoRA adapter")
+                (mf, params), steps["load_s"] = timed(load_model, load, EngineConfig(), **kw)
+        if lora and not (isinstance(params["layers"][0]["ffn_up"], QuantTensor)
+                         and not isinstance(params["layers"][1]["wqkv"], QuantTensor)):
+            raise RuntimeError("the patched q4_0 tree's layers: "
+                               f"{ {k: type(v).__name__ for k, v in params['layers'][0].items()} }")
+        eng = FalconEngine(mf.hparams, params, EngineConfig())
+        plain = FalconEngine(mf.hparams, params, EngineConfig(kernel_layout=False,
+                                                              flash_attention=False))
+        build.launch_counts.clear()
+        rel, rel_d, _ = _held(eng, plain, prompt)
+        del plain
+        eng.reset()
+        ids = eng.generate(prompt, 17, SamplerParams(temp=0.0), stop_ids=set())
+        counts = dict(build.launch_counts)
+        for name, c in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + c
+        graph = eng.chunk_graph(16, SamplerParams(temp=0.0)) is not None
+        decode = "flash_decode.mha" if hp.arch == "llama" else "flash_decode_tc"
+        need = ["flash_mqa.tc", decode] + (["quant_matmul.gemv", "quant_matmul.tc"] if lora else [])
+        log(f"  convert {model} 2 layers: {steps}; n_rot {getattr(chp, 'n_rot', '-')}; prefill logits"
+            f" {rel:.3e} and a decode step's {rel_d:.3e} of max |plain|; 16 greedy ids through the"
+            f" decode graph ({graph}); launches {counts}")
+        if (rel > LOGIT_TOL or rel_d > LOGIT_TOL or not graph or len(ids) != 17
+                or any(counts.get(k, 0) <= 0 for k in need)):
+            raise RuntimeError(f"the converted {model}: logits {rel}, {rel_d}; graph {graph};"
+                               f" launches {counts}")
+        out[model] = {**steps, "logit_rel_err": rel, "decode_logit_rel_err": rel_d}
+        del eng, params, mf
         torch.cuda.empty_cache()
     return out
 
@@ -2864,9 +3153,13 @@ def main() -> int:
             f" {time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         dequant = phase_dequant(torch, eng, params, hp)
-        log(f"  (--weight-mode dequant took {time.perf_counter() - t0:.1f} s)")
+        log(f"  -- falcon7b q4_0: a LoRA adapter at load (--weight-mode dequant took"
+            f" {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        lora = phase_lora(torch, eng, params, hp)
+        log(f"  (the LoRA adapter took {time.perf_counter() - t0:.1f} s)")
         return [sessions, speculative, grammar, served, *scored, batched, parallel, spec_rows,
-                dequant]
+                dequant, lora]
 
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")
@@ -2885,6 +3178,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(phase_quantize(torch))
     log(f"  (the quantize tool took {time.perf_counter() - t0:.1f} s)")
+    log("  -- the converters: 2-layer Falcon-7B and LLaMA-7B HF checkpoints, a PEFT adapter")
+    t0 = time.perf_counter()
+    paths.append(phase_convert(torch))
+    log(f"  (the converters took {time.perf_counter() - t0:.1f} s)")
     log("  -- falcon7b q4_0, f32 cache (--memory-f32)")
     paths.append(phase_model(torch, "falcon7b", "q4_0", kv_dtype="float32"))
     log("  -- falcon7b q4_0, 2 layers, float32")

@@ -23,11 +23,23 @@ once, on its device, into the compute dtype (dequantize_params; the JAX
 loader's dequant mode): the model multiplies dense weights, attention keeps
 its kernels.
 
-LoRA, the .kcache sidecar and meshes are not ported.
+load_params(..., lora=, lora_base=) applies a 'ggla' LoRA adapter
+(io/lora.py) at load, as the JAX loader does (load_params:440-470): each
+patched weight becomes dense, its base dequantized in f32 on the load
+device (or read from the unquantized lora_base file, the reference's
+--lora-base) plus scaling * B @ A in f32, cast to the compute dtype. A key
+patched in any layer is dense in every layer, so a merge whose pair mixes a
+dense and a quantized weight falls back to the split keys (Falcon-7B with
+only query_key_value patched: a dense "wqkv" beside a quantized "ffn_up").
+An adapter tensor that is not one of the model's weight matrices is an
+error; the JAX loader ignores it.
+
+The .kcache sidecar has no port (a load is a copy); meshes are not ported.
 """
 
 from __future__ import annotations
 
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -36,6 +48,7 @@ import torch
 from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
 from ggllm_tpu_torch.core.device import resolve_device
 from ggllm_tpu_torch.core.dtypes import GGMLType
+from ggllm_tpu_torch.io import lora as lora_mod
 from ggllm_tpu_torch.io.ggcc import ModelFile, read_model
 from ggllm_tpu_torch.kernels.quant_matmul import K_QUANTS, KERNEL_FORMATS
 from ggllm_tpu_torch.ops.linear import QuantTensor
@@ -68,11 +81,22 @@ def _quant(gtype, shape, planes: dict, device) -> QuantTensor:
     return QuantTensor(gtype, shape, {k: tensor(v) for k, v in planes.items()})
 
 
-def _load_matrix(mf: ModelFile, name: str, dtype, device, dense: bool = False):
+def _quantized(mf: ModelFile, name: str) -> bool:
+    return GGMLType(mf.tensors[name].gtype).name.startswith("Q")
+
+
+def _load_matrix(mf: ModelFile, name: str, dtype, device, dense: bool = False, patch=None):
     """2-D weight -> dense tensor (out, in) or QuantTensor (dense: always
-    dequantized)."""
+    dequantized). patch: (LoraFile, base ModelFile) or None; a weight the
+    adapter patches is its f32 base on `device` plus the adapter's delta
+    there (io/lora.py apply_to_tensor), in dtype."""
+    if patch is not None and name in patch[0].tensors:
+        lf, base = patch
+        w = (_load_matrix(base, name, torch.float32, device).dequantize(torch.float32)
+             if _quantized(base, name) else torch.from_numpy(base.tensor_f32(name)).to(device))
+        return lora_mod.apply_to_tensor(w, lf, name).to(dtype)
     t = mf.tensors[name]
-    if dense or not GGMLType(t.gtype).name.startswith("Q"):
+    if dense or not _quantized(mf, name):
         return torch.from_numpy(mf.tensor_f32(name)).to(device=device, dtype=dtype)
     rows, cols = t.shape  # numpy convention: (out, in)
     return _quant(t.gtype, (rows, cols), planar.to_planes(t.gtype, mf.tensor_blob(name), rows, cols),
@@ -147,26 +171,35 @@ def merge_llama_weights(lw: dict, mats: dict) -> dict:
     return lw
 
 
-def _load_llama_params(mf: ModelFile, dtype, device) -> dict:
+def _patched_keys(patch, names: list[dict[str, str]]) -> set[str]:
+    """The per-layer keys whose weight the adapter patches in any layer."""
+    if patch is None:
+        return set()
+    return {k for lw in names for k, name in lw.items() if name in patch[0].tensors}
+
+
+def _load_llama_params(mf: ModelFile, dtype, device, patch=None) -> dict:
     hp = mf.hparams
 
     def vec(name):
         return torch.from_numpy(mf.tensor_f32(name).astype(np.float32)).to(device)
 
-    # a key with different ggml types across layers densifies in every layer
+    # a key with different ggml types across layers, or one the adapter
+    # patches in any layer, densifies in every layer
     dense_keys = {k for k in LLAMA_MATRICES
                   if len({mf.tensors[_llama_names(i)[k]].gtype for i in range(hp.n_layer)}) > 1}
+    dense_keys |= _patched_keys(patch, [_llama_names(i) for i in range(hp.n_layer)])
     params: dict = {
         "tok_embeddings": torch.from_numpy(
             mf.tensor_f32("tok_embeddings.weight")).to(device=device, dtype=dtype),
         "output_norm": vec("norm.weight"),
-        "lm_head": _load_matrix(mf, "output.weight", dtype, device),
+        "lm_head": _load_matrix(mf, "output.weight", dtype, device, patch=patch),
         "layers": [],
     }
     for i in range(hp.n_layer):
         names = _llama_names(i)
         lw = {key: vec(names[key]) for key in ("attn_norm", "ffn_norm")}
-        mats = {k: _load_matrix(mf, names[k], dtype, device, dense=k in dense_keys)
+        mats = {k: _load_matrix(mf, names[k], dtype, device, dense=k in dense_keys, patch=patch)
                 for k in LLAMA_MATRICES}
         params["layers"].append(merge_llama_weights(lw, mats))
     return params
@@ -182,33 +215,87 @@ def dequantize_params(params: dict, dtype) -> dict:
             for k, v in params.items()}
 
 
-def load_params(mf: ModelFile, cfg: EngineConfig | None = None, device=None) -> dict:
+FALCON_MATRICES = ("qkv", "ffn_up", "wo", "ffn_down")
+
+
+def _matrix_names(mf: ModelFile) -> set[str]:
+    """The tensor names of every weight matrix the model multiplies by (the
+    ones an adapter may patch)."""
+    hp = mf.hparams
+    if mf.arch == "llama":
+        return {"output.weight"} | {_llama_names(i)[k] for i in range(hp.n_layer)
+                                    for k in LLAMA_MATRICES}
+    return {"lm_head.weight"} | {_layer_names(hp, i)[k] for i in range(hp.n_layer)
+                                 for k in FALCON_MATRICES}
+
+
+def _lora_patch(mf: ModelFile, lora, lora_base):
+    """(LoraFile, the ModelFile its bases are read from), after the JAX
+    loader's checks (load_params:440-470): an error where lora_base lacks a
+    patched tensor, a UserWarning for a quantized patch without one; and an
+    error for an adapter tensor that is not one of the model's matrices."""
+    lf = lora_mod.read_lora(lora) if isinstance(lora, str) else lora
+    unknown = sorted(set(lf.tensors) - _matrix_names(mf))
+    if unknown:
+        raise ValueError(
+            f"LoRA adapter tensor(s) {unknown[:3]}{'...' if len(unknown) > 3 else ''} are not"
+            f" weight matrices of this {mf.arch} model (absent from {mf.path}, or not a 2-D"
+            " weight it multiplies by)")
+    if lora_base is None:
+        if any(_quantized(mf, name) for name in lf.tensors):
+            warnings.warn(
+                "applying a LoRA adapter to quantized tensors without "
+                "--lora-base: deltas are added to dequantized values, which "
+                "may degrade quality (libfalcon.cpp:4110-4116)")
+        return lf, mf
+    base = read_model(lora_base) if isinstance(lora_base, str) else lora_base
+    # the reference errors when a patched tensor is absent from the base
+    # model (libfalcon.cpp:4095-4098) rather than silently falling back to
+    # the quantized model's dequantized values
+    missing = [n for n in lf.tensors if n in mf.tensors and n not in base.tensors]
+    if missing:
+        raise ValueError(
+            f"--lora-base model is missing LoRA-patched tensor(s) "
+            f"{missing[:3]}{'...' if len(missing) > 3 else ''}")
+    return lf, base
+
+
+def load_params(mf: ModelFile, cfg: EngineConfig | None = None, device=None, lora=None,
+                lora_base=None) -> dict:
     """Build the parameter tree from a parsed model file, on `device`
     (default "cuda"; raises if CUDA is missing unless device="cpu");
-    weight_mode "dequant" dequantizes it there (dequantize_params)."""
+    weight_mode "dequant" dequantizes it there (dequantize_params).
+    lora: a LoraFile or the path of a 'ggla' adapter, applied there to the
+    weights it names; lora_base: a ModelFile or the path of an unquantized
+    model whose tensors are the bases of the patched weights."""
     cfg = cfg or EngineConfig()
     if cfg.weight_mode not in ("fused", "dequant"):
         raise ValueError(f"weight_mode {cfg.weight_mode!r}: fused or dequant")
     device = resolve_device(device)
     dtype = getattr(torch, cfg.compute_dtype)
+    patch = None if lora is None else _lora_patch(mf, lora, lora_base)
     load = _load_llama_params if mf.arch == "llama" else _load_falcon_params
-    params = load(mf, dtype, device)
+    params = load(mf, dtype, device, patch)
     return dequantize_params(params, dtype) if cfg.weight_mode == "dequant" else params
 
 
-def _load_falcon_params(mf: ModelFile, dtype, device) -> dict:
+def _load_falcon_params(mf: ModelFile, dtype, device, patch=None) -> dict:
     hp = mf.hparams
 
     def vec(name):
         return torch.from_numpy(mf.tensor_f32(name).astype(np.float32)).to(device)
 
+    # a key the adapter patches in any layer densifies in every layer, as
+    # the JAX loader's stacked tree has it
+    dense_keys = _patched_keys(patch, [{k: _layer_names(hp, i)[k] for k in FALCON_MATRICES}
+                                       for i in range(hp.n_layer)])
     params: dict = {
         # embeddings stay dense: get_rows needs random row access
         "tok_embeddings": torch.from_numpy(
             mf.tensor_f32("transformer.word_embeddings.weight")).to(device=device, dtype=dtype),
         "output_norm": vec("transformer.ln_f.weight"),
         "output_norm_b": vec("transformer.ln_f.bias"),
-        "lm_head": _load_matrix(mf, "lm_head.weight", dtype, device),
+        "lm_head": _load_matrix(mf, "lm_head.weight", dtype, device, patch=patch),
         "layers": [],
     }
     for i in range(hp.n_layer):
@@ -216,18 +303,19 @@ def _load_falcon_params(mf: ModelFile, dtype, device) -> dict:
         lw = {key: vec(names[key]) for key in ("input_ln_w", "input_ln_b")}
         if hp.n_falcon_type >= 40:
             lw.update({key: vec(names[key]) for key in ("attn_ln_w", "attn_ln_b")})
-        mats = {k: _load_matrix(mf, names[k], dtype, device)
-                for k in ("qkv", "ffn_up", "wo", "ffn_down")}
+        mats = {k: _load_matrix(mf, names[k], dtype, device, dense=k in dense_keys, patch=patch)
+                for k in FALCON_MATRICES}
         merge_weights(lw, mats["qkv"], mats["ffn_up"], mats["wo"], mats["ffn_down"],
                       hp.n_falcon_type >= 40)
         params["layers"].append(lw)
     return params
 
 
-def load_model(path: str, cfg: EngineConfig | None = None, device=None):
-    """Parse file + build params. Returns (ModelFile, params)."""
+def load_model(path: str, cfg: EngineConfig | None = None, device=None, lora=None,
+               lora_base=None):
+    """Parse file + build params (load_params). Returns (ModelFile, params)."""
     mf = read_model(path)
-    return mf, load_params(mf, cfg, device)
+    return mf, load_params(mf, cfg, device, lora=lora, lora_base=lora_base)
 
 
 # ------------------------------------------------------ from the JAX package

@@ -57,8 +57,9 @@ emitted, acceptance); /metrics adds the spec_* counters. The prefix reuse
 is clamped to what the draft's cache holds too. Every other request takes
 the Generator path on the target alone.
 
-Not ported yet, and refused with the ROADMAP item rather than served
-otherwise: --lora / --lora-base.
+--lora FNAME applies a 'ggla' LoRA adapter at load in both modes (io/lora.py,
+its bases from the unquantized --lora-base FNAME model if given); a
+--draft-model loads without it, a --self-draft shares the patched weights.
 """
 
 from __future__ import annotations
@@ -86,7 +87,6 @@ from ggllm_tpu_torch.utils.stream import StopStream
 _ROW_SAMPLER = ("temp", "top_p", "top_k", "repeat_penalty", "frequency_penalty",
                 "presence_penalty", "tfs_z", "typical_p", "mirostat", "mirostat_tau",
                 "mirostat_eta", "penalize_nl", "logit_bias")
-LORA_REFUSAL = "--lora / --lora-base are not ported yet (ROADMAP.md, Queue 1: LoRA)"
 
 
 class RequestFailed(RuntimeError):
@@ -875,9 +875,9 @@ def build_parser():
     ap.add_argument("-a", "--alias", default=None,
                     help="model name returned in responses (server.cpp "
                          "model_alias; defaults to the model path)")
-    ap.add_argument("--lora", default=None, help="apply a 'ggla' LoRA adapter (not ported)")
+    ap.add_argument("--lora", default=None, help="apply a 'ggla' LoRA adapter")
     ap.add_argument("--lora-base", default=None,
-                    help="unquantized base model for --lora (not ported)")
+                    help="unquantized base model for --lora")
     ap.add_argument("--draft-model", default=None, metavar="FNAME",
                     help="speculative decoding: a smaller same-vocab model drafts tokens the"
                          " main model verifies (fused device rounds; --parallel 1 only)")
@@ -889,27 +889,35 @@ def build_parser():
     return ap
 
 
-def main(argv=None):
+def load_engine(args):
+    """(ModelFile, params, EngineConfig, engine) as main serves them: the
+    model loaded on args.device with the adapter of --lora / --lora-base
+    applied, the engine at batch_size --parallel."""
     from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.io.loader import load_model
+
+    cfg = EngineConfig(n_ctx=args.ctx_size, n_batch=args.batch_size, kv_dtype=args.kv_dtype,
+                       compute_dtype=args.compute_dtype, weight_mode=args.weight_mode)
+    mf, params = load_model(args.model, cfg, device=args.device, lora=args.lora,
+                            lora_base=args.lora_base)
+    engine = FalconEngine(mf.hparams, params, cfg, device=args.device,
+                          batch_size=args.parallel)
+    return mf, params, cfg, engine
+
+
+def main(argv=None):
     from ggllm_tpu_torch.io.loader import load_model
 
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.parallel < 1:
         ap.error(f"--parallel {args.parallel}: at least 1")
-    if args.lora or args.lora_base:
-        ap.error(LORA_REFUSAL)
     spec = bool(args.draft_model or args.self_draft)
     if spec and args.parallel > 1:
         print("error: speculative serving requires --parallel 1", file=sys.stderr)
         return 1
 
-    cfg = EngineConfig(n_ctx=args.ctx_size, n_batch=args.batch_size, kv_dtype=args.kv_dtype,
-                       compute_dtype=args.compute_dtype,
-                       kernel_layout=args.weight_mode == "fused")
-    mf, params = load_model(args.model, cfg, device=args.device)
-    engine = FalconEngine(mf.hparams, params, cfg, device=args.device,
-                          batch_size=args.parallel)
+    mf, params, cfg, engine = load_engine(args)
     draft = None
     if args.self_draft:
         from ggllm_tpu_torch.engine.speculative import truncate_params

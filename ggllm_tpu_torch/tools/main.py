@@ -17,11 +17,15 @@ a round, verified in one forward of the model), plain generation only.
 --mtest runs a full-batch prefill and one decode step and reports the
 timings and the card's memory; --weight-mode dequant dequantizes every
 quantized weight once at load (dense matmuls, the library's path);
+--lora FNAME applies a 'ggla' LoRA adapter at load (io/lora.py: each
+patched weight becomes dense, its base dequantized on the card, or read
+from the unquantized --lora-base FNAME model); a --draft-model loads
+without it, a --self-draft shares the patched weights.
 --profile DIR writes a torch.profiler trace of generation, and -dt LEVEL
 prints its op table (utils/traceview.py). The reference's thread, VRAM and
 mmap flags are accepted and ignored, so reference command lines run
-unchanged; --export, --lora / --lora-base and the multi-GPU flags (-ts,
---kv-shard, --multihost) exit 1 naming why.
+unchanged; --export and the multi-GPU flags (-ts, --kv-shard, --multihost)
+exit 1 naming why.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
@@ -77,7 +81,6 @@ ANSI_RESET = "\x1b[0m"
 ANSI_PROMPT = "\x1b[33m"        # yellow: prompt echo
 ANSI_USER = "\x1b[1;32m"        # bold green: user input
 
-LORA_REFUSAL = "--lora / --lora-base are not ported yet (ROADMAP.md, Queue 1 item 8: LoRA)"
 MULTI_GPU_REFUSAL = ("-ts / --tensor-split, --kv-shard and --multihost shard the model over several"
                      " cards: multi-GPU is not ported yet (ROADMAP.md, Queue 1 item 10)")
 EXPORT_REFUSAL = ("--export writes the JAX forward's lowered StableHLO: the port has no StableHLO"
@@ -192,8 +195,10 @@ def build_parser() -> argparse.ArgumentParser:
                          " report, and exit")
     ap.add_argument("--export", default=None, metavar="PATH",
                     help="refused: the port has no StableHLO export")
-    ap.add_argument("--lora", default=None, help="refused: LoRA is not ported yet")
-    ap.add_argument("--lora-base", default=None, help="refused: LoRA is not ported yet")
+    ap.add_argument("--lora", default=None, help="apply a 'ggla' LoRA adapter")
+    ap.add_argument("--lora-base", default=None,
+                    help="unquantized model whose tensors serve as the base for LoRA-patched"
+                         " weights")
     # accepted-and-ignored reference flags, so reference command lines run
     # unchanged (the thread and VRAM knobs mean nothing here: the weights
     # and the cache live on the card, PyTorch owns its memory)
@@ -259,8 +264,6 @@ def refusal(args) -> str | None:
     """Why a flag the port accepts cannot run yet, or None."""
     if args.export:
         return EXPORT_REFUSAL
-    if args.lora or args.lora_base:
-        return LORA_REFUSAL
     if args.mesh_model != "1" or args.kv_shard != "heads" or args.multihost:
         return MULTI_GPU_REFUSAL
     return None
@@ -317,7 +320,8 @@ def main(argv=None) -> int:
                        compute_dtype=args.compute_dtype, decode_chunk=args.decode_chunk,
                        weight_mode=args.weight_mode)
     t0 = time.perf_counter()
-    mf, params = load_model(args.model, cfg, device=args.device)
+    mf, params = load_model(args.model, cfg, device=args.device, lora=args.lora,
+                            lora_base=args.lora_base)
     tk = tok_mod.for_model(mf)
     engine = FalconEngine(mf.hparams, params, cfg, device=args.device)
     engine.timings.t_load_us = (time.perf_counter() - t0) * 1e6

@@ -22,9 +22,9 @@ torch.set_num_threads(1)
 BASE = ["-c", "96", "-b", "32", "--kv-dtype", "float32", "--compute-dtype", "float32",
         "--temp", "0", "--decode-chunk", "4"]
 
-# flags that wait for their modules (LoRA, multi-chip) or have no
-# counterpart (export): accepted, then refused at run time
-WAITING = ["--lora", "--lora-base", "-ts", "--kv-shard", "--multihost", "--export"]
+# flags that wait for their module (multi-chip) or have no counterpart
+# (export): accepted, then refused at run time
+WAITING = ["-ts", "--kv-shard", "--multihost", "--export"]
 
 
 @pytest.fixture(scope="module")

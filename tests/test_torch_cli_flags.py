@@ -3,7 +3,8 @@ the reference's thread / VRAM / mmap flags accepted and ignored, --alias,
 --mtest, --weight-mode dequant (load-time dequantization, against the fused
 path and the JAX CLI's dequant mode), --profile and -dt (utils/traceview.py
 over torch.profiler's Chrome trace), and the flags that exit 1 naming why
-(--export, --lora, --lora-base, -ts, --kv-shard, --multihost)."""
+(--export, -ts, --kv-shard, --multihost). --lora / --lora-base:
+tests/test_torch_lora.py."""
 
 import contextlib
 import gzip
@@ -167,13 +168,11 @@ def test_traceview_prefers_device_events(tmp_path):
 
 @pytest.mark.parametrize("extra, reason", [
     (["--export", "graph.mlir"], "no StableHLO"),
-    (["--lora", "adapter.bin"], "Queue 1 item 8: LoRA"),
-    (["--lora-base", "base.ggcc"], "Queue 1 item 8: LoRA"),
     (["-ts", "2"], "Queue 1 item 10"),
     (["--tensor-split", "auto"], "Queue 1 item 10"),
     (["--kv-shard", "sequence"], "Queue 1 item 10"),
     (["--multihost"], "Queue 1 item 10"),
-], ids=["export", "lora", "lora_base", "ts", "tensor_split_auto", "kv_shard", "multihost"])
+], ids=["export", "ts", "tensor_split_auto", "kv_shard", "multihost"])
 def test_waiting_flags_exit_1_naming_why(capsys, extra, reason):
     """Accepted by the parser, then refused before any file is read (the
     model path does not exist), naming the reason."""

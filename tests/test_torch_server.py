@@ -10,8 +10,8 @@ are taken once a module. Greedy content, tokens_predicted and
 tokens_evaluated (prefix reuse), truncation, stopping word and ignore_eos
 fields must be equal, the SSE stream must concatenate to the blocking
 content, and the /v1 responses must have the same fields. The helpers the
-port keeps copies of are held to the originals; LoRA is refused naming its
-ROADMAP item. With a --self-draft 1 draft (engine/speculative.py) greedy
+port keeps copies of are held to the originals (--lora / --lora-base:
+tests/test_torch_lora.py). With a --self-draft 1 draft (engine/speculative.py) greedy
 requests give the plain path's content and carry the "speculative" field and
 the spec_* counters, also with prefix reuse, streaming and a client gone
 mid-stream; grammar and penalized requests take the plain path; a draft with
@@ -254,15 +254,10 @@ def test_client_gone_mid_stream_leaves_a_consistent_cache(server, path):
     assert got["content"] == ref["content"] and got["tokens_predicted"] == ref["tokens_predicted"]
 
 
-def test_draft_and_lora_are_refused(path, capsys):
-    """LoRA is refused by main() naming its ROADMAP item, before any model
-    loads. The draft flags are the JAX server's (--draft-model, --self-draft,
+def test_draft_is_refused_where_it_cannot_run(path, capsys):
+    """The draft flags are the JAX server's (--draft-model, --self-draft,
     --draft-k); a draft is refused with --parallel above 1 (before any model
     loads) and a --self-draft depth outside 1 .. n_layer - 1."""
-    for extra in (["--lora", path], ["--lora-base", path]):
-        with pytest.raises(SystemExit):
-            app.main(["-m", "/nonexistent.ggcc", *extra])
-        assert "ROADMAP.md, Queue 1: LoRA" in capsys.readouterr().err
     args = app.build_parser().parse_args(["-m", path, "--draft-model", path, "--self-draft", "1",
                                           "--draft-k", "4"])
     assert (args.draft_model, args.self_draft, args.draft_k) == (path, 1, 4)
