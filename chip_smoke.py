@@ -152,7 +152,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      versions); and the converters (phase_convert: 2-layer full-width bf16
      HF checkpoints from utils/synthetic.py, Falcon-7B -> GGCC f16 -> q4_0
      loaded with a converted PEFT adapter and the f16 file as --lora-base,
-     LLaMA-7B -> GGJT f16, each held against the plain versions);
+     LLaMA-7B -> GGJT f16, each held against the plain versions); and, last,
+     multi-GPU on torch.distributed (phase_multi_gpu; the card is one H100):
+     every kernel at a rank's shard shapes against its plain version, then
+     ranks started by parallel/mesh.py RankPool on files written from
+     seeded trees: two gloo ranks sharing the card (collectives staged
+     through host memory and counted, decode eager), tensor-parallel
+     Falcon-7B Q4_0 at 32 layers (300-token prefill, 64 greedy ids, a 2-row
+     batcher), Falcon-40B Q4_K and LLaMA-7B Q4_0 (n_rot 128) cut to 4 layers,
+     sequence-parallel Falcon-7B Q4_0 (32 ids; each rank's cache kv_T / 2
+     positions): every rank's ids equal, rank 0's prefill and a decode
+     step's logits within LOGIT_TOL of the single process's, its ids within
+     ROWS_LOGIT_TOL with the ids forced through the single process's decode
+     steps (the batcher's through its prefill), the GEMV, the rows kernel,
+     the tile, flash_mqa.tc, flash_decode_tc and flash_decode.mha launched on
+     the ranks; and one NCCL rank (Falcon-7B Q4_0, 32 layers) whose captured
+     decode graph, all-reduces inside, gives the single process's 64 greedy
+     ids exactly, its tok/s beside the single process's;
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -2402,7 +2418,8 @@ def phase_convert(torch) -> dict:
                                             ("mlp.dense_4h_to_h", (hp.n_embd, hp.n_ff)))}
                 write_peft_adapter(d / "peft", targets, r=16, alpha=32, seed=41)
                 lora = str(d / "adapter.ggla")
-                _, steps["convert_lora_s"] = timed(convert_lora.convert, str(d / "peft"), lora)
+                _, steps["convert_lora_s"] = timed(convert_lora.convert, str(d / "peft"), lora,
+                                                   base=str(d / "hf"))
                 steps["lora_mb_in_out"] = [mb(*(d / "peft").iterdir()), mb(lora)]
                 load, kw = q4, {"lora": lora, "lora_base": f16}
             torch.cuda.synchronize()
@@ -3040,6 +3057,398 @@ def _dequant_ids(path: str, same_text: bool) -> None:
         raise RuntimeError(f"--weight-mode dequant ids {ids} leave the fused engine's near-ties")
 
 
+def _write_tree_file(path: str, params: dict, hp) -> None:
+    """A merged parameter tree on the card (utils/benchgen.py
+    make_bench_params: Falcon-7B "wqkvu" / "w_od", 40B-style "wqkv" /
+    "ffn_up" / "w_od", LLaMA "wqkv" / "w13" / "wo" / "w2") as a GGCC or GGJT
+    file the loader reads back to the same tree: each merged weight split
+    back into the file's matrices (rows, or whole blocks of the contraction),
+    the embedding and norms in f32 (exactly their values)."""
+    if hp.arch != "llama" and hp.n_falcon_type < 40:
+        return _write_params_file(path, params, hp)
+    import numpy as np
+
+    from ggllm_tpu_torch.core.dtypes import TYPE_TRAITS, GGMLType
+    from ggllm_tpu_torch.io.ggcc import GGCCWriter, GGJTWriter
+    from ggllm_tpu_torch.quant import planar
+    from ggllm_tpu_torch.utils.synthetic import make_tiny_sp_vocab, make_tiny_vocab
+
+    if hp.arch == "llama":
+        w = GGJTWriter(path, hp, make_tiny_sp_vocab(hp.n_vocab))
+    else:
+        vocab = make_tiny_vocab(hp.n_vocab)
+        hp.n_bpe_merges = len(vocab.merges)
+        w = GGCCWriter(path, hp, vocab)
+
+    def quant(name, q, rows=None, cols=None):
+        bs = TYPE_TRAITS[q.gtype].block_size
+        r = slice(*rows) if rows else slice(None)
+        b = slice(cols[0] // bs, cols[1] // bs) if cols else slice(None)
+        blob = planar.from_planes(q.gtype, {k: v[r, b].cpu().numpy() for k, v in q.planes.items()})
+        n_cols = blob.shape[1] // TYPE_TRAITS[q.gtype].type_size * bs
+        w.write_tensor(name, q.gtype, (n_cols, blob.shape[0]), blob.reshape(-1))
+
+    def f32(name, t):
+        a = t.float().cpu().numpy()
+        w.write_tensor(name, GGMLType.F32, tuple(reversed(a.shape)), a.reshape(-1).view(np.uint8))
+
+    E, F, HD = hp.n_embd, hp.n_ff, hp.n_head * hp.head_dim
+    if hp.arch == "llama":
+        f32("tok_embeddings.weight", params["tok_embeddings"])
+        f32("norm.weight", params["output_norm"])
+        quant("output.weight", params["lm_head"])
+        for i, lw in enumerate(params["layers"]):
+            p = f"layers.{i}"
+            f32(f"{p}.attention_norm.weight", lw["attn_norm"])
+            for j, k in enumerate(("wq", "wk", "wv")):
+                quant(f"{p}.attention.{k}.weight", lw["wqkv"], rows=(j * E, (j + 1) * E))
+            quant(f"{p}.attention.wo.weight", lw["wo"])
+            f32(f"{p}.ffn_norm.weight", lw["ffn_norm"])
+            quant(f"{p}.feed_forward.w1.weight", lw["w13"], rows=(0, F))
+            quant(f"{p}.feed_forward.w2.weight", lw["w2"])
+            quant(f"{p}.feed_forward.w3.weight", lw["w13"], rows=(F, 2 * F))
+    else:
+        f32("transformer.word_embeddings.weight", params["tok_embeddings"])
+        f32("transformer.ln_f.weight", params["output_norm"])
+        f32("transformer.ln_f.bias", params["output_norm_b"])
+        quant("lm_head.weight", params["lm_head"])
+        for i, lw in enumerate(params["layers"]):
+            p = f"transformer.h.{i}"
+            f32(f"{p}.ln_attn.weight", lw["attn_ln_w"])
+            f32(f"{p}.ln_attn.bias", lw["attn_ln_b"])
+            f32(f"{p}.ln_mlp.weight", lw["input_ln_w"])
+            f32(f"{p}.ln_mlp.bias", lw["input_ln_b"])
+            quant(f"{p}.self_attention.query_key_value.weight", lw["wqkv"])
+            quant(f"{p}.self_attention.dense.weight", lw["w_od"], cols=(0, HD))
+            quant(f"{p}.mlp.dense_h_to_4h.weight", lw["ffn_up"])
+            quant(f"{p}.mlp.dense_4h_to_h.weight", lw["w_od"], cols=(HD, HD + F))
+    w.close()
+
+
+SHARDS = {  # model -> (format, the TP x2 blocks' (O, K), (H, KV, D) of a rank)
+    "falcon7b": ("q4_0", [(11520, 4544), (4544, 11392)], (36, 1, 64)),
+    "falcon40b": ("q4_k", [(4608, 8192), (16384, 8192), (8192, 20480)], (64, 4, 64)),
+    "llama7b": ("q4_0", [(6144, 4096), (11008, 4096), (4096, 2048), (4096, 5504)], (16, 16, 128)),
+}
+
+
+def _shard_kernels(torch) -> dict:
+    """Every kernel of the sharded paths at a rank's shard shapes (two
+    ranks) against its plain version, before the paths rely on them: the
+    format's GEMV (S = 1), the rows kernel (S = 2) and the tile (S = 300) at
+    each block; flash_mqa at the rank's heads (300 positions); flash_decode
+    at them (valid 300). Held at TOL of max |plain|, as phase 2."""
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
+    from ggllm_tpu_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from ggllm_tpu_torch.utils.benchgen import random_quant
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    worst, before = {}, dict(build.launch_counts)
+    for model, (fmt, blocks, (H, KV, D)) in SHARDS.items():
+        for O, K in blocks:
+            w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
+            for S in (1, 2, 300):
+                x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
+                name = f"{model} {fmt} O={O} K={K} S={S} ({qm.route(S, bf16, w.gtype)})"
+                _, worst[name] = check(name, qm.quant_matmul(w, x, torch.float32),
+                                       qm.quant_matmul_plain(w, x, torch.float32))
+        T = 512
+        q = torch.randn(1, 300, H, D, generator=gen, device="cuda").to(bf16)
+        k, v = (torch.randn(1, T, KV, D, generator=gen, device="cuda").to(bf16) for _ in "kv")
+        name = f"{model} flash_mqa H={H} KV={KV} D={D}"
+        _, worst[name] = check(name, flash_mqa(q, k, v, 0), flash_mqa_plain(q, k, v, 0))
+        kv = torch.randn(1, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
+        q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
+        name = f"{model} flash_decode H={H} KV={KV} D={D} valid 300"
+        _, worst[name] = check(name, flash_decode(kv, KV, 0, q1, 299),
+                               flash_decode_plain(kv, KV, 0, q1, 299))
+    log(f"  kernels at the shard shapes against their plain versions: worst"
+        f" {max(worst.values()):.3e} of max |plain| (TOL {TOL}) over {len(worst)} cases")
+    for k in set(build.launch_counts) | set(before):  # checks are not the paths' launches
+        build.launch_counts[k] = before.get(k, 0)
+    return worst
+
+
+def _forced_steps(eng1, prompt, ids: list, rel_tol: float) -> dict:
+    """`ids` held to the single process's decode path with those ids
+    forced: after a prefill of `prompt`, each id's logit at its step (one
+    S = 1 forward a step: the GEMV and the decode attention kernel, as the
+    ids were made) must lie within rel_tol of max |logit| of that step's top
+    logit. Returns the largest deficit as a share of its tolerance
+    (`worst`, >= 1 fails), its step and the steps not at the argmax."""
+    import numpy as np
+
+    eng1.reset()
+    lg = eng1.eval(prompt)
+    worst, at, off = 0.0, 0, []
+    for t, i in enumerate(ids):
+        deficit = float(lg.max() - lg[i]) / (rel_tol * float(np.abs(lg).max()))
+        if deficit > 0:
+            off.append(t)
+        if deficit > worst:
+            worst, at = deficit, t
+        if t + 1 < len(ids):
+            lg = eng1.eval([i])
+    return {"worst": worst, "worst_step": at, "not_argmax": off}
+
+
+def _mg_rank(path: str, mp: int, devices: list, kv_shard: str, prompt: list, n_ids: int,
+             rows: list | None = None, eager_too: bool = False) -> dict:
+    """A rank's part of phase_multi_gpu (run by parallel/mesh.py RankPool):
+    the file loaded under a `mp`-rank mesh (this rank's blocks, or the
+    whole model for kv_shard "sequence"), a prefill of `prompt` and n_ids
+    greedy ids (the first from the prefill, then pipelined 16-token chunks),
+    and with `rows` two requests through the batcher on a 2-row engine;
+    with `eager_too` the same ids again through the eager step body.
+    Returns the rank's logits, ids, launch counts, host-staged collectives,
+    load seconds, decode tok/s, peak memory and the cache's local shape."""
+    import numpy as np
+    import torch
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.batching import ContinuousBatcher, Request
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.parallel import comm
+    from ggllm_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, mp, devices=devices)
+    dev = mesh.device
+    cfg = EngineConfig(kv_shard=kv_shard)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mf, params = load_model(path, cfg, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    eng = FalconEngine(mf.hparams, params, cfg, mesh=mesh)
+    greedy = SamplerParams(temp=0.0, repeat_penalty=1.0)  # pure argmax
+    eng.eval(prompt[:8])  # warm-up (and the graph capture under NCCL)
+    eng.decode_chunk(1, 16, greedy)
+    eng.reset()
+    build.launch_counts.clear()
+    comm.STAGED.clear()
+    logits = eng.eval(prompt)
+    first = int(np.argmax(logits))
+    step = eng.eval([first])  # one decode step's logits (S = 1)
+    eng.rollback(len(prompt))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ids, _ = eng.decode_pipelined(first, n_ids - 1, 16, greedy, last_tokens=prompt + [first])
+    decode_s = time.perf_counter() - t0
+    eager_ids = None
+    if eager_too:  # chained eager chunks (= decode_pipelined's ids); launches counted
+        eng.rollback(len(prompt))
+        eager_ids, gen = [first], None
+        while len(eager_ids) < n_ids:
+            got, gen = eng.decode_chunk(eager_ids[-1], 16, greedy, gen, eager=True,
+                                        last_tokens=prompt + eager_ids)
+            eager_ids += [int(t) for t in got]
+        eager_ids = eager_ids[:n_ids]
+    out = {"eager_ids": eager_ids, "logits": logits, "step": step, "ids": [first] + [int(t) for t in ids],
+           "tok_s": (n_ids - 1) / decode_s, "load_s": load_s,
+           "graph": eng.chunk_graph(16, greedy) is not None,
+           "kv_shape": list((eng.kv[0] if isinstance(eng.kv, tuple) else eng.kv).shape),
+           "kv_T": eng.kv_T}
+    if rows:
+        eng2 = FalconEngine(mf.hparams, params, cfg, batch_size=2, mesh=mesh)
+        b = ContinuousBatcher(eng2, chunk=16)
+        reqs = [b.submit(Request(list(p), n_predict=16)) for p in rows]
+        b.run()
+        out["rows"] = [r.out for r in reqs]
+    out["launches"] = dict(build.launch_counts)
+    out["staged"] = dict(comm.STAGED)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def phase_multi_gpu(torch) -> dict:
+    """Multi-GPU on torch.distributed (parallel/): the card is one H100, so
+    two ranks share cuda:0 over a gloo group (collectives staged through
+    host memory, counted; decode runs the eager step body) and show that the
+    sharded arithmetic and the kernels at shard shapes are right, and one
+    NCCL rank shows the decode graph captured with its all-reduces inside.
+    Ranks are parallel/mesh.py RankPool processes (the kernels already
+    built). Paths, from GGCC / GGJT files written from seeded random trees:
+    tensor-parallel Falcon-7B Q4_0, 32 layers (prefill 300 tokens, 64 greedy
+    ids, 2 requests through a 2-row batcher); tensor-parallel Falcon-40B
+    Q4_K and LLaMA-7B Q4_0 (n_rot 128) cut to 4 layers (prefill, 16 ids);
+    sequence-parallel Falcon-7B Q4_0, 32 layers (prefill 300, 32 ids, each
+    rank's cache kv_T / 2 positions); one NCCL rank, Falcon-7B Q4_0, 32
+    layers, tensor-parallel (64 ids through the captured graph = the
+    single-process engine's exactly, tok/s beside it) and sequence-parallel
+    (32 ids through the captured graph = its eager step body's exactly, and
+    held to the single process as the sharded paths are). Each sharded path: every rank's ids equal,
+    rank 0's prefill logits within LOGIT_TOL of the single-process engine's,
+    its ids (and the batcher's) within ROWS_LOGIT_TOL of that engine's with
+    the ids forced; the GEMV, the rows kernel, the tile, flash_mqa.tc,
+    flash_decode_tc and (LLaMA) flash_decode.mha must launch on the ranks."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.parallel.mesh import RankPool
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    rng = np.random.default_rng(5)
+    prompt = [int(t) for t in rng.integers(12, 32000, 300)]
+    rows = [prompt[:40], prompt[100:131]]
+    out = {"path": "multi-GPU: 2 gloo ranks on one card, 1 NCCL rank", "launches": {},
+           "cuts": ["Falcon-40B Q4_K and LLaMA-7B Q4_0 tensor-parallel at 4 of 60 / 32 layers"]}
+    total = out["launches"]
+    gloo = ["cuda:0", "cuda:0"]
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def held(label, res, eng1, n_ids, how="two ranks sharing one card over host-staged gloo"
+             " collectives, eager decode: not a multi-card rate"):
+        r0 = res[0]
+        if any(r["ids"] != r0["ids"] for r in res) or len(r0["ids"]) != n_ids:
+            raise RuntimeError(f"{label}: ranks disagree or short: {[r['ids'][:8] for r in res]}")
+        eng1.reset()
+        ref = eng1.eval(prompt)
+        ref_step = eng1.eval([r0["ids"][0]])
+        rel = float(np.abs(r0["logits"] - ref).max() / np.abs(ref).max())
+        rel_step = float(np.abs(r0["step"] - ref_step).max() / np.abs(ref_step).max())
+        tf = _forced_steps(eng1, prompt, r0["ids"], ROWS_LOGIT_TOL)
+        log(f"  {label}: prefill logits {rel:.3e}, a decode step's {rel_step:.3e} of max |logit|"
+            f" from the single process's; ids forced through its decode steps: worst"
+            f" {tf['worst']:.3f} of ROWS_LOGIT_TOL at step {tf['worst_step']}, not the argmax at"
+            f" {tf['not_argmax']}")
+        if (not np.isfinite(r0["logits"]).all() or rel > LOGIT_TOL or rel_step > LOGIT_TOL
+                or tf["worst"] >= 1):  # the phase fails at its end, after the other paths
+            failures.append(f"{label}: prefill logits {rel:.3e}, a step's {rel_step:.3e} of"
+                            f" max |logit| (limit {LOGIT_TOL}), forced ids worst"
+                            f" {tf['worst']:.3f} (limit 1)")
+        for r in res:
+            add(r["launches"])
+        staged = sum(sum(r["staged"].values()) for r in res)
+        log(f"  {label}: {n_ids} ids equal on {len(res)} ranks; load"
+            f" {[round(r['load_s'], 2) for r in res]} s; peak"
+            f" {[round(r['peak_gib'], 2) for r in res]} GiB; {staged} collectives staged through"
+            f" host memory; {r0['tok_s']:.2f} tok/s ({how})")
+        return {"logit_rel_err": rel, "step_logit_rel_err": rel_step,
+                "forced_worst": tf["worst"], "tok_s": r0["tok_s"], "tok_s_is": how,
+                "load_s": [r["load_s"] for r in res],
+                "peak_gib": [r["peak_gib"] for r in res], "staged": staged,
+                "launches_rank0": r0["launches"]}
+
+    def need(label, counts, names):
+        missing = [n for n in names if counts.get(n, 0) <= 0]
+        if missing:
+            raise RuntimeError(f"{label}: {missing} not launched on the ranks: {counts}")
+
+    failures = []
+    t_phase = time.perf_counter()
+    out["shard_kernels_worst"] = max(_shard_kernels(torch).values())
+    with tempfile.TemporaryDirectory() as d:
+        for model, fmt, n_layer in (("falcon7b", "q4_0", 32), ("falcon40b", "q4_k", 4),
+                                    ("llama7b", "q4_0", 4)):
+            hp = dataclasses.replace(named_hparams(model), n_layer=n_layer)
+            if hp.arch == "llama":  # n_rot = head_dim: the reader's LLaMA test
+                hp.n_rot = hp.head_dim
+            t0 = time.perf_counter()
+            params = make_bench_params(hp, device="cuda", seed=11, gtype=GGMLType[fmt.upper()])
+            path = str(Path(d) / f"{model}.bin")
+            _write_tree_file(path, params, hp)
+            del params
+            mf, p1 = load_model(path, EngineConfig())
+            eng1 = FalconEngine(mf.hparams, p1, EngineConfig())
+            label = f"{n_layer}-layer {model} {fmt}"
+            log(f"  {label}: file written and the single-process engine loaded in"
+                f" {time.perf_counter() - t0:.1f} s")
+            n_ids = 64 if model == "falcon7b" else 16
+            with RankPool(2, gloo) as pool:
+                res = pool.run(_mg_rank, path, 2, gloo, "heads", prompt, n_ids,
+                               rows if model == "falcon7b" else None)
+                out[f"tp2 {label}"] = held(f"tensor-parallel x2 {label}", res, eng1, n_ids)
+                names = ["quant_matmul.tc", "flash_mqa.tc",
+                         "quant_matmul.gemv.kq" if fmt == "q4_k" else "quant_matmul.gemv",
+                         "flash_decode.mha" if hp.arch == "llama" else "flash_decode_tc"]
+                if model == "falcon7b":
+                    names.append("quant_matmul.rows")
+                    for i, p in enumerate(rows):
+                        tf = _teacher_forced(eng1, p, res[0]["rows"][i], ROWS_LOGIT_TOL)
+                        log(f"  batcher row {i}: forced worst {tf['worst']:.3f}")
+                        if tf["worst"] >= 1 or any(r["rows"] != res[0]["rows"] for r in res):
+                            failures.append(f"batcher row {i}: forced worst {tf['worst']}")
+                    log(f"  2-row batcher on the ranks: ids equal on both, within"
+                        f" ROWS_LOGIT_TOL of the single process with the ids forced")
+                need(label, res[0]["launches"], names)
+                if model == "falcon7b":
+                    res = pool.run(_mg_rank, path, 2, gloo, "sequence", prompt, 32)
+                    out[f"sp2 {label}"] = held(f"sequence-parallel x2 {label}", res, eng1, 32)
+                    if any(r["kv_shape"][3] * 2 != r["kv_T"] for r in res):
+                        raise RuntimeError(f"sequence-parallel cache {res[0]['kv_shape']}")
+                    need(label + " sequence", res[0]["launches"],
+                         ["quant_matmul.tc", "quant_matmul.gemv"])
+            if model == "falcon7b":
+                # the single process's greedy ids through its decode graphs
+                eng1.eval(prompt[:8])  # warm-up: the greedy chunk's capture
+                greedy = SamplerParams(temp=0.0, repeat_penalty=1.0)  # pure argmax
+                eng1.decode_chunk(1, 16, greedy)
+                eng1.reset()
+                first = int(np.argmax(eng1.eval(prompt)))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ids, _ = eng1.decode_pipelined(first, 63, 16, greedy,
+                                               last_tokens=prompt + [first])
+                single_tps = 63 / (time.perf_counter() - t0)
+                own = [first] + [int(t) for t in ids]
+                with RankPool(1, ["cuda:0"]) as pool:
+                    res = pool.run(_mg_rank, path, 1, ["cuda:0"], "heads", prompt, 64)[0]
+                add(res["launches"])
+                if res["ids"] != own or not res["graph"] or res["staged"]:
+                    raise RuntimeError(f"one NCCL rank: ids equal {res['ids'] == own}, graph"
+                                       f" {res['graph']}, staged {res['staged']}")
+                need("one NCCL rank", res["launches"], ["quant_matmul.gemv", "flash_decode_tc"])
+                out["nccl1"] = {"tok_s": res["tok_s"], "single_tok_s": single_tps,
+                                "load_s": res["load_s"], "peak_gib": res["peak_gib"]}
+                log(f"  one NCCL rank, 32-layer falcon7b q4_0: 64 greedy ids through the"
+                    f" captured decode graph (all-reduces inside) = the single process's;"
+                    f" {res['tok_s']:.2f} tok/s beside {single_tps:.2f} tok/s single-process"
+                    f" (the same call); load {res['load_s']:.2f} s")
+                # the sequence-parallel engine under NCCL (mp 1 still runs
+                # parallel/sp.py SpModel): its decode graph holds the cache
+                # window's masked write and merged_attention's pmax and psums
+                with RankPool(1, ["cuda:0"]) as pool:
+                    sp1 = pool.run(_mg_rank, path, 1, ["cuda:0"], "sequence", prompt, 32,
+                                   eager_too=True)[0]
+                out["nccl1 sequence"] = held("one NCCL rank sequence-parallel", [sp1], eng1, 32,
+                                             "one NCCL rank, decode graph")
+                if sp1["ids"] != sp1["eager_ids"] or not sp1["graph"] or sp1["staged"]:
+                    raise RuntimeError(f"one NCCL rank sequence-parallel: graph ids = eager ids"
+                                       f" {sp1['ids'] == sp1['eager_ids']}, graph"
+                                       f" {sp1['graph']}, staged {sp1['staged']}")
+                need("one NCCL rank sequence-parallel", sp1["launches"],
+                     ["quant_matmul.gemv", "quant_matmul.tc"])
+                out["nccl1 sequence"]["ids_equal_single"] = sp1["ids"] == own[:32]
+                log(f"  one NCCL rank sequence-parallel: 32 greedy ids through the captured"
+                    f" decode graph = its eager step body's; equal to the single process's"
+                    f" graph ids: {sp1['ids'] == own[:32]}")
+            del eng1, p1
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  (the multi-GPU phase took {out['seconds']:.1f} s)")
+    if failures:
+        raise RuntimeError("multi-GPU phase: " + "; ".join(failures))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3190,6 +3599,8 @@ def main() -> int:
     paths.append(phase_f32_path(torch, "llama7b"))
     log("  -- falcon7b q4_0, 32 layers, float32")
     paths.append(phase_f32_path(torch, n_layer=32, graphs=False))
+    log("  -- multi-GPU: tensor- and sequence-parallel ranks (parallel/)")
+    paths.append(phase_multi_gpu(torch))
     (out_dir / "chip_smoke_paths.json").write_text(json.dumps({"card": card, "paths": paths},
                                                               indent=1))
 

@@ -131,3 +131,7 @@ class EngineConfig:
     # attention through the flash kernels (True) or the plain einsum
     # version (False); None = True
     flash_attention: bool | None = None
+    # under a mesh (parallel/mesh.py): "heads" = tensor parallelism (the KV
+    # cache split by K/V head, whole for MQA); "sequence" = the KV cache
+    # split along time, weights whole on every rank (parallel/sp.py)
+    kv_shard: str = "heads"

@@ -133,6 +133,8 @@ class ContinuousBatcher:
         req.prompt_ids = list(map(int, np.asarray(req.prompt_ids).reshape(-1)))
         if not req.prompt_ids:
             raise ValueError("a request needs at least one prompt token")
+        if req.grammar_sampler is not None and getattr(self.eng, "mesh", None) is not None:
+            raise ValueError("grammar in batched mode requires a single-device engine")
         req.rid = next(self._ids)
         self.queue.append(req)
         return req

@@ -46,10 +46,27 @@ decode_rows runs n_steps steps of all B rows with a (B,) n_past and per-row
 sampler values (ops/sampling_device.py RowValues) as device tensors, on the
 card as one CUDA graph a chunk key (n_steps and RowKey), captured and
 replayed as the single stream's, sharing MAX_CHUNKS and the memory pool.
+
+Under a mesh (parallel/mesh.py; the JAX engine's mesh branches,
+engine.py:159-218) every rank runs an engine on its own device with the
+same calls, SPMD: cfg.kv_shard "heads" is tensor parallelism (params from
+io/loader.py load_params(mesh=): this rank's weight blocks, the model at its
+local head and FFN counts, the mesh's psum after each layer's output
+projection, a cache of its K/V heads), "sequence" the sequence-parallel
+Falcon of parallel/sp.py (whole weights, the cache's time axis split, kv_T
+a multiple of the ranks). The logits are the same on every rank, and so is
+the device generator (seeded from the sampler's seed, 0 for -1), so every
+rank draws the same ids on the device; the host cascade's draws agree only
+where the ranks' samplers share a seed (the CLI sends rank 0's seed to every
+rank for --seed -1). Under NCCL the decode chunks stay CUDA graphs with the
+collectives inside (one collective runs eagerly at construction, before any
+capture); gloo collectives cannot be captured, so a gloo engine on the card
+decodes through the eager step body and says so once on stderr.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -147,6 +164,15 @@ class _RowChunk:
         self.graph: build.Graph | None = None
 
 
+def kv_len(cfg: EngineConfig, sp: int = 0) -> int:
+    """The cache's time dim (an engine's kv_T): n_ctx plus the JAX engine's
+    scratch region, so the cache has the same shape in both packages;
+    sequence-parallel over sp ranks, rounded up to a multiple of them
+    (kv_T:231)."""
+    t = cfg.n_ctx + max(cfg.n_batch, DECODE_CHUNK, cfg.decode_chunk)
+    return -(-t // sp) * sp if sp else t
+
+
 class FalconEngine:
     """Single-model, single-stream inference engine for both model families
     (the model is resolved by hparams.arch; the class keeps the JAX
@@ -164,30 +190,59 @@ class FalconEngine:
 
     batch_size B > 1 gives the cache B rows for prefill_row / prefill_rows /
     decode_rows (continuous batching, engine/batching.py); the
-    single-stream entry points then refuse."""
+    single-stream entry points then refuse.
+
+    mesh: this rank's parallel/mesh.py Mesh (the engine runs on its
+    device); see the module docstring. Every rank makes the same calls."""
 
     def __init__(self, hparams: FalconHParams | LlamaHParams, params: dict,
-                 cfg: EngineConfig | None = None, device=None, batch_size: int = 1):
-        self.device = resolve_device(device)
+                 cfg: EngineConfig | None = None, device=None, batch_size: int = 1,
+                 mesh=None):
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.hp = hparams
         self.cfg = cfg or EngineConfig()
         if batch_size < 1:
             raise ValueError(f"batch_size {batch_size}")
         self.batch = batch_size
         self.nl_token = nl_id(hparams.arch)
-        if self.device.type == "cuda" and self.cfg.flash_attention is not False:
-            G = hparams.n_head // hparams.n_head_kv
-            ok, why = flash_decode.supports(hparams.n_head_kv, G, hparams.head_dim,
-                                            self.cfg.kv_dtype, self.cfg.compute_dtype)
-            if not ok:
-                raise NotImplementedError(
-                    f"flash-decode kernels: {hparams.n_head} heads over {hparams.n_head_kv} K/V"
-                    f" heads, head_dim {hparams.head_dim}, {self.cfg.kv_dtype} cache: {why}"
-                    " (EngineConfig(flash_attention=False) runs the plain attention)")
+        self.mesh, self.tp_plan, self.sp = mesh, None, 0
         self.st, model_cls = resolve_model(
             hparams, flash=self.cfg.flash_attention is not False,
             kernels=self.cfg.kernel_layout is not False)
-        self.model = model_cls(self.st, params).to(self.device)
+        if mesh is not None and self.cfg.kv_shard == "sequence":
+            if hparams.arch != "falcon":
+                raise NotImplementedError("sequence-parallel: falcon only")
+            self.sp = mesh.model
+        elif mesh is not None:
+            from ggllm_tpu_torch.parallel.tp import TpPlan
+
+            self.tp_plan = TpPlan(hparams, mesh.model)
+            self.st = self.tp_plan.local_static(self.st)
+        st = self.st
+        if self.device.type == "cuda" and self.cfg.flash_attention is not False and not self.sp:
+            G = st.n_head // st.n_head_kv
+            ok, why = flash_decode.supports(st.n_head_kv, G, st.head_dim,
+                                            self.cfg.kv_dtype, self.cfg.compute_dtype)
+            if not ok:
+                raise NotImplementedError(
+                    f"flash-decode kernels: {st.n_head} heads over {st.n_head_kv} K/V"
+                    f" heads, head_dim {st.head_dim}, {self.cfg.kv_dtype} cache: {why}"
+                    " (EngineConfig(flash_attention=False) runs the plain attention)")
+        self.model = model_cls(st, params).to(self.device)
+        # a gloo mesh on the card: collectives cannot be captured in a graph
+        self._eager = (mesh is not None and mesh.backend == "gloo"
+                       and self.device.type == "cuda")
+        self._said_eager = False
+        if self.tp_plan is not None:
+            self._check_shards(params)
+            self.model.reduce = mesh.comm.psum
+        if self.sp:
+            from ggllm_tpu_torch.parallel.sp import SpModel
+
+            self.model = SpModel(self.model, mesh.comm)
+        if mesh is not None and mesh.backend == "nccl":  # one collective before any capture
+            mesh.comm.psum(torch.zeros(1, device=self.device))
+            torch.cuda.synchronize(self.device)
         self.inv_freq = torch.from_numpy(rope_angles(
             self.cfg.rope, self.cfg.n_ctx, hparams.head_dim, arch=hparams.arch)).to(self.device)
         self.n_past = 0
@@ -199,16 +254,39 @@ class FalconEngine:
 
     # ---------------------------------------------------------------- kv
 
+    def _check_shards(self, params: dict) -> None:
+        """Refuse a tree that is not this mesh's tensor-parallel blocks."""
+        st, lw = self.st, params["layers"][0]
+        want = (st.n_head + 2 * st.n_head_kv) * st.head_dim
+        key = "wqkv" if "wqkv" in lw else "wqkvu"
+        rows = lw[key].shape[0] - (st.n_ff if key == "wqkvu" else 0)
+        if rows != want:
+            raise ValueError(
+                f"layer 0 {key} has {lw[key].shape[0]} rows, not this rank's block of a"
+                f" {self.mesh.model}-way tensor-parallel mesh: load the params with"
+                " io/loader.py load_params(..., mesh=mesh)")
+
+    def _say_eager(self) -> bool:
+        """True where decoding must run the eager step body (a gloo mesh on
+        the card), said once on stderr."""
+        if self._eager and not self._said_eager:
+            self._said_eager = True
+            print(f"engine: {self.mesh.model} ranks over gloo on {self.device}: collectives"
+                  " cannot be captured in a CUDA graph, so decoding runs the eager step body"
+                  " (collectives staged through host memory)", file=sys.stderr)
+        return self._eager
+
     @property
     def kv_T(self) -> int:
-        """KV time dim: n_ctx plus the JAX engine's scratch region, so the
-        cache has the same shape in both packages."""
-        return self.cfg.n_ctx + max(self.cfg.n_batch, DECODE_CHUNK, self.cfg.decode_chunk)
+        return kv_len(self.cfg, self.sp)
 
     def new_kv(self):
-        """A zeroed cache: one tensor, or (codes, scales) for kv_dtype "int8"."""
-        hp = self.hp
-        shape = (hp.n_layer, 2, self.batch, self.kv_T, hp.n_head_kv, hp.head_dim)
+        """A zeroed cache: one tensor, or (codes, scales) for kv_dtype "int8".
+        Under a mesh, this rank's part: its K/V heads (tensor-parallel) or
+        its kv_T / mp positions (sequence-parallel)."""
+        st = self.st
+        T = self.kv_T // self.sp if self.sp else self.kv_T
+        shape = (st.n_layer, 2, self.batch, T, st.n_head_kv, st.head_dim)
         return kvcache.new(shape, self.cfg.kv_dtype, self.device)
 
     @property
@@ -227,6 +305,36 @@ class FalconEngine:
         storage, which the decode graphs point at, is kept)."""
         self.n_past = 0
         kvcache.zero_(self.kv)
+
+    def _kv_leaves(self, kv) -> tuple:
+        return kv if kvcache.is_quantized(kv) else (kv,)
+
+    def gather_kv(self, n: int):
+        """The cache's first n positions as one whole cache, every K/V head
+        and position (a tensor, or the int8 pair): under a mesh gathered from
+        the ranks' parts (every rank calls it)."""
+        out = []
+        for leaf in self._kv_leaves(self.kv):
+            if self.sp:
+                leaf = self.mesh.comm.all_gather(leaf, 3)
+            elif self.tp_plan is not None and self.tp_plan.KV > 1:
+                leaf = self.mesh.comm.all_gather(leaf, 4)
+            out.append(leaf[:, :, :, :n])
+        return tuple(out) if kvcache.is_quantized(self.kv) else out[0]
+
+    def scatter_kv(self, whole) -> None:
+        """Write a whole cache's first positions (gather_kv's form) into this
+        engine's cache in place, each rank its part (its K/V heads or its
+        time window), the rest zeroed."""
+        kvcache.zero_(self.kv)
+        for dst, src in zip(self._kv_leaves(self.kv), self._kv_leaves(whole)):
+            if self.sp:
+                Tl = dst.shape[3]
+                src = src[:, :, :, self.mesh.rank * Tl:(self.mesh.rank + 1) * Tl]
+            elif self.tp_plan is not None and self.tp_plan.KV > 1:
+                h0, h1 = self.tp_plan.kv_heads(self.mesh.rank)
+                src = src[:, :, :, :, h0:h1]
+            dst[:, :, :, :src.shape[3]] = src.to(dst.device, dst.dtype)
 
     def _single(self, what: str) -> None:
         """Refuse a single-stream entry point on a B-row engine."""
@@ -360,7 +468,7 @@ class FalconEngine:
         Reads and writes only device tensors: this is what a graph captures.
         at[0] follows the step (for the capture's error message)."""
         kv, tok, pending = self.kv, c.tok, None
-        if kvcache.is_quantized(kv):  # chunk-deferred: the cache is read-only
+        if kvcache.is_quantized(kv) and not self.sp:  # chunk-deferred: the cache is read-only
             L_, _, B, _, KV, D = kv[0].shape
             pending = torch.zeros(L_, 2, B, n, KV, D, device=self.device,
                                   dtype=getattr(torch, self.cfg.compute_dtype))
@@ -533,6 +641,7 @@ class FalconEngine:
             raise ValueError(f"{n_steps}-step chunks for {n_total} tokens from n_past"
                              f" {self.n_past} run past the cache's {self.kv_T} positions")
         generator = generator or self.new_generator(sampler)
+        eager = eager or self._say_eager()
         c = self._chunk(n_steps, sampler, bits is not None)
         start, t_compile = self.n_past, self.timings.t_compile_us
         t0 = time.perf_counter()
@@ -672,7 +781,7 @@ class FalconEngine:
             c.out[j] = nxt
             tok = nxt
         if pending is not None:  # the chunk's one (quantizing) per-row write
-            kvcache.write_all_layers(kv, pending, c.n_past)
+            (self.model if self.sp else kvcache).write_all_layers(kv, pending, c.n_past)
 
     @torch.inference_mode()
     def decode_rows(self, toks, n_past_vec, n_steps: int, values: dict | None = None,
@@ -726,6 +835,7 @@ class FalconEngine:
                           lambda: _RowChunk(n_steps, key, B, V, self.device))
         mu = np.full(B, 10.0, np.float32) if mu is None else mu
         generator = generator or torch.Generator(device=self.device).manual_seed(0)
+        eager = eager or self._say_eager()
         t_compile = self.timings.t_compile_us
         t0 = time.perf_counter()
         c.n_past.copy_(torch.from_numpy(npv.astype(np.int32)))  # the warm-up's positions too

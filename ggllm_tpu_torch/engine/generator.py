@@ -40,6 +40,8 @@ class Generator:
     def __init__(self, engine: FalconEngine, sampler: sampling.SamplerParams,
                  eos_id: int, n_keep: int = 0, fused_ok: bool = True,
                  log=None, grammar=None):
+        if grammar is not None and getattr(engine, "mesh", None) is not None:
+            raise ValueError("grammar requires a single-device engine")
         self.eng = engine
         self.sampler = sampler
         self.state = sampling.SamplerState.init(sampler)

@@ -24,6 +24,13 @@ torch.Generator's state under `torch_rng_state`, tagged `rng_backend` =
 state only from a torch file of the same device type; in every other case
 load_sampler_state makes a fresh generator and says so on stderr.
 
+Under a mesh (parallel/mesh.py) every rank calls save / try_load /
+load_sampler_state: save gathers the ranks' parts of the cache
+(engine.gather_kv) and rank 0 writes the file, whole, in this format; a load
+is read by rank 0, sent to every rank, and each writes its part
+(engine.scatter_kv), as the JAX load puts the cache back into its sharding
+(session.py:125-129).
+
 Unlike the JAX save, which hands numpy a file name (numpy then appends
 ".npz" to a name without it, so such a file is never found again), the port
 writes to exactly the path it is given.
@@ -63,6 +70,9 @@ def save(path: str, engine, tokens: list[int], sampler_state=None,
     hold), the host sampler state, the device generator's state and the last
     logits to `path`."""
     n_past = engine.n_past
+    kv = engine.gather_kv(n_past)
+    if engine.mesh is not None and engine.mesh.rank != 0:
+        return
     arrays = dict(
         magic=SESSION_MAGIC,
         version=SESSION_VERSION,
@@ -74,13 +84,12 @@ def save(path: str, engine, tokens: list[int], sampler_state=None,
         n_past=n_past,
         tokens=np.asarray(tokens, dtype=np.int32),
     )
-    kv = engine.kv
     if kvcache.is_quantized(kv):  # int8 cache: codes + per-vector scales, as they are
-        arrays["kv_q"] = _np_view(kv[0][:, :, :, :n_past])[0]
-        arrays["kv_s"] = _np_view(kv[1][:, :, :, :n_past])[0]
+        arrays["kv_q"] = _np_view(kv[0])[0]
+        arrays["kv_s"] = _np_view(kv[1])[0]
         arrays["kv_dtype"] = "int8"
     else:
-        arrays["kv"], arrays["kv_dtype"] = _np_view(kv[:, :, :, :n_past])
+        arrays["kv"], arrays["kv_dtype"] = _np_view(kv)
     if sampler_state is not None:
         arrays["rng_state"] = json.dumps(sampler_state.rng.bit_generator.state)
         arrays["mu"] = np.float64(sampler_state.mu)
@@ -95,8 +104,7 @@ def save(path: str, engine, tokens: list[int], sampler_state=None,
     os.replace(tmp, path)
 
 
-def _open(path: str):
-    """The session's arrays, or None if there is none or it is not a session."""
+def _read(path: str):
     if not path or not os.path.exists(path):
         return None
     try:
@@ -106,6 +114,16 @@ def _open(path: str):
         return z
     except Exception:
         return None
+
+
+def _open(path: str, engine):
+    """The session's arrays, or None if there is none or it is not a
+    session; under a mesh read by rank 0 and sent to every rank."""
+    mesh = engine.mesh
+    if mesh is None:
+        return _read(path)
+    z = _read(path) if mesh.rank == 0 else None
+    return mesh.comm.broadcast_object(None if z is None else {k: z[k] for k in z.files})
 
 
 def _loaded_kv(z, kv_dtype: str, engine_kv):
@@ -134,7 +152,7 @@ def try_load(path: str, engine, prompt_ids: list[int]) -> list[int]:
     len(prompt) - 1 (one token is always evaluated, for fresh logits). On
     any mismatch returns prompt_ids unchanged and leaves the engine as it
     was."""
-    z = _open(path)
+    z = _open(path, engine)
     if z is None:
         return list(prompt_ids)
     try:
@@ -157,12 +175,7 @@ def try_load(path: str, engine, prompt_ids: list[int]) -> list[int]:
     except Exception:
         return list(prompt_ids)
 
-    kv = kvcache.zero_(engine.kv)  # in place: the decode graphs keep their storage
-    if kvcache.is_quantized(kv):
-        for dst, src in zip(kv, loaded):
-            dst[:, :, :, :src.shape[3]] = src
-    else:
-        kv[:, :, :, :loaded.shape[3]] = loaded
+    engine.scatter_kv(loaded)  # in place: the decode graphs keep their storage
     engine.n_past = n
     return list(prompt_ids[n:])
 
@@ -177,7 +190,7 @@ def load_sampler_state(path: str, sampler, engine):
 
     state = sampling.SamplerState.init(sampler)
     generator = engine.new_generator(sampler)
-    z = _open(path)
+    z = _open(path, engine)
     if z is None:
         return state, generator, None
     restored = False

@@ -284,6 +284,8 @@ class SpeculativeDecoder:
 
     def __init__(self, target, draft, k: int = 6, rounds_per_dispatch: int = 4,
                  eager: bool = False):
+        if getattr(target, "mesh", None) is not None or getattr(draft, "mesh", None) is not None:
+            raise ValueError("speculative decoding requires a single-device engine")
         assert target.hp.n_vocab == draft.hp.n_vocab, "vocab mismatch"
         assert k >= 1 and rounds_per_dispatch >= 1
         assert target.device == draft.device, "target and draft on one device"

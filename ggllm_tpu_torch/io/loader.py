@@ -34,7 +34,18 @@ only query_key_value patched: a dense "wqkv" beside a quantized "ffn_up").
 An adapter tensor that is not one of the model's weight matrices is an
 error; the JAX loader ignores it.
 
-The .kcache sidecar has no port (a load is a copy); meshes are not ported.
+load_params(..., mesh=) under a tensor-parallel mesh (parallel/mesh.py,
+cfg.kv_shard "heads") builds only this rank's blocks (the JAX loader's
+_try_load_falcon_tp:299 / _try_load_llama_tp:347; parallel/tp.py), each read
+from the memory-mapped file as its rows and block columns, with the
+embeddings, norms and lm_head whole. What the JAX loader sends to its GSPMD
+fallback instead (a LoRA adapter, a layer of mixed quant types or dense
+weights, weight_mode "dequant", a data axis, a plan the heads or blocks do
+not divide) raises, naming ROADMAP.md Queue 1 item 10b. Under a
+sequence-parallel mesh (kv_shard "sequence") every rank loads the whole
+model on its device.
+
+The .kcache sidecar has no port (a load is a copy).
 """
 
 from __future__ import annotations
@@ -261,16 +272,22 @@ def _lora_patch(mf: ModelFile, lora, lora_base):
 
 
 def load_params(mf: ModelFile, cfg: EngineConfig | None = None, device=None, lora=None,
-                lora_base=None) -> dict:
+                lora_base=None, mesh=None) -> dict:
     """Build the parameter tree from a parsed model file, on `device`
     (default "cuda"; raises if CUDA is missing unless device="cpu");
     weight_mode "dequant" dequantizes it there (dequantize_params).
     lora: a LoraFile or the path of a 'ggla' adapter, applied there to the
     weights it names; lora_base: a ModelFile or the path of an unquantized
-    model whose tensors are the bases of the patched weights."""
+    model whose tensors are the bases of the patched weights. mesh: a
+    parallel/mesh.py Mesh; the tree goes on its device, and under
+    tensor parallelism holds this rank's blocks (see the module docstring)."""
     cfg = cfg or EngineConfig()
     if cfg.weight_mode not in ("fused", "dequant"):
         raise ValueError(f"weight_mode {cfg.weight_mode!r}: fused or dequant")
+    if mesh is not None:
+        device = mesh.device
+        if cfg.kv_shard != "sequence":
+            return _load_tp(mf, cfg, mesh, lora)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.compute_dtype)
     patch = None if lora is None else _lora_patch(mf, lora, lora_base)
@@ -312,10 +329,68 @@ def _load_falcon_params(mf: ModelFile, dtype, device, patch=None) -> dict:
 
 
 def load_model(path: str, cfg: EngineConfig | None = None, device=None, lora=None,
-               lora_base=None):
+               lora_base=None, mesh=None):
     """Parse file + build params (load_params). Returns (ModelFile, params)."""
     mf = read_model(path)
-    return mf, load_params(mf, cfg, device, lora=lora, lora_base=lora_base)
+    return mf, load_params(mf, cfg, device, lora=lora, lora_base=lora_base, mesh=mesh)
+
+
+def _load_tp(mf: ModelFile, cfg: EngineConfig, mesh, lora) -> dict:
+    """This rank's tensor-parallel tree (parallel/tp.py), or a raise naming
+    the GSPMD fallback (ROADMAP.md Queue 1 item 10b) where the JAX loader
+    takes it."""
+    from ggllm_tpu_torch.parallel import tp
+
+    hp, device = mf.hparams, mesh.device
+    why = ("a LoRA adapter densifies the weights it patches" if lora is not None
+           else f"a data axis of {mesh.data}" if mesh.data != 1
+           else f"weight_mode {cfg.weight_mode!r}" if cfg.weight_mode != "fused" else None)
+    try:
+        if why is not None:
+            raise NotImplementedError(f"{why}; {tp.ITEM_10B}")
+        try:
+            plan = tp.TpPlan(hp, mesh.model)
+        except ValueError as e:
+            raise NotImplementedError(f"{e}; {tp.ITEM_10B}") from None
+        dtype = getattr(torch, cfg.compute_dtype)
+
+        def vec(name):
+            return torch.from_numpy(mf.tensor_f32(name).astype(np.float32)).to(device)
+
+        def blocks(lw, built):
+            for key, (gt, shape, planes) in built.items():
+                lw[key] = _quant(gt, shape, planes, device)
+            return lw
+
+        llama = mf.arch == "llama"
+        emb = "tok_embeddings.weight" if llama else "transformer.word_embeddings.weight"
+        params = {"tok_embeddings": torch.from_numpy(mf.tensor_f32(emb)).to(device=device,
+                                                                           dtype=dtype)}
+        if llama:
+            params.update(output_norm=vec("norm.weight"),
+                          lm_head=_load_matrix(mf, "output.weight", dtype, device), layers=[])
+            for i in range(hp.n_layer):
+                names = _llama_names(i)
+                lw = {k: vec(names[k]) for k in ("attn_norm", "ffn_norm")}
+                params["layers"].append(blocks(lw, tp.llama_layer(mf, names, plan, mesh.rank)))
+        else:
+            params.update(output_norm=vec("transformer.ln_f.weight"),
+                          output_norm_b=vec("transformer.ln_f.bias"),
+                          lm_head=_load_matrix(mf, "lm_head.weight", dtype, device), layers=[])
+            norms = (("input_ln_w", "input_ln_b", "attn_ln_w", "attn_ln_b")
+                     if hp.n_falcon_type >= 40 else ("input_ln_w", "input_ln_b"))
+            for i in range(hp.n_layer):
+                names = _layer_names(hp, i)
+                lw = {k: vec(names[k]) for k in norms}
+                params["layers"].append(blocks(lw, tp.falcon_layer(
+                    mf, names, plan, mesh.rank, merge_up=hp.n_falcon_type < 40)))
+        return params
+    except NotImplementedError as e:
+        if mf.arch == "llama":  # the JAX loader's words (load_params:474-479)
+            raise NotImplementedError(
+                "multi-chip LLaMA needs the TP plan (uniform quant type, mp | n_head, no LoRA,"
+                f" no data axis): {e}") from None
+        raise
 
 
 # ------------------------------------------------------ from the JAX package

@@ -91,7 +91,18 @@ def _stamp(sources: list[Path]) -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into build/libggllm_kernels.so unless the stamp
-    matches; returns the library path. Raises on any compiler error."""
+    matches; returns the library path. Raises on any compiler error. The
+    build directory's lock file serializes processes (ranks starting on a
+    fresh tree at once): the first builds, the others then find the stamp."""
+    import fcntl
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with open(BUILD / (LIB_NAME + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build()
+
+
+def _build() -> Path:
     global build_log
     sources = sorted(CSRC.glob("*.cu"))
     lib = BUILD / LIB_NAME

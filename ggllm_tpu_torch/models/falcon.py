@@ -199,8 +199,11 @@ class FalconLayer(nn.Module):
         gf = F.gelu(ff.to(torch.float32), approximate="tanh").to(ff.dtype)
         return q, kv_new, gf
 
-    def post(self, x, attn, gf, st: FalconStatic):
-        """Output projection + parallel residual."""
+    def post(self, x, attn, gf, st: FalconStatic, reduce=None):
+        """Output projection + parallel residual. Under tensor parallelism
+        (parallel/tp.py) the projection's contraction is split over the
+        ranks and `reduce` (the mesh's psum) adds the partial outputs before
+        the residual: the layer's one collective."""
         B, S, _ = x.shape
         attn = attn.reshape(B, S, st.n_head * st.head_dim)
         if hasattr(self, "w_od"):  # merged wo + down along K, fed [attn; gelu]
@@ -208,6 +211,8 @@ class FalconLayer(nn.Module):
         else:
             out = (linear(self.wo, attn, kernels=st.kernels)
                    + linear(self.ffn_down, gf, kernels=st.kernels))
+        if reduce is not None:
+            out = reduce(out)
         return x + out
 
 
@@ -219,7 +224,11 @@ def _attach(module: nn.Module, name: str, val):
 
 
 class Falcon(nn.Module):
-    """The full model over a parameter tree from io/loader.py."""
+    """The full model over a parameter tree from io/loader.py. `reduce`
+    (None, or a tensor-parallel mesh's psum, set by the engine) runs after
+    each layer's output projection."""
+
+    reduce = None
 
     def __init__(self, st: FalconStatic, params: dict):
         super().__init__()
@@ -258,7 +267,7 @@ class Falcon(nn.Module):
             attn = attend(kv, l, q, kv_new, n_past, st, pending, n_pend)
             if pending is not None:
                 deferred.append(kv_new)
-            x = layer.post(x, attn, gf, st)
+            x = layer.post(x, attn, gf, st, self.reduce)
         x = layer_norm(x, self.output_norm, self.output_norm_b)
         if not logits_all:
             x = select_last(x, last_pos)

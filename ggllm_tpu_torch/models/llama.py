@@ -15,8 +15,11 @@ Weight layouts as io/loader.py builds them: [wq; wk; wv] rows merged as
 an input), else the split keys; wo and w2 stay separate (sequential
 dependency). The KV write and the attention dispatch are models/falcon.py
 `attend`: a dense cache is written in place each step, an int8 cache decodes
-chunk-deferred through `pending` / `n_pend`. The JAX module's tensor-parallel
-psum and its lax.scan layer loop have no counterpart here.
+chunk-deferred through `pending` / `n_pend`. Under tensor parallelism
+(parallel/tp.py) wo and w2 are contraction-split and `Llama.reduce` (the
+mesh's psum) adds each one's partial outputs before its residual: two
+collectives a layer (llama.py:185-190). The JAX module's lax.scan layer
+loop has no counterpart here.
 """
 
 from __future__ import annotations
@@ -105,7 +108,11 @@ class LlamaLayer(nn.Module):
 
 
 class Llama(nn.Module):
-    """The full model over a parameter tree from io/loader.py."""
+    """The full model over a parameter tree from io/loader.py. `reduce`
+    (None, or a tensor-parallel mesh's psum, set by the engine) runs after
+    wo and after w2."""
+
+    reduce = None
 
     def __init__(self, st: LlamaStatic, params: dict):
         super().__init__()
@@ -134,9 +141,11 @@ class Llama(nn.Module):
             attn = attend(kv, l, q, kv_new, n_past, st, pending, n_pend)
             if pending is not None:
                 deferred.append(kv_new)
-            x = x + linear(layer.wo, attn.reshape(B, S, st.n_head * st.head_dim),
+            a_out = linear(layer.wo, attn.reshape(B, S, st.n_head * st.head_dim),
                            kernels=st.kernels)
-            x = x + layer.ffn(x, st)
+            x = x + (a_out if self.reduce is None else self.reduce(a_out))
+            f_out = layer.ffn(x, st)
+            x = x + (f_out if self.reduce is None else self.reduce(f_out))
         x = rms_norm(x, self.output_norm)
         if not logits_all:
             x = select_last(x, last_pos)

@@ -24,8 +24,17 @@ without it, a --self-draft shares the patched weights.
 --profile DIR writes a torch.profiler trace of generation, and -dt LEVEL
 prints its op table (utils/traceview.py). The reference's thread, VRAM and
 mmap flags are accepted and ignored, so reference command lines run
-unchanged; --export and the multi-GPU flags (-ts, --kv-shard, --multihost)
-exit 1 naming why.
+unchanged; --export exits 1 naming why.
+
+-ts N (--tensor-split) shards the model over N ranks (parallel/mesh.py),
+one a device: this process is rank 0, owns stdin and stdout, and starts the
+other N - 1 itself (--device cpu: N CPU ranks over gloo; on cards, NCCL when
+each rank has its own); --kv-shard heads is tensor parallelism,
+--kv-shard sequence the sequence-parallel Falcon (the cache split along
+time); -ts auto picks the smallest split whose per-card footprint fits
+(parallel/plan.py). --multihost joins the world torchrun's environment
+describes instead (one process a card on each host). Speculative decoding
+and grammars take one device.
 
     python -m ggllm_tpu_torch.tools.main -m model.ggcc -p "Hello" -n 64
 
@@ -81,8 +90,6 @@ ANSI_RESET = "\x1b[0m"
 ANSI_PROMPT = "\x1b[33m"        # yellow: prompt echo
 ANSI_USER = "\x1b[1;32m"        # bold green: user input
 
-MULTI_GPU_REFUSAL = ("-ts / --tensor-split, --kv-shard and --multihost shard the model over several"
-                     " cards: multi-GPU is not ported yet (ROADMAP.md, Queue 1 item 10)")
 EXPORT_REFUSAL = ("--export writes the JAX forward's lowered StableHLO: the port has no StableHLO"
                   " and no exported forward")
 
@@ -244,11 +251,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="speculative decoding with a depth-truncated view of the SAME model as"
                          " the draft (its first N layers; the views alias the loaded weights)")
     ap.add_argument("-ts", "--tensor-split", default="1", metavar="N|auto", dest="mesh_model",
-                    help="refused unless 1: multi-GPU is not ported yet")
+                    help="shard the model over N ranks, one a device (the reference's"
+                         " --tensor-split, as a mesh 'model' axis size); 'auto' picks the smallest"
+                         " split whose per-card footprint fits the card's memory")
     ap.add_argument("--kv-shard", default="heads", choices=["heads", "sequence"],
-                    help="refused unless heads: multi-GPU is not ported yet")
+                    help="KV sharding over the ranks: 'heads' (tensor parallel) or 'sequence'"
+                         " (the cache split along time for long contexts; weights whole)")
     ap.add_argument("--multihost", action="store_true",
-                    help="refused: multi-GPU is not ported yet")
+                    help="join the world torchrun's environment describes (MASTER_ADDR, RANK,"
+                         " WORLD_SIZE, LOCAL_RANK) instead of starting the ranks here")
     ap.add_argument("--verbose-timings", action="store_true")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of generation (Chrome trace JSON) to DIR")
@@ -261,11 +272,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refusal(args) -> str | None:
-    """Why a flag the port accepts cannot run yet, or None."""
+    """Why a flag the port accepts cannot run, or None."""
     if args.export:
         return EXPORT_REFUSAL
-    if args.mesh_model != "1" or args.kv_shard != "heads" or args.multihost:
-        return MULTI_GPU_REFUSAL
+    if args.mesh_model != "1" or args.multihost:
+        if args.draft_model or args.self_draft:
+            return "speculative decoding requires a single-device engine"
+        if args.grammar or args.grammar_file:
+            return "grammar requires a single-device engine"
     return None
 
 
@@ -295,6 +309,124 @@ def main(argv=None) -> int:
     if why:
         print(f"error: {why}", file=sys.stderr)
         return 1
+    if args.multihost:
+        from ggllm_tpu_torch.parallel import mesh as mesh_mod
+
+        mesh_mod.init_distributed(device=args.device)
+        n = (int(args.mesh_model) if args.mesh_model not in ("1", "auto")
+             else mesh_mod.dist.get_world_size())
+        try:
+            mesh = mesh_mod.make_mesh(1, n)
+            if mesh is None:  # a rank beyond the mesh
+                return 0
+            return _quiet_rank(mesh, lambda: _run(parser, args, mesh))
+        finally:
+            mesh_mod.dist.destroy_process_group()
+    if args.mesh_model == "auto":
+        from ggllm_tpu_torch.io.ggcc import read_model
+        from ggllm_tpu_torch.parallel.plan import device_memory, suggest_tensor_split
+
+        cfg = EngineConfig(n_ctx=args.ctx_size, n_batch=args.batch_size,
+                           kv_dtype=args.kv_dtype, compute_dtype=args.compute_dtype)
+        plan = suggest_tensor_split(read_model(args.model), cfg,
+                                    hbm_bytes=device_memory(args.device))
+        args.mesh_model, args.kv_shard = str(plan.model_axis), plan.kv_shard
+        print(f"auto tensor split: {plan.model_axis} chip(s), kv_shard={plan.kv_shard}"
+              f" ({plan.per_chip_bytes / 2**30:.2f} GB/chip)", file=sys.stderr)
+    n = int(args.mesh_model)
+    if n > 1:
+        return _spawn_ranks(argv, args, n)
+    return _run(parser, args, None)
+
+
+def _devices(args, n: int) -> list[str]:
+    """One device a rank: the CPU for each with --device cpu, else this
+    host's cards (make_mesh refuses more ranks than there are)."""
+    import torch
+
+    if args.device == "cpu":
+        return ["cpu"] * n
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def _spawn_ranks(argv, args, n: int) -> int:
+    """-ts N on this host: this process is rank 0 (stdin, stdout), ranks 1
+    .. N - 1 are spawned processes running the same command line."""
+    import shutil
+
+    from ggllm_tpu_torch.parallel import mesh as mesh_mod
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    resolved = {"mesh_model": str(n), "kv_shard": args.kv_shard}  # -ts auto's choice
+    try:
+        world = mesh_mod.spawn_ranks(n, _devices(args, n), _rank_entry, (argv, resolved),
+                                     start=1)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    try:
+        mesh = _join(world, 0)
+        print(f"mesh: 1 x {n} (kv_shard={args.kv_shard}, {world.backend})", file=sys.stderr)
+        rc = _run(build_parser(), args, mesh)
+        for p in world.procs:
+            p.join()
+        return rc if all(p.exitcode == 0 for p in world.procs) else 1
+    finally:
+        for p in world.procs:
+            if p.is_alive():
+                p.kill()
+        if mesh_mod.dist.is_initialized():
+            mesh_mod.dist.destroy_process_group()
+        shutil.rmtree(world.dir, ignore_errors=True)
+
+
+def _join(world, rank: int):
+    from ggllm_tpu_torch.parallel import mesh as mesh_mod
+
+    world.join(rank)
+    return mesh_mod.make_mesh(1, world.n, devices=world.devices)
+
+
+def _rank_entry(world, rank: int, argv, resolved: dict) -> None:
+    """Rank `rank` of -ts N: the same command line (with rank 0's -ts auto
+    choice), quiet."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    vars(args).update(resolved)
+    mesh = _join(world, rank)
+    rc = _quiet_rank(mesh, lambda: _run(parser, args, mesh))
+    sys.exit(rc)
+
+
+def _quiet_rank(mesh, run) -> int:
+    """run() on this rank; a rank other than 0 prints nothing (its
+    stdout and stderr go nowhere) but the traceback of a failure."""
+    import os
+    import traceback
+
+    if mesh.rank == 0:
+        return run()
+    err = sys.stderr
+    with open(os.devnull, "w") as null:
+        sys.stdout = sys.stderr = null
+        try:
+            return run()
+        except BaseException:
+            err.write(f"rank {mesh.rank}:\n{traceback.format_exc()}")
+            return 1
+        finally:
+            sys.stdout, sys.stderr = sys.__stdout__, err
+
+
+def _run(parser, args, mesh) -> int:
+    """The CLI's work on one rank (mesh None: the single-process CLI)."""
+    if mesh is not None and args.seed < 0:
+        # every rank must draw the same ids (the host cascade's draws too)
+        # and pick the same --random-prompt: rank 0's seed on every rank
+        import random
+
+        args.seed = mesh.comm.broadcast_object(
+            random.SystemRandom().randrange(2**32) if mesh.rank == 0 else None)
     if args.interactive_first:
         args.interactive = True
     if args.memory_f32:
@@ -318,12 +450,12 @@ def main(argv=None) -> int:
 
     cfg = EngineConfig(n_ctx=args.ctx_size, n_batch=args.batch_size, kv_dtype=args.kv_dtype,
                        compute_dtype=args.compute_dtype, decode_chunk=args.decode_chunk,
-                       weight_mode=args.weight_mode)
+                       weight_mode=args.weight_mode, kv_shard=args.kv_shard)
     t0 = time.perf_counter()
     mf, params = load_model(args.model, cfg, device=args.device, lora=args.lora,
-                            lora_base=args.lora_base)
+                            lora_base=args.lora_base, mesh=mesh)
     tk = tok_mod.for_model(mf)
-    engine = FalconEngine(mf.hparams, params, cfg, device=args.device)
+    engine = FalconEngine(mf.hparams, params, cfg, device=args.device, mesh=mesh)
     engine.timings.t_load_us = (time.perf_counter() - t0) * 1e6
     if args.alias:
         print(f"model alias: {args.alias}", file=sys.stderr)
@@ -490,7 +622,9 @@ def main(argv=None) -> int:
             if args.in_prefix:
                 sys.stdout.write(args.in_prefix)
                 sys.stdout.flush()
-            line = read_user_input(args.multiline_input)
+            line = read_user_input(args.multiline_input) if mesh is None or mesh.rank == 0 else None
+            if mesh is not None:  # rank 0 owns stdin
+                line = mesh.comm.broadcast_object(line)
             set_color(ANSI_RESET)
             if line is None:
                 break

@@ -22,9 +22,9 @@ torch.set_num_threads(1)
 BASE = ["-c", "96", "-b", "32", "--kv-dtype", "float32", "--compute-dtype", "float32",
         "--temp", "0", "--decode-chunk", "4"]
 
-# flags that wait for their module (multi-chip) or have no counterpart
-# (export): accepted, then refused at run time
-WAITING = ["-ts", "--kv-shard", "--multihost", "--export"]
+# flags with no counterpart in the port (export): accepted, then refused at
+# run time
+WAITING = ["--export"]
 
 
 @pytest.fixture(scope="module")

@@ -2,9 +2,9 @@
 the reference's thread / VRAM / mmap flags accepted and ignored, --alias,
 --mtest, --weight-mode dequant (load-time dequantization, against the fused
 path and the JAX CLI's dequant mode), --profile and -dt (utils/traceview.py
-over torch.profiler's Chrome trace), and the flags that exit 1 naming why
-(--export, -ts, --kv-shard, --multihost). --lora / --lora-base:
-tests/test_torch_lora.py."""
+over torch.profiler's Chrome trace), and --export, which exits 1 naming why.
+--lora / --lora-base: tests/test_torch_lora.py; -ts, --kv-shard and
+--multihost: tests/test_torch_cli_parallel.py."""
 
 import contextlib
 import gzip
@@ -168,11 +168,7 @@ def test_traceview_prefers_device_events(tmp_path):
 
 @pytest.mark.parametrize("extra, reason", [
     (["--export", "graph.mlir"], "no StableHLO"),
-    (["-ts", "2"], "Queue 1 item 10"),
-    (["--tensor-split", "auto"], "Queue 1 item 10"),
-    (["--kv-shard", "sequence"], "Queue 1 item 10"),
-    (["--multihost"], "Queue 1 item 10"),
-], ids=["export", "ts", "tensor_split_auto", "kv_shard", "multihost"])
+], ids=["export"])
 def test_waiting_flags_exit_1_naming_why(capsys, extra, reason):
     """Accepted by the parser, then refused before any file is read (the
     model path does not exist), naming the reason."""

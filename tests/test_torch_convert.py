@@ -10,8 +10,9 @@ tokenizer.model, and a Meta checkpoint in two consolidated.NN.pth shards.
 The port's GGCC / GGJT files are byte for byte the JAX converters' at f16
 and f32. A bf16 safetensors checkpoint (which the JAX converters cannot
 read) converts to the bytes the JAX converter writes from the same bf16
-weights saved as pytorch_model.bin. A Falcon PEFT adapter converts to the
-JAX converter's ggla bytes; a LLaMA one exits 1 naming why. In a process
+weights saved as pytorch_model.bin. A Falcon-7B PEFT adapter converts,
+given its base's config.json, to the JAX converter's ggla bytes (grouped-query
+and LLaMA adapters: tests/test_torch_convert_lora.py). In a process
 where `safetensors` and `transformers` cannot be imported (the card's
 installation) the port converts a bf16 checkpoint and an adapter written by
 utils/synthetic.py. The reader gives the safetensors package's arrays, and
@@ -212,9 +213,11 @@ def test_falcon_peft_adapter_gives_the_jax_bytes(tmp_path):
     tensors = safetensors.load_file(st / "adapter_model.safetensors")
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in tensors.items()},
                str(binary / "adapter_model.bin"))
+    base = tmp_path / "config.json"  # a multi-query base: query_key_value rows kept
+    base.write_text(json.dumps(synthetic.hf_config(FalconHParams.tiny(), True)))
     for d in (st, binary):
         ref = jlora.convert(str(d), str(tmp_path / "jax.ggla"))
-        got = convert_lora.convert(str(d), str(tmp_path / "port.ggla"))
+        got = convert_lora.convert(str(d), str(tmp_path / "port.ggla"), base=str(base))
         assert _same_bytes(got, ref), d
     lf = read_lora(got)
     assert (lf.r, lf.alpha) == (4, 8) and set(lf.tensors) == set(FALCON_TARGETS)
@@ -223,19 +226,6 @@ def test_falcon_peft_adapter_gives_the_jax_bytes(tmp_path):
         lf.tensors[name]["loraB"],
         tensors["base_model.model.transformer.h.1.mlp.dense_4h_to_h.lora_B.weight"])
     assert lf.shape(name) == (128, 512)
-
-
-def test_llama_peft_adapter_exits_1(tmp_path, capsys):
-    """A LLaMA adapter's names and q / k rows need the model converter's
-    mapping and permute_rope: main exits 1 saying so, writing nothing."""
-    d = tmp_path / "llama_peft"
-    synthetic.write_peft_adapter(d, {"model.layers.0.self_attn.q_proj.weight": (128, 128)},
-                                 dtype="F32")
-    out = tmp_path / "out.ggla"
-    assert convert_lora.main([str(d), str(out)]) == 1
-    err = capsys.readouterr().err
-    assert "permute_rope" in err and "model.layers.0.self_attn.q_proj" in err
-    assert not out.exists()
 
 
 def test_converter_mains(ckpts, tmp_path, capsys):
@@ -321,14 +311,14 @@ def test_conversion_without_safetensors_or_transformers(tmp_path):
     synthetic.write_hf_model(hf, FalconHParams.tiny(), seed=2)
     synthetic.write_peft_adapter(peft, FALCON_TARGETS, seed=4)
     convert_hf.convert(str(hf), str(tmp_path / "ref.ggcc"), "f16", log=_quiet)
-    convert_lora.convert(str(peft), str(tmp_path / "ref.ggla"))
+    convert_lora.convert(str(peft), str(tmp_path / "ref.ggla"), base=str(hf))
     code = (
         "import sys\n"
         "sys.modules['safetensors'] = sys.modules['transformers'] = None\n"
         "from ggllm_tpu_torch.io import convert_hf, convert_lora\n"
         f"convert_hf.convert({str(hf)!r}, {str(tmp_path / 'got.ggcc')!r}, 'f16',"
         " log=lambda *a: None)\n"
-        f"convert_lora.convert({str(peft)!r}, {str(tmp_path / 'got.ggla')!r})\n"
+        f"convert_lora.convert({str(peft)!r}, {str(tmp_path / 'got.ggla')!r}, base={str(hf)!r})\n"
         "assert sys.modules['safetensors'] is None\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)
     assert _same_bytes(tmp_path / "got.ggcc", tmp_path / "ref.ggcc")
