@@ -168,7 +168,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the tile, flash_mqa.tc, flash_decode_tc and flash_decode.mha launched on
      the ranks; and one NCCL rank (Falcon-7B Q4_0, 32 layers) whose captured
      decode graph, all-reduces inside, gives the single process's 64 greedy
-     ids exactly, its tok/s beside the single process's;
+     ids exactly, its tok/s beside the single process's; then the fallback
+     tree and the data axis on the same ranks (phase_gspmd: Falcon-7B Q4_0
+     with an r 16 adapter at 32 layers, dequant and Falcon-40B Q4_K / Q6_K
+     at 4 layers, a data 2 x model 1 batcher, held as above; the NCCL rank's
+     fallback decode graph = its eager ids; the kernels at every shard shape
+     the ranks held); and the training demo (phase_train: tools/train_demo.py
+     on README.md, 200 Adam and 20 L-BFGS steps, the loss falling, gradients
+     against the CPU's, the trained file's greedy ids through flash_mqa.f32
+     and flash_decode.f32 held to the plain versions);
   4. write small files with the port's writers (Falcon GGCC: Q4_0 7B-style;
      Q4_K, Q2_K and Q3_K 40B-style; LLaMA GGJT: Q4_0 and Q4_K) and run the
      CLI on each, all at once, the Q3_K and the LLaMA Q4_K file with
@@ -193,6 +201,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3125,6 +3134,33 @@ def _write_tree_file(path: str, params: dict, hp) -> None:
     w.close()
 
 
+def _quant_kernels(torch, shapes, what: str) -> dict:
+    """Each quantized shard shape (gtype, O, K) through the quant_matmul
+    kernels against the plain version: the GEMV (S = 1), the rows kernel
+    (S = 2) and the tile (S = 300), at TOL of max |plain| as phase 2. The
+    checks' launches are not the paths' and leave the counts as they were."""
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.utils.benchgen import random_quant
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst, before = {}, dict(build.launch_counts)
+    for gt, O, K in sorted(shapes):
+        w = random_quant(GGMLType(gt), O, K, gen, "cuda")
+        for S in (1, 2, 300):
+            x = torch.randn(S, K, generator=gen, device="cuda").to(torch.bfloat16)
+            name = f"{GGMLType(gt).name} O={O} K={K} S={S} ({qm.route(S, x.dtype, w.gtype)})"
+            _, worst[name] = check(name, qm.quant_matmul(w, x, torch.float32),
+                                   qm.quant_matmul_plain(w, x, torch.float32))
+        del w
+    log(f"  quant_matmul at {what} against the plain version: worst"
+        f" {max(worst.values()):.3e} of max |plain| (TOL {TOL}) over {len(worst)} cases")
+    for k in set(build.launch_counts) | set(before):
+        build.launch_counts[k] = before.get(k, 0)
+    return worst
+
+
 SHARDS = {  # model -> (format, the TP x2 blocks' (O, K), (H, KV, D) of a rank)
     "falcon7b": ("q4_0", [(11520, 4544), (4544, 11392)], (36, 1, 64)),
     "falcon40b": ("q4_k", [(4608, 8192), (16384, 8192), (8192, 20480)], (64, 4, 64)),
@@ -3135,42 +3171,36 @@ SHARDS = {  # model -> (format, the TP x2 blocks' (O, K), (H, KV, D) of a rank)
 def _shard_kernels(torch) -> dict:
     """Every kernel of the sharded paths at a rank's shard shapes (two
     ranks) against its plain version, before the paths rely on them: the
-    format's GEMV (S = 1), the rows kernel (S = 2) and the tile (S = 300) at
-    each block; flash_mqa at the rank's heads (300 positions); flash_decode
-    at them (valid 300). Held at TOL of max |plain|, as phase 2."""
+    quant_matmul kernels at each block (_quant_kernels); flash_mqa at the
+    rank's heads (300 positions); flash_decode at them (valid 300). Held at
+    TOL of max |plain|, as phase 2."""
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.kernels import build
-    from ggllm_tpu_torch.kernels import quant_matmul as qm
     from ggllm_tpu_torch.kernels.flash_attention import flash_mqa, flash_mqa_plain
     from ggllm_tpu_torch.kernels.flash_decode import flash_decode, flash_decode_plain
-    from ggllm_tpu_torch.utils.benchgen import random_quant
 
+    worst = _quant_kernels(torch, {(int(GGMLType[fmt.upper()]), O, K)
+                                   for fmt, blocks, _ in SHARDS.values() for O, K in blocks},
+                           "the TP shard shapes")
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16 = torch.bfloat16
-    worst, before = {}, dict(build.launch_counts)
-    for model, (fmt, blocks, (H, KV, D)) in SHARDS.items():
-        for O, K in blocks:
-            w = random_quant(GGMLType[fmt.upper()], O, K, gen, "cuda")
-            for S in (1, 2, 300):
-                x = torch.randn(S, K, generator=gen, device="cuda").to(bf16)
-                name = f"{model} {fmt} O={O} K={K} S={S} ({qm.route(S, bf16, w.gtype)})"
-                _, worst[name] = check(name, qm.quant_matmul(w, x, torch.float32),
-                                       qm.quant_matmul_plain(w, x, torch.float32))
+    attn, before = {}, dict(build.launch_counts)
+    for model, (_, _, (H, KV, D)) in SHARDS.items():
         T = 512
         q = torch.randn(1, 300, H, D, generator=gen, device="cuda").to(bf16)
         k, v = (torch.randn(1, T, KV, D, generator=gen, device="cuda").to(bf16) for _ in "kv")
         name = f"{model} flash_mqa H={H} KV={KV} D={D}"
-        _, worst[name] = check(name, flash_mqa(q, k, v, 0), flash_mqa_plain(q, k, v, 0))
+        _, attn[name] = check(name, flash_mqa(q, k, v, 0), flash_mqa_plain(q, k, v, 0))
         kv = torch.randn(1, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
         q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
         name = f"{model} flash_decode H={H} KV={KV} D={D} valid 300"
-        _, worst[name] = check(name, flash_decode(kv, KV, 0, q1, 299),
-                               flash_decode_plain(kv, KV, 0, q1, 299))
-    log(f"  kernels at the shard shapes against their plain versions: worst"
-        f" {max(worst.values()):.3e} of max |plain| (TOL {TOL}) over {len(worst)} cases")
+        _, attn[name] = check(name, flash_decode(kv, KV, 0, q1, 299),
+                              flash_decode_plain(kv, KV, 0, q1, 299))
+    log(f"  attention kernels at the ranks' heads against their plain versions: worst"
+        f" {max(attn.values()):.3e} of max |plain| (TOL {TOL}) over {len(attn)} cases")
     for k in set(build.launch_counts) | set(before):  # checks are not the paths' launches
         build.launch_counts[k] = before.get(k, 0)
-    return worst
+    return {**worst, **attn}
 
 
 def _forced_steps(eng1, prompt, ids: list, rel_tol: float) -> dict:
@@ -3197,15 +3227,19 @@ def _forced_steps(eng1, prompt, ids: list, rel_tol: float) -> dict:
 
 
 def _mg_rank(path: str, mp: int, devices: list, kv_shard: str, prompt: list, n_ids: int,
-             rows: list | None = None, eager_too: bool = False) -> dict:
-    """A rank's part of phase_multi_gpu (run by parallel/mesh.py RankPool):
-    the file loaded under a `mp`-rank mesh (this rank's blocks, or the
+             rows: list | None = None, eager_too: bool = False, data: int = 1,
+             cfg_kw: dict | None = None, lora: str | None = None) -> dict:
+    """A rank's part of phase_multi_gpu and phase_gspmd (run by
+    parallel/mesh.py RankPool): the file (with the adapter `lora`) loaded
+    under a data x mp mesh (this rank's blocks, its fallback tree, or the
     whole model for kv_shard "sequence"), a prefill of `prompt` and n_ids
     greedy ids (the first from the prefill, then pipelined 16-token chunks),
     and with `rows` two requests through the batcher on a 2-row engine;
     with `eager_too` the same ids again through the eager step body.
     Returns the rank's logits, ids, launch counts, host-staged collectives,
-    load seconds, decode tok/s, peak memory and the cache's local shape."""
+    load seconds, decode tok/s, peak memory, the cache's local shape (and
+    the 2-row engine's local rows), and the (gtype, O, K) of its quantized
+    weights."""
     import numpy as np
     import torch
 
@@ -3218,12 +3252,16 @@ def _mg_rank(path: str, mp: int, devices: list, kv_shard: str, prompt: list, n_i
     from ggllm_tpu_torch.parallel import comm
     from ggllm_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(1, mp, devices=devices)
+    from ggllm_tpu_torch.ops.linear import QuantTensor
+
+    mesh = make_mesh(data, mp, devices=devices)
     dev = mesh.device
-    cfg = EngineConfig(kv_shard=kv_shard)
+    cfg = EngineConfig(kv_shard=kv_shard, **(cfg_kw or {}))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    mf, params = load_model(path, cfg, mesh=mesh)
+    with warnings.catch_warnings():  # an adapter on quantized weights without a base
+        warnings.simplefilter("ignore")
+        mf, params = load_model(path, cfg, mesh=mesh, lora=lora)
     torch.cuda.synchronize(dev)
     load_s = time.perf_counter() - t0
     eng = FalconEngine(mf.hparams, params, cfg, mesh=mesh)
@@ -3254,27 +3292,86 @@ def _mg_rank(path: str, mp: int, devices: list, kv_shard: str, prompt: list, n_i
            "tok_s": (n_ids - 1) / decode_s, "load_s": load_s,
            "graph": eng.chunk_graph(16, greedy) is not None,
            "kv_shape": list((eng.kv[0] if isinstance(eng.kv, tuple) else eng.kv).shape),
-           "kv_T": eng.kv_T}
+           "kv_T": eng.kv_T, "split": eng.split is not None,
+           "quant_shapes": sorted({(int(m.gtype), *m.shape) for m in eng.model.modules()
+                                   if isinstance(m, QuantTensor)})}
     if rows:
         eng2 = FalconEngine(mf.hparams, params, cfg, batch_size=2, mesh=mesh)
         b = ContinuousBatcher(eng2, chunk=16)
         reqs = [b.submit(Request(list(p), n_predict=16)) for p in rows]
         b.run()
-        out["rows"] = [r.out for r in reqs]
+        out["rows"], out["rows_local"] = [r.out for r in reqs], eng2.rows
     out["launches"] = dict(build.launch_counts)
     out["staged"] = dict(comm.STAGED)
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     return out
 
 
-def phase_multi_gpu(torch) -> dict:
+def _add_launches(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _need(label: str, counts: dict, names: list) -> None:
+    """Fail unless each kernel counter in names launched on the ranks."""
+    missing = [n for n in names if counts.get(n, 0) <= 0]
+    if missing:
+        raise RuntimeError(f"{label}: {missing} not launched on the ranks: {counts}")
+
+
+GLOO_RATE = "two ranks sharing one card over host-staged gloo collectives, eager decode: not a multi-card rate"
+
+
+def _held_on_ranks(label, res, eng1, prompt, n_ids, failures: list, total: dict,
+                   how=GLOO_RATE) -> dict:
+    """The ranks' results of one sharded path held to the single process
+    (eng1): every rank's n_ids ids equal; rank 0's prefill and decode-step
+    logits within LOGIT_TOL of eng1's, its ids within ROWS_LOGIT_TOL of
+    eng1's S = 1 steps with the ids forced. A miss goes to `failures` (the
+    phase fails at its end, after its other paths); launches add to total."""
+    import numpy as np
+
+    r0 = res[0]
+    if any(r["ids"] != r0["ids"] for r in res) or len(r0["ids"]) != n_ids:
+        raise RuntimeError(f"{label}: ranks disagree or short: {[r['ids'][:8] for r in res]}")
+    eng1.reset()
+    ref = eng1.eval(prompt)
+    ref_step = eng1.eval([r0["ids"][0]])
+    rel = float(np.abs(r0["logits"] - ref).max() / np.abs(ref).max())
+    rel_step = float(np.abs(r0["step"] - ref_step).max() / np.abs(ref_step).max())
+    tf = _forced_steps(eng1, prompt, r0["ids"], ROWS_LOGIT_TOL)
+    log(f"  {label}: prefill logits {rel:.3e}, a decode step's {rel_step:.3e} of max |logit|"
+        f" from the single process's; ids forced through its decode steps: worst"
+        f" {tf['worst']:.3f} of ROWS_LOGIT_TOL at step {tf['worst_step']}, not the argmax at"
+        f" {tf['not_argmax']}")
+    if (not np.isfinite(r0["logits"]).all() or rel > LOGIT_TOL or rel_step > LOGIT_TOL
+            or tf["worst"] >= 1):
+        failures.append(f"{label}: prefill logits {rel:.3e}, a step's {rel_step:.3e} of"
+                        f" max |logit| (limit {LOGIT_TOL}), forced ids worst"
+                        f" {tf['worst']:.3f} (limit 1)")
+    for r in res:
+        _add_launches(total, r["launches"])
+    staged = sum(sum(r["staged"].values()) for r in res)
+    log(f"  {label}: {n_ids} ids equal on {len(res)} ranks; load"
+        f" {[round(r['load_s'], 2) for r in res]} s; peak"
+        f" {[round(r['peak_gib'], 2) for r in res]} GiB; {staged} collectives staged through"
+        f" host memory; {r0['tok_s']:.2f} tok/s ({how})")
+    return {"logit_rel_err": rel, "step_logit_rel_err": rel_step,
+            "forced_worst": tf["worst"], "tok_s": r0["tok_s"], "tok_s_is": how,
+            "load_s": [r["load_s"] for r in res],
+            "peak_gib": [r["peak_gib"] for r in res], "staged": staged,
+            "launches_rank0": r0["launches"]}
+
+
+def phase_multi_gpu(torch, d: str, pool, one) -> tuple[dict, str]:
     """Multi-GPU on torch.distributed (parallel/): the card is one H100, so
     two ranks share cuda:0 over a gloo group (collectives staged through
     host memory, counted; decode runs the eager step body) and show that the
     sharded arithmetic and the kernels at shard shapes are right, and one
     NCCL rank shows the decode graph captured with its all-reduces inside.
     Ranks are parallel/mesh.py RankPool processes (the kernels already
-    built). Paths, from GGCC / GGJT files written from seeded random trees:
+    built): `pool`, two gloo ranks on cuda:0, and `one`, one NCCL rank, both
+    shared with phase_gspmd; the files go to the work directory d. Paths, from GGCC / GGJT files written from seeded random trees:
     tensor-parallel Falcon-7B Q4_0, 32 layers (prefill 300 tokens, 64 greedy
     ids, 2 requests through a 2-row batcher); tensor-parallel Falcon-40B
     Q4_K and LLaMA-7B Q4_0 (n_rot 128) cut to 4 layers (prefill, 16 ids);
@@ -3298,7 +3395,6 @@ def phase_multi_gpu(torch) -> dict:
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.io.loader import load_model
     from ggllm_tpu_torch.ops.sampling import SamplerParams
-    from ggllm_tpu_torch.parallel.mesh import RankPool
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
 
     rng = np.random.default_rng(5)
@@ -3310,142 +3406,347 @@ def phase_multi_gpu(torch) -> dict:
     gloo = ["cuda:0", "cuda:0"]
 
     def add(counts):
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
+        _add_launches(total, counts)
 
-    def held(label, res, eng1, n_ids, how="two ranks sharing one card over host-staged gloo"
-             " collectives, eager decode: not a multi-card rate"):
-        r0 = res[0]
-        if any(r["ids"] != r0["ids"] for r in res) or len(r0["ids"]) != n_ids:
-            raise RuntimeError(f"{label}: ranks disagree or short: {[r['ids'][:8] for r in res]}")
-        eng1.reset()
-        ref = eng1.eval(prompt)
-        ref_step = eng1.eval([r0["ids"][0]])
-        rel = float(np.abs(r0["logits"] - ref).max() / np.abs(ref).max())
-        rel_step = float(np.abs(r0["step"] - ref_step).max() / np.abs(ref_step).max())
-        tf = _forced_steps(eng1, prompt, r0["ids"], ROWS_LOGIT_TOL)
-        log(f"  {label}: prefill logits {rel:.3e}, a decode step's {rel_step:.3e} of max |logit|"
-            f" from the single process's; ids forced through its decode steps: worst"
-            f" {tf['worst']:.3f} of ROWS_LOGIT_TOL at step {tf['worst_step']}, not the argmax at"
-            f" {tf['not_argmax']}")
-        if (not np.isfinite(r0["logits"]).all() or rel > LOGIT_TOL or rel_step > LOGIT_TOL
-                or tf["worst"] >= 1):  # the phase fails at its end, after the other paths
-            failures.append(f"{label}: prefill logits {rel:.3e}, a step's {rel_step:.3e} of"
-                            f" max |logit| (limit {LOGIT_TOL}), forced ids worst"
-                            f" {tf['worst']:.3f} (limit 1)")
-        for r in res:
-            add(r["launches"])
-        staged = sum(sum(r["staged"].values()) for r in res)
-        log(f"  {label}: {n_ids} ids equal on {len(res)} ranks; load"
-            f" {[round(r['load_s'], 2) for r in res]} s; peak"
-            f" {[round(r['peak_gib'], 2) for r in res]} GiB; {staged} collectives staged through"
-            f" host memory; {r0['tok_s']:.2f} tok/s ({how})")
-        return {"logit_rel_err": rel, "step_logit_rel_err": rel_step,
-                "forced_worst": tf["worst"], "tok_s": r0["tok_s"], "tok_s_is": how,
-                "load_s": [r["load_s"] for r in res],
-                "peak_gib": [r["peak_gib"] for r in res], "staged": staged,
-                "launches_rank0": r0["launches"]}
+    def held(label, res, eng1, n_ids, how=GLOO_RATE):
+        return _held_on_ranks(label, res, eng1, prompt, n_ids, failures, total, how)
 
-    def need(label, counts, names):
-        missing = [n for n in names if counts.get(n, 0) <= 0]
-        if missing:
-            raise RuntimeError(f"{label}: {missing} not launched on the ranks: {counts}")
+    need = _need
 
     failures = []
     t_phase = time.perf_counter()
     out["shard_kernels_worst"] = max(_shard_kernels(torch).values())
-    with tempfile.TemporaryDirectory() as d:
-        for model, fmt, n_layer in (("falcon7b", "q4_0", 32), ("falcon40b", "q4_k", 4),
-                                    ("llama7b", "q4_0", 4)):
-            hp = dataclasses.replace(named_hparams(model), n_layer=n_layer)
-            if hp.arch == "llama":  # n_rot = head_dim: the reader's LLaMA test
-                hp.n_rot = hp.head_dim
+    for model, fmt, n_layer in (("falcon7b", "q4_0", 32), ("falcon40b", "q4_k", 4),
+                                ("llama7b", "q4_0", 4)):
+        hp = dataclasses.replace(named_hparams(model), n_layer=n_layer)
+        if hp.arch == "llama":  # n_rot = head_dim: the reader's LLaMA test
+            hp.n_rot = hp.head_dim
+        t0 = time.perf_counter()
+        params = make_bench_params(hp, device="cuda", seed=11, gtype=GGMLType[fmt.upper()])
+        path = str(Path(d) / f"{model}.bin")
+        _write_tree_file(path, params, hp)
+        del params
+        mf, p1 = load_model(path, EngineConfig())
+        eng1 = FalconEngine(mf.hparams, p1, EngineConfig())
+        label = f"{n_layer}-layer {model} {fmt}"
+        log(f"  {label}: file written and the single-process engine loaded in"
+            f" {time.perf_counter() - t0:.1f} s")
+        n_ids = 64 if model == "falcon7b" else 16
+        res = pool.run(_mg_rank, path, 2, gloo, "heads", prompt, n_ids,
+                       rows if model == "falcon7b" else None)
+        out[f"tp2 {label}"] = held(f"tensor-parallel x2 {label}", res, eng1, n_ids)
+        names = ["quant_matmul.tc", "flash_mqa.tc",
+                 "quant_matmul.gemv.kq" if fmt == "q4_k" else "quant_matmul.gemv",
+                 "flash_decode.mha" if hp.arch == "llama" else "flash_decode_tc"]
+        if model == "falcon7b":
+            names.append("quant_matmul.rows")
+            for i, p in enumerate(rows):
+                tf = _teacher_forced(eng1, p, res[0]["rows"][i], ROWS_LOGIT_TOL)
+                log(f"  batcher row {i}: forced worst {tf['worst']:.3f}")
+                if tf["worst"] >= 1 or any(r["rows"] != res[0]["rows"] for r in res):
+                    failures.append(f"batcher row {i}: forced worst {tf['worst']}")
+            log(f"  2-row batcher on the ranks: ids equal on both, within"
+                f" ROWS_LOGIT_TOL of the single process with the ids forced")
+        need(label, res[0]["launches"], names)
+        if model == "falcon7b":
+            res = pool.run(_mg_rank, path, 2, gloo, "sequence", prompt, 32)
+            out[f"sp2 {label}"] = held(f"sequence-parallel x2 {label}", res, eng1, 32)
+            if any(r["kv_shape"][3] * 2 != r["kv_T"] for r in res):
+                raise RuntimeError(f"sequence-parallel cache {res[0]['kv_shape']}")
+            need(label + " sequence", res[0]["launches"],
+                 ["quant_matmul.tc", "quant_matmul.gemv"])
+        if model == "falcon7b":
+            # the single process's greedy ids through its decode graphs
+            eng1.eval(prompt[:8])  # warm-up: the greedy chunk's capture
+            greedy = SamplerParams(temp=0.0, repeat_penalty=1.0)  # pure argmax
+            eng1.decode_chunk(1, 16, greedy)
+            eng1.reset()
+            first = int(np.argmax(eng1.eval(prompt)))
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params = make_bench_params(hp, device="cuda", seed=11, gtype=GGMLType[fmt.upper()])
-            path = str(Path(d) / f"{model}.bin")
-            _write_tree_file(path, params, hp)
-            del params
-            mf, p1 = load_model(path, EngineConfig())
-            eng1 = FalconEngine(mf.hparams, p1, EngineConfig())
-            label = f"{n_layer}-layer {model} {fmt}"
-            log(f"  {label}: file written and the single-process engine loaded in"
-                f" {time.perf_counter() - t0:.1f} s")
-            n_ids = 64 if model == "falcon7b" else 16
-            with RankPool(2, gloo) as pool:
-                res = pool.run(_mg_rank, path, 2, gloo, "heads", prompt, n_ids,
-                               rows if model == "falcon7b" else None)
-                out[f"tp2 {label}"] = held(f"tensor-parallel x2 {label}", res, eng1, n_ids)
-                names = ["quant_matmul.tc", "flash_mqa.tc",
-                         "quant_matmul.gemv.kq" if fmt == "q4_k" else "quant_matmul.gemv",
-                         "flash_decode.mha" if hp.arch == "llama" else "flash_decode_tc"]
-                if model == "falcon7b":
-                    names.append("quant_matmul.rows")
-                    for i, p in enumerate(rows):
-                        tf = _teacher_forced(eng1, p, res[0]["rows"][i], ROWS_LOGIT_TOL)
-                        log(f"  batcher row {i}: forced worst {tf['worst']:.3f}")
-                        if tf["worst"] >= 1 or any(r["rows"] != res[0]["rows"] for r in res):
-                            failures.append(f"batcher row {i}: forced worst {tf['worst']}")
-                    log(f"  2-row batcher on the ranks: ids equal on both, within"
-                        f" ROWS_LOGIT_TOL of the single process with the ids forced")
-                need(label, res[0]["launches"], names)
-                if model == "falcon7b":
-                    res = pool.run(_mg_rank, path, 2, gloo, "sequence", prompt, 32)
-                    out[f"sp2 {label}"] = held(f"sequence-parallel x2 {label}", res, eng1, 32)
-                    if any(r["kv_shape"][3] * 2 != r["kv_T"] for r in res):
-                        raise RuntimeError(f"sequence-parallel cache {res[0]['kv_shape']}")
-                    need(label + " sequence", res[0]["launches"],
-                         ["quant_matmul.tc", "quant_matmul.gemv"])
-            if model == "falcon7b":
-                # the single process's greedy ids through its decode graphs
-                eng1.eval(prompt[:8])  # warm-up: the greedy chunk's capture
-                greedy = SamplerParams(temp=0.0, repeat_penalty=1.0)  # pure argmax
-                eng1.decode_chunk(1, 16, greedy)
-                eng1.reset()
-                first = int(np.argmax(eng1.eval(prompt)))
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ids, _ = eng1.decode_pipelined(first, 63, 16, greedy,
-                                               last_tokens=prompt + [first])
-                single_tps = 63 / (time.perf_counter() - t0)
-                own = [first] + [int(t) for t in ids]
-                with RankPool(1, ["cuda:0"]) as pool:
-                    res = pool.run(_mg_rank, path, 1, ["cuda:0"], "heads", prompt, 64)[0]
-                add(res["launches"])
-                if res["ids"] != own or not res["graph"] or res["staged"]:
-                    raise RuntimeError(f"one NCCL rank: ids equal {res['ids'] == own}, graph"
-                                       f" {res['graph']}, staged {res['staged']}")
-                need("one NCCL rank", res["launches"], ["quant_matmul.gemv", "flash_decode_tc"])
-                out["nccl1"] = {"tok_s": res["tok_s"], "single_tok_s": single_tps,
-                                "load_s": res["load_s"], "peak_gib": res["peak_gib"]}
-                log(f"  one NCCL rank, 32-layer falcon7b q4_0: 64 greedy ids through the"
-                    f" captured decode graph (all-reduces inside) = the single process's;"
-                    f" {res['tok_s']:.2f} tok/s beside {single_tps:.2f} tok/s single-process"
-                    f" (the same call); load {res['load_s']:.2f} s")
-                # the sequence-parallel engine under NCCL (mp 1 still runs
-                # parallel/sp.py SpModel): its decode graph holds the cache
-                # window's masked write and merged_attention's pmax and psums
-                with RankPool(1, ["cuda:0"]) as pool:
-                    sp1 = pool.run(_mg_rank, path, 1, ["cuda:0"], "sequence", prompt, 32,
-                                   eager_too=True)[0]
-                out["nccl1 sequence"] = held("one NCCL rank sequence-parallel", [sp1], eng1, 32,
-                                             "one NCCL rank, decode graph")
-                if sp1["ids"] != sp1["eager_ids"] or not sp1["graph"] or sp1["staged"]:
-                    raise RuntimeError(f"one NCCL rank sequence-parallel: graph ids = eager ids"
-                                       f" {sp1['ids'] == sp1['eager_ids']}, graph"
-                                       f" {sp1['graph']}, staged {sp1['staged']}")
-                need("one NCCL rank sequence-parallel", sp1["launches"],
-                     ["quant_matmul.gemv", "quant_matmul.tc"])
-                out["nccl1 sequence"]["ids_equal_single"] = sp1["ids"] == own[:32]
-                log(f"  one NCCL rank sequence-parallel: 32 greedy ids through the captured"
-                    f" decode graph = its eager step body's; equal to the single process's"
-                    f" graph ids: {sp1['ids'] == own[:32]}")
-            del eng1, p1
-            gc.collect()
-            torch.cuda.empty_cache()
+            ids, _ = eng1.decode_pipelined(first, 63, 16, greedy,
+                                           last_tokens=prompt + [first])
+            single_tps = 63 / (time.perf_counter() - t0)
+            own = [first] + [int(t) for t in ids]
+            res = one.run(_mg_rank, path, 1, ["cuda:0"], "heads", prompt, 64)[0]
+            add(res["launches"])
+            if res["ids"] != own or not res["graph"] or res["staged"]:
+                raise RuntimeError(f"one NCCL rank: ids equal {res['ids'] == own}, graph"
+                                   f" {res['graph']}, staged {res['staged']}")
+            need("one NCCL rank", res["launches"], ["quant_matmul.gemv", "flash_decode_tc"])
+            out["nccl1"] = {"tok_s": res["tok_s"], "single_tok_s": single_tps,
+                            "load_s": res["load_s"], "peak_gib": res["peak_gib"]}
+            log(f"  one NCCL rank, 32-layer falcon7b q4_0: 64 greedy ids through the"
+                f" captured decode graph (all-reduces inside) = the single process's;"
+                f" {res['tok_s']:.2f} tok/s beside {single_tps:.2f} tok/s single-process"
+                f" (the same call); load {res['load_s']:.2f} s")
+            # the sequence-parallel engine under NCCL (mp 1 still runs
+            # parallel/sp.py SpModel): its decode graph holds the cache
+            # window's masked write and merged_attention's pmax and psums
+            sp1 = one.run(_mg_rank, path, 1, ["cuda:0"], "sequence", prompt, 32,
+                          eager_too=True)[0]
+            out["nccl1 sequence"] = held("one NCCL rank sequence-parallel", [sp1], eng1, 32,
+                                         "one NCCL rank, decode graph")
+            if sp1["ids"] != sp1["eager_ids"] or not sp1["graph"] or sp1["staged"]:
+                raise RuntimeError(f"one NCCL rank sequence-parallel: graph ids = eager ids"
+                                   f" {sp1['ids'] == sp1['eager_ids']}, graph"
+                                   f" {sp1['graph']}, staged {sp1['staged']}")
+            need("one NCCL rank sequence-parallel", sp1["launches"],
+                 ["quant_matmul.gemv", "quant_matmul.tc"])
+            out["nccl1 sequence"]["ids_equal_single"] = sp1["ids"] == own[:32]
+            log(f"  one NCCL rank sequence-parallel: 32 greedy ids through the captured"
+                f" decode graph = its eager step body's; equal to the single process's"
+                f" graph ids: {sp1['ids'] == own[:32]}")
+        if model == "falcon7b":  # phase_gspmd reads the 32-layer file
+            path7b = path
+        else:
+            os.remove(path)
+        del eng1, p1
+        gc.collect()
+        torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  (the multi-GPU phase took {out['seconds']:.1f} s)")
     if failures:
         raise RuntimeError("multi-GPU phase: " + "; ".join(failures))
+    return out, path7b
+
+
+def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
+    """The fallback tree (parallel/sharding.py, io/loader.py _load_split,
+    models/falcon.py SplitFalcon) and the data axis, on two gloo ranks
+    sharing cuda:0 as phase_multi_gpu runs them (collectives staged through
+    host memory, eager decode), from files written from seeded random trees:
+    (a) Falcon-7B Q4_0, 32 layers, with an r 16 adapter on query_key_value
+    and dense_4h_to_h (phase_lora's) at mp 2; (b) Falcon-7B Q4_0 at 4 layers
+    under weight_mode "dequant" at mp 2; (c) Falcon-40B at 4 layers with
+    Q4_K wqkv / ffn_up and Q6_K wo / ffn_down at mp 2; (d) a data 2 x model
+    1 mesh over (b)'s file, fused, with two requests through a 2-row
+    batcher (a row a rank). Each held as phase_multi_gpu's paths: every
+    rank's 16 ids equal, rank 0's prefill (300 tokens) and decode-step
+    logits within LOGIT_TOL of the single process's on the same weights
+    (the adapter, dequant), its ids within ROWS_LOGIT_TOL with the ids forced
+    through the single process's S = 1 steps, (d)'s batched ids forced
+    through its prefill. The GEMV (.kq for 40B), the tile, flash_mqa.tc and
+    flash_decode_tc must launch on the ranks (under dequant no quantized
+    weight is left: the attention kernels). `pool` (the two gloo ranks),
+    `one` (one NCCL rank) and the work directory d are phase_multi_gpu's,
+    and `path` is the 32-layer Falcon-7B Q4_0 file it returns.
+    The NCCL rank on (b)'s tree captures the fallback model's decode in a
+    graph whose ids equal its eager step body's. Then every quantized shard
+    shape the ranks held through the kernels against the plain version. Each
+    file is removed once its paths are done."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.lora import write_lora
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    rng = np.random.default_rng(5)
+    prompt = [int(t) for t in rng.integers(12, 32000, 300)]
+    rows = [prompt[:40], prompt[100:131]]
+    gloo, n_ids = ["cuda:0", "cuda:0"], 16
+    out = {"path": "the fallback tree and the data axis: 2 gloo ranks on one card",
+           "launches": {}, "cuts": ["(b), (d) Falcon-7B and (c) Falcon-40B at 4 layers"]}
+    total, failures, shapes = out["launches"], [], set()
+    t_phase = time.perf_counter()
+
+    def single(path, cfg, lora=None):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            mf, p1 = load_model(path, cfg, lora=lora)
+        return FalconEngine(mf.hparams, p1, cfg)
+
+    def run(label, key, path, eng1, names, **kw):
+        t0 = time.perf_counter()
+        res = pool.run(_mg_rank, path, kw.pop("mp", 2), gloo, "heads", prompt, n_ids, **kw)
+        if not all(r["split"] for r in res):
+            raise RuntimeError(f"{label}: the ranks did not load the fallback tree")
+        out[key] = _held_on_ranks(label, res, eng1, prompt, n_ids, failures, total)
+        _need(label, res[0]["launches"], names)
+        for r in res:
+            shapes.update(tuple(t) for t in r["quant_shapes"])
+        out[key]["seconds"] = time.perf_counter() - t0
+        return res
+
+    hp = named_hparams("falcon7b")
+    t0 = time.perf_counter()
+    ggla = str(Path(d) / "adapter.ggla")
+    lrng, n_qkv = np.random.default_rng(20), (hp.n_head + 2 * hp.n_head_kv) * hp.head_dim
+    write_lora(ggla, 16, 32, {
+        name: {"loraA": (lrng.standard_normal((16, cols)) * 0.03).astype(np.float32),
+               "loraB": (lrng.standard_normal((o, 16)) * 0.03).astype(np.float32)}
+        for i in range(hp.n_layer)
+        for name, (o, cols) in ((f"transformer.h.{i}.self_attention.query_key_value.weight",
+                                 (n_qkv, hp.n_embd)),
+                                (f"transformer.h.{i}.mlp.dense_4h_to_h.weight",
+                                 (hp.n_embd, hp.n_ff)))})
+    eng1 = single(path, EngineConfig(), ggla)
+    log(f"  the adapter for the 32-layer falcon7b q4_0 file written, the single process"
+        f" loaded with it in {time.perf_counter() - t0:.1f} s")
+    run("(a) fallback x2 32-layer falcon7b q4_0 + LoRA r 16", "lora", path, eng1,
+        ["quant_matmul.gemv", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc"],
+        lora=ggla)
+    os.remove(path)
+    del eng1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hp4 = dataclasses.replace(hp, n_layer=4)
+    path4 = str(Path(d) / "falcon7b-4.bin")
+    params = make_bench_params(hp4, device="cuda", seed=13, gtype=GGMLType.Q4_0)
+    _write_params_file(path4, params, hp4)
+    del params
+    dq = {"weight_mode": "dequant"}
+    eng1 = single(path4, EngineConfig(**dq))
+    run("(b) fallback x2 4-layer falcon7b q4_0, weight_mode dequant", "dequant", path4, eng1,
+        ["flash_mqa.tc", "flash_decode_tc"], cfg_kw=dq)
+    # one NCCL rank on the same tree: SplitFalcon's decode captured in a graph
+    r = one.run(_mg_rank, path4, 1, ["cuda:0"], "heads", prompt, n_ids, cfg_kw=dq,
+                eager_too=True)[0]
+    out["nccl1 dequant"] = _held_on_ranks("(b) one NCCL rank, fallback tree", [r], eng1,
+                                          prompt, n_ids, failures, total,
+                                          "one NCCL rank, decode graph")
+    if not (r["split"] and r["graph"] and r["ids"] == r["eager_ids"]) or r["staged"]:
+        raise RuntimeError(f"(b) one NCCL rank: fallback tree {r['split']}, graph {r['graph']},"
+                           f" graph ids = eager ids {r['ids'] == r['eager_ids']}, staged"
+                           f" {r['staged']}")
+    log("  (b) one NCCL rank: the fallback tree's decode captured, its 16 graph ids = its"
+        " eager step body's")
+    eng1 = single(path4, EngineConfig())
+    res = run("(d) data 2 x model 1, 4-layer falcon7b q4_0", "data2", path4, eng1,
+              ["quant_matmul.gemv", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc"],
+              mp=1, data=2, rows=rows)
+    if any(r["rows_local"] != 1 or r["rows"] != res[0]["rows"] for r in res):
+        raise RuntimeError(f"(d): rows a rank {[r['rows_local'] for r in res]}, batched ids"
+                           " differ between the ranks")
+    for i, p in enumerate(rows):
+        tf = _teacher_forced(eng1, p, res[0]["rows"][i], ROWS_LOGIT_TOL)
+        log(f"  (d) batcher row {i} (data row {i}): forced worst {tf['worst']:.3f}")
+        if tf["worst"] >= 1:
+            failures.append(f"(d) batcher row {i}: forced worst {tf['worst']}")
+    os.remove(path4)
+    del eng1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hp40 = dataclasses.replace(named_hparams("falcon40b"), n_layer=4)
+    path40 = str(Path(d) / "falcon40b-mixed.bin")
+    params = make_bench_params(hp40, device="cuda", seed=11, gtype=GGMLType.Q4_K)
+    six = make_bench_params(hp40, device="cuda", seed=12, gtype=GGMLType.Q6_K)
+    for lw, l6 in zip(params["layers"], six["layers"]):
+        lw["w_od"] = l6["w_od"]  # Q6_K wo and ffn_down beside Q4_K wqkv and ffn_up
+    del six
+    _write_tree_file(path40, params, hp40)
+    del params
+    eng1 = single(path40, EngineConfig())
+    run("(c) fallback x2 4-layer falcon40b q4_k / q6_k", "mixed", path40, eng1,
+        ["quant_matmul.gemv.kq", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc"])
+    os.remove(path40)
+    del eng1
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = _quant_kernels(torch, shapes, "the fallback's shard shapes")
+    out["split_kernels_worst"] = max(worst.values())
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  (the fallback phase took {out['seconds']:.1f} s)")
+    if failures:
+        raise RuntimeError("fallback phase: " + "; ".join(failures))
+    return out
+
+
+def phase_train(torch) -> dict:
+    """The training demo (tools/train_demo.py) with its defaults (a 2-layer
+    128-wide Falcon, sequences of 64, batches of 8, lr 3e-3) on the bytes of
+    this repository's README.md, on the card: 200 Adam steps and 20 L-BFGS
+    steps, each loss falling; one step's gradients within 1e-4 of each leaf's
+    largest of the CPU's on the same weights and batch; the written file
+    loaded on the card in f32, 16 greedy ids through the engine's kernels
+    (flash_mqa.f32 and flash_decode.f32 at D = 32 must launch) held to the
+    plain versions with the ids forced within LOGIT_TOL. Prints steps/s and
+    tokens/s of both optimizers."""
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.rope import rope_angles
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.tools import train_demo as demo
+
+    t_phase = time.perf_counter()
+    text = (ROOT / "README.md").read_bytes()
+    hp = FalconHParams(n_vocab=512, n_embd=128, n_head=4, n_head_kv=1, n_layer=2,
+                       n_falcon_type=7, n_bpe_merges=0)
+    seq, batch, out = 64, 8, {"path": "training demo (2-layer 128-wide Falcon) on README.md"}
+    before = dict(build.launch_counts)
+    demo.train(text, hp, 2, seq, batch, device="cuda", log=lambda *a: None)  # warm-up (cuBLAS)
+    for opt, steps in (("adam", 200), ("lbfgs", 20)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = demo.train(text, hp, steps, seq, batch, optimizer=opt, device="cuda",
+                                    log=lambda *a: None)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        head, tail = np.mean(losses[:steps // 10]), np.mean(losses[-(steps // 10):])
+        out[opt] = {"steps": steps, "first_loss": losses[0], "last_loss": losses[-1],
+                    "steps_per_s": steps / s, "tokens_per_s": steps * batch * seq / s}
+        log(f"  {opt}: {steps} steps in {s:.2f} s, {steps / s:.2f} steps/s,"
+            f" {steps * batch * seq / s:.0f} tokens/s (after a 2-step warm-up); loss"
+            f" {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first / last tenth {head:.4f} /"
+            f" {tail:.4f})")
+        if not (np.isfinite(losses).all() and tail < head and losses[-1] < losses[0]):
+            raise RuntimeError(f"{opt}: the loss did not fall: {losses[:3]} ... {losses[-3:]}")
+        if opt == "adam":
+            trained = params
+    if dict(build.launch_counts) != before:
+        raise RuntimeError("a hand kernel launched under autograd")
+    # one step's gradients on the card against the CPU's, same weights and batch
+    data = np.frombuffer(text, dtype=np.uint8).astype(np.int64) + 12
+    starts = np.random.default_rng(9).integers(0, data.size - seq - 1, batch)
+    tokens = torch.from_numpy(np.stack([data[i:i + seq + 1] for i in starts]))
+    inv = torch.from_numpy(rope_angles(EngineConfig().rope, seq, hp.head_dim))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        p = demo.params_from_numpy({k: ({n: t.detach().cpu() for n, t in v.items()} if k == "layers"
+                                        else v.detach().cpu()) for k, v in trained.items()}, dev)
+        with demo.no_tf32():
+            demo.loss_fn(p, tokens.to(dev), hp, inv.to(dev)).backward()
+        grads[dev] = [t.grad.cpu() for t in demo.leaves(p)]
+    grad_rel = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(grads["cuda"], grads["cpu"]))
+    log(f"  one step's gradients on the card against the CPU's: worst {grad_rel:.3e} of a leaf's"
+        f" largest (limit 1e-4)")
+    if not grad_rel < 1e-4:
+        raise RuntimeError(f"training gradients on the card {grad_rel:.3e} from the CPU's")
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "trained.ggcc")
+        demo.save_ggcc(path, hp, trained)
+        cfg = EngineConfig(compute_dtype="float32", kv_dtype="float32")
+        mf, p1 = load_model(path, cfg)
+    eng = FalconEngine(mf.hparams, p1, cfg)
+    plain = FalconEngine(mf.hparams, p1, EngineConfig(compute_dtype="float32",
+                                                      kv_dtype="float32", kernel_layout=False,
+                                                      flash_attention=False))
+    prompt = [c + 12 for c in b"The port "]
+    build.launch_counts.clear()
+    ids = [int(t) for t in eng.generate(prompt, 16, SamplerParams(temp=0.0, repeat_penalty=1.0))]
+    counts = dict(build.launch_counts)
+    tf = _forced_steps(plain, prompt, ids, LOGIT_TOL)
+    log(f"  the trained file on the card (f32): 16 greedy ids {bytes((t - 12) % 256 for t in ids)!r}"
+        f" held to the plain versions with the ids forced: worst {tf['worst']:.3f} of LOGIT_TOL;"
+        f" launches {counts}")
+    if tf["worst"] >= 1 or any(counts.get(k, 0) <= 0 for k in ("flash_mqa.f32", "flash_decode.f32")):
+        raise RuntimeError(f"the trained model: forced worst {tf['worst']}, launches {counts}")
+    out.update(launches=counts, grad_rel_err=grad_rel, forced_worst=tf["worst"],
+               seconds=time.perf_counter() - t_phase)
+    log(f"  (the training phase took {out['seconds']:.1f} s)")
     return out
 
 
@@ -3599,8 +3900,18 @@ def main() -> int:
     paths.append(phase_f32_path(torch, "llama7b"))
     log("  -- falcon7b q4_0, 32 layers, float32")
     paths.append(phase_f32_path(torch, n_layer=32, graphs=False))
-    log("  -- multi-GPU: tensor- and sequence-parallel ranks (parallel/)")
-    paths.append(phase_multi_gpu(torch))
+    from ggllm_tpu_torch.parallel.mesh import RankPool
+
+    # two gloo ranks sharing the card and one NCCL rank, shared by both phases
+    with (tempfile.TemporaryDirectory() as d, RankPool(2, ["cuda:0", "cuda:0"]) as pool,
+          RankPool(1, ["cuda:0"]) as one):
+        log("  -- multi-GPU: tensor- and sequence-parallel ranks (parallel/)")
+        res, path7b = phase_multi_gpu(torch, d, pool, one)
+        paths.append(res)
+        log("  -- the fallback tree and the data axis (parallel/sharding.py)")
+        paths.append(phase_gspmd(torch, d, pool, one, path7b))
+    log("  -- the training demo (tools/train_demo.py)")
+    paths.append(phase_train(torch))
     (out_dir / "chip_smoke_paths.json").write_text(json.dumps({"card": card, "paths": paths},
                                                               indent=1))
 

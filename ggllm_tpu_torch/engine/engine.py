@@ -52,16 +52,26 @@ engine.py:159-218) every rank runs an engine on its own device with the
 same calls, SPMD: cfg.kv_shard "heads" is tensor parallelism (params from
 io/loader.py load_params(mesh=): this rank's weight blocks, the model at its
 local head and FFN counts, the mesh's psum after each layer's output
-projection, a cache of its K/V heads), "sequence" the sequence-parallel
-Falcon of parallel/sp.py (whole weights, the cache's time axis split, kv_T
-a multiple of the ranks). The logits are the same on every rank, and so is
-the device generator (seeded from the sampler's seed, 0 for -1), so every
-rank draws the same ids on the device; the host cascade's draws agree only
-where the ranks' samplers share a seed (the CLI sends rank 0's seed to every
-rank for --seed -1). Under NCCL the decode chunks stay CUDA graphs with the
-collectives inside (one collective runs eagerly at construction, before any
-capture); gloo collectives cannot be captured, so a gloo engine on the card
-decodes through the eager step body and says so once on stderr.
+projection, a cache of its K/V heads) or, for a tree the plan cannot take,
+the fallback tree (params["split"]: models/falcon.py SplitFalcon, each
+weight split as parallel/sharding.py says, the cache's K/V heads split where
+kv_specs splits them); "sequence" the sequence-parallel Falcon of
+parallel/sp.py (whole weights, the cache's time axis split, kv_T a multiple
+of the ranks). Under the fallback tree a mesh's data axis splits a B-row
+engine's rows where kv_specs does (data | B, B >= data): each data row of
+ranks caches and computes its B / data rows ([row0, row0 + rows)), while
+prefill_rows and decode_rows take and return all B rows, gathering the
+logits, ids and mirostat state over the data axis after each call (outside
+any captured graph; every rank draws all B rows' uniforms), and the
+timings count all B rows' tokens, against this rank's time. The logits are
+the same on every rank, and so is the device generator (seeded from the
+sampler's seed, 0 for -1), so every rank draws the same ids on the device;
+the host cascade's draws agree only where the ranks' samplers share a seed
+(the CLI sends rank 0's seed to every rank for --seed -1). Under NCCL the
+decode chunks stay CUDA graphs with the collectives inside (one collective
+runs eagerly at construction, before any capture); gloo collectives cannot
+be captured, so a gloo engine on the card decodes through the eager step
+body and says so once on stderr.
 """
 
 from __future__ import annotations
@@ -69,7 +79,7 @@ from __future__ import annotations
 import sys
 import time
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -204,15 +214,28 @@ class FalconEngine:
         if batch_size < 1:
             raise ValueError(f"batch_size {batch_size}")
         self.batch = batch_size
+        self.rows, self.row0 = batch_size, 0  # this rank's cache rows: [row0, row0 + rows)
         self.nl_token = nl_id(hparams.arch)
-        self.mesh, self.tp_plan, self.sp = mesh, None, 0
+        self.mesh, self.tp_plan, self.sp, self.split = mesh, None, 0, None
         self.st, model_cls = resolve_model(
             hparams, flash=self.cfg.flash_attention is not False,
             kernels=self.cfg.kernel_layout is not False)
+        whole = self.st
         if mesh is not None and self.cfg.kv_shard == "sequence":
             if hparams.arch != "falcon":
                 raise NotImplementedError("sequence-parallel: falcon only")
             self.sp = mesh.model
+        elif mesh is not None and "split" in params:  # the fallback tree (parallel/sharding.py)
+            from ggllm_tpu_torch.parallel import sharding
+
+            self.split = params["split"]
+            rows, heads = sharding.kv_specs(hparams, mesh.model, mesh.data, batch_size)
+            if rows is not None:  # the batch's rows split over the data axis
+                self.rows = batch_size // mesh.data
+                self.row0 = mesh.data_rank * self.rows
+            if heads is not None:
+                self.st = replace(self.st, n_head=self.st.n_head // mesh.model,
+                                  n_head_kv=self.st.n_head_kv // mesh.model)
         elif mesh is not None:
             from ggllm_tpu_torch.parallel.tp import TpPlan
 
@@ -228,7 +251,12 @@ class FalconEngine:
                     f"flash-decode kernels: {st.n_head} heads over {st.n_head_kv} K/V"
                     f" heads, head_dim {st.head_dim}, {self.cfg.kv_dtype} cache: {why}"
                     " (EngineConfig(flash_attention=False) runs the plain attention)")
-        self.model = model_cls(st, params).to(self.device)
+        if self.split is not None:
+            from ggllm_tpu_torch.models.falcon import SplitFalcon
+
+            self.model = SplitFalcon(st, params, self.split, mesh.comm, whole).to(self.device)
+        else:
+            self.model = model_cls(st, params).to(self.device)
         # a gloo mesh on the card: collectives cannot be captured in a graph
         self._eager = (mesh is not None and mesh.backend == "gloo"
                        and self.device.type == "cuda")
@@ -286,7 +314,7 @@ class FalconEngine:
         its kv_T / mp positions (sequence-parallel)."""
         st = self.st
         T = self.kv_T // self.sp if self.sp else self.kv_T
-        shape = (st.n_layer, 2, self.batch, T, st.n_head_kv, st.head_dim)
+        shape = (st.n_layer, 2, self.rows, T, st.n_head_kv, st.head_dim)
         return kvcache.new(shape, self.cfg.kv_dtype, self.device)
 
     @property
@@ -309,6 +337,16 @@ class FalconEngine:
     def _kv_leaves(self, kv) -> tuple:
         return kv if kvcache.is_quantized(kv) else (kv,)
 
+    def _kv_heads(self) -> tuple[int, int] | None:
+        """The K/V heads [h0, h1) this rank's cache holds where a mesh splits
+        them (tensor-parallel GQA, or the fallback tree's K/V split)."""
+        if self.tp_plan is not None and self.tp_plan.KV > 1:
+            return self.tp_plan.kv_heads(self.mesh.rank)
+        if self.split is not None and self.st.n_head_kv != self.hp.n_head_kv:
+            n = self.st.n_head_kv
+            return self.mesh.rank * n, (self.mesh.rank + 1) * n
+        return None
+
     def gather_kv(self, n: int):
         """The cache's first n positions as one whole cache, every K/V head
         and position (a tensor, or the int8 pair): under a mesh gathered from
@@ -317,7 +355,7 @@ class FalconEngine:
         for leaf in self._kv_leaves(self.kv):
             if self.sp:
                 leaf = self.mesh.comm.all_gather(leaf, 3)
-            elif self.tp_plan is not None and self.tp_plan.KV > 1:
+            elif self._kv_heads() is not None:
                 leaf = self.mesh.comm.all_gather(leaf, 4)
             out.append(leaf[:, :, :, :n])
         return tuple(out) if kvcache.is_quantized(self.kv) else out[0]
@@ -331,8 +369,8 @@ class FalconEngine:
             if self.sp:
                 Tl = dst.shape[3]
                 src = src[:, :, :, self.mesh.rank * Tl:(self.mesh.rank + 1) * Tl]
-            elif self.tp_plan is not None and self.tp_plan.KV > 1:
-                h0, h1 = self.tp_plan.kv_heads(self.mesh.rank)
+            elif self._kv_heads() is not None:
+                h0, h1 = self._kv_heads()
                 src = src[:, :, :, :, h0:h1]
             dst[:, :, :, :src.shape[3]] = src.to(dst.device, dst.dtype)
 
@@ -706,8 +744,10 @@ class FalconEngine:
         invariant), as do an admitted row's padding positions past its
         prompt. fetch_rows: only these rows' last logits go to the host
         (None: every row whose prompt ends here). Returns {row: last logits
-        (n_vocab,) f32}."""
-        B, T = self.batch, self.kv_T
+        (n_vocab,) f32}. Where a mesh's data axis splits the rows (the
+        fallback tree's kv_specs) each data row of ranks forwards its own
+        rows and the logits are gathered over the data axis."""
+        B = self.batch
         prompts = [np.asarray(p, dtype=np.int64).reshape(-1) for p in prompts]
         npv = np.asarray(n_past_vec, dtype=np.int64).reshape(-1).copy()
         if npv.shape != (B,) or len(rows) != len(prompts) or len(set(rows)) != len(rows):
@@ -717,7 +757,26 @@ class FalconEngine:
             if not 0 <= row < B or p.size == 0 or npv[row] + p.size > self.cfg.n_ctx:
                 raise ValueError(f"row {row}: {p.size} tokens from n_past {npv[row]}"
                                  f" (context {self.cfg.n_ctx})")
+        if self.rows == B:
+            return self._prefill_rows(rows, prompts, npv, fetch_rows)
+        lo, hi, V = self.row0, self.row0 + self.rows, self.hp.n_vocab
+        mine = [(r - lo, p) for r, p in zip(rows, prompts) if lo <= r < hi]
+        got = self._prefill_rows([r for r, _ in mine], [p for _, p in mine], npv[lo:hi],
+                                 None if fetch_rows is None else [r - lo for r in fetch_rows])
+        # the timings count the whole batch's tokens, as decode_rows's do
+        self.timings.n_prefill += sum(p.size for r, p in zip(rows, prompts) if not lo <= r < hi)
+        buf = torch.zeros(self.rows, V + 1)  # the logits and a "fetched" flag a row
+        for r, lg in got.items():
+            buf[r, :V], buf[r, V] = torch.from_numpy(lg), 1.0
+        every = self.mesh.data_comm.all_gather(buf.to(self.device), 0).cpu().numpy()
+        return {r: every[r, :V] for r in range(B) if every[r, V] > 0}
+
+    def _prefill_rows(self, rows, prompts, npv, fetch_rows) -> dict:
+        """prefill_rows's forwards over this rank's cache rows (checked)."""
+        B, T = self.rows, self.kv_T
         out: dict[int, np.ndarray] = {}
+        if not prompts:
+            return out
         maxlen = max(p.size for p in prompts)
         t0 = time.perf_counter()
         for done in range(0, maxlen, self.cfg.n_batch):
@@ -759,7 +818,7 @@ class FalconEngine:
         buffer and one quantizing per-row write ends the chunk. Reads and
         writes only device tensors: this is what a graph captures. at[0]
         follows the step (for the capture's error message)."""
-        kv, tok, pending, B = self.kv, c.tok, None, self.batch
+        kv, tok, pending, B = self.kv, c.tok, None, self.rows
         if kvcache.is_quantized(kv):  # chunk-deferred: the cache is read-only
             L_, _, _, _, KV, D = kv[0].shape
             pending = torch.zeros(L_, 2, B, n, KV, D, device=self.device,
@@ -832,9 +891,17 @@ class FalconEngine:
         key = sampling_device.RowKey(top_k, rings.shape[1], bias_ids.shape[1], use_miro,
                                      mask_bits is not None)
         c = self._program(("rows", n_steps, key),
-                          lambda: _RowChunk(n_steps, key, B, V, self.device))
+                          lambda: _RowChunk(n_steps, key, self.rows, V, self.device))
         mu = np.full(B, 10.0, np.float32) if mu is None else mu
         generator = generator or torch.Generator(device=self.device).manual_seed(0)
+        u = c.u
+        if self.rows != B:  # this data row's rows; every rank draws all B rows' uniforms
+            lo, hi = self.row0, self.row0 + self.rows
+            toks, npv, rings, fill, bias_ids, bias_vals, mu = (
+                a[lo:hi] for a in (toks, npv, rings, fill, bias_ids, bias_vals, np.asarray(mu)))
+            values = {k: np.asarray(v)[lo:hi] if np.ndim(v) else v for k, v in values.items()}
+            mask_bits = None if mask_bits is None else np.asarray(mask_bits)[lo:hi]
+            u = torch.empty(n_steps, B, device=self.device)
         eager = eager or self._say_eager()
         t_compile = self.timings.t_compile_us
         t0 = time.perf_counter()
@@ -846,15 +913,20 @@ class FalconEngine:
             src = torch.from_numpy(np.ascontiguousarray(src))
             dst.copy_(src.pin_memory() if pin else src, non_blocking=True)
         c.rv.set(values, bias_ids, bias_vals, mu, mask_bits)
-        c.u.uniform_(generator=generator)
+        u.uniform_(generator=generator)
+        if u is not c.u:
+            c.u.copy_(u[:, self.row0:self.row0 + self.rows])
         if eager or not pin:
             self._row_steps(c, n_steps)
         else:
             c.graph.replay()
-        out, us, new_mu = (t.cpu().numpy() for t in (c.out, c.u, c.rv.mu))
+        out, new_mu = c.out, c.rv.mu
+        if self.rows != B:  # every data row's ids and mu
+            out, new_mu = (self.mesh.data_comm.all_gather(t, d) for t, d in ((out, 1), (new_mu, 0)))
+        out, us, new_mu = (t.cpu().numpy() for t in (out, u, new_mu))
         self.timings.t_decode_us += ((time.perf_counter() - t0) * 1e6
                                      - (self.timings.t_compile_us - t_compile))
-        self.timings.n_decode += n_steps * B
+        self.timings.n_decode += n_steps * B  # every rank returns all B rows
         self.last_us = us
         return out, us, new_mu
 

@@ -38,12 +38,13 @@ load_params(..., mesh=) under a tensor-parallel mesh (parallel/mesh.py,
 cfg.kv_shard "heads") builds only this rank's blocks (the JAX loader's
 _try_load_falcon_tp:299 / _try_load_llama_tp:347; parallel/tp.py), each read
 from the memory-mapped file as its rows and block columns, with the
-embeddings, norms and lm_head whole. What the JAX loader sends to its GSPMD
-fallback instead (a LoRA adapter, a layer of mixed quant types or dense
-weights, weight_mode "dequant", a data axis, a plan the heads or blocks do
-not divide) raises, naming ROADMAP.md Queue 1 item 10b. Under a
-sequence-parallel mesh (kv_shard "sequence") every rank loads the whole
-model on its device.
+embeddings, norms and lm_head whole. Where the JAX loader sends a Falcon
+model to its GSPMD fallback instead (a LoRA adapter, a layer of mixed quant
+types or dense weights, weight_mode "dequant", a data axis, a plan the heads
+or blocks do not divide) a rank builds the fallback tree (_load_split: the
+JAX keys, each weight split as parallel/sharding.py says); LLaMA there
+raises with the JAX loader's words. Under a sequence-parallel mesh
+(kv_shard "sequence") every rank loads the whole model on its device.
 
 The .kcache sidecar has no port (a load is a copy).
 """
@@ -287,7 +288,7 @@ def load_params(mf: ModelFile, cfg: EngineConfig | None = None, device=None, lor
     if mesh is not None:
         device = mesh.device
         if cfg.kv_shard != "sequence":
-            return _load_tp(mf, cfg, mesh, lora)
+            return _load_tp(mf, cfg, mesh, lora, lora_base)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.compute_dtype)
     patch = None if lora is None else _lora_patch(mf, lora, lora_base)
@@ -335,10 +336,11 @@ def load_model(path: str, cfg: EngineConfig | None = None, device=None, lora=Non
     return mf, load_params(mf, cfg, device, lora=lora, lora_base=lora_base, mesh=mesh)
 
 
-def _load_tp(mf: ModelFile, cfg: EngineConfig, mesh, lora) -> dict:
-    """This rank's tensor-parallel tree (parallel/tp.py), or a raise naming
-    the GSPMD fallback (ROADMAP.md Queue 1 item 10b) where the JAX loader
-    takes it."""
+def _load_tp(mf: ModelFile, cfg: EngineConfig, mesh, lora, lora_base) -> dict:
+    """This rank's tensor-parallel tree (parallel/tp.py) where the JAX loader
+    takes its TP plan (_try_load_falcon_tp:299), else the fallback tree
+    (_load_split); LLaMA has no fallback and raises with the JAX loader's
+    words (load_params:474-479)."""
     from ggllm_tpu_torch.parallel import tp
 
     hp, device = mf.hparams, mesh.device
@@ -347,11 +349,11 @@ def _load_tp(mf: ModelFile, cfg: EngineConfig, mesh, lora) -> dict:
            else f"weight_mode {cfg.weight_mode!r}" if cfg.weight_mode != "fused" else None)
     try:
         if why is not None:
-            raise NotImplementedError(f"{why}; {tp.ITEM_10B}")
+            raise NotImplementedError(why)
         try:
             plan = tp.TpPlan(hp, mesh.model)
         except ValueError as e:
-            raise NotImplementedError(f"{e}; {tp.ITEM_10B}") from None
+            raise NotImplementedError(str(e)) from None
         dtype = getattr(torch, cfg.compute_dtype)
 
         def vec(name):
@@ -377,11 +379,9 @@ def _load_tp(mf: ModelFile, cfg: EngineConfig, mesh, lora) -> dict:
             params.update(output_norm=vec("transformer.ln_f.weight"),
                           output_norm_b=vec("transformer.ln_f.bias"),
                           lm_head=_load_matrix(mf, "lm_head.weight", dtype, device), layers=[])
-            norms = (("input_ln_w", "input_ln_b", "attn_ln_w", "attn_ln_b")
-                     if hp.n_falcon_type >= 40 else ("input_ln_w", "input_ln_b"))
             for i in range(hp.n_layer):
                 names = _layer_names(hp, i)
-                lw = {k: vec(names[k]) for k in norms}
+                lw = {k: vec(names[k]) for k in _falcon_norms(hp)}
                 params["layers"].append(blocks(lw, tp.falcon_layer(
                     mf, names, plan, mesh.rank, merge_up=hp.n_falcon_type < 40)))
         return params
@@ -390,7 +390,117 @@ def _load_tp(mf: ModelFile, cfg: EngineConfig, mesh, lora) -> dict:
             raise NotImplementedError(
                 "multi-chip LLaMA needs the TP plan (uniform quant type, mp | n_head, no LoRA,"
                 f" no data axis): {e}") from None
-        raise
+    patch = None if lora is None else _lora_patch(mf, lora, lora_base)
+    return _load_split(mf, cfg, mesh, patch)
+
+
+def _falcon_norms(hp) -> tuple:
+    return (("input_ln_w", "input_ln_b", "attn_ln_w", "attn_ln_b") if hp.n_falcon_type >= 40
+            else ("input_ln_w", "input_ln_b"))
+
+
+# the fallback tree's keys: (file matrix, rows of it: q, k, v or all)
+SPLIT_KEYS = {"wq": ("qkv", "q"), "wk": ("qkv", "k"), "wv": ("qkv", "v"), "wo": ("wo", None),
+              "ffn_up": ("ffn_up", None), "ffn_down": ("ffn_down", None)}
+
+
+def _split_descs(mf: ModelFile, cfg: EngineConfig, patch) -> dict:
+    """The fallback tree's weights as descriptions: {"lm_head", "layers": [
+    {key: (tensor name, first row, shape, gtype or None where dense, whether
+    the adapter patches it)}]}, dense where the JAX GSPMD tree is (an
+    adapter's keys in every layer, weight_mode "dequant", a file tensor that
+    is not quantized)."""
+    hp = mf.hparams
+    D = hp.head_dim
+    dense_keys = _patched_keys(patch, [{k: _layer_names(hp, i)[k] for k in FALCON_MATRICES}
+                                       for i in range(hp.n_layer)])
+    rows = {"q": (0, hp.n_head * D), "k": (hp.n_head * D, hp.n_head_kv * D),
+            "v": ((hp.n_head + hp.n_head_kv) * D, hp.n_head_kv * D)}
+
+    def desc(name, dense, part=None):
+        t = mf.tensors[name]
+        r0, n = rows[part] if part else (0, t.shape[0])
+        quant = _quantized(mf, name) and not dense and cfg.weight_mode != "dequant"
+        return SimpleNamespace(name=name, row0=r0, shape=(n, t.shape[1]),
+                               gtype=GGMLType(t.gtype) if quant else None,
+                               patched=patch is not None and name in patch[0].tensors)
+
+    lm = desc("lm_head.weight", patch is not None and "lm_head.weight" in patch[0].tensors)
+    layers = []
+    for i in range(hp.n_layer):
+        names = _layer_names(hp, i)
+        layers.append({key: desc(names[m], m in dense_keys, part)
+                       for key, (m, part) in SPLIT_KEYS.items()})
+    emb = mf.tensors["transformer.word_embeddings.weight"]
+    return {"tok_embeddings": SimpleNamespace(shape=emb.shape), "lm_head": lm, "layers": layers}
+
+
+def split_specs(mf: ModelFile, cfg: EngineConfig, mp: int, lora=None, lora_base=None) -> dict:
+    """The split of every weight of a Falcon file's fallback tree at mp model
+    ranks (parallel/sharding.py param_specs)."""
+    from ggllm_tpu_torch.parallel import sharding
+
+    patch = None if lora is None else _lora_patch(mf, lora, lora_base)
+    return sharding.param_specs(_split_descs(mf, cfg, patch), mf.hparams, mp)
+
+
+def _load_split(mf: ModelFile, cfg: EngineConfig, mesh, patch) -> dict:
+    """This rank's fallback tree (the JAX loader's GSPMD tree, load_params:
+    483-530, as one rank's splits): the JAX keys wq / wk / wv / wo / ffn_up /
+    ffn_down a layer (and the norms), each weight this rank's rows or block
+    columns as parallel/sharding.py param_specs splits it (a quantized one
+    read as those planes alone from the memory-mapped file), the embedding
+    its columns, and the specs under "split" for the engine. Dense weights
+    as the single-process loader makes them: an adapter's patched keys its
+    f32 base plus the delta, weight_mode "dequant" the planes dequantized
+    in f32 on the device (a rank's planes alone), both cast to the compute
+    dtype."""
+    from ggllm_tpu_torch.parallel import sharding, tp
+
+    hp, device, mp, r = mf.hparams, mesh.device, mesh.model, mesh.rank
+    dtype = getattr(torch, cfg.compute_dtype)
+    descs = _split_descs(mf, cfg, patch)
+    specs = sharding.param_specs(descs, hp, mp)
+
+    def vec(name):
+        return torch.from_numpy(mf.tensor_f32(name).astype(np.float32)).to(device)
+
+    patched = {}  # the last patched matrix (wq, wk and wv share query_key_value)
+
+    def weight(d, spec):
+        O, K = d.shape
+        rows = sharding.span(O, mp, r) if spec == sharding.OUT else (0, O)
+        rows = (d.row0 + rows[0], d.row0 + rows[1])
+        cols = sharding.span(K, mp, r) if spec == sharding.IN else (0, K)
+        if d.patched:
+            if d.name not in patched:
+                patched.clear()
+                patched[d.name] = _load_matrix(mf, d.name, torch.float32, device, patch=patch)
+            full = patched[d.name]
+        elif _quantized(mf, d.name):  # this rank's planes alone, dequantized where dense
+            sh = tp.Shard(mf, d.name)
+            planes = sh.planes(rows, (cols[0] // sh.bs, cols[1] // sh.bs))
+            w = _quant(sh.gtype, (rows[1] - rows[0], cols[1] - cols[0]), planes, device)
+            return w if d.gtype is not None else w.dequantize(torch.float32).to(dtype)
+        else:
+            full = torch.from_numpy(mf.tensor_f32(d.name))
+        return full[rows[0]:rows[1], cols[0]:cols[1]].to(device=device, dtype=dtype)
+
+    emb = torch.from_numpy(mf.tensor_f32("transformer.word_embeddings.weight"))
+    if specs["tok_embeddings"] == sharding.IN:
+        emb = emb[:, slice(*sharding.span(emb.shape[1], mp, r))]
+    params = {"tok_embeddings": emb.to(device=device, dtype=dtype),
+              "output_norm": vec("transformer.ln_f.weight"),
+              "output_norm_b": vec("transformer.ln_f.bias"),
+              "lm_head": weight(descs["lm_head"], specs["lm_head"]),
+              "layers": [], "split": specs}
+    for i in range(hp.n_layer):
+        names = _layer_names(hp, i)
+        lw = {k: vec(names[k]) for k in _falcon_norms(hp)}
+        for key, d in descs["layers"][i].items():
+            lw[key] = weight(d, specs["layers"][i][key])
+        params["layers"].append(lw)
+    return params
 
 
 # ------------------------------------------------------ from the JAX package

@@ -154,6 +154,24 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def no_grad_inputs(kernel: str, *tensors) -> None:
+    """Refuse, before any launch, an input that requires grad while grad mode
+    is on (a tuple counts as its tensors): a kernel called through ctypes
+    gives an output with no grad_fn, which would cut the gradient of every
+    weight upstream without a word. The kernels have no backward (the JAX
+    package has none either); a loss that needs gradients runs the plain
+    versions (tools/train_demo.py)."""
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    flat = [u for t in tensors for u in (t if isinstance(t, (tuple, list)) else (t,))]
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        raise RuntimeError(f"{kernel}: an input requires grad, and the hand kernel has no"
+                           " backward: run the plain version (kernels=False, flash=False) where"
+                           " gradients are needed")
+
+
 def launch(name: str, counters, *args) -> None:
     """Call C entry point `name` and raise on a nonzero cudaError_t; on
     success count one launch under `counters` (a name, or a tuple of the

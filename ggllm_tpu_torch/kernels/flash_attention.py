@@ -156,6 +156,7 @@ def flash_mqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past) -> torc
     """Causal MQA/GQA attention. q (B,S,H,D); k/v (B,T,KV,D) (views of the
     cache are fine: the time and batch strides are passed through); n_past
     an int, or a (B,) int tensor. Returns (B,S,H,D) in q.dtype."""
+    build.no_grad_inputs("flash_mqa", q, k, v)
     if q.device.type == "cpu":
         return flash_mqa_plain(q, k, v, n_past)
     B, S, H, D = q.shape

@@ -276,6 +276,7 @@ def cache_partials(kv, KV: int, layer: int, qg: torch.Tensor, cache_valid):
     cache with grouped heads, else the dense cache's);
     cache_valid an int, a sequence of ints, or a (B,) int tensor.
     Returns (acc (B,KV,G,D), m (B,KV,G,1), l (B,KV,G,1)), all f32."""
+    build.no_grad_inputs("cache_partials", qg, kv)
     if qg.device.type == "cpu":
         return cache_partials_plain(kv, KV, layer, qg, cache_valid)
     B, _, G, D = qg.shape
@@ -485,6 +486,7 @@ def flash_decode(kv, KV: int, layer: int, q: torch.Tensor, n_past,
     append_valid, strictly below n_past when appending without it, and
     strictly below n_past + 1 otherwise (the current token is already
     written). Returns (B, 1, H, D) in q.dtype."""
+    build.no_grad_inputs("flash_decode", q, kv, kv_append)
     B, S, H, D = q.shape
     assert S == 1, "flash_decode is the S=1 path"
     if q.device.type == "cpu":

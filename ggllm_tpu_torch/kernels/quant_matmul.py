@@ -590,6 +590,7 @@ def group_sums(x2: torch.Tensor, g: int = 32) -> torch.Tensor:
     """(S, K) -> (S, K/g) f32 per-group sums of x, g in {16, 32}. The kernel
     takes f32 x, the only x the f32 tile gives it; the plain version (a CPU
     tensor) takes bf16 too."""
+    build.no_grad_inputs("group_sums", x2)
     if x2.device.type == "cpu":
         return group_sums_plain(x2, g)
     if g not in (16, 32):
@@ -656,6 +657,7 @@ def quant_matmul_tc(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     as "quant_matmul.tc": `quant_matmul` routes S > ROWS_MAX_S there, and
     tools/time_kernels.py and chip_smoke.py call it at fewer rows to compare
     it with the rows kernel."""
+    build.no_grad_inputs("quant_matmul_tc", x)
     x2, ptrs, fmt_counter = _prepare(w, x, out_dtype)
     if x2.dtype != torch.bfloat16 or x2.shape[0] < 2:
         raise TypeError(f"the tensor-core tile takes 2 or more bf16 rows, not {tuple(x2.shape)}"
@@ -673,6 +675,7 @@ def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     ("quant_matmul.tc"); S > 1 rows of f32 x the f32 tensor-core tile
     ("quant_matmul.f32") fed by group_sums (S >= 256) or the plain reduce
     (S < 256). See `route`."""
+    build.no_grad_inputs("quant_matmul", x)
     if x.device.type == "cpu":
         return quant_matmul_plain(w, x, out_dtype)
     x2, ptrs, fmt_counter = _prepare(w, x, out_dtype)

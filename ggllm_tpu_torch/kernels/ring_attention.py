@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ggllm_tpu_torch.kernels import build
+
 NEG_INF = -1e30
 
 
@@ -24,6 +26,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, comm,
     cache block; n_past an int or a (1,) / (B,) int tensor, the global
     position before the chunk (a position a row in the batcher's prefill).
     Returns this rank's (B, Sl, H, D) output block in q's dtype."""
+    build.no_grad_inputs("ring_attention", q, k, v)
     B, Sl, H, D = q.shape
     Tl, KV = k.shape[1], k.shape[2]
     G = H // KV

@@ -24,6 +24,11 @@ kernels/flash_attention (on the dequantized K/V of an int8 cache), decode
 (S == 1) runs kernels/flash_decode over the valid cache prefix; with
 st.flash False both use the plain einsum `_attention`, and with st.kernels
 False the quantized matmuls use the plain dequantize-then-matmul version.
+
+With kv None the forward is cacheless: each position attends to the
+tokens' own K/V through `_attention`, writing nothing in place, so autograd
+runs through it (tools/train_demo.py). SplitFalcon runs a rank's fallback
+tree under a mesh (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ggllm_tpu_torch.kernels.flash_decode import flash_decode
 from ggllm_tpu_torch.ops import kvcache
 from ggllm_tpu_torch.ops.linear import linear
 from ggllm_tpu_torch.ops.rope import rope_cos_sin, rotate
+from ggllm_tpu_torch.parallel import sharding as sh
 
 NORM_EPS = 1e-5  # ggml_norm epsilon (ggml.c, const eps = 1e-5f)
 
@@ -226,16 +232,23 @@ def _attach(module: nn.Module, name: str, val):
 class Falcon(nn.Module):
     """The full model over a parameter tree from io/loader.py. `reduce`
     (None, or a tensor-parallel mesh's psum, set by the engine) runs after
-    each layer's output projection."""
+    each layer's output projection; `layer(i, lw)` makes layer i's module."""
 
     reduce = None
 
-    def __init__(self, st: FalconStatic, params: dict):
+    def __init__(self, st: FalconStatic, params: dict, layer=None):
         super().__init__()
         self.st = st
         for name in ("tok_embeddings", "output_norm", "output_norm_b", "lm_head"):
             _attach(self, name, params[name])
-        self.layers = nn.ModuleList(FalconLayer(lw) for lw in params["layers"])
+        layer = layer or (lambda i, lw: FalconLayer(lw))
+        self.layers = nn.ModuleList(layer(i, lw) for i, lw in enumerate(params["layers"]))
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.tok_embeddings[tokens]
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(self.lm_head, x, torch.float32, kernels=self.st.kernels)
 
     def forward(self, tokens: torch.Tensor, kv, n_past, inv_freq: torch.Tensor,
                 logits_all: bool = False, last_pos=None,
@@ -250,6 +263,11 @@ class Falcon(nn.Module):
         logits_all, else (B, 1, V) at position last_pos (default S - 1; an
         int, or a (B,) device tensor, a position a row).
 
+        kv None: a cacheless causal forward, each position attending to the
+        tokens' own K/V through the plain `_attention` (T = S), which writes
+        nothing in place, so autograd can run through it (the JAX training
+        loss's fresh cache, tools/train_demo.py).
+
         pending / n_pend (chunk-deferred decode, S == 1): `pending` is the
         decode chunk's K/V buffer (L, 2, B, P, KV, D) whose first n_pend
         entries hold the chunk's earlier positions, not yet in the cache.
@@ -259,20 +277,88 @@ class Falcon(nn.Module):
         caller to put into `pending`."""
         st = self.st
         B, S = tokens.shape
-        x = self.tok_embeddings[tokens]
+        x = self.embed(tokens)
         rope = rope_cos_sin(_positions(n_past, B, S, tokens.device), inv_freq)
         deferred = []
         for l, layer in enumerate(self.layers):
             q, kv_new, gf = layer.pre(x, rope, st)
-            attn = attend(kv, l, q, kv_new, n_past, st, pending, n_pend)
+            if kv is None:
+                attn = _attention(q, kv_new[0], kv_new[1], n_past, st)
+            else:
+                attn = attend(kv, l, q, kv_new, n_past, st, pending, n_pend)
             if pending is not None:
                 deferred.append(kv_new)
             x = layer.post(x, attn, gf, st, self.reduce)
         x = layer_norm(x, self.output_norm, self.output_norm_b)
         if not logits_all:
             x = select_last(x, last_pos)
-        if output_hidden:
-            out = x.to(torch.float32)
-        else:
-            out = linear(self.lm_head, x, torch.float32, kernels=st.kernels)
+        out = x.to(torch.float32) if output_hidden else self.head(x)
         return (out, torch.stack(deferred)) if pending is not None else out
+
+
+class SplitLayer(FalconLayer):
+    """A layer of the fallback tree (parallel/sharding.py): each of wq / wk /
+    wv / wo / ffn_up / ffn_down holds this rank's split as `specs` says, and
+    the collectives run on `comm` (the mesh's model row): a head reshape or
+    a whole-width consumer gathers an "out" split, an "in" split takes its
+    slice of x and the partial products meet in one psum a layer. With K/V
+    split by heads (sharding.kv_split) the rank computes and attends only its
+    own K/V heads and their query groups (st is then the local Static);
+    otherwise every rank attends all heads. `whole` is the model's Static."""
+
+    def __init__(self, lw: dict, specs: dict, comm, whole: FalconStatic):
+        super().__init__(lw)
+        self.specs, self.comm, self.whole = specs, comm, whole
+
+    def _proj(self, key: str, x, st):
+        return sh.split_linear(getattr(self, key), self.specs[key], x, self.comm, st.kernels)
+
+    def pre(self, x, rope, st: FalconStatic):
+        B, S, _ = x.shape
+        H, D, c = st.n_head, st.head_dim, self.comm
+        ln_mlp = layer_norm(x, self.input_ln_w, self.input_ln_b)
+        ln_attn = layer_norm(x, self.attn_ln_w, self.attn_ln_b) if st.parallel_norms else ln_mlp
+        split = st.n_head_kv != self.whole.n_head_kv  # this rank's heads only
+        heads = {}
+        for key, n in (("wq", H), ("wk", st.n_head_kv), ("wv", st.n_head_kv)):
+            lo = c.rank * n * D if split else 0
+            heads[key] = sh.columns(self._proj(key, sh.full(ln_attn), st), lo, lo + n * D,
+                                    c).reshape(B, S, n, D)
+        q, k = rotate(heads["wq"], *rope), rotate(heads["wk"], *rope)
+        up = self._proj("ffn_up", sh.full(ln_mlp), st)
+        if up.form == "partial":  # GELU needs the whole sum
+            up = sh.full(sh.whole(up, c))
+        gf = up._replace(y=F.gelu(up.y.to(torch.float32), approximate="tanh").to(up.y.dtype))
+        return q, torch.stack([k, heads["wv"]], dim=0), gf
+
+    def post(self, x, attn, gf, st: FalconStatic, reduce=None):
+        B, S, _ = x.shape
+        n, c = st.n_head * st.head_dim, self.comm
+        attn = attn.reshape(B, S, n)
+        whole = self.whole.n_head * self.whole.head_dim
+        ap = (sh.full(attn) if n == whole else
+              sh.Part(attn, "slice", c.rank * n, (c.rank + 1) * n, whole))
+        return x + sh.combine([self._proj("wo", ap, st), self._proj("ffn_down", gf, st)], c)
+
+
+class SplitFalcon(Falcon):
+    """The model over a rank's fallback tree (io/loader.py under a mesh the
+    tensor-parallel plan cannot take): SplitLayers, the embedding's columns
+    split where `specs` says (gathered after the lookup) and lm_head split
+    as its spec says (the logits gathered). st is the local Static (its
+    K/V heads and query groups where K/V split), whole the model's."""
+
+    def __init__(self, st: FalconStatic, params: dict, specs: dict, comm, whole: FalconStatic):
+        super().__init__(st, params,
+                         lambda i, lw: SplitLayer(lw, specs["layers"][i], comm, whole))
+        self.specs, self.comm = specs, comm
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.tok_embeddings[tokens]
+        if self.specs["tok_embeddings"] is None or self.comm.size == 1:
+            return x
+        return self.comm.all_gather(x, -1)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        return sh.whole(sh.split_linear(self.lm_head, self.specs["lm_head"], sh.full(x),
+                                        self.comm, self.st.kernels, torch.float32), self.comm)

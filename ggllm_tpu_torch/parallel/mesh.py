@@ -6,7 +6,9 @@ The JAX package runs one SPMD program over a jax.sharding.Mesh whose
 replicas. Here every rank is a process that drives one device, and a Mesh
 is this rank's view of the grid: its device, the process group of its row
 of the "model" axis (the ranks it reduces with), its index in that row and
-the row's collectives (parallel/comm.py).
+the row's collectives (parallel/comm.py), and the same of its column of the
+"data" axis (the ranks of its model index, over which a batch's rows split:
+engine/engine.py).
 
 * init_distributed joins a world: from torchrun's environment (MASTER_ADDR
   / MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK) with no arguments, or from an
@@ -107,14 +109,20 @@ class Mesh:
     model: int
     rank: int  # index in the model axis
     device: torch.device
-    comm: Comm  # the model axis's collectives
+    comm: Comm  # the model axis's collectives (this rank's row)
+    data_rank: int = 0  # index in the data axis (the row)
+    data_comm: Comm | None = None  # the data axis's (the ranks of this model index)
+
+    def __post_init__(self):
+        if self.data_comm is None:
+            self.data_comm = Comm(None, [self.data_rank], self.data_rank, None)
 
     @property
     def backend(self) -> str | None:
         return self.comm.backend
 
 
-_groups: dict = {}  # (data, model) -> the model rows' process groups, made once
+_groups: dict = {}  # (data, model) -> the model rows' and data columns' process groups
 
 
 def make_mesh(data: int = 1, model: int | None = None, devices=None) -> Mesh | None:
@@ -136,16 +144,19 @@ def make_mesh(data: int = 1, model: int | None = None, devices=None) -> Mesh | N
     if n > world:
         raise ValueError(f"need {n} ranks, have {world}")
     rows = [list(range(d * model, (d + 1) * model)) for d in range(data)]
-    if (data, model) not in _groups:
-        _groups[(data, model)] = (None if n == world and data == 1
-                                  else [dist.new_group(r) for r in rows])
+    cols = [list(range(m, n, model)) for m in range(model)]
+    if (data, model) not in _groups:  # every rank makes every group, in one order
+        _groups[(data, model)] = (
+            None if n == world and data == 1 else [dist.new_group(r) for r in rows],
+            [dist.new_group(c) for c in cols] if data > 1 else None)
     if rank >= n:
         return None
-    groups = _groups[(data, model)]
-    row = rank // model
-    group = None if groups is None else groups[row]
-    comm = Comm(group, rows[row], rank % model, dist.get_backend())
-    return Mesh(data, model, rank % model, devices[rank], comm)
+    row_groups, col_groups = _groups[(data, model)]
+    row, col = rank // model, rank % model
+    backend = dist.get_backend()
+    comm = Comm(None if row_groups is None else row_groups[row], rows[row], col, backend)
+    data_comm = None if col_groups is None else Comm(col_groups[col], cols[col], row, backend)
+    return Mesh(data, model, col, devices[rank], comm, row, data_comm)
 
 
 # ------------------------------------------------------------ rank processes

@@ -22,7 +22,10 @@ only its shard's rows and block columns from the memory-mapped file, in the
 port's planar layout (quant/planar.py: planes are (rows, blocks, ...), so a
 row range and a block range are slices); it builds no stacked device axis,
 since a rank holds one block, and the JAX package's int16 scale-plane
-workaround has no counterpart.
+workaround has no counterpart. What the plan cannot take (a non-quantized
+weight, mixed quant types in a layer, shard widths that are not whole
+blocks) raises NotImplementedError here, and io/loader.py then builds the
+fallback tree (parallel/sharding.py) for Falcon.
 """
 
 from __future__ import annotations
@@ -33,10 +36,6 @@ import numpy as np
 
 from ggllm_tpu_torch.core.dtypes import GGMLType, TYPE_TRAITS
 from ggllm_tpu_torch.quant import planar
-
-ITEM_10B = ("the split for such weights is the GSPMD fallback of ROADMAP.md Queue 1 item 10b"
-            " (parallel/sharding.py), not ported yet")
-
 
 class TpPlan:
     """Static TP geometry of one model (either family) at mp ranks."""
@@ -81,7 +80,7 @@ class Shard:
         self.gtype = GGMLType(t.gtype)
         if not self.gtype.name.startswith("Q"):
             raise NotImplementedError(f"{name} is {self.gtype.name}: tensor parallelism takes"
-                                      f" quantized weights; {ITEM_10B}")
+                                      " quantized weights")
         self.rows, self.cols = t.shape
         self.bs = TYPE_TRAITS[self.gtype].block_size
         self._mf, self._name = mf, name
@@ -109,7 +108,7 @@ def _uniform(shards: dict) -> GGMLType:
     if len(gts) != 1:
         raise NotImplementedError(
             f"tensor parallelism merges a layer's weights: one quant type a layer, not"
-            f" {sorted(g.name for g in gts)}; {ITEM_10B}")
+            f" {sorted(g.name for g in gts)}")
     gt = gts.pop()
     return gt
 
@@ -119,7 +118,7 @@ def _check_blocks(plan: TpPlan, gt: GGMLType) -> int:
     if (plan.h_local * plan.D) % bs or plan.f_local % bs:
         raise NotImplementedError(
             f"{gt.name} blocks of {bs} do not divide the shard widths {plan.h_local * plan.D}"
-            f" and {plan.f_local} at mp {plan.mp}; {ITEM_10B}")
+            f" and {plan.f_local} at mp {plan.mp}")
     return bs
 
 

@@ -6,7 +6,8 @@ world (one rank here: MASTER_PORT 0 binds a free port) on the device
 cards exits 1 with make_mesh's message (the card count patched); a session
 saved by two sharded ranks (--prompt-cache, gathered to rank 0) loads into
 the JAX session loader with the JAX engine's cache; speculative decoding
-and grammars under -ts exit 1."""
+and grammars under -ts exit 1; -ts 2 with --lora or --weight-mode dequant
+(the fallback tree, parallel/sharding.py) prints the JAX CLI's text."""
 
 import numpy as np
 import pytest
@@ -92,6 +93,37 @@ def test_sharded_session_loads_into_the_jax_loader(files, tmp_path, name, shard)
 def test_one_device_modes_refused_under_ts(files, capsys, extra, why):
     assert cli.main(["-m", files["tiny"], "-ts", "2", *extra]) == 1
     assert capsys.readouterr().err.strip() == f"error: {why}"
+
+
+def _adapter(path: str) -> str:
+    """An r 4 adapter on every layer's query_key_value and dense_4h_to_h of
+    tests/test_torch_cli_parallel.py's tiny file."""
+    from ggllm_tpu_torch.core.config import FalconHParams
+    from ggllm_tpu_torch.io.lora import write_lora
+
+    hp, rng = FalconHParams.tiny(), np.random.default_rng(4)
+    n_qkv = (hp.n_head + 2 * hp.n_head_kv) * hp.head_dim
+    write_lora(path, 4, 8, {
+        name: {"loraA": rng.standard_normal((4, cols)).astype(np.float32) * 0.1,
+               "loraB": rng.standard_normal((rows, 4)).astype(np.float32) * 0.1}
+        for i in range(hp.n_layer)
+        for name, rows, cols in ((f"transformer.h.{i}.self_attention.query_key_value.weight",
+                                  n_qkv, hp.n_embd),
+                                 (f"transformer.h.{i}.mlp.dense_4h_to_h.weight", hp.n_embd,
+                                  hp.n_ff))})
+    return path
+
+
+@pytest.mark.parametrize("mode", ["lora", "dequant"])
+def test_ts_2_fallback_modes_print_the_jax_text(files, capsysbinary, tmp_path, mode):
+    """-ts 2 --lora and -ts 2 --weight-mode dequant, which raised before the
+    fallback tree was ported: the JAX CLI's greedy text (its GSPMD path)."""
+    extra = (["--lora", _adapter(str(tmp_path / "a.ggla"))] if mode == "lora"
+             else ["--weight-mode", "dequant"])
+    rc, out, err = port(files["tiny"], "-ts", "2", *extra)
+    assert rc == 0, err
+    ref, _ = jax_text(capsysbinary, files["tiny"], "-ts", "2", *extra)
+    assert out == ref and len(out) > 0
 
 
 TORCHRUN_ONE = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "0", "WORLD_SIZE": "1", "RANK": "0",

@@ -1665,3 +1665,67 @@ def test_rows_ids_hold_to_the_plain_versions(dev, tmp_path):
         lg = plain.eval(p + o[:-1], logits_all=True)[-len(o):]
         top = lg.max(axis=1)
         assert np.all(top - lg[np.arange(len(o)), o] <= 1e-2 * np.abs(lg).max(axis=1))
+
+
+def _grad_calls(dev):
+    """Each hand kernel's wrapper on card tensors at a shape its kernel takes,
+    x / q requiring grad."""
+    from ggllm_tpu_torch.kernels.ring_attention import ring_attention
+    from ggllm_tpu_torch.parallel.comm import Comm
+
+    g = _gen(0)
+    w = random_quant(GGMLType.Q4_0, 128, 256, g, dev)
+    x1, x2, x32 = (torch.randn(s, 256, device=dev, generator=g).to(dt).requires_grad_()
+                   for s, dt in ((1, torch.bfloat16), (4, torch.bfloat16), (40, torch.float32)))
+    q = torch.randn(1, 20, 8, 64, device=dev, generator=g).to(torch.bfloat16).requires_grad_()
+    k = torch.randn(1, 64, 2, 64, device=dev, generator=g).to(torch.bfloat16)
+    kv = torch.randn(1, 2, 1, 64, 2, 64, device=dev, generator=g).to(torch.bfloat16)
+    q1 = torch.randn(1, 1, 8, 64, device=dev, generator=g).to(torch.bfloat16).requires_grad_()
+    return {
+        "quant_matmul": lambda: qm.quant_matmul(w, x1, torch.float32),
+        "quant_matmul_tc": lambda: qm.quant_matmul_tc(w, x2, torch.float32),
+        "group_sums": lambda: qm.group_sums(x32),
+        "flash_mqa": lambda: flash_mqa(q, k, k, 0),
+        "flash_decode": lambda: fd.flash_decode(kv, 2, 0, q1, 30),
+        "cache_partials": lambda: fd.cache_partials(kv, 2, 0, q1.reshape(1, 2, 4, 64), 30),
+        "ring_attention": lambda: ring_attention(q, k, k, Comm(None, [0], 0, None), 0),
+    }
+
+
+@pytest.mark.parametrize("name", ["quant_matmul", "quant_matmul_tc", "group_sums", "flash_mqa",
+                                  "flash_decode", "cache_partials", "ring_attention"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(dev, name):
+    """A ctypes kernel gives an output with no grad_fn: its wrapper refuses
+    an input that requires grad while grad mode is on, before any launch,
+    and runs the same call under no_grad."""
+    call = _grad_calls(dev)[name]
+    before = dict(build.launch_counts)
+    with pytest.raises(RuntimeError, match=f"{name}: an input requires grad"):
+        call()
+    assert dict(build.launch_counts) == before
+    with torch.no_grad():
+        out = call()
+    assert all(t.isfinite().all() for t in (out if isinstance(out, tuple) else (out,)))
+
+
+def test_train_demo_gradients_on_the_card_match_the_cpu(dev):
+    """The training loss on the card (plain products, TF32 off, no hand
+    kernel launched) gives the CPU's gradients within 1e-4 of each leaf's
+    largest, on the same weights and tokens."""
+    from ggllm_tpu_torch.ops.rope import rope_angles
+    from ggllm_tpu_torch.tools import train_demo as demo
+
+    hp = FalconHParams(n_vocab=512, n_embd=64, n_head=4, n_head_kv=1, n_layer=2,
+                       n_falcon_type=7, n_bpe_merges=0)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(12, 268, (4, 17)))
+    inv = torch.from_numpy(rope_angles(EngineConfig().rope, 16, hp.head_dim))
+    grads = {}
+    before = dict(build.launch_counts)
+    for d in ("cpu", dev):
+        params = demo.init_params(hp, 0, d)
+        with demo.no_tf32():
+            demo.loss_fn(params, tokens.to(d), hp, inv.to(d)).backward()
+        grads[str(d)] = [p.grad.cpu() for p in demo.leaves(params)]
+    assert dict(build.launch_counts) == before
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()

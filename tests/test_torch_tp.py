@@ -9,8 +9,10 @@ engine's within 5e-5 of max |logit|: Falcon MQA at mp 2 and 4 (and with 5
 query heads, one padded at mp 2), GQA at mp 2, LLaMA at mp 2. Each rank's
 merged wqkvu / w_od (LLaMA: wqkv, w13, wo, w2) block, decoded to f32,
 equals the JAX build_tp_layer's block of that device. embed() equals the
-JAX TP engine's. The cases the JAX loader sends to its GSPMD fallback raise,
-naming ROADMAP.md Queue 1 item 10b. Decoding: tests/test_torch_tp_decode.py."""
+JAX TP engine's. LLaMA without the plan raises with the JAX loader's
+words; the Falcon cases the JAX loader sends to its GSPMD fallback run the
+fallback tree (tests/test_torch_sharding.py). Decoding:
+tests/test_torch_tp_decode.py."""
 
 import numpy as np
 import pytest
@@ -92,32 +94,17 @@ def test_embed_matches(files, pool):
     np.testing.assert_allclose(got, ref, atol=5e-5)
 
 
-def test_gspmd_cases_raise(files, pool, tmp_path):
-    """What the JAX loader hands to its GSPMD fallback raises and names
-    item 10b: a LoRA adapter, a data axis, --weight-mode dequant, dense
-    (f32) weights, a GQA plan the K/V heads do not divide; LLaMA with the
-    JAX loader's words."""
-    from ggllm_tpu_torch.core.config import FalconHParams
-    from ggllm_tpu_torch.core.dtypes import GGMLType
-    from ggllm_tpu_torch.io.lora import write_lora
-    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
-
-    adapter = str(tmp_path / "a.ggla")
-    write_lora(adapter, 2, 4, {"transformer.h.0.mlp.dense_4h_to_h.weight": {
-        "loraA": np.ones((2, 512), np.float32), "loraB": np.ones((128, 2), np.float32)}})
-    dense = str(tmp_path / "f32.bin")
-    write_tiny_model(dense, FalconHParams.tiny(), ftype_2d=GGMLType.F32, seed=1)
-    cases = [(files["tiny"], 2, {}, {"lora": adapter}, "LoRA"),
-             (files["tiny"], 4, {}, {"data": 2}, "data axis"),
-             (files["tiny"], 2, {"weight_mode": "dequant"}, {}, "dequant"),
-             (dense, 2, {}, {}, "F32"),
-             (files["tiny_gqa"], 4, {}, {}, "n_head_kv"),
-             (files["llama"], 2, {}, {"lora": _llama_adapter(tmp_path)}, "multi-chip LLaMA")]
-    for path, mp, cfg_kw, kw, word in cases:
-        msgs = pool.run(J.load_error, path, mp, cfg_kw, **kw)
-        n = mp if kw.get("data", 1) == 1 else 4
-        for msg in msgs[:n]:
-            assert msg is not None and word in msg and "item 10b" in msg, (word, msg)
+def test_llama_without_the_plan_raises(files, pool, tmp_path):
+    """LLaMA where the JAX loader gives up its TP plan (here a LoRA
+    adapter) raises with the JAX loader's words, as the JAX package has no
+    LLaMA fallback; the Falcon cases go to the fallback tree
+    (tests/test_torch_sharding.py)."""
+    msgs = pool.run(J.load_error, files["llama"], 2, {}, lora=_llama_adapter(tmp_path))
+    for msg in msgs[:2]:
+        assert msg is not None and msg.startswith(
+            "multi-chip LLaMA needs the TP plan (uniform quant type, mp | n_head, no LoRA,"
+            " no data axis)"), msg
+        assert "item" not in msg and "ROADMAP" not in msg
 
 
 def _llama_adapter(tmp_path) -> str:

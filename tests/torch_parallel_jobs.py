@@ -1,5 +1,6 @@
 """Jobs that the port's rank processes run (parallel/mesh.py RankPool) for
-tests/test_torch_tp.py, test_torch_sp.py and test_torch_cli_parallel.py.
+tests/test_torch_tp.py, test_torch_sp.py, test_torch_sharding.py and
+test_torch_cli_parallel.py.
 
 Each job runs on every rank of the pool's world, makes its mesh of the
 first `mp` ranks (a rank outside it returns None), builds what it needs on
@@ -29,16 +30,16 @@ def cfg_of(**kw) -> EngineConfig:
     return EngineConfig(**kw)
 
 
-def _mesh(mp: int):
-    return make_mesh(1, mp, devices=["cpu"] * torch.distributed.get_world_size())
+def _mesh(mp: int, data: int = 1):
+    return make_mesh(data, mp, devices=["cpu"] * torch.distributed.get_world_size())
 
 
-def _engine(path: str, mp: int, cfg_kw: dict, batch: int = 1):
-    mesh = _mesh(mp)
+def _engine(path: str, mp: int, cfg_kw: dict, batch: int = 1, data: int = 1, lora=None):
+    mesh = _mesh(mp, data)
     if mesh is None:
         return None
     cfg = cfg_of(**cfg_kw)
-    mf, params = load_model(path, cfg, mesh=mesh)
+    mf, params = load_model(path, cfg, mesh=mesh, lora=lora)
     return FalconEngine(mf.hparams, params, cfg, batch_size=batch, mesh=mesh)
 
 
@@ -101,9 +102,48 @@ def decode_chunks(path: str, mp: int, cfg_kw: dict, prompt: list, n_total: int,
     return out
 
 
+def split_run(path: str, mp: int, cfg_kw: dict, prompt: list, n_ids: int, lora=None):
+    """The fallback tree under a 1 x mp mesh: (prefill logits, one decode
+    step's after the prefill's argmax, n_ids greedy ids from a fresh cache,
+    the cache's local shape, this rank's layer-0 weight shapes)."""
+    eng = _engine(path, mp, cfg_kw, lora=lora)
+    if eng is None:
+        return None
+    assert eng.split is not None
+    l1 = eng.eval(prompt)
+    l2 = eng.eval([int(np.argmax(l1))])
+    eng.reset()
+    ids = [int(t) for t in eng.generate(prompt, n_ids, GREEDY)]
+    layer = eng.model.layers[0]
+    shapes = {k: tuple(getattr(layer, k).shape) for k in ("wq", "wk", "wv", "wo", "ffn_up",
+                                                          "ffn_down")}
+    return l1, l2, ids, tuple(eng.kv.shape), shapes
+
+
+def rows_run(path: str, mp: int, data: int, cfg_kw: dict, batch: int, prompts: list,
+             temp: float = 0.0):
+    """A data x mp mesh's batch_size engine (data 1, mp 0: the single
+    process's): prefill_rows of one prompt a row (every row at position 0)
+    and 4 decode_rows steps at `temp` from the argmaxes; (their logits
+    {row: ...}, the (4, B) ids, the cache's local rows, the timings'
+    (n_prefill, n_decode))."""
+    if mp == 0:
+        eng = single_engine(path, cfg_kw, batch=batch)
+    else:
+        eng = _engine(path, mp, cfg_kw, batch=batch, data=data)
+        if eng is None:
+            return None
+    B = batch
+    got = eng.prefill_rows(list(range(B)), prompts[:B], np.zeros(B, np.int64))
+    toks = np.array([int(np.argmax(got[r])) for r in range(B)])
+    ids, _, _ = eng.decode_rows(toks, np.array([len(p) for p in prompts[:B]]), 4,
+                                values={"temp": np.full(B, temp)})
+    return got, ids, eng.kv.shape[2], (eng.timings.n_prefill, eng.timings.n_decode)
+
+
 def batcher(path: str, mp: int, cfg_kw: dict, prompts: list, n_predict: int, chunk: int,
-            batch: int = 2):
-    eng = _engine(path, mp, cfg_kw, batch=batch)
+            batch: int = 2, data: int = 1):
+    eng = _engine(path, mp, cfg_kw, batch=batch, data=data)
     if eng is None:
         return None
     b = ContinuousBatcher(eng, chunk=chunk)
