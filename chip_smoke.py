@@ -19,8 +19,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      paths' widths; the attention kernels at the
      three models' head layouts, bf16 through the tensor-core kernel, with a
      per-row n_past, f32 through the f32 tensor-core kernel (split TF32) at
-     Falcon-7B's and LLaMA-7B's, and bf16 at head dim 32 through the CUDA-core
-     kernel; flash-decode on bf16
+     Falcon-7B's and LLaMA-7B's, and bf16 at head dim 32 through the
+     tensor-core kernel too (the small test models' layout, and S = 512 at
+     the training demo's 4 heads over one K/V head); flash-decode on bf16
      and on int8 caches, grouped heads through the tensor-core kernel and
      LLaMA's G == 1 through its own, with and without the append block and
      with a length per row, also at 5 decode rows (valid 300, 17, 2047, 1
@@ -251,10 +252,9 @@ F32_LOGIT_TOL = 1e-4
 # around the loop of ggllm_tpu_torch/csrc/gemv.cuh), ".rows" the kernel of
 # 2-16 bf16 rows (B decode rows), ".tc" the bf16 tensor-core tile, ".f32"
 # the f32 tensor-core tile; "flash_mqa.tc" the bf16 tensor-core attention
-# kernel, ".f32" the f32 one (the CUDA-core kernel of
-# bf16 at head dim 32 serves no full-width path and is checked in phase 2
-# only). COUNTER names the launch counter of a kernel where it is not the
-# kernel's own name.
+# kernel (head dims 32, 64, 128; at 32 no full-width path runs it, and phase
+# 2 checks it), ".f32" the f32 one. COUNTER names the launch counter of a
+# kernel where it is not the kernel's own name.
 REPLACES = {
     "quant_matmul": ("ggllm_tpu_torch/csrc/quant_gemv_legacy.cu",
                      "ggllm_tpu/kernels/quant_matmul.py:57"),
@@ -288,9 +288,8 @@ REPLACES = {
                               "ggllm_tpu/kernels/flash_decode.py:123"),
 }
 COUNTER = {"quant_matmul": "quant_matmul.gemv"}
-# the f32 prefill kernels (and the CUDA-core attention of bf16 at head dim 32),
-# which no bf16 path may run
-F32_KERNELS = ("quant_matmul.f32", "flash_mqa.f32", "flash_mqa.simt", "group_sums")
+# the f32 prefill kernels, which no bf16 path may run
+F32_KERNELS = ("quant_matmul.f32", "flash_mqa.f32", "group_sums")
 # the bf16 tensor-core kernels, which no f32 path may run
 BF16_TC_KERNELS = ("quant_matmul.rows", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc")
 # every flash-decode launch counter: the wrapper's (by head layout and cache)
@@ -326,6 +325,18 @@ class Timer:
         from ggllm_tpu_torch.tools.time_kernels import median_ms
 
         return median_ms(fn, self.flush, N_RUNS, N_WARM)
+
+
+def lib_q(q):
+    """q (B, S, H, D) as scaled_dot_product_attention takes it, (B, H, S, D):
+    the transposed view of a copy that has 64 zero query rows behind its
+    last. On an H100 (torch 2.11) the library call with f32 q of one row
+    over 2047 keys (71 heads) stopped on an illegal address when q ended
+    40 KB before the end of an allocator segment, and ran with the rows
+    behind q its own. So the yardstick's q owns the memory behind it."""
+    buf = q.new_zeros(q.shape[0], q.shape[1] + 64, *q.shape[2:])
+    buf[:, :q.shape[1]] = q
+    return buf[:, :q.shape[1]].transpose(1, 2)
 
 
 def check(name: str, got, ref, tol: float = TOL) -> tuple[float, float]:
@@ -562,7 +573,7 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         ms = timer(lambda: flash_mqa(q, k, v, n_past))
         plain_ms = timer(lambda: flash_mqa_plain(q, k, v, n_past))
         Tv = n_past + S
-        qt = q.transpose(1, 2)
+        qt = lib_q(q)
         kt, vt = k[:, :Tv].transpose(1, 2), v[:, :Tv].transpose(1, 2)
         mask = (torch.arange(Tv, device="cuda")[None, :]
                 <= n_past + torch.arange(S, device="cuda")[:, None])
@@ -598,26 +609,34 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                          flash_mqa_plain(q2, kv2[0, 0], kv2[0, 1], rows_past))
         log(f"  flash_mqa.tc  B=2 S=300 n_past=[300, 7] H={H} KV={KV} D={D} err {err:.2e}"
             f" ({rel:.1e} rel)")
-    # bf16 at head dim 32 (the small test models): the CUDA-core kernel, timed
-    # beside SDPA with the same causal mask (its bound: q, the visible K/V and
-    # out; 4 D operations a visible (query, key) pair and head)
+    # bf16 at head dim 32 on the tensor-core kernel: the small test models'
+    # layout (6 heads over 2 K/V heads, a length per row), timed beside SDPA
+    # with the same causal mask (its bound: q, the visible K/V and out; 4 D
+    # operations a visible (query, key) pair and head); then S = 512 at the
+    # training demo's 4 heads over one K/V head (mqa_row)
     q32 = torch.randn(2, 45, 6, 32, generator=gen, device="cuda").to(bf16)
     kv32 = torch.randn(2, 2, 400, 2, 32, generator=gen, device="cuda").to(bf16)
-    before = build.launch_counts["flash_mqa.simt"]
-    err, rel = check("flash_mqa.simt bf16 D=32", flash_mqa(q32, kv32[0], kv32[1], rows_past),
+    before = build.launch_counts["flash_mqa.tc"]
+    err, rel = check("flash_mqa.tc bf16 D=32", flash_mqa(q32, kv32[0], kv32[1], rows_past),
                      flash_mqa_plain(q32, kv32[0], kv32[1], rows_past))
-    if build.launch_counts["flash_mqa.simt"] != before + 1:
-        raise RuntimeError("bf16 flash_mqa at head dim 32 did not run the CUDA-core kernel")
+    if build.launch_counts["flash_mqa.tc"] != before + 1:
+        raise RuntimeError("bf16 flash_mqa at head dim 32 did not run the tensor-core kernel")
     pos = rows_past[:, None] + torch.arange(45, device="cuda")  # (B, S) query positions
     mask32 = (torch.arange(400, device="cuda")[None, None, :] <= pos[:, :, None])[:, None]
     pairs = int((pos + 1).sum())
-    row("flash_mqa.simt", "B=2 S=45 n_past=[300, 7] H=6 KV=2 D=32 bf16", err, rel,
+    q32t = lib_q(q32)
+    row("flash_mqa.tc", "B=2 S=45 n_past=[300, 7] H=6 KV=2 D=32", err, rel,
         timer(lambda: flash_mqa(q32, kv32[0], kv32[1], rows_past)),
         timer(lambda: flash_mqa_plain(q32, kv32[0], kv32[1], rows_past)),
         timer(lambda: F.scaled_dot_product_attention(
-            q32.transpose(1, 2), kv32[0].transpose(1, 2), kv32[1].transpose(1, 2),
+            q32t, kv32[0].transpose(1, 2), kv32[1].transpose(1, 2),
             attn_mask=mask32, enable_gqa=True)),
         2 * q32.numel() * 2 + int((pos[:, -1] + 1).sum()) * 2 * 2 * 32 * 2, 4 * pairs * 6 * 32)
+    kvc = torch.randn(1, 2, 1, T, 1, 32, generator=gen, device="cuda").to(bf16)
+    q = torch.randn(1, S, 4, 32, generator=gen, device="cuda").to(bf16)
+    for n_past in (0, 300):
+        mqa_row(q, kvc[0, 0], kvc[0, 1], n_past, 4, 1, 32)
+    del kvc
 
     # ---- flash_decode: the last layer of the full cache (32 layers at
     # Falcon-7B and LLaMA-7B, 60 at 40B); grouped heads take the tensor-core
@@ -674,8 +693,10 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                     kt = [k.expand(1, H, valid, D) for k in kt]
                     vt = [v.expand(1, H, valid, D) for v in vt]
 
+                q1t = lib_q(q1)
+
                 def sdpa(i):
-                    return F.scaled_dot_product_attention(q1.transpose(1, 2), kt[i], vt[i],
+                    return F.scaled_dot_product_attention(q1t, kt[i], vt[i],
                                                           enable_gqa=G > 1 and KV > 1)
 
                 lib_ms = timer(lambda: sdpa(l))
@@ -736,9 +757,10 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         kt = [lib_kv[i, 0].transpose(1, 2).expand(5, H, T, D) for i in range(2)]
         vt = [lib_kv[i, 1].transpose(1, 2).expand(5, H, T, D) for i in range(2)]
 
+        q5t = lib_q(q5)
+
         def sdpa5(i):
-            return F.scaled_dot_product_attention(q5.transpose(1, 2), kt[i], vt[i],
-                                                  attn_mask=mask5)
+            return F.scaled_dot_product_attention(q5t, kt[i], vt[i], attn_mask=mask5)
 
         tag = "int8 " if name.endswith("int8") else ""
         row(name, f"{tag}rows B=5 valid=[300, 17, 2047, 1, 2049] G={H} KV={KV} D={D}", err, rel,
@@ -811,9 +833,10 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                     kt = [k.expand(1, H, valid, D) for k in kt]
                     vt = [v.expand(1, H, valid, D) for v in vt]
 
+                q1t = lib_q(q1)
+
                 def sdpa32(i):
-                    return F.scaled_dot_product_attention(q1.transpose(1, 2), kt[i], vt[i],
-                                                          enable_gqa=KV > 1)
+                    return F.scaled_dot_product_attention(q1t, kt[i], vt[i], enable_gqa=KV > 1)
 
                 lib_ms = timer(lambda: sdpa32(l))
                 lib_dev_ms = graph_ms(sdpa32, L, timer.flush)
@@ -1190,7 +1213,7 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
                      "quant_matmul.gemv", *decode_counters):
             if counts.get(name, 0) <= 0:
                 raise RuntimeError(f"kernel {name} was not launched on the {label} path")
-        if any(counts.get(k, 0) for k in (*BF16_TC_KERNELS, "flash_mqa.simt")):
+        if any(counts.get(k, 0) for k in BF16_TC_KERNELS):
             raise RuntimeError(f"a bf16 kernel ran on the {label} path: {counts}")
         graph = None
         if graphs:
@@ -3961,7 +3984,11 @@ def main() -> int:
         if name == "flash_mqa.f32":
             entry["head_dims"], entry["dtypes"] = [32, 64, 128], ["float32"]
         if name == "flash_mqa.tc":
-            entry["head_dims"], entry["dtypes"] = [64, 128], ["bfloat16"]
+            entry["head_dims"], entry["dtypes"] = [32, 64, 128], ["bfloat16"]
+            entry["head_dim_32"] = [  # no full-width path runs D = 32: its rows here
+                {k: r32[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}
+                for r32 in rows if r32["kernel"] == name and r32["shape"].endswith("D=32")]
         if name.startswith("flash_decode"):
             entry["cache_dtypes"], entry["head_dims"] = DECODE_LAYOUTS[name]
         kernels.append(entry)

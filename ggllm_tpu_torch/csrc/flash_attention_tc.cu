@@ -2,8 +2,8 @@
 // an f32 online softmax.
 //
 // Replaces the Pallas kernel ggllm_tpu/kernels/flash_attention.py `_kern`
-// (launched by flash_mqa) for bf16 at D = 64 and 128; flash_attention_f32.cu
-// takes f32, flash_attention.cu bf16 at D = 32.
+// (launched by flash_mqa) for bf16 at D = 32, 64 and 128; flash_attention_f32.cu
+// takes f32.
 // Semantics as there: key t is visible to query i of batch row b iff
 // t <= n_past[b] + i; masked scores are -1e30 (not -inf); out = acc /
 // max(l, 1e-30) in bf16.
@@ -22,11 +22,13 @@
 //    Falcon-7B's G = 71, 4 at Falcon-40B's G = 16, 64 at G = 1): the key
 //    loop ends at the block's last visible key, tiles wholly below every
 //    row's diagonal skip the mask, and with G == 1 the layout is the usual
-//    64 positions of one head. The K/V tile of 64 keys feeds all 64 rows.
+//    64 positions of one head. The K/V tile of 64 keys (128 at D = 32)
+//    feeds all 64 rows.
 //  * K and V tiles are staged as bf16 (half of the f32 staging of
 //    flash_attention_f32.cu) by 16-byte `cp.async`, double-buffered, in an XOR
-//    swizzle (16-byte chunk c of row r at chunk c ^ (r & 7)) so that every
-//    ldmatrix reads 8 rows from 8 different bank groups.
+//    swizzle (smem_off) so that every ldmatrix phase reads its 8 rows from 8
+//    different 16-byte bank groups of a 128-byte line. At D = 32 a row is
+//    half a line (36 KB of shared memory a block).
 //  * Blocks with the most keys (the last positions) start first.
 
 #include "common.cuh"
@@ -35,7 +37,11 @@
 namespace {
 
 constexpr int BR = 64;  // query rows per block (16 per warp)
-constexpr int BT = 64;  // keys per staged tile
+// keys per staged tile: 128 at D = 32, where half as many loop trips took
+// 15-22 % less device time than 64-key tiles on an H100 at the small models'
+// and the training demo's layouts (tools/time_kernels.py mqa32)
+template <int D>
+constexpr int KEYS = D == 32 ? 128 : 64;
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
@@ -47,6 +53,19 @@ using gq::ldsm4_trans;
 using gq::mma16816;
 using gq::pack_bf16;
 
+// Byte offset of 16-byte chunk c of row `row` in a staged tile of rows of D
+// bf16 (Q, K and V alike; every stage and ldmatrix address goes through
+// it). D >= 64: chunk c of row r at chunk c ^ (r & 7) of its row, which stays
+// in the row's 128-byte line. D = 32 (4 chunks a row, two rows a line): at
+// chunk c ^ ((r >> 1) & 3) of its row, so that the 8 rows of an ldmatrix
+// phase (aligned to 8, one chunk) land on 8 distinct slots of a line.
+// Restated in kernels/flash_attention.py tc_smem_offset.
+template <int D>
+__device__ __forceinline__ uint32_t smem_off(int row, int c) {
+  const int x = D >= 64 ? (row & 7) : ((row >> 1) & 3);
+  return (uint32_t)(row * D * 2 + ((c ^ x) << 4));
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_mqa_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -55,6 +74,7 @@ flash_mqa_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     int KV, long long kv_bstride, long long kv_tstride) {
   constexpr int CH = D / 8;     // 16-byte chunks per row
   constexpr int ROWB = D * 2;   // bytes per row
+  constexpr int BT = KEYS<D>;
   constexpr int TILE = BT * ROWB;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t qs = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 127u) & ~127u;
@@ -89,7 +109,7 @@ flash_mqa_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       const int t = tile * BT + key;
       const bool ok = t < t_end;  // keys past the block's last are zeros
       const size_t off = (size_t)(ok ? t : 0) * kv_tstride + c * 8;
-      const uint32_t dst = buf * TILE + key * ROWB + ((c ^ (key & 7)) << 4);
+      const uint32_t dst = buf * TILE + smem_off<D>(key, c);
       cp_async16(ks + dst, kb + off, ok ? 16 : 0);
       cp_async16(vs + dst, vb + off, ok ? 16 : 0);
     }
@@ -99,7 +119,7 @@ flash_mqa_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   for (int it = 0; it < BR * CH / THREADS; ++it) {
     const int idx = tid + it * THREADS;
     const int r = idx / CH, c = idx % CH;
-    cp_async16(qs + r * ROWB + ((c ^ (r & 7)) << 4), q + row_off(r0 + r) + c * 8, 16);
+    cp_async16(qs + smem_off<D>(r, c), q + row_off(r0 + r) + c * 8, 16);
   }
   load_tile(0, 0);
   cp_async_commit();
@@ -129,7 +149,7 @@ flash_mqa_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       for (int kk = 0; kk < D / 16; ++kk) {
         const int row = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
         const int c = kk * 2 + (lane >> 4);
-        ldsm4(qs + row * ROWB + ((c ^ (row & 7)) << 4), qf[kk]);
+        ldsm4(qs + smem_off<D>(row, c), qf[kk]);
       }
     }
     const uint32_t kt = ks + buf * TILE, vt = vs + buf * TILE;
@@ -144,7 +164,7 @@ flash_mqa_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         uint32_t bf[4];
         const int row = n8 * 8 + (lane & 7);
         const int c = k2 * 4 + (lane >> 3);
-        ldsm4(kt + row * ROWB + ((c ^ (lane & 7)) << 4), bf);
+        ldsm4(kt + smem_off<D>(row, c), bf);
         mma16816(s[n8], qf[2 * k2], bf[0], bf[1]);
         mma16816(s[n8], qf[2 * k2 + 1], bf[2], bf[3]);
       }
@@ -196,7 +216,7 @@ flash_mqa_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         uint32_t bf[4];
         const int row = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
         const int c = n16 * 2 + (lane >> 4);
-        ldsm4_trans(vt + row * ROWB + ((c ^ (lane & 7)) << 4), bf);
+        ldsm4_trans(vt + smem_off<D>(row, c), bf);
         mma16816(o[2 * n16], a, bf[0], bf[1]);
         mma16816(o[2 * n16 + 1], a, bf[2], bf[3]);
       }
@@ -223,6 +243,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, const int* npv, int np,
                    int B, int S, int H, int Tn, int KV, long long bstride, long long tstride,
                    cudaStream_t st) {
+  constexpr int BT = KEYS<D>;
   constexpr int SMEM = (BR + 4 * BT) * D * 2 + 128;
   static size_t granted[gq::MAX_DEVICES] = {};
   cudaError_t e = gq::grant_smem(flash_mqa_tc_kernel<D>, SMEM, granted);
@@ -237,7 +258,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
 
 }  // namespace
 
-// bf16 q (B, S, H, D) and out contiguous, D in {64, 128}; k/v (B, T, KV, D)
+// bf16 q (B, S, H, D) and out contiguous, D in {32, 64, 128}; k/v (B, T, KV, D)
 // bf16, 16-byte aligned, with the given batch and time strides (in elements,
 // multiples of 16 bytes) and contiguous heads. n_past_vec (B,) int32 on the
 // device, or null to use n_past for every row.
@@ -249,6 +270,8 @@ extern "C" int gq_flash_mqa_tc(const void* q, const void* k, const void* v, void
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* npv = static_cast<const int*>(n_past_vec);
+  if (D == 32)
+    return launch<32>(q, k, v, out, npv, n_past, B, S, H, Tn, KV, kv_bstride, kv_tstride, st);
   if (D == 64)
     return launch<64>(q, k, v, out, npv, n_past, B, S, H, Tn, KV, kv_bstride, kv_tstride, st);
   if (D == 128)

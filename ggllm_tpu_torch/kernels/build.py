@@ -52,9 +52,6 @@ SIGNATURES = {
     "gq_quant_matmul_f32": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x (f32), xg, S, K, group, stream
     "gq_group_sums": [P, P, I, I, I, P],
-    # q, k, v, out (bf16, D = 32), n_past_vec, n_past, B, S, H, T, KV, D,
-    # k_batch_stride, k_time_stride, stream
-    "gq_flash_mqa": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     # q, k, v, out (bf16), n_past_vec, n_past, B, S, H, T, KV, D, k_batch_stride,
     # k_time_stride (long long), stream
     "gq_flash_mqa_tc": [P, P, P, P, P, I, I, I, I, I, I, I, L, L, P],

@@ -1,17 +1,17 @@
 """Causal MQA/GQA prefill attention: the hand-written CUDA kernels
-(csrc/flash_attention_tc.cu, csrc/flash_attention_f32.cu,
-csrc/flash_attention.cu) and their plain PyTorch version.
+(csrc/flash_attention_tc.cu, csrc/flash_attention_f32.cu) and their plain
+PyTorch version.
 
 Replaces the Pallas kernel ggllm_tpu/kernels/flash_attention.py `_kern`
 (launched by flash_mqa). Key t is visible to query i of row b iff
-t <= n_past[b] + i; f32 softmax; output in q's dtype. bf16 q/k/v with head
-dim 64 or 128 run the bf16 tensor-core kernel (`mma.sync` for both
+t <= n_past[b] + i; f32 softmax; output in q's dtype. bf16 q/k/v (head dim
+32, 64 or 128) run the bf16 tensor-core kernel (`mma.sync` for both
 products; a block is 64 (position, head) rows of one K/V head,
-position-major: `tc_block_plan`). f32 q/k/v (head dim 32, 64 or 128) run the
-f32 tensor-core kernel on the same block plan, each product as three
-split-TF32 products at f32 accuracy (`flash_mqa_f32_emulated` restates its
-arithmetic). bf16 at head dim 32 (the small test models) runs a kernel on
-the CUDA cores (8 heads x 16 positions a block).
+position-major: `tc_block_plan`; its shared-memory swizzle:
+`tc_smem_offset`). f32 q/k/v (head dim 32, 64 or 128) run the f32
+tensor-core kernel on the same block plan, each product as three split-TF32
+products at f32 accuracy (`flash_mqa_f32_emulated` restates its
+arithmetic).
 """
 
 from __future__ import annotations
@@ -22,31 +22,28 @@ from ggllm_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128)
-TC_HEAD_DIMS = (64, 128)  # the bf16 tensor-core kernel's
+TC_HEAD_DIMS = (32, 64, 128)  # the bf16 tensor-core kernel's
 TC_BLOCK_ROWS = 64        # query rows of a block (both tensor-core kernels)
-TC_TILE_KEYS = 64         # keys of a staged K/V tile (bf16)
+TC_TILE_KEYS = {32: 128, 64: 64, 128: 64}  # the bf16 kernel's keys a staged tile, by head dim
 F32_TILE_KEYS = {32: 64, 64: 64, 128: 32}  # the f32 kernel's, by head dim
 
 
 def route(dtype, D: int) -> str:
     """The kernel that serves q/k/v of `dtype` and head dim D on the card:
-    "tc" (bf16, D 64 or 128), "f32" (f32, D 32, 64 or 128: split TF32 on the
-    tensor cores) or "simt" (bf16, D = 32: the CUDA cores). Raises for what
-    none takes."""
+    "tc" (bf16) or "f32" (f32: split TF32 on the tensor cores), each at D 32,
+    64 or 128. Raises for what neither takes."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_mqa kernel: dtype {dtype}")
     if D not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(f"flash_mqa kernel: head_dim {D} (supported {KERNEL_HEAD_DIMS})")
-    if dtype == torch.float32:
-        return "f32"
-    return "tc" if D in TC_HEAD_DIMS else "simt"
+    return "f32" if dtype == torch.float32 else "tc"
 
 
-def tc_block_plan(S: int, G: int, n_past: int, T: int, block: int,
-                  keys: int = TC_TILE_KEYS) -> dict:
+def tc_block_plan(S: int, G: int, n_past: int, T: int, block: int, keys: int) -> dict:
     """What block `block` of one (batch row, K/V head) does in a
-    tensor-core kernel (the index arithmetic of csrc/flash_attention_tc.cu,
-    and of csrc/flash_attention_f32.cu with keys = F32_TILE_KEYS[D]).
+    tensor-core kernel (the index arithmetic of csrc/flash_attention_tc.cu
+    with keys = TC_TILE_KEYS[D], and of csrc/flash_attention_f32.cu with
+    keys = F32_TILE_KEYS[D]).
     The S * G query rows of a K/V head are ordered position-major, row
     r = position * G + head; the block owns rows [64 block, 64 block + 64).
     Returns {"rows": [(position, head), ...], "tiles": the number of
@@ -64,6 +61,17 @@ def tc_block_plan(S: int, G: int, n_past: int, T: int, block: int,
     masked = [i for i in range(tiles) if (i + 1) * keys > t_full or (i + 1) * keys > T]
     return {"rows": rows, "tiles": tiles, "masked": masked,
             "last_key": [n_past + pos for pos, _ in rows]}
+
+
+def tc_smem_offset(D: int, row: int, c: int) -> int:
+    """Byte offset of 16-byte chunk c of row `row` in a staged Q, K or V tile
+    of the bf16 tensor-core kernel (csrc/flash_attention_tc.cu smem_off):
+    rows of 2 D bytes, chunk c at chunk c ^ (row & 7) of its row for D >= 64
+    (a row fills a 128-byte line or two), c ^ ((row >> 1) & 3) at D = 32 (two
+    rows a line), so that the 8 rows of an ldmatrix phase fall on 8 distinct
+    16-byte slots of a line."""
+    x = (row & 7) if D >= 64 else ((row >> 1) & 3)
+    return row * D * 2 + ((c ^ x) << 4)
 
 
 def _n_past_vec(n_past, B: int, device) -> torch.Tensor:
@@ -180,7 +188,7 @@ def flash_mqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past) -> torc
         npv = _n_past_vec(n_past, B, q.device).contiguous()
         np_scalar = 0
     npv_ptr = None if npv is None else npv.data_ptr()
-    entry = {"tc": "gq_flash_mqa_tc", "f32": "gq_flash_mqa_f32", "simt": "gq_flash_mqa"}[path]
+    entry = {"tc": "gq_flash_mqa_tc", "f32": "gq_flash_mqa_f32"}[path]
     build.launch(entry, ("flash_mqa", f"flash_mqa.{path}"), q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), out.data_ptr(), npv_ptr, np_scalar, B, S, H, T, KV, D,
                  k.stride(0), k.stride(1), build.stream_ptr(q.device))

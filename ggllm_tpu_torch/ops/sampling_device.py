@@ -316,10 +316,11 @@ def cascade_mask_probs(vals: torch.Tensor, temp: torch.Tensor, top_p: torch.Tens
     B, k = vals.shape
     rank = torch.arange(k, device=vals.device)[None, :]
     mask = rank < torch.clamp(top_k_rows, min=1)[:, None]
-    if tfs_z is not None:
+    if tfs_z is not None and k > 2:
         # tail-free: the normalized second derivative of the sorted
         # probabilities, cut at the first index (>= 1) whose cumulative sum
-        # exceeds z; only where all three source entries are kept
+        # exceeds z; only where all three source entries are kept (so never
+        # on a slice of fewer than three candidates)
         probs = _masked_softmax(vals, mask)
         first = probs[:, :-1] - probs[:, 1:]
         second = torch.abs(first[:, :-1] - first[:, 1:])

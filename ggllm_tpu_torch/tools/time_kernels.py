@@ -7,6 +7,7 @@ its root, so that two trees can be timed in turns within one call.
     python -m ggllm_tpu_torch.tools.time_kernels tile
     python ggllm_tpu_torch/tools/time_kernels.py attn [--root DIR]
         [--cache bfloat16 --cache int8 --cache float32 --cache int8-f32q]
+    python ggllm_tpu_torch/tools/time_kernels.py mqa32 [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
         [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
         [--compute-dtype bfloat16] [--prompt 300] [--tokens 64]
@@ -41,6 +42,16 @@ time, a CUDA graph of one call per layer replayed between two events,
 divided by the layers (both: medians of 20, L2 flushed before each);
 `graph_device_length_ms` the same with the length in a device tensor, as
 the decode graph passes it (the grid then covers all T positions).
+`mqa32` prints one JSON line per shape of bf16 prefill attention at head
+dim 32 (the small test models' B = 2, S = 45, n_past [300, 7], H = 6, KV = 2;
+the training demo's S = 512, H = 4, KV = 1 at n_past 0 and 300): `flash_mqa`
+as `call_ms` (one call between two events) and `graph_ms` (device time, a
+CUDA graph of one call), `scaled_dot_product_attention` with the same causal
+mask over the keys any row sees timed the same two ways, the launch counters the call moved, its
+largest difference from the plain version as a share of max |plain|, and
+its bounds (q, the visible K/V and out at 3.35 TB/s; 4 D operations a
+visible (query, key) pair and head at 989 TFLOP/s; medians of 20, L2
+flushed before each).
 `gemv` prints one JSON line per decode weight shape of a family (legacy,
 the default: Q4_0, Q4_1, Q5_0, Q5_1 and Q8_0 at the Falcon-7B shapes, Q4_0 at
 LLaMA-7B's; kq: every K-quant at the Falcon-40B shapes, Q4_K at LLaMA-7B's;
@@ -450,6 +461,57 @@ def time_f32(bw: float = 3.35e12) -> None:
         del kv, q
 
 
+# (B, S, H, KV, n_past, T): bf16 prefill attention at head dim 32
+MQA32_SHAPES = ((2, 45, 6, 2, (300, 7), 400), (1, 512, 4, 1, (0,), 2560),
+                (1, 512, 4, 1, (300,), 2560))
+
+
+def time_mqa32(bw: float = 3.35e12, peak: float = 989e12) -> None:
+    import torch
+    import torch.nn.functional as F
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    package = str(Path(build.__file__).resolve().parents[2])
+    D = 32
+    for B, S, H, KV, past, T in MQA32_SHAPES:
+        kv = torch.randn(2, B, T, KV, D, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = kv[0], kv[1]
+        q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        n_past = (torch.tensor(past, dtype=torch.int32, device="cuda") if B > 1
+                  else past[0])
+        pos = torch.tensor(past, device="cuda")[:, None] + torch.arange(S, device="cuda")
+        Tv = int(pos.max()) + 1  # the library call gets the keys any row sees
+        mask = (torch.arange(Tv, device="cuda")[None, None, :] <= pos[:, :, None])[:, None]
+        qt, kt, vt = q.transpose(1, 2), k[:, :Tv].transpose(1, 2), v[:, :Tv].transpose(1, 2)
+        if KV == 1:  # the one K/V head broadcast to all query heads (a view, no copy)
+            kt, vt = kt.expand(B, H, Tv, D), vt.expand(B, H, Tv, D)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=KV > 1)
+
+        def ours():
+            return fa.flash_mqa(q, k, v, n_past)
+
+        build.launch_counts.clear()
+        got, ref = ours().float(), fa.flash_mqa_plain(q, k, v, n_past).float()
+        launches = dict(build.launch_counts)
+        err = float((got - ref).abs().max() / ref.abs().max())
+        pairs = int((pos + 1).sum())
+        nbytes = 2 * (2 * q.numel() + int((pos[:, -1] + 1).sum()) * 2 * KV * D)
+        row = {"package": package, "B": B, "S": S, "H": H, "KV": KV, "D": D,
+               "n_past": list(past), "T": T, "launches": launches, "rel_err": err,
+               "call_ms": median_ms(ours, flush), "graph_ms": graph_ms(lambda i: ours(), 1, flush),
+               "library_call_ms": median_ms(sdpa, flush),
+               "library_graph_ms": graph_ms(lambda i: sdpa(), 1, flush),
+               "bytes_bound_ms": nbytes / bw * 1e3, "ops_bound_ms": 4 * pairs * H * D / peak * 1e3}
+        print(json.dumps(row), flush=True)
+        del kv, q
+
+
 GROUP_SUMS_SHAPES = tuple((S, K, 32) for S in (300, 512) for K in (4544, 22720, 4096, 11008)) + (
     (512, 8192, 16), (512, 40960, 16))
 
@@ -722,8 +784,8 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("tile", "attn", "decode", "gemv", "rows", "f32", "f32path",
-                                     "group_sums", "nodes"))
+    ap.add_argument("what", choices=("tile", "attn", "mqa32", "decode", "gemv", "rows", "f32",
+                                     "f32path", "group_sums", "nodes"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
     ap.add_argument("--format", default="q4_0")
@@ -747,6 +809,8 @@ def main(argv=None) -> int:
         time_tile()
     elif args.what == "attn":
         time_attn(tuple(args.cache) or ("bfloat16", "int8"))
+    elif args.what == "mqa32":
+        time_mqa32()
     elif args.what == "f32":
         time_f32()
     elif args.what == "group_sums":

@@ -529,21 +529,21 @@ def test_group_sums(dev, dtype, g):
                                     (8, 2, 128)])
 @pytest.mark.parametrize("n_past", [0, 37, "rows"])
 def test_flash_mqa(dev, dtype, H, KV, D, n_past):
-    """bf16 at D 64 / 128 runs the bf16 tensor-core kernel, f32 the f32 one,
-    bf16 at D = 32 the CUDA-core kernel, each counted as such; 45 query rows
-    are a ragged last block in every layout."""
+    """bf16 runs the bf16 tensor-core kernel, f32 the f32 one, at every head
+    dim, each counted as such; 45 query rows are a ragged last block in every
+    layout."""
     _flash_mqa_case(dev, dtype, H, KV, D, n_past, S=45)
 
 
-def _flash_mqa_case(dev, dtype, H, KV, D, n_past, S):
-    B, T = 2, 160 + 64 * (S // 64)
+def _flash_mqa_case(dev, dtype, H, KV, D, n_past, S, T=None):
+    B, T = 2, T or 160 + 64 * (S // 64)
     g = _gen(H * D)
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
     kv = torch.randn(1, 2, B, T, KV, D, generator=g, device=dev).to(dtype)
     if n_past == "rows":
         n_past = torch.tensor([3, 90], dtype=torch.int32, device=dev)
-    path = "f32" if dtype == torch.float32 else "tc" if D in (64, 128) else "simt"
-    names = ("flash_mqa", "flash_mqa.tc", "flash_mqa.f32", "flash_mqa.simt")
+    path = "f32" if dtype == torch.float32 else "tc"
+    names = ("flash_mqa", "flash_mqa.tc", "flash_mqa.f32")
     before = {n: build.launch_counts[n] for n in names}
     got = flash_mqa(q, kv[0, 0], kv[0, 1], n_past)
     for n in names:
@@ -559,6 +559,18 @@ def test_flash_mqa_row_counts(dev, dtype, H, KV, D, n_past, S):
     """Short, ragged and multi-block query counts (513 rows of 71 heads are
     570 blocks of one K/V head) at the three head layouts."""
     _flash_mqa_case(dev, dtype, H, KV, D, n_past, S)
+
+
+@pytest.mark.parametrize("H,KV", [(4, 1), (1, 1), (6, 2), (71, 1), (5, 5)])
+@pytest.mark.parametrize("n_past", [0, 211, "rows"])
+@pytest.mark.parametrize("S,T", [(1, 300), (45, 233), (130, 419), (513, 797)])
+def test_flash_mqa_bf16_head_dim_32(dev, H, KV, n_past, S, T):
+    """bf16 at D = 32 on the tensor-core kernel (two 64-byte rows a 128-byte
+    line in its swizzle): S G query rows not a multiple of 64, T not a
+    multiple of 64 (past the last visible key, or before it at S = 45 and
+    n_past 211), per-row n_past, G = 1 and G > 1, at the bf16 tolerance of
+    flash_mqa_plain."""
+    _flash_mqa_case(dev, torch.bfloat16, H, KV, 32, n_past, S, T)
 
 
 def _decode_counter(KV, H, int8):

@@ -13,7 +13,9 @@ tc_block_plan) and held here against the plain versions:
    mode), which is the tolerance the card check uses;
  * the attention kernel's blocks own every (position, head) row once, visit
    every key their rows may see, and skip the mask only where every row sees
-   the whole tile.
+   the whole tile (64-key tiles, 128 at head dim 32);
+ * its shared-memory swizzle (tc_smem_offset) is a bijection that keeps each
+   chunk in its row and each ldmatrix phase free of bank conflicts.
 """
 
 import numpy as np
@@ -148,10 +150,42 @@ def test_tc_rows(S, O, want):
 
 
 @pytest.mark.parametrize("dtype,D,want", [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
-                                          (torch.bfloat16, 32, "simt"), (torch.float32, 64, "f32"),
+                                          (torch.bfloat16, 32, "tc"), (torch.float32, 64, "f32"),
                                           (torch.float32, 128, "f32"), (torch.float32, 32, "f32")])
 def test_attention_route(dtype, D, want):
     assert tfa.route(dtype, D) == want
+
+
+def _phase_slots(offset, D):
+    """Each ldmatrix phase of a staged tile (8 rows aligned to 8, one
+    16-byte chunk): the 16-byte slots of a 128-byte line its reads fall on."""
+    return [[offset(D, r0 + i, c) % 128 // 16 for i in range(8)]
+            for r0 in range(0, tfa.TC_BLOCK_ROWS, 8) for c in range(D // 8)]
+
+
+@pytest.mark.parametrize("D", tfa.TC_HEAD_DIMS)
+def test_tc_smem_offset(D):
+    """The bf16 attention kernel's swizzle (tc_smem_offset, csrc smem_off)
+    on a 64-row tile: a bijection of the tile's 16-byte chunks, every chunk
+    in its own row's bytes (so in its row's 128-byte line), and each 8-row
+    ldmatrix phase on 8 distinct slots of a line (no bank conflicts)."""
+    rows, ch, rowb = tfa.TC_BLOCK_ROWS, D // 8, 2 * D
+    offs = {(r, c): tfa.tc_smem_offset(D, r, c) for r in range(rows) for c in range(ch)}
+    assert sorted(offs.values()) == list(range(0, rows * rowb, 16))
+    for (r, c), off in offs.items():
+        assert r * rowb <= off < (r + 1) * rowb
+        assert off // 128 == (r * rowb + 16 * c) // 128
+    for slots in _phase_slots(tfa.tc_smem_offset, D):
+        assert len(set(slots)) == 8
+
+
+def test_tc_smem_offset_control():
+    """The D >= 64 map (chunk c ^ (r & 7)) at D = 32, where a row has 4
+    chunks, writes past its row; unswizzled, a phase's 8 rows share 2 slots."""
+    wide = lambda D, r, c: r * 2 * D + ((c ^ (r & 7)) << 4)
+    assert any(not r * 64 <= wide(32, r, c) < (r + 1) * 64 for r in range(8) for c in range(4))
+    plain = lambda D, r, c: r * 2 * D + 16 * c
+    assert all(len(set(s)) == 2 for s in _phase_slots(plain, 32))
 
 
 @pytest.mark.parametrize("gtype", FORMATS, ids=IDS)
@@ -184,20 +218,33 @@ def _plain_mask(S, n_past, T):
 @pytest.mark.parametrize("H,KV", [(71, 1), (128, 8), (32, 32)], ids=["g71", "g16", "g1"])
 @pytest.mark.parametrize("n_past", [0, 37, "rows"])
 def test_attention_block_plan_matches_plain_mask(H, KV, n_past):
-    """S = 150 (a ragged last block in every layout), T = 256. Per batch row
-    (a per-row n_past gives each its own) the blocks own every (position,
-    head) exactly once; per row, the keys the plain mask shows lie in the
-    visited tiles and equal what the kernel's test `t <= last_key and t < T`
-    leaves; a tile that skips the test is visible to every row of its block;
-    blocks span the fewest positions their 64 rows allow."""
+    """S = 150 (a ragged last block in every layout), T = 256, 64-key tiles
+    (head dims 64 and 128). Per batch row (a per-row n_past gives each its
+    own) the blocks own every (position, head) exactly once; per row, the
+    keys the plain mask shows lie in the visited tiles and equal what the
+    kernel's test `t <= last_key and t < T` leaves; a tile that skips the
+    test is visible to every row of its block; blocks span the fewest
+    positions their 64 rows allow."""
+    _check_block_plan(H, KV, n_past, tfa.TC_TILE_KEYS[64])
+
+
+@pytest.mark.parametrize("H,KV", [(4, 1), (6, 2), (5, 5)], ids=["g4", "g3", "g1"])
+@pytest.mark.parametrize("n_past", [0, 37, "rows"])
+def test_attention_block_plan_at_head_dim_32(H, KV, n_past):
+    """The same at D = 32, whose tiles hold 128 keys, at the small models'
+    and the training demo's head layouts."""
+    assert tfa.TC_TILE_KEYS[32] == 128
+    _check_block_plan(H, KV, n_past, tfa.TC_TILE_KEYS[32])
+
+
+def _check_block_plan(H, KV, n_past, tile):
     S, T, G = 150, 256, H // KV
-    tile = tfa.TC_TILE_KEYS
     for past in ([3, 120] if n_past == "rows" else [n_past]):
         mask = _plain_mask(S, past, T)
         n_blocks = -(-S * G // tfa.TC_BLOCK_ROWS)
         owned = []
         for block in range(n_blocks):
-            plan = tfa.tc_block_plan(S, G, past, T, block)
+            plan = tfa.tc_block_plan(S, G, past, T, block, tile)
             owned += plan["rows"]
             positions = sorted({pos for pos, _ in plan["rows"]})
             assert len(positions) <= -(-len(plan["rows"]) // G) + 1
