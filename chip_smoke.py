@@ -11,18 +11,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      shapes (quant_matmul in all ten formats: Q4_0 … Q8_0 at the Falcon-7B
      shapes, Q2_K … Q6_K at the Falcon-40B shapes, Q4_0 and Q4_K at the
      LLaMA-7B shapes, S = 1 through the K-quant GEMV (K-quants) or the
-     legacy GEMV and S = 512 through the tensor-core tile; the tile also at
+     legacy GEMV and S = 512 through the tensor-core tile; Q2_K at the
+     Falcon-180B shapes at S = 1 and 300, also as device time; the tile also at
      S = 17 and 300 and at a ragged O, and at S = 28 (a batched verify) at the
      Falcon-7B decode weights;
      the f32 tensor-core tile at two shapes at S = 300 and 512 and at three
      more of the f32 paths' 300-row widths, group_sums on f32 x at the f32
      paths' widths; the attention kernels at the
-     three models' head layouts, bf16 through the tensor-core kernel, with a
+     three models' head layouts (and Falcon-180B's 232 heads over 8 at S =
+     300), bf16 through the tensor-core kernel, with a
      per-row n_past, f32 through the f32 tensor-core kernel (split TF32) at
      Falcon-7B's and LLaMA-7B's, and bf16 at head dim 32 through the
      tensor-core kernel too (the small test models' layout, and S = 512 at
      the training demo's 4 heads over one K/V head); flash-decode on bf16
-     and on int8 caches, grouped heads through the tensor-core kernel and
+     and on int8 caches (Falcon-180B's 29 query heads a K/V head among
+     them, 80 layers), grouped heads through the tensor-core kernel and
      LLaMA's G == 1 through its own, with and without the append block and
      with a length per row, also at 5 decode rows (valid 300, 17, 2047, 1
      and a parked row); f32 q on f32 and int8 caches through the f32
@@ -44,8 +47,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bf16 weight at Falcon-7B's lm_head shape through ops/linear.py against
      the f32 product;
   3. drive the main path at full width and full depth through the engine's
-     entry points, with random weights from a seed, seven times: Falcon-7B
-     Q4_0 and Q4_1 (32 layers), Falcon-40B Q4_K (60 layers) and LLaMA-7B
+     entry points, with random weights from a seed, eight times: Falcon-7B
+     Q4_0 and Q4_1 (32 layers), Falcon-40B Q4_K (60 layers), Falcon-180B
+     Q2_K (80 layers, one card: its peak below the planner's 90 % of the
+     card's memory) and LLaMA-7B
      Q4_0 (32 layers) on a bf16 cache; Falcon-40B Q3_K (60 layers) and
      LLaMA-7B Q4_K (32 layers) on an int8 cache; Falcon-7B Q4_0 on an f32
      cache with bf16 compute (`--memory-f32`, whose decode runs the f32
@@ -186,7 +191,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      first run's text), --draft-model (the Q4_K file as the draft), --mtest
      with --alias, -dt 1 (its table lists the GEMV and the decode kernel from
      the graph replays), --weight-mode dequant (its ids held to the fused
-     engine's), --export (exit 1) and -t 8 -ngl 100 (ignored). These
+     engine's), --export (exit 1) and -t 8 -ngl 100 (ignored); and a
+     2-layer full-width Falcon-180B Q2_K file written from a tree built on
+     the card, on which the CLI with -ts auto must pick one card and print
+     16 greedy ids (the file is deleted after). These
      processes run alongside phase 1's SASS report, and end before phase 2.
 The last two lines of standard output are the kernel table as JSON and
 {"ok": true, "device": {...}}. Per-shape rows also go to
@@ -355,6 +363,7 @@ def check(name: str, got, ref, tol: float = TOL) -> tuple[float, float]:
 def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
     """Every kernel against its plain version at the main-path shapes."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.kernels import build
@@ -440,6 +449,20 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
             for S in (1, 512):
                 matmul_row(fmt, wname, w, wbytes, wdeq, S, bf16, out_dtype)
             del w, wdeq
+
+    # ---- Falcon-180B's Q2_K matrices (w_od: K = E + F, 1.10 G weights) at one
+    # row (the K-quant GEMV) and 300 (the tile: the 180B path's prefill), each
+    # also as device time
+    shapes_180b = (("180b.wqkv", 15872, 14848), ("180b.ffn_up", 59392, 14848),
+                   ("180b.w_od", 14848, 74240), ("180b.lm_head", 65024, 14848))
+    for wname, O, K in shapes_180b:
+        w = random_quant(GGMLType.Q2_K, O, K, gen, "cuda")
+        wbytes = sum(p.numel() * p.element_size() for p in w.planes.values())
+        wdeq = w.dequantize(bf16)
+        out_dtype = torch.float32 if wname.endswith("lm_head") else bf16
+        for S in (1, 300):
+            matmul_row("q2_k", wname, w, wbytes, wdeq, S, bf16, out_dtype, graphs=True)
+        del w, wdeq
 
     # ---- the tensor-core tile off the main-path shapes: short and ragged S
     # (17 rows: the 64-row tile; 300: two 256-row chunks, or three of 128
@@ -556,12 +579,14 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
 
     # ---- flash_mqa: S=512 against one (1, T=2560, KV, D) cache layer, at
     # Falcon-7B's 71 heads over one K/V head, Falcon-40B's 128 over 8 (D = 64)
-    # and LLaMA-7B's 32 heads with a K/V head each (D = 128)
+    # and LLaMA-7B's 32 heads with a K/V head each (D = 128); S = 300 (its
+    # path's prefill) at Falcon-180B's 232 over 8 (D = 64)
     T, S = 2560, 512
 
     def mqa_row(q, k, v, n_past, H, KV, D):
         """One case through the wrapper: bf16 runs the bf16 tensor-core
         kernel, f32 the f32 one; timed beside scaled_dot_product_attention."""
+        S = q.shape[1]
         f32 = q.dtype == torch.float32
         name = "flash_mqa.f32" if f32 else "flash_mqa.tc"
         before = build.launch_counts[name]
@@ -592,10 +617,11 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
             2 * S * H * D * eb + 2 * Tv * KV * D * eb, (3 if f32 else 1) * 4 * pairs * H * D,
             rate=peak_tf32 if f32 else peak, **extra)
 
-    for H, KV, D, past in ((71, 1, 64, (0, 300)), (128, 8, 64, (0,)), (32, 32, 128, (0, 300))):
+    for H, KV, D, past in ((71, 1, 64, (0, 300)), (128, 8, 64, (0,)), (32, 32, 128, (0, 300)),
+                           (232, 8, 64, (0,))):
         kvc = torch.randn(1, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
         k, v = kvc[0, 0], kvc[0, 1]
-        q = torch.randn(1, S, H, D, generator=gen, device="cuda").to(bf16)
+        q = torch.randn(1, 300 if H == 232 else S, H, D, generator=gen, device="cuda").to(bf16)
         for n_past in past:
             mqa_row(q, k, v, n_past, H, KV, D)
         if KV != 8:  # the f32 kernel at the layouts of the f32 paths
@@ -639,14 +665,16 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
     del kvc
 
     # ---- flash_decode: the last layer of the full cache (32 layers at
-    # Falcon-7B and LLaMA-7B, 60 at 40B); grouped heads take the tensor-core
+    # Falcon-7B and LLaMA-7B, 60 at 40B, 80 at 180B: 29 query heads a K/V
+    # head, padded to 32 rows); grouped heads take the tensor-core
     # kernel, H == KV the G == 1 kernel, each on a bf16 and an int8 cache.
     # Timed two ways: one call between events (ms: what an eager decode step
     # pays, host work included) and device time (graph_ms: a CUDA graph of one
     # call per layer, as a decode step makes them, divided by the layers); the
     # library call both ways too
     for L, H, KV, D, valids in ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (300, 2047)),
-                                (32, 32, 32, 128, (1, 300, 2047))):
+                                (32, 32, 32, 128, (1, 300, 2047)),
+                                (80, 232, 8, 64, (1, 300, 2047))):
         l, G = L - 1, H // KV
         kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
         q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
@@ -780,10 +808,10 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
     # the full-depth cache, held at F32_TOL against the plain attention; the
     # partials also against partials_emulated (the kernel's splits, warps'
     # key tiles and split-TF32 terms); timed as the bf16 rows, beside f32 SDPA
-    # (TF32 off). Bound: the valid K and V (2 D 4 bytes a position and K/V
-    # head in f32, 2 D + 8 as codes and scales) + q + out, or the products on
-    # the tensor cores (three split-TF32 products a product, two for int8
-    # codes, at the TF32 rate)
+    # (TF32 off; its math backend, sdpa32). Bound: the valid K and V (2 D 4
+    # bytes a position and K/V head in f32, 2 D + 8 as codes and scales) + q +
+    # out, or the products on the tensor cores (three split-TF32 products a
+    # product, two for int8 codes, at the TF32 rate)
     for L, H, KV, D, valids in ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (1, 300, 2047))):
         l, G = L - 1, H // KV
         kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda")
@@ -836,7 +864,15 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                 q1t = lib_q(q1)
 
                 def sdpa32(i):
-                    return F.scaled_dot_product_attention(q1t, kt[i], vt[i], enable_gqa=KV > 1)
+                    # SDPA's math backend: on an H100 (torch 2.11) the
+                    # memory-efficient kernel, which SDPA picks for f32, wrote
+                    # past its tensors at one query row of 71 heads (valid 1 and
+                    # 2047): a flash-decode workspace's arrival counter held f32
+                    # output values after the call, and the next merge that
+                    # used it came out wrong
+                    with sdpa_kernel(SDPBackend.MATH):
+                        return F.scaled_dot_product_attention(q1t, kt[i], vt[i],
+                                                              enable_gqa=KV > 1)
 
                 lib_ms = timer(lambda: sdpa32(l))
                 lib_dev_ms = graph_ms(sdpa32, L, timer.flush)
@@ -1084,7 +1120,7 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     log(f"  prefill {n_prefill} tokens: {prefill_tps:.1f} tok/s;"
         f" greedy decode {n_decode} tokens: {decode_tps:.2f} tok/s;"
         f" sampled decode 32 tokens: {sampled_tps:.2f} tok/s;"
-        f" peak device memory {peak / 2**30:.2f} GiB")
+        f" peak device memory {peak / 2**30:.2f} GiB ({smi('name,power.limit')})")
     log(f"  launches on the {label} path: {counts}")
     # prefill: the tensor-core tile and attention kernel (on an f32 cache q
     # takes the cache's dtype: the f32 attention kernel); decode: the format's
@@ -1150,6 +1186,8 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
         f" launches {step_counts}")
     if rel_d > LOGIT_TOL or (decided_d and not same_d):
         raise RuntimeError(f"kernel and plain decode logits disagree on the {label} path")
+    peak_plain = torch.cuda.max_memory_allocated()  # with the plain engine's dequantized weights
+    log(f"  peak device memory with the plain comparison {peak_plain / 2**30:.2f} GiB")
     if step_counts.get(gemv, 0) <= 0 or step_counts.get(other_gemv, 0):
         raise RuntimeError(f"the decode step on the {label} path did not run {gemv} alone:"
                            f" {step_counts}")
@@ -1159,7 +1197,7 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
            "logit_rel_err": rel, "argmax_same": int(same.sum()),
            "argmax_decided": int(decided.sum()), "decode_logit_rel_err": rel_d,
            "decode_argmax_same": same_d, "decode_argmax_decided": decided_d,
-           "host_route": host_route}
+           "host_route": host_route, "peak_with_plain_bytes": peak_plain}
     del plain
     if int8:  # what the int8 cache costs or saves against bf16, same weights
         dense = FalconEngine(hp, params, EngineConfig())
@@ -2964,6 +3002,51 @@ def start_cli(d: str) -> dict:
     return run
 
 
+def start_cli_180b(torch, d: str) -> dict:
+    """Falcon-180B for the CLI: a 2-layer, full-width Q2_K GGCC file written by
+    the port's writer (_write_tree_file) from a seeded tree built on the card
+    (the embedding in f16), then the CLI started on it with -ts auto and 16
+    greedy ids (its output into d/180b). Returns what check_cli_180b needs."""
+    import dataclasses
+    import gc
+
+    from ggllm_tpu_torch.core.config import named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    hp = dataclasses.replace(named_hparams("falcon180b"), n_layer=2)
+    t0 = time.perf_counter()
+    params = make_bench_params(hp, device="cuda", seed=11, gtype=GGMLType.Q2_K)
+    path = str(Path(d) / "falcon180b-2-layers-q2_k.ggcc")
+    _write_tree_file(path, params, hp, f16_embedding=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  a 2-layer full-width Falcon-180B Q2_K file: {os.path.getsize(path) / 1e6:.1f} MB,"
+        f" written in {time.perf_counter() - t0:.1f} s")
+    run = {"dir": str(Path(d) / "180b"), "procs": [], "then": {}, "path": path}
+    Path(run["dir"]).mkdir()
+    _start_cli_process(run, ["-m", path, "-p", "the thing", "-n", "16", "--temp", "0",
+                             "--ignore-eos", "-ts", "auto"])
+    return run
+
+
+def check_cli_180b(run: dict) -> None:
+    """The CLI on the 2-layer Falcon-180B file: -ts auto must pick one card,
+    and the run print its prompt, 16 ids and its timings; then the file is
+    deleted."""
+    ((out, err), rc), = wait_cli(run)
+    os.remove(run["path"])
+    auto = re.search(r"auto tensor split: .*", err)
+    load = re.search(r"load time\s*=\s*([0-9.]+) ms", err)
+    log(f"  cli falcon180b q2_k (2 layers) -ts auto rc={rc}:"
+        f" {auto.group(0) if auto else 'no plan'}; load {load.group(1) if load else '?'} ms;"
+        f" stdout={out.strip()[:100]!r}")
+    if (rc or not out.startswith(b"the thing") or "eval time" not in err or not auto
+            or not auto.group(0).startswith("auto tensor split: 1 chip(s)")):
+        raise RuntimeError(f"CLI run on the Falcon-180B file failed:\n{out}\n{err}")
+
+
 def _start_cli_process(run: dict, cmd: list) -> None:
     i = len(run["procs"])
     with open(Path(run["dir"]) / f"{i}.out", "wb") as out, \
@@ -3089,13 +3172,14 @@ def _dequant_ids(path: str, same_text: bool) -> None:
         raise RuntimeError(f"--weight-mode dequant ids {ids} leave the fused engine's near-ties")
 
 
-def _write_tree_file(path: str, params: dict, hp) -> None:
+def _write_tree_file(path: str, params: dict, hp, f16_embedding: bool = False) -> None:
     """A merged parameter tree on the card (utils/benchgen.py
     make_bench_params: Falcon-7B "wqkvu" / "w_od", 40B-style "wqkv" /
     "ffn_up" / "w_od", LLaMA "wqkv" / "w13" / "wo" / "w2") as a GGCC or GGJT
     file the loader reads back to the same tree: each merged weight split
     back into the file's matrices (rows, or whole blocks of the contraction),
-    the embedding and norms in f32 (exactly their values)."""
+    the embedding and norms in f32 (exactly their values; with
+    f16_embedding, a 40B-style embedding in f16, half the bytes)."""
     if hp.arch != "llama" and hp.n_falcon_type < 40:
         return _write_params_file(path, params, hp)
     import numpy as np
@@ -3140,7 +3224,12 @@ def _write_tree_file(path: str, params: dict, hp) -> None:
             quant(f"{p}.feed_forward.w2.weight", lw["w2"])
             quant(f"{p}.feed_forward.w3.weight", lw["w13"], rows=(F, 2 * F))
     else:
-        f32("transformer.word_embeddings.weight", params["tok_embeddings"])
+        if f16_embedding:
+            a = params["tok_embeddings"].half().cpu().numpy()
+            w.write_tensor("transformer.word_embeddings.weight", GGMLType.F16,
+                           tuple(reversed(a.shape)), a.reshape(-1).view(np.uint8))
+        else:
+            f32("transformer.word_embeddings.weight", params["tok_embeddings"])
         f32("transformer.ln_f.weight", params["output_norm"])
         f32("transformer.ln_f.bias", params["output_norm_b"])
         quant("lm_head.weight", params["lm_head"])
@@ -3782,6 +3871,7 @@ def main() -> int:
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.parallel.plan import HEADROOM_FRACTION
 
     card = smi("name,power.limit")
     log(card)
@@ -3804,7 +3894,9 @@ def main() -> int:
     # phase 2 starts, so that nothing else runs on the card while it times
     with tempfile.TemporaryDirectory() as d:
         cli = start_cli(d)
+        cli180 = None
         try:
+            cli180 = start_cli_180b(torch, d)
             # the GEMVs and the rows kernel decode their codes and scales
             # without int -> float conversions: every format, rows a warp (1,
             # 2), x and y dtype of both GEMVs; n-tiles (1, 2) and cluster
@@ -3834,13 +3926,14 @@ def main() -> int:
                         f" {r['loop_instructions']} ({r['loop_instructions_per_weight']} a weight)")
 
             cli_results = wait_cli(cli)
+            log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+            log("phase 4: CLI on GGCC and GGJT files (run alongside the SASS report)")
+            check_cli(cli, cli_results)
+            check_cli_180b(cli180)
         finally:
-            for p in cli["procs"]:
+            for p in cli["procs"] + (cli180["procs"] if cli180 else []):
                 if p.poll() is None:
                     p.kill()
-        log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-        log("phase 4: CLI on GGCC and GGJT files (run alongside the SASS report)")
-        check_cli(cli, cli_results)
 
     log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
     log("phase 2: kernels vs plain versions")
@@ -3903,6 +3996,12 @@ def main() -> int:
     log("  -- falcon40b q3_k, int8 cache")
     paths.append(phase_model(torch, "falcon40b", "q3_k", kv_dtype="int8",
                              peak_below=paths[-1]["peak_bytes"]))
+    log("  -- falcon180b q2_k (80 layers, one card)")
+    t0 = time.perf_counter()
+    path180 = phase_model(torch, "falcon180b", "q2_k", peak_below=int(
+        (1 - HEADROOM_FRACTION) * torch.cuda.get_device_properties(0).total_memory))
+    paths.append(path180)
+    log(f"  (falcon180b took {time.perf_counter() - t0:.1f} s)")
     log("  -- llama7b q4_0")
     paths.append(phase_model(torch, "llama7b", "q4_0"))
     log("  -- llama7b q4_k, int8 cache")
@@ -3991,6 +4090,14 @@ def main() -> int:
                 for r32 in rows if r32["kernel"] == name and r32["shape"].endswith("D=32")]
         if name.startswith("flash_decode"):
             entry["cache_dtypes"], entry["head_dims"] = DECODE_LAYOUTS[name]
+        r180 = [r for r in rows if r["kernel"] == name
+                and any(t in r["shape"] for t in ("180b.", "H=232", "G=29"))]
+        if r180:  # the kernel at Falcon-180B's shapes, and its launches on that path
+            entry["falcon180b"] = [{k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                      "library_ms", "bound_ms", "bound_by",
+                                                      "graph_ms", "library_graph_ms") if k in r}
+                                   for r in r180]
+            entry["launches_falcon180b"] = path180["launches"].get(counter, 0)
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

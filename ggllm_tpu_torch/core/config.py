@@ -38,6 +38,10 @@ class FalconHParams:
         return cls(n_embd=8192, n_head=128, n_head_kv=8, n_layer=60, n_falcon_type=40, **kw)
 
     @classmethod
+    def falcon180b(cls, **kw) -> "FalconHParams":
+        return cls(n_embd=14848, n_head=232, n_head_kv=8, n_layer=80, n_falcon_type=180, **kw)
+
+    @classmethod
     def tiny(cls, **kw) -> "FalconHParams":
         """Small config for tests: same structure, toy sizes."""
         kw.setdefault("n_vocab", 512)
@@ -91,7 +95,8 @@ class LlamaHParams:
 
 
 def named_hparams(name: str) -> FalconHParams | LlamaHParams:
-    """"falcon7b", "falcon40b" or "llama7b" -> that model's hyperparameters."""
+    """"falcon7b", "falcon40b", "falcon180b" or "llama7b" -> that model's
+    hyperparameters."""
     return getattr(LlamaHParams if name.startswith("llama") else FalconHParams, name)()
 
 

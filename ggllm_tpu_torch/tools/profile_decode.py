@@ -2,7 +2,7 @@
 prefill chunk and of a run of decode tokens at full model width (random
 weights of one format from a seed), on the CUDA card.
 
-    python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b|llama7b]
+    python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b|falcon180b|llama7b]
         [--format q4_0|q4_1|q5_0|q5_1|q8_0|q2_k|q3_k|q4_k|q5_k|q6_k]
         [--kv-dtype bfloat16|float32|int8] [--prompt 300] [--tokens 64] [--rows B]
 
@@ -66,7 +66,7 @@ def _device_summary(prof, wall_s: float, n_tokens: int, top: int = 12) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"),
+    ap.add_argument("--config", choices=("falcon7b", "falcon40b", "falcon180b", "llama7b"),
                     default="falcon7b")
     ap.add_argument("--format", default="q4_0", help="2-D weight format (default q4_0)")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))

@@ -9,7 +9,7 @@ its root, so that two trees can be timed in turns within one call.
         [--cache bfloat16 --cache int8 --cache float32 --cache int8-f32q]
     python ggllm_tpu_torch/tools/time_kernels.py mqa32 [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
-        [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
+        [--config falcon7b|falcon40b|falcon180b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
         [--compute-dtype bfloat16] [--prompt 300] [--tokens 64]
     python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR] [--family legacy|kq]
         [--shape q4_0:12288x4096 ...]
@@ -19,7 +19,7 @@ its root, so that two trees can be timed in turns within one call.
     python ggllm_tpu_torch/tools/time_kernels.py f32path [--root DIR]
         [--config falcon7b|llama7b] [--format q4_0] [--layers 32]
     python ggllm_tpu_torch/tools/time_kernels.py nodes [--root DIR]
-        [--config falcon7b|falcon40b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
+        [--config falcon7b|falcon40b|falcon180b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
 
 `tile` prints, per weight shape of the full-width models and S in 512 / 300,
 the `wgmma` tile's time with 128 and 256 x rows a block, with the width
@@ -787,7 +787,8 @@ def main(argv=None) -> int:
     ap.add_argument("what", choices=("tile", "attn", "mqa32", "decode", "gemv", "rows", "f32",
                                      "f32path", "group_sums", "nodes"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    ap.add_argument("--config", choices=("falcon7b", "falcon40b", "llama7b"), default="falcon7b")
+    ap.add_argument("--config", choices=("falcon7b", "falcon40b", "falcon180b", "llama7b"),
+                    default="falcon7b")
     ap.add_argument("--format", default="q4_0")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"))
     ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),

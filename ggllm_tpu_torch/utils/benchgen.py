@@ -37,6 +37,11 @@ from ggllm_tpu_torch.core.device import resolve_device
 from ggllm_tpu_torch.core.dtypes import GGMLType, TYPE_TRAITS
 from ggllm_tpu_torch.ops.linear import QuantTensor
 
+# elements of one f32 draw of the embedding (2 GiB): Falcon-7B's, 40B's and
+# LLaMA-7B's embeddings are one draw; Falcon-180B's (65024 x 14848, 3.9 GB in
+# f32) is drawn in two beside the 58 GB of its Q2_K layers
+EMB_DRAW = 1 << 29
+
 
 def random_quant(gtype: GGMLType, out: int, cols: int, gen: torch.Generator, device,
                  scale: float = 0.02) -> QuantTensor:
@@ -134,8 +139,15 @@ def make_bench_params(hp: FalconHParams | LlamaHParams, compute_dtype=torch.bflo
         else:
             lw["wqkvu"] = quant(n_qkv + F, E)
         layers.append(lw)
-    emb = torch.randn(V, E, generator=gen, dtype=torch.float32, device=device) * 0.02
-    params = {"tok_embeddings": emb.to(compute_dtype), "output_norm": ones(),
+    # the embedding, drawn in f32 in row chunks of at most EMB_DRAW elements
+    # (one draw, as before, wherever V * E fits in one)
+    emb = torch.empty(V, E, dtype=compute_dtype, device=device)
+    step = max(1, EMB_DRAW // E)
+    for r in range(0, V, step):
+        n = min(step, V - r)
+        emb[r:r + n] = torch.randn(n, E, generator=gen, dtype=torch.float32,
+                                   device=device).mul_(0.02)
+    params = {"tok_embeddings": emb, "output_norm": ones(),
               "lm_head": quant(V, E), "layers": layers}
     if hp.arch != "llama":
         params["output_norm_b"] = zeros()

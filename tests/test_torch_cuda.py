@@ -10,7 +10,8 @@ at f32 accuracy, counted as such), ragged tiles (odd S, O and query tiles),
 16- and 32-wide group sums, the f32 attention kernel at head dim 32, 64 and
 128 with 1, 8 and 71 query heads a K/V head, per-row
 n_past / valid vectors, head_dim 32, Falcon-40B's 16 query heads per K/V
-head, LLaMA's G == 1 head layouts (head_dim 32, 64, 128; head counts that do
+head, Falcon-180B's 29 (prefill and decode) and its four Q2_K matrices at
+one and 300 rows, LLaMA's G == 1 head layouts (head_dim 32, 64, 128; head counts that do
 not fill a block) in both attention kernels, the int8 cache's partials with
 bf16 and f32 queries, the f32 decode kernel (split TF32) at the main paths'
 head layouts on f32 and int8 caches held to f32 accuracy and to
@@ -552,12 +553,13 @@ def _flash_mqa_case(dev, dtype, H, KV, D, n_past, S, T=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("H,KV,D", [(71, 1, 64), (16, 2, 64), (6, 6, 128)])
+@pytest.mark.parametrize("H,KV,D", [(71, 1, 64), (16, 2, 64), (6, 6, 128), (232, 8, 64)])
 @pytest.mark.parametrize("n_past", [0, "rows"])
 @pytest.mark.parametrize("S", [2, 17, 300, 513])
 def test_flash_mqa_row_counts(dev, dtype, H, KV, D, n_past, S):
     """Short, ragged and multi-block query counts (513 rows of 71 heads are
-    570 blocks of one K/V head) at the three head layouts."""
+    570 blocks of one K/V head) at the three head layouts and Falcon-180B's
+    (29 query heads a K/V head: a 64-row block holds 2.2 positions)."""
     _flash_mqa_case(dev, dtype, H, KV, D, n_past, S)
 
 
@@ -571,6 +573,35 @@ def test_flash_mqa_bf16_head_dim_32(dev, H, KV, n_past, S, T):
     n_past 211), per-row n_past, G = 1 and G > 1, at the bf16 tolerance of
     flash_mqa_plain."""
     _flash_mqa_case(dev, torch.bfloat16, H, KV, 32, n_past, S, T)
+
+
+# Falcon-180B's Q2_K matrices, (O, K): wqkv, ffn_up, w_od (K = E + F, the
+# parallel residual: 1.10 G weights) and the lm_head
+SHAPES_180B = {"wqkv": (15872, 14848), "ffn_up": (59392, 14848), "w_od": (14848, 74240),
+               "lm_head": (65024, 14848)}
+
+
+@pytest.mark.parametrize("S", [1, 300])
+@pytest.mark.parametrize("wname", list(SHAPES_180B))
+def test_quant_matmul_at_180b_shapes(dev, wname, S):
+    """Q2_K at Falcon-180B's four matrices, bf16 x: one row on the K-quant
+    GEMV, 300 on the bf16 tensor-core tile, each one launch counted as
+    such, against the plain version at 2e-2 of max |ref| (the lm_head's y in
+    f32, as the engine asks for it)."""
+    O, K = SHAPES_180B[wname]
+    w = random_quant(GGMLType.Q2_K, O, K, _gen(O + S), dev)
+    x = torch.randn(S, K, generator=_gen(K + S), device=dev).to(torch.bfloat16)
+    ydtype = torch.float32 if wname == "lm_head" else torch.bfloat16
+    path = "gemv.kq" if S == 1 else "tc"
+    names = ("quant_matmul.q2_k", "quant_matmul.gemv.kq", "quant_matmul.gemv",
+             "quant_matmul.rows", "quant_matmul.tc", "quant_matmul.f32")
+    before = {n: build.launch_counts[n] for n in names}
+    got = qm.quant_matmul(w, x, ydtype)
+    for n in names:
+        assert build.launch_counts[n] == before[n] + int(n in ("quant_matmul.q2_k",
+                                                               f"quant_matmul.{path}")), n
+    assert got.shape == (S, O) and got.dtype == ydtype
+    _close(got, qm.quant_matmul_plain(w, x, ydtype), torch.bfloat16)
 
 
 def _decode_counter(KV, H, int8):
@@ -743,12 +774,13 @@ def _decode_case(dev, cache, KV, H, D, valid, append, T=2560, L=2, seed=0):
 
 
 @pytest.mark.parametrize("cache", ["bf16", "int8", "f32", "int8f32", "bf16f32q"])
-@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (8, 128, 64), (32, 32, 128)],
-                         ids=["falcon7b", "falcon40b", "llama7b"])
+@pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (8, 128, 64), (32, 32, 128), (8, 232, 64)],
+                         ids=["falcon7b", "falcon40b", "llama7b", "falcon180b"])
 @pytest.mark.parametrize("valid", [1, 300, 2047, "rows"])
 @pytest.mark.parametrize("append", [False, True], ids=["cache", "append"])
 def test_decode_at_main_path_shapes(dev, cache, KV, H, D, valid, append):
-    """The one-launch kernels at the main paths' head layouts against the
+    """The one-launch kernels at the main paths' head layouts (Falcon-180B:
+    29 query heads a K/V head, padded to 32 rows) against the
     plain version (2e-2 of max |ref| with bf16 q, 2e-5 with f32 q): grouped
     heads on the tensor-core kernel (bf16 q) or the f32 kernel (f32 q, also
     over a bf16 cache, where q stays f32), G == 1 on decode_mha_kernel (f32

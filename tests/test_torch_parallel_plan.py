@@ -2,7 +2,8 @@
 the JAX package's (tests/test_plan.py's cases): given the JAX module's
 memory and layout overhead, suggest_tensor_split and suggest_mesh choose the
 same model axis, kv_shard, data axis and per-card bytes; the port's own
-overhead is its planar layout over the file's bytes."""
+overhead is its planar layout over the file's bytes. The port's own presets
+plan as the JAX presets do."""
 
 import dataclasses
 from dataclasses import dataclass
@@ -13,6 +14,7 @@ import torch
 from ggllm_tpu.core.config import EngineConfig as JConfig, FalconHParams
 from ggllm_tpu.parallel import plan as jplan
 from ggllm_tpu_torch.core.config import EngineConfig
+from ggllm_tpu_torch.core.config import FalconHParams as TFalconHParams
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.io.ggcc import read_model
 from ggllm_tpu_torch.parallel import plan
@@ -60,6 +62,25 @@ def test_mesh_matches_jax(model, chips):
     mf = _mf(getattr(FalconHParams, model)(), 4.5)
     got = plan.suggest_mesh(mf, chips, **SAME)
     ref = jplan.suggest_mesh(mf, chips)
+    assert (got.data, got.model, got.kv_shard, got.per_chip_bytes) == \
+        (ref.data, ref.model, ref.kv_shard, ref.per_chip_bytes)
+
+
+@pytest.mark.parametrize("model,cfg", CASES)
+def test_tensor_split_on_port_preset(model, cfg):
+    """The port's own presets (falcon180b among them) plan as the JAX
+    presets do."""
+    got = plan.suggest_tensor_split(_mf(getattr(TFalconHParams, model)(), 4.5),
+                                    EngineConfig(**cfg), **SAME)
+    ref = jplan.suggest_tensor_split(_mf(getattr(FalconHParams, model)(), 4.5), JConfig(**cfg))
+    assert dataclasses.astuple(got) == dataclasses.astuple(ref)
+
+
+@pytest.mark.parametrize("chips", [1, 2, 8, 16, 32])
+@pytest.mark.parametrize("model", ["falcon40b", "falcon180b"])
+def test_mesh_on_port_preset(model, chips):
+    got = plan.suggest_mesh(_mf(getattr(TFalconHParams, model)(), 4.5), chips, **SAME)
+    ref = jplan.suggest_mesh(_mf(getattr(FalconHParams, model)(), 4.5), chips)
     assert (got.data, got.model, got.kv_shard, got.per_chip_bytes) == \
         (ref.data, ref.model, ref.kv_shard, ref.per_chip_bytes)
 
