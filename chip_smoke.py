@@ -43,7 +43,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      card's bound; bf16 rows are held at 2e-2 of max |plain|, f32 rows at
      2e-5; the GEMVs (S = 1), flash-decode and their library calls
      also as device time (a CUDA graph of one call, or of one call per
-     layer divided by the layers); and a dense
+     layer divided by the layers); the long context's lengths
+     (_long_context_kernels: a cache of LONG_T = 18432 positions, that of
+     n_ctx 16384 and n_batch 2048): flash_mqa.tc at 2048-row chunks at
+     n_past 0 and 10240, the decode kernels at valid 8192 / 12288 / 16383,
+     LLaMA-7B's G == 1 on layer 31 of a 32-layer cache past 2^31 elements
+     with cache writes there read back; and a dense
      bf16 weight at Falcon-7B's lm_head shape through ops/linear.py against
      the f32 product;
   3. drive the main path at full width and full depth through the engine's
@@ -158,7 +163,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      versions); and the converters (phase_convert: 2-layer full-width bf16
      HF checkpoints from utils/synthetic.py, Falcon-7B -> GGCC f16 -> q4_0
      loaded with a converted PEFT adapter and the f16 file as --lora-base,
-     LLaMA-7B -> GGJT f16, each held against the plain versions); and, last,
+     LLaMA-7B -> GGJT f16, each held against the plain versions); long
+     context on the Falcon-7B Q4_0 weights (phase_long_context: n_ctx 16384,
+     n_batch 2048, dynamic NTK RoPE; a 12288-token prefill on an int8 and a
+     bf16 cache, the int8 one's last logits held to the plain engine's, 128
+     greedy ids from n_past 12288 through the graphs = the eager body's, the
+     n_ctx 16384 and 2048 engines' decode at n_past 300 in turns, a context
+     swap whose ids equal a fresh engine's fed the swapped context);
+     and, last,
      multi-GPU on torch.distributed (phase_multi_gpu; the card is one H100):
      every kernel at a rank's shard shapes against its plain version, then
      ranks started by parallel/mesh.py RankPool on files written from
@@ -194,7 +206,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      engine's), --export (exit 1) and -t 8 -ngl 100 (ignored); and a
      2-layer full-width Falcon-180B Q2_K file written from a tree built on
      the card, on which the CLI with -ts auto must pick one card and print
-     16 greedy ids (the file is deleted after). These
+     16 greedy ids (the file is deleted after); and a 2-layer full-width
+     Falcon-7B Q4_0 file at -c 16384 -b 2048 with a prompt of a few thousand
+     tokens from -f, whose --temp 0 text must be the Generator's and whose
+     run at the default temperature must print the derating line. These
      processes run alongside phase 1's SASS report, and end before phase 2.
 The last two lines of standard output are the kernel table as JSON and
 {"ok": true, "device": {...}}. Per-shape rows also go to
@@ -225,6 +240,9 @@ LOGIT_TOL = 5e-2
 # LOGIT_TOL (at most 7.4e-3 of max |logit|) on an H100
 ROWS_LOGIT_TOL = 1e-2
 N_RUNS, N_WARM = 20, 3
+# the cache of EngineConfig(n_ctx=16384, n_batch=2048): n_ctx + n_batch positions
+LONG_CTX, LONG_BATCH = 16384, 2048
+LONG_T = LONG_CTX + LONG_BATCH
 # nodes of the single stream's unmasked greedy 16-step decode graph on the
 # Falcon-7B Q4_0 engine (32 layers, bf16 cache; cuGraphGetNodes on the
 # captured graph, tools/time_kernels.py nodes), as the tree before masked
@@ -583,9 +601,10 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
     # path's prefill) at Falcon-180B's 232 over 8 (D = 64)
     T, S = 2560, 512
 
-    def mqa_row(q, k, v, n_past, H, KV, D):
+    def mqa_row(q, k, v, n_past, H, KV, D, plain=flash_mqa_plain, tag=""):
         """One case through the wrapper: bf16 runs the bf16 tensor-core
-        kernel, f32 the f32 one; timed beside scaled_dot_product_attention."""
+        kernel, f32 the f32 one; timed beside scaled_dot_product_attention
+        and `plain`, the plain version (`tag` begins the row's shape)."""
         S = q.shape[1]
         f32 = q.dtype == torch.float32
         name = "flash_mqa.f32" if f32 else "flash_mqa.tc"
@@ -593,10 +612,10 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         got = flash_mqa(q, k, v, n_past)
         if build.launch_counts[name] != before + 1:
             raise RuntimeError(f"flash_mqa {q.dtype} D={D} did not count under {name}")
-        err, rel = check(f"{name} H={H} KV={KV} n_past={n_past}", got,
-                         flash_mqa_plain(q, k, v, n_past), F32_TOL if f32 else TOL)
+        err, rel = check(f"{name} {tag}H={H} KV={KV} n_past={n_past}", got,
+                         plain(q, k, v, n_past), F32_TOL if f32 else TOL)
         ms = timer(lambda: flash_mqa(q, k, v, n_past))
-        plain_ms = timer(lambda: flash_mqa_plain(q, k, v, n_past))
+        plain_ms = timer(lambda: plain(q, k, v, n_past))
         Tv = n_past + S
         qt = lib_q(q)
         kt, vt = k[:, :Tv].transpose(1, 2), v[:, :Tv].transpose(1, 2)
@@ -613,7 +632,7 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         extra = {}
         if f32:  # three TF32 products on the tensor cores; f32 FMAs on the CUDA cores
             extra["f32_core_bound_ms"] = 4 * pairs * H * D / peak_f32 * 1e3
-        row(name, f"S={S} n_past={n_past} H={H} KV={KV} D={D}", err, rel, ms, plain_ms, lib_ms,
+        row(name, f"{tag}S={S} n_past={n_past} H={H} KV={KV} D={D}", err, rel, ms, plain_ms, lib_ms,
             2 * S * H * D * eb + 2 * Tv * KV * D * eb, (3 if f32 else 1) * 4 * pairs * H * D,
             rate=peak_tf32 if f32 else peak, **extra)
 
@@ -672,27 +691,25 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
     # pays, host work included) and device time (graph_ms: a CUDA graph of one
     # call per layer, as a decode step makes them, divided by the layers); the
     # library call both ways too
-    for L, H, KV, D, valids in ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (300, 2047)),
-                                (32, 32, 32, 128, (1, 300, 2047)),
-                                (80, 232, 8, 64, (1, 300, 2047))):
+    def decode_case(kv, kv8, deq, q1, app, valids, prefix=""):
+        """Layer L - 1 of the bf16 cache kv (L, 2, 1, T, KV, D) and of the
+        same cache as int8 codes + f32 scales kv8 (q stays bf16; the
+        reference attends codes * scales in f32; the library call gets deq,
+        the dequantized cache in bf16: it has no int8 form) at each valid
+        length, with and without the append block app; `prefix` begins the
+        rows' shapes."""
+        L, _, _, _, KV, D = kv.shape
+        H = q1.shape[2]
         l, G = L - 1, H // KV
-        kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
-        q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
         qg = q1.reshape(1, KV, G, D)
-        app = torch.randn(2, 1, 16, KV, D, generator=gen, device="cuda").to(bf16)
         st = FalconStatic(n_layer=L, n_head=H, n_head_kv=KV, head_dim=D, n_embd=H * D,
                           n_ff=4 * H * D, n_vocab=0, parallel_norms=KV > 1)
-        # the same cache as int8 codes + f32 scales: q stays bf16; the reference
-        # attends codes * scales in f32; the library call gets the dequantized
-        # cache in bf16 (it has no int8 form)
-        kv8 = kvcache.quantize_new(kv)
         deq32 = kv8[0][l].float() * kv8[1][l]  # (2, 1, T, KV, D)
-        deq = torch.stack([(kv8[0][i].float() * kv8[1][i]).to(bf16) for i in range(L)])
         base = "flash_decode_tc" if G > 1 else "flash_decode.mha"
         for name, cache, kr, vr, lib_kv, per_pos in (
                 (base, kv, kv[l, 0], kv[l, 1], kv, 2 * D),
                 (base + ".int8", kv8, deq32[0], deq32[1], deq, D + 4)):
-            tag = "int8 " if name.endswith("int8") else ""
+            tag = prefix + ("int8 " if name.endswith("int8") else "")
             for valid in valids:
                 # cache valid below `valid`: no append -> n_past = valid - 1;
                 # append with 5 valid entries -> n_past = valid + 4
@@ -700,9 +717,9 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                 got = fd.flash_decode(cache, KV, l, q1, valid - 1)
                 if build.launch_counts[name] != before + 1:
                     raise RuntimeError(f"flash_decode {tag}G={G} did not run the {name} kernel")
-                err, rel = check(f"{name} G={G} valid={valid}", got,
+                err, rel = check(f"{name} {prefix}G={G} valid={valid}", got,
                                  _attention(q1, kr, vr, valid - 1, st))
-                err_a, rel_a = check(f"{name} G={G} valid={valid} +append",
+                err_a, rel_a = check(f"{name} {prefix}G={G} valid={valid} +append",
                                      fd.flash_decode(cache, KV, l, q1, valid + 4, kv_append=app,
                                                      append_valid=5),
                                      _attention(q1, kr, vr, valid + 4, st, kv_append=app,
@@ -735,6 +752,18 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                     max(err, err_a), max(rel, rel_a), ms, plain_ms, lib_ms,
                     2 * valid * KV * per_pos + 2 * H * D * 2, 4 * valid * H * D,
                     graph_ms=dev_ms, library_graph_ms=lib_dev_ms)
+        return st, base
+
+    for L, H, KV, D, valids in ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (300, 2047)),
+                                (32, 32, 32, 128, (1, 300, 2047)),
+                                (80, 232, 8, 64, (1, 300, 2047))):
+        G = H // KV
+        kv = torch.randn(L, 2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
+        q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
+        app = torch.randn(2, 1, 16, KV, D, generator=gen, device="cuda").to(bf16)
+        kv8 = kvcache.quantize_new(kv)
+        deq = torch.stack([(kv8[0][i].float() * kv8[1][i]).to(bf16) for i in range(L)])
+        st, base = decode_case(kv, kv8, deq, q1, app, valids)
         # one length per batch row (B = 2, two layers of this cache), with and
         # without the append block
         kv2 = torch.randn(2, 2, 2, T, KV, D, generator=gen, device="cuda").to(bf16)
@@ -754,7 +783,7 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
                                             append_valid=5))
             log(f"  {name:13s} B=2 valid=[2047, 300] G={G} err {err:.2e} ({rel:.1e} rel),"
                 f" +append {err_a:.2e} ({rel_a:.1e} rel)")
-        del kv, kv8, deq, deq32, kv2, kv8_2, deq2
+        del kv, kv8, deq, kv2, kv8_2, deq2
 
     # ---- flash_decode at B decode rows (continuous batching): Falcon-7B's
     # heads, four live rows at valid 300, 17, 2047 and 1 and one parked at
@@ -919,6 +948,8 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
         log(f"  flash_decode.f32 B=2 valid=[150, 7] H=6 KV=2 D=32 bf16 q, {tag} cache, +append:"
             f" err {err:.2e} ({rel:.1e} rel)")
 
+    _long_context_kernels(torch, gen, mqa_row, decode_case)
+
     # ---- a dense weight at Falcon-7B's lm_head shape (an F16 tensor as the
     # loader holds it: in the compute dtype, bf16), bf16 x, S = 1: linear's
     # bf16 product with f32 output against the earlier f32 copy of the weight
@@ -938,6 +969,83 @@ def phase_kernels(torch, timer, bw, peak, peak_tf32, peak_f32) -> list[dict]:
     rows.append({"kernel": "linear.dense", **dense})
     del w
     return rows
+
+
+def _long_context_kernels(torch, gen, mqa_row, decode_case) -> None:
+    """phase_kernels' rows at the lengths of EngineConfig(n_ctx=16384,
+    n_batch=2048), whose cache holds T = 18432 positions (LONG_T), through
+    its mqa_row and decode_case. flash_mqa.tc at the 2048-row prefill chunks
+    of a 12288-token prompt (its first and last: n_past 0 and 10240) over
+    that cache, Falcon-7B's 71 heads over one K/V head and 40B's 128 over 8,
+    against the plain version in 512-row pieces (its whole block of f32
+    scores would take 19 GB at 128 heads). Decode (flash_decode_tc, and the
+    G == 1 kernel) at valid 8192 / 12288 / 16383 of the last layer of a
+    full-depth cache of that length: Falcon-7B's heads, 40B's and 180B's at
+    16383, and LLaMA-7B's on layer 31 of a 32-layer cache, whose offsets
+    pass 2^31 elements; there a per-row cache write and a chunk-end write of
+    every layer (ops/kvcache.py write_layer / write_all_layers at a device
+    n_past) are read back."""
+    from ggllm_tpu_torch.kernels.flash_attention import flash_mqa_plain
+    from ggllm_tpu_torch.ops import kvcache
+
+    bf16, T = torch.bfloat16, LONG_T
+
+    def plain_pieces(q, k, v, n_past, rows=512):
+        return torch.cat([flash_mqa_plain(q[:, i:i + rows], k, v, n_past + i)
+                          for i in range(0, q.shape[1], rows)], dim=1)
+
+    for H, KV, past in ((71, 1, (0, 10240)), (128, 8, (10240,))):
+        kvc = torch.randn(2, 1, T, KV, 64, generator=gen, device="cuda").to(bf16)
+        q = torch.randn(1, 2048, H, 64, generator=gen, device="cuda").to(bf16)
+        for n_past in past:
+            mqa_row(q, kvc[0], kvc[1], n_past, H, KV, 64, plain=plain_pieces, tag=f"Tn={T} ")
+        del kvc, q
+    torch.cuda.empty_cache()
+
+    for L, H, KV, D, valids in ((32, 71, 1, 64, (8192, 12288, 16383)),
+                                (60, 128, 8, 64, (16383,)), (80, 232, 8, 64, (16383,)),
+                                (32, 32, 32, 128, (16383,))):
+        l = L - 1
+        # a layer at a time: LLaMA-7B's cache is 4.83 G elements
+        kv = torch.empty(L, 2, 1, T, KV, D, dtype=bf16, device="cuda")
+        codes = torch.empty(kv.shape, dtype=torch.int8, device="cuda")
+        scales = torch.empty(*kv.shape[:-1], 1, dtype=torch.float32, device="cuda")
+        deq = torch.empty_like(kv)
+        for i in range(L):
+            kv[i] = torch.randn(2, 1, T, KV, D, generator=gen, device="cuda").to(bf16)
+            codes[i], scales[i] = kvcache.quantize_new(kv[i])
+            deq[i] = (codes[i].float() * scales[i]).to(bf16)
+        kv8 = (codes, scales)
+        q1 = torch.randn(1, 1, H, D, generator=gen, device="cuda").to(bf16)
+        app = torch.randn(2, 1, 16, KV, D, generator=gen, device="cuda").to(bf16)
+        big = kv.numel() > 2**31
+        decode_case(kv, kv8, deq, q1, app, valids,
+                    prefix=f"T={T} " + (f"L={L} l={l} " if big else ""))
+        if big:  # writes at a device n_past into the last layer, read back
+            at = T - 40
+            pos = torch.tensor([at], dtype=torch.int32, device="cuda")
+            new = torch.randn(2, 1, 1, KV, D, generator=gen, device="cuda").to(bf16)
+            new16 = torch.randn(L, 2, 1, 16, KV, D, generator=gen, device="cuda").to(bf16)
+            kvcache.write_layer(kv, new, l, pos)
+            kvcache.write_layer(kv8, new, l, pos)
+            q8, s8 = kvcache.quantize_new(new)
+            one = (torch.equal(kv[l, :, :, at:at + 1], new)
+                   and torch.equal(codes[l, :, :, at:at + 1], q8)
+                   and torch.equal(scales[l, :, :, at:at + 1], s8))
+            kvcache.write_all_layers(kv, new16, pos - 16)
+            kvcache.write_all_layers(kv8, new16, pos - 16)
+            q16, s16 = kvcache.quantize_new(new16)
+            every = (torch.equal(kv[:, :, :, at - 16:at], new16)
+                     and torch.equal(codes[:, :, :, at - 16:at], q16)
+                     and torch.equal(scales[:, :, :, at - 16:at], s16))
+            log(f"  kvcache writes at position {at} of layer {l} of a {L}-layer cache of"
+                f" {kv.numel() / 2**30:.2f} Gi elements (bf16 and int8), read back:"
+                f" one row {'equal' if one else 'DIFFERENT'}, a 16-position chunk of every"
+                f" layer {'equal' if every else 'DIFFERENT'}")
+            if not (one and every):
+                raise RuntimeError("cache writes past 2^31 elements read back other values")
+        del kv, codes, scales, deq, kv8
+        torch.cuda.empty_cache()
 
 
 def decode_rates(torch, engines: dict, tokens: list, n: int = 16) -> dict:
@@ -1026,47 +1134,54 @@ def graph_vs_eager(torch, eng, start: int, first: int, hist: list, label: str, g
             "credited": credited, "greedy_ids_equal": n_greedy, "sampled_ids_equal": n_sampled}
 
 
-def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
-                peak_below: int | None = None, long_past: int | None = None,
-                host_route_tokens: int = 0, then=None) -> dict:
-    """One full-width model (`model` is "falcon7b", "falcon40b" or "llama7b")
-    with random `fmt` weights and a `kv_dtype` cache through the engine's
-    entry points; returns its launch counts and end-to-end figures. Fails if
-    a kernel of the path (the matmul in `fmt`, the decode kernel for this
-    head layout and cache) was not launched, if another decode kernel was, or
-    if peak memory reaches `peak_below`. An int8 path also compares decode
-    rates with a bf16 cache at n_past 400 and, if given, at `long_past`;
-    host_route_tokens > 0 times that many tokens sampled at top_k 0 (the
-    whole vocabulary: the host cascade, one forward and one draw a token).
-    then(eng, params, hp, max |logit| of the plain prefill), if given, runs
-    further paths on the engine before it is freed; the paths it returns
-    come back under "then"."""
-    import gc
-
+def _logits_held(got, ref, what: str, label: str) -> dict:
+    """Kernel logits `got` against the plain versions' `ref`, one row or one
+    a position. The weights are random, so the two best tokens of a row may
+    lie closer than the two paths' logits do: the argmax must be equal
+    wherever the plain version decides by more than twice the measured
+    difference (and, over several rows, decide at least one), and max |d|
+    lie within LOGIT_TOL of max |ref|."""
     import numpy as np
 
-    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    got, ref = np.atleast_2d(got), np.atleast_2d(ref)
+    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+        raise RuntimeError(f"{what} are not finite on the {label} path")
+    err = float(np.abs(got - ref).max())
+    rel = err / float(np.abs(ref).max())
+    top2 = np.partition(ref, -2, axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * err
+    same = got.argmax(axis=1) == ref.argmax(axis=1)
+    log(f"  {what}, kernels vs plain versions: max |d| {err:.4e} ({rel:.3e} of max|ref|); same"
+        f" argmax at {int(same.sum())} of {same.size}, at all {int((same & decided).sum())} of"
+        f" {int(decided.sum())} that the plain version decides by more than 2 max |d|; last"
+        f" {int(got[-1].argmax())} vs {int(ref[-1].argmax())}")
+    if rel > LOGIT_TOL or not same[decided].all() or (same.size > 1 and not decided.any()):
+        raise RuntimeError(f"kernel and plain {what} disagree on the {label} path")
+    return {"rel": rel, "same": int(same.sum()), "decided": int(decided.sum())}
+
+
+def _drive(torch, eng, prompt: list, label: str, fmt: str, n_check: int = 64) -> dict:
+    """One stream on `eng` through its entry points: a warm-up (it captures
+    the greedy chunk's graph), generate(prompt, 129) greedy (the prefill in
+    n_batch chunks, then 128 ids through the pipelined decode graphs; tok/s
+    from the engine's Timings, capture apart) and 32 ids sampled on from
+    there at temp 0.8, top-k 40, top-p 0.95, repeat penalty 1.1; then
+    graph_vs_eager from the prefill's state over the first n_check greedy
+    ids (idle share = 1 - device ms a token x pipelined tok/s). Fails if a
+    kernel of the path (the tensor-core tile, `fmt`'s GEMV, the prefill
+    attention kernel and the decode kernel for this head layout and cache)
+    did not run, if another variant did (the other GEMV family, the rows
+    kernel, an f32 kernel beside the cache's, another decode kernel), or if
+    an id lies outside the vocabulary. Returns the figures, the greedy ids
+    and the launches of the timed run."""
+    import numpy as np
+
     from ggllm_tpu_torch.core.dtypes import GGMLType
-    from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.kernels import quant_matmul as qm
     from ggllm_tpu_torch.ops.sampling import SamplerParams
-    from ggllm_tpu_torch.utils.benchgen import make_bench_params
 
-    hp = named_hparams(model)
-    label = f"{hp.n_layer}-layer {model} {fmt} {kv_dtype}-cache"
-    int8 = kv_dtype == "int8"
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = make_bench_params(hp, device="cuda", seed=7, gtype=GGMLType[fmt.upper()])
-    torch.cuda.synchronize()
-    log(f"  params: {label} on the card in {time.perf_counter() - t0:.1f} s,"
-        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=kv_dtype))
-    rng = np.random.default_rng(0)
-    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
-
+    hp, kv_dtype = eng.hp, eng.cfg.kv_dtype
     eng.generate(prompt[:8], 4, SamplerParams(temp=0.0), stop_ids=set())  # warm-up
     eng.reset()
     warm_capture_us = eng.timings.t_compile_us  # the greedy chunk's graph
@@ -1088,39 +1203,24 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     mha = hp.n_head_kv == hp.n_head
     # the wrapper's counter for this head layout and cache, and the route's:
     # an f32 cache casts q to f32, which the f32 decode kernel takes
-    base = "flash_decode" + (".mha" if mha else "") + (".int8" if int8 else "")
+    base = "flash_decode" + (".mha" if mha else "") + (".int8" if kv_dtype == "int8" else "")
     decode_counters = {base, base if mha else "flash_decode.f32" if kv_dtype == "float32"
-                       else "flash_decode_tc" + (".int8" if int8 else "")}
+                       else "flash_decode_tc" + (".int8" if kv_dtype == "int8" else "")}
     gemv, other_gemv = (("quant_matmul.gemv.kq", "quant_matmul.gemv") if GGMLType[fmt.upper()]
                         in qm.K_QUANTS else ("quant_matmul.gemv", "quant_matmul.gemv.kq"))
     graph = graph_vs_eager(torch, eng, len(prompt), greedy[0], prompt + greedy[:1], label,
-                           gemv, other_gemv, decode_counters, greedy_ref=greedy[1:])
+                           gemv, other_gemv, decode_counters, greedy_ref=greedy[1:],
+                           n_greedy=n_check)
     graph["idle_share"] = 1.0 - graph["graph_device_ms_per_token"] * decode_tps / 1e3
     graph["capture_ms"] = capture_ms
-    log(f"  decode graph vs eager step body: 64 greedy and 32 sampled ids identical; graph"
-        f" {decode_tps:.2f} tok/s (pipelined), eager {graph['eager_tok_s']:.2f} tok/s (4 chained"
+    log(f"  prefill {n_prefill} tokens: {prefill_tps:.1f} tok/s; greedy decode {n_decode} tokens:"
+        f" {decode_tps:.2f} tok/s (pipelined graphs); sampled decode 32 tokens:"
+        f" {sampled_tps:.2f} tok/s ({smi('name,power.limit')})")
+    log(f"  decode graph vs eager step body from n_past {len(prompt)}: {n_check} greedy and 32"
+        f" sampled ids identical; eager {graph['eager_tok_s']:.2f} tok/s ({n_check // 16} chained"
         f" 16-token chunks); device {graph['graph_device_ms_per_token']:.4f} ms a token, idle"
         f" share {graph['idle_share']:.3f} of the pipelined run's {1e3 / decode_tps:.4f} ms;"
         f" capture {capture_ms:.1f} ms (2 graphs); one replay credited: {graph['credited']}")
-    peak = torch.cuda.max_memory_allocated()
-    host_route = None
-    if host_route_tokens:  # top_k 0: the whole vocabulary, sampled by the host cascade
-        eng.reset()
-        eng.eval(prompt[:-1])
-        build.launch_counts.clear()
-        t0 = time.perf_counter()
-        ids = eng.generate(prompt[-1:], host_route_tokens,  # a forward and a draw a token
-                           SamplerParams(temp=0.8, top_k=0, top_p=0.95, seed=99), stop_ids=set())
-        host_tps = host_route_tokens / (time.perf_counter() - t0)
-        host_route = {"tok_s": host_tps, "launches": dict(build.launch_counts), "ids": len(ids)}
-        if len(ids) != host_route_tokens or min(ids) < 0 or max(ids) >= hp.n_vocab:
-            raise RuntimeError(f"bad ids from the host sampling route: {ids}")
-        log(f"  host-route sampling (top_k 0, temp 0.8), {host_route_tokens} tokens at n_past"
-            f" 300: {host_tps:.2f} tok/s")
-    log(f"  prefill {n_prefill} tokens: {prefill_tps:.1f} tok/s;"
-        f" greedy decode {n_decode} tokens: {decode_tps:.2f} tok/s;"
-        f" sampled decode 32 tokens: {sampled_tps:.2f} tok/s;"
-        f" peak device memory {peak / 2**30:.2f} GiB ({smi('name,power.limit')})")
     log(f"  launches on the {label} path: {counts}")
     # prefill: the tensor-core tile and attention kernel (on an f32 cache q
     # takes the cache's dtype: the f32 attention kernel); decode: the format's
@@ -1138,68 +1238,105 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
             or counts["quant_matmul"] != counts["quant_matmul.tc"] + counts[gemv]
             or counts["flash_mqa"] != counts[attn]):
         raise RuntimeError(f"a kernel variant of another path ran on the {label} path: {counts}")
-    if peak_below is not None and peak >= peak_below:
-        raise RuntimeError(f"peak memory {peak} on the {label} path is not below {peak_below}")
     toks = np.asarray(greedy + [int(t) for t in sampled])
     if len(greedy) != 129 or len(sampled) != 32 or toks.min() < 0 or toks.max() >= hp.n_vocab:
         raise RuntimeError(f"bad generated ids: {len(greedy)} greedy, {len(sampled)} sampled")
+    return {"launches": counts, "prefill_tok_s": prefill_tps, "decode_tok_s": decode_tps,
+            "sampled_tok_s": sampled_tps, "graph": graph, "greedy": greedy, "gemv": gemv,
+            "other_gemv": other_gemv}
 
-    # logits of every prompt position, kernels against plain versions. The
-    # weights are random, so the two best tokens of a position may lie closer
-    # than the two paths' logits do: the argmax must be equal wherever the
-    # plain version decides by more than twice the measured difference
+
+def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
+                peak_below: int | None = None, long_past: int | None = None,
+                host_route_tokens: int = 0, then=None) -> dict:
+    """One full-width model (`model` is "falcon7b", "falcon40b" or "llama7b")
+    with random `fmt` weights and a `kv_dtype` cache through the engine's
+    entry points (_drive: a 300-token prompt, 129 greedy and 32 sampled
+    ids); returns its launch counts and end-to-end figures. Fails as _drive
+    does, if peak memory reaches `peak_below`, or if the prefill's logits at
+    every position or one decode step's disagree with the plain versions'
+    (_logits_held). An int8 path also compares decode rates with a bf16
+    cache at n_past 400 and, if given, at `long_past`; host_route_tokens > 0
+    times that many tokens sampled at top_k 0 (the whole vocabulary: the
+    host cascade, one forward and one draw a token). then(eng, params, hp,
+    max |logit| of the plain prefill), if given, runs further paths on the
+    engine before it is freed; the paths it returns come back under
+    "then"."""
+    import gc
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    hp = named_hparams(model)
+    label = f"{hp.n_layer}-layer {model} {fmt} {kv_dtype}-cache"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = make_bench_params(hp, device="cuda", seed=7, gtype=GGMLType[fmt.upper()])
+    torch.cuda.synchronize()
+    log(f"  params: {label} on the card in {time.perf_counter() - t0:.1f} s,"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=kv_dtype))
+    rng = np.random.default_rng(0)
+    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
+    run = _drive(torch, eng, prompt, label, fmt)
+    greedy, gemv, other_gemv = run["greedy"], run["gemv"], run["other_gemv"]
+    peak = torch.cuda.max_memory_allocated()
+    host_route = None
+    if host_route_tokens:  # top_k 0: the whole vocabulary, sampled by the host cascade
+        eng.reset()
+        eng.eval(prompt[:-1])
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        ids = eng.generate(prompt[-1:], host_route_tokens,  # a forward and a draw a token
+                           SamplerParams(temp=0.8, top_k=0, top_p=0.95, seed=99), stop_ids=set())
+        host_tps = host_route_tokens / (time.perf_counter() - t0)
+        host_route = {"tok_s": host_tps, "launches": dict(build.launch_counts), "ids": len(ids)}
+        if len(ids) != host_route_tokens or min(ids) < 0 or max(ids) >= hp.n_vocab:
+            raise RuntimeError(f"bad ids from the host sampling route: {ids}")
+        log(f"  host-route sampling (top_k 0, temp 0.8), {host_route_tokens} tokens at n_past"
+            f" 300: {host_tps:.2f} tok/s")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB ({smi('name,power.limit')})")
+    if peak_below is not None and peak >= peak_below:
+        raise RuntimeError(f"peak memory {peak} on the {label} path is not below {peak_below}")
+
+    # logits of every prompt position, then one decode step (S = 1: the GEMV
+    # and the decode attention kernel) on both engines, the same token at
+    # n_past 300 of their own caches
     eng.reset()
     got = eng.eval(prompt, logits_all=True)
     plain = FalconEngine(hp, params, EngineConfig(kernel_layout=False, flash_attention=False,
                                                   kv_dtype=kv_dtype))
     ref = plain.eval(prompt, logits_all=True)
-    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
-        raise RuntimeError("prefill logits are not finite")
-    err = float(np.abs(got - ref).max())
-    rel = err / float(np.abs(ref).max())
-    top2 = np.partition(ref, -2, axis=1)[:, -2:]
-    decided = top2[:, 1] - top2[:, 0] > 2 * err
-    same = got.argmax(axis=1) == ref.argmax(axis=1)
-    log(f"  prefill logits at {len(prompt)} positions, kernels vs plain versions: max |d| {err:.4e}"
-        f" ({rel:.3e} of max|ref|); same argmax at {int(same.sum())} positions, at all"
-        f" {int((same & decided).sum())} of {int(decided.sum())} that the plain version decides"
-        f" by more than 2 max |d|; last position {int(got[-1].argmax())} vs {int(ref[-1].argmax())}")
-    if rel > LOGIT_TOL or not decided.any() or not same[decided].all():
-        raise RuntimeError(f"kernel and plain prefill logits disagree on the {label} path")
-    # one decode step (S = 1: the GEMV and the decode attention kernel) on
-    # both engines, the same token at n_past 300 of their own caches
+    held = _logits_held(got, ref, f"prefill logits at {len(prompt)} positions", label)
     tok = int(ref[-1].argmax())
     build.launch_counts.clear()
     got_d = eng.eval([tok])
     step_counts = dict(build.launch_counts)
-    ref_d = plain.eval([tok])
-    if not (np.isfinite(got_d).all() and np.isfinite(ref_d).all()):
-        raise RuntimeError("decode logits are not finite")
-    err_d = float(np.abs(got_d - ref_d).max())
-    rel_d = err_d / float(np.abs(ref_d).max())
-    top2_d = np.partition(ref_d, -2)[-2:]
-    decided_d = bool(top2_d[1] - top2_d[0] > 2 * err_d)
-    same_d = int(got_d.argmax()) == int(ref_d.argmax())
-    log(f"  decode-step logits at n_past {len(prompt)}, kernels vs plain versions: max |d|"
-        f" {err_d:.4e} ({rel_d:.3e} of max|ref|; prefill {rel:.3e}); argmax {int(got_d.argmax())}"
-        f" vs {int(ref_d.argmax())} ({'decided' if decided_d else 'not decided'} by 2 max |d|);"
-        f" launches {step_counts}")
-    if rel_d > LOGIT_TOL or (decided_d and not same_d):
-        raise RuntimeError(f"kernel and plain decode logits disagree on the {label} path")
+    held_d = _logits_held(got_d, plain.eval([tok]), f"decode-step logits at n_past {len(prompt)}",
+                          label)
     peak_plain = torch.cuda.max_memory_allocated()  # with the plain engine's dequantized weights
-    log(f"  peak device memory with the plain comparison {peak_plain / 2**30:.2f} GiB")
+    log(f"  decode-step launches {step_counts}; peak device memory with the plain comparison"
+        f" {peak_plain / 2**30:.2f} GiB")
     if step_counts.get(gemv, 0) <= 0 or step_counts.get(other_gemv, 0):
         raise RuntimeError(f"the decode step on the {label} path did not run {gemv} alone:"
                            f" {step_counts}")
-    out = {"path": label, "launches": counts, "prefill_tok_s": prefill_tps,
-           "decode_tok_s": decode_tps, "sampled_tok_s": sampled_tps, "peak_bytes": peak,
-           "graph": graph,
-           "logit_rel_err": rel, "argmax_same": int(same.sum()),
-           "argmax_decided": int(decided.sum()), "decode_logit_rel_err": rel_d,
-           "decode_argmax_same": same_d, "decode_argmax_decided": decided_d,
+    out = {"path": label, "launches": run["launches"], "prefill_tok_s": run["prefill_tok_s"],
+           "decode_tok_s": run["decode_tok_s"], "sampled_tok_s": run["sampled_tok_s"],
+           "peak_bytes": peak, "graph": run["graph"],
+           "logit_rel_err": held["rel"], "argmax_same": held["same"],
+           "argmax_decided": held["decided"], "decode_logit_rel_err": held_d["rel"],
+           "decode_argmax_same": bool(held_d["same"]),
+           "decode_argmax_decided": bool(held_d["decided"]),
            "host_route": host_route, "peak_with_plain_bytes": peak_plain}
     del plain
-    if int8:  # what the int8 cache costs or saves against bf16, same weights
+    if kv_dtype == "int8":  # what the int8 cache costs or saves against bf16, same weights
         dense = FalconEngine(hp, params, EngineConfig())
         engines = {"int8": eng, "bfloat16": dense}
         tokens = prompt + [int(t) for t in greedy[:101]]
@@ -1216,6 +1353,128 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_long_context(torch, eng, params, hp) -> dict:
+    """Long context on the Falcon-7B Q4_0 weights (full width and depth) at
+    EngineConfig(n_ctx=16384, n_batch=2048): dynamic NTK RoPE at alpha =
+    15 ** (64 / 62), a cache of LONG_T = 18432 positions. On an int8 cache
+    and on a bf16 cache with the same weights, one stream through _drive: a
+    12288-token prompt drawn from a seed prefilled in 2048-row chunks, 128
+    greedy ids from n_past 12288 through the pipelined decode graphs, which
+    the eager step body must give too (graph_vs_eager over all 128), and 32
+    sampled ids. Besides _drive's checks, each prefill must launch one
+    flash_mqa.tc a layer and chunk and the tile for every other weight. The
+    int8 prefill's last-position logits are held against the plain engine's
+    (kernel_layout=False, flash_attention=False) by _logits_held. Then decode
+    at n_past 300 on the bf16 n_ctx 16384 engine beside `eng` (n_ctx 2048)
+    in turns, a measurement whose launches are not the path's, and one
+    context swap through engine/generator.py on the int8 engine: a
+    16200-token prompt, n_keep 64, 250 greedy ids, whose ids after the swap
+    must equal those of a fresh engine fed the swapped context. The peak
+    device memory is the phase's, the plain engine included."""
+    import gc
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.engine.generator import Generator
+    from ggllm_tpu_torch.kernels import build
+    from ggllm_tpu_torch.ops.linear import QuantTensor
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    greedy = SamplerParams(temp=0.0)
+    n_prompt = 12288
+    n_chunks = -(-n_prompt // LONG_BATCH)
+    n_quant = sum(isinstance(m, QuantTensor) for m in eng.model.modules())
+    rng = np.random.default_rng(LONG_CTX)
+    prompt = [int(t) for t in rng.integers(12, hp.n_vocab, n_prompt)]
+    total: dict = {}
+    out = {"path": f"{hp.n_layer}-layer falcon7b q4_0 n_ctx {LONG_CTX} n_batch {LONG_BATCH}",
+           "launches": total}
+
+    def config(**kw):
+        return EngineConfig(n_ctx=LONG_CTX, n_batch=LONG_BATCH, **kw)
+
+    def run(kv_dtype):
+        label = f"long-context {kv_dtype}-cache"
+        e = FalconEngine(hp, params, config(kv_dtype=kv_dtype))
+        res = _drive(torch, e, prompt, label, "q4_0", n_check=128)
+        counts = res.pop("launches")
+        if (counts["flash_mqa.tc"] != n_chunks * hp.n_layer
+                or counts["quant_matmul.tc"] < n_chunks * (n_quant - 1)):
+            raise RuntimeError(f"{label}: not one flash_mqa.tc a layer and chunk, or not the"
+                               f" tile for every weight but the head: {counts}")
+        _add_launches(total, counts)
+        _add_launches(total, res["graph"]["credited"])
+        return e, {k: res[k] for k in ("prefill_tok_s", "decode_tok_s", "sampled_tok_s", "graph")}
+
+    t0 = time.perf_counter()
+    e8, out["int8"] = run("int8")
+    e8.reset()
+    logits = e8.eval(prompt)
+    plain = FalconEngine(hp, params, config(kv_dtype="int8", kernel_layout=False,
+                                            flash_attention=False))
+    held = _logits_held(logits, plain.eval(prompt), "int8 prefill's last-position logits",
+                        "long-context int8-cache")
+    peak = torch.cuda.max_memory_allocated()
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(logit_rel_err=held["rel"], argmax_same=bool(held["same"]),
+               argmax_decided=bool(held["decided"]), peak_with_plain_bytes=peak)
+    log(f"  peak device memory of the phase, the plain engine included, {peak / 2**30:.2f} GiB")
+
+    e16, out["bfloat16"] = run("bfloat16")
+    # decode at a short prefix: the plan made for T = 18432 against T = 2560
+    tokens = [int(t) for t in rng.integers(12, hp.n_vocab, 301)]
+    out["decode_tok_s_at_300"] = decode_rates(torch, {f"n_ctx {LONG_CTX}": e16,
+                                                      "n_ctx 2048": eng}, tokens)
+    log(f"  16-token greedy chunks at n_past 300, bf16 caches, tok/s in turns:"
+        f" {out['decode_tok_s_at_300']}")
+    del e16
+    gc.collect()
+
+    # one context swap (falcon_main's n_keep + half the context) on the int8 engine
+    e8.reset()
+    swap_prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 16200)]
+    gen = Generator(e8, greedy, eos_id=-1, n_keep=64)
+    build.launch_counts.clear()
+    t1 = time.perf_counter()
+    gen.generate(gen.prefill(swap_prompt), 250, lambda t: True)
+    swap_s = time.perf_counter() - t1
+    counts = dict(build.launch_counts)
+    _add_launches(total, counts)
+    if not gen.swapped or len(gen.all_tokens) != len(swap_prompt) + 250:
+        raise RuntimeError(f"no context swap: {len(gen.all_tokens)} tokens, n_past {e8.n_past}")
+    hist = gen.all_tokens[:LONG_CTX]  # in the cache when the swap came
+    ctx = hist[:64] + hist[-((LONG_CTX - 64) // 2):]
+    nxt, rest = gen.all_tokens[LONG_CTX], gen.all_tokens[LONG_CTX + 1:]
+    del e8
+    gc.collect()
+    fresh = FalconEngine(hp, params, config(kv_dtype="int8"))
+    fresh.eval(ctx)
+    again, _ = fresh.decode_pipelined(nxt, len(rest), 16, greedy,
+                                      last_tokens=gen.all_tokens[LONG_CTX - 63:LONG_CTX + 1])
+    again = [int(t) for t in again]
+    out["swap"] = {"prompt": len(swap_prompt), "n_keep": 64, "kept": len(ctx),
+                   "ids_after_swap": len(rest), "seconds": swap_s, "equal": again == rest}
+    log(f"  context swap: a {len(swap_prompt)}-token prompt and 250 greedy ids crossed n_ctx"
+        f" {LONG_CTX} in {swap_s:.1f} s; {len(ctx)} tokens kept (n_keep 64); the {len(rest)} ids"
+        f" after the swap {'equal' if again == rest else 'DIFFER FROM'} a fresh engine's fed the"
+        f" swapped context; launches {counts}")
+    if again != rest:
+        raise RuntimeError(f"ids after the context swap differ from a fresh engine's:\n{rest}\n"
+                           f"{again}")
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  launches on the long-context path: {total}; (long context took"
+        f" {time.perf_counter() - t0:.1f} s)")
     return out
 
 
@@ -3031,6 +3290,93 @@ def start_cli_180b(torch, d: str) -> dict:
     return run
 
 
+LONG_WORDS = ("the", "thing", "and", "other", "in", "an", "ring", "her", "out", "that",
+              "sound", "there", "ten", "tan", "hour")
+
+
+def start_cli_16k(torch, d: str) -> dict:
+    """The CLI at -c 16384 -b 2048 on a 2-layer, full-width Falcon-7B Q4_0
+    GGCC file (_write_params_file from a seeded tree built on the card) with
+    a prompt of a few thousand tokens from -f (words drawn from a seed): 64
+    ids at --temp 0 (repeat penalty 1, EOS banned), and 16 ids with the
+    temperature left at its default, which the CLI derates to 0.5 at this
+    context, and --top-k 1 (greedy too). Their output goes into d/16k.
+    Returns what check_cli_16k needs."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from ggllm_tpu_torch.core.config import named_hparams
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+    hp = dataclasses.replace(named_hparams("falcon7b"), n_layer=2)
+    t0 = time.perf_counter()
+    params = make_bench_params(hp, device="cuda", seed=16, gtype=GGMLType.Q4_0)
+    path = str(Path(d) / "falcon7b-2-layers-q4_0.ggcc")
+    _write_params_file(path, params, hp)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = {"dir": str(Path(d) / "16k"), "procs": [], "then": {}, "path": path}
+    Path(run["dir"]).mkdir()
+    run["prompt"] = str(Path(run["dir"]) / "prompt.txt")
+    words = np.random.default_rng(16384).choice(LONG_WORDS, 2400)
+    Path(run["prompt"]).write_text(" ".join(words))
+    log(f"  a 2-layer full-width Falcon-7B Q4_0 file: {os.path.getsize(path) / 1e6:.1f} MB,"
+        f" written in {time.perf_counter() - t0:.1f} s; a {len(words)}-word prompt")
+    common = ["-m", path, "-f", run["prompt"], "-c", str(LONG_CTX), "-b", str(LONG_BATCH),
+              "--repeat-penalty", "1", "--ignore-eos"]
+    _start_cli_process(run, [*common, "-n", "64", "--temp", "0"])
+    _start_cli_process(run, [*common, "-n", "16", "--top-k", "1"])
+    return run
+
+
+def check_cli_16k(run: dict) -> dict:
+    """The two CLI runs of start_cli_16k: each must succeed; the --temp 0
+    run's text must be the prompt and the 64 ids of the Generator
+    (engine/generator.py) on an engine at the same context, over the same
+    file and prompt, greedy with EOS banned; the derated run must print the
+    CLI's derating line and the first 16 of those ids. Deletes the file."""
+    from ggllm_tpu_torch import tokenizer as tok_mod
+    from ggllm_tpu_torch.core.config import EngineConfig
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.engine.generator import Generator
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+
+    ((out, err), rc), ((out_d, err_d), rc_d) = wait_cli(run)
+    cfg = EngineConfig(n_ctx=LONG_CTX, n_batch=LONG_BATCH)
+    mf, params = load_model(run["path"], cfg)
+    os.remove(run["path"])
+    tk = tok_mod.for_model(mf)
+    text = Path(run["prompt"]).read_text()
+    ids = tk.tokenize(text, bos=True)
+    eng = FalconEngine(mf.hparams, params, cfg)
+    gen = Generator(eng, SamplerParams(temp=0.0, repeat_penalty=1.0,
+                                       logit_bias={tk.eos_id: float("-inf")}), tk.eos_id)
+    got: list = []
+    gen.generate(gen.prefill(ids), 64, lambda t: got.append(t) is None)
+    want = text.encode() + b"".join(tk.piece(t) for t in got) + b"\n"
+    line = f"info: context size {LONG_CTX} is large; reducing default temperature to 0.5"
+    derated = line in err_d
+    capture = re.search(r"compile time\s*=\s*([0-9.]+) ms", err)
+    log(f"  cli -c {LONG_CTX} -b {LONG_BATCH} -f ({len(ids)}-token prompt) --temp 0 rc={rc}:"
+        f" {'the Generator' if out == want else 'NOT the Generator'}'s 64 ids; capture"
+        f" {capture.group(1) if capture else 'none'} ms; the default temperature rc={rc_d}:"
+        f" {'derating line printed' if derated else 'NO derating line'},"
+        f" {'its 16 ids the same' if out.startswith(out_d[:-1]) else 'OTHER ids'}")
+    if rc or out != want or "eval time" not in err:
+        raise RuntimeError(f"CLI at -c {LONG_CTX}: rc {rc}, not the Generator's ids:\n{out[-400:]}"
+                           f"\n{want[-400:]}\n{err[-2000:]}")
+    if rc_d or not derated or not out_d.endswith(b"\n") or not out.startswith(out_d[:-1]):
+        raise RuntimeError(f"CLI at -c {LONG_CTX} with the default temperature: rc {rc_d},"
+                           f" derating line {derated}:\n{out_d[-400:]}\n{err_d[-2000:]}")
+    del eng, params
+    return {"prompt_tokens": len(ids), "ids": len(got), "derated": derated}
+
+
 def check_cli_180b(run: dict) -> None:
     """The CLI on the 2-layer Falcon-180B file: -ts auto must pick one card,
     and the run print its prompt, 16 ids and its timings; then the file is
@@ -3894,9 +4240,10 @@ def main() -> int:
     # phase 2 starts, so that nothing else runs on the card while it times
     with tempfile.TemporaryDirectory() as d:
         cli = start_cli(d)
-        cli180 = None
+        cli180 = cli16 = None
         try:
             cli180 = start_cli_180b(torch, d)
+            cli16 = start_cli_16k(torch, d)
             # the GEMVs and the rows kernel decode their codes and scales
             # without int -> float conversions: every format, rows a warp (1,
             # 2), x and y dtype of both GEMVs; n-tiles (1, 2) and cluster
@@ -3930,8 +4277,9 @@ def main() -> int:
             log("phase 4: CLI on GGCC and GGJT files (run alongside the SASS report)")
             check_cli(cli, cli_results)
             check_cli_180b(cli180)
+            check_cli_16k(cli16)
         finally:
-            for p in cli["procs"] + (cli180["procs"] if cli180 else []):
+            for p in cli["procs"] + sum((r["procs"] for r in (cli180, cli16) if r), []):
                 if p.poll() is None:
                     p.kill()
 
@@ -3984,8 +4332,10 @@ def main() -> int:
         t0 = time.perf_counter()
         lora = phase_lora(torch, eng, params, hp)
         log(f"  (the LoRA adapter took {time.perf_counter() - t0:.1f} s)")
+        log(f"  -- falcon7b q4_0: long context, n_ctx {LONG_CTX}, n_batch {LONG_BATCH}")
+        long_context = phase_long_context(torch, eng, params, hp)
         return [sessions, speculative, grammar, served, *scored, batched, parallel, spec_rows,
-                dequant, lora]
+                dequant, lora, long_context]
 
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")
@@ -4054,6 +4404,7 @@ def main() -> int:
         "flash_decode.mha": "valid=2047 G=1 KV=32",
         "flash_decode.mha.int8": "int8 valid=2047 G=1 KV=32",
     }
+    path_long = next(p for p in paths if p["path"].endswith(f"n_ctx {LONG_CTX} n_batch {LONG_BATCH}"))
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         r = next(r for r in rows if r["kernel"] == name and r["shape"].startswith(headline[name]))
@@ -4098,6 +4449,14 @@ def main() -> int:
                                                       "graph_ms", "library_graph_ms") if k in r}
                                    for r in r180]
             entry["launches_falcon180b"] = path180["launches"].get(counter, 0)
+        long_rows = [r for r in rows if r["kernel"] == name
+                     and r["shape"].startswith((f"T={LONG_T} ", f"Tn={LONG_T} "))]
+        if long_rows:  # the kernel at the 16k context's lengths, and its launches there
+            entry["long_context"] = [{k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                        "library_ms", "bound_ms", "bound_by",
+                                                        "graph_ms", "library_graph_ms") if k in r}
+                                     for r in long_rows]
+            entry["launches_long_context"] = path_long["launches"].get(counter, 0)
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,10 +5,18 @@ weights of one format from a seed), on the CUDA card.
     python -m ggllm_tpu_torch.tools.profile_decode [--config falcon7b|falcon40b|falcon180b|llama7b]
         [--format q4_0|q4_1|q5_0|q5_1|q8_0|q2_k|q3_k|q4_k|q5_k|q6_k]
         [--kv-dtype bfloat16|float32|int8] [--prompt 300] [--tokens 64] [--rows B]
+        [--ctx 2048] [--batch 512]
 
 Prints one JSON object per phase: wall time, device busy time (the union
 of kernel intervals), the device's idle share, launches, and the kernels
-that take the most device time. Decode runs through the replayed CUDA graph
+that take the most device time, and each kernel family's share of the busy
+time (`GROUPS`: the prefill tile, the prefill and decode attention, the
+GEMVs). `--ctx` and `--batch` set the engine's n_ctx and n_batch (the cache
+holds n_ctx + n_batch positions; a prompt past 2048 needs a larger --ctx, as
+the CLI's -c). On an int8 cache the prefill also sizes the attention's read
+of the cache: the dequantization of every layer's whole cache
+(ops/kvcache.py read_layer) that each n_batch chunk makes, timed alone with
+CUDA events as one chunk's calls. Decode runs through the replayed CUDA graph
 and through the eager step body in turns (time_kernels.py decode_turns:
 wall, device-busy and idle share, nodes a token, capture ms), then once
 more through the graph for its kernels by name. With --rows B > 1 the
@@ -31,9 +39,16 @@ from torch.profiler import ProfilerActivity, profile
 from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.engine.engine import FalconEngine
+from ggllm_tpu_torch.ops import kvcache
 from ggllm_tpu_torch.ops.sampling import SamplerParams
 from ggllm_tpu_torch.tools.time_kernels import decode_turns
 from ggllm_tpu_torch.utils.benchgen import make_bench_params
+
+
+# kernel families by a part of the kernel's name (csrc/*.cu)
+GROUPS = {"prefill tile": ("quant_gemm_tc", "quant_gemm_f32"),
+          "prefill attention": ("flash_mqa_",), "decode attention": ("decode_",),
+          "decode GEMV": ("quant_gemv_", "quant_mmv_")}
 
 
 def _device_summary(prof, wall_s: float, n_tokens: int, top: int = 12) -> dict:
@@ -53,6 +68,8 @@ def _device_summary(prof, wall_s: float, n_tokens: int, top: int = 12) -> dict:
         t[0] += e.time_range.end - e.time_range.start
         t[1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    shares = {group: sum(t for name, (t, _) in by_name.items() if any(p in name for p in parts))
+              / busy for group, parts in GROUPS.items()} if busy else {}
     return {
         "tokens": n_tokens,
         "wall_ms_per_token": wall_s * 1e3 / n_tokens,
@@ -61,7 +78,26 @@ def _device_summary(prof, wall_s: float, n_tokens: int, top: int = 12) -> dict:
         "kernel_launches_per_token": len(kernels) / n_tokens,
         "top_kernels_ms_per_token": {
             name[:90]: round(t / 1e3 / n_tokens, 5) for name, (t, _) in ranked},
+        "busy_share": {g: round(v, 4) for g, v in shares.items() if v},
     }
+
+
+def _read_layer_ms(eng) -> float:
+    """Device ms of one prefill chunk's reads of an int8 cache: read_layer
+    of every layer (the whole cache dequantized to the compute dtype), as
+    models/falcon.py attend calls it, between two CUDA events; the median
+    of 5 runs."""
+    dt = getattr(torch, eng.cfg.compute_dtype)
+    runs = []
+    for _ in range(6):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for l in range(eng.hp.n_layer):
+            kvcache.read_layer(eng.kv, l, dt)
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b))
+    return float(np.median(runs[1:]))
 
 
 def main(argv=None) -> int:
@@ -73,12 +109,15 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt", type=int, default=300)
     ap.add_argument("--tokens", type=int, default=64, help="decode tokens a run (16-token chunks)")
     ap.add_argument("--rows", type=int, default=1, help="batch rows (> 1: the B-row decode)")
+    ap.add_argument("--ctx", type=int, default=2048, help="the engine's n_ctx (CLI -c)")
+    ap.add_argument("--batch", type=int, default=512, help="the engine's n_batch (CLI -b)")
     args = ap.parse_args(argv)
     hp = named_hparams(args.config)
     params = make_bench_params(hp, seed=7, gtype=GGMLType[args.format.upper()])
     if args.rows > 1:
         return _rows(args, hp, params)
-    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=args.kv_dtype))
+    eng = FalconEngine(hp, params, EngineConfig(n_ctx=args.ctx, n_batch=args.batch,
+                                                kv_dtype=args.kv_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, args.prompt)]
     greedy = SamplerParams(temp=0.0)
     eng.eval(prompt[:8])  # warm-up
@@ -94,11 +133,20 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         logits = eng.eval(prompt)
         wall = time.perf_counter() - t0
+    summary = _device_summary(prof, wall, args.prompt)
+    if kvcache.is_quantized(eng.kv):  # the chunks' dequantizing reads of the whole cache
+        n_chunks = -(-args.prompt // args.batch)
+        ms = _read_layer_ms(eng) * n_chunks
+        summary["read_layer"] = {
+            "calls": n_chunks * hp.n_layer, "positions_a_call": eng.kv_T,
+            "ms_per_token": ms / args.prompt,
+            "busy_share": ms / args.prompt / summary["device_busy_ms_per_token"]}
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "model": f"{args.config} {args.format} kv {args.kv_dtype}",
+                      "n_ctx": args.ctx, "n_batch": args.batch,
                       "phase": f"prefill {args.prompt}",
                       "wall_ms_per_token_unprofiled": plain_wall * 1e3 / args.prompt,
-                      **_device_summary(prof, wall, args.prompt)}), flush=True)
+                      **summary}), flush=True)
 
     first = int(np.argmax(logits))
     hist = prompt + [first]
@@ -125,7 +173,8 @@ def _rows(args, hp, params) -> int:
     args.tokens steps as 16-step decode_rows graph replays, once unprofiled
     (wall) and once under the profiler."""
     B = args.rows
-    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=args.kv_dtype), batch_size=B)
+    eng = FalconEngine(hp, params, EngineConfig(n_ctx=args.ctx, n_batch=args.batch,
+                                                kv_dtype=args.kv_dtype), batch_size=B)
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, args.prompt)]
     first = eng.prefill_rows(list(range(B)), [prompt] * B, np.zeros(B, np.int64))
     toks = np.asarray([int(np.argmax(first[r])) for r in range(B)])

@@ -10,7 +10,7 @@ its root, so that two trees can be timed in turns within one call.
     python ggllm_tpu_torch/tools/time_kernels.py mqa32 [--root DIR]
     python ggllm_tpu_torch/tools/time_kernels.py decode [--root DIR]
         [--config falcon7b|falcon40b|falcon180b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
-        [--compute-dtype bfloat16] [--prompt 300] [--tokens 64]
+        [--compute-dtype bfloat16] [--prompt 300] [--tokens 64] [--ctx 2048] [--batch 512]
     python ggllm_tpu_torch/tools/time_kernels.py gemv [--root DIR] [--family legacy|kq]
         [--shape q4_0:12288x4096 ...]
     python ggllm_tpu_torch/tools/time_kernels.py rows [--root DIR] [--shape q4_0:4544x22720 ...]
@@ -29,7 +29,9 @@ medians with a flush). `decode` prints one JSON line: the prefill rate of a
 300-token prompt, then greedy decode at n_past 300 (`--prompt`) through the
 replayed CUDA graph and through the eager step body in turns (graph, eager,
 eager, graph; `decode_turns`): wall ms a token, device-busy ms a token, idle
-share and nodes a token, and the capture's ms. `attn` prints one JSON line per shape of the main paths' decode
+share and nodes a token, and the capture's ms; `--ctx` and `--batch` set the
+engine's n_ctx and n_batch (the cache holds n_ctx + n_batch positions; a
+prompt past 2048 needs a larger --ctx). `attn` prints one JSON line per shape of the main paths' decode
 attention (Falcon-7B G=71 KV=1 D=64 at 1 / 300 / 2047 valid positions,
 Falcon-40B G=16 KV=8 at 300 / 2047, LLaMA-7B G=1 KV=32 D=128 at 1 / 300 /
 2047; caches of the model's depth and 2560 positions, `--cache` (one or
@@ -754,7 +756,7 @@ def time_nodes(config: str, fmt: str, kv_dtype: str) -> None:
 
 
 def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: int,
-                compute_dtype: str = "bfloat16") -> None:
+                compute_dtype: str = "bfloat16", n_ctx: int = 2048, n_batch: int = 512) -> None:
     import numpy as np
     import torch
     from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
@@ -765,7 +767,8 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
     hp = named_hparams(config)
     params = make_bench_params(hp, compute_dtype=getattr(torch, compute_dtype), seed=7,
                                gtype=GGMLType[fmt.upper()])
-    eng = FalconEngine(hp, params, EngineConfig(kv_dtype=kv_dtype, compute_dtype=compute_dtype))
+    eng = FalconEngine(hp, params, EngineConfig(n_ctx=n_ctx, n_batch=n_batch, kv_dtype=kv_dtype,
+                                                compute_dtype=compute_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, prompt_len)]
     eng.eval(prompt[:8])  # warm-up
     eng.reset()
@@ -778,7 +781,7 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
     print(json.dumps({"package": str(Path(build.__file__).resolve().parents[2]),
                       "card": torch.cuda.get_device_name(0),
                       "model": f"{config} {fmt} kv {kv_dtype} compute {compute_dtype}",
-                      "n_past": prompt_len,
+                      "n_ctx": n_ctx, "n_batch": n_batch, "n_past": prompt_len,
                       "prefill_tok_s": len(prompt) / prefill, "decode": turns}), flush=True)
 
 
@@ -794,6 +797,8 @@ def main(argv=None) -> int:
     ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
                     help="decode: the activations' dtype")
     ap.add_argument("--prompt", type=int, default=300, help="decode: n_past")
+    ap.add_argument("--ctx", type=int, default=2048, help="decode: the engine's n_ctx")
+    ap.add_argument("--batch", type=int, default=512, help="decode: the engine's n_batch")
     ap.add_argument("--layers", type=int, default=32, help="f32path: the model's depth")
     ap.add_argument("--tokens", type=int, default=64, help="decode: tokens a run (16-token chunks)")
     ap.add_argument("--family", choices=("legacy", "kq"), default="legacy",
@@ -831,7 +836,7 @@ def main(argv=None) -> int:
         time_nodes(args.config, args.format, args.kv_dtype)
     else:
         time_decode(args.config, args.format, args.kv_dtype, args.prompt, args.tokens,
-                    args.compute_dtype)
+                    args.compute_dtype, args.ctx, args.batch)
     return 0
 
 

@@ -751,22 +751,31 @@ def test_flash_decode_refuses_head_shapes_it_does_not_take(dev):
         flash_mqa(torch.zeros(1, 4, 2, 64, device=dev, dtype=bf), k, k, 0)
 
 
-def _decode_case(dev, cache, KV, H, D, valid, append, T=2560, L=2, seed=0):
+# long context: EngineConfig(n_ctx=16384, n_batch=2048), a cache of
+# 16384 + 2048 = 18432 positions
+LONG_T = 18432
+# one valid length a row, as an int32 device tensor
+ROW_LENGTHS = {"rows": [2047, 300], "rows16k": [16383, 8192]}
+
+
+def _decode_case(dev, cache, KV, H, D, valid, append, T=None, L=2, seed=0):
     """A random L-layer cache (bf16, f32, or int8 codes and scales: "int8"
     with bf16 q, "int8f32" with f32 q; "bf16f32q": a bf16 cache with f32 q),
     q in the cache's dtype (bf16 or f32) or f32 and flash_decode's arguments
-    for `valid` cache positions ("rows": B = 2 with lengths [2047, 300] as
-    an int32 device tensor), with or without a 16-entry append block of
-    which 5 are valid."""
-    B = 2 if valid == "rows" else 1
+    for `valid` cache positions (a ROW_LENGTHS key: B = 2 with those lengths
+    as an int32 device tensor), with or without a 16-entry append block of
+    which 5 are valid. T defaults to 2560, or to LONG_T where a length
+    passes 2560 (the decode plan made for the 16k context's cache)."""
+    rows = ROW_LENGTHS.get(valid) if isinstance(valid, str) else None
+    B = 2 if rows else 1
+    T = T or (LONG_T if max(rows or [valid]) > 2560 else 2560)
     g = _gen(seed)
     qd = torch.float32 if cache in ("f32", "int8f32", "bf16f32q") else torch.bfloat16
     kv = torch.randn(L, 2, B, T, KV, D, generator=g, device=dev)
     kv = (kvcache.quantize_new(kv) if cache.startswith("int8")
           else kv.to(torch.bfloat16) if cache == "bf16f32q" else kv.to(qd))
     q = torch.randn(B, 1, H, D, generator=g, device=dev).to(qd)
-    lens = (torch.tensor([2047, 300], dtype=torch.int32, device=dev) if valid == "rows"
-            else valid)
+    lens = torch.tensor(rows, dtype=torch.int32, device=dev) if rows else valid
     if append:  # the cache is valid below n_past - 4
         app = torch.randn(2, B, 16, KV, D, generator=g, device=dev).to(qd)
         return kv, q, lens + 4, {"kv_append": app, "append_valid": 5}
@@ -776,12 +785,14 @@ def _decode_case(dev, cache, KV, H, D, valid, append, T=2560, L=2, seed=0):
 @pytest.mark.parametrize("cache", ["bf16", "int8", "f32", "int8f32", "bf16f32q"])
 @pytest.mark.parametrize("KV,H,D", [(1, 71, 64), (8, 128, 64), (32, 32, 128), (8, 232, 64)],
                          ids=["falcon7b", "falcon40b", "llama7b", "falcon180b"])
-@pytest.mark.parametrize("valid", [1, 300, 2047, "rows"])
+@pytest.mark.parametrize("valid", [1, 300, 2047, "rows", 16383, "rows16k"])
 @pytest.mark.parametrize("append", [False, True], ids=["cache", "append"])
 def test_decode_at_main_path_shapes(dev, cache, KV, H, D, valid, append):
     """The one-launch kernels at the main paths' head layouts (Falcon-180B:
-    29 query heads a K/V head, padded to 32 rows) against the
-    plain version (2e-2 of max |ref| with bf16 q, 2e-5 with f32 q): grouped
+    29 query heads a K/V head, padded to 32 rows), at n_ctx 2048 and at the
+    16k context's lengths (valid 16383 and rows of 16383 and 8192 over a
+    cache of LONG_T positions, the device lengths' plan made for T), against
+    the plain version (2e-2 of max |ref| with bf16 q, 2e-5 with f32 q): grouped
     heads on the tensor-core kernel (bf16 q) or the f32 kernel (f32 q, also
     over a bf16 cache, where q stays f32), G == 1 on decode_mha_kernel (f32
     q over a bf16 cache meets it as bf16: held at 2e-2); bf16, f32 and int8
@@ -1773,3 +1784,127 @@ def test_train_demo_gradients_on_the_card_match_the_cpu(dev):
     assert dict(build.launch_counts) == before
     for a, b in zip(grads["cuda"], grads["cpu"]):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+# ---- long context
+
+
+@pytest.mark.parametrize("H,KV", [(71, 1), (128, 8)])
+def test_flash_mqa_at_the_16k_prefill_chunk(dev, H, KV):
+    """bf16 prefill attention of a 2048-row chunk at n_past 10240 (the last
+    chunk of a 12288-token prompt) over the 18432-position cache, against
+    the plain version in 512-row pieces (2e-2 of max |ref|)."""
+    g = _gen(19)
+    kv = torch.randn(2, 1, LONG_T, KV, 64, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(1, 2048, H, 64, generator=g, device=dev).to(torch.bfloat16)
+    before = build.launch_counts["flash_mqa.tc"]
+    got = flash_mqa(q, kv[0], kv[1], 10240)
+    assert build.launch_counts["flash_mqa.tc"] == before + 1
+    ref = torch.cat([flash_mqa_plain(q[:, i:i + 512], kv[0], kv[1], 10240 + i)
+                     for i in range(0, 2048, 512)], dim=1)
+    _close(got, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_mha_decode_and_cache_writes_past_2_31_elements(dev, cache):
+    """LLaMA-7B's heads (G == 1, KV 32, D 128) on layer 31 of a 32-layer
+    cache of 18432 positions: 4.83 G elements, so the layer's offsets pass
+    2^31. The G == 1 kernel at valid 16383 against the plain version, then a
+    per-row write of layer 31 and a chunk-end write of every layer at a
+    device n_past, read back."""
+    L, KV, D = 32, 32, 128
+    g = _gen(20)
+    shape = (L, 2, 1, LONG_T, KV, D)
+    kv = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    if cache == "int8":
+        kv = (torch.empty(shape, dtype=torch.int8, device=dev),
+              torch.empty(*shape[:-1], 1, dtype=torch.float32, device=dev))
+    for i in range(L):  # a layer at a time
+        layer = torch.randn(shape[1:], generator=g, device=dev)
+        if cache == "int8":
+            kv[0][i], kv[1][i] = kvcache.quantize_new(layer)
+        else:
+            kv[i] = layer.to(torch.bfloat16)
+    assert L * 2 * LONG_T * KV * D > 2**31
+    q = torch.randn(1, 1, KV, D, generator=g, device=dev).to(torch.bfloat16)
+    counter = "flash_decode.mha" + (".int8" if cache == "int8" else "")
+    before = build.launch_counts[counter]
+    got = fd.flash_decode(kv, KV, L - 1, q, 16382)
+    assert build.launch_counts[counter] == before + 1
+    _close(got, fd.flash_decode_plain(kv, KV, L - 1, q, 16382), torch.bfloat16)
+    at = LONG_T - 40
+    pos = torch.tensor([at], dtype=torch.int32, device=dev)
+    new = torch.randn(2, 1, 1, KV, D, generator=g, device=dev).to(torch.bfloat16)
+    new16 = torch.randn(L, 2, 1, 16, KV, D, generator=g, device=dev).to(torch.bfloat16)
+    kvcache.write_layer(kv, new, L - 1, pos)
+    kvcache.write_all_layers(kv, new16, pos - 16)
+    if cache == "int8":
+        (c1, s1), (c16, s16) = kvcache.quantize_new(new), kvcache.quantize_new(new16)
+        assert torch.equal(kv[0][L - 1, :, :, at:at + 1], c1)
+        assert torch.equal(kv[1][L - 1, :, :, at:at + 1], s1)
+        assert torch.equal(kv[0][:, :, :, at - 16:at], c16)
+        assert torch.equal(kv[1][:, :, :, at - 16:at], s16)
+    else:
+        assert torch.equal(kv[L - 1, :, :, at:at + 1], new)
+        assert torch.equal(kv[:, :, :, at - 16:at], new16)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_tiny_model_at_n_ctx_16384(dev, tmp_path, kv_dtype):
+    """A tiny Falcon (head_dim 64: the 16k alpha) at EngineConfig(n_ctx=16384,
+    n_batch=2048): a 12288-token prompt, then 32 greedy ids from n_past
+    12288 through the decode graphs equal to the eager step body's; on an
+    f32 cache under f32 compute the card's prefill logits are within 1e-4
+    of max |logit| of the CPU's and its greedy ids the CPU's."""
+    from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.io.loader import load_model
+    from ggllm_tpu_torch.ops.sampling import SamplerParams
+    from ggllm_tpu_torch.utils.synthetic import write_tiny_model
+
+    path = str(tmp_path / "tiny.ggcc")
+    write_tiny_model(path, FalconHParams(n_vocab=512, n_embd=256, n_head=4, n_head_kv=1,
+                                         n_layer=2, n_falcon_type=7, n_bpe_merges=0),
+                     GGMLType.Q4_0, seed=5)
+    prompt = [int(t) for t in np.random.default_rng(21).integers(12, 500, 12288)]
+    greedy = SamplerParams(temp=0.0)
+    cfg = EngineConfig(n_ctx=16384, n_batch=2048, kv_dtype=kv_dtype)
+    mf, params = load_model(path, cfg, device="cuda")
+    eng = FalconEngine(mf.hparams, params, cfg)
+    assert eng.kv_T == LONG_T
+    first = int(np.argmax(eng.eval(prompt)))
+    ids = {}
+    for eager in (False, True):
+        eng.rollback(len(prompt))
+        ids[eager] = _chunks(eng, first, prompt + [first], 2, 16, greedy, eager)
+    assert ids[False] == ids[True] and len(set(ids[False])) > 1
+    f32 = EngineConfig(n_ctx=16384, n_batch=2048, kv_dtype="float32", compute_dtype="float32")
+    logits, greedy_ids = [], []
+    for device in ("cpu", "cuda"):
+        mf, params = load_model(path, f32, device=device)
+        e = FalconEngine(mf.hparams, params, f32, device=device)
+        logits.append(e.eval(prompt))
+        tok = int(np.argmax(logits[-1]))
+        toks, _ = e.decode_chunk(tok, 16, greedy, last_tokens=prompt + [tok])
+        greedy_ids.append([tok] + [int(t) for t in toks])
+    scale = np.abs(logits[0]).max()
+    np.testing.assert_allclose(logits[1] / scale, logits[0] / scale, atol=1e-4)
+    assert greedy_ids[0] == greedy_ids[1]
+
+
+def test_rope_on_the_card_at_the_16k_caches_positions(dev):
+    """RoPE's angles at the 16k alpha for positions 0 ... 18431 (18431
+    radians at the first frequency), cos / sin and the rotation on the card
+    within 1e-6 of the CPU's (which tests/test_torch_long_context.py holds
+    to the JAX apply_rope) in f32."""
+    from ggllm_tpu_torch.core.config import RopeConfig
+    from ggllm_tpu_torch.ops.rope import rope_angles, rope_cos_sin, rotate
+
+    inv = torch.from_numpy(rope_angles(RopeConfig(), 16384, 64))
+    pos = torch.arange(LONG_T).reshape(1, -1)
+    x = torch.randn(1, LONG_T, 2, 64, generator=torch.Generator().manual_seed(22))
+    cpu = rope_cos_sin(pos, inv)
+    card = rope_cos_sin(pos.to(dev), inv.to(dev))
+    for a, b in zip(card, cpu):
+        assert (a.cpu() - b).abs().max().item() <= 1e-6
+    got = rotate(x.to(dev), *card).cpu()
+    assert (got - rotate(x, *cpu)).abs().max().item() <= 1e-6 * x.abs().max().item()
