@@ -89,7 +89,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      tensor-core kernel, and must agree with the plain versions to 1e-4 of
      max |logit|, then decode 16 tokens through the legacy GEMV (f32 x and y)
      and the head layout's f32 decode kernel; the 2-layer paths hold their
-     graphs against the eager step body in the same way;
+     graphs against the eager step body in the same way; the forward
+     exported (phase_export: FalconEngine.export, torch.export with the
+     kernels as torch.ops.ggllm.* nodes) at S = 300 and S = 1 on the 32-layer
+     Falcon-7B Q4_0 and LLaMA-7B Q4_0 (n_rot 128) engines and on the 2-layer
+     f32 Falcon-7B one (whose prefill graph names ggllm.group_sums), each
+     program run once from the cache state the eager forward starts from:
+     logits within LOGIT_TOL of max |eager| with the same greedy id, and the
+     launches counted by name equal to the eager forward's;
      on the Falcon-7B Q4_0 engine, before its weights are freed, two more
      paths: the single-stream HTTP server (server/app.py, on 127.0.0.1 at a
      free port, in a thread): a greedy request equal to the engine's
@@ -152,15 +159,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      2 layers, a row ending alone at its context end); --weight-mode dequant
      at full width (phase_dequant: bf16 weights dequantized on the card,
      prefill logits held to the plain versions, its rate beside the fused
-     one); a LoRA adapter at load (phase_lora: the Falcon-7B Q4_0 tree
-     written as a GGCC file, an adapter of r 16 on query_key_value and
+     one); a LoRA adapter at load (phase_lora: the Falcon-7B Q4_0 tree's
+     first LORA_LAYERS (8) layers written as a GGCC file, an adapter of r 16 on query_key_value and
      dense_4h_to_h of every layer loaded with it on the card, 64 greedy ids
-     through the decode graphs beside the fused rate, the prefill and a
+     through the decode graphs beside the fused rate on those layers, the prefill and a
      decode step held to the plain versions on the patched tree and the
      prefill far from the unpatched engine's); after the LLaMA paths the
-     quantize tool (phase_quantize: 2-layer full-width f16 files, Falcon-7B
+     quantize tool (phase_quantize: TOOL_LAYERS (1) full-width f16 files, Falcon-7B
      -> q4_0 and LLaMA-7B -> q4_k_m, each loaded and held against the plain
-     versions); and the converters (phase_convert: 2-layer full-width bf16
+     versions); and the converters (phase_convert: TOOL_LAYERS (1) full-width bf16
      HF checkpoints from utils/synthetic.py, Falcon-7B -> GGCC f16 -> q4_0
      loaded with a converted PEFT adapter and the f16 file as --lora-base,
      LLaMA-7B -> GGJT f16, each held against the plain versions); long
@@ -176,20 +183,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ranks started by parallel/mesh.py RankPool on files written from
      seeded trees: two gloo ranks sharing the card (collectives staged
      through host memory and counted, decode eager), tensor-parallel
-     Falcon-7B Q4_0 at 32 layers (300-token prefill, 64 greedy ids, a 2-row
-     batcher), Falcon-40B Q4_K and LLaMA-7B Q4_0 (n_rot 128) cut to 4 layers,
+     Falcon-7B Q4_0 (300-token prefill, 64 greedy ids, a 2-row batcher),
+     Falcon-40B Q4_K and LLaMA-7B Q4_0 (n_rot 128), each cut to MG_LAYERS (2),
      sequence-parallel Falcon-7B Q4_0 (32 ids; each rank's cache kv_T / 2
      positions): every rank's ids equal, rank 0's prefill and a decode
      step's logits within LOGIT_TOL of the single process's, its ids within
      ROWS_LOGIT_TOL with the ids forced through the single process's decode
      steps (the batcher's through its prefill), the GEMV, the rows kernel,
      the tile, flash_mqa.tc, flash_decode_tc and flash_decode.mha launched on
-     the ranks; and one NCCL rank (Falcon-7B Q4_0, 32 layers) whose captured
+     the ranks; and one NCCL rank (Falcon-7B Q4_0, the same layers) whose captured
      decode graph, all-reduces inside, gives the single process's 64 greedy
      ids exactly, its tok/s beside the single process's; then the fallback
      tree and the data axis on the same ranks (phase_gspmd: Falcon-7B Q4_0
-     with an r 16 adapter at 32 layers, dequant and Falcon-40B Q4_K / Q6_K
-     at 4 layers, a data 2 x model 1 batcher, held as above; the NCCL rank's
+     with an r 16 adapter, dequant and Falcon-40B Q4_K / Q6_K, all at
+     MG_LAYERS, a data 2 x model 1 batcher, held as above; the NCCL rank's
      fallback decode graph = its eager ids; the kernels at every shard shape
      the ranks held); and the training demo (phase_train: tools/train_demo.py
      on README.md, 200 Adam and 20 L-BFGS steps, the loss falling, gradients
@@ -203,7 +210,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      first run's text), --draft-model (the Q4_K file as the draft), --mtest
      with --alias, -dt 1 (its table lists the GEMV and the decode kernel from
      the graph replays), --weight-mode dequant (its ids held to the fused
-     engine's), --export (exit 1) and -t 8 -ngl 100 (ignored); and a
+     engine's), --export (the forward's torch.export text, naming the
+     ggllm ops) and -t 8 -ngl 100 (ignored); and a
      2-layer full-width Falcon-180B Q2_K file written from a tree built on
      the card, on which the CLI with -ts auto must pick one card and print
      16 greedy ids (the file is deleted after); and a 2-layer full-width
@@ -243,6 +251,14 @@ N_RUNS, N_WARM = 20, 3
 # the cache of EngineConfig(n_ctx=16384, n_batch=2048): n_ctx + n_batch positions
 LONG_CTX, LONG_BATCH = 16384, 2048
 LONG_T = LONG_CTX + LONG_BATCH
+# depths cut to make room for phase_export within the run's time: the
+# multi-GPU phases' models (their checks are of the sharded arithmetic,
+# which depth does not change; at 32 layers of Falcon-7B the host-staged
+# eager decode of two ranks sharing the card took 90 s), phase_lora's tree,
+# and the files of phase_quantize and phase_convert
+MG_LAYERS = 2
+LORA_LAYERS = 8
+TOOL_LAYERS = 1
 # nodes of the single stream's unmasked greedy 16-step decode graph on the
 # Falcon-7B Q4_0 engine (32 layers, bf16 cache; cuGraphGetNodes on the
 # captured graph, tools/time_kernels.py nodes), as the tree before masked
@@ -1246,6 +1262,74 @@ def _drive(torch, eng, prompt: list, label: str, fmt: str, n_check: int = 64) ->
             "other_gemv": other_gemv}
 
 
+def phase_export(torch, eng, label: str) -> dict:
+    """FalconEngine.export on a full-width engine at S = 300 (prefill: the
+    tile, flash_mqa, on the f32 route group_sums) and S = 1 (decode: the
+    GEMV, flash_decode), each program run once from the cache state the
+    engine's eager forward of the same call starts from (an empty cache,
+    then the 300-token prompt's). Fails unless the program's text names the
+    ops (quant_matmul, and flash_mqa or flash_decode once a layer), its
+    logits lie within LOGIT_TOL of max |eager| with the same greedy id, and
+    build.launch_counts moved by the program run equal the eager forward's
+    by name and count: the graph runs the hand kernels. Logs the export
+    seconds, the text's size and both runs' ms."""
+    import numpy as np
+
+    from ggllm_tpu_torch.kernels import build
+
+    def leaves(kv):
+        return kv if isinstance(kv, tuple) else (kv,)
+
+    prompt = [int(t) for t in np.random.default_rng(3).integers(12, eng.hp.n_vocab, 300)]
+    n_layer, out = eng.hp.n_layer, {"path": f"export: {label}", "launches": {}}
+    for S in (300, 1):
+        t0 = time.perf_counter()
+        ep = eng.export(S)
+        export_s = time.perf_counter() - t0
+        text = str(ep)
+        ops = {op: text.count(f"torch.ops.ggllm.{op}.default(")
+               for op in ("quant_matmul", "flash_mqa", "flash_decode", "group_sums")}
+        attn = "flash_mqa" if S > 1 else "flash_decode"
+        if ops[attn] != n_layer or ops["quant_matmul"] <= n_layer:
+            raise RuntimeError(f"the S = {S} program of the {label} path names {ops}")
+        program = ep.module()
+        eng.reset()
+        if S == 1:
+            eng.eval(prompt)
+        n_past, start = eng.n_past, [t.clone() for t in leaves(eng.kv)]
+        tok = prompt if S > 1 else [int(np.random.default_rng(4).integers(12, eng.hp.n_vocab))]
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        want = eng.eval(tok)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        eager = dict(build.launch_counts)
+        for dst, src in zip(leaves(eng.kv), start):
+            dst.copy_(src)
+        tokens = torch.tensor([tok], dtype=torch.long, device=eng.device)
+        past = torch.tensor([n_past], dtype=torch.int32, device=eng.device)
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        got = program(tokens, eng.kv, past)[0, 0].float().cpu().numpy()
+        program_ms = (time.perf_counter() - t0) * 1e3
+        ran = dict(build.launch_counts)
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"  export {label} S={S}: {export_s:.2f} s, {len(text)} characters, nodes {ops};"
+            f" program vs eager forward at n_past {n_past}: {rel:.3e} of max|eager|, id"
+            f" {int(got.argmax())} vs {int(want.argmax())}; {program_ms:.1f} ms vs eager"
+            f" {eager_ms:.1f} ms (first run of the program); launches {ran}")
+        if not np.isfinite(got).all() or rel > LOGIT_TOL or got.argmax() != want.argmax():
+            raise RuntimeError(f"the exported S = {S} program and the eager forward disagree on"
+                               f" the {label} path")
+        if ran != eager:
+            raise RuntimeError(f"the exported S = {S} program of the {label} path launched {ran},"
+                               f" the eager forward {eager}")
+        out[f"S={S}"] = {"export_s": export_s, "text_chars": len(text), "nodes": ops,
+                         "logit_rel_err": rel, "program_ms": program_ms, "eager_ms": eager_ms}
+        _add_launches(out["launches"], ran)
+    eng.reset()
+    return out
+
+
 def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
                 peak_below: int | None = None, long_past: int | None = None,
                 host_route_tokens: int = 0, then=None) -> dict:
@@ -1266,14 +1350,14 @@ def phase_model(torch, model: str, fmt: str, kv_dtype: str = "bfloat16",
 
     import numpy as np
 
-    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.config import EngineConfig
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.ops.sampling import SamplerParams
-    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+    from ggllm_tpu_torch.utils.benchgen import bench_hparams, make_bench_params
 
-    hp = named_hparams(model)
+    hp = bench_hparams(model)
     label = f"{hp.n_layer}-layer {model} {fmt} {kv_dtype}-cache"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1479,7 +1563,7 @@ def phase_long_context(torch, eng, params, hp) -> dict:
 
 
 def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: int = 2,
-                   graphs: bool = True) -> dict:
+                   graphs: bool = True, export: bool = False) -> dict:
     """The f32 route at full width and `n_layer` layers
     (tools/time_kernels.py f32_path): float32 compute and cache, a 300-token
     prefill (tok/s printed) through the f32 tensor-core tile, group_sums and
@@ -1488,7 +1572,9 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
     heads, the G == 1 kernel for LLaMA); with `graphs`, the decode graphs
     against the eager step body. Fails unless all of them ran, no bf16
     tensor-core kernel did, and the prefill logits of all positions agree
-    with the plain versions to F32_LOGIT_TOL of max |logit|."""
+    with the plain versions to F32_LOGIT_TOL of max |logit|. With `export`,
+    phase_export on the engine (its graphs name ggllm.group_sums and the f32
+    tile's quant_matmul), returned under "then"."""
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.tools.time_kernels import f32_path
 
@@ -1523,7 +1609,10 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
                 f" {graph['graph_device_ms_per_token']:.4f} ms a token; capture"
                 f" {eng.timings.t_compile_us / 1e3:.1f} ms; one replay credited:"
                 f" {graph['credited']}")
-        return {"launches": counts, "graph": graph}
+        then = [phase_export(torch, eng, label)] if export else []
+        if then and then[0]["S=300"]["nodes"]["group_sums"] <= 0:
+            raise RuntimeError(f"the S = 300 program of the {label} path names no group_sums")
+        return {"launches": counts, "graph": graph, "then": then}
 
     r = f32_path(model, fmt, n_layer, after=decode)
     if not r["finite"]:
@@ -1535,7 +1624,8 @@ def phase_f32_path(torch, model: str = "falcon7b", fmt: str = "q4_0", n_layer: i
         raise RuntimeError(f"f32 kernel and plain prefill logits disagree on the {label} path")
     return {"path": label, "launches": r["after"]["launches"],
             "prefill_tok_s": r["prefill_tok_s"], "logit_rel_err": r["logit_rel_err"],
-            "argmax_same": r["argmax_same"], "graph": r["after"]["graph"]}
+            "argmax_same": r["argmax_same"], "graph": r["after"]["graph"],
+            **({"then": r["after"]["then"]} if export else {})}
 
 
 def _batch_run(torch, eng, prompts, specs, eager: bool, chunk: int = 16):
@@ -2439,30 +2529,30 @@ def _write_f16_model(torch, path: str, hp) -> None:
 
 def phase_quantize(torch) -> dict:
     """The quantize tool (tools/quantize.py, the C++ codecs) at full width and
-    2 layers: an f16 Falcon-7B file -> q4_0 and an f16 LLaMA-7B file ->
-    q4_k_m (the mixed policy: layer 1's wv and w2 in Q6_K, the others Q4_K).
+    TOOL_LAYERS layers: an f16 Falcon-7B file -> q4_0 and an f16 LLaMA-7B file
+    -> q4_k_m (the mixed policy: output.weight and, in a one-layer file, the
+    layer's wv and w2 in Q6_K, the others Q4_K).
     Each quantized file is loaded on the card; a 300-token prefill's logits
     and one decode step's are held against the plain versions (LOGIT_TOL),
     and 16 greedy tokens run through the decode graphs. Prints the seconds
     and MB in -> out; the files are deleted."""
-    import dataclasses
-
     import numpy as np
 
-    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.config import EngineConfig
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.io.loader import load_model
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.ops.sampling import SamplerParams
     from ggllm_tpu_torch.tools.quantize import quantize_file
+    from ggllm_tpu_torch.utils.benchgen import bench_hparams
 
-    out = {"path": "quantize tool, 2-layer full-width files", "launches": {}}
+    out = {"path": f"quantize tool, {TOOL_LAYERS}-layer full-width files", "launches": {}}
     for model, ftype, gemv in (("falcon7b", "q4_0", "quant_matmul.gemv"),
                                ("llama7b", "q4_k_m", "quant_matmul.gemv.kq")):
-        hp = dataclasses.replace(named_hparams(model), n_layer=2)
-        if hp.arch == "llama":  # llama.cpp writes n_rot = n_embd / n_head; the reader
-            hp.n_rot = hp.head_dim  # tells a GGJT LLaMA from a Falcon by it
+        # llama.cpp writes n_rot = n_embd / n_head; the reader tells a GGJT
+        # LLaMA from a Falcon by it
+        hp = bench_hparams(model, TOOL_LAYERS)
         with tempfile.TemporaryDirectory() as d:
             src, dst = str(Path(d) / "f16.bin"), str(Path(d) / f"{ftype}.bin")
             t0 = time.perf_counter()
@@ -2488,11 +2578,12 @@ def phase_quantize(torch) -> dict:
             out["launches"][name] = out["launches"].get(name, 0) + c
         graph = eng.chunk_graph(16, SamplerParams(temp=0.0)) is not None
         types = sorted({GGMLType(t.gtype).name for t in mf.tensors.values()})
-        log(f"  quantize {model} 2 layers f16 -> {ftype}: {sizes['total_org'] / 2**20:.1f} MB ->"
-            f" {sizes['total_new'] / 2**20:.1f} MB in {quant_s:.2f} s (writing the f16 file"
-            f" {write_s:.2f} s, loading the {ftype} file on the card {load_s:.2f} s); types"
-            f" {types}; prefill logits {rel:.3e} and a decode step's {rel_d:.3e} of max |plain|;"
-            f" 16 greedy ids through the decode graph ({graph}); launches {counts}")
+        log(f"  quantize {model} {hp.n_layer} layers f16 -> {ftype}:"
+            f" {sizes['total_org'] / 2**20:.1f} MB -> {sizes['total_new'] / 2**20:.1f} MB in"
+            f" {quant_s:.2f} s (writing the f16 file {write_s:.2f} s, loading the {ftype} file on"
+            f" the card {load_s:.2f} s); types {types}; prefill logits {rel:.3e} and a decode"
+            f" step's {rel_d:.3e} of max |plain|; 16 greedy ids through the decode graph"
+            f" ({graph}); launches {counts}")
         if (rel > LOGIT_TOL or rel_d > LOGIT_TOL or not np.isfinite(got).all() or not graph
                 or len(ids) != 17 or counts.get("quant_matmul.tc", 0) <= 0
                 or counts.get(gemv, 0) <= 0):
@@ -2569,9 +2660,10 @@ def _held(eng, plain, prompt) -> tuple[float, float, np.ndarray]:
             float(np.abs(got_d - ref_d).max() / np.abs(ref_d).max()), got)
 
 
-def phase_lora(torch, eng, params, hp) -> dict:
+def phase_lora(torch, params, hp) -> dict:
     """A LoRA adapter at load (io/loader.py load_params(lora=)) on the main
-    path's Falcon-7B Q4_0 weights, all 32 layers: the tree written as a GGCC
+    path's Falcon-7B Q4_0 weights, their first LORA_LAYERS layers: the tree
+    written as a GGCC
     file, a ggla adapter (r = 16, alpha = 32) on query_key_value and
     dense_4h_to_h of every layer, the file loaded on the card with it (the
     patched keys dense bf16, "wqkvu" and "w_od" split, ffn_up and wo still
@@ -2579,19 +2671,25 @@ def phase_lora(torch, eng, params, hp) -> dict:
     the prefill and one decode step's logits held to the plain versions on
     the same patched tree at LOGIT_TOL, and the prefill logits far (over 5
     LOGIT_TOL) from the unpatched engine's; the GEMV, flash_mqa.tc and
-    flash_decode must launch. Prints tok/s beside the fused engine's in the
-    same call, and the seconds of writing the file and of the load."""
+    flash_decode must launch. Prints tok/s beside the fused engine's on the
+    same layers in the same call, and the seconds of writing the file and
+    of the load."""
+    import dataclasses
     import warnings
 
     import numpy as np
 
     from ggllm_tpu_torch.core.config import EngineConfig
     from ggllm_tpu_torch.engine.engine import FalconEngine
+    from ggllm_tpu_torch.engine.speculative import truncate_params
     from ggllm_tpu_torch.io.lora import write_lora
     from ggllm_tpu_torch.io.loader import load_model
     from ggllm_tpu_torch.ops.linear import QuantTensor
     from ggllm_tpu_torch.ops.sampling import SamplerParams
 
+    hp = dataclasses.replace(hp, n_layer=LORA_LAYERS)
+    params = truncate_params(params, LORA_LAYERS)
+    eng = FalconEngine(hp, params, EngineConfig())  # the fused engine on the same layers
     rng = np.random.default_rng(20)
     prompt = [int(t) for t in rng.integers(12, hp.n_vocab, 300)]
     r, alpha = 16, 32
@@ -2655,9 +2753,10 @@ def phase_lora(torch, eng, params, hp) -> dict:
                 "flash_decode_tc"))):
         raise RuntimeError(f"the LoRA path: logits {rel}, {rel_d}, from the unpatched {rel_base};"
                            f" graph {graph}; launches {counts}")
-    del leng, lparams
+    del leng, lparams, eng
     torch.cuda.empty_cache()
-    return {"path": "falcon7b q4_0 --lora (r 16, qkv and dense_4h_to_h)", "launches": counts,
+    return {"path": f"falcon7b q4_0 --lora (r 16, qkv and dense_4h_to_h), {hp.n_layer} layers",
+            "launches": counts,
             "tok_s": tok_s, "fused_tok_s": runs["fused"][0], "write_s": write_s,
             "load_s": load_s, "file_mb": file_mb, "weight_bytes": nbytes,
             "logit_rel_err": rel, "decode_logit_rel_err": rel_d,
@@ -2680,7 +2779,7 @@ def _card_draw(torch, hp, seed: int):
 
 
 def phase_convert(torch) -> dict:
-    """The converters at full width and 2 layers, without `safetensors` or
+    """The converters at full width and TOOL_LAYERS layers, without `safetensors` or
     `transformers` (the card's machine has neither): a Falcon-7B HF
     directory (utils/synthetic.py: bf16 safetensors, the embedding tied so
     lm_head is absent, a tokenizer.json of 65024 ids) -> GGCC f16
@@ -2716,12 +2815,12 @@ def phase_convert(torch) -> dict:
         out = fn(*a, **kw)
         return out, time.perf_counter() - t0
 
-    out = {"path": "converters, 2-layer full-width checkpoints", "launches": {}}
+    out = {"path": f"converters, {TOOL_LAYERS}-layer full-width checkpoints", "launches": {}}
     quiet = lambda *a: None  # noqa: E731
     rng = np.random.default_rng(31)
     prompt = [int(t) for t in rng.integers(12, 32000, 300)]
     for model in ("falcon7b", "llama7b"):
-        hp = dataclasses.replace(named_hparams(model), n_layer=2)
+        hp = dataclasses.replace(named_hparams(model), n_layer=TOOL_LAYERS)
         steps = {}
         with tempfile.TemporaryDirectory() as d:
             d = Path(d)
@@ -2756,7 +2855,7 @@ def phase_convert(torch) -> dict:
                 warnings.filterwarnings("error", message="applying a LoRA adapter")
                 (mf, params), steps["load_s"] = timed(load_model, load, EngineConfig(), **kw)
         if lora and not (isinstance(params["layers"][0]["ffn_up"], QuantTensor)
-                         and not isinstance(params["layers"][1]["wqkv"], QuantTensor)):
+                         and not isinstance(params["layers"][-1]["wqkv"], QuantTensor)):
             raise RuntimeError("the patched q4_0 tree's layers: "
                                f"{ {k: type(v).__name__ for k, v in params['layers'][0].items()} }")
         eng = FalconEngine(mf.hparams, params, EngineConfig())
@@ -2773,9 +2872,9 @@ def phase_convert(torch) -> dict:
         graph = eng.chunk_graph(16, SamplerParams(temp=0.0)) is not None
         decode = "flash_decode.mha" if hp.arch == "llama" else "flash_decode_tc"
         need = ["flash_mqa.tc", decode] + (["quant_matmul.gemv", "quant_matmul.tc"] if lora else [])
-        log(f"  convert {model} 2 layers: {steps}; n_rot {getattr(chp, 'n_rot', '-')}; prefill logits"
-            f" {rel:.3e} and a decode step's {rel_d:.3e} of max |plain|; 16 greedy ids through the"
-            f" decode graph ({graph}); launches {counts}")
+        log(f"  convert {model} {hp.n_layer} layers: {steps}; n_rot {getattr(chp, 'n_rot', '-')};"
+            f" prefill logits {rel:.3e} and a decode step's {rel_d:.3e} of max |plain|; 16 greedy"
+            f" ids through the decode graph ({graph}); launches {counts}")
         if (rel > LOGIT_TOL or rel_d > LOGIT_TOL or not graph or len(ids) != 17
                 or any(counts.get(k, 0) <= 0 for k in need)):
             raise RuntimeError(f"the converted {model}: logits {rel}, {rel_d}; graph {graph};"
@@ -3235,8 +3334,8 @@ def start_cli(d: str) -> dict:
     # --prompt-cache twice (the second run starts when the first has ended)
     # and a draft model (the 40B-style Q4_K file, same vocabulary); then the
     # flags of the slice after: --mtest with --alias, -dt 1 over 64 tokens,
-    # --weight-mode dequant, --export (refused) and the reference's ignored
-    # thread / VRAM flags
+    # --weight-mode dequant, --export and the reference's ignored thread /
+    # VRAM flags
     cached = ["-m", q4_0, "-p", "the thing and the other thing", "-n", "16", *greedy,
               "--prompt-cache", str(Path(d) / "cli.session")]
     named = {"swap": len(cases), "-f": len(cases) + 1, "-r": len(cases) + 2}
@@ -3248,7 +3347,7 @@ def start_cli(d: str) -> dict:
             ("dt", ["-m", q4_0, "-p", "the thing", "-n", "64", *greedy, "-dt", "1"]),
             ("dequant", ["-m", q4_0, "-p", "the thing", "-n", "16", *greedy,
                          "--weight-mode", "dequant"]),
-            ("export", ["-m", q4_0, "--export", str(Path(d) / "graph.mlir")]),
+            ("export", ["-m", q4_0, "--export", str(Path(d) / "fwd.txt")]),
             ("compat", ["-m", q4_0, "-p", "the thing", "-n", "16", *greedy, "-t", "8",
                         "-ngl", "100"])):
         named[name] = len(cmds)
@@ -3483,9 +3582,14 @@ def check_cli(run: dict, results: list) -> None:
         raise RuntimeError(f"CLI -dt 1 run failed or its table lists no quant_matmul and"
                            f" flash_decode kernel:\n{out}\n{err}")
     (out, err), rc = got["export"]
-    log(f"  cli --export rc={rc}: {err.strip().splitlines()[-1] if err.strip() else ''}")
-    if rc != 1 or "no StableHLO" not in err:
-        raise RuntimeError(f"CLI --export was not refused:\n{err}")
+    path = Path(run["dir"]) / "fwd.txt"
+    text = path.read_text() if path.exists() else ""
+    ops = {op: text.count(f"torch.ops.ggllm.{op}.default(") for op in ("quant_matmul", "flash_mqa")}
+    log(f"  cli --export rc={rc}: {err.strip().splitlines()[-1] if err.strip() else ''};"
+        f" {len(text)} characters, nodes {ops}")
+    if (rc or f"forward graph (torch.export) exported to {path}" not in err
+            or not all(ops.values()) or out.strip()):
+        raise RuntimeError(f"CLI --export did not write the forward graph:\n{out}\n{err}")
     (out, err), rc = got["dequant"]
     if rc or not out.startswith(b"the thing"):
         raise RuntimeError(f"CLI --weight-mode dequant run failed:\n{out}\n{err}")
@@ -3830,12 +3934,12 @@ def phase_multi_gpu(torch, d: str, pool, one) -> tuple[dict, str]:
     Ranks are parallel/mesh.py RankPool processes (the kernels already
     built): `pool`, two gloo ranks on cuda:0, and `one`, one NCCL rank, both
     shared with phase_gspmd; the files go to the work directory d. Paths, from GGCC / GGJT files written from seeded random trees:
-    tensor-parallel Falcon-7B Q4_0, 32 layers (prefill 300 tokens, 64 greedy
-    ids, 2 requests through a 2-row batcher); tensor-parallel Falcon-40B
-    Q4_K and LLaMA-7B Q4_0 (n_rot 128) cut to 4 layers (prefill, 16 ids);
-    sequence-parallel Falcon-7B Q4_0, 32 layers (prefill 300, 32 ids, each
-    rank's cache kv_T / 2 positions); one NCCL rank, Falcon-7B Q4_0, 32
-    layers, tensor-parallel (64 ids through the captured graph = the
+    every model cut to MG_LAYERS layers: tensor-parallel Falcon-7B Q4_0
+    (prefill 300 tokens, 64 greedy ids, 2 requests through a 2-row batcher);
+    tensor-parallel Falcon-40B Q4_K and LLaMA-7B Q4_0 (n_rot 128) (prefill,
+    16 ids); sequence-parallel Falcon-7B Q4_0 (prefill 300,
+    32 ids, each rank's cache kv_T / 2 positions); one NCCL rank, Falcon-7B
+    Q4_0, tensor-parallel (64 ids through the captured graph = the
     single-process engine's exactly, tok/s beside it) and sequence-parallel
     (32 ids through the captured graph = its eager step body's exactly, and
     held to the single process as the sharded paths are). Each sharded path: every rank's ids equal,
@@ -3843,23 +3947,23 @@ def phase_multi_gpu(torch, d: str, pool, one) -> tuple[dict, str]:
     its ids (and the batcher's) within ROWS_LOGIT_TOL of that engine's with
     the ids forced; the GEMV, the rows kernel, the tile, flash_mqa.tc,
     flash_decode_tc and (LLaMA) flash_decode.mha must launch on the ranks."""
-    import dataclasses
     import gc
 
     import numpy as np
 
-    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.config import EngineConfig
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.io.loader import load_model
     from ggllm_tpu_torch.ops.sampling import SamplerParams
-    from ggllm_tpu_torch.utils.benchgen import make_bench_params
+    from ggllm_tpu_torch.utils.benchgen import bench_hparams, make_bench_params
 
     rng = np.random.default_rng(5)
     prompt = [int(t) for t in rng.integers(12, 32000, 300)]
     rows = [prompt[:40], prompt[100:131]]
     out = {"path": "multi-GPU: 2 gloo ranks on one card, 1 NCCL rank", "launches": {},
-           "cuts": ["Falcon-40B Q4_K and LLaMA-7B Q4_0 tensor-parallel at 4 of 60 / 32 layers"]}
+           "cuts": [f"Falcon-7B Q4_0, Falcon-40B Q4_K and LLaMA-7B Q4_0 at {MG_LAYERS} of 32 /"
+                    " 60 / 32 layers"]}
     total = out["launches"]
     gloo = ["cuda:0", "cuda:0"]
 
@@ -3874,11 +3978,8 @@ def phase_multi_gpu(torch, d: str, pool, one) -> tuple[dict, str]:
     failures = []
     t_phase = time.perf_counter()
     out["shard_kernels_worst"] = max(_shard_kernels(torch).values())
-    for model, fmt, n_layer in (("falcon7b", "q4_0", 32), ("falcon40b", "q4_k", 4),
-                                ("llama7b", "q4_0", 4)):
-        hp = dataclasses.replace(named_hparams(model), n_layer=n_layer)
-        if hp.arch == "llama":  # n_rot = head_dim: the reader's LLaMA test
-            hp.n_rot = hp.head_dim
+    for model, fmt in (("falcon7b", "q4_0"), ("falcon40b", "q4_k"), ("llama7b", "q4_0")):
+        hp = bench_hparams(model, MG_LAYERS)  # n_rot = head_dim: the reader's LLaMA test
         t0 = time.perf_counter()
         params = make_bench_params(hp, device="cuda", seed=11, gtype=GGMLType[fmt.upper()])
         path = str(Path(d) / f"{model}.bin")
@@ -3886,7 +3987,7 @@ def phase_multi_gpu(torch, d: str, pool, one) -> tuple[dict, str]:
         del params
         mf, p1 = load_model(path, EngineConfig())
         eng1 = FalconEngine(mf.hparams, p1, EngineConfig())
-        label = f"{n_layer}-layer {model} {fmt}"
+        label = f"{hp.n_layer}-layer {model} {fmt}"
         log(f"  {label}: file written and the single-process engine loaded in"
             f" {time.perf_counter() - t0:.1f} s")
         n_ids = 64 if model == "falcon7b" else 16
@@ -3934,7 +4035,7 @@ def phase_multi_gpu(torch, d: str, pool, one) -> tuple[dict, str]:
             need("one NCCL rank", res["launches"], ["quant_matmul.gemv", "flash_decode_tc"])
             out["nccl1"] = {"tok_s": res["tok_s"], "single_tok_s": single_tps,
                             "load_s": res["load_s"], "peak_gib": res["peak_gib"]}
-            log(f"  one NCCL rank, 32-layer falcon7b q4_0: 64 greedy ids through the"
+            log(f"  one NCCL rank, {label}: 64 greedy ids through the"
                 f" captured decode graph (all-reduces inside) = the single process's;"
                 f" {res['tok_s']:.2f} tok/s beside {single_tps:.2f} tok/s single-process"
                 f" (the same call); load {res['load_s']:.2f} s")
@@ -3955,7 +4056,7 @@ def phase_multi_gpu(torch, d: str, pool, one) -> tuple[dict, str]:
             log(f"  one NCCL rank sequence-parallel: 32 greedy ids through the captured"
                 f" decode graph = its eager step body's; equal to the single process's"
                 f" graph ids: {sp1['ids'] == own[:32]}")
-        if model == "falcon7b":  # phase_gspmd reads the 32-layer file
+        if model == "falcon7b":  # phase_gspmd reads this file
             path7b = path
         else:
             os.remove(path)
@@ -3974,9 +4075,9 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
     models/falcon.py SplitFalcon) and the data axis, on two gloo ranks
     sharing cuda:0 as phase_multi_gpu runs them (collectives staged through
     host memory, eager decode), from files written from seeded random trees:
-    (a) Falcon-7B Q4_0, 32 layers, with an r 16 adapter on query_key_value
-    and dense_4h_to_h (phase_lora's) at mp 2; (b) Falcon-7B Q4_0 at 4 layers
-    under weight_mode "dequant" at mp 2; (c) Falcon-40B at 4 layers with
+    every model at MG_LAYERS layers: (a) Falcon-7B Q4_0 with an r 16 adapter
+    on query_key_value and dense_4h_to_h (phase_lora's) at mp 2; (b)
+    Falcon-7B Q4_0 under weight_mode "dequant" at mp 2; (c) Falcon-40B with
     Q4_K wqkv / ffn_up and Q6_K wo / ffn_down at mp 2; (d) a data 2 x model
     1 mesh over (b)'s file, fused, with two requests through a 2-row
     batcher (a row a rank). Each held as phase_multi_gpu's paths: every
@@ -3988,7 +4089,7 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
     flash_decode_tc must launch on the ranks (under dequant no quantized
     weight is left: the attention kernels). `pool` (the two gloo ranks),
     `one` (one NCCL rank) and the work directory d are phase_multi_gpu's,
-    and `path` is the 32-layer Falcon-7B Q4_0 file it returns.
+    and `path` is the Falcon-7B Q4_0 file it returns.
     The NCCL rank on (b)'s tree captures the fallback model's decode in a
     graph whose ids equal its eager step body's. Then every quantized shard
     shape the ranks held through the kernels against the plain version. Each
@@ -4010,7 +4111,7 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
     rows = [prompt[:40], prompt[100:131]]
     gloo, n_ids = ["cuda:0", "cuda:0"], 16
     out = {"path": "the fallback tree and the data axis: 2 gloo ranks on one card",
-           "launches": {}, "cuts": ["(b), (d) Falcon-7B and (c) Falcon-40B at 4 layers"]}
+           "launches": {}, "cuts": [f"Falcon-7B and Falcon-40B at {MG_LAYERS} layers"]}
     total, failures, shapes = out["launches"], [], set()
     t_phase = time.perf_counter()
 
@@ -4032,7 +4133,7 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
         out[key]["seconds"] = time.perf_counter() - t0
         return res
 
-    hp = named_hparams("falcon7b")
+    hp = dataclasses.replace(named_hparams("falcon7b"), n_layer=MG_LAYERS)
     t0 = time.perf_counter()
     ggla = str(Path(d) / "adapter.ggla")
     lrng, n_qkv = np.random.default_rng(20), (hp.n_head + 2 * hp.n_head_kv) * hp.head_dim
@@ -4045,9 +4146,9 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
                                 (f"transformer.h.{i}.mlp.dense_4h_to_h.weight",
                                  (hp.n_embd, hp.n_ff)))})
     eng1 = single(path, EngineConfig(), ggla)
-    log(f"  the adapter for the 32-layer falcon7b q4_0 file written, the single process"
+    log(f"  the adapter for the {hp.n_layer}-layer falcon7b q4_0 file written, the single process"
         f" loaded with it in {time.perf_counter() - t0:.1f} s")
-    run("(a) fallback x2 32-layer falcon7b q4_0 + LoRA r 16", "lora", path, eng1,
+    run(f"(a) fallback x2 {hp.n_layer}-layer falcon7b q4_0 + LoRA r 16", "lora", path, eng1,
         ["quant_matmul.gemv", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc"],
         lora=ggla)
     os.remove(path)
@@ -4055,14 +4156,14 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    hp4 = dataclasses.replace(hp, n_layer=4)
-    path4 = str(Path(d) / "falcon7b-4.bin")
-    params = make_bench_params(hp4, device="cuda", seed=13, gtype=GGMLType.Q4_0)
-    _write_params_file(path4, params, hp4)
+    path4 = str(Path(d) / "falcon7b-dequant.bin")
+    params = make_bench_params(hp, device="cuda", seed=13, gtype=GGMLType.Q4_0)
+    _write_params_file(path4, params, hp)
     del params
     dq = {"weight_mode": "dequant"}
     eng1 = single(path4, EngineConfig(**dq))
-    run("(b) fallback x2 4-layer falcon7b q4_0, weight_mode dequant", "dequant", path4, eng1,
+    run(f"(b) fallback x2 {hp.n_layer}-layer falcon7b q4_0, weight_mode dequant", "dequant",
+        path4, eng1,
         ["flash_mqa.tc", "flash_decode_tc"], cfg_kw=dq)
     # one NCCL rank on the same tree: SplitFalcon's decode captured in a graph
     r = one.run(_mg_rank, path4, 1, ["cuda:0"], "heads", prompt, n_ids, cfg_kw=dq,
@@ -4077,7 +4178,7 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
     log("  (b) one NCCL rank: the fallback tree's decode captured, its 16 graph ids = its"
         " eager step body's")
     eng1 = single(path4, EngineConfig())
-    res = run("(d) data 2 x model 1, 4-layer falcon7b q4_0", "data2", path4, eng1,
+    res = run(f"(d) data 2 x model 1, {hp.n_layer}-layer falcon7b q4_0", "data2", path4, eng1,
               ["quant_matmul.gemv", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc"],
               mp=1, data=2, rows=rows)
     if any(r["rows_local"] != 1 or r["rows"] != res[0]["rows"] for r in res):
@@ -4093,7 +4194,7 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    hp40 = dataclasses.replace(named_hparams("falcon40b"), n_layer=4)
+    hp40 = dataclasses.replace(named_hparams("falcon40b"), n_layer=MG_LAYERS)
     path40 = str(Path(d) / "falcon40b-mixed.bin")
     params = make_bench_params(hp40, device="cuda", seed=11, gtype=GGMLType.Q4_K)
     six = make_bench_params(hp40, device="cuda", seed=12, gtype=GGMLType.Q6_K)
@@ -4103,7 +4204,7 @@ def phase_gspmd(torch, d: str, pool, one, path: str) -> dict:
     _write_tree_file(path40, params, hp40)
     del params
     eng1 = single(path40, EngineConfig())
-    run("(c) fallback x2 4-layer falcon40b q4_k / q6_k", "mixed", path40, eng1,
+    run(f"(c) fallback x2 {hp40.n_layer}-layer falcon40b q4_k / q6_k", "mixed", path40, eng1,
         ["quant_matmul.gemv.kq", "quant_matmul.tc", "flash_mqa.tc", "flash_decode_tc"])
     os.remove(path40)
     del eng1
@@ -4214,10 +4315,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from ggllm_tpu_torch.core.config import EngineConfig, FalconHParams
     from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.kernels import quant_matmul as qm
     from ggllm_tpu_torch.parallel.plan import HEADROOM_FRACTION
+    from ggllm_tpu_torch.utils.benchgen import make_bench_params
 
     card = smi("name,power.limit")
     log(card)
@@ -4272,6 +4376,15 @@ def main() -> int:
                         f" {r['instructions']} SASS instructions, no I2F; loop"
                         f" {r['loop_instructions']} ({r['loop_instructions_per_weight']} a weight)")
 
+            # torch.export's first call in a process pays its set-up (imports,
+            # the fake-tensor machinery, the ggllm ops' first traces): paid
+            # here on a tiny engine, while the CLI processes run, and not in
+            # phase_export's first export
+            t0 = time.perf_counter()
+            tiny = FalconHParams.tiny()
+            FalconEngine(tiny, make_bench_params(tiny, device="cuda"),
+                         EngineConfig(n_ctx=64, n_batch=16)).export()
+            log(f"  torch.export set up in {time.perf_counter() - t0:.1f} s")
             cli_results = wait_cli(cli)
             log(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
             log("phase 4: CLI on GGCC and GGJT files (run alongside the SASS report)")
@@ -4293,7 +4406,10 @@ def main() -> int:
     log("phase 3: full-width main paths")
     paths = []
     def serve_and_score(eng, params, hp, logit_scale):
-        log("  -- falcon7b q4_0: sessions")
+        log("  -- falcon7b q4_0: the forward exported (torch.export) at S = 300 and 1")
+        t0 = time.perf_counter()
+        exported = phase_export(torch, eng, "32-layer falcon7b q4_0 bfloat16-cache")
+        log(f"  -- falcon7b q4_0: sessions (the export took {time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         sessions = phase_session(torch, eng, params, hp)
         log(f"  -- falcon7b q4_0: speculative decoding (sessions took"
@@ -4330,12 +4446,12 @@ def main() -> int:
         log(f"  -- falcon7b q4_0: a LoRA adapter at load (--weight-mode dequant took"
             f" {time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
-        lora = phase_lora(torch, eng, params, hp)
+        lora = phase_lora(torch, params, hp)
         log(f"  (the LoRA adapter took {time.perf_counter() - t0:.1f} s)")
         log(f"  -- falcon7b q4_0: long context, n_ctx {LONG_CTX}, n_batch {LONG_BATCH}")
         long_context = phase_long_context(torch, eng, params, hp)
-        return [sessions, speculative, grammar, served, *scored, batched, parallel, spec_rows,
-                dequant, lora, long_context]
+        return [exported, sessions, speculative, grammar, served, *scored, batched, parallel,
+                spec_rows, dequant, lora, long_context]
 
     for model, fmt in (("falcon7b", "q4_0"), ("falcon7b", "q4_1"), ("falcon40b", "q4_k")):
         log(f"  -- {model} {fmt}")
@@ -4352,11 +4468,13 @@ def main() -> int:
         (1 - HEADROOM_FRACTION) * torch.cuda.get_device_properties(0).total_memory))
     paths.append(path180)
     log(f"  (falcon180b took {time.perf_counter() - t0:.1f} s)")
-    log("  -- llama7b q4_0")
-    paths.append(phase_model(torch, "llama7b", "q4_0"))
+    log("  -- llama7b q4_0 (n_rot 128), then its forward exported at S = 300 and 1")
+    paths.append(phase_model(torch, "llama7b", "q4_0", then=lambda eng, params, hp, scale: [
+        phase_export(torch, eng, "32-layer llama7b q4_0 bfloat16-cache")]))
+    paths.extend(paths[-1].pop("then"))
     log("  -- llama7b q4_k, int8 cache")
     paths.append(phase_model(torch, "llama7b", "q4_k", kv_dtype="int8", long_past=1900))
-    log("  -- the quantize tool: 2-layer Falcon-7B q4_0 and LLaMA-7B q4_k_m files")
+    log(f"  -- the quantize tool: {TOOL_LAYERS}-layer Falcon-7B q4_0 and LLaMA-7B q4_k_m files")
     t0 = time.perf_counter()
     paths.append(phase_quantize(torch))
     log(f"  (the quantize tool took {time.perf_counter() - t0:.1f} s)")
@@ -4366,8 +4484,9 @@ def main() -> int:
     log(f"  (the converters took {time.perf_counter() - t0:.1f} s)")
     log("  -- falcon7b q4_0, f32 cache (--memory-f32)")
     paths.append(phase_model(torch, "falcon7b", "q4_0", kv_dtype="float32"))
-    log("  -- falcon7b q4_0, 2 layers, float32")
-    paths.append(phase_f32_path(torch))
+    log("  -- falcon7b q4_0, 2 layers, float32, then its forward exported at S = 300 and 1")
+    paths.append(phase_f32_path(torch, export=True))
+    paths.extend(paths[-1].pop("then"))
     log("  -- llama7b q4_0, 2 layers, float32")
     paths.append(phase_f32_path(torch, "llama7b"))
     log("  -- falcon7b q4_0, 32 layers, float32")

@@ -174,6 +174,29 @@ class _RowChunk:
         self.graph: build.Graph | None = None
 
 
+def _chunk_forward(model: torch.nn.Module, inv_freq: torch.Tensor) -> torch.nn.Module:
+    """`model` as a module of forward(tokens, kv, n_past) with inv_freq a
+    buffer, for torch.export: an instance of a subclass of the model's class
+    that shares its submodules and buffers (the same tensors, under the
+    same names), so that the program's buffers carry the tree keys."""
+
+    class ChunkForward(type(model)):
+        def forward(self, tokens, kv, n_past):
+            return super().forward(tokens, kv, n_past, self.inv_freq)
+
+    m = ChunkForward.__new__(ChunkForward)
+    torch.nn.Module.__init__(m)
+    for name, value in vars(model).items():
+        if not name.startswith("_") and name != "training":
+            setattr(m, name, value)
+    for name, child in model.named_children():
+        m.add_module(name, child)
+    for name, buf in model.named_buffers(recurse=False):
+        m.register_buffer(name, buf)
+    m.register_buffer("inv_freq", inv_freq, persistent=False)
+    return m.train(model.training)
+
+
 def kv_len(cfg: EngineConfig, sp: int = 0) -> int:
     """The cache's time dim (an engine's kv_T): n_ctx plus the JAX engine's
     scratch region, so the cache has the same shape in both packages;
@@ -381,6 +404,35 @@ class FalconEngine:
                 f"FalconEngine.{what} serves one stream; this engine has {self.batch} rows:"
                 " use prefill_row / prefill_rows / decode_rows (or engine/batching.py"
                 " ContinuousBatcher)")
+
+    # -------------------------------------------------------------- export
+
+    def export(self, seq_len: int | None = None) -> torch.export.ExportedProgram:
+        """The model's forward of one chunk of S = seq_len or cfg.n_batch
+        tokens as a torch.export program (the JAX engine's export_hlo:374,
+        the reference's cgraph export): inputs the tokens (1, S) int64, the
+        cache (this engine's: one tensor, or the int8 pair) and n_past, a
+        (1,) int32 tensor, so one program serves any position; output the
+        last position's f32 logits (1, 1, V). The cache is written in place
+        at [n_past, n_past + S) by the graph's indexed copy. The weights and
+        the RoPE frequencies are the program's buffers under their tree keys
+        ("layers.0.wqkvu.qs", "inv_freq"), the engine's own tensors; the hand
+        kernels are nodes torch.ops.ggllm.* (kernels/library.py). S = 1 is
+        the decode path (GEMV, flash_decode), S > 1 prefill (the tile,
+        flash_mqa). Tracing runs on fake tensors: the cache and n_past are
+        untouched. `ep.module()(tokens, kv, n_past)` runs it."""
+        self._single("export")
+        if self.mesh is not None:
+            raise ValueError(f"FalconEngine.export serves a single-device engine; this engine"
+                             f" runs on a mesh of {self.mesh.model} ranks")
+        S = seq_len or self.cfg.n_batch
+        if not 1 <= S <= self.cfg.n_ctx:
+            raise ValueError(f"export: {S} tokens a chunk (1 .. n_ctx {self.cfg.n_ctx})")
+        tokens = torch.zeros(1, S, dtype=torch.long, device=self.device)
+        n_past = torch.zeros(1, dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            return torch.export.export(_chunk_forward(self.model, self.inv_freq),
+                                       (tokens, self.kv, n_past), strict=False)
 
     # ---------------------------------------------------------------- eval
 

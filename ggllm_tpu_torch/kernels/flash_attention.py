@@ -11,7 +11,10 @@ position-major: `tc_block_plan`; its shared-memory swizzle:
 `tc_smem_offset`). f32 q/k/v (head dim 32, 64 or 128) run the f32
 tensor-core kernel on the same block plan, each product as three split-TF32
 products at f32 accuracy (`flash_mqa_f32_emulated` restates its
-arithmetic).
+arithmetic). `flash_mqa` is also the op ggllm::flash_mqa
+(kernels/library.py), which a tracer gets (torch.compiler.is_compiling()):
+its CUDA implementation is `flash_mqa_cuda`, its CPU implementation the
+plain version; an eager call goes to them directly.
 """
 
 from __future__ import annotations
@@ -163,10 +166,20 @@ def flash_mqa_f32_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_
 def flash_mqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past) -> torch.Tensor:
     """Causal MQA/GQA attention. q (B,S,H,D); k/v (B,T,KV,D) (views of the
     cache are fine: the time and batch strides are passed through); n_past
-    an int, or a (B,) int tensor. Returns (B,S,H,D) in q.dtype."""
+    an int, or a (B,) int tensor. Returns (B,S,H,D) in q.dtype (the op
+    ggllm::flash_mqa under a tracer)."""
     build.no_grad_inputs("flash_mqa", q, k, v)
+    if torch.compiler.is_compiling():
+        vec, scalar = (n_past, 0) if isinstance(n_past, torch.Tensor) else (None, int(n_past))
+        return torch.ops.ggllm.flash_mqa.default(q, k, v, vec, scalar)
     if q.device.type == "cpu":
         return flash_mqa_plain(q, k, v, n_past)
+    return flash_mqa_cuda(q, k, v, n_past)
+
+
+def flash_mqa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past) -> torch.Tensor:
+    """ggllm::flash_mqa on CUDA tensors: one launch of the kernel `route`
+    picks. n_past an int or a (B,) int tensor."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype:

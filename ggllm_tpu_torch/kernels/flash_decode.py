@@ -30,7 +30,12 @@ captured in a CUDA graph. Launch counters: "flash_decode" (+ ".mha") (+
 "flash_decode.f32". Beside the kernels their plain PyTorch versions,
 `cache_partials_plain` and `flash_decode_plain`, which a CPU tensor gets, and
 `partials_emulated` / `decode_emulated`, the grouped kernels' split / merge
-arithmetic in PyTorch.
+arithmetic in PyTorch. `flash_decode` is also the op ggllm::flash_decode
+(kernels/library.py), which a tracer gets (torch.compiler.is_compiling()):
+its CUDA implementation is `flash_decode_cuda`, its CPU implementation
+`flash_decode_plain`; an eager call goes to them directly. The workspace
+and its arrival counters stay inside the CUDA implementation (no operand
+of the op is written).
 """
 
 from __future__ import annotations
@@ -485,12 +490,27 @@ def flash_decode(kv, KV: int, layer: int, q: torch.Tensor, n_past,
     strictly below n_past - (append_valid - 1) when appending with
     append_valid, strictly below n_past when appending without it, and
     strictly below n_past + 1 otherwise (the current token is already
-    written). Returns (B, 1, H, D) in q.dtype."""
+    written). Returns (B, 1, H, D) in q.dtype (under a tracer the op
+    ggllm::flash_decode, the cache as its codes and scales, scales None for
+    a dense cache)."""
     build.no_grad_inputs("flash_decode", q, kv, kv_append)
-    B, S, H, D = q.shape
-    assert S == 1, "flash_decode is the S=1 path"
+    assert q.shape[1] == 1, "flash_decode is the S=1 path"
+    if torch.compiler.is_compiling():
+        codes, scales = kv if isinstance(kv, tuple) else (kv, None)
+        vec, scalar = (n_past, 0) if isinstance(n_past, torch.Tensor) else (None, int(n_past))
+        return torch.ops.ggllm.flash_decode.default(
+            codes, scales, KV, layer, q, vec, scalar, kv_append,
+            None if append_valid is None else int(append_valid))
     if q.device.type == "cpu":
         return flash_decode_plain(kv, KV, layer, q, n_past, kv_append, append_valid)
+    return flash_decode_cuda(kv, KV, layer, q, n_past, kv_append, append_valid)
+
+
+def flash_decode_cuda(kv, KV: int, layer: int, q: torch.Tensor, n_past,
+                      kv_append: torch.Tensor | None = None, append_valid=None) -> torch.Tensor:
+    """ggllm::flash_decode on CUDA tensors (flash_decode's arguments): one
+    launch of the kernel `route` picks."""
+    B, _, H, D = q.shape
     quant = isinstance(kv, tuple)
     cache = "int8" if quant else str(kv.dtype).removeprefix("torch.")
     cdtype = getattr(torch, q_dtype(KV, H // KV, cache, str(q.dtype).removeprefix("torch.")))

@@ -38,8 +38,15 @@ above and f32 accuracy. `tc_fragment_table` states both tiles' per-thread
 decode as a table the CPU tests can check; `split_bf16x3` and
 `f32_tile_emulated` restate the f32 tile's arithmetic.
 
-A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
-launches the kernel or raises.
+Each public entry (`quant_matmul`, `quant_matmul_tc`, `group_sums`) is
+also a torch library op (kernels/library.py: ggllm::quant_matmul, ...),
+whose CUDA implementation is the launcher here (`quant_matmul_cuda`, ...)
+and whose CPU implementation is the plain version. A tracer
+(torch.compiler.is_compiling(): torch.export) gets the op; an eager call
+goes to the same implementation directly, since a call through the
+dispatcher cost 5-26 us more on an H100 machine's host (kernels/library.py).
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -587,12 +594,17 @@ def group_sums_emulated(x2: torch.Tensor, g: int = 32) -> torch.Tensor:
 
 
 def group_sums(x2: torch.Tensor, g: int = 32) -> torch.Tensor:
-    """(S, K) -> (S, K/g) f32 per-group sums of x, g in {16, 32}. The kernel
-    takes f32 x, the only x the f32 tile gives it; the plain version (a CPU
-    tensor) takes bf16 too."""
+    """(S, K) -> (S, K/g) f32 per-group sums of x, g in {16, 32} (the op
+    ggllm::group_sums under a tracer). The kernel takes f32 x, the only x
+    the f32 tile gives it; the plain version (a CPU tensor) takes bf16 too."""
     build.no_grad_inputs("group_sums", x2)
-    if x2.device.type == "cpu":
-        return group_sums_plain(x2, g)
+    if torch.compiler.is_compiling():
+        return torch.ops.ggllm.group_sums.default(x2, g)
+    return group_sums_plain(x2, g) if x2.device.type == "cpu" else group_sums_cuda(x2, g)
+
+
+def group_sums_cuda(x2: torch.Tensor, g: int) -> torch.Tensor:
+    """ggllm::group_sums on a CUDA tensor: one launch of csrc/group_sums.cu."""
     if g not in (16, 32):
         raise ValueError(f"group_sums kernel: group {g} (16 or 32)")
     if x2.dtype != torch.float32:
@@ -607,46 +619,57 @@ def group_sums(x2: torch.Tensor, g: int = 32) -> torch.Tensor:
     return xg
 
 
-def _plane_ptrs(w, device) -> list:
-    """The kernel's six plane pointers (None where the format has no such
-    plane), each checked to lie on `device` and be 16-byte aligned."""
-    rename = _ARG_PLANE.get(w.gtype, {})
-    planes = w.planes
+def plane_args(w) -> tuple:
+    """QuantTensor w's planes as the kernels take them: one tensor, or None
+    where the format has no such plane, for each name of _ARGS in order
+    (the ops' plane arguments, kernels/library.py)."""
+    rename, planes = _ARG_PLANE.get(w.gtype, {}), w.planes
+    return tuple(planes.get(rename.get(arg, arg)) for arg in _ARGS)
+
+
+def arg_planes(gtype, args) -> dict:
+    """plane_args inverted: the format's planes by name."""
+    rename = _ARG_PLANE.get(GGMLType(gtype), {})
+    return {rename.get(arg, arg): p for arg, p in zip(_ARGS, args) if p is not None}
+
+
+def _plane_ptrs(args, device) -> list:
+    """The kernel's six plane pointers from plane_args (None where the
+    format has no such plane), each checked to lie on `device` and be
+    16-byte aligned."""
     ptrs = []
-    for arg in _ARGS:
-        p = planes.get(rename.get(arg, arg))
+    for arg, p in zip(_ARGS, args):
         if p is None:
             ptrs.append(None)
             continue
         if p.device != device:
             raise ValueError(f"weight on {p.device}, x on {device}")
         if not p.is_contiguous() or p.data_ptr() % 16:
-            raise ValueError(f"{w.gtype.name} plane {arg} must be contiguous and 16-byte aligned")
+            raise ValueError(f"plane {arg} must be contiguous and 16-byte aligned")
         ptrs.append(p.data_ptr())
     return ptrs
 
 
-def _prepare(w, x: torch.Tensor, out_dtype):
+def _prepare(gtype, O: int, K: int, args, x: torch.Tensor, out_dtype):
     """Checks of a CUDA call; returns (x as (S, K), contiguous and aligned,
     the plane pointers, the format's counter)."""
-    if w.gtype not in KERNEL_FORMATS:
-        raise NotImplementedError(f"quant_matmul kernel: no {GGMLType(w.gtype).name} variant")
+    if gtype not in KERNEL_FORMATS:
+        raise NotImplementedError(f"quant_matmul kernel: no {gtype.name} variant")
     if out_dtype not in _DTYPES:
         raise TypeError(f"out dtype {out_dtype} not supported")
-    O, K = w.shape
-    if w.gtype in K_QUANTS and K % 256:
-        raise ValueError(f"{w.gtype.name}: K={K} is not a multiple of the 256-element super-block")
+    if gtype in K_QUANTS and K % 256:
+        raise ValueError(f"{gtype.name}: K={K} is not a multiple of the 256-element super-block")
     x2 = x.reshape(-1, x.shape[-1])
     _check_x(x2, K)
-    ptrs = _plane_ptrs(w, x2.device)
-    return _aligned(x2), ptrs, f"quant_matmul.{w.gtype.name.lower()}"
+    ptrs = _plane_ptrs(args, x2.device)
+    return _aligned(x2), ptrs, f"quant_matmul.{gtype.name.lower()}"
 
 
-def _tile(w, x2, ptrs, fmt_counter, out_dtype) -> torch.Tensor:
-    (S, K), O = x2.shape, w.shape[0]
+def _tile(gtype, O: int, x2, ptrs, fmt_counter, out_dtype) -> torch.Tensor:
+    S, K = x2.shape
     y = torch.empty(S, O, dtype=out_dtype, device=x2.device)
     build.launch("gq_quant_matmul_tc", ("quant_matmul", fmt_counter, "quant_matmul.tc"),
-                 int(w.gtype), x2.data_ptr(), *ptrs, y.data_ptr(),
+                 int(gtype), x2.data_ptr(), *ptrs, y.data_ptr(),
                  int(out_dtype == torch.float32), S, K, O, tc_rows(S, O),
                  build.stream_ptr(x2.device))
     return y
@@ -654,60 +677,104 @@ def _tile(w, x2, ptrs, fmt_counter, out_dtype) -> torch.Tensor:
 
 def quant_matmul_tc(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
     """The bf16 tensor-core tile at any S > 1 of bf16 x on the card, counted
-    as "quant_matmul.tc": `quant_matmul` routes S > ROWS_MAX_S there, and
+    as "quant_matmul.tc" (the op ggllm::quant_matmul_tc under a tracer; it
+    has no CPU implementation): `quant_matmul` routes S > ROWS_MAX_S there, and
     tools/time_kernels.py and chip_smoke.py call it at fewer rows to compare
     it with the rows kernel."""
     build.no_grad_inputs("quant_matmul_tc", x)
-    x2, ptrs, fmt_counter = _prepare(w, x, out_dtype)
+    O, K = w.shape
+    if torch.compiler.is_compiling():
+        return torch.ops.ggllm.quant_matmul_tc.default(x, *plane_args(w), int(w.gtype), O, K,
+                                                       out_dtype)
+    return quant_matmul_tc_cuda(x, plane_args(w), w.gtype, O, K, out_dtype)
+
+
+def quant_matmul_tc_cuda(x, args, gtype, O: int, K: int, out_dtype) -> torch.Tensor:
+    """ggllm::quant_matmul_tc on a CUDA tensor."""
+    gtype = GGMLType(gtype)
+    x2, ptrs, fmt_counter = _prepare(gtype, O, K, args, x, out_dtype)
     if x2.dtype != torch.bfloat16 or x2.shape[0] < 2:
         raise TypeError(f"the tensor-core tile takes 2 or more bf16 rows, not {tuple(x2.shape)}"
                         f" {x2.dtype}")
-    return _tile(w, x2, ptrs, fmt_counter, out_dtype).reshape(*x.shape[:-1], w.shape[0])
+    return _tile(gtype, O, x2, ptrs, fmt_counter, out_dtype).reshape(*x.shape[:-1], O)
+
+
+def f32_sums(w, x: torch.Tensor):
+    """The f32 tile's per-group sums of x where they come from the
+    group_sums kernel (S >= GROUP_SUMS_MIN_S rows of f32 x on the card, a
+    format with a correction term), formed before ggllm::quant_matmul and
+    passed in, so that a graph of the call names both ops; else None (the
+    op's CUDA implementation then reduces fewer rows in plain torch, and a
+    format with no correction needs none)."""
+    if (x.device.type != "cuda" or x.dtype != torch.float32
+            or x.numel() < GROUP_SUMS_MIN_S * x.shape[-1]):
+        return None
+    group, corr = KERNEL_FORMATS.get(w.gtype, (32, False))
+    return group_sums(x.reshape(-1, x.shape[-1]), group) if corr else None
 
 
 def quant_matmul(w, x: torch.Tensor, out_dtype) -> torch.Tensor:
-    """y = x @ W^T for a QuantTensor W; x (..., K) -> (..., O) in out_dtype.
+    """y = x @ W^T for a QuantTensor W; x (..., K) -> (..., O) in out_dtype
+    (the op ggllm::quant_matmul over W's planes under a tracer).
 
-    S = 1 (decode) runs a GEMV, which forms its own sums of x: the K-quant
-    GEMV for the K-quants (counted as "quant_matmul.gemv.kq"), the legacy
-    GEMV for the others ("quant_matmul.gemv"); 2 to 16 rows of bf16 x run
-    the rows kernel ("quant_matmul.rows"), more the bf16 tensor-core tile
-    ("quant_matmul.tc"); S > 1 rows of f32 x the f32 tensor-core tile
-    ("quant_matmul.f32") fed by group_sums (S >= 256) or the plain reduce
-    (S < 256). See `route`."""
+    On the card, S = 1 (decode) runs a GEMV, which forms its own sums of x:
+    the K-quant GEMV for the K-quants (counted as "quant_matmul.gemv.kq"),
+    the legacy GEMV for the others ("quant_matmul.gemv"); 2 to 16 rows of
+    bf16 x run the rows kernel ("quant_matmul.rows"), more the bf16
+    tensor-core tile ("quant_matmul.tc"); S > 1 rows of f32 x the f32
+    tensor-core tile ("quant_matmul.f32") fed by group_sums (S >= 256,
+    `f32_sums`) or the plain reduce (S < 256). See `route`. On the CPU the
+    plain version."""
     build.no_grad_inputs("quant_matmul", x)
+    O, K = w.shape
+    if torch.compiler.is_compiling():
+        return torch.ops.ggllm.quant_matmul.default(x, *plane_args(w), f32_sums(w, x),
+                                                    int(w.gtype), O, K, out_dtype)
     if x.device.type == "cpu":
         return quant_matmul_plain(w, x, out_dtype)
-    x2, ptrs, fmt_counter = _prepare(w, x, out_dtype)
-    (S, K), O = x2.shape, w.shape[0]
+    return quant_matmul_cuda(x, plane_args(w), f32_sums(w, x), w.gtype, O, K, out_dtype)
+
+
+def quant_matmul_cuda(x, args, xg, gtype, O: int, K: int, out_dtype) -> torch.Tensor:
+    """ggllm::quant_matmul on a CUDA tensor: the kernel `route` picks, one
+    launch (and the f32 tile's group sums where xg is None and S >= 256).
+    A given xg must be the sums the f32 tile reads: (S, K / group) float32
+    on x's device (made contiguous and aligned as x is), else ValueError."""
+    gtype = GGMLType(gtype)
+    x2, ptrs, fmt_counter = _prepare(gtype, O, K, args, x, out_dtype)
+    S = x2.shape[0]
     lead = x.shape[:-1]
-    group, corr = KERNEL_FORMATS[w.gtype]
-    path = route(S, x2.dtype, w.gtype)
+    group, corr = KERNEL_FORMATS[gtype]
+    if xg is not None:
+        if (xg.shape != (S, K // group) or xg.dtype != torch.float32
+                or xg.device != x2.device):
+            raise ValueError(f"xg {tuple(xg.shape)} {xg.dtype} on {xg.device}: the f32 tile"
+                             f" reads ({S}, {K // group}) float32 on {x2.device}")
+        xg = _aligned(xg)
+    path = route(S, x2.dtype, gtype)
     if path == "tc":
-        return _tile(w, x2, ptrs, fmt_counter, out_dtype).reshape(*lead, O)
+        return _tile(gtype, O, x2, ptrs, fmt_counter, out_dtype).reshape(*lead, O)
     y = torch.empty(S, O, dtype=out_dtype, device=x2.device)
     if path == "rows":
         build.launch("gq_quant_matmul_rows", ("quant_matmul", fmt_counter, "quant_matmul.rows"),
-                     int(w.gtype), x2.data_ptr(), *ptrs, y.data_ptr(),
+                     gtype, x2.data_ptr(), *ptrs, y.data_ptr(),
                      int(out_dtype == torch.float32), S, K, O, rows_cluster(O),
                      build.stream_ptr(x2.device))
         return y.reshape(*lead, O)
     if path == "gemv":  # the GEMVs form their own sums of x
-        kq = gemv_kernel(w.gtype) == "kq"
+        kq = gemv_kernel(gtype) == "kq"
         build.launch("gq_quant_gemv_kq" if kq else "gq_quant_gemv_legacy",
                      ("quant_matmul", fmt_counter, "quant_matmul.gemv" + (".kq" if kq else "")),
-                     int(w.gtype), x2.data_ptr(), int(x2.dtype == torch.bfloat16), *ptrs,
-                     y.data_ptr(), int(out_dtype == torch.bfloat16), K, O, GEMV_ROWS[w.gtype],
+                     gtype, x2.data_ptr(), int(x2.dtype == torch.bfloat16), *ptrs,
+                     y.data_ptr(), int(out_dtype == torch.bfloat16), K, O, GEMV_ROWS[gtype],
                      build.stream_ptr(x2.device))
         return y.reshape(*lead, O)
     if not corr:
         xg = None
-    elif S < GROUP_SUMS_MIN_S:
-        xg = group_sums_plain(x2, group)
-    else:
-        xg = group_sums(x2, group)
+    elif xg is None:
+        xg = group_sums_plain(x2, group) if S < GROUP_SUMS_MIN_S else group_sums_cuda(x2, group)
     build.launch("gq_quant_matmul_f32", ("quant_matmul", fmt_counter, "quant_matmul.f32"),
-                 int(w.gtype), x2.data_ptr(), *ptrs, None if xg is None else xg.data_ptr(),
+                 gtype, x2.data_ptr(), *ptrs, None if xg is None else xg.data_ptr(),
                  y.data_ptr(), int(out_dtype == torch.float32), S, K, O, f32_rows(S, O),
                  build.stream_ptr(x2.device))
     return y.reshape(*lead, O)

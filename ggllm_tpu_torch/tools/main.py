@@ -24,7 +24,9 @@ without it, a --self-draft shares the patched weights.
 --profile DIR writes a torch.profiler trace of generation, and -dt LEVEL
 prints its op table (utils/traceview.py). The reference's thread, VRAM and
 mmap flags are accepted and ignored, so reference command lines run
-unchanged; --export exits 1 naming why.
+unchanged. --export PATH writes the forward of one n_batch chunk as a
+torch.export program's text (FalconEngine.export: its graph signature and
+every node, the hand kernels as torch.ops.ggllm.*) and exits.
 
 -ts N (--tensor-split) shards the model over N ranks (parallel/mesh.py),
 one a device: this process is rank 0, owns stdin and stdout, and starts the
@@ -89,9 +91,6 @@ def parse_logit_bias(specs: list[str]) -> dict[int, float]:
 ANSI_RESET = "\x1b[0m"
 ANSI_PROMPT = "\x1b[33m"        # yellow: prompt echo
 ANSI_USER = "\x1b[1;32m"        # bold green: user input
-
-EXPORT_REFUSAL = ("--export writes the JAX forward's lowered StableHLO: the port has no StableHLO"
-                  " and no exported forward")
 
 RANDOM_PROMPTS = ["So", "Once upon a time", "When", "The", "After",
                   "If", "import", "He", "She", "They"]
@@ -201,7 +200,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="compute maximum-memory usage (full-batch prefill + one decode step),"
                          " report, and exit")
     ap.add_argument("--export", default=None, metavar="PATH",
-                    help="refused: the port has no StableHLO export")
+                    help="write the forward graph of one -b chunk (torch.export) to PATH and"
+                         " exit")
     ap.add_argument("--lora", default=None, help="apply a 'ggla' LoRA adapter")
     ap.add_argument("--lora-base", default=None,
                     help="unquantized model whose tensors serve as the base for LoRA-patched"
@@ -273,8 +273,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refusal(args) -> str | None:
     """Why a flag the port accepts cannot run, or None."""
-    if args.export:
-        return EXPORT_REFUSAL
     if args.mesh_model != "1" or args.multihost:
         if args.draft_model or args.self_draft:
             return "speculative decoding requires a single-device engine"
@@ -462,6 +460,11 @@ def _run(parser, args, mesh) -> int:
     vocab = mf.vocab
     if args.mtest:
         mtest(engine)
+        return 0
+    if args.export:
+        with open(args.export, "w") as f:
+            f.write(str(engine.export()))
+        print(f"forward graph (torch.export) exported to {args.export}", file=sys.stderr)
         return 0
 
     sampler = SamplerParams(

@@ -36,13 +36,13 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+from ggllm_tpu_torch.core.config import EngineConfig
 from ggllm_tpu_torch.core.dtypes import GGMLType
 from ggllm_tpu_torch.engine.engine import FalconEngine
 from ggllm_tpu_torch.ops import kvcache
 from ggllm_tpu_torch.ops.sampling import SamplerParams
 from ggllm_tpu_torch.tools.time_kernels import decode_turns
-from ggllm_tpu_torch.utils.benchgen import make_bench_params
+from ggllm_tpu_torch.utils.benchgen import bench_hparams, make_bench_params
 
 
 # kernel families by a part of the kernel's name (csrc/*.cu)
@@ -112,7 +112,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ctx", type=int, default=2048, help="the engine's n_ctx (CLI -c)")
     ap.add_argument("--batch", type=int, default=512, help="the engine's n_batch (CLI -b)")
     args = ap.parse_args(argv)
-    hp = named_hparams(args.config)
+    hp = bench_hparams(args.config)
     params = make_bench_params(hp, seed=7, gtype=GGMLType[args.format.upper()])
     if args.rows > 1:
         return _rows(args, hp, params)

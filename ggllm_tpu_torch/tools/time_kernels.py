@@ -20,15 +20,18 @@ its root, so that two trees can be timed in turns within one call.
         [--config falcon7b|llama7b] [--format q4_0] [--layers 32]
     python ggllm_tpu_torch/tools/time_kernels.py nodes [--root DIR]
         [--config falcon7b|falcon40b|falcon180b|llama7b] [--format q4_0] [--kv-dtype bfloat16]
+    python -m ggllm_tpu_torch.tools.time_kernels dispatch
 
 `tile` prints, per weight shape of the full-width models and S in 512 / 300,
 the `wgmma` tile's time with 128 and 256 x rows a block, with the width
 `tc_rows` picks, and `torch.matmul` on the dequantized bf16 weight (means of
 10 launches between two CUDA events, no L2 flush: lower than chip_smoke.py's
-medians with a flush). `decode` prints one JSON line: the prefill rate of a
-300-token prompt, then greedy decode at n_past 300 (`--prompt`) through the
-replayed CUDA graph and through the eager step body in turns (graph, eager,
-eager, graph; `decode_turns`): wall ms a token, device-busy ms a token, idle
+medians with a flush). `decode` prints one JSON line: the eager prefill of a
+300-token prompt timed PREFILL_RUNS times in a row (wall ms each, ending
+with the logits on the host; their median and its rate), then greedy
+decode at n_past 300 (`--prompt`) through the replayed CUDA graph and
+through the eager step body in turns (graph, eager, eager, graph;
+`decode_turns`): wall ms a token, device-busy ms a token, idle
 share and nodes a token, and the capture's ms; `--ctx` and `--batch` set the
 engine's n_ctx and n_batch (the cache holds n_ctx + n_batch positions; a
 prompt past 2048 needs a larger --ctx). `attn` prints one JSON line per shape of the main paths' decode
@@ -38,9 +41,10 @@ Falcon-40B G=16 KV=8 at 300 / 2047, LLaMA-7B G=1 KV=32 D=128 at 1 / 300 /
 more; default bfloat16 and int8): bf16 q on a bfloat16 or int8 cache, f32 q
 on a float32 cache or on an int8 one, "int8-f32q"):
 `flash_decode` and `scaled_dot_product_attention` (on the dequantized cache
-for int8, in q's dtype) timed two ways, `call_ms` = one call between two events as
-an eager decode step pays it (host work included), and `graph_ms` = device
-time, a CUDA graph of one call per layer replayed between two events,
+for int8, in q's dtype; f32 on the math backend, `sdpa`) timed two ways,
+`call_ms` = one call between two events as an eager decode step pays it
+(host work included), and `graph_ms` = device time, a CUDA graph of one
+call per layer replayed between two events,
 divided by the layers (both: medians of 20, L2 flushed before each);
 `graph_device_length_ms` the same with the length in a device tensor, as
 the decode graph passes it (the grid then covers all T positions).
@@ -84,12 +88,13 @@ quant-matmul tile (f32 x and y) at every `TILE_SHAPES` weight for S in 512 and
 choice) beside f32 `torch.matmul` on the dequantized f32 weight, and f32
 `flash_mqa` at the two prefill attention layouts (Falcon-7B H=71 KV=1 D=64,
 LLaMA-7B H=KV=32 D=128; S=512, n_past 300, a 2560-position cache layer)
-beside f32 `scaled_dot_product_attention` (medians of 20, L2 flushed before
-each; TF32 off for the library calls), each with the launch counters it
-moved, its largest difference from the plain version as a share of max
-|plain|, and its bounds: the bytes at 3.35 TB/s, the operations at the f32
-rate outside the tensor cores (67 TFLOP/s), and three bf16 products at
-989 TFLOP/s (the tile) or three TF32 products at 495 TFLOP/s (attention).
+beside f32 `scaled_dot_product_attention` on its math backend (`sdpa`;
+medians of 20, L2 flushed before each; TF32 off for the library calls),
+each with the launch counters it moved, its largest difference from the
+plain version as a share of max |plain|, and its bounds: the bytes at
+3.35 TB/s, the operations at the f32 rate outside the tensor cores
+(67 TFLOP/s), and three bf16 products at 989 TFLOP/s (the tile) or three
+TF32 products at 495 TFLOP/s (attention).
 `group_sums` prints one JSON line per shape of the f32 paths' group sums
 (f32 x, S = 300 and 512 at Falcon-7B's and LLaMA-7B's widths with 32-wide
 groups, S = 512 at Falcon-40B's with 16-wide ones): `group_sums` beside
@@ -110,6 +115,10 @@ run too).
 with random weights, captured as chip_smoke.py's main paths capture it
 (`generate` of 4 ids from an 8-token prompt); a tree whose graphs do not
 keep their cudaGraph_t is made to keep it.
+`dispatch` prints one JSON line per kernel entry: host microseconds a call
+through its torch library op, through the public entry as an eager model
+calls it, and straight to the op's CUDA implementation, at shapes the card
+runs faster than the host launches them (`time_dispatch`).
 --root names the directory that holds the `ggllm_tpu_torch` package to time
 (default: the one this file lies in).
 """
@@ -122,9 +131,26 @@ import sys
 import time
 from pathlib import Path
 
+PREFILL_RUNS = 5  # decode: timed prefills of the prompt, in a row
 TILE_SHAPES = (("q4_0", 22848, 4544), ("q4_0", 4544, 22720), ("q4_k", 9216, 8192),
                ("q4_k", 32768, 8192), ("q6_k", 9216, 8192), ("q4_0", 4096, 4096),
                ("q4_0", 4096, 11008))
+
+
+def sdpa(q, k, v, **kw):
+    """torch's scaled_dot_product_attention, the library yardstick beside
+    the attention kernels: f32 q on SDPA's math backend (on an H100 with
+    torch 2.11 the memory-efficient kernel, which SDPA picks for f32, wrote
+    past its tensors and corrupted a flash-decode workspace's arrival
+    counter, as chip_smoke.py notes), bf16 q on the backend SDPA picks."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if q.dtype != torch.float32:
+        return F.scaled_dot_product_attention(q, k, v, **kw)
+    with sdpa_kernel(SDPBackend.MATH):
+        return F.scaled_dot_product_attention(q, k, v, **kw)
 
 
 def _event_ms(fn, n: int = 10) -> float:
@@ -195,7 +221,6 @@ ATTN_SHAPES = ((32, 71, 1, 64, (1, 300, 2047)), (60, 128, 8, 64, (300, 2047)),
 
 def time_attn(caches=("bfloat16", "int8"), T: int = 2560) -> None:
     import torch
-    import torch.nn.functional as F
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.kernels import flash_decode as fd
     from ggllm_tpu_torch.ops import kvcache
@@ -225,9 +250,8 @@ def time_attn(caches=("bfloat16", "int8"), T: int = 2560) -> None:
                     vt = [v.expand(1, H, valid, D) for v in vt]
                 qt = q.transpose(1, 2)
 
-                def sdpa(l):
-                    return F.scaled_dot_product_attention(qt, kt[l], vt[l],
-                                                          enable_gqa=G > 1 and KV > 1)
+                def library(l):
+                    return sdpa(qt, kt[l], vt[l], enable_gqa=G > 1 and KV > 1)
 
                 def ours(l):
                     return fd.flash_decode(cache, KV, l, q, valid - 1)
@@ -241,8 +265,8 @@ def time_attn(caches=("bfloat16", "int8"), T: int = 2560) -> None:
                        "valid": valid, "call_ms": median_ms(lambda: ours(L - 1), flush),
                        "graph_ms": graph_ms(ours, L, flush),
                        "graph_device_length_ms": graph_ms(ours_dev, L, flush),
-                       "library_call_ms": median_ms(lambda: sdpa(L - 1), flush),
-                       "library_graph_ms": graph_ms(sdpa, L, flush)}
+                       "library_call_ms": median_ms(lambda: library(L - 1), flush),
+                       "library_graph_ms": graph_ms(library, L, flush)}
                 print(json.dumps(row), flush=True)
             del lib, cache
         del kv32, kv8
@@ -394,7 +418,6 @@ F32_ATTN_SHAPES = ((71, 1, 64), (32, 32, 128))  # (H, KV, D): Falcon-7B, LLaMA-7
 
 def time_f32(bw: float = 3.35e12) -> None:
     import torch
-    import torch.nn.functional as F
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.kernels import flash_attention as fa
@@ -455,8 +478,7 @@ def time_f32(bw: float = 3.35e12) -> None:
         row = {**base, "kernel": "flash_mqa f32", "S": S, "n_past": n_past, "H": H, "KV": KV,
                "D": D, "launches": dict(build.launch_counts), "rel_err": err,
                "ms": median_ms(lambda: fa.flash_mqa(q, k, v, n_past), flush),
-               "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, attn_mask=mask), flush),
+               "library_ms": median_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), flush),
                "bytes_bound_ms": 4 * (2 * S * H * D + 2 * Tv * KV * D) / bw * 1e3,
                "f32_bound_ms": ops / 67e12 * 1e3, "tensor_bound_ms": 3 * ops / 495e12 * 1e3}
         print(json.dumps(row), flush=True)
@@ -470,7 +492,6 @@ MQA32_SHAPES = ((2, 45, 6, 2, (300, 7), 400), (1, 512, 4, 1, (0,), 2560),
 
 def time_mqa32(bw: float = 3.35e12, peak: float = 989e12) -> None:
     import torch
-    import torch.nn.functional as F
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda")
@@ -491,9 +512,8 @@ def time_mqa32(bw: float = 3.35e12, peak: float = 989e12) -> None:
         if KV == 1:  # the one K/V head broadcast to all query heads (a view, no copy)
             kt, vt = kt.expand(B, H, Tv, D), vt.expand(B, H, Tv, D)
 
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  enable_gqa=KV > 1)
+        def library():
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=KV > 1)
 
         def ours():
             return fa.flash_mqa(q, k, v, n_past)
@@ -507,8 +527,8 @@ def time_mqa32(bw: float = 3.35e12, peak: float = 989e12) -> None:
         row = {"package": package, "B": B, "S": S, "H": H, "KV": KV, "D": D,
                "n_past": list(past), "T": T, "launches": launches, "rel_err": err,
                "call_ms": median_ms(ours, flush), "graph_ms": graph_ms(lambda i: ours(), 1, flush),
-               "library_call_ms": median_ms(sdpa, flush),
-               "library_graph_ms": graph_ms(lambda i: sdpa(), 1, flush),
+               "library_call_ms": median_ms(library, flush),
+               "library_graph_ms": graph_ms(lambda i: library(), 1, flush),
                "bytes_bound_ms": nbytes / bw * 1e3, "ops_bound_ms": 4 * pairs * H * D / peak * 1e3}
         print(json.dumps(row), flush=True)
         del kv, q
@@ -551,17 +571,16 @@ def f32_path(config: str, fmt: str = "q4_0", n_layer: int = 2, after=None) -> di
     the plain versions: the largest logit difference as a share of max
     |logit|, the positions whose argmax agree, and whether both sets of
     logits are finite. chip_smoke.py's f32 paths and `f32path` below."""
-    import dataclasses
     import gc
 
     import numpy as np
     import torch
-    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.config import EngineConfig
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
-    hp = dataclasses.replace(named_hparams(config), n_layer=n_layer)
+    hp = _hparams(config, n_layer)
     params = make_bench_params(hp, compute_dtype=torch.float32, device="cuda", seed=7,
                                gtype=GGMLType[fmt.upper()])
     cfg = dict(kv_dtype="float32", compute_dtype="float32")
@@ -736,13 +755,13 @@ def time_nodes(config: str, fmt: str, kv_dtype: str) -> None:
 
     keep = torch.cuda.CUDAGraph
     torch.cuda.CUDAGraph = lambda *a, **k: keep(keep_graph=True)
-    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.config import EngineConfig
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.ops.sampling import SamplerParams
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
-    hp = named_hparams(config)
+    hp = _hparams(config)
     params = make_bench_params(hp, device="cuda", seed=7, gtype=GGMLType[fmt.upper()])
     eng = FalconEngine(hp, params, EngineConfig(kv_dtype=kv_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, 8)]
@@ -759,36 +778,128 @@ def time_decode(config: str, fmt: str, kv_dtype: str, prompt_len: int, tokens: i
                 compute_dtype: str = "bfloat16", n_ctx: int = 2048, n_batch: int = 512) -> None:
     import numpy as np
     import torch
-    from ggllm_tpu_torch.core.config import EngineConfig, named_hparams
+    from ggllm_tpu_torch.core.config import EngineConfig
     from ggllm_tpu_torch.core.dtypes import GGMLType
     from ggllm_tpu_torch.engine.engine import FalconEngine
     from ggllm_tpu_torch.kernels import build
     from ggllm_tpu_torch.utils.benchgen import make_bench_params
-    hp = named_hparams(config)
+    hp = _hparams(config)
     params = make_bench_params(hp, compute_dtype=getattr(torch, compute_dtype), seed=7,
                                gtype=GGMLType[fmt.upper()])
     eng = FalconEngine(hp, params, EngineConfig(n_ctx=n_ctx, n_batch=n_batch, kv_dtype=kv_dtype,
                                                 compute_dtype=compute_dtype))
     prompt = [int(t) for t in np.random.default_rng(0).integers(12, hp.n_vocab, prompt_len)]
     eng.eval(prompt[:8])  # warm-up
-    eng.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits = eng.eval(prompt)  # returns the logits on the host: the device is done
-    prefill = time.perf_counter() - t0
+    prefill_ms = []
+    for _ in range(PREFILL_RUNS):  # the last leaves the prompt in the cache
+        eng.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = eng.eval(prompt)  # returns the logits on the host: the device is done
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    median = float(np.median(prefill_ms))
     first = int(np.argmax(logits))
     turns = decode_turns(eng, first, prompt + [first], tokens)
     print(json.dumps({"package": str(Path(build.__file__).resolve().parents[2]),
                       "card": torch.cuda.get_device_name(0),
                       "model": f"{config} {fmt} kv {kv_dtype} compute {compute_dtype}",
                       "n_ctx": n_ctx, "n_batch": n_batch, "n_past": prompt_len,
-                      "prefill_tok_s": len(prompt) / prefill, "decode": turns}), flush=True)
+                      "prefill_ms": prefill_ms, "prefill_ms_median": median,
+                      "prefill_tok_s": len(prompt) / median * 1e3, "decode": turns}), flush=True)
+
+
+def _hparams(config: str, n_layer: int | None = None):
+    """The model as the tools build it (cut to n_layer layers where given):
+    the preset, and a LLaMA at n_rot = head_dim (utils/benchgen.py
+    bench_hparams' rule), formed here from named_hparams, which every tree
+    under --root has, so that two trees timed in turns build the same
+    model."""
+    import dataclasses
+
+    from ggllm_tpu_torch.core.config import named_hparams
+    hp = named_hparams(config)
+    if n_layer is not None:
+        hp = dataclasses.replace(hp, n_layer=n_layer)
+    return dataclasses.replace(hp, n_rot=hp.head_dim) if hp.arch == "llama" else hp
+
+
+def time_dispatch(reps: int = 2000) -> None:
+    """Host microseconds a call of each kernel through its torch library op
+    (torch.ops.ggllm.*.default on the operands the entry would pass it),
+    through the public entry (as an eager model calls it: the launcher
+    after build.no_grad_inputs, the tracer test and, for a weight, the f32
+    tile's sums test) and straight to the op's CUDA implementation (the
+    launcher), a weight's planes looked up (plane_args) in each of the
+    three, at shapes whose launches the card runs faster than the host
+    makes them: `reps` calls, then a synchronize, in turns (op, entry,
+    launcher, launcher, entry, op). op - launcher is the dispatcher's cost,
+    entry - launcher the entry's own."""
+    import numpy as np
+    import torch
+    from ggllm_tpu_torch.core.dtypes import GGMLType
+    from ggllm_tpu_torch.kernels import flash_attention as fa
+    from ggllm_tpu_torch.kernels import flash_decode as fd
+    from ggllm_tpu_torch.kernels import quant_matmul as qm
+    from ggllm_tpu_torch.utils.benchgen import random_quant
+    ops = torch.ops.ggllm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    bf16 = torch.bfloat16
+    w = random_quant(GGMLType.Q4_0, 128, 256, gen, "cuda")
+    meta = (int(w.gtype), 128, 256, bf16)
+    x1 = torch.randn(1, 256, generator=gen, device="cuda").to(bf16)
+    x32 = torch.randn(32, 256, generator=gen, device="cuda").to(bf16)
+    xf = torch.randn(256, 256, generator=gen, device="cuda")
+    q = torch.randn(1, 16, 4, 64, generator=gen, device="cuda").to(bf16)
+    kv = torch.randn(2, 2, 1, 64, 1, 64, generator=gen, device="cuda").to(bf16)
+    q1 = q[:, :1].contiguous()
+    cases = {  # entry: (op, public entry, launcher); a weight's planes looked up in each
+        "quant_matmul S=1 (gemv)": (
+            lambda: ops.quant_matmul.default(x1, *qm.plane_args(w), None, *meta),
+            lambda: qm.quant_matmul(w, x1, bf16),
+            lambda: qm.quant_matmul_cuda(x1, qm.plane_args(w), None, *meta)),
+        "quant_matmul S=32 (tile)": (
+            lambda: ops.quant_matmul.default(x32, *qm.plane_args(w), None, *meta),
+            lambda: qm.quant_matmul(w, x32, bf16),
+            lambda: qm.quant_matmul_cuda(x32, qm.plane_args(w), None, *meta)),
+        "group_sums": (lambda: ops.group_sums.default(xf, 32), lambda: qm.group_sums(xf, 32),
+                       lambda: qm.group_sums_cuda(xf, 32)),
+        "flash_mqa": (lambda: ops.flash_mqa.default(q, kv[0, 0], kv[0, 1], None, 8),
+                      lambda: fa.flash_mqa(q, kv[0, 0], kv[0, 1], 8),
+                      lambda: fa.flash_mqa_cuda(q, kv[0, 0], kv[0, 1], 8)),
+        "flash_decode": (lambda: ops.flash_decode.default(kv, None, 1, 1, q1, None, 40, None,
+                                                          None),
+                         lambda: fd.flash_decode(kv, 1, 1, q1, 40),
+                         lambda: fd.flash_decode_cuda(kv, 1, 1, q1, 40)),
+    }
+
+    def us(fn) -> float:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    for name, fns in cases.items():
+        runs = {"op": [], "entry": [], "launcher": []}
+        for which in ("op", "entry", "launcher", "launcher", "entry", "op"):
+            runs[which].append(us(dict(zip(runs, fns))[which]))
+        launcher = float(np.mean(runs["launcher"]))
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "entry": name, "reps": reps,
+                          "op_us": runs["op"], "entry_us": runs["entry"],
+                          "launcher_us": runs["launcher"],
+                          "op_minus_launcher_us": float(np.mean(runs["op"])) - launcher,
+                          "entry_minus_launcher_us": float(np.mean(runs["entry"])) - launcher}),
+              flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("tile", "attn", "mqa32", "decode", "gemv", "rows", "f32",
-                                     "f32path", "group_sums", "nodes"))
+                                     "f32path", "group_sums", "nodes", "dispatch"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--config", choices=("falcon7b", "falcon40b", "falcon180b", "llama7b"),
                     default="falcon7b")
@@ -834,6 +945,8 @@ def main(argv=None) -> int:
         (time_gemv if args.what == "gemv" else time_rows)(shapes)
     elif args.what == "nodes":
         time_nodes(args.config, args.format, args.kv_dtype)
+    elif args.what == "dispatch":
+        time_dispatch()
     else:
         time_decode(args.config, args.format, args.kv_dtype, args.prompt, args.tokens,
                     args.compute_dtype, args.ctx, args.batch)

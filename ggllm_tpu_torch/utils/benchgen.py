@@ -29,10 +29,12 @@ mins near the block's low end, so here:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from ggllm_tpu_torch.core.config import FalconHParams, LlamaHParams
+from ggllm_tpu_torch.core.config import FalconHParams, LlamaHParams, named_hparams
 from ggllm_tpu_torch.core.device import resolve_device
 from ggllm_tpu_torch.core.dtypes import GGMLType, TYPE_TRAITS
 from ggllm_tpu_torch.ops.linear import QuantTensor
@@ -105,6 +107,19 @@ def random_quant(gtype: GGMLType, out: int, cols: int, gen: torch.Generator, dev
     else:
         raise NotImplementedError(f"random_quant: no planes for {gtype.name}")
     return QuantTensor(gtype, (out, cols), planes)
+
+
+def bench_hparams(name: str, n_layer: int | None = None) -> FalconHParams | LlamaHParams:
+    """named_hparams(name) as the tools build a model (cut to n_layer layers
+    where given): a LLaMA at n_rot = head_dim, what llama.cpp's files hold
+    (n_embd / n_head: 128 for LLaMA-7B), where the preset keeps the JAX
+    package's 64."""
+    hp = named_hparams(name)
+    if n_layer is not None:
+        hp = dataclasses.replace(hp, n_layer=n_layer)
+    if hp.arch == "llama":
+        hp = dataclasses.replace(hp, n_rot=hp.head_dim)
+    return hp
 
 
 def make_bench_params(hp: FalconHParams | LlamaHParams, compute_dtype=torch.bfloat16,

@@ -22,11 +22,6 @@ torch.set_num_threads(1)
 BASE = ["-c", "96", "-b", "32", "--kv-dtype", "float32", "--compute-dtype", "float32",
         "--temp", "0", "--decode-chunk", "4"]
 
-# flags with no counterpart in the port (export): accepted, then refused at
-# run time
-WAITING = ["--export"]
-
-
 @pytest.fixture(scope="module")
 def tiny_model(tmp_path_factory):
     from ggllm_tpu.utils.synthetic import write_tiny_model
@@ -187,9 +182,7 @@ def test_logit_bias_parses_as_the_jax_cli():
 
 def test_flags_match_the_jax_cli():
     """Every flag of the port's CLI but --device is a JAX CLI flag with the
-    same destination and default, and every JAX CLI flag is the port's; the
-    flags that wait for their modules parse, and main refuses them
-    (test_torch_cli_flags.py)."""
+    same destination and default, and every JAX CLI flag is the port's."""
     def flags(ap):
         return {o: (a.dest, a.default) for a in ap._actions for o in a.option_strings
                 if o not in ("-h", "--help")}
@@ -204,12 +197,6 @@ def test_flags_match_the_jax_cli():
               "--no-fused-decode", "--display-timings", "--verbose-timings", "--perplexity",
               "--embedding", "--grammar", "--grammar-file", "--prompt-cache",
               "--prompt-cache-all", "--prompt-cache-ro", "--draft-model", "--draft-k",
-              "--self-draft"):
+              "--self-draft", "--export"):
         assert o in ported, o
     assert set(ported) == set(ref)
-    for o in WAITING:
-        assert o in got, o
-        args = cli.build_parser().parse_args(["-m", "x", o, "sequence" if o == "--kv-shard"
-                                              else "2" if o == "-ts" else "1"]
-                                             if o != "--multihost" else ["-m", "x", o])
-        assert cli.refusal(args), o

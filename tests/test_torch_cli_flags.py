@@ -2,7 +2,7 @@
 the reference's thread / VRAM / mmap flags accepted and ignored, --alias,
 --mtest, --weight-mode dequant (load-time dequantization, against the fused
 path and the JAX CLI's dequant mode), --profile and -dt (utils/traceview.py
-over torch.profiler's Chrome trace), and --export, which exits 1 naming why.
+over torch.profiler's Chrome trace). --export: tests/test_torch_export.py;
 --lora / --lora-base: tests/test_torch_lora.py; -ts, --kv-shard and
 --multihost: tests/test_torch_cli_parallel.py."""
 
@@ -164,17 +164,6 @@ def test_traceview_prefers_device_events(tmp_path):
     assert "quant_gemv_legacy" in table and table.splitlines()[-1].split()[1:] == ["4", "0.010"]
     with pytest.raises(FileNotFoundError):
         traceview.load_op_stats(str(tmp_path / "empty"))
-
-
-@pytest.mark.parametrize("extra, reason", [
-    (["--export", "graph.mlir"], "no StableHLO"),
-], ids=["export"])
-def test_waiting_flags_exit_1_naming_why(capsys, extra, reason):
-    """Accepted by the parser, then refused before any file is read (the
-    model path does not exist), naming the reason."""
-    assert cli.main(["-m", "/nonexistent.ggcc", *extra]) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and reason in err
 
 
 def test_single_card_values_of_the_multi_gpu_flags_run(tiny_model, capsysbinary, fused_text):

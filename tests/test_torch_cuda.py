@@ -206,7 +206,7 @@ def test_rows_kernel_refuses_what_it_is_not_built_for(dev):
     w = random_quant(GGMLType.Q4_0, 64, 256, _gen(0), dev)
     for S, cl in ((1, 1), (17, 1), (17, 2), (4, 0), (4, 3), (4, 4)):
         x = torch.randn(S, 256, device=dev).to(torch.bfloat16)
-        ptrs = qm._plane_ptrs(w, x.device)
+        ptrs = qm._plane_ptrs(qm.plane_args(w), x.device)
         y = torch.empty(S, 64, device=dev, dtype=torch.float32)
         with pytest.raises(RuntimeError, match="gq_quant_matmul_rows failed to launch"):
             build.launch("gq_quant_matmul_rows", "quant_matmul.refused", int(w.gtype),
@@ -252,6 +252,33 @@ def test_quant_matmul_f32(dev, gtype, S):
             assert build.launch_counts[n] == before[n] + want.get(n, 0), n
         assert got.dtype == ydtype
         _close(got, qm.quant_matmul_plain(w, x, ydtype), ydtype)
+
+
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_1, GGMLType.Q2_K], ids=["q4_1", "q2_k"])
+def test_quant_matmul_op_checks_given_group_sums(dev, gtype):
+    """The op ggllm::quant_matmul with the f32 tile's group sums passed in
+    as xg (S = 300 f32 rows): the entry's y, also from a strided xg; an xg
+    of another group width, dtype or device raises ValueError before any
+    launch."""
+    O, K, S = 200, 768, 300
+    group = qm.KERNEL_FORMATS[gtype][0]
+    w = random_quant(gtype, O, K, _gen(21), dev, scale=0.2)
+    x = torch.randn(S, K, generator=_gen(22), device=dev)
+    args = (qm.plane_args(w), int(gtype), O, K, torch.float32)
+
+    def op(xg):
+        planes, *rest = args
+        return torch.ops.ggllm.quant_matmul.default(x, *planes, xg, *rest)
+
+    xg = qm.group_sums(x, group)
+    want = qm.quant_matmul(w, x, torch.float32)
+    assert torch.equal(op(xg), want)
+    assert torch.equal(op(xg.t().contiguous().t()), want)
+    before = dict(build.launch_counts)
+    for bad in (qm.group_sums_plain(x, 48 - group), xg.to(torch.bfloat16), xg.cpu()):
+        with pytest.raises(ValueError, match="the f32 tile reads"):
+            op(bad)
+    assert dict(build.launch_counts) == before
 
 
 @pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q5_1, GGMLType.Q8_0, GGMLType.Q6_K,
@@ -367,7 +394,7 @@ def test_quant_matmul_refuses_what_is_not_ported(dev):
     w = random_quant(GGMLType.Q4_0, 64, 256, _gen(0), dev)
     x = torch.randn(4, 256, device=dev).to(torch.bfloat16)
     y = torch.empty(4, 64, device=dev, dtype=torch.bfloat16)
-    ptrs = qm._plane_ptrs(w, x.device)
+    ptrs = qm._plane_ptrs(qm.plane_args(w), x.device)
     with pytest.raises(RuntimeError):  # a tile width that is not built
         build.launch("gq_quant_matmul_tc", "quant_matmul.refused", int(w.gtype), x.data_ptr(), *ptrs,
                      y.data_ptr(), 0, 4, 256, 64, 32, build.stream_ptr(x.device))
@@ -427,7 +454,7 @@ def test_gemv_kq_refuses(dev):
     w = random_quant(GGMLType.Q4_K, 64, 512, _gen(0), dev)
     x = torch.randn(1, 512, device=dev).to(torch.bfloat16)
     y = torch.empty(1, 64, device=dev)
-    ptrs = qm._plane_ptrs(w, x.device)
+    ptrs = qm._plane_ptrs(qm.plane_args(w), x.device)
     st = build.stream_ptr(x.device)
     for gtype, K, rows, planes in ((int(GGMLType.Q4_0), 512, 2, ptrs),
                                    (int(w.gtype), 320, 2, ptrs), (int(w.gtype), 512, 3, ptrs),
@@ -488,7 +515,7 @@ def test_gemv_legacy_refuses(dev):
     w = random_quant(GGMLType.Q5_1, 64, 512, _gen(0), dev)
     y = torch.empty(1, 64, device=dev)
     st = build.stream_ptr(y.device)
-    ptrs = qm._plane_ptrs(w, y.device)
+    ptrs = qm._plane_ptrs(qm.plane_args(w), y.device)
     for xdtype in (torch.bfloat16, torch.float32):
         x = torch.randn(1, 512, device=dev).to(xdtype)
         xb = int(xdtype == torch.bfloat16)

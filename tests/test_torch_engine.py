@@ -261,7 +261,8 @@ def test_port_imports_neither_jax_nor_reference():
         "          'tools.quantize', 'tools.quantize_stats', 'utils.traceview',\n"
         "          'quant.native', 'io.lora', 'io.safetensors', 'io.convert_hf',\n"
         "          'io.convert_hf_llama', 'io.convert_lora', 'parallel.mesh', 'parallel.comm',\n"
-        "          'parallel.tp', 'parallel.sp', 'parallel.plan', 'kernels.ring_attention'):\n"
+        "          'parallel.tp', 'parallel.sp', 'parallel.plan', 'kernels.ring_attention',\n"
+        "          'kernels.library'):\n"
         "    assert 'ggllm_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('ggllm_tpu_torch.')]), bad)\n"
     )
